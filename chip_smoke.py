@@ -1,0 +1,502 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (agilerl_tpu_torch) on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of the repository, on a machine with a CUDA GPU, nvcc and
+PyTorch built for CUDA. It imports neither jax nor agilerl_tpu. Phases, each
+of which ends the run with a non-zero exit on any failure:
+
+1. the device, and the card's name and power limit from nvidia-smi;
+2. build every kernel of the port from agilerl_tpu_torch/csrc (one nvcc per
+   source, all started together);
+3. hold each kernel against its plain PyTorch version on the card, over
+   dtypes, masks, ragged lengths and vocab sizes, with stated tolerances;
+4. the slice's main path at llama3-8b, full width and depth, seeded random
+   weights: sampled and greedy ``generate`` for 4 ragged prompts x group 4,
+   then ``token_logprobs`` (fused kernel + flash kernel) over prompt +
+   completion under two LoRA adapters; launch counts, finiteness, agreement
+   with the plain path, and a small model checked against the CPU;
+5. each kernel's time at the main path's shapes beside its plain version,
+   one PyTorch library call computing the same function, and its bound.
+
+Prints a ``report: {...}`` line with every number the run took, then a
+``{"kernels": [...]}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # f32: outside the tensor cores
+
+GROUP_SIZE = 4
+PROMPT_LENS = (64, 128, 200, 256)
+MAX_NEW_TOKENS = 64
+LORA_RANK = 8
+
+# End-to-end, the kernel path (flash + fused) and the plain path (dense
+# attention + chunked logprobs) of the bf16 8B model differ by bf16 rounding
+# at different places (the dense path rounds the scores to bf16, the flash
+# kernel keeps them f32 and rounds p), carried through 32 layers. Both are
+# held against an f32 run of the same (bf16-valued) weights: the kernel path
+# must be no further from it than the plain path, within these factors. The
+# fused kernel alone, on the same hidden states, must agree with the chunked
+# path to f32 summation order.
+E2E_MEAN_FACTOR = 1.5
+E2E_MAX_FACTOR = 2.0
+E2E_FLOOR = 1e-3  # f32 summation order, where the plain path is exact
+FUSED_E2E_ATOL = 1e-3
+SMALL_MODEL_ATOL = 1e-4  # f32 small model, card kernels vs CPU plain path
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_clocks() -> str:
+    """SM clock, power draw and temperature right after a timed phase."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip()
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
+    """Mean time of one call, by CUDA events around `iters` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timed_abba(torch, fns, iters):
+    """Mean ms of each named function over two rounds, the second in reverse
+    order (a, b, c, c, b, a), so a drift of the card's clock during the
+    phase weighs on every function alike. Returns {name: [round1, round2]}."""
+    rounds = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            rounds[name].append(cuda_ms(torch, fns[name], iters[name]))
+    return rounds
+
+
+def host_s(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def bound(flops: float, nbytes: float, kind: str):
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# ------------------------------- phase 3 ----------------------------------- #
+
+
+def check_flash(torch, tfa, report):
+    """Kernel vs plain version over dtype x causal x mask at ragged T=200,
+    d=128, GQA 4 over 2 heads, plus head_dim 64; real query rows only."""
+    atol = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+    why = {torch.float32: "f32 summation order and expf",
+           torch.bfloat16: "bf16 output rounding, p rounded to bf16 at another max"}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for masked in (False, True):
+                for T, d in ((200, 128), (96, 64)):
+                    B, H, Hkv = 3, 4, 2
+                    q = torch.randn(B, H, T, d, device="cuda", generator=g).to(dtype)
+                    k = torch.randn(B, Hkv, T, d, device="cuda", generator=g).to(dtype)
+                    v = torch.randn(B, Hkv, T, d, device="cuda", generator=g).to(dtype)
+                    mask = None
+                    rows = torch.ones(B, T, dtype=torch.bool, device="cuda")
+                    if masked:  # left padding
+                        mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
+                        mask[1, :37] = 0
+                        mask[2, :T - 5] = 0
+                        rows = mask.bool()
+                    out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, causal)
+                    ref, ref_lse = tfa.flash_attention_reference(q, k, v, mask, causal)
+                    torch.cuda.synchronize()
+                    err = lerr = 0.0
+                    for b in range(B):
+                        r = rows[b]
+                        err = max(err, (out[b][:, r].float() - ref[b][:, r].float())
+                                  .abs().max().item())
+                        lerr = max(lerr, (lse[b][:, r] - ref_lse[b][:, r]).abs().max().item())
+                    case = f"{str(dtype)[6:]} causal={causal} mask={masked} T={T} d={d}"
+                    log(f"  flash {case}: max|out-plain| {err:.3e} (tol {atol[dtype]:.0e}: "
+                        f"{why[dtype]}), max|lse-plain| {lerr:.3e} (tol 1e-04: f32 sums)")
+                    check(err <= atol[dtype] and lerr <= 1e-4, f"flash kernel disagrees: {case}")
+                    check(bool(torch.isfinite(out.float()).all()), f"flash non-finite: {case}")
+                    worst[case] = err
+    report["flash_checks"] = worst
+
+
+def check_fused(torch, tfl, report, n_rows, d_model):
+    """Kernel vs plain version at the scoring shapes: V = 128,256 and a V
+    that is not a tile multiple (50,257), temperature 1.0 and 1.7."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = {}
+    for V, N in ((128_256, n_rows), (50_257, 1000)):
+        h = torch.randn(N, d_model, device="cuda", generator=g)
+        w = 0.02 * torch.randn(d_model, V, device="cuda", generator=g)
+        t = torch.randint(0, V, (N,), device="cuda", generator=g)
+        for temp in (1.0, 1.7):
+            got, lse = tfl.fused_logprob_fwd_cuda(h, w, t, temp)
+            want, want_lse = tfl._plain_fwd(h, w, t, temp)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            lerr = (lse - want_lse).abs().max().item()
+            case = f"N={N} V={V} T={temp}"
+            log(f"  fused {case}: max|lp-plain| {err:.3e}, max|lse-plain| {lerr:.3e} "
+                f"(tol 1e-04: f32 summation order over D and V, no TF32)")
+            check(err <= 1e-4 and lerr <= 1e-4, f"fused kernel disagrees: {case}")
+            worst[case] = err
+        del h, w, t
+    report["fused_checks"] = worst
+
+
+# ------------------------------- phase 4 ----------------------------------- #
+
+
+def make_adapter(torch, M, cfg, seed):
+    lora = M.init_lora(seed, cfg, rank=LORA_RANK, targets=("wq", "wv"))
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    for layer in lora["blocks"].values():
+        for ab in layer.values():  # B non-zero so the adapter matters
+            ab["B"].normal_(0.0, 0.02, generator=g)
+    return lora
+
+
+def small_model_check(torch, M, ops, report):
+    """A small f32 model through the kernels on the card vs its plain path on
+    the CPU (which the CPU tests tie to the JAX package)."""
+    cfg = M.GPTConfig(vocab_size=1000, n_layer=2, n_head=4, n_kv_head=2, d_model=256,
+                      max_seq_len=128, tie_embeddings=False, dtype=torch.float32)
+    params = M.init_params(7, cfg, device="cpu")
+    lora = M.init_lora(8, cfg, device="cpu")
+    gb = torch.Generator().manual_seed(9)
+    for layer in lora["blocks"].values():
+        for ab in layer.values():
+            ab["B"].normal_(0.0, 0.05, generator=gb)
+    tokens = torch.randint(1, 1000, (3, 40), generator=torch.Generator().manual_seed(3))
+    mask = torch.ones_like(tokens, dtype=torch.int32)
+    mask[1, :9] = 0
+    mask[2, :30] = 0
+    tokens = tokens * mask
+    to_cuda = lambda tree: {k: to_cuda(v) if isinstance(v, dict) else v.cuda()  # noqa: E731
+                            for k, v in tree.items()}
+    cpu = M.token_logprobs(cfg, params, tokens, mask, lora=lora, use_fused=True, flash=True)
+    before = ops.kernel_counters()
+    gpu = M.token_logprobs(cfg, to_cuda(params), tokens.cuda(), mask.cuda(), lora=to_cuda(lora),
+                           use_fused=True, flash=True).cpu()
+    after = ops.kernel_counters()
+    check(after["flash_attention_fwd"] - before["flash_attention_fwd"] == cfg.n_layer
+          and after["fused_logprob_fwd"] - before["fused_logprob_fwd"] == 1,
+          "small model did not go through the kernels")
+    real = (mask[:, :-1] > 0) & (mask[:, 1:] > 0)
+    err = (gpu - cpu)[real].abs().max().item()
+    log(f"  small f32 model, card kernels vs CPU plain path: max|dlogprob| {err:.3e} "
+        f"(tol {SMALL_MODEL_ATOL:.0e})")
+    check(err <= SMALL_MODEL_ATOL, "small model on the card disagrees with the CPU")
+    report["small_model_err"] = err
+
+
+def run_slice(torch, M, G, ops, presets, report):
+    cfg = presets.preset("llama3-8b")
+    log(f"phase 4: llama3-8b slice: {cfg.n_layer} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_head}/{cfg.kv_heads} heads, d_ff {cfg.ff_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = host_s(torch, lambda: M.init_params(0, cfg))
+    actor = make_adapter(torch, M, cfg, 1)
+    reference = make_adapter(torch, M, cfg, 2)
+    n_params = sum(t.numel() for blk in params["blocks"].values() for t in blk.values()) + \
+        params["tok_emb"].numel() + params["lm_head"].numel()
+    log(f"  weights: {n_params / 1e9:.3f}B parameters drawn on the card in {t_init:.1f} s")
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), device="cuda", generator=g).tolist()
+               for n in PROMPT_LENS]
+    ptoks, pmask = G.left_pad(prompts, pad_id=0)
+    prompt = torch.as_tensor(ptoks, device="cuda").repeat_interleave(GROUP_SIZE, dim=0)
+    prompt_mask = torch.as_tensor(pmask, device="cuda").repeat_interleave(GROUP_SIZE, dim=0)
+    B, P = prompt.shape
+
+    # warm the path (cuBLAS handles, allocator) outside the timed run
+    G.generate(cfg, params, prompt[:2, -16:], prompt_mask[:2, -16:], None, max_new_tokens=2,
+               lora=actor, temperature=0.0)
+
+    ops.reset_kernel_counters()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    (comp, comp_mask), t_gen = host_s(torch, lambda: G.generate(
+        cfg, params, prompt, prompt_mask, gen, max_new_tokens=MAX_NEW_TOKENS, lora=actor,
+        temperature=0.9))
+    (greedy, greedy_mask), t_greedy = host_s(torch, lambda: G.generate(
+        cfg, params, prompt, prompt_mask, None, max_new_tokens=MAX_NEW_TOKENS, lora=actor,
+        temperature=0.0))
+    full = torch.cat([prompt, comp], dim=1)
+    full_mask = torch.cat([prompt_mask, comp_mask], dim=1)
+    lp_actor, t_score_a = host_s(torch, lambda: M.token_logprobs(
+        cfg, params, full, full_mask, lora=actor, use_fused=True, flash=True))
+    lp_ref, t_score_r = host_s(torch, lambda: M.token_logprobs(
+        cfg, params, full, full_mask, lora=reference, use_fused=True, flash=True))
+    launches = ops.kernel_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- checks on the main path's outputs ----
+    log(f"  launches on the main path: {launches}")
+    check(launches["flash_attention_fwd"] == 2 * cfg.n_layer,
+          f"flash launches {launches['flash_attention_fwd']} != 32 per scoring call x 2")
+    check(launches["fused_logprob_fwd"] == 2,
+          f"fused launches {launches['fused_logprob_fwd']} != 1 per scoring call x 2")
+    check(tuple(comp.shape) == (B, MAX_NEW_TOKENS) and tuple(greedy.shape) == comp.shape,
+          "completion shape")
+    check(bool(((comp >= 0) & (comp < cfg.vocab_size)).all()), "sampled tokens out of range")
+    check(bool(comp_mask.all()) and bool(greedy_mask.all()), "no EOS set: every token emits")
+    # greedy rows of one group share a prompt and must share a completion
+    grp = greedy.view(len(PROMPT_LENS), GROUP_SIZE, -1)
+    check(bool((grp == grp[:, :1]).all()), "greedy completions differ within a group")
+    distinct = len(set(map(tuple, comp.tolist())))
+    log(f"  sampled completions: {distinct} distinct of {B}; greedy: "
+        f"{len(set(map(tuple, greedy.tolist())))} distinct")
+    real = (full_mask[:, :-1] > 0) & (full_mask[:, 1:] > 0)
+    T = full.shape[1]
+    check(tuple(lp_actor.shape) == (B, T - 1), "logprob shape")
+    for name, lp in (("actor", lp_actor), ("reference", lp_ref)):
+        check(bool(torch.isfinite(lp[real]).all()), f"{name} logprobs not finite")
+        check(bool((lp[real] <= 0).all()), f"{name} logprobs above 0")
+    adapters_differ = (lp_actor - lp_ref)[real].abs().max().item()
+    log(f"  max|logprob(actor) - logprob(reference)| {adapters_differ:.3e} (adapters matter)")
+    check(adapters_differ > 1e-3, "the two adapters give the same logprobs")
+
+    # kernel path vs plain path on the same weights (comparison launches
+    # come after the main-path counts were read), both against f32
+    plain = M.token_logprobs(cfg, params, full, full_mask, lora=actor, use_fused=False,
+                             flash=False)
+    fused_dense = M.token_logprobs(cfg, params, full, full_mask, lora=actor, use_fused=True,
+                                   flash=False)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = {k: ({i: {n: w.float() for n, w in blk.items()} for i, blk in v.items()}
+                    if k == "blocks" else v.float()) for k, v in params.items()}
+    exact = M.token_logprobs(cfg32, params32, full, full_mask, lora=actor, use_fused=False,
+                             flash=False)
+    del params32
+    torch.cuda.empty_cache()
+    d_kernel = (lp_actor - exact)[real].abs()
+    d_plain = (plain - exact)[real].abs()
+    d_both = (lp_actor - plain)[real].abs()
+    d_fused = (fused_dense - plain)[real].abs().max().item()
+    log(f"  vs an f32 run of the same weights: kernel path max|d| {d_kernel.max().item():.3e} "
+        f"mean|d| {d_kernel.mean().item():.3e}; plain path max|d| {d_plain.max().item():.3e} "
+        f"mean|d| {d_plain.mean().item():.3e} (kernel path within x{E2E_MAX_FACTOR} max, "
+        f"x{E2E_MEAN_FACTOR} mean of the plain path's)")
+    log(f"  kernel path vs plain path: max|d| {d_both.max().item():.3e}, mean|d| "
+        f"{d_both.mean().item():.3e}; fused alone on the same hidden states: max|d| "
+        f"{d_fused:.3e} (tol {FUSED_E2E_ATOL:.0e})")
+    check(d_kernel.mean().item() <= E2E_MEAN_FACTOR * d_plain.mean().item() + E2E_FLOOR
+          and d_kernel.max().item() <= E2E_MAX_FACTOR * d_plain.max().item() + E2E_FLOOR,
+          "kernel-path logprobs are further from f32 than the plain path's")
+    check(d_fused <= FUSED_E2E_ATOL, "fused kernel disagrees with the chunked path")
+
+    # prefill alone: generate with one new token is the prefill + first sample
+    _, t_prefill = host_s(torch, lambda: G.generate(
+        cfg, params, prompt, prompt_mask, None, max_new_tokens=1, lora=actor,
+        temperature=0.0))
+    t_decode = (t_greedy - t_prefill) / (MAX_NEW_TOKENS - 1)
+    n_real = int(full_mask.sum())
+    log(f"  prefill {B}x{P}: {t_prefill * 1e3:.1f} ms; decode: {t_decode * 1e3:.2f} ms per "
+        f"step of {B} rows; generate (sampled) {t_gen:.2f} s, (greedy) {t_greedy:.2f} s")
+    log(f"  scoring [{B}, {T}] (flash + fused): {t_score_a * 1e3:.1f} ms and "
+        f"{t_score_r * 1e3:.1f} ms; peak memory {peak_gb:.1f} GB")
+    report["slice"] = dict(
+        model="llama3-8b", layers=cfg.n_layer, rows=B, prompt_len=P, new_tokens=MAX_NEW_TOKENS,
+        real_tokens=n_real, params_b=n_params / 1e9, prefill_ms=t_prefill * 1e3,
+        decode_ms_per_step=t_decode * 1e3, generate_sampled_s=t_gen,
+        generate_greedy_s=t_greedy, scoring_ms=[t_score_a * 1e3, t_score_r * 1e3],
+        peak_memory_gb=peak_gb, launches=launches,
+        kernel_vs_f32_max=d_kernel.max().item(), kernel_vs_f32_mean=d_kernel.mean().item(),
+        plain_vs_f32_max=d_plain.max().item(), plain_vs_f32_mean=d_plain.mean().item(),
+        kernel_vs_plain_max=d_both.max().item(), kernel_vs_plain_mean=d_both.mean().item(),
+        fused_e2e_max_abs=d_fused, adapters_max_abs=adapters_differ)
+    return cfg, full_mask, launches
+
+
+# ------------------------------- phase 5 ----------------------------------- #
+
+
+def time_flash(torch, F, tfa, cfg, full_mask, launches, report):
+    B, T = full_mask.shape
+    H, Hkv, d = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(B, H, T, d, device="cuda", generator=g).to(cfg.dtype)
+    k = torch.randn(B, Hkv, T, d, device="cuda", generator=g).to(cfg.dtype)
+    v = torch.randn(B, Hkv, T, d, device="cuda", generator=g).to(cfg.dtype)
+    mask = full_mask.to(torch.int32)
+    out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, True)
+    ref, _ = tfa.flash_attention_reference(q, k, v, mask, True)
+    torch.cuda.synchronize()
+    err = 0.0
+    for b in range(B):
+        r = mask[b].bool()
+        err = max(err, (out[b][:, r].float() - ref[b][:, r].float()).abs().max().item())
+    check(err <= 2e-2, f"flash kernel at the main-path shape disagrees: {err}")
+    rep = H // Hkv
+    k_rep, v_rep = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
+    sdpa_mask = causal[None, None] & mask.bool()[:, None, None, :]
+    rounds = timed_abba(torch, {
+        "kernel": lambda: tfa.flash_attention_fwd_cuda(q, k, v, mask, True),
+        "plain": lambda: tfa.flash_attention_reference(q, k, v, mask, True),
+        "library": lambda: F.scaled_dot_product_attention(q, k_rep, v_rep, attn_mask=sdpa_mask),
+    }, {"kernel": 20, "plain": 5, "library": 20})
+    ms, plain_ms, lib_ms = (sum(rounds[n]) / 2 for n in ("kernel", "plain", "library"))
+    n = mask.sum(dim=1).double()
+    pairs = float((n * (n + 1) / 2).sum()) * H  # (query, visible key) pairs, real rows
+    flops = 4.0 * d * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * (mask.numel() + lse.numel())
+    b_ms, b_by = bound(flops, nbytes, "bf16")
+    log(f"  flash [B={B}, H={H}/{Hkv}, T={T}, d={d}] bf16: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    report["flash_timing"] = dict(shape=[B, H, Hkv, T, d], flops=flops, bytes=nbytes,
+                                  rounds_ms=rounds, clocks=nvidia_smi_clocks())
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "agilerl_tpu_torch/csrc/flash_attention_fwd.cu",
+            "replaces": "agilerl_tpu/ops/flash_attention_vjp.py:40",
+            "launches": launches["flash_attention_fwd"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def time_fused(torch, F, tfl, cfg, n_rows, launches, report):
+    D, V = cfg.d_model, cfg.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(4)
+    h = torch.randn(n_rows, D, device="cuda", generator=g)
+    w = 0.02 * torch.randn(D, V, device="cuda", generator=g)
+    t = torch.randint(0, V, (n_rows,), device="cuda", generator=g)
+    got, _ = tfl.fused_logprob_fwd_cuda(h, w, t, 1.0)
+    want = tfl.reference_token_logprob(h, w, t, 1.0)
+    err = (got - want).abs().max().item()
+    check(err <= 1e-4, f"fused kernel at the main-path shape disagrees: {err}")
+    rounds = timed_abba(torch, {
+        "kernel": lambda: tfl.fused_logprob_fwd_cuda(h, w, t, 1.0),
+        "plain": lambda: tfl.reference_token_logprob(h, w, t, 1.0),
+        "library": lambda: F.cross_entropy(h @ w / 1.0, t, reduction="none"),
+    }, {"kernel": 3, "plain": 3, "library": 3})
+    ms, plain_ms, lib_ms = (sum(rounds[n]) / 2 for n in ("kernel", "plain", "library"))
+    flops = 2.0 * n_rows * D * V
+    nbytes = 4.0 * (n_rows * D + D * V + n_rows) + 8.0 * n_rows
+    b_ms, b_by = bound(flops, nbytes, "f32")
+    log(f"  fused [N={n_rows}, D={D}, V={V}] f32: kernel {ms:.2f} ms, plain {plain_ms:.2f} ms, "
+        f"matmul + cross_entropy {lib_ms:.2f} ms, bound {b_ms:.2f} ms ({b_by})")
+    report["fused_timing"] = dict(shape=[n_rows, D, V], flops=flops, bytes=nbytes,
+                                  rounds_ms=rounds, clocks=nvidia_smi_clocks())
+    return {"name": "fused_logprob_fwd", "route": "cuda",
+            "source": "agilerl_tpu_torch/csrc/fused_logprob_fwd.cu",
+            "replaces": "agilerl_tpu/ops/fused_loss.py:38",
+            "launches": launches["fused_logprob_fwd"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def main() -> None:
+    t_start = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check runs on a GPU")
+    try:
+        import torch.nn.functional as F
+        from agilerl_tpu_torch import ops
+        from agilerl_tpu_torch.llm import generate as G, model as M, presets
+        from agilerl_tpu_torch.ops import _build
+        from agilerl_tpu_torch.ops import flash_attention_vjp as tfa
+        from agilerl_tpu_torch.ops import fused_loss as tfl
+    except ImportError as e:
+        fail(f"run from the root of the repository ({e})")
+
+    # f32 products in full f32 on the card, for the plain versions too
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    report = {}
+
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = nvidia_smi_line()
+    log(f"phase 1: device {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"nvidia-smi: {smi}")
+    report["device"] = dict(kind=kind, count=count, nvidia_smi=smi)
+
+    names = ["flash_attention_fwd", "fused_logprob_fwd"]
+    t0 = time.perf_counter()
+    logs = _build.build_all(names)
+    report["build_s"] = time.perf_counter() - t0
+    log(f"phase 2: built {names} in {report['build_s']:.1f} s")
+    for n, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {n}: {line.strip()}")
+
+    log("phase 3: kernels vs their plain versions on the card")
+    check_flash(torch, tfa, report)
+    n_rows = GROUP_SIZE * len(PROMPT_LENS) * (max(PROMPT_LENS) + MAX_NEW_TOKENS - 1)
+    check_fused(torch, tfl, report, n_rows, 4096)
+    small_model_check(torch, M, ops, report)
+
+    cfg, full_mask, launches = run_slice(torch, M, G, ops, presets, report)
+
+    log("phase 5: kernel times at the main path's shapes")
+    kernels = [time_flash(torch, F, tfa, cfg, full_mask, launches, report),
+               time_fused(torch, F, tfl, cfg, n_rows, launches, report)]
+    for entry in kernels:
+        check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
+    report["wall_s"] = time.perf_counter() - t_start
+    log(f"wall time {report['wall_s']:.1f} s")
+    log("report: " + json.dumps(report))
+
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,89 @@
+"""Hygiene of the PyTorch port: it imports neither jax nor agilerl_tpu, and it
+never falls back to the CPU on its own."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import json, sys\n"
+        "import agilerl_tpu_torch, agilerl_tpu_torch.ops\n"
+        "import agilerl_tpu_torch.llm.model, agilerl_tpu_torch.llm.generate\n"
+        "import agilerl_tpu_torch.llm.presets, agilerl_tpu_torch.llm.convert\n"
+        "import agilerl_tpu_torch.ops.flash_attention, agilerl_tpu_torch.ops.fused_loss\n"
+        "import agilerl_tpu_torch.ops.decode_attention, agilerl_tpu_torch.ops._build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'agilerl_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    src = (REPO / "chip_smoke.py").read_text()
+    for line in src.splitlines():
+        stripped = line.strip()
+        if stripped.startswith(("import ", "from ")):
+            root = stripped.split()[1].split(".")[0]
+            assert root not in ("jax", "jaxlib", "agilerl_tpu"), line
+
+
+def test_default_device_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from agilerl_tpu_torch.llm import model as TM
+    from agilerl_tpu_torch.ops import resolve_device
+
+    cfg = TM.GPTConfig(vocab_size=17, n_layer=1, n_head=2, d_model=8, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.init_lora(0, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.init_kv_cache(cfg, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_build_raises_without_nvcc():
+    if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("nvcc is present: the build would succeed")
+    from agilerl_tpu_torch.ops import _build
+
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all(["flash_attention_fwd"])
+
+
+def test_kernel_sources_exist_for_every_wrapper():
+    from agilerl_tpu_torch.ops import kernel_counters
+
+    for name in kernel_counters():
+        assert (REPO / "agilerl_tpu_torch" / "csrc" / f"{name}.cu").exists(), name
+
+
+def test_counters_reset_and_cpu_calls_do_not_count():
+    from agilerl_tpu_torch.ops import kernel_counters, reset_kernel_counters
+    from agilerl_tpu_torch.ops.flash_attention_vjp import flash_attention_diff
+    from agilerl_tpu_torch.ops.fused_loss import fused_token_logprob
+
+    reset_kernel_counters()
+    q = torch.randn(1, 2, 8, 4)
+    flash_attention_diff(q, q, q)
+    fused_token_logprob(torch.randn(3, 4), torch.randn(4, 5), torch.tensor([0, 1, 2]))
+    assert set(kernel_counters().values()) == {0}
