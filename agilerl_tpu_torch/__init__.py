@@ -6,12 +6,12 @@ its module path and function names, works on plain tensors over nested
 ``tests/test_torch_*.py`` parity tests. This package imports neither ``jax``
 nor ``agilerl_tpu``.
 
-Slice 1 (this tree): the LLM rollout + GRPO scoring pass —
-``llm.model`` (dense Llama-class decoder, LoRA, KV cache), ``llm.generate``,
-``llm.presets``, ``llm.convert`` (weights from the JAX tree through numpy), and
-the two forward kernels written for Hopper under ``csrc/``: flash attention
-(``ops.flash_attention_vjp``) and the fused lm-head log-probability
-(``ops.fused_loss``).
+Slice 1: the LLM rollout + GRPO scoring pass (``llm.model``, ``llm.generate``,
+``llm.presets``, ``llm.convert``). Slice 2: GRPO training and evolution
+(``algorithms``, ``hpo``, ``utils``, ``data``, ``training``). The kernels
+written for Hopper live under ``csrc/`` behind ``ops.flash_attention_vjp``
+(flash attention forward, dQ, dK/dV) and ``ops.fused_loss`` (fused lm-head
+log-probability forward, dH, dW).
 """
 
-__all__ = ["llm", "ops"]
+__all__ = ["algorithms", "data", "hpo", "llm", "ops", "training", "utils"]

@@ -1,0 +1,182 @@
+"""Algorithm base class: the port of the part of
+``agilerl_tpu/algorithms/core/base.py:EvolvableAlgorithm`` that GRPO uses.
+
+An algorithm is a thin stateful shell around its network (config, params)
+pairs, optimizer states, scalar hyperparameters and random streams. The JAX
+key becomes a CPU ``torch.Generator``: ``next_key`` draws a seed from it and
+returns a fresh generator on the device asked for (the counterpart of
+``jax.random.split``). ``jit_fn`` is a plain cache of the built callables,
+dropped after a mutation as the JAX package drops its jitted functions.
+
+Checkpointing (``checkpoint_dict``, ``save_checkpoint``, ``load``),
+``RLAlgorithm`` and ``MultiAgentRLAlgorithm`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from agilerl_tpu_torch.algorithms.core.optimizer import OptimizerWrapper
+from agilerl_tpu_torch.algorithms.core.registry import (
+    HyperparameterConfig,
+    MutationRegistry,
+    NetworkGroup,
+    OptimizerConfig,
+)
+from agilerl_tpu_torch.ops import DeviceLike
+from agilerl_tpu_torch.utils.rng import global_seed
+from agilerl_tpu_torch.utils.tree import tree_copy
+
+_SEED_BOUND = 2 ** 62
+
+
+class EvolvableAlgorithm:
+    """Base for all evolvable agents."""
+
+    def __init__(
+        self,
+        index: int = 0,
+        hp_config: Optional[HyperparameterConfig] = None,
+        device: DeviceLike = None,
+        accelerator: Optional[Any] = None,
+        name: Optional[str] = None,
+        seed: Optional[int] = None,
+    ):
+        self.index = index
+        self.device = device
+        self.accelerator = accelerator
+        self.algo = name or type(self).__name__
+        self.registry = MutationRegistry(hp_config)
+        self.fitness: List[float] = []
+        self.scores: List[float] = []
+        self.steps: List[int] = [0]
+        self.mut = "None"  # last mutation applied, for logging
+        seed = seed if seed is not None else global_seed()
+        self._key = torch.Generator().manual_seed(int(seed))
+        self.rng = np.random.default_rng(seed)
+        self._jit_cache: Dict[str, Callable] = {}
+
+    # -- rng ------------------------------------------------------------- #
+    def next_key(self, device: DeviceLike = "cpu") -> torch.Generator:
+        """A fresh generator on ``device``, seeded from the agent's stream."""
+        seed = int(torch.randint(0, _SEED_BOUND, (1,), generator=self._key))
+        return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+    def rng_state(self) -> Dict[str, Any]:
+        """Picklable capture of both random streams (torch generator state +
+        numpy Generator state)."""
+        return {"torch_key": self._key.get_state(), "np_rng": self.rng.bit_generator.state}
+
+    def set_rng_state(self, state: Dict[str, Any]) -> None:
+        self._key.set_state(state["torch_key"])
+        bg = getattr(np.random, state["np_rng"]["bit_generator"])()
+        bg.state = state["np_rng"]
+        self.rng = np.random.Generator(bg)
+
+    # -- registry -------------------------------------------------------- #
+    def register_network_group(self, group: NetworkGroup) -> None:
+        self.registry.register_group(group)
+
+    def register_optimizer(self, cfg: OptimizerConfig) -> None:
+        self.registry.register_optimizer(cfg)
+
+    def register_mutation_hook(self, method_name: str) -> None:
+        self.registry.register_hook(method_name)
+
+    def finalize_registry(self) -> None:
+        """Call at the end of __init__: validates the registry and builds every
+        optimizer's state over its networks' parameters."""
+        self.registry.validate()
+        for cfg in self.registry.optimizer_configs:
+            opt: OptimizerWrapper = getattr(self, cfg.name)
+            if opt.opt_state is None:
+                opt.init(self._optimizer_params(cfg))
+
+    def _optimizer_params(self, cfg: OptimizerConfig) -> Any:
+        nets = {n: getattr(self, n) for n in cfg.networks}
+        if len(nets) == 1:
+            return _params_of(next(iter(nets.values())))
+        return {n: _params_of(net) for n, net in nets.items()}
+
+    # -- reflection ------------------------------------------------------ #
+    def evolvable_attributes(self) -> Dict[str, Any]:
+        """name -> network object for every registered net."""
+        return {n: getattr(self, n) for n in self.registry.all_network_names()}
+
+    @property
+    def hp_config(self) -> HyperparameterConfig:
+        return self.registry.hp_config
+
+    # -- built-callable cache ------------------------------------------- #
+    def jit_fn(self, name: str, factory: Callable[[], Callable]) -> Callable:
+        """Get-or-build a callable; dropped on mutation (``_clear_jit_cache``)."""
+        fn = self._jit_cache.get(name)
+        if fn is None:
+            fn = self._jit_cache[name] = factory()
+        return fn
+
+    def _clear_jit_cache(self) -> None:
+        self._jit_cache = {}
+
+    # -- mutation plumbing ---------------------------------------------- #
+    def reinit_optimizers(self) -> None:
+        """Re-init all optimizer states for the current parameter shapes."""
+        for cfg in self.registry.optimizer_configs:
+            getattr(self, cfg.name).reinit(self._optimizer_params(cfg))
+
+    def mutation_hook(self) -> None:
+        """Called by the HPO engine after any mutation."""
+        self._clear_jit_cache()
+        for hook in self.registry.hooks:
+            getattr(self, hook)()
+
+    # -- cloning --------------------------------------------------------- #
+    @property
+    def init_dict(self) -> Dict[str, Any]:  # pragma: no cover
+        raise NotImplementedError
+
+    def clone(self, index: Optional[int] = None, wrap: bool = True):
+        """Rebuild from init_dict, then copy configs, params, optimizer states
+        and training attributes."""
+        clone = type(self)(**self.init_dict)
+        for name, net in self.evolvable_attributes().items():
+            cnet = getattr(clone, name)
+            for sub, csub in _net_pairs(net, cnet):
+                csub.config = sub.config
+                csub.params = tree_copy(sub.params)
+        for cfg in self.registry.optimizer_configs:
+            mine: OptimizerWrapper = getattr(self, cfg.name)
+            theirs: OptimizerWrapper = getattr(clone, cfg.name)
+            theirs.lr = mine.lr
+            theirs.tx = theirs._build()
+            theirs.opt_state = tree_copy(mine.opt_state)
+        for hp in self.hp_config.names():
+            setattr(clone, hp, getattr(self, hp))
+        clone.fitness = list(self.fitness)
+        clone.scores = list(self.scores)
+        clone.steps = list(self.steps)
+        clone.mut = self.mut
+        clone.index = self.index if index is None else index
+        clone._on_clone(self)
+        return clone
+
+    def _on_clone(self, parent: "EvolvableAlgorithm") -> None:
+        """Subclass hook for extra copied state."""
+
+
+def _params_of(net) -> Any:
+    if isinstance(net, dict):
+        return {k: _params_of(v) for k, v in net.items()}
+    return net.params
+
+
+def _net_pairs(a, b):
+    """Yield matching (net, clone_net) leaf pairs across dict-of-nets."""
+    if isinstance(a, dict):
+        for k in a:
+            yield from _net_pairs(a[k], b[k])
+    else:
+        yield a, b

@@ -1,0 +1,402 @@
+"""GRPO, group-relative policy optimisation for LLM finetuning: the port of
+``agilerl_tpu/algorithms/grpo.py``.
+
+Actor and reference are two LoRA adapters over one frozen base model
+(``llm/model.py``). ``learn`` runs two no-grad log-probability passes (old and
+reference policy), then minibatch epochs of the clipped-ratio + k3-KL loss
+(``_grpo_loss_core``) differentiated through ``token_logprobs`` into the actor
+adapter, stepped by AdamW after a global-norm clip (``core/optimizer.py``).
+Every log-probability pass goes through the flash attention and fused
+log-probability paths: on CUDA tensors their hand-written kernels, forward
+and backward; on CPU tensors their plain versions.
+
+Not ported yet: the serving tier (``continuous_decode``,
+``speculative_decode``, ``capture_logprobs``, ``attach_rollout_fleet``) and
+the sequence-parallel learn (``sequence_parallel_axis``); each raises
+``NotImplementedError``; ``to_mesh`` (sharding plans) comes with the
+distribution slice. ``bucketed_decode`` is accepted and runs the dense
+generate path: in the JAX package bucketing only bounds the compile set, and
+its token stream is the dense path's.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from agilerl_tpu_torch.algorithms.core.base import EvolvableAlgorithm
+from agilerl_tpu_torch.algorithms.core.optimizer import (
+    CosineLRScheduleConfig,
+    OptimizerWrapper,
+    Transform,
+    apply_updates,
+)
+from agilerl_tpu_torch.algorithms.core.registry import (
+    HyperparameterConfig,
+    NetworkGroup,
+    OptimizerConfig,
+    RLParameter,
+)
+from agilerl_tpu_torch.llm import model as M
+from agilerl_tpu_torch.llm.generate import generate
+from agilerl_tpu_torch.ops import DeviceLike, resolve_device
+from agilerl_tpu_torch.utils.tree import tree_copy, tree_leaves, tree_map
+
+
+def default_hp_config() -> HyperparameterConfig:
+    return HyperparameterConfig(
+        lr=RLParameter(min=1e-8, max=1e-4, dtype=float),
+        beta=RLParameter(min=1e-4, max=0.1, dtype=float),
+        group_size=RLParameter(min=2, max=16, dtype=int),
+    )
+
+
+def _grpo_loss_core(lp, batch, clip, beta):
+    """Clipped-ratio + k3-KL GRPO loss from per-token logprobs. Returns
+    (loss, mean k3 KL). ``batch["rho"]``, when present, is the truncated
+    per-token importance weight of an off-policy batch; it multiplies the
+    policy-gradient term (a constant under differentiation, as ``old_lp``)."""
+    lp = lp * batch["loss_mask"]
+    ratio = torch.exp(lp - batch["old_lp"])
+    adv = batch["advantage"][:, None]
+    s1 = ratio * adv
+    s2 = torch.clamp(ratio, 1 - clip, 1 + clip) * adv
+    pg = -torch.minimum(s1, s2)
+    rho = batch.get("rho")
+    if rho is not None:
+        pg = pg * rho
+    log_ratio_ref = batch["ref_lp"] - lp
+    kl = torch.exp(log_ratio_ref) - log_ratio_ref - 1.0
+    denom = batch["loss_mask"].sum().clamp_min(1.0)
+    loss = ((pg + beta * kl) * batch["loss_mask"]).sum() / denom
+    kl_mean = (kl * batch["loss_mask"]).sum() / denom
+    return loss, kl_mean
+
+
+class _LoraNet:
+    """Network-shaped holder so the registry/clone machinery sees the adapter
+    as an evolvable attribute (LLM configs never mutate)."""
+
+    def __init__(self, config, params):
+        self.config = config
+        self.params = params
+
+
+def make_update_fn(config, tx: Transform, lora_scale: float, use_flash: bool = True,
+                   use_fused_loss: Optional[bool] = None):
+    """The GRPO update as a function of (base, lora, opt_state, batch, clip,
+    beta) -> (lora, opt_state, loss, kl): the loss differentiated into the
+    adapter only (the base and the head need no gradient, so the fused
+    backward skips dW), then one optimizer step. ``use_fused_loss`` (default:
+    follow ``use_flash``) routes the lm head through the fused path."""
+    if use_fused_loss is None:
+        use_fused_loss = use_flash
+
+    def update(base, lora, opt_state, batch, clip, beta):
+        lo = tree_map(lambda t: t.detach().requires_grad_(True), lora)
+        lp = M.token_logprobs(
+            config, base, batch["tokens"], attention_mask=batch["mask"],
+            lora=lo, lora_scale=lora_scale, flash=use_flash, use_fused=use_fused_loss,
+        )
+        loss, kl = _grpo_loss_core(lp, batch, clip, beta)
+        leaves = tree_leaves(lo)
+        grads = torch.autograd.grad(loss, leaves)
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), lo)
+        with torch.no_grad():
+            lo = tree_map(torch.Tensor.detach, lo)
+            updates, opt_state = tx.update(grads, opt_state, lo)
+            lora = apply_updates(lo, updates)
+        return lora, opt_state, loss.detach(), kl.detach()
+
+    return update
+
+
+class GRPO(EvolvableAlgorithm):
+    supports_activation_mutation = False
+
+    def __init__(
+        self,
+        config: M.GPTConfig,
+        base_params: Any = None,
+        pad_token_id: int = 0,
+        eos_token_id: Optional[int] = None,
+        index: int = 0,
+        hp_config: Optional[HyperparameterConfig] = None,
+        batch_size: int = 8,
+        beta: float = 0.04,
+        lr: float = 5e-6,
+        clip_coef: float = 0.2,
+        max_grad_norm: float = 0.1,
+        update_epochs: int = 1,
+        group_size: int = 8,
+        temperature: float = 0.9,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        max_output_tokens: int = 64,
+        min_output_tokens: Optional[int] = None,
+        cosine_lr_schedule_config: Optional[CosineLRScheduleConfig] = None,
+        lora_rank: int = 8,
+        lora_targets: Tuple[str, ...] = ("wq", "wv"),
+        lora_scale: float = 2.0,
+        sequence_parallel_axis: Optional[str] = None,
+        bucketed_decode: bool = True,
+        continuous_decode: bool = False,
+        speculative_decode=None,
+        capture_logprobs: bool = False,
+        device: DeviceLike = None,
+        **kwargs,
+    ):
+        for name, value in (("sequence_parallel_axis", sequence_parallel_axis),
+                            ("continuous_decode", continuous_decode),
+                            ("speculative_decode", speculative_decode),
+                            ("capture_logprobs", capture_logprobs)):
+            if value:
+                raise NotImplementedError(f"GRPO {name} is not ported yet")
+        super().__init__(index=index, hp_config=hp_config or default_hp_config(),
+                         device=device, **kwargs)
+        self.dev = resolve_device(device)
+        self.model_config = config
+        self.pad_token_id = int(pad_token_id)
+        self.eos_token_id = eos_token_id
+        self.batch_size = int(batch_size)
+        self.beta = float(beta)
+        self.lr = float(lr)
+        self.clip_coef = float(clip_coef)
+        self.max_grad_norm = float(max_grad_norm)
+        self.update_epochs = int(update_epochs)
+        self.group_size = int(group_size)
+        self.temperature = float(temperature)
+        self.top_k = top_k
+        self.top_p = top_p
+        self.max_output_tokens = int(max_output_tokens)
+        self.min_output_tokens = min_output_tokens
+        self.cosine_lr_schedule_config = cosine_lr_schedule_config
+        self.lora_rank = int(lora_rank)
+        self.lora_targets = tuple(lora_targets)
+        self.lora_scale = float(lora_scale)
+        self.bucketed_decode = bool(bucketed_decode)  # runs the dense path
+
+        if base_params is None:
+            base_params = M.init_params(self.next_key(self.dev), config, device=self.dev)
+        self.base_params = base_params  # frozen
+        # actor adapter (trainable) + reference adapter (frozen snapshot)
+        self.actor = _LoraNet(config, M.init_lora(
+            self.next_key(self.dev), config, lora_rank, self.lora_targets, device=self.dev))
+        self.reference = _LoraNet(config, tree_copy(self.actor.params))
+        self.optimizer = OptimizerWrapper(
+            optimizer="adamw", lr=self.lr, max_grad_norm=self.max_grad_norm,
+            lr_schedule=cosine_lr_schedule_config,
+        )
+        self.register_network_group(NetworkGroup(eval="actor", policy=True))
+        self.register_optimizer(OptimizerConfig(name="optimizer", networks=["actor"], lr="lr"))
+        self.finalize_registry()
+        self._reference_epoch = -1
+
+    # ------------------------------------------------------------------ #
+    @property
+    def init_dict(self) -> Dict[str, Any]:
+        return {
+            "config": self.model_config,
+            "base_params": self.base_params,  # shared reference, not copied
+            "pad_token_id": self.pad_token_id,
+            "eos_token_id": self.eos_token_id,
+            "index": self.index,
+            "batch_size": self.batch_size,
+            "beta": self.beta,
+            "lr": self.lr,
+            "clip_coef": self.clip_coef,
+            "max_grad_norm": self.max_grad_norm,
+            "update_epochs": self.update_epochs,
+            "group_size": self.group_size,
+            "temperature": self.temperature,
+            "top_k": self.top_k,
+            "top_p": self.top_p,
+            "max_output_tokens": self.max_output_tokens,
+            "min_output_tokens": self.min_output_tokens,
+            "cosine_lr_schedule_config": self.cosine_lr_schedule_config,
+            "lora_rank": self.lora_rank,
+            "lora_targets": self.lora_targets,
+            "lora_scale": self.lora_scale,
+            "bucketed_decode": self.bucketed_decode,
+            "device": self.device,
+        }
+
+    def _on_clone(self, parent) -> None:
+        self.reference.params = tree_copy(parent.reference.params)
+        self._reference_epoch = parent._reference_epoch
+
+    def set_reference_policy(self, epoch: int) -> None:
+        """Refresh the reference adapter from the actor once per dataset epoch."""
+        if epoch != self._reference_epoch:
+            self.reference.params = tree_copy(self.actor.params)
+            self._reference_epoch = epoch
+
+    def attach_rollout_fleet(self, fleet) -> None:
+        raise NotImplementedError("serving fleets are not ported yet")
+
+    # ------------------------------------------------------------------ #
+    def _as_tensor(self, x, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), device=self.dev, dtype=dtype)
+
+    def get_action(self, prompts: Dict[str, np.ndarray], training: bool = True):
+        """Generate group_size completions per prompt on the dense generate
+        path. prompts: {"input_ids": [B, P], "attention_mask"}. Returns
+        (completion_ids [B*G, N], completion_mask [B*G, N]) as numpy."""
+        ids_np = np.asarray(prompts["input_ids"])
+        mask_np = np.asarray(prompts["attention_mask"])
+        g = self.group_size if training else 1
+        ids_np = np.repeat(ids_np, g, axis=0)
+        mask_np = np.repeat(mask_np, g, axis=0)
+        if ids_np.shape[0] == 0:
+            N = self.max_output_tokens
+            return np.zeros((0, N), np.int32), np.zeros((0, N), np.int32)
+        comp, cmask = generate(
+            self.model_config, self.base_params, self._as_tensor(ids_np, torch.long),
+            self._as_tensor(mask_np, torch.int32), self.next_key(self.dev),
+            max_new_tokens=self.max_output_tokens, lora=self.actor.params,
+            lora_scale=self.lora_scale,
+            temperature=self.temperature if training else 0.0,
+            top_k=self.top_k, top_p=self.top_p,
+            min_new_tokens=self.min_output_tokens,
+            eos_id=self.eos_token_id, pad_id=self.pad_token_id,
+        )
+        return comp.cpu().numpy().astype(np.int32), cmask.cpu().numpy()
+
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _calculate_advantage(rewards: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+        """Group z-score. rewards [B, G] -> [B*G]."""
+        mean = rewards.mean(dim=1, keepdim=True)
+        std = rewards.std(dim=1, keepdim=True, correction=0)
+        return ((rewards - mean) / (std + eps)).reshape(-1)
+
+    def _logprob_fn(self):
+        config, base, scale = self.model_config, self.base_params, self.lora_scale
+
+        @torch.no_grad()
+        def logprobs(lora, tokens, mask):
+            return M.token_logprobs(config, base, tokens, attention_mask=mask, lora=lora,
+                                    lora_scale=scale, use_fused=True, flash=True)
+
+        return logprobs
+
+    def _update_fn(self):
+        base = self.base_params
+        update = make_update_fn(self.model_config, self.optimizer.tx, self.lora_scale,
+                                use_flash=True)
+
+        def bound(lora, opt_state, batch, clip, beta):
+            return update(base, lora, opt_state, batch, clip, beta)
+
+        return bound
+
+    def _learn_fns(self):
+        return self.jit_fn("logprobs", self._logprob_fn), self.jit_fn("update", self._update_fn)
+
+    def learn(self, experiences: Tuple) -> Tuple[float, float]:
+        """experiences = (ids, action_masks, rewards[, attention_mask]):
+        ids [B*G, P+N] full prompt+completion sequences, action_masks
+        [B*G, P+N-1] marking completion-token predictions, rewards [B, G]; pass
+        the optional 4th element when pad_token_id collides with a real
+        vocabulary token (otherwise attention defaults to ids != pad_token_id).
+        Returns (mean loss, mean k3 KL vs reference)."""
+        if len(experiences) == 4:
+            ids, action_masks, rewards, attn = experiences
+        else:
+            ids, action_masks, rewards = experiences
+            attn = None
+        ids, mask, loss_mask = self._learn_masks(ids, action_masks, attn)
+        advantage = self._calculate_advantage(self._as_tensor(rewards, torch.float32))
+        logprobs, update = self._learn_fns()
+        old_lp = logprobs(self.actor.params, ids, mask) * loss_mask
+        ref_lp = logprobs(self.reference.params, ids, mask) * loss_mask
+        return self._run_update_epochs(update, ids, mask, loss_mask, old_lp, ref_lp, advantage)
+
+    def _run_update_epochs(self, update, ids, mask, loss_mask, old_lp, ref_lp, advantage,
+                           rho=None):
+        """The minibatch-epoch engine behind ``learn`` and
+        ``learn_from_trajectory``: permutation order (``torch.randperm`` on the
+        agent's generator), the NaN guard, and the running means."""
+        lora, opt_state = self.actor.params, self.optimizer.opt_state
+        n_rows = ids.shape[0]
+        total, total_kl, n_updates = 0.0, 0.0, 0
+        for _ in range(self.update_epochs):
+            perm = torch.randperm(n_rows, generator=self._key).to(self.dev)
+            for s in range(0, n_rows, self.batch_size):
+                idx = perm[s:s + self.batch_size]
+                batch = {
+                    "tokens": ids[idx],
+                    "mask": mask[idx],
+                    "loss_mask": loss_mask[idx],
+                    "old_lp": old_lp[idx],
+                    "ref_lp": ref_lp[idx],
+                    "advantage": advantage[idx],
+                }
+                if rho is not None:
+                    batch["rho"] = rho[idx]
+                lora, opt_state, loss, kl = update(lora, opt_state, batch, self.clip_coef,
+                                                   self.beta)
+                if not np.isfinite(float(loss)):
+                    # keep the returned state so the agent stays usable
+                    self.actor.params = lora
+                    self.optimizer.opt_state = opt_state
+                    raise RuntimeError(f"Non-finite GRPO loss {float(loss)}: aborting")
+                total += float(loss)
+                total_kl += float(kl)
+                n_updates += 1
+        self.actor.params = lora
+        self.optimizer.opt_state = opt_state
+        n = max(n_updates, 1)
+        return total / n, total_kl / n
+
+    def _learn_masks(self, ids, action_masks, attention_mask):
+        """(ids, attention mask, loss mask) as tensors on the agent's device."""
+        ids = self._as_tensor(ids, torch.long)
+        if attention_mask is not None:
+            mask = self._as_tensor(attention_mask, torch.int32)
+        else:
+            mask = (ids != self.pad_token_id).to(torch.int32)
+        return ids, mask, self._as_tensor(action_masks, torch.float32)
+
+    def behavior_logprobs(self, ids, action_masks, attention_mask=None) -> np.ndarray:
+        """Per-token logprobs of ``ids`` under the current actor adapter,
+        masked to completion predictions (the behavior-policy record)."""
+        ids, mask, loss_mask = self._learn_masks(ids, action_masks, attention_mask)
+        logprobs, _ = self._learn_fns()
+        return (logprobs(self.actor.params, ids, mask) * loss_mask).cpu().numpy()
+
+    def learn_from_trajectory(self, ids, action_masks, rewards, behavior_lp,
+                              attention_mask=None,
+                              rho_clip: Optional[float] = 2.0) -> Tuple[float, float]:
+        """Staleness-aware off-policy GRPO update. ``old_lp`` stays the current
+        adapter's logprobs at learn start; unless ``rho_clip`` is None, the
+        staleness is corrected once by ``rho = min(exp(old_lp - behavior_lp),
+        rho_clip)`` on the policy-gradient term."""
+        ids, mask, loss_mask = self._learn_masks(ids, action_masks, attention_mask)
+        advantage = self._calculate_advantage(self._as_tensor(rewards, torch.float32))
+        logprobs, update = self._learn_fns()
+        old_lp = logprobs(self.actor.params, ids, mask) * loss_mask
+        ref_lp = logprobs(self.reference.params, ids, mask) * loss_mask
+        rho = None
+        if rho_clip is not None:
+            behavior = self._as_tensor(behavior_lp, torch.float32) * loss_mask
+            rho = torch.exp(old_lp - behavior).clamp_max(float(rho_clip))
+        return self._run_update_epochs(update, ids, mask, loss_mask, old_lp, ref_lp,
+                                       advantage, rho=rho)
+
+    # ------------------------------------------------------------------ #
+    def test(self, env) -> float:
+        """Greedy-decode the full eval split and average the reward."""
+        all_rewards = []
+        batches = env.eval_batches() if hasattr(env, "eval_batches") else [
+            env.reset(eval_mode=True)]
+        for prompts in batches:
+            comp, cmask = self.get_action(prompts, training=False)
+            _, rewards = env.step_eval(comp, cmask)
+            all_rewards.append(np.ravel(np.asarray(rewards)))
+        fitness = float(np.mean(np.concatenate(all_rewards)))
+        self.fitness.append(fitness)
+        return fitness

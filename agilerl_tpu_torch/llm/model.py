@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
 from agilerl_tpu_torch.ops.decode_attention import chunked_cached_attention
 from agilerl_tpu_torch.ops.flash_attention_vjp import flash_attention_diff
-from agilerl_tpu_torch.ops.fused_loss import fused_token_logprob
+from agilerl_tpu_torch.ops.fused_loss import fused_token_logprob_diff
 
 Params = Dict
 GeneratorLike = Union[int, torch.Generator]
@@ -299,9 +299,10 @@ def forward(
     returns new arrays): the returned cache shares them with the one passed
     in, with ``length`` advanced by T.
 
-    ``flash`` routes the non-cached attention through the flash kernel
-    (CUDA tensors, forward only) or its plain version (CPU tensors); the
-    cached path always uses ``chunked_cached_attention``."""
+    ``flash`` routes the non-cached attention through the flash kernels
+    (CUDA tensors; differentiable, with the backward kernels) or their plain
+    versions (CPU tensors); the cached path always uses
+    ``chunked_cached_attention``."""
     B, T = tokens.shape
     dtype = config.dtype
     dev = tokens.device
@@ -381,10 +382,10 @@ def token_logprobs(
     """log p(tokens[:, t] | tokens[:, <t]) for t >= 1, shape [B, T-1].
 
     ``use_fused`` is the JAX function's ``use_pallas``: the lm head and the
-    log-softmax go through ``ops/fused_loss.fused_token_logprob`` (the fused
-    kernel on CUDA tensors), else through row chunks of ``chunk_size`` whose
-    [chunk, V] logits are materialised. On CUDA tensors the kernel paths are
-    forward only in this slice."""
+    log-softmax go through ``ops/fused_loss.fused_token_logprob_diff`` (the
+    fused kernels on CUDA tensors, forward and backward), else through row
+    chunks of ``chunk_size`` whose [chunk, V] logits are materialised. Both
+    kernel paths serve the no-grad passes and the differentiable GRPO loss."""
     hidden, _ = forward(config, params, tokens, attention_mask=attention_mask,
                         lora=lora, lora_scale=lora_scale, flash=flash)
     B, T, D = hidden.shape
@@ -392,7 +393,7 @@ def token_logprobs(
     flat_t = tokens[:, 1:].reshape(-1)
     head = _head(config, params)
     if use_fused:
-        lp = fused_token_logprob(flat_h, head.float().contiguous(), flat_t, temperature)
+        lp = fused_token_logprob_diff(flat_h, head.float().contiguous(), flat_t, temperature)
         return lp.reshape(B, T - 1)
     head = head.float()
     out = []

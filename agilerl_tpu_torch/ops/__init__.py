@@ -29,10 +29,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def _kernel_wrappers():
     # imported here: the wrappers' modules import this one
-    from agilerl_tpu_torch.ops.flash_attention_vjp import flash_attention_fwd_cuda
-    from agilerl_tpu_torch.ops.fused_loss import fused_logprob_fwd_cuda
+    from agilerl_tpu_torch.ops import flash_attention_vjp as fa
+    from agilerl_tpu_torch.ops import fused_loss as fl
 
-    return flash_attention_fwd_cuda, fused_logprob_fwd_cuda
+    return (fa.flash_attention_fwd_cuda, fa.flash_attention_dq_cuda,
+            fa.flash_attention_dkv_cuda, fl.fused_logprob_fwd_cuda,
+            fl.fused_logprob_dh_cuda, fl.fused_logprob_dw_cuda)
 
 
 def kernel_counters() -> dict:

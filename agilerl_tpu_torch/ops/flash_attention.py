@@ -1,7 +1,8 @@
-"""Forward-only flash attention: the port of
+"""Flash attention without the logsumexp: the port of
 ``agilerl_tpu/ops/flash_attention.py``. The TPU package keeps a second Pallas
-kernel for this function; here it is served by the one flash forward kernel
-(``ops/flash_attention_vjp.py``) with the logsumexp discarded."""
+kernel for this function; here it is served by the flash kernels of
+``ops/flash_attention_vjp.py`` with the logsumexp discarded (and so it is
+differentiable too)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from typing import Optional
 
 import torch
 
-from agilerl_tpu_torch.ops.flash_attention_vjp import _fwd
+from agilerl_tpu_torch.ops.flash_attention_vjp import flash_attention_diff
 
 
 def flash_attention(
@@ -19,4 +20,4 @@ def flash_attention(
     padding_mask: Optional[torch.Tensor] = None,  # [B, T] 1=real token
     causal: bool = True,
 ) -> torch.Tensor:
-    return _fwd(q, k, v, padding_mask, causal)[0]
+    return flash_attention_diff(q, k, v, padding_mask, causal)

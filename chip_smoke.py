@@ -10,13 +10,22 @@ of which ends the run with a non-zero exit on any failure:
 1. the device, and the card's name and power limit from nvidia-smi;
 2. build every kernel of the port from agilerl_tpu_torch/csrc (one nvcc per
    source, all started together);
-3. hold each kernel against its plain PyTorch version on the card, over
-   dtypes, masks, ragged lengths and vocab sizes, with stated tolerances;
-4. the slice's main path at llama3-8b, full width and depth, seeded random
+3. hold each kernel, forward and backward, against its plain PyTorch version
+   on the card, over dtypes, masks, ragged lengths, head dims, GQA groups,
+   the lse cotangent and vocab sizes, with stated tolerances;
+4. slice 1's path at llama3-8b, full width and depth, seeded random
    weights: sampled and greedy ``generate`` for 4 ragged prompts x group 4,
    then ``token_logprobs`` (fused kernel + flash kernel) over prompt +
    completion under two LoRA adapters; launch counts, finiteness, agreement
    with the plain path, and a small model checked against the CPU;
+4b. slice 2's path on the same model: two GRPO iterations of ``get_action``
+   -> a reward computed from the completion ids -> ``learn`` (old and
+   reference passes, then the update through all four backward kernels);
+   launch counts per learn, finite losses, a moved adapter, and the adapter
+   gradient through the kernels held against the plain path and an f32 run;
+4c. the evolution loop: ``finetune_llm_reasoning`` over a population of 2
+   on the arithmetic ReasoningGym recipe, llama3-8b widths cut to 4 layers,
+   through one tournament and one mutation round;
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound.
 
@@ -55,6 +64,20 @@ E2E_MAX_FACTOR = 2.0
 E2E_FLOOR = 1e-3  # f32 summation order, where the plain path is exact
 FUSED_E2E_ATOL = 1e-3
 SMALL_MODEL_ATOL = 1e-4  # f32 small model, card kernels vs CPU plain path
+
+# Backward kernels vs their plain versions: f32 at the repo's flash (5e-4)
+# and fused (2e-4) gradient tolerances (summation order); bf16 at 1 % of the
+# output's largest magnitude (one bf16 rounding of the output, and of p or dS
+# where their f32 values straddle a bf16 step).
+FLASH_BWD_ATOL_F32 = 5e-4
+FLASH_BWD_REL_BF16 = 1e-2
+FUSED_BWD_ATOL = 2e-4
+# The adapter gradient of one GRPO update (4 rows) through the kernels must
+# be no further from an f32 run's than GRAD_FACTOR x the plain bf16 path's,
+# in relative L2 over all adapter entries (+ GRAD_FLOOR for summation order).
+GRAD_FACTOR = 2.0
+GRAD_FLOOR = 1e-2
+EVO_LAYERS = 4  # phase 4c: llama3-8b widths, cut to 4 layers
 
 
 def fail(msg: str) -> None:
@@ -193,6 +216,97 @@ def check_fused(torch, tfl, report, n_rows, d_model):
             worst[case] = err
         del h, w, t
     report["fused_checks"] = worst
+
+
+def flash_bwd_inputs(torch, tfa, B, H, Hkv, T, d, dtype, mask, causal, with_lse, g):
+    q = torch.randn(B, H, T, d, device="cuda", generator=g).to(dtype)
+    k = torch.randn(B, Hkv, T, d, device="cuda", generator=g).to(dtype)
+    v = torch.randn(B, Hkv, T, d, device="cuda", generator=g).to(dtype)
+    out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, causal)
+    dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+    dd = (dout.float() * out.float()).sum(-1)
+    if with_lse:  # an lse cotangent enters as D - dlse
+        dd = dd - torch.randn(lse.shape, device="cuda", generator=g)
+    return q, k, v, dout, lse, dd.contiguous()
+
+
+def bwd_error(torch, got, want, dtype):
+    """(max |kernel - plain|, tolerance) for one backward output."""
+    err = (got.float() - want.float()).abs().max().item()
+    tol = (FLASH_BWD_ATOL_F32 if dtype == torch.float32
+           else FLASH_BWD_REL_BF16 * want.float().abs().max().item())
+    return err, tol
+
+
+def check_flash_bwd(torch, tfa, report):
+    """dQ and dK/dV kernels vs the plain backward over dtype x causal x mask x
+    (ragged T, head_dim, GQA group of 4 or 2) x lse cotangent."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for masked in (False, True):
+                for T, d, H, Hkv, with_lse in ((200, 128, 8, 2, False), (96, 64, 4, 2, True),
+                                               (77, 128, 4, 2, True), (130, 64, 8, 2, False)):
+                    B = 3
+                    mask = None
+                    if masked:  # left padding, one row all but 5 keys
+                        mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
+                        mask[1, :37] = 0
+                        mask[2, :T - 5] = 0
+                    q, k, v, dout, lse, dd = flash_bwd_inputs(torch, tfa, B, H, Hkv, T, d, dtype,
+                                                              mask, causal, with_lse, g)
+                    dq = tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, causal)
+                    dk, dv = tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, causal)
+                    want = tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, causal)
+                    torch.cuda.synchronize()
+                    case = (f"{str(dtype)[6:]} causal={causal} mask={masked} T={T} d={d} "
+                            f"GQA {H}/{Hkv} lse_cotangent={with_lse}")
+                    errs = {}
+                    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+                        err, tol = bwd_error(torch, got, ref, dtype)
+                        check(bool(torch.isfinite(got.float()).all()),
+                              f"flash backward non-finite {name}: {case}")
+                        check(err <= tol, f"flash {name} kernel disagrees ({err} > {tol}): {case}")
+                        errs[name] = (err, tol)
+                    log(f"  flash bwd {case}: " + ", ".join(
+                        f"{n} {e:.2e} (tol {t:.1e})" for n, (e, t) in errs.items()))
+                    worst[case] = {n: e for n, (e, _) in errs.items()}
+    log("  flash bwd tolerances: f32 5e-4 (summation order); bf16 1 % of the plain "
+        "output's max (bf16 rounding of the output and of p / dS)")
+    report["flash_bwd_checks"] = worst
+
+
+def check_fused_bwd(torch, tfl, report, n_rows, d_model):
+    """dH and dW kernels vs the plain backward at the learn shapes (V =
+    128,256) and at a vocab that is no tile multiple (50,257), temperature
+    1.0 and 1.7."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    worst = {}
+    for V, N in ((128_256, n_rows), (50_257, 1000)):
+        h = torch.randn(N, d_model, device="cuda", generator=g)
+        w = 0.02 * torch.randn(d_model, V, device="cuda", generator=g)
+        t = torch.randint(0, V, (N,), device="cuda", generator=g)
+        up = torch.randn(N, device="cuda", generator=g)
+        for temp in (1.0, 1.7):
+            _, lse = tfl.fused_logprob_fwd_cuda(h, w, t, temp)
+            case = f"N={N} V={V} T={temp}"
+            errs = []
+            for name, kern, plain in (("dH", tfl.fused_logprob_dh_cuda, tfl.plain_dh),
+                                      ("dW", tfl.fused_logprob_dw_cuda, tfl.plain_dw)):
+                got = kern(h, w, t, lse, up, temp)
+                want = plain(h, w, t, lse, up, temp)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                check(err <= FUSED_BWD_ATOL, f"fused {name} kernel disagrees ({err}): {case}")
+                errs.append(err)
+                del got, want
+            log(f"  fused bwd {case}: max|dH-plain| {errs[0]:.3e}, max|dW-plain| {errs[1]:.3e} "
+                f"(tol {FUSED_BWD_ATOL:.0e}: f32 summation order, no TF32)")
+            worst[case] = max(errs)
+        del h, w, t, up
+        torch.cuda.empty_cache()
+    report["fused_bwd_checks"] = worst
 
 
 # ------------------------------- phase 4 ----------------------------------- #
@@ -358,7 +472,208 @@ def run_slice(torch, M, G, ops, presets, report):
         plain_vs_f32_max=d_plain.max().item(), plain_vs_f32_mean=d_plain.mean().item(),
         kernel_vs_plain_max=d_both.max().item(), kernel_vs_plain_mean=d_both.mean().item(),
         fused_e2e_max_abs=d_fused, adapters_max_abs=adapters_differ)
-    return cfg, full_mask, launches
+    return cfg, params, (ptoks, pmask), full_mask, launches
+
+
+# ------------------------------- phase 4b ---------------------------------- #
+
+
+def completion_reward(comp):
+    """Deterministic reward from the completion ids: the share of ids that
+    are multiples of 7 (random weights make any text reward meaningless)."""
+    return ((comp % 7) == 0).mean(axis=1)
+
+
+def timed_calls(torch, fn, into):
+    """``fn`` with the host time of each call (synchronized) appended to ``into``."""
+    def run(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        return out
+
+    return run
+
+
+def lora_grad(torch, M, TG, tree, cfg, params, lora, batch, knobs, flash, fused):
+    """The adapter gradient of one GRPO update's loss on ``batch``, flat.
+    knobs: (lora_scale, clip_coef, beta)."""
+    lora_scale, clip, beta = knobs
+    lo = tree.tree_map(lambda t: t.detach().clone().requires_grad_(True), lora)
+    lp = M.token_logprobs(cfg, params, batch["tokens"], attention_mask=batch["mask"], lora=lo,
+                          lora_scale=lora_scale, flash=flash, use_fused=fused)
+    loss, _ = TG._grpo_loss_core(lp, batch, clip, beta)
+    grads = torch.autograd.grad(loss, tree.tree_leaves(lo))
+    return torch.cat([g.flatten() for g in grads])
+
+
+def run_learn(torch, M, ops, cfg, params, prompts, report):
+    """Slice 2's path: two GRPO iterations at llama3-8b, then the adapter
+    gradient of one update through the kernels vs the plain path and f32."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms import grpo as TG
+    from agilerl_tpu_torch.utils import tree
+
+    ptoks, pmask = prompts
+    n_prompts, P = ptoks.shape
+    log(f"phase 4b: GRPO learn at llama3-8b: {n_prompts} prompts x group {GROUP_SIZE}, "
+        f"{MAX_NEW_TOKENS} new tokens, rank-{LORA_RANK} LoRA on wq/wv, batch_size 16, "
+        f"update_epochs 1")
+    agent = TG.GRPO(config=cfg, base_params=params, pad_token_id=0, seed=0, batch_size=16,
+                    update_epochs=1, group_size=GROUP_SIZE, max_output_tokens=MAX_NEW_TOKENS,
+                    lora_rank=LORA_RANK, lora_targets=("wq", "wv"))
+    b_before = [ab["B"].clone() for layer in agent.actor.params["blocks"].values()
+                for ab in layer.values()]
+    times = {"logprobs": [], "update": []}
+    lp_fn, up_fn = agent._learn_fns()
+    agent._jit_cache["logprobs"] = timed_calls(torch, lp_fn, times["logprobs"])
+    agent._jit_cache["update"] = timed_calls(torch, up_fn, times["update"])
+    L = cfg.n_layer
+    want = {"flash_attention_fwd": 3 * L, "flash_attention_dq": L, "flash_attention_dkv": L,
+            "fused_logprob_fwd": 3, "fused_logprob_dh": 1, "fused_logprob_dw": 0}
+    learns = []
+    ops.reset_kernel_counters()
+    for it in range(2):
+        (comp, cmask), t_gen = host_s(torch, lambda: agent.get_action(
+            {"input_ids": ptoks, "attention_mask": pmask}))
+        rewards = completion_reward(comp).reshape(n_prompts, GROUP_SIZE).astype(np.float32)
+        ids = np.concatenate([np.repeat(ptoks, GROUP_SIZE, 0), comp], axis=1)
+        attn = np.concatenate([np.repeat(pmask, GROUP_SIZE, 0), cmask], axis=1)
+        action = np.zeros((ids.shape[0], ids.shape[1] - 1), np.float32)
+        action[:, P - 1:] = cmask
+        before = ops.kernel_counters()
+        n_lp, n_up = len(times["logprobs"]), len(times["update"])
+        torch.cuda.reset_peak_memory_stats()
+        (loss, kl), t_learn = host_s(torch, lambda: agent.learn((ids, action, rewards, attn)))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        after = ops.kernel_counters()
+        counts = {k: after[k] - before[k] for k in after}
+        check(counts == want, f"learn {it}: launches {counts} != {want}")
+        check(np.isfinite(loss) and np.isfinite(kl), f"learn {it}: loss {loss}, kl {kl}")
+        t_lp, t_up = times["logprobs"][n_lp:], times["update"][n_up:]
+        learns.append(dict(loss=loss, kl=kl, reward_mean=float(rewards.mean()),
+                           generate_s=t_gen, learn_s=t_learn, old_ref_passes_s=t_lp,
+                           update_s=t_up, peak_memory_gb=peak_gb, launches=counts))
+        log(f"  iteration {it}: generate {t_gen:.2f} s; learn {t_learn:.3f} s = old/ref passes "
+            f"{t_lp[0]:.3f} + {t_lp[1]:.3f} s, update {t_up[0]:.3f} s; loss {loss:.5f}, "
+            f"kl {kl:.3e}, mean reward {rewards.mean():.3f}; peak memory {peak_gb:.1f} GB")
+        log(f"    launches in this learn: {counts}")
+    launches = ops.kernel_counters()
+    check(all(launches[k] == 2 * want[k] for k in want),
+          f"generation launched a training kernel: {launches}")
+    moved = max((ab["B"] - b0).abs().max().item() for ab, b0 in zip(
+        (ab for layer in agent.actor.params["blocks"].values() for ab in layer.values()),
+        b_before))
+    log(f"  LoRA B moved by up to {moved:.3e} (lr {agent.lr}, two AdamW steps)")
+    check(moved > 0, "the LoRA B matrices did not move")
+
+    # the adapter gradient of one update on 4 rows (one per prompt), through
+    # the kernels, through the plain path (dense attention + chunked
+    # logprobs), and through the plain path in f32
+    rows = torch.arange(0, n_prompts * GROUP_SIZE, GROUP_SIZE, device="cuda")
+    tokens, mask, loss_mask = agent._learn_masks(ids, action, attn)
+    tokens, mask, loss_mask = tokens[rows], mask[rows], loss_mask[rows]
+    adv = agent._calculate_advantage(torch.as_tensor(rewards, device="cuda"))[rows]
+    with torch.no_grad():
+        old = M.token_logprobs(cfg, params, tokens, attention_mask=mask,
+                               lora=agent.actor.params, use_fused=True, flash=True)
+        ref = M.token_logprobs(cfg, params, tokens, attention_mask=mask,
+                               lora=agent.reference.params, use_fused=True, flash=True)
+    batch = dict(tokens=tokens, mask=mask, loss_mask=loss_mask, old_lp=old * loss_mask,
+                 ref_lp=ref * loss_mask, advantage=adv)
+    actor = agent.actor.params
+    knobs = (agent.lora_scale, agent.clip_coef, agent.beta)
+    g_kernel = lora_grad(torch, M, TG, tree, cfg, params, actor, batch, knobs, True, True)
+    g_plain = lora_grad(torch, M, TG, tree, cfg, params, actor, batch, knobs, False, False)
+    del agent
+    # f32 copy of the bf16 weights, block by block, dropping the bf16 blocks
+    # (this is the last use of the 8B weights)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = {k: v.float() for k, v in params.items() if k != "blocks"}
+    params32["blocks"] = {}
+    for i in list(params["blocks"]):
+        params32["blocks"][i] = {n: w.float() for n, w in params["blocks"].pop(i).items()}
+    torch.cuda.empty_cache()
+    g_32 = lora_grad(torch, M, TG, tree, cfg32, params32, actor, batch, knobs, False, False)
+    del params32
+    torch.cuda.empty_cache()
+    norm = g_32.norm().item()
+    rel_kernel = (g_kernel - g_32).norm().item() / norm
+    rel_plain = (g_plain - g_32).norm().item() / norm
+    rel_both = (g_kernel - g_plain).norm().item() / norm
+    cos = torch.nn.functional.cosine_similarity(g_kernel, g_32, dim=0).item()
+    log(f"  adapter gradient of one update (4 rows, {g_32.numel()} entries, |g| {norm:.3e}): "
+        f"relative L2 to f32: kernel path {rel_kernel:.3e}, plain path {rel_plain:.3e}; "
+        f"kernel vs plain {rel_both:.3e}; cosine(kernel, f32) {cos:.5f} (bound: kernel "
+        f"<= {GRAD_FACTOR} x plain + {GRAD_FLOOR})")
+    check(rel_kernel <= GRAD_FACTOR * rel_plain + GRAD_FLOOR,
+          "the kernel path's adapter gradient is further from f32 than the plain path's")
+    report["learn"] = dict(iterations=learns, lora_b_moved=moved, launches=launches,
+                           grad_norm_f32=norm, grad_rel_kernel=rel_kernel,
+                           grad_rel_plain=rel_plain, grad_rel_kernel_vs_plain=rel_both,
+                           grad_cosine_kernel_f32=cos)
+    return launches
+
+
+# ------------------------------- phase 4c ---------------------------------- #
+
+
+def arith_rows(n, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"question": f"{a}+{b}=", "answer": str(a + b)} for a, b in rng.integers(0, 9, (n, 2))]
+
+
+def arith_reward(completion, answer, prompt):
+    return 0.1 * len(completion) + float(completion.startswith(str(answer)))
+
+
+def run_evolution(torch, M, ops, presets, report):
+    """finetune_llm_reasoning over a population of 2 on the arithmetic
+    ReasoningGym recipe (CharTokenizer, data batch 4, group 4), llama3-8b
+    widths cut to EVO_LAYERS layers; the eval at step 2 runs one tournament
+    and one mutation round."""
+    import numpy as np
+
+    from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
+    from agilerl_tpu_torch.training.train_llm import finetune_llm_reasoning
+    from agilerl_tpu_torch.utils.llm_utils import CharTokenizer, ReasoningGym
+    from agilerl_tpu_torch.utils.utils import create_population
+
+    tok = CharTokenizer()
+    cfg = presets.preset("llama3-8b", n_layer=EVO_LAYERS, vocab_size=tok.vocab_size,
+                         max_seq_len=256)
+    log(f"phase 4c: evolution loop: population 2, llama3-8b widths, {cfg.n_layer} layers, "
+        f"char vocab {cfg.vocab_size}")
+    env = ReasoningGym(arith_rows(64, 0), arith_rows(8, 1), tok, reward_fn=arith_reward,
+                       data_batch_size=4)
+    pop = create_population("GRPO", population_size=2, seed=0, config=cfg,
+                            base_params=M.init_params(1, cfg), pad_token_id=tok.pad_token_id,
+                            eos_token_id=tok.eos_token_id, group_size=4, batch_size=16,
+                            max_output_tokens=16, lora_rank=LORA_RANK)
+    tournament = TournamentSelection(2, True, 2, 1, rng=np.random.default_rng(0))
+    mutation = Mutations(no_mutation=0.5, architecture=0.0, parameters=0.0, activation=0.0,
+                         rl_hp=0.5, rand_seed=0)
+    ops.reset_kernel_counters()
+    (new_pop, fitnesses), t_loop = host_s(torch, lambda: finetune_llm_reasoning(
+        pop, env, max_steps=2, evaluation_interval=2, verbose=True, tournament=tournament,
+        mutation=mutation))
+    launches = ops.kernel_counters()
+    log(f"  2 steps + eval + tournament + mutation in {t_loop:.1f} s; fitnesses {fitnesses}; "
+        f"next generation {[(a.index, a.mut) for a in new_pop]}; launches {launches}")
+    check(len(new_pop) == 2 and all(len(f) == 1 and np.isfinite(f[0]) for f in fitnesses),
+          "evolution loop: population or fitnesses")
+    check(max(a.index for a in new_pop) == 2, "no tournament winner was cloned")
+    check(all(a.mut in ("None", "lr", "beta", "group_size") for a in new_pop),
+          "evolution loop: unexpected mutation")
+    check(all(launches[k] > 0 for k in launches if k != "fused_logprob_dw"),
+          f"evolution loop missed a kernel: {launches}")
+    report["evolution"] = dict(layers=cfg.n_layer, seconds=t_loop, fitnesses=fitnesses,
+                               mutations=[a.mut for a in new_pop], launches=launches)
 
 
 # ------------------------------- phase 5 ----------------------------------- #
@@ -436,6 +751,124 @@ def time_fused(torch, F, tfl, cfg, n_rows, launches, report):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def visible_pairs(torch, mask, H):
+    """(query, visible key) pairs over the real rows of a left-padded causal
+    batch, for every query head: the work the data needs."""
+    n = mask.sum(dim=1).double()
+    return float((n * (n + 1) / 2).sum()) * H
+
+
+def time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report):
+    """dQ and dK/dV at the learn shapes; the plain backward and SDPA's
+    backward each compute dQ, dK and dV together (one number, on both rows)."""
+    B, T = full_mask.shape
+    H, Hkv, d = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(8)
+    mask = full_mask.to(torch.int32)
+    q, k, v, dout, lse, dd = flash_bwd_inputs(torch, tfa, B, H, Hkv, T, d, cfg.dtype, mask,
+                                              True, False, g)
+    dq = tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True)
+    dk, dv = tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True)
+    want = tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        errs[name], tol = bwd_error(torch, got, ref, cfg.dtype)
+        check(errs[name] <= tol, f"flash {name} at the learn shape disagrees: {errs[name]}")
+    rep = H // Hkv
+    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
+    sdpa_mask = causal[None, None] & mask.bool()[:, None, None, :]
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in
+                      (q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask)
+        rounds = timed_abba(torch, {
+            "dq": lambda: tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True),
+            "dkv": lambda: tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True),
+            "plain": lambda: tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask,
+                                                               True),
+            "library": lambda: torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True),
+        }, {"dq": 10, "dkv": 10, "plain": 3, "library": 10})
+    ms = {n: sum(r) / 2 for n, r in rounds.items()}
+    pairs = visible_pairs(torch, mask, H)
+    io = 2 * (q.numel() + k.numel() + v.numel() + dout.numel()) + 4 * (2 * lse.numel()
+                                                                       + mask.numel())
+    entries = []
+    for name, flops, nbytes, replaces in (
+            ("flash_attention_dq", 6.0 * d * pairs, io + 2 * q.numel(), 94),
+            ("flash_attention_dkv", 8.0 * d * pairs, io + 4 * k.numel(), 141)):
+        b_ms, b_by = bound(flops, nbytes, "bf16")
+        key = "dq" if name.endswith("dq") else "dkv"
+        err = errs["dq"] if key == "dq" else max(errs["dk"], errs["dv"])
+        log(f"  {name} [B={B}, H={H}/{Hkv}, T={T}, d={d}] bf16: kernel {ms[key]:.3f} ms, plain "
+            f"(dQ+dK+dV) {ms['plain']:.3f} ms, SDPA backward (dQ+dK+dV) {ms['library']:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        entries.append({"name": name, "route": "cuda",
+                        "source": "agilerl_tpu_torch/csrc/flash_attention_bwd.cu",
+                        "replaces": f"agilerl_tpu/ops/flash_attention_vjp.py:{replaces}",
+                        "launches": launches[name], "max_abs_err": err, "ms": ms[key],
+                        "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": ms["library"]})
+    report["flash_bwd_timing"] = dict(shape=[B, H, Hkv, T, d], pairs=pairs, rounds_ms=rounds,
+                                      errors=errs, clocks=nvidia_smi_clocks())
+    return entries
+
+
+def time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report):
+    """dH and dW at the learn shapes; the library yardstick is autograd of
+    cuBLAS f32 GEMM + cross_entropy (TF32 off): GEMM, softmax coefficient, GEMM."""
+    D, V = cfg.d_model, cfg.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(9)
+    h = torch.randn(n_rows, D, device="cuda", generator=g)
+    w = 0.02 * torch.randn(D, V, device="cuda", generator=g)
+    t = torch.randint(0, V, (n_rows,), device="cuda", generator=g)
+    up = torch.randn(n_rows, device="cuda", generator=g)
+    _, lse = tfl.fused_logprob_fwd_cuda(h, w, t, 1.0)
+    errs = {}
+    for name, kern, plain in (("dh", tfl.fused_logprob_dh_cuda, tfl.plain_dh),
+                              ("dw", tfl.fused_logprob_dw_cuda, tfl.plain_dw)):
+        got, want = kern(h, w, t, lse, up), plain(h, w, t, lse, up)
+        torch.cuda.synchronize()
+        errs[name] = (got - want).abs().max().item()
+        check(errs[name] <= FUSED_BWD_ATOL, f"fused {name} at the learn shape disagrees")
+        del got, want
+
+    def library(wrt):
+        with torch.enable_grad():
+            x = wrt.detach().requires_grad_(True)
+            hh, ww = (x, w) if wrt is h else (h, x)
+            ce = F.cross_entropy(hh @ ww, t, reduction="none")
+            return torch.autograd.grad((ce * -up).sum(), x)[0]
+
+    rounds = timed_abba(torch, {
+        "dh": lambda: tfl.fused_logprob_dh_cuda(h, w, t, lse, up),
+        "dw": lambda: tfl.fused_logprob_dw_cuda(h, w, t, lse, up),
+        "plain_dh": lambda: tfl.plain_dh(h, w, t, lse, up),
+        "plain_dw": lambda: tfl.plain_dw(h, w, t, lse, up),
+        "library_dh": lambda: library(h),
+        "library_dw": lambda: library(w),
+    }, {n: 1 for n in ("dh", "dw", "plain_dh", "plain_dw", "library_dh", "library_dw")})
+    ms = {n: sum(r) / 2 for n, r in rounds.items()}
+    flops = 4.0 * n_rows * D * V
+    entries = []
+    for key, out_numel, replaces in (("dh", n_rows * D, 95), ("dw", D * V, 119)):
+        nbytes = 4.0 * (n_rows * D + D * V + out_numel) + 12.0 * n_rows
+        b_ms, b_by = bound(flops, nbytes, "f32")
+        name = f"fused_logprob_{key}"
+        log(f"  {name} [N={n_rows}, D={D}, V={V}] f32: kernel {ms[key]:.2f} ms, plain "
+            f"{ms['plain_' + key]:.2f} ms, cuBLAS GEMM + cross_entropy backward "
+            f"{ms['library_' + key]:.2f} ms, bound {b_ms:.2f} ms ({b_by})")
+        entries.append({"name": name, "route": "cuda",
+                        "source": "agilerl_tpu_torch/csrc/fused_logprob_bwd.cu",
+                        "replaces": f"agilerl_tpu/ops/fused_loss.py:{replaces}",
+                        "launches": launches[name], "max_abs_err": errs[key], "ms": ms[key],
+                        "plain_ms": ms["plain_" + key], "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": ms["library_" + key]})
+    report["fused_bwd_timing"] = dict(shape=[n_rows, D, V], flops=flops, rounds_ms=rounds,
+                                      errors=errs, clocks=nvidia_smi_clocks())
+    return entries
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -465,7 +898,8 @@ def main() -> None:
     log(f"nvidia-smi: {smi}")
     report["device"] = dict(kind=kind, count=count, nvidia_smi=smi)
 
-    names = ["flash_attention_fwd", "fused_logprob_fwd"]
+    names = ["flash_attention_fwd", "fused_logprob_fwd", "flash_attention_bwd",
+             "fused_logprob_bwd"]
     t0 = time.perf_counter()
     logs = _build.build_all(names)
     report["build_s"] = time.perf_counter() - t0
@@ -479,15 +913,28 @@ def main() -> None:
     check_flash(torch, tfa, report)
     n_rows = GROUP_SIZE * len(PROMPT_LENS) * (max(PROMPT_LENS) + MAX_NEW_TOKENS - 1)
     check_fused(torch, tfl, report, n_rows, 4096)
+    check_flash_bwd(torch, tfa, report)
+    check_fused_bwd(torch, tfl, report, n_rows, 4096)
     small_model_check(torch, M, ops, report)
 
-    cfg, full_mask, launches = run_slice(torch, M, G, ops, presets, report)
+    cfg, params, prompts, full_mask, _ = run_slice(torch, M, G, ops, presets, report)
+    with torch.enable_grad():
+        launches = run_learn(torch, M, ops, cfg, params, prompts, report)
+    del params
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        run_evolution(torch, M, ops, presets, report)
 
     log("phase 5: kernel times at the main path's shapes")
     kernels = [time_flash(torch, F, tfa, cfg, full_mask, launches, report),
-               time_fused(torch, F, tfl, cfg, n_rows, launches, report)]
+               *time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report),
+               time_fused(torch, F, tfl, cfg, n_rows, launches, report),
+               *time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report)]
     for entry in kernels:
-        check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
+        # the LoRA learn step freezes the head, so dW is not on the path
+        # (phase 3 and the timing above launch it)
+        if entry["name"] != "fused_logprob_dw":
+            check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
     report["wall_s"] = time.perf_counter() - t_start
     log(f"wall time {report['wall_s']:.1f} s")
     log("report: " + json.dumps(report))

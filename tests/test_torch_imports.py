@@ -24,6 +24,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import agilerl_tpu_torch.llm.presets, agilerl_tpu_torch.llm.convert\n"
         "import agilerl_tpu_torch.ops.flash_attention, agilerl_tpu_torch.ops.fused_loss\n"
         "import agilerl_tpu_torch.ops.decode_attention, agilerl_tpu_torch.ops._build\n"
+        "import agilerl_tpu_torch.ops.flash_attention_vjp\n"
+        "import agilerl_tpu_torch.algorithms.grpo, agilerl_tpu_torch.algorithms.core.base\n"
+        "import agilerl_tpu_torch.algorithms.core.optimizer\n"
+        "import agilerl_tpu_torch.algorithms.core.registry, agilerl_tpu_torch.hpo\n"
+        "import agilerl_tpu_torch.hpo.mutation, agilerl_tpu_torch.hpo.tournament\n"
+        "import agilerl_tpu_torch.utils.rng, agilerl_tpu_torch.utils.tree\n"
+        "import agilerl_tpu_torch.utils.utils, agilerl_tpu_torch.utils.llm_utils\n"
+        "import agilerl_tpu_torch.data.language_environment\n"
+        "import agilerl_tpu_torch.training.train_llm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'agilerl_tpu'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -71,10 +80,12 @@ def test_kernel_build_raises_without_nvcc():
 
 
 def test_kernel_sources_exist_for_every_wrapper():
-    from agilerl_tpu_torch.ops import kernel_counters
+    from agilerl_tpu_torch.ops import _kernel_wrappers, kernel_counters
 
-    for name in kernel_counters():
-        assert (REPO / "agilerl_tpu_torch" / "csrc" / f"{name}.cu").exists(), name
+    wrappers = _kernel_wrappers()
+    assert [f.kernel_name for f in wrappers] == list(kernel_counters())
+    for f in wrappers:
+        assert (REPO / "agilerl_tpu_torch" / "csrc" / f"{f.source}.cu").exists(), f.kernel_name
 
 
 def test_counters_reset_and_cpu_calls_do_not_count():

@@ -101,21 +101,125 @@ def test_wrappers_count_kernel_launches_only():
     w = torch.randn(64, 300, device="cuda")
     tfl.fused_token_logprob(h, w, torch.tensor([1, 2, 3, 4], device="cuda"))
     tfl.reference_token_logprob(h, w, torch.tensor([1, 2, 3, 4], device="cuda"))
-    assert kernel_counters() == {"flash_attention_fwd": 1, "fused_logprob_fwd": 1}
+    assert kernel_counters() == {"flash_attention_fwd": 1, "flash_attention_dq": 0,
+                                 "flash_attention_dkv": 0, "fused_logprob_fwd": 1,
+                                 "fused_logprob_dh": 0, "fused_logprob_dw": 0}
 
 
 @pytest.mark.cuda
 @cuda_only
 def test_kernels_raise_when_a_gradient_is_needed():
+    """A gradient on CUDA tensors goes through the backward kernels (the
+    plain version is never taken on the card), and a wrapper given what its
+    kernel does not take raises instead of falling back."""
+    reset_kernel_counters()
     q = torch.randn(1, 2, 8, 64, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_diff(q, q, q)
+    tfa.flash_attention_diff(q, q, q).sum().backward()
     h = torch.randn(3, 8, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        tfl.fused_token_logprob(h, torch.randn(8, 5, device="cuda"),
-                                torch.tensor([0, 1, 2], device="cuda"))
-    with torch.no_grad():
-        tfa.flash_attention_diff(q, q, q)
+    tfl.fused_token_logprob(h, torch.randn(8, 5, device="cuda"),
+                            torch.tensor([0, 1, 2], device="cuda")).sum().backward()
+    counts = kernel_counters()
+    assert counts["flash_attention_dq"] == 1 and counts["flash_attention_dkv"] == 1
+    assert counts["fused_logprob_dh"] == 1 and counts["fused_logprob_dw"] == 0
+    q32 = torch.randn(1, 2, 8, 32, device="cuda", requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_diff(q32, q32, q32)
+
+
+def _bwd_case(dtype, causal, pad_rows, strided, T, d, H, Hkv, with_lse, seed=0):
+    q, k, v, mask = _flash_case(2, H, Hkv, T, d, dtype, pad_rows, strided, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, causal)
+    dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+    dd = (dout.float() * out.float()).sum(-1)
+    if with_lse:
+        dd = dd - torch.randn(lse.shape, device="cuda", generator=g)
+    return q, k, v, mask, dout, lse, dd.contiguous()
+
+
+def _close(got, want, dtype, what):
+    """f32: the repo's flash-gradient tolerance (5e-4; summation order).
+    bf16: 1 % of the output's largest magnitude (one bf16 rounding of the
+    output, and of p/dS where their f32 values straddle a bf16 step)."""
+    want = want.float()
+    atol = 5e-4 if dtype == torch.float32 else 1e-2 * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol, msg=what)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("pad_rows,strided", [(None, False), ((0, 37), False), ((5, 0), True)])
+@pytest.mark.parametrize("T,d,H,Hkv", [(200, 128, 8, 2), (64, 64, 4, 2), (77, 128, 2, 2)])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_flash_bwd_kernels_match_plain(dtype, causal, pad_rows, strided, T, d, H, Hkv, with_lse):
+    q, k, v, mask, dout, lse, dd = _bwd_case(dtype, causal, pad_rows, strided, T, d, H, Hkv,
+                                             with_lse)
+    dq = tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, causal)
+    dk, dv = tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, causal)
+    rq, rk, rv = tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, causal)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    for got, want, what in ((dq, rq, "dq"), (dk, rk, "dk"), (dv, rv, "dv")):
+        assert torch.isfinite(got.float()).all(), what
+        _close(got, want, dtype, what)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("N,V,temperature", [(300, 50_257, 1.0), (300, 50_257, 1.7),
+                                             (129, 1000, 1.0), (1, 128, 0.5)])
+def test_fused_bwd_kernels_match_plain(N, V, temperature):
+    """f32 at the repo's fused-gradient tolerance, 2e-4 (summation order)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    D = 512
+    h = torch.randn(N, D, device="cuda", generator=g)
+    w = 0.05 * torch.randn(D, V, device="cuda", generator=g)
+    t = torch.randint(0, V, (N,), device="cuda", generator=g)
+    up = torch.randn(N, device="cuda", generator=g)
+    _, lse = tfl.fused_logprob_fwd_cuda(h, w, t, temperature)
+    dh = tfl.fused_logprob_dh_cuda(h, w, t, lse, up, temperature)
+    dw = tfl.fused_logprob_dw_cuda(h, w, t, lse, up, temperature)
+    want_dh = tfl.plain_dh(h, w, t, lse, up, temperature)
+    want_dw = tfl.plain_dw(h, w, t, lse, up, temperature)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dh, want_dh, rtol=0, atol=2e-4)
+    torch.testing.assert_close(dw, want_dw, rtol=0, atol=2e-4)
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_autograd_gradients_match_plain_path():
+    """Gradients through flash_attention_with_lse (both outputs) and
+    fused_token_logprob_diff on the card equal the same calls on the CPU,
+    whose plain versions the CPU tests hold against the JAX package."""
+    q, k, v, mask = _flash_case(2, 4, 2, 96, 64, torch.float32, (0, 21), True, seed=3)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    wo = torch.randn(q.shape, device="cuda", generator=g)
+    wl = torch.randn(q.shape[:3], device="cuda", generator=g)
+    rows = mask.bool()[:, None, :, None]
+
+    def grads(q, k, v, mask, wo, wl, rows):
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out, lse = tfa.flash_attention_with_lse(q, k, v, mask, True)
+        loss = (out * wo * rows).sum() + (lse * wl * rows[..., 0]).sum()
+        return torch.autograd.grad(loss, (q, k, v))
+
+    got = grads(q, k, v, mask, wo, wl, rows)
+    want = grads(*(t.cpu() for t in (q, k, v, mask, wo, wl, rows)))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=5e-4)
+
+    h = torch.randn(40, 64, device="cuda", generator=g, requires_grad=True)
+    w = (0.05 * torch.randn(64, 300, device="cuda", generator=g)).requires_grad_(True)
+    t = torch.randint(0, 300, (40,), device="cuda", generator=g)
+    got = torch.autograd.grad(tfl.fused_token_logprob_diff(h, w, t, 1.3).sum(), (h, w))
+    hc, wc = h.detach().cpu().requires_grad_(True), w.detach().cpu().requires_grad_(True)
+    want = torch.autograd.grad(tfl.fused_token_logprob_diff(hc, wc, t.cpu(), 1.3).sum(), (hc, wc))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-4)
 
 
 @pytest.mark.cuda

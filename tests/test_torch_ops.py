@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from agilerl_tpu.ops import decode_attention as jdec  # noqa: E402
 from agilerl_tpu.ops.flash_attention_vjp import flash_attention_diff, flash_attention_with_lse  # noqa: E402
 from agilerl_tpu.ops.fused_loss import fused_token_logprob as j_fused  # noqa: E402
+from agilerl_tpu.ops.fused_loss import fused_token_logprob_diff as j_fused_diff  # noqa: E402
 from agilerl_tpu_torch.ops import decode_attention as tdec  # noqa: E402
 from agilerl_tpu_torch.ops import fused_loss as tfl  # noqa: E402
 from agilerl_tpu_torch.ops import flash_attention_vjp as tfa  # noqa: E402
@@ -103,6 +104,88 @@ def test_flash_reference_bf16_close_to_f32():
                                    rtol=0, atol=5e-2)
 
 
+def _jax_flash_grads(q, k, v, mask, causal, wo, wl=None):
+    """jax.grad of the JAX kernels (Pallas interpret mode) on jnp.repeat'ed
+    K/V: the repeat's transpose sums dK/dV over each GQA group."""
+    rep = q.shape[1] // k.shape[1]
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def loss(q, k, v):
+        kr, vr = jnp.repeat(k, rep, axis=1), jnp.repeat(v, rep, axis=1)
+        if wl is None:
+            return jnp.sum(flash_attention_diff(q, kr, vr, jm, causal, 16, 16) * wo)
+        out, lse = flash_attention_with_lse(q, kr, vr, jm, causal, 16, 16)
+        return jnp.sum(out * wo) + jnp.sum(lse * wl)
+
+    return jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+
+def _torch_flash_grads(q, k, v, mask, causal, wo, wl=None):
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    tm = None if mask is None else torch.as_tensor(mask)
+    if wl is None:
+        loss = (tfa.flash_attention_diff(tq, tk, tv, tm, causal) * torch.as_tensor(wo)).sum()
+    else:
+        out, lse = tfa.flash_attention_with_lse(tq, tk, tv, tm, causal)
+        loss = (out * torch.as_tensor(wo)).sum() + (lse * torch.as_tensor(wl)).sum()
+    return torch.autograd.grad(loss, (tq, tk, tv))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("T,H,Hkv", [(32, 2, 2), (24, 4, 2)])
+def test_flash_gradients_match_jax_kernel(causal, with_mask, T, H, Hkv):
+    """dQ, dK, dV through the port's autograd path (its plain backward on the
+    CPU) against jax.grad of the JAX kernels, atol 5e-4 as tests/test_ops.
+    T = 24 is ragged against the 16-row blocks; H = 4 over Hkv = 2 is GQA. The
+    upstream gradient is zero on padded query rows (their outputs are
+    garbage in both, and callers never read them)."""
+    B, d = 2, 16
+    q, k, v = _qkv(7, B, H, Hkv, T, d)
+    mask = _left_pad_mask(B, T, (0, 7)) if with_mask else None
+    rows = np.ones((B, T), np.float32) if mask is None else mask.astype(np.float32)
+    wo = np.random.default_rng(8).normal(size=(B, H, T, d)).astype(np.float32)
+    wo = wo * rows[:, None, :, None]
+    want = _jax_flash_grads(q, k, v, mask, causal, wo)
+    got = _torch_flash_grads(q, k, v, mask, causal, wo)
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_with_lse_gradients_match_jax_kernel(causal):
+    """A nonzero lse cotangent enters the backward as D - dlse."""
+    B, H, Hkv, T, d = 2, 4, 2, 24, 16
+    q, k, v = _qkv(9, B, H, Hkv, T, d)
+    mask = _left_pad_mask(B, T, (5, 0))
+    rng = np.random.default_rng(10)
+    wo = rng.normal(size=(B, H, T, d)).astype(np.float32) * mask[:, None, :, None]
+    wl = rng.normal(size=(B, H, T)).astype(np.float32) * mask[:, None, :]
+    want = _jax_flash_grads(q, k, v, mask, causal, wo, wl)
+    got = _torch_flash_grads(q, k, v, mask, causal, wo, wl)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-4, err_msg=name)
+    # and the lse term matters: without it the gradients differ
+    no_lse = _torch_flash_grads(q, k, v, mask, causal, wo)
+    assert max((a - b).abs().max().item() for a, b in zip(got, no_lse)) > 1e-2
+
+
+def test_flash_bwd_reference_gives_fully_masked_rows_no_gradient():
+    """Query rows with no visible key: p = 0 in the plain backward (the JAX
+    kernels' where(mask, exp(s - lse), 0)), whatever dO they receive."""
+    B, H, T, d = 1, 2, 12, 16
+    q, k, v = (torch.as_tensor(x) for x in _qkv(11, B, H, H, T, d))
+    mask = torch.as_tensor(_left_pad_mask(B, T, (4,)))
+    out, lse = tfa.flash_attention_reference(q, k, v, mask, True)
+    dout = torch.ones_like(out)
+    dd = (dout * out).sum(-1)
+    dq, dk, dv = tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, True)
+    assert torch.count_nonzero(dq[:, :, :4]) == 0
+    assert torch.count_nonzero(dk[:, :, :4]) == 0 and torch.count_nonzero(dv[:, :, :4]) == 0
+    assert torch.isfinite(dq).all() and torch.count_nonzero(dq[:, :, 4:]) > 0
+
+
 # ------------------------------ fused logprob ------------------------------- #
 
 
@@ -122,6 +205,35 @@ def test_fused_reference_matches_jax_kernel(temperature, N):
     wrapped = tfl.fused_token_logprob(torch.as_tensor(hidden), torch.as_tensor(head),
                                       torch.as_tensor(targets).long(), temperature)
     torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("temperature", [1.0, 1.7])
+@pytest.mark.parametrize("N", [40, 7])
+def test_fused_gradients_match_jax_kernel(temperature, N):
+    """dH and dW through the port's autograd path (its plain backward on the
+    CPU) against jax.grad of fused_token_logprob_diff (the JAX dH and dW
+    kernels in interpret mode), atol 2e-4 as tests/test_ops; and the head's
+    gradient is skipped when the head needs none."""
+    rng = np.random.default_rng(12)
+    D, V = 32, 257
+    hidden = rng.normal(size=(N, D)).astype(np.float32)
+    head = (0.3 * rng.normal(size=(D, V))).astype(np.float32)
+    targets = rng.integers(0, V, N).astype(np.int32)
+    g = rng.normal(size=N).astype(np.float32)
+    want = jax.grad(lambda h, w: jnp.sum(j_fused_diff(h, w, jnp.asarray(targets), temperature,
+                                                       16, 128) * g), argnums=(0, 1))(
+        jnp.asarray(hidden), jnp.asarray(head))
+    th = torch.tensor(hidden, requires_grad=True)
+    tw = torch.tensor(head, requires_grad=True)
+    lp = tfl.fused_token_logprob_diff(th, tw, torch.as_tensor(targets), temperature)
+    got = torch.autograd.grad((lp * torch.as_tensor(g)).sum(), (th, tw))
+    for a, b, name in zip(got, want, ("dH", "dW")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-4, err_msg=name)
+    th2 = torch.tensor(hidden, requires_grad=True)
+    lp = tfl.fused_token_logprob_diff(th2, torch.as_tensor(head), torch.as_tensor(targets),
+                                      temperature)
+    (lp * torch.as_tensor(g)).sum().backward()
+    torch.testing.assert_close(th2.grad, got[0])
 
 
 def test_fused_lse_is_logsumexp():
