@@ -9,39 +9,43 @@
 //   z_nv    = (hidden_n . head_:,v) * inv_temp
 //   coef_nv = v < V ? g_n * ([v == t_n] - exp(z_nv - lse_n)) : 0
 //   dH      = coef head^T * inv_temp           dW = hidden^T coef * inv_temp
-// in f32 arithmetic (no TF32), as the forward.
 //
 // Translation. The TPU kernels keep an f32 accumulator of [BN, D] (dH) or
 // [D, BV] (dW) in VMEM and recompute the logits of a tile inside the same
 // grid step. At D = 4096 that accumulator is 2 MB, and a Hopper block has at
 // most 227 KB of shared memory. So the coefficient is staged through device
-// memory one vocab chunk at a time: for each chunk of `chunk` columns,
-// - coef_chunk computes the chunk's logits with the forward's register-tiled
-//   f32 GEMM and writes coef * inv_temp ([N, chunk], never the whole [N, V]:
-//   at the GRPO learn shapes a chunk of 8192 columns is 167 MB, the whole
-//   coefficient would be 2.6 GB);
-// - dh_chunk adds coef_chunk head_chunk^T into dH [N, D] (the first chunk
-//   writes, the later ones add, in launch order), or
-// - dw_chunk writes hidden^T coef_chunk into the chunk's columns of dW [D, V].
-// No atomics anywhere, so both results are deterministic (as the TPU
-// kernels' two-kernel split is). The vocab tail (V = 128,256 or 50,257 is
-// rarely a multiple of the tile) is masked in the coefficient, which is 0
-// there, and in every load and store of the head and dW.
+// memory one vocab chunk at a time (at the GRPO learn shapes a chunk of 8192
+// columns is 167 MB; the whole coefficient would be 2.6 GB). No atomics
+// anywhere, so both results are deterministic (as the TPU kernels' two-kernel
+// split is). The vocab tail is masked in the coefficient, which is 0 there.
 //
-// All three are one 128 x 128 x 8 tile GEMM main loop (256 threads, 8 x 8
+// dH runs on the tensor cores in 3xTF32 (tf32x3_gemm.cuh), from operands
+// split into hi/lo by tf32x3_split (csrc/fused_logprob_fwd.cu) once per call:
+// hidden [N, D], head^T [V, D] for the logits, and head [D, V] itself, whose
+// rows are already K-major for coef head^T (row stride padded to 4 floats for
+// TMA). Per chunk of `chunk` columns:
+// - coef_tc recomputes the chunk's logits as the forward does and writes
+//   coef * inv_temp split into hi/lo [N, chunk];
+// - dh_tc adds coef_chunk head_chunk^T into dH [N, D] (the first chunk
+//   writes, the later ones add, in launch order).
+// The split operands take 2 x 4 * V * D bytes for each head layout (8.4 GB at
+// llama3-8b) for the length of the call.
+//
+// dW keeps the SIMT path: coef_chunk computes the chunk's coefficient with a
+// 128 x 128 x 8 register-tiled f32 GEMM main loop (256 threads, 8 x 8
 // outputs each, double-buffered shared-memory stages filled through
-// registers as float4s), with each operand read either along K (staged
-// transposed) or along M/N.
+// registers as float4s), and dw_chunk writes hidden^T coef_chunk into the
+// chunk's columns of dW [D, V], each operand read along K (staged transposed)
+// or along M/N. Under tf32 both of dW's operands would be MN-major, which
+// wgmma does not take (ROADMAP, Queue 2).
 //
-// What bounds it on the H100: each of dH and dW is 4*N*D*V f32 operations
-// (the logits again, then the product), 10.7 TFLOP at the learn shapes,
-// against 67 TFLOP/s f32 outside the tensor cores: 160 ms. The bytes (hidden,
-// head, one output) are about 2.3 GB, 0.7 ms. Bound by operations; the
-// kernels' own limits are FMA issue and shared-memory reads, as the
-// forward's. PERF.md holds their times beside the bound.
+// What bounds them on the H100: each of dH and dW is 4*N*D*V f32 operations
+// (the logits again, then the product), 10.7 TFLOP at the learn shapes. dH on
+// the tensor cores does 3 x that in TF32: 65.0 ms at 495 TFLOP/s; dW on f32
+// FMAs: 160 ms at 67 TFLOP/s. The bytes (hidden, head, one output) are about
+// 2.3 GB, 0.7 ms. PERF.md holds their times beside the bounds.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32x3_gemm.cuh"
 
 namespace {
 
@@ -189,36 +193,6 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-// dH[n, d] (+)= sum_c coef[n, c] head[d, v0 + c]; grid (row tiles, D tiles)
-template <bool VEC_HEAD>
-__global__ void __launch_bounds__(NT, 2)
-    dh_chunk(const float* __restrict__ coef, const float* __restrict__ head,
-             float* __restrict__ dh, int N, int D, int V, int v0, int chunk, int accumulate) {
-  __shared__ __align__(16) Stages sm;
-  const Operand A{coef, chunk, N, chunk};          // coef, read along the chunk
-  const Operand B{head + v0, V, D, V - v0};        // head rows, read along V
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  float acc[8][8];
-  gemm_tile<true, true, true, VEC_HEAD>(acc, A, m0, B, n0, chunk / BK, sm);
-
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + row_of(ty, i);
-    if (row >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + col_of(tx, j);
-      if (col < D) {
-        float* dst = dh + (long long)row * D + col;
-        *dst = accumulate ? *dst + acc[i][j] : acc[i][j];
-      }
-    }
-  }
-}
-
 // dW[d, v0 + c] = sum_n hidden[n, d] coef[n, c]; grid (D tiles, chunk / 128)
 __global__ void __launch_bounds__(NT, 2)
     dw_chunk(const float* __restrict__ hid, const float* __restrict__ coef,
@@ -259,32 +233,152 @@ cudaError_t launch_coef(const float* hidden, const float* head, const int* targe
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// scratch: N * chunk floats; chunk a multiple of 128; D a multiple of 8.
-// Each returns a cudaError_t: 0 when every launch was accepted.
-extern "C" int fused_logprob_dh(const float* hidden, const float* head, const int* targets,
-                                const float* lse, const float* g, float* dh, float* scratch,
-                                int N, int D, int V, int chunk, float inv_temp, void* stream) {
-  if (D % BK != 0 || chunk % BN != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + BM - 1) / BM, (D + BN - 1) / BN);
-  for (int v0 = 0; v0 < V; v0 += chunk) {
-    cudaError_t err =
-        launch_coef(hidden, head, targets, lse, g, scratch, N, D, V, v0, chunk, inv_temp, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int acc = v0 > 0;
-    if (V % 4 == 0) {
-      dh_chunk<true><<<grid, NT, 0, st>>>(scratch, head, dh, N, D, V, v0, chunk, acc);
-    } else {
-      dh_chunk<false><<<grid, NT, 0, st>>>(scratch, head, dh, N, D, V, v0, chunk, acc);
+// coef * inv_temp for vocab columns v0 + c, c < chunk, as hi/lo [N, chunk]
+// in 3xTF32; grid (row tiles, chunk columns / tc::BN).
+__global__ void __launch_bounds__(tc::NTHREADS, 1)
+    coef_tc(const __grid_constant__ CUtensorMap a_hi, const __grid_constant__ CUtensorMap a_lo,
+            const __grid_constant__ CUtensorMap b_hi, const __grid_constant__ CUtensorMap b_lo,
+            const int* __restrict__ tgt, const float* __restrict__ lse,
+            const float* __restrict__ g, float* __restrict__ coef_hi,
+            float* __restrict__ coef_lo, int N, int D, int V, int v0, int chunk,
+            float inv_temp) {
+  extern __shared__ uint8_t smem[];
+  const tc::Ring ring = tc::ring_setup(smem);
+  const int m0 = blockIdx.x * tc::BM;
+  const int c0 = blockIdx.y * tc::BN;  // column in the chunk
+  const int nk = (D + tc::BK - 1) / tc::BK;
+  tc::Pipe pipe;
+  if (threadIdx.x >= tc::NCONSUMER) {
+    if (threadIdx.x == tc::NCONSUMER)
+      tc::load_tile(tc::Maps{&a_hi, &a_lo, &b_hi, &b_lo}, ring, pipe, m0, v0 + c0, 0, 0, nk);
+    return;
+  }
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  float acc[tc::NACC];
+  tc::mma_tile(acc, ring, pipe, nk, wg);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2) + 8 * h;
+    if (row >= N) continue;
+    const int t = tgt[row];
+    const float l = lse[row];
+    const float gs = g[row] * inv_temp;
+#pragma unroll
+    for (int j = 0; j < tc::BN / 8; ++j) {
+      const int c = c0 + j * 8 + (lane & 3) * 2;
+      float hv[2], lv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = v0 + c + e;
+        const float p = expf(acc[j * 4 + h * 2 + e] * inv_temp - l);
+        const float x = col < V ? gs * ((col == t ? 1.f : 0.f) - p) : 0.f;
+        hv[e] = tc::rna_tf32(x);
+        lv[e] = tc::rna_tf32(x - hv[e]);
+      }
+      const long long at = (long long)row * chunk + c;
+      *reinterpret_cast<float2*>(coef_hi + at) = make_float2(hv[0], hv[1]);
+      *reinterpret_cast<float2*>(coef_lo + at) = make_float2(lv[0], lv[1]);
     }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+}
+
+// dH[n, d] (+)= sum_c coef[n, c] head[d, v0 + c] over c < klen, in 3xTF32;
+// grid (row tiles, D / tc::BN).
+__global__ void __launch_bounds__(tc::NTHREADS, 1)
+    dh_tc(const __grid_constant__ CUtensorMap a_hi, const __grid_constant__ CUtensorMap a_lo,
+          const __grid_constant__ CUtensorMap b_hi, const __grid_constant__ CUtensorMap b_lo,
+          float* __restrict__ dh, int N, int D, int v0, int klen, int accumulate) {
+  extern __shared__ uint8_t smem[];
+  const tc::Ring ring = tc::ring_setup(smem);
+  const int m0 = blockIdx.x * tc::BM;
+  const int n0 = blockIdx.y * tc::BN;
+  const int nk = (klen + tc::BK - 1) / tc::BK;
+  tc::Pipe pipe;
+  if (threadIdx.x >= tc::NCONSUMER) {
+    if (threadIdx.x == tc::NCONSUMER)
+      tc::load_tile(tc::Maps{&a_hi, &a_lo, &b_hi, &b_lo}, ring, pipe, m0, n0, 0, v0, nk);
+    return;
+  }
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  float acc[tc::NACC];
+  tc::mma_tile(acc, ring, pipe, nk, wg);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2) + 8 * h;
+    if (row >= N) continue;
+#pragma unroll
+    for (int j = 0; j < tc::BN / 8; ++j) {
+      const int col = n0 + j * 8 + (lane & 3) * 2;  // D % 8 == 0: both columns or neither
+      if (col < D) {
+        float2* dst = reinterpret_cast<float2*>(dh + (long long)row * D + col);
+        float2 v = make_float2(acc[j * 4 + h * 2], acc[j * 4 + h * 2 + 1]);
+        if (accumulate) {
+          const float2 o = *dst;
+          v.x += o.x;
+          v.y += o.y;
+        }
+        *dst = v;
+      }
+    }
+  }
+}
+
+int launch_dh(const float* hid_hi, const float* hid_lo, const float* wt_hi, const float* wt_lo,
+              const float* w_hi, const float* w_lo, int ld_w, const int* targets,
+              const float* lse, const float* g, float* dh, float* coef_hi, float* coef_lo, int N,
+              int D, int V, int chunk, float inv_temp, cudaStream_t st) {
+  CUtensorMap h_hi, h_lo, t_hi, t_lo, c_hi, c_lo, w_hi_m, w_lo_m;
+  int err = tc::make_map(&h_hi, hid_hi, D, N, D, tc::BM);
+  if (!err) err = tc::make_map(&h_lo, hid_lo, D, N, D, tc::BM);
+  if (!err) err = tc::make_map(&t_hi, wt_hi, D, V, D, tc::BN);
+  if (!err) err = tc::make_map(&t_lo, wt_lo, D, V, D, tc::BN);
+  if (!err) err = tc::make_map(&c_hi, coef_hi, chunk, N, chunk, tc::BM);
+  if (!err) err = tc::make_map(&c_lo, coef_lo, chunk, N, chunk, tc::BM);
+  if (!err) err = tc::make_map(&w_hi_m, w_hi, V, D, ld_w, tc::BN);
+  if (!err) err = tc::make_map(&w_lo_m, w_lo, V, D, ld_w, tc::BN);
+  if (err) return err;
+  cudaError_t e =
+      cudaFuncSetAttribute(coef_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dh_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int row_tiles = (N + tc::BM - 1) / tc::BM;
+  for (int v0 = 0; v0 < V; v0 += chunk) {
+    const int klen = min(chunk, V - v0);
+    coef_tc<<<dim3(row_tiles, (klen + tc::BN - 1) / tc::BN), tc::NTHREADS, tc::SMEM, st>>>(
+        h_hi, h_lo, t_hi, t_lo, targets, lse, g, coef_hi, coef_lo, N, D, V, v0, chunk, inv_temp);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dh_tc<<<dim3(row_tiles, (D + tc::BN - 1) / tc::BN), tc::NTHREADS, tc::SMEM, st>>>(
+        c_hi, c_lo, w_hi_m, w_lo_m, dh, N, D, v0, klen, v0 > 0);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
 }
 
+}  // namespace
+
+// dH [N, D] in 3xTF32. hidden hi/lo [N, D], head^T hi/lo [V, D] and head
+// hi/lo [D, ld_w] come from tf32x3_split; coef_hi/lo: N * chunk floats each;
+// chunk a multiple of 128. Returns a cudaError_t: 0 when every launch was
+// accepted.
+extern "C" int fused_logprob_dh(const float* hid_hi, const float* hid_lo, const float* wt_hi,
+                                const float* wt_lo, const float* w_hi, const float* w_lo,
+                                int ld_w, const int* targets, const float* lse, const float* g,
+                                float* dh, float* coef_hi, float* coef_lo, int N, int D, int V,
+                                int chunk, float inv_temp, void* stream) {
+  if (D % 8 != 0 || D <= 0 || V <= 0 || chunk % tc::BN != 0 || ld_w < V)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  return launch_dh(hid_hi, hid_lo, wt_hi, wt_lo, w_hi, w_lo, ld_w, targets, lse, g, dh, coef_hi,
+                   coef_lo, N, D, V, chunk, inv_temp, static_cast<cudaStream_t>(stream));
+}
+
+// dW [D, V] on f32 FMAs. scratch: N * chunk floats; chunk a multiple of 128;
+// D a multiple of 8. Returns a cudaError_t: 0 when every launch was accepted.
 extern "C" int fused_logprob_dw(const float* hidden, const float* head, const int* targets,
                                 const float* lse, const float* g, float* dw, float* scratch,
                                 int N, int D, int V, int chunk, float inv_temp, void* stream) {

@@ -4,8 +4,9 @@ result with ctypes.
 Each source is one shared library with a plain C interface (no PyTorch
 headers), so a build takes seconds. The library lands in
 ``agilerl_tpu_torch/_build/`` (listed in ``.gitignore``) under a name that
-carries a hash of its source, so an edited source is rebuilt and a stale
-library is never loaded. ``build_all`` starts one nvcc per source, all at
+carries a hash of its source and of the headers it includes from
+``csrc/`` (``#include "name.cuh"``, followed through the headers), so an
+edited source or header is rebuilt and a stale library is never loaded. ``build_all`` starts one nvcc per source, all at
 once, and waits for every one of them.
 """
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,7 +25,8 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC_DIR)]
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -39,12 +42,31 @@ def _nvcc() -> str:
                        "are built from source at first use")
 
 
+def local_includes(src: Path) -> List[Path]:
+    """The headers of ``csrc/`` that ``src`` includes, directly or through
+    another header, in the order first met."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC_DIR / inc
+            if not path.exists():
+                raise FileNotFoundError(f"{path} (included by {src.name})")
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(src)
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for inc in local_includes(src):
+        h.update(inc.name.encode())
+        h.update(inc.read_bytes())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -98,11 +120,16 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
     return logs
 
 
+def library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` is, or will be, built."""
+    return _target(name)[1]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_target(name)[1]))
+        lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib

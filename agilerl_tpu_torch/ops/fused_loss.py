@@ -10,9 +10,13 @@ dW is skipped when the head needs no gradient (a frozen head under LoRA).
 Device rule: on CPU tensors the plain versions run; on CUDA tensors the
 hand-written kernels run, or the call raises: ``csrc/fused_logprob_fwd.cu``
 (replaces the TPU kernel ``_make_kernel``) and ``csrc/fused_logprob_bwd.cu``
-(``_make_dh_kernel`` and ``_make_dw_kernel``). Operands are f32 x f32 and the
-kernels do f32 arithmetic (no TF32). ``_fit_blocks``/``_VMEM_BUDGET`` size
-tiles for the TPU's VMEM and have no counterpart here.
+(``_make_dh_kernel`` and ``_make_dw_kernel``). Operands are f32 x f32. The
+forward and dH run on the tensor cores in 3xTF32: each f32 operand is split
+into two TF32 numbers, hi + lo (``split_tf32``; ``tf32x3_split`` on the card,
+once per call), and the products hi·hi + hi·lo + lo·hi accumulate in f32,
+which agrees with an f32 product to f32 summation order. dW runs on f32 FMAs.
+``_fit_blocks``/``_VMEM_BUDGET`` size tiles for the TPU's VMEM and have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -25,10 +29,9 @@ import torch
 from agilerl_tpu_torch.ops import check_kernel_input
 from agilerl_tpu_torch.ops._build import load_library
 
-_ROWS_PER_TILE = 128   # BN in the forward kernel
-_COLS_PER_TILE = 128   # BV in the forward kernel
-_BLOCKS_PER_SM = 2     # resident blocks the vocab split aims for
+_COLS_PER_TILE = 128   # tc::BN: the kernels' vocab (forward, coefficient) and D (dH) tile
 _BWD_CHUNK = 8192      # vocab columns whose coefficient the backward stages at once
+_TMA_ALIGN = 4         # floats: a TMA row stride is a multiple of 16 bytes
 
 
 def _plain_fwd(hidden, head, targets, temperature) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,35 +67,32 @@ def plain_dw(hidden, head, targets, lse, g, temperature: float = 1.0) -> torch.T
     return (hidden.float().t() @ coef) / temperature
 
 
-# forward: hidden, head, targets, out, lse, scratch; N, D, V, n_split, per
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``tf32x3_split``: x = hi + (x - hi) with
+    hi = x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero: ``cvt.rna.tf32.f32``) and lo = x - hi (exact in f32) rounded the
+    same way, which is how the tensor cores read it."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+# split: src, hi, lo; rows, cols, ld_dst, transpose
+_SPLIT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# forward: hidden hi/lo, head^T hi/lo, targets, out, lse, scratch; N, D, V
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                  + [ctypes.c_float, ctypes.c_void_p])
-# backward: hidden, head, targets, lse, g, out, scratch; N, D, V, chunk
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                 + [ctypes.c_float, ctypes.c_void_p])
-
-
-def vocab_split(n_rows: int, vocab: int, n_sms: int) -> Tuple[int, int]:
-    """(n_split, tiles_per_split) for the grid (row tiles, vocab splits).
-
-    Every block walks ``tiles_per_split`` vocab tiles, and the card runs
-    ``_BLOCKS_PER_SM * n_sms`` blocks at a time, so the kernel takes about
-    waves x tiles_per_split tile-times: pick the split that minimises it. A
-    split that leaves a nearly empty last wave costs a whole block-time (at
-    the scoring shapes, 7 splits give 280 blocks for 264 slots: two waves).
-    Within 3 % of the least cost, the fewest splits win: fewer partial
-    triples to merge."""
-    n_rt = -(-n_rows // _ROWS_PER_TILE)
-    n_vt = -(-vocab // _COLS_PER_TILE)
-    slots = _BLOCKS_PER_SM * n_sms
-    options = {}
-    for want in range(1, n_vt + 1):
-        per = -(-n_vt // want)
-        n_split = -(-n_vt // per)
-        options[n_split] = (-(-n_rt * n_split // slots) * per, per)
-    least = min(cost for cost, _ in options.values())
-    n_split = min(k for k, (cost, _) in options.items() if cost <= 1.03 * least)
-    return n_split, options[n_split][1]
+# dH: hidden hi/lo, head^T hi/lo, head hi/lo; ld; targets, lse, g, dh, coef hi/lo;
+# N, D, V, chunk
+_DH_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+                + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+# dW: hidden, head, targets, lse, g, out, scratch; N, D, V, chunk
+_DW_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _check_operands(hidden, head, name: str) -> Tuple[int, int, int]:
@@ -123,6 +123,41 @@ def _bind(lib_name: str, fn_name: str, argtypes):
     return fn
 
 
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _split_cuda(x, transpose: bool = False, ld: int = 0):
+    """Launch ``tf32x3_split``: (hi, lo) of x [R, C] as [R, ld] (ld >= C,
+    columns past C are 0) or, transposed, as [C, R]."""
+    R, C = x.shape
+    shape = (C, R) if transpose else (R, ld or C)
+    hi = torch.empty(shape, dtype=torch.float32, device=x.device)
+    lo = torch.empty(shape, dtype=torch.float32, device=x.device)
+    fn = _bind("fused_logprob_fwd", "tf32x3_split", _SPLIT_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), hi.data_ptr(), lo.data_ptr(), R, C, shape[1], int(transpose),
+                 _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"tf32x3_split launch failed: CUDA error {err}")
+    _split_cuda.launches += 1
+    return hi, lo
+
+
+_split_cuda.launches = 0
+
+
+def prepare_operands(hidden, head, for_dh: bool = False):
+    """The 3xTF32 kernels' operands, made once per call: hidden hi/lo [N, D]
+    and head^T hi/lo [V, D]; for dH also head hi/lo [D, V] with its row
+    stride padded to ``_TMA_ALIGN`` floats."""
+    ops = {"hid": _split_cuda(hidden), "head_t": _split_cuda(head, transpose=True)}
+    if for_dh:
+        V = head.shape[1]
+        ops["head"] = _split_cuda(head, ld=-(-V // _TMA_ALIGN) * _TMA_ALIGN)
+    return ops
+
+
 def fused_logprob_fwd_cuda(hidden, head, targets, temperature: float = 1.0):
     """Launch ``csrc/fused_logprob_fwd.cu``; returns (logprob [N], lse [N])."""
     N, D, V = _check_operands(hidden, head, "fused_logprob_fwd_cuda")
@@ -132,15 +167,13 @@ def fused_logprob_fwd_cuda(hidden, head, targets, temperature: float = 1.0):
     lse = torch.empty((N,), dtype=torch.float32, device=dev)
     if N == 0:
         return out, lse
-    n_split, per = vocab_split(
-        N, V, torch.cuda.get_device_properties(dev).multi_processor_count)
-    scratch = torch.empty((3, n_split, N), dtype=torch.float32, device=dev)
+    ops = prepare_operands(hidden, head)
+    # one partial (max, sum-exp, chosen) per row and vocab tile
+    scratch = torch.empty((3, -(-V // _COLS_PER_TILE), N), dtype=torch.float32, device=dev)
     fn = _bind("fused_logprob_fwd", "fused_logprob_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(hidden.data_ptr(), head.data_ptr(), t32.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-                 N, D, V, n_split, per, 1.0 / temperature, stream)
+        err = fn(*(t.data_ptr() for t in (*ops["hid"], *ops["head_t"], t32, out, lse, scratch)),
+                 N, D, V, 1.0 / temperature, _stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_logprob_fwd launch failed: CUDA error {err}")
     fused_logprob_fwd_cuda.launches += 1
@@ -152,33 +185,36 @@ fused_logprob_fwd_cuda.kernel_name = "fused_logprob_fwd"
 fused_logprob_fwd_cuda.source = "fused_logprob_fwd"
 
 
-def _launch_bwd(fn_name, out, hidden, head, targets, lse, g, temperature):
-    N, D, V = _check_operands(hidden, head, f"{fn_name}_cuda")
+def _bwd_inputs(name, hidden, head, targets, lse, g):
+    N, D, V = _check_operands(hidden, head, name)
     dev = hidden.device
-    t32 = _row_vector("targets", targets, N, torch.int32, dev)
-    lse = _row_vector("lse", lse, N, torch.float32, dev)
-    g = _row_vector("g", g, N, torch.float32, dev)
-    if N == 0:
-        return False
-    chunk = min(_BWD_CHUNK, -(-V // _COLS_PER_TILE) * _COLS_PER_TILE)
-    scratch = torch.empty((N, chunk), dtype=torch.float32, device=dev)
-    fn = _bind("fused_logprob_bwd", fn_name, _BWD_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(hidden.data_ptr(), head.data_ptr(), t32.data_ptr(), lse.data_ptr(),
-                 g.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, D, V, chunk,
-                 1.0 / temperature, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-    return True
+    rows = (_row_vector("targets", targets, N, torch.int32, dev),
+            _row_vector("lse", lse, N, torch.float32, dev),
+            _row_vector("g", g, N, torch.float32, dev))
+    return (N, D, V), rows
 
 
 def fused_logprob_dh_cuda(hidden, head, targets, lse, g, temperature: float = 1.0):
-    """Launch the dH kernels of ``csrc/fused_logprob_bwd.cu``: dH [N, D] f32.
-    The coefficient is staged one vocab chunk at a time (``_BWD_CHUNK``)."""
-    dh = torch.zeros(hidden.shape, dtype=torch.float32, device=hidden.device)
-    if _launch_bwd("fused_logprob_dh", dh, hidden, head, targets, lse, g, temperature):
-        fused_logprob_dh_cuda.launches += 1
+    """Launch the dH kernels of ``csrc/fused_logprob_bwd.cu``: dH [N, D] f32
+    in 3xTF32. The coefficient is staged one vocab chunk at a time
+    (``_BWD_CHUNK``), split into hi/lo."""
+    (N, D, V), (t32, lse, g) = _bwd_inputs("fused_logprob_dh_cuda", hidden, head, targets, lse, g)
+    dev = hidden.device
+    dh = torch.empty(hidden.shape, dtype=torch.float32, device=dev)
+    if N == 0:
+        return dh
+    ops = prepare_operands(hidden, head, for_dh=True)
+    chunk = min(_BWD_CHUNK, -(-V // _COLS_PER_TILE) * _COLS_PER_TILE)
+    coef = torch.empty((2, N, chunk), dtype=torch.float32, device=dev)
+    fn = _bind("fused_logprob_bwd", "fused_logprob_dh", _DH_ARGTYPES)
+    ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    with torch.cuda.device(dev):
+        err = fn(*ptr(*ops["hid"], *ops["head_t"], *ops["head"]), ops["head"][0].shape[1],
+                 *ptr(t32, lse, g, dh, coef[0], coef[1]), N, D, V, chunk, 1.0 / temperature,
+                 _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fused_logprob_dh launch failed: CUDA error {err}")
+    fused_logprob_dh_cuda.launches += 1
     return dh
 
 
@@ -188,10 +224,22 @@ fused_logprob_dh_cuda.source = "fused_logprob_bwd"
 
 
 def fused_logprob_dw_cuda(hidden, head, targets, lse, g, temperature: float = 1.0):
-    """Launch the dW kernels of ``csrc/fused_logprob_bwd.cu``: dW [D, V] f32."""
-    dw = torch.zeros(head.shape, dtype=torch.float32, device=head.device)
-    if _launch_bwd("fused_logprob_dw", dw, hidden, head, targets, lse, g, temperature):
-        fused_logprob_dw_cuda.launches += 1
+    """Launch the dW kernels of ``csrc/fused_logprob_bwd.cu``: dW [D, V] f32
+    on FMAs, the coefficient staged one vocab chunk at a time."""
+    (N, D, V), (t32, lse, g) = _bwd_inputs("fused_logprob_dw_cuda", hidden, head, targets, lse, g)
+    dev = hidden.device
+    dw = torch.zeros(head.shape, dtype=torch.float32, device=dev)
+    if N == 0:
+        return dw
+    chunk = min(_BWD_CHUNK, -(-V // 128) * 128)
+    scratch = torch.empty((N, chunk), dtype=torch.float32, device=dev)
+    fn = _bind("fused_logprob_bwd", "fused_logprob_dw", _DW_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(*(t.data_ptr() for t in (hidden, head, t32, lse, g, dw, scratch)), N, D, V,
+                 chunk, 1.0 / temperature, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fused_logprob_dw launch failed: CUDA error {err}")
+    fused_logprob_dw_cuda.launches += 1
     return dw
 
 

@@ -9,10 +9,14 @@ of which ends the run with a non-zero exit on any failure:
 
 1. the device, and the card's name and power limit from nvidia-smi;
 2. build every kernel of the port from agilerl_tpu_torch/csrc (one nvcc per
-   source, all started together);
+   source, all started together), with each kernel's registers, shared
+   memory and spills, and the count of wgmma (HGMMA) instructions in the
+   fused libraries where cuobjdump is present;
 3. hold each kernel, forward and backward, against its plain PyTorch version
    on the card, over dtypes, masks, ragged lengths, head dims, GQA groups,
-   the lse cotangent and vocab sizes, with stated tolerances;
+   the lse cotangent, vocab sizes and ragged row counts, with stated
+   tolerances, and the 3xTF32 operand split against its plain version bit
+   for bit;
 4. slice 1's path at llama3-8b, full width and depth, seeded random
    weights: sampled and greedy ``generate`` for 4 ragged prompts x group 4,
    then ``token_logprobs`` (fused kernel + flash kernel) over prompt +
@@ -27,7 +31,9 @@ of which ends the run with a non-zero exit on any failure:
    on the arithmetic ReasoningGym recipe, llama3-8b widths cut to 4 layers,
    through one tournament and one mutation round;
 5. each kernel's time at the main path's shapes beside its plain version,
-   one PyTorch library call computing the same function, and its bound.
+   one PyTorch library call computing the same function, and its bound (for
+   the 3xTF32 fused forward and dH: the tensor-core bound and the f32 FMA
+   bound, and the time of their operand preparation).
 
 Prints a ``report: {...}`` line with every number the run took, then a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -44,7 +50,8 @@ import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # f32: outside the tensor cores
+# f32: outside the tensor cores; tf32: dense, on the tensor cores
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 
 GROUP_SIZE = 4
 PROMPT_LENS = (64, 128, 200, 256)
@@ -150,6 +157,32 @@ def bound(flops: float, nbytes: float, kind: str):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def tf32x3_bounds(flops: float, nbytes: float):
+    """For `flops` f32 operations done in 3xTF32: (bound ms, bound_by) of
+    the 3 x flops of TF32 tensor-core work, and the bound ms of the same f32
+    operations on the FMA units."""
+    b_ms, b_by = bound(3.0 * flops, nbytes, "tf32")
+    return b_ms, b_by, bound(flops, nbytes, "f32")[0]
+
+
+def wgmma_counts(_build, names):
+    """HGMMA instructions in each built library's SASS (cuobjdump), or None
+    where the toolkit has no cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for n in names:
+        try:
+            sass = subprocess.run([tool, "-sass", str(_build.library_path(n))],
+                                  capture_output=True, text=True, timeout=120).stdout
+        except OSError:
+            counts[n] = None
+            continue
+        counts[n] = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"  HGMMA instructions (cuobjdump -sass): {counts}")
+    return counts
+
+
 # ------------------------------- phase 3 ----------------------------------- #
 
 
@@ -194,12 +227,37 @@ def check_flash(torch, tfa, report):
     report["flash_checks"] = worst
 
 
+# (V, N) of the fused checks: the learn shapes, a vocab that is no tile
+# multiple, and row counts below, at and past one 128-row tile
+FUSED_CASES = ((128_256, None), (50_257, 1000), (50_257, 129), (50_257, 65), (50_257, 1))
+
+
+def check_split(torch, tfl, report):
+    """The 3xTF32 operand split (tf32x3_split) against split_tf32, bit for
+    bit, plain and transposed, with a padded row stride."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(300, 201, device="cuda", generator=g) * 10.0 ** torch.randint(
+        -5, 5, (300, 201), device="cuda", generator=g)
+    for transpose, ld in ((False, 0), (False, 204), (True, 0)):
+        hi, lo = tfl._split_cuda(x, transpose=transpose, ld=ld)
+        want_hi, want_lo = tfl.split_tf32(x.t().contiguous() if transpose else x)
+        torch.cuda.synchronize()
+        cols = want_hi.shape[1]
+        same = (torch.equal(hi[:, :cols], want_hi) and torch.equal(lo[:, :cols], want_lo)
+                and not hi[:, cols:].any() and not lo[:, cols:].any())
+        check(same, f"tf32x3_split differs from split_tf32 (transpose={transpose}, ld={ld})")
+    log("  tf32x3_split: hi/lo bit for bit equal to split_tf32 (plain, padded, transposed)")
+    report["split_check"] = "bit-exact"
+
+
 def check_fused(torch, tfl, report, n_rows, d_model):
     """Kernel vs plain version at the scoring shapes: V = 128,256 and a V
-    that is not a tile multiple (50,257), temperature 1.0 and 1.7."""
+    that is not a tile multiple (50,257), ragged row counts, temperature 1.0
+    and 1.7."""
     g = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
-    for V, N in ((128_256, n_rows), (50_257, 1000)):
+    for V, N in FUSED_CASES:
+        N = N or n_rows
         h = torch.randn(N, d_model, device="cuda", generator=g)
         w = 0.02 * torch.randn(d_model, V, device="cuda", generator=g)
         t = torch.randint(0, V, (N,), device="cuda", generator=g)
@@ -211,7 +269,7 @@ def check_fused(torch, tfl, report, n_rows, d_model):
             lerr = (lse - want_lse).abs().max().item()
             case = f"N={N} V={V} T={temp}"
             log(f"  fused {case}: max|lp-plain| {err:.3e}, max|lse-plain| {lerr:.3e} "
-                f"(tol 1e-04: f32 summation order over D and V, no TF32)")
+                f"(tol 1e-04: 3xTF32 products, f32 sums in another order)")
             check(err <= 1e-4 and lerr <= 1e-4, f"fused kernel disagrees: {case}")
             worst[case] = err
         del h, w, t
@@ -279,11 +337,12 @@ def check_flash_bwd(torch, tfa, report):
 
 def check_fused_bwd(torch, tfl, report, n_rows, d_model):
     """dH and dW kernels vs the plain backward at the learn shapes (V =
-    128,256) and at a vocab that is no tile multiple (50,257), temperature
-    1.0 and 1.7."""
+    128,256), at a vocab that is no tile multiple (50,257) and at ragged row
+    counts, temperature 1.0 and 1.7."""
     g = torch.Generator(device="cuda").manual_seed(7)
     worst = {}
-    for V, N in ((128_256, n_rows), (50_257, 1000)):
+    for V, N in FUSED_CASES:
+        N = N or n_rows
         h = torch.randn(N, d_model, device="cuda", generator=g)
         w = 0.02 * torch.randn(d_model, V, device="cuda", generator=g)
         t = torch.randint(0, V, (N,), device="cuda", generator=g)
@@ -302,7 +361,8 @@ def check_fused_bwd(torch, tfl, report, n_rows, d_model):
                 errs.append(err)
                 del got, want
             log(f"  fused bwd {case}: max|dH-plain| {errs[0]:.3e}, max|dW-plain| {errs[1]:.3e} "
-                f"(tol {FUSED_BWD_ATOL:.0e}: f32 summation order, no TF32)")
+                f"(tol {FUSED_BWD_ATOL:.0e}: dH 3xTF32 products, dW f32 FMAs; sums in "
+                f"another order)")
             worst[case] = max(errs)
         del h, w, t, up
         torch.cuda.empty_cache()
@@ -515,6 +575,7 @@ def run_learn(torch, M, ops, cfg, params, prompts, report):
     import numpy as np
 
     from agilerl_tpu_torch.algorithms import grpo as TG
+    from agilerl_tpu_torch.ops import fused_loss as tfl
     from agilerl_tpu_torch.utils import tree
 
     ptoks, pmask = prompts
@@ -545,22 +606,25 @@ def run_learn(torch, M, ops, cfg, params, prompts, report):
         action = np.zeros((ids.shape[0], ids.shape[1] - 1), np.float32)
         action[:, P - 1:] = cmask
         before = ops.kernel_counters()
+        splits_before = tfl._split_cuda.launches
         n_lp, n_up = len(times["logprobs"]), len(times["update"])
         torch.cuda.reset_peak_memory_stats()
         (loss, kl), t_learn = host_s(torch, lambda: agent.learn((ids, action, rewards, attn)))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         after = ops.kernel_counters()
         counts = {k: after[k] - before[k] for k in after}
+        splits = tfl._split_cuda.launches - splits_before
         check(counts == want, f"learn {it}: launches {counts} != {want}")
         check(np.isfinite(loss) and np.isfinite(kl), f"learn {it}: loss {loss}, kl {kl}")
         t_lp, t_up = times["logprobs"][n_lp:], times["update"][n_up:]
         learns.append(dict(loss=loss, kl=kl, reward_mean=float(rewards.mean()),
                            generate_s=t_gen, learn_s=t_learn, old_ref_passes_s=t_lp,
-                           update_s=t_up, peak_memory_gb=peak_gb, launches=counts))
+                           update_s=t_up, peak_memory_gb=peak_gb, launches=counts,
+                           operand_splits=splits))
         log(f"  iteration {it}: generate {t_gen:.2f} s; learn {t_learn:.3f} s = old/ref passes "
             f"{t_lp[0]:.3f} + {t_lp[1]:.3f} s, update {t_up[0]:.3f} s; loss {loss:.5f}, "
             f"kl {kl:.3e}, mean reward {rewards.mean():.3f}; peak memory {peak_gb:.1f} GB")
-        log(f"    launches in this learn: {counts}")
+        log(f"    launches in this learn: {counts}; 3xTF32 operand splits: {splits}")
     launches = ops.kernel_counters()
     check(all(launches[k] == 2 * want[k] for k in want),
           f"generation launched a training kernel: {launches}")
@@ -733,22 +797,27 @@ def time_fused(torch, F, tfl, cfg, n_rows, launches, report):
     check(err <= 1e-4, f"fused kernel at the main-path shape disagrees: {err}")
     rounds = timed_abba(torch, {
         "kernel": lambda: tfl.fused_logprob_fwd_cuda(h, w, t, 1.0),
+        "prep": lambda: tfl.prepare_operands(h, w),
         "plain": lambda: tfl.reference_token_logprob(h, w, t, 1.0),
         "library": lambda: F.cross_entropy(h @ w / 1.0, t, reduction="none"),
-    }, {"kernel": 3, "plain": 3, "library": 3})
-    ms, plain_ms, lib_ms = (sum(rounds[n]) / 2 for n in ("kernel", "plain", "library"))
+    }, {"kernel": 3, "prep": 3, "plain": 3, "library": 3})
+    ms, prep_ms, plain_ms, lib_ms = (sum(rounds[n]) / 2
+                                     for n in ("kernel", "prep", "plain", "library"))
     flops = 2.0 * n_rows * D * V
     nbytes = 4.0 * (n_rows * D + D * V + n_rows) + 8.0 * n_rows
-    b_ms, b_by = bound(flops, nbytes, "f32")
-    log(f"  fused [N={n_rows}, D={D}, V={V}] f32: kernel {ms:.2f} ms, plain {plain_ms:.2f} ms, "
-        f"matmul + cross_entropy {lib_ms:.2f} ms, bound {b_ms:.2f} ms ({b_by})")
+    b_ms, b_by, fma_ms = tf32x3_bounds(flops, nbytes)
+    log(f"  fused [N={n_rows}, D={D}, V={V}] f32 in 3xTF32: kernel {ms:.2f} ms (of which "
+        f"operand preparation {prep_ms:.2f} ms), plain {plain_ms:.2f} ms, matmul + "
+        f"cross_entropy {lib_ms:.2f} ms, bound {b_ms:.2f} ms ({b_by}, 3xTF32 on the tensor "
+        f"cores; {fma_ms:.2f} ms on f32 FMAs)")
     report["fused_timing"] = dict(shape=[n_rows, D, V], flops=flops, bytes=nbytes,
                                   rounds_ms=rounds, clocks=nvidia_smi_clocks())
     return {"name": "fused_logprob_fwd", "route": "cuda",
             "source": "agilerl_tpu_torch/csrc/fused_logprob_fwd.cu",
             "replaces": "agilerl_tpu/ops/fused_loss.py:38",
             "launches": launches["fused_logprob_fwd"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "bound_f32_fma_ms": fma_ms, "prep_ms": prep_ms}
 
 
 def visible_pairs(torch, mask, H):
@@ -842,28 +911,38 @@ def time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report):
 
     rounds = timed_abba(torch, {
         "dh": lambda: tfl.fused_logprob_dh_cuda(h, w, t, lse, up),
+        "prep_dh": lambda: tfl.prepare_operands(h, w, for_dh=True),
         "dw": lambda: tfl.fused_logprob_dw_cuda(h, w, t, lse, up),
         "plain_dh": lambda: tfl.plain_dh(h, w, t, lse, up),
         "plain_dw": lambda: tfl.plain_dw(h, w, t, lse, up),
         "library_dh": lambda: library(h),
         "library_dw": lambda: library(w),
-    }, {n: 1 for n in ("dh", "dw", "plain_dh", "plain_dw", "library_dh", "library_dw")})
+    }, {n: 1 for n in ("dh", "prep_dh", "dw", "plain_dh", "plain_dw", "library_dh",
+                       "library_dw")})
     ms = {n: sum(r) / 2 for n, r in rounds.items()}
     flops = 4.0 * n_rows * D * V
     entries = []
     for key, out_numel, replaces in (("dh", n_rows * D, 95), ("dw", D * V, 119)):
         nbytes = 4.0 * (n_rows * D + D * V + out_numel) + 12.0 * n_rows
-        b_ms, b_by = bound(flops, nbytes, "f32")
         name = f"fused_logprob_{key}"
+        extra = {}
+        if key == "dh":  # 3xTF32 on the tensor cores
+            b_ms, b_by, fma_ms = tf32x3_bounds(flops, nbytes)
+            extra = {"bound_f32_fma_ms": fma_ms, "prep_ms": ms["prep_dh"]}
+            how = (f"3xTF32 on the tensor cores; {fma_ms:.2f} ms on f32 FMAs; operand "
+                   f"preparation {ms['prep_dh']:.2f} ms of the kernel time")
+        else:  # f32 FMAs
+            b_ms, b_by = bound(flops, nbytes, "f32")
+            how = "f32 FMAs"
         log(f"  {name} [N={n_rows}, D={D}, V={V}] f32: kernel {ms[key]:.2f} ms, plain "
             f"{ms['plain_' + key]:.2f} ms, cuBLAS GEMM + cross_entropy backward "
-            f"{ms['library_' + key]:.2f} ms, bound {b_ms:.2f} ms ({b_by})")
+            f"{ms['library_' + key]:.2f} ms, bound {b_ms:.2f} ms ({b_by}, {how})")
         entries.append({"name": name, "route": "cuda",
                         "source": "agilerl_tpu_torch/csrc/fused_logprob_bwd.cu",
                         "replaces": f"agilerl_tpu/ops/fused_loss.py:{replaces}",
                         "launches": launches[name], "max_abs_err": errs[key], "ms": ms[key],
                         "plain_ms": ms["plain_" + key], "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": ms["library_" + key]})
+                        "library_ms": ms["library_" + key], **extra})
     report["fused_bwd_timing"] = dict(shape=[n_rows, D, V], flops=flops, rounds_ms=rounds,
                                       errors=errs, clocks=nvidia_smi_clocks())
     return entries
@@ -906,10 +985,12 @@ def main() -> None:
     log(f"phase 2: built {names} in {report['build_s']:.1f} s")
     for n, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {n}: {line.strip()}")
+    report["hgmma"] = wgmma_counts(_build, ["fused_logprob_fwd", "fused_logprob_bwd"])
 
     log("phase 3: kernels vs their plain versions on the card")
+    check_split(torch, tfl, report)
     check_flash(torch, tfa, report)
     n_rows = GROUP_SIZE * len(PROMPT_LENS) * (max(PROMPT_LENS) + MAX_NEW_TOKENS - 1)
     check_fused(torch, tfl, report, n_rows, 4096)

@@ -15,9 +15,16 @@ from agilerl_tpu_torch.ops import fused_loss as tfl
 
 torch.set_num_threads(1)
 
-# Decided the same way on every worker: no card, no kernel.
-cuda_only = pytest.mark.skipif(not torch.cuda.is_available(),
-                               reason="CUDA kernels run only on the GPU")
+
+
+@pytest.fixture
+def cuda_only():
+    """Skips a kernel test where there is no card. Decided when the test
+    runs, not when the module is imported, so every worker collects the
+    same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("CUDA kernels run only on the GPU")
+
 
 # f32: the kernel and the plain version differ only in summation order and
 # in expf; bf16: the output is rounded to bf16 (2^-9 relative) and p is
@@ -31,6 +38,22 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tfa.flash_attention_fwd_cuda(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfl.fused_logprob_fwd_cuda(torch.randn(2, 4), torch.randn(4, 3), torch.tensor([0, 1]))
+
+
+def test_build_target_follows_included_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when a header its source includes (directly or
+    through another header) changes, not only when the source does."""
+    from agilerl_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    assert _build.local_includes(tmp_path / "k.cu") == [tmp_path / "a.cuh", tmp_path / "b.cuh"]
+    before = _build.library_path("k")
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != before
+    assert "-I" in _build.NVCC_FLAGS
 
 
 def _flash_case(B, H, Hkv, T, d, dtype, pad_rows, strided, seed=0):
@@ -52,7 +75,7 @@ def _flash_case(B, H, Hkv, T, d, dtype, pad_rows, strided, seed=0):
 
 
 @pytest.mark.cuda
-@cuda_only
+@pytest.mark.usefixtures("cuda_only")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("pad_rows,strided", [(None, False), ((0, 37), False), ((5, 0), True)])
@@ -74,7 +97,7 @@ def test_flash_kernel_matches_plain(dtype, causal, pad_rows, strided, T, d):
 
 
 @pytest.mark.cuda
-@cuda_only
+@pytest.mark.usefixtures("cuda_only")
 @pytest.mark.parametrize("N,V,temperature", [(300, 50_257, 1.0), (300, 50_257, 1.7),
                                              (129, 1000, 1.0), (1, 128, 0.5)])
 def test_fused_kernel_matches_plain(N, V, temperature):
@@ -91,7 +114,7 @@ def test_fused_kernel_matches_plain(N, V, temperature):
 
 
 @pytest.mark.cuda
-@cuda_only
+@pytest.mark.usefixtures("cuda_only")
 def test_wrappers_count_kernel_launches_only():
     reset_kernel_counters()
     q, k, v, mask = _flash_case(1, 2, 2, 32, 64, torch.bfloat16, (3,), False)
@@ -107,7 +130,7 @@ def test_wrappers_count_kernel_launches_only():
 
 
 @pytest.mark.cuda
-@cuda_only
+@pytest.mark.usefixtures("cuda_only")
 def test_kernels_raise_when_a_gradient_is_needed():
     """A gradient on CUDA tensors goes through the backward kernels (the
     plain version is never taken on the card), and a wrapper given what its
@@ -147,7 +170,7 @@ def _close(got, want, dtype, what):
 
 
 @pytest.mark.cuda
-@cuda_only
+@pytest.mark.usefixtures("cuda_only")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("pad_rows,strided", [(None, False), ((0, 37), False), ((5, 0), True)])
@@ -168,7 +191,7 @@ def test_flash_bwd_kernels_match_plain(dtype, causal, pad_rows, strided, T, d, H
 
 
 @pytest.mark.cuda
-@cuda_only
+@pytest.mark.usefixtures("cuda_only")
 @pytest.mark.parametrize("N,V,temperature", [(300, 50_257, 1.0), (300, 50_257, 1.7),
                                              (129, 1000, 1.0), (1, 128, 0.5)])
 def test_fused_bwd_kernels_match_plain(N, V, temperature):
@@ -190,7 +213,49 @@ def test_fused_bwd_kernels_match_plain(N, V, temperature):
 
 
 @pytest.mark.cuda
-@cuda_only
+@pytest.mark.usefixtures("cuda_only")
+@pytest.mark.parametrize("temperature", [1.0, 1.7])
+@pytest.mark.parametrize("N", [1, 65, 300])
+def test_fused_tensor_core_kernels_ragged_shapes(N, temperature):
+    """The 3xTF32 forward and dH at ragged edges: N below, at and past one
+    128-row tile, V = 50,257 (no multiple of the 128-column tile), and
+    D = 200 (a multiple of 8, not of the 32-deep stage). Forward at 1e-4,
+    dH at 2e-4, against the plain f32 versions."""
+    g = torch.Generator(device="cuda").manual_seed(N)
+    D, V = 200, 50_257
+    h = torch.randn(N, D, device="cuda", generator=g)
+    w = 0.05 * torch.randn(D, V, device="cuda", generator=g)
+    t = torch.randint(0, V, (N,), device="cuda", generator=g)
+    up = torch.randn(N, device="cuda", generator=g)
+    got, lse = tfl.fused_logprob_fwd_cuda(h, w, t, temperature)
+    want, want_lse = tfl._plain_fwd(h, w, t, temperature)
+    dh = tfl.fused_logprob_dh_cuda(h, w, t, want_lse, up, temperature)
+    want_dh = tfl.plain_dh(h, w, t, want_lse, up, temperature)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    torch.testing.assert_close(dh, want_dh, rtol=0, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+@pytest.mark.parametrize("transpose,ld", [(False, 0), (False, 204), (True, 0)])
+def test_tf32_split_kernel_is_bit_exact(transpose, ld):
+    """tf32x3_split on the card gives the plain split_tf32's bits, padding
+    columns past the source with zeros."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(300, 201, device="cuda", generator=g) * 10.0 ** torch.randint(
+        -5, 5, (300, 201), device="cuda", generator=g)
+    hi, lo = tfl._split_cuda(x, transpose=transpose, ld=ld)
+    want_hi, want_lo = tfl.split_tf32(x.t().contiguous() if transpose else x)
+    torch.cuda.synchronize()
+    cols = want_hi.shape[1]
+    assert torch.equal(hi[:, :cols], want_hi) and torch.equal(lo[:, :cols], want_lo)
+    assert not hi[:, cols:].any() and not lo[:, cols:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
 def test_autograd_gradients_match_plain_path():
     """Gradients through flash_attention_with_lse (both outputs) and
     fused_token_logprob_diff on the card equal the same calls on the CPU,
@@ -223,7 +288,7 @@ def test_autograd_gradients_match_plain_path():
 
 
 @pytest.mark.cuda
-@cuda_only
+@pytest.mark.usefixtures("cuda_only")
 def test_flash_kernel_rejects_unsupported_head_dim():
     q = torch.randn(1, 2, 8, 32, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):

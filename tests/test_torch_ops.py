@@ -246,15 +246,6 @@ def test_fused_lse_is_logsumexp():
     torch.testing.assert_close(lp, torch.log_softmax((h @ w) / 1.3, -1)[torch.arange(9), t])
 
 
-@pytest.mark.parametrize("n_rows,vocab,sms", [(5104, 128_256, 132), (7, 257, 132),
-                                              (100_000, 300, 132)])
-def test_vocab_split_covers_every_tile(n_rows, vocab, sms):
-    n_split, per = tfl.vocab_split(n_rows, vocab, sms)
-    n_vt = -(-vocab // 128)
-    assert (n_split - 1) * per < n_vt <= n_split * per
-    assert n_split >= 1 and per >= 1
-
-
 # --------------------------- chunked cached attention ----------------------- #
 
 
