@@ -20,26 +20,40 @@
 // sequential axis (kv innermost for dQ, q innermost for dK/dV). Here one
 // thread block owns one output tile and walks the other axis in a loop with
 // the accumulator in registers:
-// - dQ: one block per (b * H, 64-row q tile), looping over kv tiles up to the
-//   causal bound;
-// - dK/dV: one block per (b * Hkv, 64-key kv tile), looping over the H / Hkv
-//   query heads of its GQA group and, for each, the q tiles from the causal
-//   start on. The JAX model repeats K/V before its kernel and jnp.repeat's
-//   transpose sums the group; the port passes K/V unrepeated, so the block
-//   sums the group itself: deterministic, no atomics.
+// - dQ: one block per (b, head, 64-row q tile), looping over the kv tiles;
+// - dK/dV: one block per (b, kv head, 64-key kv tile), looping over the
+//   H / Hkv query heads of its GQA group and, for each, the q tiles. The JAX
+//   model repeats K/V before its kernel and jnp.repeat's transpose sums the
+//   group; the port passes K/V unrepeated, so the block sums the group
+//   itself: deterministic, no atomics.
 //
 // Two kernels of each, chosen by the input type (as the forward):
-// - bf16 (the model's path): tensor cores. Each of 4 warps owns 16 rows of
-//   the block's tile (query rows for dQ, key rows for dK/dV) and runs
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate) for both score-sized
-//   products (S = Q K^T and dP = dO V^T, or their transposes), then for the
-//   output products. The score accumulator fragments are laid out as the A
-//   operand of the output product, so p and ds go from registers to it,
-//   rounded to bf16 on the way. Operands read along the head dimension are
-//   staged row-major ([64][d + 8]); operands read along the sequence are
-//   staged transposed ([d][64 + 8]), so every B register is one conflict-free
-//   32-bit read. dK/dV walks its 64 query columns in two halves of 32 to
-//   keep its two [16, d] accumulators in registers.
+// - bf16 (the model's path): wgmma fed by TMA. A block is one consumer
+//   warpgroup (64 rows of the output tile) and one producer warp. The
+//   producer loads the block's resident tiles once (Q and dO for dQ, K and V
+//   for dK/dV) and streams the other pair (K, V or Q, dO) through a ring of
+//   two stages with full/empty mbarriers (dQ: two blocks an SM; dK/dV: one
+//   block an SM, since dK and dV take 128 f32 registers a thread at d = 128
+//   and spilled at the 168 that two blocks allow). q, k, v
+//   and dO are read as 4-D tensor maps (d, T, heads, B) over the callers'
+//   strided [B, H, T, d] views; 64 bf16 make one 128-byte swizzled row, so a
+//   d = 128 tile is two [64, 64] boxes, and rows at or past T arrive as
+//   zeros. The score-sized products (S = Q K^T and dP = dO V^T for dQ;
+//   S^T = K Q^T and dP^T = V dO^T for dK/dV, in two halves of 32 queries to
+//   keep the registers of dK and dV) read both operands K-major from shared
+//   memory. p and dS go from the accumulator registers, rounded to bf16,
+//   straight in as the A operand of the output products (dQ += dS K;
+//   dV += P^T dO, dK += dS^T Q), whose B operands (K; dO, Q) are read as
+//   stored, MN-major, through wgmma's transpose bit: no transposed copies.
+//   Tiles that carry no visible key are skipped. Each block first finds the
+//   first visible key of the kv tiles it may meet (one warp ballot per 64
+//   keys of the mask; >= T where there is none): a kv tile with no visible
+//   key contributes nothing (dK/dV writes zeros, dQ skips it), and under
+//   causal masking a q tile whose last row precedes the kv tile's first
+//   visible key contributes nothing to it (tests/test_torch_flash_plan.py
+//   holds the plain version of this rule and checks it on the CPU).
+//   Blocks run longest first: under causal masking the dK/dV blocks of the
+//   first kv tile and the dQ blocks of the last q tile meet the most tiles.
 // - f32: the products as f32 FMAs (no tensor cores: TF32 would lose the f32
 //   inputs' precision), 256 threads in a 16 x 16 grid over tiles staged
 //   transposed in shared memory ([d][64 + 1] floats).
@@ -48,14 +62,15 @@
 // bf16) the bytes (q, k, v, dO, lse, D read once; dQ or dK/dV written once)
 // take 0.04 ms, the work (6 or 8 flops per visible (q, k) pair and head
 // dimension) 0.01-0.02 ms on bf16 tensor cores: memory-bound by the card's
-// measure. The bf16 kernels' own limits are the per-block setup at small T
-// (a tile meets at most T / 64 others), re-staging the same Q/dO/K/V tiles
-// from L2 for every tile pair, and mma.sync instead of wgmma; TMA and wgmma
-// are the next step. PERF.md holds their times beside the bound.
+// measure. The bf16 kernels' own limits are the short loops at small T (a
+// tile meets at most T / 64 others, so the ring barely fills), the
+// serialisation of each tile's two products, and L2 re-reads of the streamed
+// tiles by every block that needs them. PERF.md holds their times beside the
+// bound.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -83,23 +98,27 @@ __device__ __forceinline__ int key_visible(const Params& p, int b, int key) {
   return key < p.T && (p.mask == nullptr || p.mask[(long long)b * p.T + key] > 0);
 }
 
-// ------------------------------ bf16: tensor cores ------------------------- //
+// ------------------------------ bf16: wgmma -------------------------------- //
 
 typedef __nv_bfloat16 bf16;
-constexpr int MMA_NT = 128;  // 4 warps x 16 rows
-constexpr int QH = 32;       // query columns per half in dK/dV
+using namespace hopper;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+constexpr int NCONS = 128;           // one consumer warpgroup
+constexpr int WG_NT = NCONS + 32;    // + one producer warp
+constexpr int BOX = 64 * 128;        // one [64 rows][64 bf16] swizzled box: 8 KB
+constexpr int STAGES = 2;
+
+template <int HD>
+__host__ __device__ constexpr int tile_bytes() {  // a [64, HD] tile: HD / 64 boxes
+  return HD / 64 * BOX;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <int HD>
+constexpr int wgmma_smem_bytes(int nt) {
+  // alignment slack; two resident tiles; STAGES x two streamed tiles;
+  // full[STAGES], empty[STAGES] and the resident tiles' barrier; the first
+  // visible key of each of the nt kv tiles
+  return 1024 + (2 + 2 * STAGES) * tile_bytes<HD>() + (2 * STAGES + 1) * 8 + 4 * nt;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -107,310 +126,437 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// 16 bytes (8 bf16) from global memory; the wrapper checks the alignment
-__device__ __forceinline__ uint4 ld128(const bf16* p) { return *reinterpret_cast<const uint4*>(p); }
-
-// rows [r0, r0 + 64) of a [T, HD] slice (row stride st) into dst[64][HD + 8];
-// rows at or past T read as 0
-template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long st, int r0,
-                                           int seq) {
-  constexpr int C8 = HD / 8, LDR = HD + 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int e = threadIdx.x; e < 64 * C8; e += MMA_NT) {
-    const int r = e / C8, c = (e % C8) * 8;
-    const int row = r0 + r;
-    *reinterpret_cast<uint4*>(&dst[r * LDR + c]) = row < seq ? ld128(src + row * st + c) : zero;
-  }
+// d = A B^T + (scale_d ? d : 0), m64n32k16: A and B K-major bf16 in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// the same rows transposed into dst[HD][64 + 8]; consecutive threads take
-// consecutive rows, so the 16-bit stores into a row of dst are conflict-free
+// d = A B^T + (scale_d ? d : 0), m64n64k16: A and B K-major bf16 in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d = A B + (scale_d ? d : 0), m64n64k16: A bf16 from registers (the
+// accumulator layout, packed in pairs), B MN-major bf16 in shared memory
+// (transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d = A B + (scale_d ? d : 0), m64n128k16: A bf16 from registers (the
+// accumulator layout, packed in pairs), B MN-major bf16 in shared memory
+// (transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Shared memory of a block: resident tiles r0, r1; stage s holds the streamed
+// tiles a (at stage(s)) and b (at stage(s) + tile); then the barriers, then
+// the first visible key of each kv tile.
 template <int HD>
-__device__ __forceinline__ void stage_cols(bf16* dst, const bf16* src, long long st, int r0,
-                                           int seq) {
-  constexpr int LDT = 64 + 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int e = threadIdx.x; e < 64 * (HD / 8); e += MMA_NT) {
-    const int r = e % 64, c = (e / 64) * 8;
-    const int row = r0 + r;
-    const uint4 raw = row < seq ? ld128(src + row * st + c) : zero;
-    const bf16* x = reinterpret_cast<const bf16*>(&raw);
+struct Smem {
+  uint32_t base;
+  int* first;
+  __device__ __forceinline__ uint32_t res(int i) const { return base + i * tile_bytes<HD>(); }
+  __device__ __forceinline__ uint32_t stage(int s) const {
+    return base + (2 + 2 * s) * tile_bytes<HD>();
+  }
+  __device__ __forceinline__ uint32_t full(int s) const { return stage(STAGES) + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const { return full(STAGES + s); }
+  __device__ __forceinline__ uint32_t res_bar() const { return full(2 * STAGES); }
+};
+
+// The first visible key of the 64-key tile at k0 (>= T when it has none),
+// found by one warp: two ballots over the tile's keys.
+__device__ __forceinline__ int first_visible_key(const Params& p, int b, int k0) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lo = __ballot_sync(0xffffffffu, key_visible(p, b, k0 + lane));
+  const unsigned hi = __ballot_sync(0xffffffffu, key_visible(p, b, k0 + 32 + lane));
+  return lo ? k0 + __ffs(lo) - 1 : hi ? k0 + 31 + __ffs(hi) : p.T;
+}
+
+// Aligns the shared memory, initialises the barriers, fills first[kt] for
+// the kv tiles kt0 .. kt1 - 1 (one warp a tile) and syncs the block.
+template <int HD>
+__device__ __forceinline__ Smem<HD> smem_setup(unsigned char* raw, const Params& p, int b,
+                                               int kt0, int kt1) {
+  const uint32_t base = (smem_u32(raw) + 1023u) & ~1023u;
+  Smem<HD> sm{base, nullptr};
+  sm.first = reinterpret_cast<int*>(raw + (sm.res_bar() + 8 - smem_u32(raw)));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), NCONS);
+    }
+    mbar_init(sm.res_bar(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int kt = kt0 + (int)(threadIdx.x >> 5); kt < kt1; kt += WG_NT / 32)
+    sm.first[kt] = first_visible_key(p, b, kt * BK);
+  __syncthreads();
+  return sm;
+}
+
+// Ring position, the same sequence on the producer and the consumers.
+struct Pipe {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// Producer: the 64-row tile at row r0 of head h, batch b, as HD / 64 boxes
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int r0, int h, int b) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * LDT + r] = x[i];
-  }
+  for (int c = 0; c < HD / 64; ++c) tma_load_4d(dst + c * BOX, map, bar, c * 64, r0, h, b);
+}
+
+// Consumer: the byte offset in a [64, HD] tile of the k16 step kk along HD
+// (K-major operands: 32 bytes a step, the next box every four steps)
+__device__ __forceinline__ uint32_t kmajor_step(int kk) { return (kk >> 2) * BOX + (kk & 3) * 32; }
+
+// The accumulator's pairs (j, j + 1) of keys / queries 16 kk .. 16 kk + 15 as
+// the A operand of an m64nNk16 product: accumulator j of a thread is row
+// (warp * 16 + lane / 4 + 8 * ((j / 2) % 2)), column (j / 4) * 8 + (lane % 4)
+// * 2 + j % 2; the A fragment wants rows r, r + 8 at columns c, c + 8.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x)[N], int kk) {
+  a[0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
 }
 
 template <int HD>
-constexpr int dq_mma_smem_bytes() {
-  // Qs, dOs, Ks, Vs [64][HD + 8]; Kt [HD][64 + 8] bf16; lse, D, visibility [64]
-  return (4 * 64 * (HD + 8) + HD * (64 + 8)) * 2 + 3 * 64 * 4;
-}
-
-template <int HD>
-constexpr int dkv_mma_smem_bytes() {
-  // Ks, Vs, Qs, dOs [64][HD + 8]; Qt, dOt [HD][64 + 8] bf16; lse, D, visibility [64]
-  return (4 * 64 * (HD + 8) + 2 * HD * (64 + 8)) * 2 + 3 * 64 * 4;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(MMA_NT) flash_dq_mma_kernel(const Params p) {
-  constexpr int LDR = HD + 8;  // row pitch of row-major tiles: conflict-free 32-bit reads
-  constexpr int LDT = BK + 8;  // row pitch of the transposed K tile
-  constexpr int NS = BK / 8;   // score n-tiles (8 keys each)
-  constexpr int NO = HD / 8;   // output n-tiles (8 dims each)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Os = Qs + BQ * LDR;
-  bf16* Ks = Os + BQ * LDR;
-  bf16* Vs = Ks + BK * LDR;
-  bf16* Kt = Vs + BK * LDR;
-  float* row_lse = reinterpret_cast<float*>(Kt + HD * LDT);
-  float* row_dd = row_lse + BQ;
-  int* pm = reinterpret_cast<int*>(row_dd + BQ);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int g = (tid & 31) >> 2;  // fragment row group
-  const int tg = tid & 3;         // thread in group
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh - b * p.H;
+__global__ void __launch_bounds__(WG_NT, 2)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap to, const Params p) {
+  constexpr int TB = tile_bytes<HD>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int nt = (p.T + BQ - 1) / BQ;
+  // block order: the q tile slowest, then b, then the head (a GQA group's
+  // heads side by side); under causal masking the last q tile, which meets
+  // the most kv tiles, first
+  const int slot = blockIdx.x / (p.B * p.H);
+  const int qt = p.causal ? nt - 1 - slot : slot;
+  const int b = blockIdx.x / p.H % p.B;
+  const int h = blockIdx.x % p.H;
+  const int q0 = qt * BQ;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = blockIdx.x * BQ;
-  const int seq = p.T;
+  // kv tile kt carries a visible key for some row of this q tile iff its
+  // first visible key is at most limit; causal: kv tiles past qt never do
+  const int limit = p.causal ? min(q0 + BQ - 1, p.T - 1) : p.T - 1;
+  const int kt_end = p.causal ? qt + 1 : nt;
+  const Smem<HD> sm = smem_setup<HD>(smem_raw, p, b, 0, kt_end);
+  const int* first = sm.first;
 
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.skb + hk * p.skh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.svb + hk * p.svh;
-  stage_rows<HD>(Qs, static_cast<const bf16*>(p.q) + b * p.sqb + h * p.sqh, p.sqt, q0, seq);
-  stage_rows<HD>(Os, static_cast<const bf16*>(p.dout) + b * p.sob + h * p.soh, p.sot, q0, seq);
-  if (tid < BQ) {
-    const int row = q0 + tid;
-    const long long at = (long long)bh * seq + row;
-    row_lse[tid] = row < seq ? p.lse[at] : 0.f;
-    row_dd[tid] = row < seq ? p.dd[at] : 0.f;
+  if (threadIdx.x >= NCONS) {  // producer warp: one thread issues every load
+    if (threadIdx.x == NCONS) {
+      mbar_expect_tx(sm.res_bar(), 2 * TB);
+      load_tile<HD>(sm.res(0), &tq, sm.res_bar(), q0, h, b);
+      load_tile<HD>(sm.res(1), &to, sm.res_bar(), q0, h, b);
+      Pipe pipe;
+      for (int kt = 0; kt < kt_end; ++kt) {
+        if (first[kt] > limit) continue;
+        mbar_wait(sm.empty(pipe.stage), pipe.phase ^ 1u);
+        const uint32_t full = sm.full(pipe.stage), s = sm.stage(pipe.stage);
+        mbar_expect_tx(full, 2 * TB);
+        load_tile<HD>(s, &tk, full, kt * BK, hk, b);
+        load_tile<HD>(s + TB, &tv, full, kt * BK, hk, b);
+        pipe.advance();
+      }
+    }
+    return;
   }
 
-  const int r0 = warp * 16 + g;  // this thread's two query rows in the tile
-  const int qrow0 = q0 + r0;
-  float acc[NO][4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's rows r0, r0 + 8 of the tile
+  const int c0 = (lane & 3) * 2;           // and its column pairs c0 + 8 n
+  const long long bh = (long long)b * p.H + h;
+  int qrow[2];
+  float lse_r[2], dd_r[2];
 #pragma unroll
-  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    qrow[i] = q0 + r0 + 8 * i;
+    const bool real = qrow[i] < p.T;
+    lse_r[i] = real ? p.lse[bh * p.T + qrow[i]] : 0.f;
+    dd_r[i] = real ? p.dd[bh * p.T + qrow[i]] : 0.f;
+  }
+  float acc[HD / 2];
+#pragma unroll
+  for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
 
-  const int kv_end = p.causal ? min(seq, q0 + BQ) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done (and Qs, dOs stored)
-    stage_rows<HD>(Ks, kg, p.skt, k0, seq);
-    stage_rows<HD>(Vs, vg, p.svt, k0, seq);
-    stage_cols<HD>(Kt, kg, p.skt, k0, seq);
-    if (tid < BK) pm[tid] = key_visible(p, b, k0 + tid);
-    __syncthreads();
+  mbar_wait(sm.res_bar(), 0);
+  Pipe pipe;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (first[kt] > limit) continue;
+    const int k0 = kt * BK;
+    unsigned vis = 0;  // this thread's 16 key columns: 8 n + c0 + e at bit 2 n + e
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      vis |= (unsigned)key_visible(p, b, k0 + (i >> 1) * 8 + c0 + (i & 1)) << i;
+    mbar_wait(sm.full(pipe.stage), pipe.phase);
+    const uint32_t ks = sm.stage(pipe.stage), vs = ks + TB;
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    // S = Q K^T and dP = dO V^T: 64 q rows x 64 keys, K-major operands
+    float s[32], dp[32];
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const int c = kk * 16 + tg * 2;
-      const uint32_t qa0 = ld32(&Qs[r0 * LDR + c]), qa1 = ld32(&Qs[(r0 + 8) * LDR + c]);
-      const uint32_t qa2 = ld32(&Qs[r0 * LDR + c + 8]), qa3 = ld32(&Qs[(r0 + 8) * LDR + c + 8]);
-      const uint32_t oa0 = ld32(&Os[r0 * LDR + c]), oa1 = ld32(&Os[(r0 + 8) * LDR + c]);
-      const uint32_t oa2 = ld32(&Os[r0 * LDR + c + 8]), oa3 = ld32(&Os[(r0 + 8) * LDR + c + 8]);
+      const uint32_t off = kmajor_step(kk);
+      wgmma_ss(s, desc_sw128(sm.res(0) + off), desc_sw128(ks + off), kk > 0);
+      wgmma_ss(dp, desc_sw128(sm.res(1) + off), desc_sw128(vs + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+
+    // dS = p (dP - D) in place of s; j = 4 n + 2 i + e is row r0 + 8 i,
+    // column 8 n + c0 + e
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const bf16* kr = &Ks[(n * 8 + g) * LDR + c];
-        mma_bf16(s[n], qa0, qa1, qa2, qa3, ld32(kr), ld32(kr + 8));
-        const bf16* vr = &Vs[(n * 8 + g) * LDR + c];
-        mma_bf16(dp[n], oa0, oa1, oa2, oa3, ld32(vr), ld32(vr + 8));
-      }
+    for (int j = 0; j < 32; ++j) {
+      const int i = (j >> 1) & 1;
+      const int col = (j >> 2) * 8 + c0 + (j & 1);
+      const bool ok =
+          ((vis >> (2 * (j >> 2) + (j & 1))) & 1u) && (!p.causal || k0 + col <= qrow[i]);
+      const float pr = ok ? expf(s[j] * p.scale - lse_r[i]) : 0.f;
+      s[j] = pr * (dp[j] - dd_r[i]);
     }
 
-    // ds = p (dP - D); s[n][0..1] belong to row r0, s[n][2..3] to row r0 + 8
-    const float lse_r[2] = {row_lse[r0], row_lse[r0 + 8]};
-    const float dd_r[2] = {row_dd[r0], row_dd[r0 + 8]};
+    // dQ += round(dS) K: K read as stored ([keys][HD]: MN-major), 16 keys a step
+    uint32_t a[4][4];
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], s, kk);
+    fence_acc(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + tg * 2 + (e & 1);
-        const int qrow = qrow0 + (e >> 1) * 8;
-        const bool ok = pm[col] && (!p.causal || k0 + col <= qrow);
-        const float pr = ok ? expf(s[n][e] * p.scale - lse_r[e >> 1]) : 0.f;
-        s[n][e] = pr * (dp[n][e] - dd_r[e >> 1]);
-      }
-    }
-
-    // dQ += round(dS) K: the dS fragments of keys 16kk..16kk+15 are the A operand
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        const bf16* kr = &Kt[(j * 8 + g) * LDT + kk * 16 + tg * 2];
-        mma_bf16(acc[j], a0, a1, a2, a3, ld32(kr), ld32(kr + 8));
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], desc_sw128_mn(ks + kk * 2048, BOX), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(sm.empty(pipe.stage));
+    pipe.advance();
   }
 
   bf16* dq = static_cast<bf16*>(p.dq);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qrow0 + r * 8;
-    if (row < seq) {
-      const long long base = ((long long)bh * seq + row) * HD;
+  for (int i = 0; i < 2; ++i) {
+    if (qrow[i] < p.T) {
+      const long long at = (bh * p.T + qrow[i]) * HD + c0;
 #pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        *reinterpret_cast<uint32_t*>(&dq[base + j * 8 + tg * 2]) =
-            pack_bf16(acc[j][2 * r] * p.scale, acc[j][2 * r + 1] * p.scale);
-      }
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(&dq[at + n * 8]) =
+            pack_bf16(acc[4 * n + 2 * i] * p.scale, acc[4 * n + 2 * i + 1] * p.scale);
     }
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(MMA_NT) flash_dkv_mma_kernel(const Params p) {
-  constexpr int LDR = HD + 8;
-  constexpr int LDT = BQ + 8;
-  constexpr int NQ = QH / 8;  // score n-tiles per half (8 queries each)
-  constexpr int NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BK * LDR;
-  bf16* Qs = Vs + BK * LDR;
-  bf16* Os = Qs + BQ * LDR;
-  bf16* Qt = Os + BQ * LDR;
-  bf16* Ot = Qt + HD * LDT;
-  float* row_lse = reinterpret_cast<float*>(Ot + HD * LDT);
-  float* row_dd = row_lse + BQ;
-  int* pm = reinterpret_cast<int*>(row_dd + BQ);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int g = (tid & 31) >> 2;
-  const int tg = tid & 3;
-  const int bk = blockIdx.y;
-  const int b = bk / p.Hkv;
-  const int hk = bk - b * p.Hkv;
+__global__ void __launch_bounds__(WG_NT, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to, const Params p) {
+  constexpr int TB = tile_bytes<HD>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int nt = (p.T + BK - 1) / BK;
+  // block order: the kv tile slowest, then b, then the kv head; under causal
+  // masking the first kv tile, which meets the most q tiles, first
+  const int kt = blockIdx.x / (p.B * p.Hkv);
+  const int b = blockIdx.x / p.Hkv % p.B;
+  const int hk = blockIdx.x % p.Hkv;
+  const int k0 = kt * BK;
   const int rep = p.H / p.Hkv;
-  const int k0 = blockIdx.x * BK;
-  const int seq = p.T;
+  const long long bk = (long long)b * p.Hkv + hk;
+  const Smem<HD> sm = smem_setup<HD>(smem_raw, p, b, kt, kt + 1);
+  const int f = sm.first[kt];
 
-  stage_rows<HD>(Ks, static_cast<const bf16*>(p.k) + b * p.skb + hk * p.skh, p.skt, k0, seq);
-  stage_rows<HD>(Vs, static_cast<const bf16*>(p.v) + b * p.svb + hk * p.svh, p.svt, k0, seq);
-  if (tid < BK) pm[tid] = key_visible(p, b, k0 + tid);
+  if (f >= p.T) {  // no visible key in this kv tile: dK = dV = 0
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    const int rows = min(BK, p.T - k0);
+    for (int e = threadIdx.x; e < rows * (HD / 8); e += WG_NT) {
+      const long long at = (bk * p.T + k0 + e / (HD / 8)) * HD + (e % (HD / 8)) * 8;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(p.dk) + at) = zero;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(p.dv) + at) = zero;
+    }
+    return;
+  }
+  // q tiles before the one that holds key f see no key of this tile (causal)
+  const int qt0 = p.causal ? f / BQ : 0;
 
-  const int r0 = warp * 16 + g;  // this thread's two key rows in the tile
-  float dk[NO][4], dv[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  // q tiles wholly before this kv tile see none of its keys (causal)
-  const int q_start = p.causal ? (k0 / BQ) * BQ : 0;
-  for (int h = hk * rep; h < (hk + 1) * rep; ++h) {
-    const int bh = b * p.H + h;
-    const bf16* qg = static_cast<const bf16*>(p.q) + b * p.sqb + h * p.sqh;
-    const bf16* og = static_cast<const bf16*>(p.dout) + b * p.sob + h * p.soh;
-    for (int q0 = q_start; q0 < seq; q0 += BQ) {
-      __syncthreads();  // the previous tile's readers are done (and Ks, Vs stored)
-      stage_rows<HD>(Qs, qg, p.sqt, q0, seq);
-      stage_rows<HD>(Os, og, p.sot, q0, seq);
-      stage_cols<HD>(Qt, qg, p.sqt, q0, seq);
-      stage_cols<HD>(Ot, og, p.sot, q0, seq);
-      if (tid < BQ) {
-        const int row = q0 + tid;
-        const long long at = (long long)bh * seq + row;
-        row_lse[tid] = row < seq ? p.lse[at] : 0.f;
-        row_dd[tid] = row < seq ? p.dd[at] : 0.f;
+  if (threadIdx.x >= NCONS) {  // producer warp: one thread issues every load
+    if (threadIdx.x == NCONS) {
+      mbar_expect_tx(sm.res_bar(), 2 * TB);
+      load_tile<HD>(sm.res(0), &tk, sm.res_bar(), k0, hk, b);
+      load_tile<HD>(sm.res(1), &tv, sm.res_bar(), k0, hk, b);
+      Pipe pipe;
+      for (int h = hk * rep; h < (hk + 1) * rep; ++h) {
+        for (int qt = qt0; qt < nt; ++qt) {
+          mbar_wait(sm.empty(pipe.stage), pipe.phase ^ 1u);
+          const uint32_t full = sm.full(pipe.stage), s = sm.stage(pipe.stage);
+          mbar_expect_tx(full, 2 * TB);
+          load_tile<HD>(s, &tq, full, qt * BQ, h, b);
+          load_tile<HD>(s + TB, &to, full, qt * BQ, h, b);
+          pipe.advance();
+        }
       }
-      __syncthreads();
+    }
+    return;
+  }
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's keys k0 + r0, k0 + r0 + 8
+  const int c0 = (lane & 3) * 2;
+  int key[2], kvis[2];
 #pragma unroll
-      for (int half = 0; half < BQ; half += QH) {
-        // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries
-        float s[NQ][4], dp[NQ][4];
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + r0 + 8 * i;
+    kvis[i] = key_visible(p, b, key[i]);
+  }
+  float dk[HD / 2], dv[HD / 2];
 #pragma unroll
-        for (int n = 0; n < NQ; ++n)
+  for (int j = 0; j < HD / 2; ++j) dk[j] = dv[j] = 0.f;
+
+  mbar_wait(sm.res_bar(), 0);
+  Pipe pipe;
+  for (int h = hk * rep; h < (hk + 1) * rep; ++h) {
+    const float* lse = p.lse + ((long long)b * p.H + h) * p.T;
+    const float* ddh = p.dd + ((long long)b * p.H + h) * p.T;
+    for (int qt = qt0; qt < nt; ++qt) {
+      const int q0 = qt * BQ;
+      mbar_wait(sm.full(pipe.stage), pipe.phase);
+      const uint32_t qs = sm.stage(pipe.stage), os = qs + TB;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      for (int half = 0; half < 2; ++half) {
+        // this thread's 8 query columns: half * 32 + 8 n + c0 + e at 2 n + e
+        float lq[8], dq_[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int q = q0 + half * 32 + (i >> 1) * 8 + c0 + (i & 1);
+          lq[i] = q < p.T ? lse[q] : 0.f;
+          dq_[i] = q < p.T ? ddh[q] : 0.f;
+        }
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 32 queries, K-major operands
+        float s[16], dp[16];
+        wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
-          const int c = kk * 16 + tg * 2;
-          const uint32_t ka0 = ld32(&Ks[r0 * LDR + c]), ka1 = ld32(&Ks[(r0 + 8) * LDR + c]);
-          const uint32_t ka2 = ld32(&Ks[r0 * LDR + c + 8]);
-          const uint32_t ka3 = ld32(&Ks[(r0 + 8) * LDR + c + 8]);
-          const uint32_t va0 = ld32(&Vs[r0 * LDR + c]), va1 = ld32(&Vs[(r0 + 8) * LDR + c]);
-          const uint32_t va2 = ld32(&Vs[r0 * LDR + c + 8]);
-          const uint32_t va3 = ld32(&Vs[(r0 + 8) * LDR + c + 8]);
+          const uint32_t off = kmajor_step(kk);
+          wgmma_ss(s, desc_sw128(sm.res(0) + off), desc_sw128(qs + half * 32 * 128 + off),
+                   kk > 0);
+          wgmma_ss(dp, desc_sw128(sm.res(1) + off), desc_sw128(os + half * 32 * 128 + off),
+                   kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(s);
+        fence_acc(dp);
+
+        // P^T and dS^T; j = 4 n + 2 i + e is key r0 + 8 i, query column 8 n + c0 + e
 #pragma unroll
-          for (int n = 0; n < NQ; ++n) {
-            const bf16* qr = &Qs[(half + n * 8 + g) * LDR + c];
-            mma_bf16(s[n], ka0, ka1, ka2, ka3, ld32(qr), ld32(qr + 8));
-            const bf16* orr = &Os[(half + n * 8 + g) * LDR + c];
-            mma_bf16(dp[n], va0, va1, va2, va3, ld32(orr), ld32(orr + 8));
-          }
+        for (int j = 0; j < 16; ++j) {
+          const int i = (j >> 1) & 1;
+          const int col = 2 * (j >> 2) + (j & 1);
+          const int q = q0 + half * 32 + (j >> 2) * 8 + c0 + (j & 1);
+          const bool ok = kvis[i] && q < p.T && (!p.causal || key[i] <= q);
+          const float pr = ok ? expf(s[j] * p.scale - lq[col]) : 0.f;
+          s[j] = pr;
+          dp[j] = pr * (dp[j] - dq_[col]);
         }
 
-        // p and ds; element e of n-tile n: key r0 + (e >> 1) * 8, query
-        // half + n * 8 + tg * 2 + (e & 1)
+        // dV += round(P^T) dO and dK += round(dS^T) Q: dO and Q read as
+        // stored ([queries][HD]: MN-major), 16 queries a step
+        uint32_t pa[2][4], da[2][4];
 #pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = r0 + (e >> 1) * 8;
-            const int qi = half + n * 8 + tg * 2 + (e & 1);
-            const int qrow = q0 + qi;
-            const bool ok = pm[key] && qrow < seq && (!p.causal || k0 + key <= qrow);
-            const float pr = ok ? expf(s[n][e] * p.scale - row_lse[qi]) : 0.f;
-            s[n][e] = pr;
-            dp[n][e] = pr * (dp[n][e] - row_dd[qi]);
-          }
+        for (int kq = 0; kq < 2; ++kq) {
+          acc_to_a(pa[kq], s, kq);
+          acc_to_a(da[kq], dp, kq);
         }
-
-        // dV += round(P)^T dO, dK += round(dS)^T Q over this half's queries
+        fence_acc(dv);
+        fence_acc(dk);
+        wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < QH / 16; ++kk) {
-          const uint32_t pa0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-          const uint32_t pa1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-          const uint32_t pa2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-          const uint32_t pa3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-          const uint32_t da0 = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-          const uint32_t da1 = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-          const uint32_t da2 = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-          const uint32_t da3 = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-          const int col = half + kk * 16 + tg * 2;
-#pragma unroll
-          for (int j = 0; j < NO; ++j) {
-            const bf16* orr = &Ot[(j * 8 + g) * LDT + col];
-            mma_bf16(dv[j], pa0, pa1, pa2, pa3, ld32(orr), ld32(orr + 8));
-            const bf16* qr = &Qt[(j * 8 + g) * LDT + col];
-            mma_bf16(dk[j], da0, da1, da2, da3, ld32(qr), ld32(qr + 8));
-          }
+        for (int kq = 0; kq < 2; ++kq) {
+          const uint32_t off = (half * 32 + kq * 16) * 128;
+          wgmma_rs(dv, pa[kq], desc_sw128_mn(os + off, BOX), 1);
+          wgmma_rs(dk, da[kq], desc_sw128_mn(qs + off, BOX), 1);
         }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dv);
+        fence_acc(dk);
       }
+      mbar_arrive(sm.empty(pipe.stage));
+      pipe.advance();
     }
   }
 
   bf16* dkg = static_cast<bf16*>(p.dk);
   bf16* dvg = static_cast<bf16*>(p.dv);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + r0 + r * 8;
-    if (key < seq) {
-      const long long base = ((long long)bk * seq + key) * HD;
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] < p.T) {
+      const long long at = (bk * p.T + key[i]) * HD + c0;
 #pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        const long long at = base + j * 8 + tg * 2;
-        *reinterpret_cast<uint32_t*>(&dkg[at]) =
-            pack_bf16(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(&dvg[at]) = pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
+      for (int n = 0; n < HD / 8; ++n) {
+        const int j = 4 * n + 2 * i;
+        *reinterpret_cast<uint32_t*>(&dkg[at + n * 8]) =
+            pack_bf16(dk[j] * p.scale, dk[j + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(&dvg[at + n * 8]) = pack_bf16(dv[j], dv[j + 1]);
       }
     }
   }
@@ -714,6 +860,27 @@ cudaError_t launch(Kernel kernel, int threads, int bytes, dim3 grid, const Param
   return cudaGetLastError();
 }
 
+// The bf16 kernels: tensor maps of q, k, v and dO, then one block per
+// (tile, b, head).
+template <int HD, typename Kernel>
+cudaError_t launch_wgmma(Kernel kernel, int heads, const Params& p, cudaStream_t stream) {
+  const int d = HD;
+  const int nt = (p.T + BK - 1) / BK;
+  const int bytes = wgmma_smem_bytes<HD>(nt);
+  CUtensorMap tq, tk, tv, to;
+  int err = make_map_bf16_4d(&tq, p.q, p.B, p.H, p.T, d, p.sqb, p.sqh, p.sqt, BQ);
+  if (!err) err = make_map_bf16_4d(&tk, p.k, p.B, p.Hkv, p.T, d, p.skb, p.skh, p.skt, BK);
+  if (!err) err = make_map_bf16_4d(&tv, p.v, p.B, p.Hkv, p.T, d, p.svb, p.svh, p.svt, BK);
+  if (!err) err = make_map_bf16_4d(&to, p.dout, p.B, p.H, p.T, d, p.sob, p.soh, p.sot, BQ);
+  if (err) return static_cast<cudaError_t>(err);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)p.B * nt * heads;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, WG_NT, bytes, stream>>>(tq, tk, tv, to, p);
+  return cudaGetLastError();
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* dd, const int* mask, void* dq, void* dk,
                    void* dv, int B, int H, int Hkv, int T, const long long* s, int causal,
@@ -735,13 +902,11 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v, c
   const Params p = make_params(q, k, v, dout, lse, dd, mask, dq, nullptr, nullptr, B, H, Hkv, T,
                                strides, causal, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((T + BQ - 1) / BQ, B * H);
   if (is_bf16) {
-    if (d == 128)
-      return launch(flash_dq_mma_kernel<128>, MMA_NT, dq_mma_smem_bytes<128>(), grid, p, st);
-    if (d == 64)
-      return launch(flash_dq_mma_kernel<64>, MMA_NT, dq_mma_smem_bytes<64>(), grid, p, st);
+    if (d == 128) return launch_wgmma<128>(flash_dq_wgmma_kernel<128>, H, p, st);
+    if (d == 64) return launch_wgmma<64>(flash_dq_wgmma_kernel<64>, H, p, st);
   } else {
+    const dim3 grid((T + BQ - 1) / BQ, B * H);
     if (d == 128) return launch(flash_dq_f32_kernel<128>, NT, dq_smem_bytes<128>(), grid, p, st);
     if (d == 64) return launch(flash_dq_f32_kernel<64>, NT, dq_smem_bytes<64>(), grid, p, st);
   }
@@ -756,13 +921,11 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, 
   const Params p = make_params(q, k, v, dout, lse, dd, mask, nullptr, dk, dv, B, H, Hkv, T,
                                strides, causal, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((T + BK - 1) / BK, B * Hkv);
   if (is_bf16) {
-    if (d == 128)
-      return launch(flash_dkv_mma_kernel<128>, MMA_NT, dkv_mma_smem_bytes<128>(), grid, p, st);
-    if (d == 64)
-      return launch(flash_dkv_mma_kernel<64>, MMA_NT, dkv_mma_smem_bytes<64>(), grid, p, st);
+    if (d == 128) return launch_wgmma<128>(flash_dkv_wgmma_kernel<128>, Hkv, p, st);
+    if (d == 64) return launch_wgmma<64>(flash_dkv_wgmma_kernel<64>, Hkv, p, st);
   } else {
+    const dim3 grid((T + BK - 1) / BK, B * Hkv);
     if (d == 128)
       return launch(flash_dkv_f32_kernel<128>, NT, dkv_smem_bytes<128>(), grid, p, st);
     if (d == 64) return launch(flash_dkv_f32_kernel<64>, NT, dkv_smem_bytes<64>(), grid, p, st);

@@ -231,7 +231,8 @@ def _bwd_inputs(q, k, v, dout, lse, dd, padding_mask, name):
     dev = q.device
     if q.dtype == torch.bfloat16:
         _check_bf16_rows(q, k, v)
-        if not _rows_16_byte_aligned(dout):
+        # the bf16 kernels' tensor maps take no zero stride (an expanded dO)
+        if not _rows_16_byte_aligned(dout) or 0 in dout.stride():
             dout = dout.contiguous()
     elif dout.stride(-1) != 1:
         dout = dout.contiguous()

@@ -11,12 +11,13 @@ of which ends the run with a non-zero exit on any failure:
 2. build every kernel of the port from agilerl_tpu_torch/csrc (one nvcc per
    source, all started together), with each kernel's registers, shared
    memory and spills, and the count of wgmma (HGMMA) instructions in the
-   fused libraries where cuobjdump is present;
+   fused and flash backward libraries where cuobjdump is present;
 3. hold each kernel, forward and backward, against its plain PyTorch version
    on the card, over dtypes, masks, ragged lengths, head dims, GQA groups,
    the lse cotangent, vocab sizes and ragged row counts, with stated
-   tolerances, and the 3xTF32 operand split against its plain version bit
-   for bit;
+   tolerances (the bf16 flash backward also at T = 2048, with a kv tile of
+   padding, and twice for bit-identical results), and the 3xTF32 operand
+   split against its plain version bit for bit;
 4. slice 1's path at llama3-8b, full width and depth, seeded random
    weights: sampled and greedy ``generate`` for 4 ragged prompts x group 4,
    then ``token_logprobs`` (fused kernel + flash kernel) over prompt +
@@ -32,8 +33,13 @@ of which ends the run with a non-zero exit on any failure:
    through one tournament and one mutation round;
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
-   the 3xTF32 fused forward and dH: the tensor-core bound and the f32 FMA
-   bound, and the time of their operand preparation).
+   the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
+   FMA bound, and the forward's and dH's operand preparation; for flash,
+   the bytes read counted from the mask: only the rows and keys that meet a
+   visible key); the flash backward also on one unmasked causal row at
+   T = 2048, with SDPA's
+   backward on each of its backends that takes the inputs, in rounds with
+   the SM clock read after each.
 
 Prints a ``report: {...}`` line with every number the run took, then a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -132,14 +138,18 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def timed_abba(torch, fns, iters):
+def timed_abba(torch, fns, iters, clocks=None):
     """Mean ms of each named function over two rounds, the second in reverse
     order (a, b, c, c, b, a), so a drift of the card's clock during the
-    phase weighs on every function alike. Returns {name: [round1, round2]}."""
+    phase weighs on every function alike. Returns {name: [round1, round2]};
+    a list given as ``clocks`` gets nvidia-smi's SM clock, power and
+    temperature after each round."""
     rounds = {name: [] for name in fns}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
             rounds[name].append(cuda_ms(torch, fns[name], iters[name]))
+        if clocks is not None:
+            clocks.append(nvidia_smi_clocks())
     return rounds
 
 
@@ -296,9 +306,31 @@ def bwd_error(torch, got, want, dtype):
     return err, tol
 
 
+def flash_bwd_case(torch, tfa, worst, g, B, H, Hkv, T, d, dtype, mask, causal, with_lse, case):
+    """dQ and dK/dV kernels vs the plain backward on one case; returns (dk, dv)."""
+    q, k, v, dout, lse, dd = flash_bwd_inputs(torch, tfa, B, H, Hkv, T, d, dtype, mask, causal,
+                                              with_lse, g)
+    dq = tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, causal)
+    dk, dv = tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, causal)
+    want = tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        err, tol = bwd_error(torch, got, ref, dtype)
+        check(bool(torch.isfinite(got.float()).all()), f"flash backward non-finite {name}: {case}")
+        check(err <= tol, f"flash {name} kernel disagrees ({err} > {tol}): {case}")
+        errs[name] = (err, tol)
+    log(f"  flash bwd {case}: " + ", ".join(
+        f"{n} {e:.2e} (tol {t:.1e})" for n, (e, t) in errs.items()))
+    worst[case] = {n: e for n, (e, _) in errs.items()}
+    return dk, dv
+
+
 def check_flash_bwd(torch, tfa, report):
     """dQ and dK/dV kernels vs the plain backward over dtype x causal x mask x
-    (ragged T, head_dim, GQA group of 4 or 2) x lse cotangent."""
+    (ragged T, head_dim, GQA group of 4 or 2) x lse cotangent; then the bf16
+    kernels at T = 2048 and with a kv tile of padding, and twice at the learn
+    shape for bit-identical results."""
     g = torch.Generator(device="cuda").manual_seed(6)
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -312,27 +344,46 @@ def check_flash_bwd(torch, tfa, report):
                         mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
                         mask[1, :37] = 0
                         mask[2, :T - 5] = 0
-                    q, k, v, dout, lse, dd = flash_bwd_inputs(torch, tfa, B, H, Hkv, T, d, dtype,
-                                                              mask, causal, with_lse, g)
-                    dq = tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, causal)
-                    dk, dv = tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, causal)
-                    want = tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, causal)
-                    torch.cuda.synchronize()
-                    case = (f"{str(dtype)[6:]} causal={causal} mask={masked} T={T} d={d} "
-                            f"GQA {H}/{Hkv} lse_cotangent={with_lse}")
-                    errs = {}
-                    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-                        err, tol = bwd_error(torch, got, ref, dtype)
-                        check(bool(torch.isfinite(got.float()).all()),
-                              f"flash backward non-finite {name}: {case}")
-                        check(err <= tol, f"flash {name} kernel disagrees ({err} > {tol}): {case}")
-                        errs[name] = (err, tol)
-                    log(f"  flash bwd {case}: " + ", ".join(
-                        f"{n} {e:.2e} (tol {t:.1e})" for n, (e, t) in errs.items()))
-                    worst[case] = {n: e for n, (e, _) in errs.items()}
+                    flash_bwd_case(torch, tfa, worst, g, B, H, Hkv, T, d, dtype, mask, causal,
+                                   with_lse, f"{str(dtype)[6:]} causal={causal} mask={masked} "
+                                   f"T={T} d={d} GQA {H}/{Hkv} lse_cotangent={with_lse}")
+    # T = 2048: 32 tile products per output tile, 4 heads per GQA group; and a
+    # kv tile whose keys are all padding (row 1: keys 64..127) beside left
+    # padding past two tiles (row 0)
+    for causal in (True, False):
+        for T, d, H, Hkv, hole in ((2048, 128, 8, 2, False), (2048, 64, 4, 1, False),
+                                   (200, 128, 4, 2, True)):
+            mask = None
+            if hole:
+                mask = torch.ones(2, T, dtype=torch.int32, device="cuda")
+                mask[0, :150] = 0
+                mask[1, 64:128] = 0
+            case = f"bfloat16 causal={causal} T={T} d={d} GQA {H}/{Hkv}" + (
+                " masked kv tile" if hole else "")
+            dk, dv = flash_bwd_case(torch, tfa, worst, g, 2, H, Hkv, T, d, torch.bfloat16, mask,
+                                    causal, False, case)
+            if hole:
+                check(not dk[1, :, 64:128].any() and not dv[1, :, 64:128].any(),
+                      f"the all-padding kv tile got a non-zero dK/dV: {case}")
+    # determinism: two launches at the learn step's shape and padding
+    B, T = 16, max(PROMPT_LENS) + MAX_NEW_TOKENS
+    mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    for b in range(B):
+        mask[b, :max(PROMPT_LENS) - PROMPT_LENS[b // GROUP_SIZE]] = 0
+    q, k, v, dout, lse, dd = flash_bwd_inputs(torch, tfa, B, 32, 8, T, 128, torch.bfloat16,
+                                              mask, True, False, g)
+    runs = [(tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True),
+             *tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "two launches of the bf16 flash backward differ")
+    log("  flash bwd bf16 [16, 32/8, 320, 128], learn padding: two launches bit-identical "
+        "(dQ, dK, dV)")
     log("  flash bwd tolerances: f32 5e-4 (summation order); bf16 1 % of the plain "
         "output's max (bf16 rounding of the output and of p / dS)")
     report["flash_bwd_checks"] = worst
+    report["flash_bwd_deterministic"] = True
 
 
 def check_fused_bwd(torch, tfl, report, n_rows, d_model):
@@ -772,7 +823,10 @@ def time_flash(torch, F, tfa, cfg, full_mask, launches, report):
     n = mask.sum(dim=1).double()
     pairs = float((n * (n + 1) / 2).sum()) * H  # (query, visible key) pairs, real rows
     flops = 4.0 * d * pairs
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * (mask.numel() + lse.numel())
+    # reads: Q of the rows that see a key, K and V of the visible keys;
+    # writes: the output and lse in full
+    nbytes = flash_read_bytes(torch, B, T, mask, H * 2 * d, Hkv * 2 * 2 * d) + (
+        2 * q.numel() + 4 * lse.numel())
     b_ms, b_by = bound(flops, nbytes, "bf16")
     log(f"  flash [B={B}, H={H}/{Hkv}, T={T}, d={d}] bf16: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -820,6 +874,17 @@ def time_fused(torch, F, tfl, cfg, n_rows, launches, report):
             "bound_f32_fma_ms": fma_ms, "prep_ms": prep_ms}
 
 
+def flash_read_bytes(torch, B, T, mask, row_bytes, key_bytes):
+    """Bytes a causal flash kernel must read: `row_bytes` for each query row
+    that sees a visible key (a row that sees none needs no input: its p is
+    0), `key_bytes` for each visible key, and the mask."""
+    if mask is None:
+        return B * T * (row_bytes + key_bytes)
+    rows = int((mask.cumsum(dim=1) > 0).sum())
+    keys = int((mask > 0).sum())
+    return rows * row_bytes + keys * key_bytes + 4 * mask.numel()
+
+
 def visible_pairs(torch, mask, H):
     """(query, visible key) pairs over the real rows of a left-padded causal
     batch, for every query head: the work the data needs."""
@@ -827,14 +892,35 @@ def visible_pairs(torch, mask, H):
     return float((n * (n + 1) / 2).sum()) * H
 
 
-def time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report):
-    """dQ and dK/dV at the learn shapes; the plain backward and SDPA's
-    backward each compute dQ, dK and dV together (one number, on both rows)."""
-    B, T = full_mask.shape
-    H, Hkv, d = cfg.n_head, cfg.kv_heads, cfg.head_dim
-    g = torch.Generator(device="cuda").manual_seed(8)
-    mask = full_mask.to(torch.int32)
-    q, k, v, dout, lse, dd = flash_bwd_inputs(torch, tfa, B, H, Hkv, T, d, cfg.dtype, mask,
+def sdpa_backward(torch, F, q, k, v, dout, backends, **kw):
+    """SDPA's backward (dQ, dK, dV of repeated K/V) on each named backend that
+    takes these inputs: {backend name: callable}. The forward runs under
+    ``sdpa_kernel`` so its autograd node is that backend's backward."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rep = q.shape[1] // k.shape[1]
+    calls = {}
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in
+                      (q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
+        for name in backends:
+            try:
+                with sdpa_kernel(getattr(SDPBackend, name)):
+                    out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+                    torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True)
+                    torch.cuda.synchronize()
+            except RuntimeError as e:
+                log(f"  SDPA backend {name} does not take these inputs: {str(e)[:120]}")
+                continue
+            calls[name] = (lambda out=out: torch.autograd.grad(out, (qg, kg, vg), dout,
+                                                               retain_graph=True))
+    return calls
+
+
+def flash_bwd_row(torch, F, tfa, B, H, Hkv, T, d, mask, g, backends, sdpa_kw, iters):
+    """Kernels, plain backward and SDPA's backward on each backend, timed in
+    two rounds with the SM clock after each; returns the numbers of one row."""
+    q, k, v, dout, lse, dd = flash_bwd_inputs(torch, tfa, B, H, Hkv, T, d, torch.bfloat16, mask,
                                               True, False, g)
     dq = tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True)
     dk, dv = tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True)
@@ -842,44 +928,78 @@ def time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report):
     torch.cuda.synchronize()
     errs = {}
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-        errs[name], tol = bwd_error(torch, got, ref, cfg.dtype)
-        check(errs[name] <= tol, f"flash {name} at the learn shape disagrees: {errs[name]}")
-    rep = H // Hkv
-    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
-    sdpa_mask = causal[None, None] & mask.bool()[:, None, None, :]
-    with torch.enable_grad():
-        qg, kg, vg = (t.detach().requires_grad_(True) for t in
-                      (q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
-        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask)
-        rounds = timed_abba(torch, {
-            "dq": lambda: tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True),
-            "dkv": lambda: tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True),
-            "plain": lambda: tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask,
-                                                               True),
-            "library": lambda: torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True),
-        }, {"dq": 10, "dkv": 10, "plain": 3, "library": 10})
+        errs[name], tol = bwd_error(torch, got, ref, torch.bfloat16)
+        check(errs[name] <= tol, f"flash {name} at [{B}, {H}/{Hkv}, {T}, {d}] disagrees: "
+              f"{errs[name]}")
+    del dq, dk, dv, want
+    fns = {
+        "dq": lambda: tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True),
+        "dkv": lambda: tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True),
+        "plain": lambda: tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, True),
+    }
+    sdpa = sdpa_backward(torch, F, q, k, v, dout, backends, **sdpa_kw)
+    fns.update({f"sdpa_{n}": f for n, f in sdpa.items()})
+    clocks = []
+    rounds = timed_abba(torch, fns, {n: iters.get(n, iters["default"]) for n in fns}, clocks)
     ms = {n: sum(r) / 2 for n, r in rounds.items()}
-    pairs = visible_pairs(torch, mask, H)
-    io = 2 * (q.numel() + k.numel() + v.numel() + dout.numel()) + 4 * (2 * lse.numel()
-                                                                       + mask.numel())
+    lib = min(sdpa, key=lambda n: ms[f"sdpa_{n}"]) if sdpa else None
+    if mask is None:
+        pairs = B * H * T * (T + 1) / 2
+    else:
+        pairs = visible_pairs(torch, mask, H)
+    # Q, dO, lse and D of each row; K and V of each key
+    io = flash_read_bytes(torch, B, T, mask, H * (2 * 2 * d + 2 * 4), Hkv * 2 * 2 * d)
+    row = dict(shape=[B, H, Hkv, T, d], masked=mask is not None, pairs=pairs,
+               rounds_ms=rounds, ms=ms, clocks=clocks, errors=errs, sdpa_backend=lib,
+               sdpa_ms=ms[f"sdpa_{lib}"] if lib else None,
+               bounds={})
+    for name, flops, nbytes in (("dq", 6.0 * d * pairs, io + 2 * q.numel()),
+                                ("dkv", 8.0 * d * pairs, io + 4 * k.numel())):
+        row["bounds"][name] = bound(flops, nbytes, "bf16") + (flops, nbytes)
+    b_dq, b_dkv = row["bounds"]["dq"][0], row["bounds"]["dkv"][0]
+    log(f"  flash bwd [B={B}, H={H}/{Hkv}, T={T}, d={d}] bf16 "
+        f"{'left-padded' if mask is not None else 'unmasked'} causal: dQ {ms['dq']:.3f} ms "
+        f"(rounds {rounds['dq'][0]:.3f}/{rounds['dq'][1]:.3f}, bound {b_dq:.4f}), dK/dV "
+        f"{ms['dkv']:.3f} ms (rounds {rounds['dkv'][0]:.3f}/{rounds['dkv'][1]:.3f}, bound "
+        f"{b_dkv:.4f}), sum {ms['dq'] + ms['dkv']:.3f} ms; plain (dQ+dK+dV) {ms['plain']:.3f} ms; "
+        + ", ".join(f"SDPA backward [{n}] {ms['sdpa_' + n]:.3f} ms (rounds "
+                    f"{rounds['sdpa_' + n][0]:.3f}/{rounds['sdpa_' + n][1]:.3f})" for n in sdpa)
+        + f"; SM clock / power / temperature after each round: {clocks}")
+    return row
+
+
+def time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report):
+    """dQ and dK/dV at the learn shapes (with the learn step's left padding)
+    and on one unmasked causal row at T = 2048; the plain backward and SDPA's
+    backward each compute dQ, dK and dV together (one number, on both rows).
+    SDPA runs on each backend that takes the inputs (a boolean mask rules out
+    its flash backend); the yardstick is the fastest."""
+    B, T = full_mask.shape
+    H, Hkv, d = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(8)
+    mask = full_mask.to(torch.int32)
+    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
+    learn = flash_bwd_row(torch, F, tfa, B, H, Hkv, T, d, mask, g,
+                          ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION"),
+                          dict(attn_mask=causal[None, None] & mask.bool()[:, None, None, :]),
+                          {"default": 10, "plain": 3})
+    long_row = flash_bwd_row(torch, F, tfa, 4, H, Hkv, 2048, d, None, g,
+                             ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"),
+                             dict(is_causal=True), {"default": 5, "plain": 1})
     entries = []
-    for name, flops, nbytes, replaces in (
-            ("flash_attention_dq", 6.0 * d * pairs, io + 2 * q.numel(), 94),
-            ("flash_attention_dkv", 8.0 * d * pairs, io + 4 * k.numel(), 141)):
-        b_ms, b_by = bound(flops, nbytes, "bf16")
+    for name, replaces in (("flash_attention_dq", 94), ("flash_attention_dkv", 141)):
         key = "dq" if name.endswith("dq") else "dkv"
+        errs = learn["errors"]
         err = errs["dq"] if key == "dq" else max(errs["dk"], errs["dv"])
-        log(f"  {name} [B={B}, H={H}/{Hkv}, T={T}, d={d}] bf16: kernel {ms[key]:.3f} ms, plain "
-            f"(dQ+dK+dV) {ms['plain']:.3f} ms, SDPA backward (dQ+dK+dV) {ms['library']:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        b_ms, b_by, _, _ = learn["bounds"][key]
         entries.append({"name": name, "route": "cuda",
                         "source": "agilerl_tpu_torch/csrc/flash_attention_bwd.cu",
                         "replaces": f"agilerl_tpu/ops/flash_attention_vjp.py:{replaces}",
-                        "launches": launches[name], "max_abs_err": err, "ms": ms[key],
-                        "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": ms["library"]})
-    report["flash_bwd_timing"] = dict(shape=[B, H, Hkv, T, d], pairs=pairs, rounds_ms=rounds,
-                                      errors=errs, clocks=nvidia_smi_clocks())
+                        "launches": launches[name], "max_abs_err": err, "ms": learn["ms"][key],
+                        "plain_ms": learn["ms"]["plain"], "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": learn["sdpa_ms"], "library": f"SDPA backward "
+                        f"[{learn['sdpa_backend']}] (dQ+dK+dV)"})
+    report["flash_bwd_timing"] = dict(learn=learn, causal_2048=long_row)
     return entries
 
 
@@ -925,15 +1045,14 @@ def time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report):
     for key, out_numel, replaces in (("dh", n_rows * D, 95), ("dw", D * V, 119)):
         nbytes = 4.0 * (n_rows * D + D * V + out_numel) + 12.0 * n_rows
         name = f"fused_logprob_{key}"
-        extra = {}
-        if key == "dh":  # 3xTF32 on the tensor cores
-            b_ms, b_by, fma_ms = tf32x3_bounds(flops, nbytes)
-            extra = {"bound_f32_fma_ms": fma_ms, "prep_ms": ms["prep_dh"]}
-            how = (f"3xTF32 on the tensor cores; {fma_ms:.2f} ms on f32 FMAs; operand "
-                   f"preparation {ms['prep_dh']:.2f} ms of the kernel time")
-        else:  # f32 FMAs
-            b_ms, b_by = bound(flops, nbytes, "f32")
-            how = "f32 FMAs"
+        # the least time: the work in 3xTF32 on the tensor cores (dW itself
+        # still runs on f32 FMAs; its FMA bound is kept beside it)
+        b_ms, b_by, fma_ms = tf32x3_bounds(flops, nbytes)
+        extra = {"bound_f32_fma_ms": fma_ms}
+        how = f"3xTF32 on the tensor cores; {fma_ms:.2f} ms on f32 FMAs"
+        if key == "dh":
+            extra["prep_ms"] = ms["prep_dh"]
+            how += f"; operand preparation {ms['prep_dh']:.2f} ms of the kernel time"
         log(f"  {name} [N={n_rows}, D={D}, V={V}] f32: kernel {ms[key]:.2f} ms, plain "
             f"{ms['plain_' + key]:.2f} ms, cuBLAS GEMM + cross_entropy backward "
             f"{ms['library_' + key]:.2f} ms, bound {b_ms:.2f} ms ({b_by}, {how})")
@@ -987,7 +1106,8 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {n}: {line.strip()}")
-    report["hgmma"] = wgmma_counts(_build, ["fused_logprob_fwd", "fused_logprob_bwd"])
+    report["hgmma"] = wgmma_counts(_build, ["fused_logprob_fwd", "fused_logprob_bwd",
+                                            "flash_attention_bwd"])
 
     log("phase 3: kernels vs their plain versions on the card")
     check_split(torch, tfl, report)

@@ -190,6 +190,69 @@ def test_flash_bwd_kernels_match_plain(dtype, causal, pad_rows, strided, T, d, H
         _close(got, want, dtype, what)
 
 
+# bf16 backward cases of the wgmma kernels beyond the grid above: long T
+# (accumulation over 32 tile products per output tile, 4 heads per GQA
+# group), a kv tile with every key masked (dK/dV writes zeros, dQ skips it)
+# beside interior and left padding, first visible keys on the edge of the
+# skip rule, and the model's strided transpose(1, 2)
+# views at llama3-8b's GQA 32/8 with the learn step's left padding.
+BF16_BWD_CASES = {
+    "T2048_d128": dict(B=1, H=8, Hkv=2, T=2048, d=128, pads=None, strided=False),
+    "T2048_d64": dict(B=1, H=4, Hkv=1, T=2048, d=64, pads=None, strided=False),
+    "masked_kv_tile": dict(B=2, H=4, Hkv=2, T=200, d=128, pads=(150, 0), strided=False,
+                           hole=(64, 128)),
+    # first visible keys on a q tile's last row (63, 127) and only the last key
+    "first_key_on_tile_edges": dict(B=3, H=4, Hkv=2, T=200, d=64, pads=(63, 199, 127),
+                                    strided=False),
+    "model_views_gqa_32_8": dict(B=4, H=32, Hkv=8, T=320, d=128, pads=(192, 128, 56, 0),
+                                 strided=True),
+}
+
+
+def _bf16_bwd_case(name, causal, seed=0):
+    c = BF16_BWD_CASES[name]
+    q, k, v, mask = _flash_case(c["B"], c["H"], c["Hkv"], c["T"], c["d"], torch.bfloat16,
+                                c["pads"], c["strided"], seed)
+    if "hole" in c:  # row 1: keys 64..127, one whole kv tile, are padding
+        mask[1, c["hole"][0]:c["hole"][1]] = 0
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, causal)
+    dout = torch.randn(out.shape, device="cuda", generator=g).to(torch.bfloat16)
+    dd = (dout.float() * out.float()).sum(-1).contiguous()
+    return q, k, v, mask, dout, lse, dd
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", list(BF16_BWD_CASES))
+def test_flash_bwd_bf16_long_masked_and_model_views(name, causal):
+    q, k, v, mask, dout, lse, dd = _bf16_bwd_case(name, causal)
+    dq = tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, causal)
+    dk, dv = tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, causal)
+    rq, rk, rv = tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, causal)
+    torch.cuda.synchronize()
+    for got, want, what in ((dq, rq, "dq"), (dk, rk, "dk"), (dv, rv, "dv")):
+        assert torch.isfinite(got.float()).all(), what
+        _close(got, want, torch.bfloat16, f"{name} {what}")
+    if "hole" in BF16_BWD_CASES[name]:  # the all-padding kv tile gets exact zeros
+        assert not dk[1, :, 64:128].any() and not dv[1, :, 64:128].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+def test_flash_bwd_bf16_is_deterministic():
+    """Two launches give bit-identical dQ, dK and dV: every output tile is
+    summed by one block in a fixed order (no atomics)."""
+    q, k, v, mask, dout, lse, dd = _bf16_bwd_case("model_views_gqa_32_8", True)
+    runs = [(tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True),
+             *tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.usefixtures("cuda_only")
 @pytest.mark.parametrize("N,V,temperature", [(300, 50_257, 1.0), (300, 50_257, 1.7),
