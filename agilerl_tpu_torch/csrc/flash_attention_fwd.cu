@@ -13,40 +13,59 @@
 //
 // Translation. The TPU grid (b*h, q block, kv block) runs the kv axis in order
 // and carries (m, l, acc) in VMEM scratch from one grid step to the next.
-// Here one thread block owns one (b*h, 64-row q tile) and walks the kv tiles
-// in a loop; (m, l, acc) stay in registers. The TPU kernel's causal skip of
-// kv blocks wholly in the future becomes the loop's bound. K and V tiles are
-// staged through shared memory. GQA: the block reads KV head h / (H / Hkv) in
-// place, so the caller need not repeat K/V (a repeated copy, Hkv == H, works
-// too).
+// Here one thread block owns one (b, head, 64-row q tile) and walks the kv
+// tiles in a loop; (m, l, acc) stay in registers. GQA: the block reads KV
+// head h / (H / Hkv) in place, so the caller need not repeat K/V (a repeated
+// copy, Hkv == H, works too).
 //
 // Two kernels, chosen by the input type:
-// - bf16 (the model's path): tensor cores. Each of 4 warps owns 16 query rows
-//   and runs mma.sync m16n8k16 (bf16 in, f32 accumulate) for S = Q K^T and
-//   for O += P V. The S accumulator fragment is laid out as the A operand of
-//   the P V product, so P goes from registers to the second product without
-//   touching shared memory (rounded to bf16 on the way, as the TPU kernel's
-//   p.astype(v.dtype)). V is stored transposed in shared memory so that each
-//   B-operand register is one 32-bit read.
+// - bf16 (the model's path): wgmma fed by TMA, built from the pieces of the
+//   flash backward (csrc/flash_wgmma.cuh). A block is one consumer warpgroup
+//   (64 query rows) and one producer warp, two blocks an SM. The producer
+//   loads the Q tile once and streams each kv tile's K and V through a ring
+//   of two stages, K and V each on its own full/empty mbarriers, so that K
+//   is freed once S is done and V once P V is. q, k and v are read as 4-D
+//   tensor maps (d, T, heads, B) over the callers' strided [B, H, T, d]
+//   views; rows at or past T arrive as zeros. S = Q K^T runs as wgmma
+//   m64n64k16 with both operands K-major from swizzled shared memory; p goes
+//   from the S accumulator, rounded to bf16, straight in as the register A
+//   operand of O += P V (m64n{d}k16), whose B operand V is read as stored
+//   ([keys][d]: MN-major) through wgmma's transpose bit: no transposed copy
+//   of V. The consumer issues tile j's S and then tile j - 1's P V, and runs
+//   tile j's softmax while the tensor cores do that P V (the rescale of O
+//   waits for it). Scores are kept in log2 units (exp2).
+//   Tiles without a visible key are skipped by the backward's rule: each
+//   block finds the first visible key of the kv tiles it may meet (one warp
+//   ballot per 64 keys of the mask) and visits a kv tile only when that key
+//   is at most its last row (causal) or below T. Blocks run longest first:
+//   under causal masking the last q tile, which meets the most kv tiles,
+//   with a GQA group's heads side by side.
+//   A masked score gives p = 0 exactly (not exp(-1e30 - m)), so a query row
+//   with no visible key ends with l = 0 and m = -1e30: out = 0 and lse =
+//   -1e30 + log(1e-30), finite, whether or not its q tile visits any tile.
+//   Rows with a visible key get the TPU kernel's result.
 // - f32: the products as f32 FMAs from shared memory (no tensor cores: TF32
 //   would lose the f32 inputs' precision), 256 threads in a 16 x 16 grid.
+//   It visits every kv tile up to the causal bound; a row with no visible key
+//   holds the mean of v over the masked keys it met (finite).
 //
 // What bounds it on the H100. The work is 4*T^2*d multiply-adds per (b, h),
 // halved by the causal skip; the bytes are q, k, v, out once. At the GRPO
 // scoring shapes (T ~ 320, d = 128) that is about 100 operations per byte:
 // under the bf16 tensor-core ridge (~295), so the card's bound is memory. The
-// bf16 kernel's own limits are its per-block setup at small T (a q tile
-// meets at most T / 64 kv tiles) and mma.sync instead of wgmma; TMA and wgmma
-// are the next step. PERF.md holds its time beside the bound.
+// bf16 kernel's own limits are the short kv loop at small T (a q tile meets
+// at most T / 64 kv tiles, so the ring barely fills and each block pays its
+// setup, Q load and first K/V load in full) and, at long T, latency: two
+// 64-row warpgroups an SM (registers allow no third) and 64 x 64 score
+// tiles leave the tensor cores idle between dependent steps. PERF.md holds
+// its time beside the bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_wgmma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BK = 64;    // keys per kv tile
+using namespace flash;
+
 constexpr float NEG = -1e30f;
 
 struct Params {
@@ -62,196 +81,185 @@ struct Params {
   float scale;
 };
 
-// ------------------------------ bf16: tensor cores ------------------------- //
-
-constexpr int MMA_NT = 128;  // 4 warps x 16 query rows
+// ------------------------------ bf16: wgmma -------------------------------- //
 
 template <int HD>
-constexpr int mma_smem_bytes() {
-  // Qs [BQ][HD + 8], Ks [BK][HD + 8], Vt [HD][BK + 8] bf16, then BK ints
-  return (BQ * (HD + 8) + BK * (HD + 8) + HD * (BK + 8)) * 2 + BK * 4;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 16 bytes (8 bf16) from global memory; the wrapper checks the alignment
-__device__ __forceinline__ uint4 ld128(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(MMA_NT) flash_fwd_mma_kernel(const Params p) {
-  constexpr int LDQ = HD + 8;  // row pitch (bf16) of Qs/Ks: conflict-free 32-bit reads
-  constexpr int LDV = BK + 8;  // row pitch of Vt
-  constexpr int NS = BK / 8;   // score n-tiles per warp (8 keys each)
-  constexpr int NO = HD / 8;   // output n-tiles (8 dims each)
-  constexpr int C8 = HD / 8;   // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LDQ;
-  __nv_bfloat16* Vt = Ks + BK * LDQ;
-  int* pm = reinterpret_cast<int*>(Vt + HD * LDV);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // fragment row group
-  const int tg = lane & 3;   // thread in group
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh - b * p.H;
+__global__ void __launch_bounds__(WG_NT, 2)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const Params p) {
+  constexpr int TB = tile_bytes<HD>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int nt = (p.T + BK - 1) / BK;
+  // block order: the q tile slowest, then b, then the head (a GQA group's
+  // heads side by side); under causal masking the last q tile, which meets
+  // the most kv tiles, first
+  const int slot = blockIdx.x / (p.B * p.H);
+  const int qt = p.causal ? nt - 1 - slot : slot;
+  const int b = blockIdx.x / p.H % p.B;
+  const int h = blockIdx.x % p.H;
+  const int q0 = qt * BQ;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = blockIdx.x * BQ;
-  const int seq = p.T;
+  // kv tile kt carries a visible key for some row of this q tile iff its
+  // first visible key is at most limit; causal: kv tiles past the q tile's
+  // last row never do
+  const int limit = p.causal ? min(q0 + BQ - 1, p.T - 1) : p.T - 1;
+  const int kt_end = p.causal ? qt + 1 : nt;
+  const Smem<HD, 1, true> sm = smem_setup<HD, 1, true>(smem_raw, p.mask, p.T, b, 0, kt_end);
+  const int* first = sm.first;
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.sqb + h * p.sqh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.skb + hk * p.skh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.svb + hk * p.svh;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int e = tid; e < BQ * C8; e += MMA_NT) {
-    const int r = e / C8, c = (e % C8) * 8;
-    const int row = q0 + r;
-    *reinterpret_cast<uint4*>(&Qs[r * LDQ + c]) = row < seq ? ld128(qg + row * p.sqt + c) : zero;
+  if (threadIdx.x >= NCONS) {  // producer warp: one thread issues every load
+    if (threadIdx.x == NCONS) {
+      mbar_expect_tx(sm.res_bar(), TB);
+      load_tile<HD>(sm.res(0), &tq, sm.res_bar(), q0, h, b);
+      Pipe pipe;  // K on full / empty, V on full_b / empty_b
+      for (int kt = 0; kt < kt_end; ++kt) {
+        if (first[kt] > limit) continue;
+        const uint32_t s = sm.stage(pipe.stage);
+        mbar_wait(sm.empty(pipe.stage), pipe.phase ^ 1u);
+        mbar_expect_tx(sm.full(pipe.stage), TB);
+        load_tile<HD>(s, &tk, sm.full(pipe.stage), kt * BK, hk, b);
+        mbar_wait(sm.empty_b(pipe.stage), pipe.phase ^ 1u);
+        mbar_expect_tx(sm.full_b(pipe.stage), TB);
+        load_tile<HD>(s + TB, &tv, sm.full_b(pipe.stage), kt * BK, hk, b);
+        pipe.advance();
+      }
+    }
+    return;
   }
 
-  const int r0 = warp * 16 + g;  // this thread's two query rows in the tile
-  const int qrow0 = q0 + r0, qrow1 = qrow0 + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's rows r0, r0 + 8 of the tile
+  const int c0 = (lane & 3) * 2;           // and its column pairs c0 + 8 n
+  const auto next_tile = [&](int kt) {
+    while (kt < kt_end && first[kt] > limit) ++kt;
+    return kt;
+  };
+  const long long bh = (long long)b * p.H + h;
+  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
+  // scores in log2 units: p = exp2(s * scale * log2(e) - m)
+  const float scale2 = p.scale * 1.4426950408889634f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  float o[NO][4];
+  float o[HD / 2];
 #pragma unroll
-  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
+  float s[32];
+  uint32_t a[4][4];  // P of the tile whose P V is pending, as the A operand
+  Pipe pending;      // that tile's place in the ring
+  bool has_pending = false;
 
-  const int kv_end = p.causal ? min(seq, q0 + BQ) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done (and Qs stored)
-    for (int e = tid; e < BK * C8; e += MMA_NT) {
-      const int r = e / C8, c = (e % C8) * 8;
-      const int key = k0 + r;
-      *reinterpret_cast<uint4*>(&Ks[r * LDQ + c]) = key < seq ? ld128(kg + key * p.skt + c) : zero;
-    }
-    // V transposed: consecutive threads take consecutive keys, so the 16-bit
-    // stores into a row of Vt are conflict-free
-    for (int e = tid; e < BK * C8; e += MMA_NT) {
-      const int r = e % BK, c = (e / BK) * 8;
-      const int key = k0 + r;
-      const uint4 raw = key < seq ? ld128(vg + key * p.svt + c) : zero;
-      const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  mbar_wait(sm.res_bar(), 0);
+  Pipe pipe;
+  for (int kt = next_tile(0); kt < kt_end; kt = next_tile(kt + 1)) {
+    const int k0 = kt * BK;
+    unsigned vis = 0;  // this thread's 16 key columns: 8 n + c0 + e at bit 2 n + e
 #pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[(c + i) * LDV + r] = x[i];
-    }
-    if (tid < BK) {
-      const int key = k0 + tid;
-      pm[tid] = key < seq && (p.mask == nullptr || p.mask[(long long)b * seq + key] > 0);
-    }
-    __syncthreads();
+    for (int i = 0; i < 16; ++i)
+      vis |= (unsigned)key_visible(p.mask, p.T, b, k0 + (i >> 1) * 8 + c0 + (i & 1)) << i;
+    mbar_wait(sm.full(pipe.stage), pipe.phase);
+    const uint32_t ks = sm.stage(pipe.stage);
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    // S = Q K^T of this tile (64 q rows x 64 keys, K-major operands), then
+    // O += round(P) V of the previous one (V read as stored, [keys][HD]:
+    // MN-major, 16 keys a step), so that this tile's softmax runs while the
+    // tensor cores do the previous tile's P V
+    fence_acc(o);
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const int c = kk * 16 + tg * 2;
-      const uint32_t a0 = ld32(&Qs[r0 * LDQ + c]);
-      const uint32_t a1 = ld32(&Qs[(r0 + 8) * LDQ + c]);
-      const uint32_t a2 = ld32(&Qs[r0 * LDQ + c + 8]);
-      const uint32_t a3 = ld32(&Qs[(r0 + 8) * LDQ + c + 8]);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const __nv_bfloat16* kr = &Ks[(n * 8 + g) * LDQ + c];
-        mma_bf16(s[n], a0, a1, a2, a3, ld32(kr), ld32(kr + 8));
-      }
+      const uint32_t off = kmajor_step(kk);
+      wgmma_ss(s, desc_sw128(sm.res(0) + off), desc_sw128(ks + off), kk > 0);
     }
+    wgmma_commit();
+    if (has_pending) {
+      mbar_wait(sm.full_b(pending.stage), pending.phase);
+      const uint32_t vs = sm.stage(pending.stage) + TB;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, a[kk], desc_sw128_mn(vs + kk * 2048, BOX), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // S is done; P V may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_acc(s);
+    mbar_arrive(sm.empty(pipe.stage));  // K of this tile is read
 
-    // mask, online softmax; s[n][0..1] belong to row qrow0, s[n][2..3] to qrow1
+    // mask and online softmax; j = 4 n + 2 i + e is row r0 + 8 i, column
+    // 8 n + c0 + e. A row's max is over the 4 threads of its quad.
+    unsigned ok = 0;
     float mx[2] = {NEG, NEG};
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + tg * 2 + (e & 1);
-        const int qrow = e < 2 ? qrow0 : qrow1;
-        const bool ok = pm[col] && (!p.causal || k0 + col <= qrow);
-        s[n][e] = ok ? s[n][e] * p.scale : NEG;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
+    for (int j = 0; j < 32; ++j) {
+      const int i = (j >> 1) & 1;
+      const int col = (j >> 2) * 8 + c0 + (j & 1);
+      const bool seen =
+          ((vis >> (2 * (j >> 2) + (j & 1))) & 1u) && (!p.causal || k0 + col <= qrow[i]);
+      ok |= (unsigned)seen << j;
+      s[j] = seen ? s[j] * scale2 : NEG;
+      mx[i] = fmaxf(mx[i], s[j]);
     }
     float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
+    for (int j = 0; j < 32; ++j) {
+      const int i = (j >> 1) & 1;
+      s[j] = ((ok >> j) & 1u) ? exp2f(s[j] - m[i]) : 0.f;
+      sum[i] += s[j];
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
     }
 
-    // O += P V: the score fragments of keys 16kk..16kk+15 are the A operand
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        const __nv_bfloat16* vr = &Vt[(j * 8 + g) * LDV + kk * 16 + tg * 2];
-        mma_bf16(o[j], a0, a1, a2, a3, ld32(vr), ld32(vr + 8));
-      }
+    if (has_pending) {  // the previous tile's P V is done: free its V
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_a(a);
+      mbar_arrive(sm.empty_b(pending.stage));
     }
+#pragma unroll
+    for (int j = 0; j < HD / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], s, kk);
+    pending = pipe;
+    has_pending = true;
+    pipe.advance();
+  }
+  if (has_pending) {  // the last tile's P V
+    mbar_wait(sm.full_b(pending.stage), pending.phase);
+    fence_acc(o);
+    wgmma_fence();
+    const uint32_t vs = sm.stage(pending.stage) + TB;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, a[kk], desc_sw128_mn(vs + kk * 2048, BOX), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_a(a);
+    mbar_arrive(sm.empty_b(pending.stage));
   }
 
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out);
+  bf16* og = static_cast<bf16*>(p.out);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r == 0 ? qrow0 : qrow1;
-    if (row < seq) {
-      const float lc = fmaxf(l[r], 1e-30f);
-      const long long base = (long long)bh * seq + row;
+  for (int i = 0; i < 2; ++i) {
+    if (qrow[i] < p.T) {
+      const float lc = fmaxf(l[i], 1e-30f);
+      const long long row = bh * p.T + qrow[i];
 #pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        *reinterpret_cast<uint32_t*>(&og[base * HD + j * 8 + tg * 2]) =
-            pack_bf16(o[j][2 * r] / lc, o[j][2 * r + 1] / lc);
-      }
-      if (tg == 0) p.lse[base] = m[r] + logf(lc);
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(&og[row * HD + n * 8 + c0]) =
+            pack_bf16(o[4 * n + 2 * i] / lc, o[4 * n + 2 * i + 1] / lc);
+      // back from log2 units; a row with no visible key keeps m = -1e30
+      if ((lane & 3) == 0) p.lse[row] = (m[i] == NEG ? NEG : m[i] * 0.6931471805599453f) + logf(lc);
     }
   }
 }
@@ -421,6 +429,26 @@ cudaError_t launch(Kernel kernel, int threads, int bytes, const Params& p, cudaS
   return cudaGetLastError();
 }
 
+// The bf16 kernel: tensor maps of q, k and v, then one block per (q tile, b,
+// head).
+template <int HD>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  const auto kernel = flash_fwd_wgmma_kernel<HD>;
+  const int nt = (p.T + BK - 1) / BK;
+  const int bytes = wgmma_smem_bytes<HD, 1, true>(nt);
+  CUtensorMap tq, tk, tv;
+  int err = make_map_bf16_4d(&tq, p.q, p.B, p.H, p.T, HD, p.sqb, p.sqh, p.sqt, BQ);
+  if (!err) err = make_map_bf16_4d(&tk, p.k, p.B, p.Hkv, p.T, HD, p.skb, p.skh, p.skt, BK);
+  if (!err) err = make_map_bf16_4d(&tv, p.v, p.B, p.Hkv, p.T, HD, p.svb, p.svh, p.svt, BK);
+  if (err) return static_cast<cudaError_t>(err);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)p.B * p.H * nt;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, WG_NT, bytes, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns a cudaError_t: 0 when the launch was accepted.
@@ -434,8 +462,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                  sqh, sqt, skb, skh,  skt, svb, svh, svt, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (d == 128) return launch(flash_fwd_mma_kernel<128>, MMA_NT, mma_smem_bytes<128>(), p, st);
-    if (d == 64) return launch(flash_fwd_mma_kernel<64>, MMA_NT, mma_smem_bytes<64>(), p, st);
+    if (d == 128) return launch_wgmma<128>(p, st);
+    if (d == 64) return launch_wgmma<64>(p, st);
   } else {
     if (d == 128) return launch(flash_fwd_f32_kernel<128>, NT, f32_smem_bytes<128>(), p, st);
     if (d == 64) return launch(flash_fwd_f32_kernel<64>, NT, f32_smem_bytes<64>(), p, st);

@@ -190,10 +190,11 @@ __global__ void split_rows(const float* __restrict__ src, float* __restrict__ hi
   }
 }
 
-// hi, lo [cols, rows] from src [rows, cols]: 32 x 32 tiles through shared
-// memory, so that both the reads and the writes are coalesced.
+// hi, lo [cols, ld] from src [rows, cols]: 32 x 32 tiles through shared
+// memory, so that both the reads and the writes are coalesced; columns
+// rows..ld are written as 0.
 __global__ void split_transpose(const float* __restrict__ src, float* __restrict__ hi,
-                                float* __restrict__ lo, int rows, int cols) {
+                                float* __restrict__ lo, int rows, int cols, int ld) {
   __shared__ float t[32][33];
   const int c0 = blockIdx.x * 32;
   const int r0 = blockIdx.y * 32;
@@ -204,10 +205,10 @@ __global__ void split_transpose(const float* __restrict__ src, float* __restrict
   __syncthreads();
   for (int i = threadIdx.y; i < 32; i += blockDim.y) {
     const int c = c0 + i, r = r0 + threadIdx.x;
-    if (c < cols && r < rows) {
+    if (c < cols && r < ld) {
       const float x = t[threadIdx.x][i];
       const float h = tc::rna_tf32(x);
-      const long long at = (long long)c * rows + r;
+      const long long at = (long long)c * ld + r;
       hi[at] = h;
       lo[at] = tc::rna_tf32(x - h);
     }
@@ -217,18 +218,19 @@ __global__ void split_transpose(const float* __restrict__ src, float* __restrict
 }  // namespace
 
 // The operand preparation of the 3xTF32 kernels (fwd and bwd): hi/lo of
-// src [rows, cols]; transpose == 0: [rows, ld_dst] (columns past cols are 0),
-// else [cols, rows]. Returns a cudaError_t.
+// src [rows, cols]; transpose == 0: [rows, ld_dst], ld_dst >= cols, else
+// [cols, ld_dst], ld_dst >= rows; the columns past the source's are 0.
+// Returns a cudaError_t.
 extern "C" int tf32x3_split(const float* src, float* hi, float* lo, int rows, int cols,
                             int ld_dst, int transpose, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || cols <= 0) return 0;
+  if (ld_dst < (transpose ? rows : cols)) return static_cast<int>(cudaErrorInvalidValue);
   if (transpose) {
-    if ((rows + 31) / 32 > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    split_transpose<<<dim3((cols + 31) / 32, (rows + 31) / 32), dim3(32, 8), 0, st>>>(
-        src, hi, lo, rows, cols);
+    if ((ld_dst + 31) / 32 > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    split_transpose<<<dim3((cols + 31) / 32, (ld_dst + 31) / 32), dim3(32, 8), 0, st>>>(
+        src, hi, lo, rows, cols, ld_dst);
   } else {
-    if (ld_dst < cols) return static_cast<int>(cudaErrorInvalidValue);
     const long long blocks = ((long long)rows * ld_dst + 255) / 256;
     split_rows<<<static_cast<unsigned>(blocks < (1 << 30) ? blocks : (1 << 30)), 256, 0, st>>>(
         src, hi, lo, rows, cols, ld_dst);

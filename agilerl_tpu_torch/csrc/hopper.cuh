@@ -1,6 +1,6 @@
 // Type-agnostic Hopper (sm_90a) building blocks shared by the port's TMA +
-// wgmma kernels: csrc/tf32x3_gemm.cuh (the fused lm-head forward and dH) and
-// csrc/flash_attention_bwd.cu (the bf16 flash backward).
+// wgmma kernels: csrc/tf32x3_gemm.cuh (the fused lm-head forward, dH and dW)
+// and csrc/flash_wgmma.cuh (the bf16 flash forward and backward).
 //
 // - host: cuTensorMapEncodeTiled through the runtime (nothing links against
 //   libcuda), and a 4-D bf16 tensor map for strided [B, H, T, d] views;

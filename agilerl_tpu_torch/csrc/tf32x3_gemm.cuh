@@ -24,7 +24,7 @@
 // for tf32), so A is [M, K] and B is [N, K], K contiguous. tf32x3_split
 // (csrc/fused_logprob_fwd.cu) makes the hi/lo operands once per call (the
 // head [D, V] becomes [V, D] for the logits, and stays [D, V] for dH =
-// coef head^T).
+// coef head^T; hidden [N, D] becomes [D, N] for dW = hidden^T coef).
 //
 // Pipeline. One block = two consumer warpgroups (rows 0-63 and 64-127 of a
 // 128-row tile) + one producer warp. The producer's lane 0 issues TMA loads

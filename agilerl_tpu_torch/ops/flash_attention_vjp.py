@@ -24,10 +24,15 @@ kernels run, or the call raises: ``csrc/flash_attention_fwd.cu`` (replaces
 the TPU kernel ``_fwd_kernel``) and ``csrc/flash_attention_bwd.cu``
 (``_dq_kernel`` and ``_dkv_kernel``).
 
-Query rows whose visible keys are all masked (left padding) come out of the
-forward as finite garbage in both versions, as in the TPU kernel; callers
-read real rows only. The backward gives them p = 0, as the TPU kernels'
-``where(mask, exp(s - lse), 0)`` does, so they send no gradient anywhere.
+Query rows with no visible key (left padding under causal masking, a batch
+row of padding only) come out of the forward finite, and callers read the
+other rows only. The bf16 kernel gives them out = 0 and lse = -1e30 +
+log(1e-30): it skips the tiles without a visible key, and a masked score
+adds p = 0. The f32 kernel and the plain version, like the TPU kernel, give
+them the mean of v over the masked keys they visit (so the JAX kernel and
+the plain version may differ there). The backward gives them p = 0, as the
+TPU kernels' ``where(mask, exp(s - lse), 0)`` does, so they send no gradient
+anywhere.
 """
 
 from __future__ import annotations

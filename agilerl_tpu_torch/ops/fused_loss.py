@@ -11,10 +11,10 @@ Device rule: on CPU tensors the plain versions run; on CUDA tensors the
 hand-written kernels run, or the call raises: ``csrc/fused_logprob_fwd.cu``
 (replaces the TPU kernel ``_make_kernel``) and ``csrc/fused_logprob_bwd.cu``
 (``_make_dh_kernel`` and ``_make_dw_kernel``). Operands are f32 x f32. The
-forward and dH run on the tensor cores in 3xTF32: each f32 operand is split
-into two TF32 numbers, hi + lo (``split_tf32``; ``tf32x3_split`` on the card,
-once per call), and the products hi·hi + hi·lo + lo·hi accumulate in f32,
-which agrees with an f32 product to f32 summation order. dW runs on f32 FMAs.
+forward, dH and dW run on the tensor cores in 3xTF32: each f32 operand is
+split into two TF32 numbers, hi + lo (``split_tf32``; ``tf32x3_split`` on the
+card, once per call), and the products hi·hi + hi·lo + lo·hi accumulate in
+f32, which agrees with an f32 product to f32 summation order.
 ``_fit_blocks``/``_VMEM_BUDGET`` size tiles for the TPU's VMEM and have no
 counterpart here.
 """
@@ -67,18 +67,31 @@ def plain_dw(hidden, head, targets, lse, g, temperature: float = 1.0) -> torch.T
     return (hidden.float().t() @ coef) / temperature
 
 
-def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def split_tf32(x: torch.Tensor, transpose: bool = False,
+               ld: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of ``tf32x3_split``: x = hi + (x - hi) with
     hi = x rounded to TF32 (10 mantissa bits, to nearest, ties away from
     zero: ``cvt.rna.tf32.f32``) and lo = x - hi (exact in f32) rounded the
-    same way, which is how the tensor cores read it."""
+    same way, which is how the tensor cores read it. ``transpose`` splits
+    xᵀ; ``ld`` > the last dimension pads it with zero columns."""
     def rna(t):
         bits = t.contiguous().view(torch.int32)
         return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
     x = x.float()
+    if transpose:
+        x = x.t()
     hi = rna(x)
-    return hi, rna(x - hi)
+    lo = rna(x - hi)
+    pad = ld - x.shape[-1]
+    if pad > 0:
+        hi, lo = (torch.nn.functional.pad(t, (0, pad)) for t in (hi, lo))
+    return hi, lo
+
+
+def tma_ld(n: int) -> int:
+    """A row stride of at least n floats that TMA takes (16-byte multiple)."""
+    return -(-n // _TMA_ALIGN) * _TMA_ALIGN
 
 
 # split: src, hi, lo; rows, cols, ld_dst, transpose
@@ -86,13 +99,10 @@ _SPLIT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # forward: hidden hi/lo, head^T hi/lo, targets, out, lse, scratch; N, D, V
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                  + [ctypes.c_float, ctypes.c_void_p])
-# dH: hidden hi/lo, head^T hi/lo, head hi/lo; ld; targets, lse, g, dh, coef hi/lo;
-# N, D, V, chunk
-_DH_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 6
-                + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
-# dW: hidden, head, targets, lse, g, out, scratch; N, D, V, chunk
-_DW_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                + [ctypes.c_float, ctypes.c_void_p])
+# dH and dW: hidden hi/lo, head^T hi/lo, a third operand hi/lo (dH: head;
+# dW: hidden^T); its row stride; targets, lse, g, out, coef hi/lo; N, D, V, chunk
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+                 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _check_operands(hidden, head, name: str) -> Tuple[int, int, int]:
@@ -128,10 +138,11 @@ def _stream(dev):
 
 
 def _split_cuda(x, transpose: bool = False, ld: int = 0):
-    """Launch ``tf32x3_split``: (hi, lo) of x [R, C] as [R, ld] (ld >= C,
-    columns past C are 0) or, transposed, as [C, R]."""
+    """Launch ``tf32x3_split``: (hi, lo) of x [R, C] as [R, ld] or,
+    transposed, as [C, ld] (ld defaults to the source's row length; columns
+    past it are 0)."""
     R, C = x.shape
-    shape = (C, R) if transpose else (R, ld or C)
+    shape = (C, ld or R) if transpose else (R, ld or C)
     hi = torch.empty(shape, dtype=torch.float32, device=x.device)
     lo = torch.empty(shape, dtype=torch.float32, device=x.device)
     fn = _bind("fused_logprob_fwd", "tf32x3_split", _SPLIT_ARGTYPES)
@@ -147,14 +158,15 @@ def _split_cuda(x, transpose: bool = False, ld: int = 0):
 _split_cuda.launches = 0
 
 
-def prepare_operands(hidden, head, for_dh: bool = False):
+def prepare_operands(hidden, head, for_dh: bool = False, for_dw: bool = False):
     """The 3xTF32 kernels' operands, made once per call: hidden hi/lo [N, D]
-    and head^T hi/lo [V, D]; for dH also head hi/lo [D, V] with its row
-    stride padded to ``_TMA_ALIGN`` floats."""
+    and head^T hi/lo [V, D]; for dH also head hi/lo [D, V], for dW hidden^T
+    hi/lo [D, N], each with its row stride padded to ``_TMA_ALIGN`` floats."""
     ops = {"hid": _split_cuda(hidden), "head_t": _split_cuda(head, transpose=True)}
     if for_dh:
-        V = head.shape[1]
-        ops["head"] = _split_cuda(head, ld=-(-V // _TMA_ALIGN) * _TMA_ALIGN)
+        ops["head"] = _split_cuda(head, ld=tma_ld(head.shape[1]))
+    if for_dw:
+        ops["hid_t"] = _split_cuda(hidden, transpose=True, ld=tma_ld(hidden.shape[0]))
     return ops
 
 
@@ -194,28 +206,39 @@ def _bwd_inputs(name, hidden, head, targets, lse, g):
     return (N, D, V), rows
 
 
-def fused_logprob_dh_cuda(hidden, head, targets, lse, g, temperature: float = 1.0):
-    """Launch the dH kernels of ``csrc/fused_logprob_bwd.cu``: dH [N, D] f32
-    in 3xTF32. The coefficient is staged one vocab chunk at a time
-    (``_BWD_CHUNK``), split into hi/lo."""
-    (N, D, V), (t32, lse, g) = _bwd_inputs("fused_logprob_dh_cuda", hidden, head, targets, lse, g)
+def _bwd_cuda(wrapper, wrt_head: bool, hidden, head, targets, lse, g, temperature):
+    """Launch the kernel of one backward wrapper (``csrc/fused_logprob_bwd.cu``):
+    dW [D, V] when ``wrt_head``, else dH [N, D], f32 in 3xTF32. The
+    coefficient is staged one vocab chunk at a time (``_BWD_CHUNK``), split
+    into hi/lo, as [N, chunk] for dH and transposed, [chunk, ld ≥ N], for dW."""
+    fn_name = wrapper.kernel_name
+    (N, D, V), (t32, lse, g) = _bwd_inputs(fn_name + "_cuda", hidden, head, targets, lse, g)
     dev = hidden.device
-    dh = torch.empty(hidden.shape, dtype=torch.float32, device=dev)
+    out_shape = head.shape if wrt_head else hidden.shape
     if N == 0:
-        return dh
-    ops = prepare_operands(hidden, head, for_dh=True)
+        return torch.zeros(out_shape, dtype=torch.float32, device=dev)
+    ops = prepare_operands(hidden, head, for_dh=not wrt_head, for_dw=wrt_head)
+    third = ops["hid_t"] if wrt_head else ops["head"]
+    ld = third[0].shape[1]
     chunk = min(_BWD_CHUNK, -(-V // _COLS_PER_TILE) * _COLS_PER_TILE)
-    coef = torch.empty((2, N, chunk), dtype=torch.float32, device=dev)
-    fn = _bind("fused_logprob_bwd", "fused_logprob_dh", _DH_ARGTYPES)
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    coef = torch.empty((2, chunk, ld) if wrt_head else (2, N, chunk), dtype=torch.float32,
+                       device=dev)
+    fn = _bind("fused_logprob_bwd", fn_name, _BWD_ARGTYPES)
     ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
     with torch.cuda.device(dev):
-        err = fn(*ptr(*ops["hid"], *ops["head_t"], *ops["head"]), ops["head"][0].shape[1],
-                 *ptr(t32, lse, g, dh, coef[0], coef[1]), N, D, V, chunk, 1.0 / temperature,
+        err = fn(*ptr(*ops["hid"], *ops["head_t"], *third), ld,
+                 *ptr(t32, lse, g, out, coef[0], coef[1]), N, D, V, chunk, 1.0 / temperature,
                  _stream(dev))
     if err != 0:
-        raise RuntimeError(f"fused_logprob_dh launch failed: CUDA error {err}")
-    fused_logprob_dh_cuda.launches += 1
-    return dh
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    return out
+
+
+def fused_logprob_dh_cuda(hidden, head, targets, lse, g, temperature: float = 1.0):
+    """dH [N, D] = coef headᵀ / T on the card (``csrc/fused_logprob_bwd.cu``)."""
+    return _bwd_cuda(fused_logprob_dh_cuda, False, hidden, head, targets, lse, g, temperature)
 
 
 fused_logprob_dh_cuda.launches = 0
@@ -224,23 +247,8 @@ fused_logprob_dh_cuda.source = "fused_logprob_bwd"
 
 
 def fused_logprob_dw_cuda(hidden, head, targets, lse, g, temperature: float = 1.0):
-    """Launch the dW kernels of ``csrc/fused_logprob_bwd.cu``: dW [D, V] f32
-    on FMAs, the coefficient staged one vocab chunk at a time."""
-    (N, D, V), (t32, lse, g) = _bwd_inputs("fused_logprob_dw_cuda", hidden, head, targets, lse, g)
-    dev = hidden.device
-    dw = torch.zeros(head.shape, dtype=torch.float32, device=dev)
-    if N == 0:
-        return dw
-    chunk = min(_BWD_CHUNK, -(-V // 128) * 128)
-    scratch = torch.empty((N, chunk), dtype=torch.float32, device=dev)
-    fn = _bind("fused_logprob_bwd", "fused_logprob_dw", _DW_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in (hidden, head, t32, lse, g, dw, scratch)), N, D, V,
-                 chunk, 1.0 / temperature, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"fused_logprob_dw launch failed: CUDA error {err}")
-    fused_logprob_dw_cuda.launches += 1
-    return dw
+    """dW [D, V] = hiddenᵀ coef / T on the card (``csrc/fused_logprob_bwd.cu``)."""
+    return _bwd_cuda(fused_logprob_dw_cuda, True, hidden, head, targets, lse, g, temperature)
 
 
 fused_logprob_dw_cuda.launches = 0

@@ -10,14 +10,17 @@ of which ends the run with a non-zero exit on any failure:
 1. the device, and the card's name and power limit from nvidia-smi;
 2. build every kernel of the port from agilerl_tpu_torch/csrc (one nvcc per
    source, all started together), with each kernel's registers, shared
-   memory and spills, and the count of wgmma (HGMMA) instructions in the
-   fused and flash backward libraries where cuobjdump is present;
+   memory and spills, and the count of wgmma (HGMMA), mma.sync (HMMA) and
+   f32 FMA (FFMA) instructions in each of the four libraries where cuobjdump
+   is present (the bf16 flash forward must show HGMMA and no HMMA);
 3. hold each kernel, forward and backward, against its plain PyTorch version
    on the card, over dtypes, masks, ragged lengths, head dims, GQA groups,
    the lse cotangent, vocab sizes and ragged row counts, with stated
-   tolerances (the bf16 flash backward also at T = 2048, with a kv tile of
-   padding, and twice for bit-identical results), and the 3xTF32 operand
-   split against its plain version bit for bit;
+   tolerances (the bf16 flash forward and backward also at T = 2048, with a
+   kv tile of padding, q tiles wholly in padding and the model's strided
+   GQA 32/8 views, and twice for bit-identical results; the fused dH and dW
+   also at D = 200 with ragged row counts), and the 3xTF32 operand split
+   against its plain version bit for bit;
 4. slice 1's path at llama3-8b, full width and depth, seeded random
    weights: sampled and greedy ``generate`` for 4 ragged prompts x group 4,
    then ``token_logprobs`` (fused kernel + flash kernel) over prompt +
@@ -34,12 +37,11 @@ of which ends the run with a non-zero exit on any failure:
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
-   FMA bound, and the forward's and dH's operand preparation; for flash,
-   the bytes read counted from the mask: only the rows and keys that meet a
-   visible key); the flash backward also on one unmasked causal row at
-   T = 2048, with SDPA's
-   backward on each of its backends that takes the inputs, in rounds with
-   the SM clock read after each.
+   FMA bound, and each one's operand preparation; for flash, the bytes read
+   counted from the mask: only the rows and keys that meet a visible key);
+   the flash forward and backward also on one unmasked causal row at
+   T = 2048; SDPA (forward, or backward) on each of its backends that takes
+   the inputs, in rounds with the SM clock read after each.
 
 Prints a ``report: {...}`` line with every number the run took, then a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -175,9 +178,12 @@ def tf32x3_bounds(flops: float, nbytes: float):
     return b_ms, b_by, bound(flops, nbytes, "f32")[0]
 
 
-def wgmma_counts(_build, names):
-    """HGMMA instructions in each built library's SASS (cuobjdump), or None
-    where the toolkit has no cuobjdump."""
+SASS_OPS = ("HGMMA", "HMMA", "FFMA")  # wgmma, mma.sync, f32 FMA
+
+
+def sass_counts(_build, names):
+    """{library: {op: count}} of SASS_OPS in each built library's SASS
+    (cuobjdump), or None where the toolkit has no cuobjdump."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
@@ -188,8 +194,12 @@ def wgmma_counts(_build, names):
         except OSError:
             counts[n] = None
             continue
-        counts[n] = sum("HGMMA" in line for line in sass.splitlines())
-    log(f"  HGMMA instructions (cuobjdump -sass): {counts}")
+        counts[n] = {op: len(re.findall(rf"\b{op}[\s.]", sass)) for op in SASS_OPS}
+    log(f"  SASS instructions (cuobjdump -sass): {counts}")
+    fwd = counts.get("flash_attention_fwd")
+    if fwd is not None:
+        check(fwd["HGMMA"] > 0 and fwd["HMMA"] == 0,
+              f"flash_attention_fwd: expected wgmma and no mma.sync, got {fwd}")
     return counts
 
 
@@ -237,6 +247,85 @@ def check_flash(torch, tfa, report):
     report["flash_checks"] = worst
 
 
+def flash_inputs(torch, B, H, Hkv, T, d, dtype, strided, g):
+    """q [B, H, T, d], k and v [B, Hkv, T, d]; strided: [B, T, heads, d]
+    storage seen through transpose(1, 2), as the model passes them."""
+    shape = (lambda n: (B, T, n, d)) if strided else (lambda n: (B, n, T, d))
+    q, k, v = (torch.randn(shape(n), device="cuda", generator=g).to(dtype) for n in (H, Hkv, Hkv))
+    return tuple(t.transpose(1, 2) for t in (q, k, v)) if strided else (q, k, v)
+
+
+def rows_with_a_visible_key(tfa, mask, causal, B, T):
+    """[B, 1, T] bool: query rows that see at least one key."""
+    import torch
+    return tfa._visible(T, mask, causal, torch.device("cuda")).expand(B, 1, T, T).any(-1)
+
+
+# bf16 flash cases of the wgmma kernels beyond check_flash's grid: long T,
+# a kv tile of padding (row 1: keys 64..127) beside left padding over two
+# whole q tiles (row 0, 150 keys: those tiles visit no kv tile), first visible
+# keys on the skip rule's edges, and the model's strided views at GQA 32/8
+# with the learn step's left padding. (B, H, Hkv, T, d, left pads, hole, strided)
+FLASH_BF16_CASES = {
+    "T=2048 d=128 GQA 8/2": (1, 8, 2, 2048, 128, None, False, False),
+    "T=2048 d=64 GQA 4/1": (1, 4, 1, 2048, 64, None, False, False),
+    "padding kv tile + padding q tiles": (2, 4, 2, 200, 128, (150, 0), True, False),
+    "first keys on tile edges": (3, 4, 2, 200, 64, (63, 199, 127), False, False),
+    "model views GQA 32/8": (4, 32, 8, 320, 128, (192, 128, 56, 0), False, True),
+}
+
+
+def flash_bf16_mask(torch, B, T, pads, hole):
+    if pads is None:
+        return None
+    mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    for b, n in enumerate(pads):
+        mask[b, :n] = 0
+    if hole:
+        mask[1, 64:128] = 0
+    return mask
+
+
+def check_flash_bf16_cases(torch, tfa, report):
+    """The bf16 forward on FLASH_BF16_CASES, causal and not: rows with a
+    visible key against the plain version (out 2e-2, lse 1e-4); rows with
+    none come out 0 with lse = -1e30 + log(1e-30); every row finite. Then two
+    launches at the model's views, bit-identical."""
+    import math
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    worst = {}
+    empty_lse = torch.tensor(-1e30, dtype=torch.float32) + math.log(1e-30)
+    for name, (B, H, Hkv, T, d, pads, hole, strided) in FLASH_BF16_CASES.items():
+        q, k, v = flash_inputs(torch, B, H, Hkv, T, d, torch.bfloat16, strided, g)
+        mask = flash_bf16_mask(torch, B, T, pads, hole)
+        for causal in (True, False):
+            out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, causal)
+            ref, ref_lse = tfa.flash_attention_reference(q, k, v, mask, causal)
+            torch.cuda.synchronize()
+            r = rows_with_a_visible_key(tfa, mask, causal, B, T).expand(lse.shape)
+            err = (out[r].float() - ref[r].float()).abs().max().item()
+            lerr = (lse[r] - ref_lse[r]).abs().max().item()
+            case = f"bfloat16 causal={causal} {name}"
+            n_empty = int((~r).sum())
+            log(f"  flash {case}: max|out-plain| {err:.3e} (tol 2e-02), max|lse-plain| "
+                f"{lerr:.3e} (tol 1e-04) over rows with a visible key; {n_empty} rows "
+                f"without one")
+            check(err <= 2e-2 and lerr <= 1e-4, f"flash kernel disagrees: {case}")
+            check(bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all()),
+                  f"flash non-finite: {case}")
+            check(not out[~r].any() and bool((lse[~r] == empty_lse).all()),
+                  f"flash rows without a visible key are not out = 0, lse = -1e30: {case}")
+            worst[case] = err
+    runs = [tfa.flash_attention_fwd_cuda(q, k, v, mask, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1]),
+          "two launches of the bf16 flash forward differ")
+    log("  flash bf16 [4, 32/8, 320, 128] model views, learn padding: two launches "
+        "bit-identical (out, lse)")
+    report["flash_bf16_checks"] = worst
+
+
 # (V, N) of the fused checks: the learn shapes, a vocab that is no tile
 # multiple, and row counts below, at and past one 128-row tile
 FUSED_CASES = ((128_256, None), (50_257, 1000), (50_257, 129), (50_257, 65), (50_257, 1))
@@ -248,15 +337,14 @@ def check_split(torch, tfl, report):
     g = torch.Generator(device="cuda").manual_seed(12)
     x = torch.randn(300, 201, device="cuda", generator=g) * 10.0 ** torch.randint(
         -5, 5, (300, 201), device="cuda", generator=g)
-    for transpose, ld in ((False, 0), (False, 204), (True, 0)):
+    for transpose, ld in ((False, 0), (False, 204), (True, 0), (True, 304)):
         hi, lo = tfl._split_cuda(x, transpose=transpose, ld=ld)
-        want_hi, want_lo = tfl.split_tf32(x.t().contiguous() if transpose else x)
+        want_hi, want_lo = tfl.split_tf32(x, transpose=transpose, ld=ld)
         torch.cuda.synchronize()
-        cols = want_hi.shape[1]
-        same = (torch.equal(hi[:, :cols], want_hi) and torch.equal(lo[:, :cols], want_lo)
-                and not hi[:, cols:].any() and not lo[:, cols:].any())
-        check(same, f"tf32x3_split differs from split_tf32 (transpose={transpose}, ld={ld})")
-    log("  tf32x3_split: hi/lo bit for bit equal to split_tf32 (plain, padded, transposed)")
+        check(torch.equal(hi, want_hi) and torch.equal(lo, want_lo),
+              f"tf32x3_split differs from split_tf32 (transpose={transpose}, ld={ld})")
+    log("  tf32x3_split: hi/lo bit for bit equal to split_tf32 (plain and transposed, each "
+        "also with a padded row stride)")
     report["split_check"] = "bit-exact"
 
 
@@ -389,18 +477,21 @@ def check_flash_bwd(torch, tfa, report):
 def check_fused_bwd(torch, tfl, report, n_rows, d_model):
     """dH and dW kernels vs the plain backward at the learn shapes (V =
     128,256), at a vocab that is no tile multiple (50,257) and at ragged row
-    counts, temperature 1.0 and 1.7."""
+    counts, temperature 1.0 and 1.7; then at D = 200 (no multiple of the
+    32-deep stage) with N = 1, 65, 129, 300 (dW's contraction: ragged, and
+    its transposed operands' rows padded)."""
     g = torch.Generator(device="cuda").manual_seed(7)
     worst = {}
-    for V, N in FUSED_CASES:
-        N = N or n_rows
-        h = torch.randn(N, d_model, device="cuda", generator=g)
-        w = 0.02 * torch.randn(d_model, V, device="cuda", generator=g)
+    cases = [(V, N or n_rows, d_model) for V, N in FUSED_CASES] + [
+        (50_257, N, 200) for N in (1, 65, 129, 300)]
+    for V, N, D in cases:
+        h = torch.randn(N, D, device="cuda", generator=g)
+        w = 0.02 * torch.randn(D, V, device="cuda", generator=g)
         t = torch.randint(0, V, (N,), device="cuda", generator=g)
         up = torch.randn(N, device="cuda", generator=g)
         for temp in (1.0, 1.7):
             _, lse = tfl.fused_logprob_fwd_cuda(h, w, t, temp)
-            case = f"N={N} V={V} T={temp}"
+            case = f"N={N} D={D} V={V} T={temp}"
             errs = []
             for name, kern, plain in (("dH", tfl.fused_logprob_dh_cuda, tfl.plain_dh),
                                       ("dW", tfl.fused_logprob_dw_cuda, tfl.plain_dw)):
@@ -412,8 +503,7 @@ def check_fused_bwd(torch, tfl, report, n_rows, d_model):
                 errs.append(err)
                 del got, want
             log(f"  fused bwd {case}: max|dH-plain| {errs[0]:.3e}, max|dW-plain| {errs[1]:.3e} "
-                f"(tol {FUSED_BWD_ATOL:.0e}: dH 3xTF32 products, dW f32 FMAs; sums in "
-                f"another order)")
+                f"(tol {FUSED_BWD_ATOL:.0e}: 3xTF32 products, sums in another order)")
             worst[case] = max(errs)
         del h, w, t, up
         torch.cuda.empty_cache()
@@ -794,49 +884,92 @@ def run_evolution(torch, M, ops, presets, report):
 # ------------------------------- phase 5 ----------------------------------- #
 
 
-def time_flash(torch, F, tfa, cfg, full_mask, launches, report):
-    B, T = full_mask.shape
-    H, Hkv, d = cfg.n_head, cfg.kv_heads, cfg.head_dim
-    g = torch.Generator(device="cuda").manual_seed(3)
-    q = torch.randn(B, H, T, d, device="cuda", generator=g).to(cfg.dtype)
-    k = torch.randn(B, Hkv, T, d, device="cuda", generator=g).to(cfg.dtype)
-    v = torch.randn(B, Hkv, T, d, device="cuda", generator=g).to(cfg.dtype)
-    mask = full_mask.to(torch.int32)
+def sdpa_forward(torch, F, q, k, v, backends, **kw):
+    """SDPA's forward (on repeated K/V) on each named backend that takes
+    these inputs: {backend name: callable}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rep = q.shape[1] // k.shape[1]
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    calls = {}
+    for name in backends:
+        def call(backend=getattr(SDPBackend, name)):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, kr, vr, **kw)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            log(f"  SDPA backend {name} does not take these inputs: {str(e)[:120]}")
+            continue
+        calls[name] = call
+    return calls
+
+
+def flash_fwd_row(torch, F, tfa, B, H, Hkv, T, d, mask, g, backends, sdpa_kw, iters):
+    """The bf16 forward kernel, its plain version and SDPA's forward on each
+    backend, timed in two rounds with the SM clock after each; returns the
+    numbers of one row (error over the rows with a visible key)."""
+    q, k, v = flash_inputs(torch, B, H, Hkv, T, d, torch.bfloat16, False, g)
     out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, True)
     ref, _ = tfa.flash_attention_reference(q, k, v, mask, True)
     torch.cuda.synchronize()
-    err = 0.0
-    for b in range(B):
-        r = mask[b].bool()
-        err = max(err, (out[b][:, r].float() - ref[b][:, r].float()).abs().max().item())
-    check(err <= 2e-2, f"flash kernel at the main-path shape disagrees: {err}")
-    rep = H // Hkv
-    k_rep, v_rep = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
-    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
-    sdpa_mask = causal[None, None] & mask.bool()[:, None, None, :]
-    rounds = timed_abba(torch, {
-        "kernel": lambda: tfa.flash_attention_fwd_cuda(q, k, v, mask, True),
-        "plain": lambda: tfa.flash_attention_reference(q, k, v, mask, True),
-        "library": lambda: F.scaled_dot_product_attention(q, k_rep, v_rep, attn_mask=sdpa_mask),
-    }, {"kernel": 20, "plain": 5, "library": 20})
-    ms, plain_ms, lib_ms = (sum(rounds[n]) / 2 for n in ("kernel", "plain", "library"))
-    n = mask.sum(dim=1).double()
-    pairs = float((n * (n + 1) / 2).sum()) * H  # (query, visible key) pairs, real rows
+    r = rows_with_a_visible_key(tfa, mask, True, B, T).expand(lse.shape)
+    err = (out[r].float() - ref[r].float()).abs().max().item()
+    check(err <= 2e-2, f"flash kernel at [{B}, {H}/{Hkv}, {T}, {d}] disagrees: {err}")
+    del out, ref
+    fns = {"kernel": lambda: tfa.flash_attention_fwd_cuda(q, k, v, mask, True),
+           "plain": lambda: tfa.flash_attention_reference(q, k, v, mask, True)}
+    sdpa = sdpa_forward(torch, F, q, k, v, backends, **sdpa_kw)
+    fns.update({f"sdpa_{n}": f for n, f in sdpa.items()})
+    clocks = []
+    rounds = timed_abba(torch, fns, {n: iters.get(n, iters["default"]) for n in fns}, clocks)
+    ms = {n: sum(rd) / 2 for n, rd in rounds.items()}
+    lib = min(sdpa, key=lambda n: ms[f"sdpa_{n}"]) if sdpa else None
+    pairs = B * H * T * (T + 1) / 2 if mask is None else visible_pairs(torch, mask, H)
     flops = 4.0 * d * pairs
     # reads: Q of the rows that see a key, K and V of the visible keys;
     # writes: the output and lse in full
     nbytes = flash_read_bytes(torch, B, T, mask, H * 2 * d, Hkv * 2 * 2 * d) + (
         2 * q.numel() + 4 * lse.numel())
     b_ms, b_by = bound(flops, nbytes, "bf16")
-    log(f"  flash [B={B}, H={H}/{Hkv}, T={T}, d={d}] bf16: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    report["flash_timing"] = dict(shape=[B, H, Hkv, T, d], flops=flops, bytes=nbytes,
-                                  rounds_ms=rounds, clocks=nvidia_smi_clocks())
+    log(f"  flash fwd [B={B}, H={H}/{Hkv}, T={T}, d={d}] bf16 "
+        f"{'left-padded' if mask is not None else 'unmasked'} causal: kernel {ms['kernel']:.3f} "
+        f"ms (rounds {rounds['kernel'][0]:.3f}/{rounds['kernel'][1]:.3f}), plain "
+        f"{ms['plain']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        + ", ".join(f"SDPA [{n}] {ms['sdpa_' + n]:.3f} ms (rounds "
+                    f"{rounds['sdpa_' + n][0]:.3f}/{rounds['sdpa_' + n][1]:.3f})" for n in sdpa)
+        + f"; SM clock / power / temperature after each round: {clocks}")
+    return dict(shape=[B, H, Hkv, T, d], masked=mask is not None, pairs=pairs, flops=flops,
+                bytes=nbytes, bound_ms=b_ms, bound_by=b_by, error=err, rounds_ms=rounds, ms=ms,
+                clocks=clocks, sdpa_backend=lib, sdpa_ms=ms[f"sdpa_{lib}"] if lib else None)
+
+
+def time_flash(torch, F, tfa, cfg, full_mask, launches, report):
+    """The forward at the learn shape (with the slice's left padding) and on
+    one unmasked causal row at T = 2048. SDPA runs on each backend that
+    takes the inputs (a boolean mask rules out its flash backend); the
+    yardstick is the fastest."""
+    B, T = full_mask.shape
+    H, Hkv, d = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(3)
+    mask = full_mask.to(torch.int32)
+    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
+    learn = flash_fwd_row(torch, F, tfa, B, H, Hkv, T, d, mask, g,
+                          ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"),
+                          dict(attn_mask=causal[None, None] & mask.bool()[:, None, None, :]),
+                          {"default": 20, "plain": 5, "sdpa_MATH": 5})
+    long_row = flash_fwd_row(torch, F, tfa, 4, H, Hkv, 2048, d, None, g,
+                             ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"),
+                             dict(is_causal=True), {"default": 10, "plain": 1})
+    report["flash_timing"] = dict(learn=learn, causal_2048=long_row)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "agilerl_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "agilerl_tpu/ops/flash_attention_vjp.py:40",
-            "launches": launches["flash_attention_fwd"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "launches": launches["flash_attention_fwd"], "max_abs_err": learn["error"],
+            "ms": learn["ms"]["kernel"], "plain_ms": learn["ms"]["plain"],
+            "bound_ms": learn["bound_ms"], "bound_by": learn["bound_by"],
+            "library_ms": learn["sdpa_ms"], "library": f"SDPA [{learn['sdpa_backend']}]"}
 
 
 def time_fused(torch, F, tfl, cfg, n_rows, launches, report):
@@ -1033,11 +1166,12 @@ def time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report):
         "dh": lambda: tfl.fused_logprob_dh_cuda(h, w, t, lse, up),
         "prep_dh": lambda: tfl.prepare_operands(h, w, for_dh=True),
         "dw": lambda: tfl.fused_logprob_dw_cuda(h, w, t, lse, up),
+        "prep_dw": lambda: tfl.prepare_operands(h, w, for_dw=True),
         "plain_dh": lambda: tfl.plain_dh(h, w, t, lse, up),
         "plain_dw": lambda: tfl.plain_dw(h, w, t, lse, up),
         "library_dh": lambda: library(h),
         "library_dw": lambda: library(w),
-    }, {n: 1 for n in ("dh", "prep_dh", "dw", "plain_dh", "plain_dw", "library_dh",
+    }, {n: 1 for n in ("dh", "prep_dh", "dw", "prep_dw", "plain_dh", "plain_dw", "library_dh",
                        "library_dw")})
     ms = {n: sum(r) / 2 for n, r in rounds.items()}
     flops = 4.0 * n_rows * D * V
@@ -1045,14 +1179,12 @@ def time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report):
     for key, out_numel, replaces in (("dh", n_rows * D, 95), ("dw", D * V, 119)):
         nbytes = 4.0 * (n_rows * D + D * V + out_numel) + 12.0 * n_rows
         name = f"fused_logprob_{key}"
-        # the least time: the work in 3xTF32 on the tensor cores (dW itself
-        # still runs on f32 FMAs; its FMA bound is kept beside it)
+        # the least time: the work in 3xTF32 on the tensor cores (the FMA
+        # bound of the same f32 work is kept beside it)
         b_ms, b_by, fma_ms = tf32x3_bounds(flops, nbytes)
-        extra = {"bound_f32_fma_ms": fma_ms}
-        how = f"3xTF32 on the tensor cores; {fma_ms:.2f} ms on f32 FMAs"
-        if key == "dh":
-            extra["prep_ms"] = ms["prep_dh"]
-            how += f"; operand preparation {ms['prep_dh']:.2f} ms of the kernel time"
+        extra = {"bound_f32_fma_ms": fma_ms, "prep_ms": ms["prep_" + key]}
+        how = (f"3xTF32 on the tensor cores; {fma_ms:.2f} ms on f32 FMAs; operand "
+               f"preparation {ms['prep_' + key]:.2f} ms of the kernel time")
         log(f"  {name} [N={n_rows}, D={D}, V={V}] f32: kernel {ms[key]:.2f} ms, plain "
             f"{ms['plain_' + key]:.2f} ms, cuBLAS GEMM + cross_entropy backward "
             f"{ms['library_' + key]:.2f} ms, bound {b_ms:.2f} ms ({b_by}, {how})")
@@ -1106,12 +1238,12 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {n}: {line.strip()}")
-    report["hgmma"] = wgmma_counts(_build, ["fused_logprob_fwd", "fused_logprob_bwd",
-                                            "flash_attention_bwd"])
+    report["sass"] = sass_counts(_build, names)
 
     log("phase 3: kernels vs their plain versions on the card")
     check_split(torch, tfl, report)
     check_flash(torch, tfa, report)
+    check_flash_bf16_cases(torch, tfa, report)
     n_rows = GROUP_SIZE * len(PROMPT_LENS) * (max(PROMPT_LENS) + MAX_NEW_TOKENS - 1)
     check_fused(torch, tfl, report, n_rows, 4096)
     check_flash_bwd(torch, tfa, report)

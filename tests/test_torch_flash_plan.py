@@ -1,15 +1,17 @@
-"""The bf16 flash backward's tile skipping, on the CPU.
+"""The bf16 flash kernels' tile skipping, on the CPU.
 
-The dQ and dK/dV kernels of ``csrc/flash_attention_bwd.cu`` visit a
-(q tile, kv tile) pair only when the first visible key of the kv tile says
-the pair holds a visible key. ``first_visible_keys`` below is the plain
-version of the table each block builds from the mask, and ``tile_pairs`` the
-rule both kernels apply. Held here against the plain backward's p: a skipped
-pair never has p != 0, and every pair without a visible key is skipped. The
-plain backward restricted to the visited pairs is held against jax.grad of
-the JAX package's kernels (Pallas interpret mode). On the card,
-``tests/test_torch_kernels.py`` holds the kernels themselves against the
-unrestricted plain backward on masks that make them skip."""
+The forward of ``csrc/flash_attention_fwd.cu`` and the dQ and dK/dV kernels
+of ``csrc/flash_attention_bwd.cu`` visit a (q tile, kv tile) pair only when
+the first visible key of the kv tile says the pair holds a visible key.
+``first_visible_keys`` below is the plain version of the table each block
+builds from the mask, and ``tile_pairs`` the rule the three kernels apply.
+Held here against the plain backward's p: a skipped pair never has p != 0,
+and every pair without a visible key is skipped. The plain forward and
+backward restricted to the visited pairs are held against the unrestricted
+plain versions and against the JAX package's kernels (Pallas interpret
+mode). On the card, ``tests/test_torch_kernels.py`` holds the kernels
+themselves against the unrestricted plain versions on masks that make them
+skip."""
 
 import math
 
@@ -20,12 +22,13 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from agilerl_tpu.ops.flash_attention_vjp import flash_attention_diff  # noqa: E402
+from agilerl_tpu.ops.flash_attention_vjp import (  # noqa: E402
+    flash_attention_diff, flash_attention_with_lse)
 from agilerl_tpu_torch.ops import flash_attention_vjp as tfa  # noqa: E402
 
 torch.set_num_threads(1)
 
-TILE = 64  # BQ = BK of the bf16 backward kernels
+TILE = 64  # BQ = BK of the bf16 kernels
 
 
 def first_visible_keys(padding_mask, B, T):
@@ -49,6 +52,22 @@ def tile_pairs(first, T, causal):
     last_row = (torch.arange(nt) * TILE + TILE - 1).clamp(max=T - 1)
     limit = last_row if causal else torch.full_like(last_row, T - 1)
     return first[:, None, :] <= limit[None, :, None]
+
+
+def fwd_on_pairs(q, k, v, mask, causal, pairs):
+    """The bf16 forward kernel's arithmetic (f32 inputs) over the visited
+    pairs only: a score that is masked or outside ``pairs`` gives p = 0 (not
+    exp(-1e30 - m)), so a row with no visible key keeps m = -1e30 and l = 0:
+    out = 0, lse = -1e30 + log(1e-30)."""
+    rep = q.shape[1] // k.shape[1]
+    kr, vr = tfa._repeat_kv(k, rep), tfa._repeat_kv(v, rep)
+    s = torch.matmul(q, kr.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    keep = tfa._visible(q.shape[2], mask, causal, q.device) & pairs
+    s = torch.where(keep, s, tfa._NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.matmul(p, vr) / l, (m + torch.log(l))[..., 0]
 
 
 def bwd_probs(q, k, lse, mask, causal, pairs=None):
@@ -193,3 +212,64 @@ def test_plain_backward_on_visited_pairs_matches_jax_kernel(causal):
     for g, w, name in zip(got, want, "qkv"):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-4, err_msg=name)
     assert float(got[2].abs().sum()) > 0
+
+
+def _rows_with_a_visible_key(mask, causal, B, T):
+    """[B, T] bool: query rows that see at least one key."""
+    return tfa._visible(T, mask, causal, torch.device("cpu")).expand(B, 1, T, T)[:, 0].any(-1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["none", "left_pad", "all_masked_row", "holes", "random",
+                                  "edges"])
+@pytest.mark.parametrize("T", [77, 130, 320])
+def test_forward_on_visited_pairs_equals_plain_forward(T, kind, causal):
+    """The forward's skip rule: a q tile visits the kv tiles of tile_pairs,
+    and a q tile that visits none is one whose rows all lack a visible key.
+    Restricted to the visited pairs, the plain forward equals the
+    unrestricted one on rows with a visible key (the skipped pairs add
+    exp(-1e30 - m) = 0 there) and gives out = 0, lse = -1e30 + log(1e-30)
+    on the rest."""
+    B, H, Hkv, d = 3, 2, 1, 16
+    rng = np.random.default_rng(T + 7 * len(kind) + causal)
+    mask = None if kind == "none" else torch.as_tensor(_mask(kind, B, T, rng))
+    q, k, v, _ = _inputs(T + 1, B, H, Hkv, T, d)
+    visited = tile_pairs(first_visible_keys(mask, B, T), T, causal)
+    rows = _rows_with_a_visible_key(mask, causal, B, T)
+    nt = -(-T // TILE)
+    tile_rows = torch.zeros(B, nt * TILE, dtype=torch.bool)
+    tile_rows[:, :T] = rows
+    assert torch.equal(~visited.any(dim=2), ~tile_rows.view(B, nt, TILE).any(dim=2))
+
+    out, lse = fwd_on_pairs(q, k, v, mask, causal, _elements(visited, T))
+    want, want_lse = tfa.flash_attention_reference(q, k, v, mask, causal)
+    r = rows[:, None, :].expand(B, H, T)
+    torch.testing.assert_close(out[r], want[r], rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse[r], want_lse[r], rtol=0, atol=1e-6)
+    assert not out[~r].any()
+    empty_lse = torch.tensor(tfa._NEG, dtype=torch.float32) + math.log(1e-30)
+    assert torch.equal(lse[~r], empty_lse.expand(int((~r).sum())))
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["none", "left_pad", "all_masked_row", "holes", "random",
+                                  "edges"])
+def test_forward_on_visited_pairs_matches_jax_kernel(kind, causal):
+    """The plain forward restricted to the visited pairs against the JAX
+    package's forward kernel (interpret mode) at tests/test_ops' flash
+    forward tolerance, 2e-5, on rows with a visible key (the JAX kernel
+    gives the others the mean of v over their masked keys)."""
+    B, H, Hkv, T, d = 3, 2, 1, 130, 16
+    rng = np.random.default_rng(31 + len(kind) + causal)
+    mask = None if kind == "none" else _mask(kind, B, T, rng)
+    tm = None if mask is None else torch.as_tensor(mask)
+    q, k, v, _ = _inputs(32, B, H, Hkv, T, d)
+    visited = tile_pairs(first_visible_keys(tm, B, T), T, causal)
+    out, lse = fwd_on_pairs(q, k, v, tm, causal, _elements(visited, T))
+    kr, vr = (jnp.repeat(jnp.asarray(t.numpy()), H // Hkv, axis=1) for t in (k, v))
+    jo, jl = flash_attention_with_lse(jnp.asarray(q.numpy()), kr, vr,
+                                      None if mask is None else jnp.asarray(mask), causal, 64, 64)
+    r = _rows_with_a_visible_key(tm, causal, B, T)[:, None, :].expand(B, H, T).numpy()
+    np.testing.assert_allclose(out.numpy()[r], np.asarray(jo)[r], rtol=0, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy()[r], np.asarray(jl)[r], rtol=0, atol=2e-5)

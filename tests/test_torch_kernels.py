@@ -6,6 +6,8 @@ This file imports no jax, so it also runs on a machine with a GPU and no jax:
 Without a GPU the kernel tests skip; the wrappers' CPU-side checks run.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -239,6 +241,51 @@ def test_flash_bwd_bf16_long_masked_and_model_views(name, causal):
         assert not dk[1, :, 64:128].any() and not dv[1, :, 64:128].any()
 
 
+def _rows_with_a_visible_key(mask, causal, B, T):
+    """[B, 1, T] bool: query rows that see at least one key."""
+    return tfa._visible(T, mask, causal, torch.device("cuda")).expand(B, 1, T, T).any(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", list(BF16_BWD_CASES))
+def test_flash_fwd_bf16_long_masked_and_model_views(name, causal):
+    """The bf16 forward on the backward's cases: T = 2048 at d = 128 and 64,
+    a kv tile of padding beside left padding that covers whole q tiles
+    (which then visit no kv tile), first visible keys on the skip rule's
+    edges, and the model's strided views at GQA 32/8. Rows with a visible
+    key against the plain version; the others come out 0 with lse =
+    -1e30 + log(1e-30); every row finite."""
+    c = BF16_BWD_CASES[name]
+    q, k, v, mask = _flash_case(c["B"], c["H"], c["Hkv"], c["T"], c["d"], torch.bfloat16,
+                                c["pads"], c["strided"])
+    if "hole" in c:
+        mask[1, c["hole"][0]:c["hole"][1]] = 0
+    out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, causal)
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    r = _rows_with_a_visible_key(mask, causal, c["B"], c["T"]).expand(lse.shape)
+    torch.testing.assert_close(out[r].float(), ref[r].float(), rtol=0,
+                               atol=FLASH_ATOL[torch.bfloat16])
+    torch.testing.assert_close(lse[r], ref_lse[r], rtol=0, atol=1e-4)
+    assert not out[~r].any()
+    assert (lse[~r] == torch.tensor(-1e30, dtype=torch.float32) + math.log(1e-30)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+def test_flash_fwd_bf16_is_deterministic():
+    """Two launches of the bf16 forward give bit-identical out and lse."""
+    c = BF16_BWD_CASES["model_views_gqa_32_8"]
+    q, k, v, mask = _flash_case(c["B"], c["H"], c["Hkv"], c["T"], c["d"], torch.bfloat16,
+                                c["pads"], c["strided"])
+    runs = [tfa.flash_attention_fwd_cuda(q, k, v, mask, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
 @pytest.mark.cuda
 @pytest.mark.usefixtures("cuda_only")
 def test_flash_bwd_bf16_is_deterministic():
@@ -278,12 +325,14 @@ def test_fused_bwd_kernels_match_plain(N, V, temperature):
 @pytest.mark.cuda
 @pytest.mark.usefixtures("cuda_only")
 @pytest.mark.parametrize("temperature", [1.0, 1.7])
-@pytest.mark.parametrize("N", [1, 65, 300])
+@pytest.mark.parametrize("N", [1, 65, 129, 300])
 def test_fused_tensor_core_kernels_ragged_shapes(N, temperature):
-    """The 3xTF32 forward and dH at ragged edges: N below, at and past one
-    128-row tile, V = 50,257 (no multiple of the 128-column tile), and
-    D = 200 (a multiple of 8, not of the 32-deep stage). Forward at 1e-4,
-    dH at 2e-4, against the plain f32 versions."""
+    """The 3xTF32 forward, dH and dW at ragged edges: N below, at and past
+    one 128-row tile (for dW, the contraction: N is no multiple of the
+    32-deep stage and its transposed operands' rows are padded), V = 50,257
+    (no multiple of the 128-column tile), and D = 200 (a multiple of 8, not
+    of the 32-deep stage). Forward at 1e-4, dH and dW at 2e-4, against the
+    plain f32 versions."""
     g = torch.Generator(device="cuda").manual_seed(N)
     D, V = 200, 50_257
     h = torch.randn(N, D, device="cuda", generator=g)
@@ -294,27 +343,31 @@ def test_fused_tensor_core_kernels_ragged_shapes(N, temperature):
     want, want_lse = tfl._plain_fwd(h, w, t, temperature)
     dh = tfl.fused_logprob_dh_cuda(h, w, t, want_lse, up, temperature)
     want_dh = tfl.plain_dh(h, w, t, want_lse, up, temperature)
+    dw = tfl.fused_logprob_dw_cuda(h, w, t, want_lse, up, temperature)
+    want_dw = tfl.plain_dw(h, w, t, want_lse, up, temperature)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
     torch.testing.assert_close(dh, want_dh, rtol=0, atol=2e-4)
+    torch.testing.assert_close(dw, want_dw, rtol=0, atol=2e-4)
 
 
 @pytest.mark.cuda
 @pytest.mark.usefixtures("cuda_only")
-@pytest.mark.parametrize("transpose,ld", [(False, 0), (False, 204), (True, 0)])
+@pytest.mark.parametrize("transpose,ld", [(False, 0), (False, 204), (True, 0), (True, 304)])
 def test_tf32_split_kernel_is_bit_exact(transpose, ld):
-    """tf32x3_split on the card gives the plain split_tf32's bits, padding
-    columns past the source with zeros."""
+    """tf32x3_split on the card gives the plain split_tf32's bits, plain and
+    transposed, padding columns past the source with zeros."""
     g = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn(300, 201, device="cuda", generator=g) * 10.0 ** torch.randint(
         -5, 5, (300, 201), device="cuda", generator=g)
     hi, lo = tfl._split_cuda(x, transpose=transpose, ld=ld)
-    want_hi, want_lo = tfl.split_tf32(x.t().contiguous() if transpose else x)
+    want_hi, want_lo = tfl.split_tf32(x, transpose=transpose, ld=ld)
     torch.cuda.synchronize()
-    cols = want_hi.shape[1]
-    assert torch.equal(hi[:, :cols], want_hi) and torch.equal(lo[:, :cols], want_lo)
-    assert not hi[:, cols:].any() and not lo[:, cols:].any()
+    assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
+    if ld:
+        cols = 300 if transpose else 201
+        assert not hi[:, cols:].any() and not lo[:, cols:].any()
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ in f64, so an f64 matmul of the parts stands in for the tensor cores here.
 The emulated forward and dH are held against the JAX package (the reference
 and jax.grad of the Pallas kernels in interpret mode) at the port's
 tolerances, 1e-4 and 2e-4, and hi*hi alone is shown to miss them, so this
-test tells the two schemes apart.
+test tells the two schemes apart. dW is emulated as its kernels compute it:
+the coefficient from the logits, then hidden^T times coef^T, both split
+transposed, each 32-deep stage's products rounded to f32 and summed in f32.
 """
 
 import math
@@ -108,3 +110,56 @@ def test_3xtf32_forward_and_dh_match_jax(temperature):
     assert errs["3x"][0] <= 1e-4 and errs["3x"][1] <= 2e-4, errs
     # plain TF32 misses both tolerances at this scale
     assert errs["hi"][0] > 1e-4 and errs["hi"][1] > 2e-4, errs
+
+
+def _mm_staged(a, b):
+    """a [M, K] times b [P, K]^T as the wgmma kernels take it (both operands
+    K-major, split into hi/lo): each 32-deep stage's hi.hi + hi.lo + lo.hi
+    (exact in f64) rounded to f32 and added into an f32 sum."""
+    ah, al = (t.double() for t in tfl.split_tf32(a))
+    bh, bl = (t.double() for t in tfl.split_tf32(b))
+    out = torch.zeros(a.shape[0], b.shape[0], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 32):
+        k = slice(k0, k0 + 32)
+        part = ah[:, k] @ bh[:, k].t() + ah[:, k] @ bl[:, k].t() + al[:, k] @ bh[:, k].t()
+        out = out + part.float()
+    return out
+
+
+@pytest.mark.parametrize("temperature", [1.0, 1.7])
+def test_3xtf32_dw_matches_jax(temperature):
+    """dW as the tensor-core kernels compute it: the logits from hidden
+    [N, D] and head^T [V, D] (K = D), the coefficient times 1/T, then
+    hidden^T [D, N] times coef^T [V, N] (K = N), each operand split by the
+    plain version of tf32x3_split (transposed where the kernels read it
+    transposed). Held against jax.grad of the JAX kernels with respect to
+    the head at 2e-4."""
+    hidden, head, targets, g = _inputs(2)
+    th, tw, tt, tg = (torch.as_tensor(a) for a in (hidden, head, targets, g))
+    want = np.asarray(jax.grad(lambda w: jnp.sum(j_fused_diff(
+        jnp.asarray(hidden), w, jnp.asarray(targets), temperature, 16, 128) * g))(
+            jnp.asarray(head)))
+
+    z = _mm_staged(th, tw.t().contiguous()) / temperature
+    lse = torch.logsumexp(z, dim=-1)
+    coef = -torch.exp(z - lse[:, None])
+    coef[torch.arange(N), tt.long()] += 1.0
+    coef = coef * (tg / temperature)[:, None]
+    dw = _mm_staged(th.t().contiguous(), coef.t().contiguous())
+    err = np.abs(dw.numpy() - want).max()
+    assert err <= 2e-4, err
+
+
+@pytest.mark.parametrize("rows", [1, 65, 129, 300])
+def test_transposed_split_with_padded_ld(rows):
+    """The plain tf32x3_split of x [rows, 200] transposed with a row stride
+    padded for TMA: [200, ld], ld the next multiple of 4 floats, the split
+    of x^T in the first ``rows`` columns bit for bit and zeros after."""
+    x = torch.as_tensor(np.random.default_rng(rows).normal(size=(rows, 200)).astype(np.float32))
+    ld = tfl.tma_ld(rows)
+    assert ld % 4 == 0 and rows <= ld < rows + 4
+    hi, lo = tfl.split_tf32(x, transpose=True, ld=ld)
+    want_hi, want_lo = tfl.split_tf32(x.t().contiguous())
+    assert hi.shape == lo.shape == (200, ld)
+    assert torch.equal(hi[:, :rows], want_hi) and torch.equal(lo[:, :rows], want_lo)
+    assert not hi[:, rows:].any() and not lo[:, rows:].any()
