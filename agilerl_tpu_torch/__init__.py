@@ -8,10 +8,14 @@ nor ``agilerl_tpu``.
 
 Slice 1: the LLM rollout + GRPO scoring pass (``llm.model``, ``llm.generate``,
 ``llm.presets``, ``llm.convert``). Slice 2: GRPO training and evolution
-(``algorithms``, ``hpo``, ``utils``, ``data``, ``training``). The kernels
+(``algorithms``, ``hpo``, ``utils``, ``data``, ``training``). Slice 3: the rest
+of the LLM stack: DPO (``algorithms.dpo``, ``utils.llm_utils.PreferenceGym``,
+``training.train_llm.finetune_llm_preference``), ILQL and BC_LM
+(``algorithms.ilql``, ``modules.layers``, ``data.rl_data``), MoE layers
+(``llm.moe``) and the HF checkpoint loader (``llm.hf``). The kernels
 written for Hopper live under ``csrc/`` behind ``ops.flash_attention_vjp``
 (flash attention forward, dQ, dK/dV) and ``ops.fused_loss`` (fused lm-head
 log-probability forward, dH, dW).
 """
 
-__all__ = ["algorithms", "data", "hpo", "llm", "ops", "training", "utils"]
+__all__ = ["algorithms", "data", "hpo", "llm", "modules", "ops", "training", "utils"]

@@ -163,6 +163,28 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
+def grad_step(loss_of: Callable[[Tree], Tuple[torch.Tensor, Any]], params: Tree,
+              tx: Transform, opt_state: Any) -> Tuple[Tree, Any, torch.Tensor, Any]:
+    """Differentiate ``loss_of(params) -> (loss, aux)`` into every leaf of
+    ``params`` (a leaf off the graph gets a zero gradient) and take one step
+    of ``tx``. Returns (params, opt_state, loss, aux), all off the graph."""
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, aux = loss_of(p)
+    leaves = tree_leaves(p)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter([torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)])
+    grads = tree_map(lambda _: next(it), p)
+    with torch.no_grad():
+        p = tree_map(torch.Tensor.detach, p)
+        updates, opt_state = tx.update(grads, opt_state, p)
+        params = apply_updates(p, updates)
+    return params, opt_state, loss.detach(), tree_map(_detached, aux)
+
+
+def _detached(x: Any) -> Any:
+    return x.detach() if isinstance(x, torch.Tensor) else x
+
+
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
                                  decay_steps: int, end_value: float = 0.0) -> Schedule:
     """optax.warmup_cosine_decay_schedule (exponent 1): linear from

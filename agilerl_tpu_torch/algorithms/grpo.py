@@ -31,7 +31,7 @@ from agilerl_tpu_torch.algorithms.core.optimizer import (
     CosineLRScheduleConfig,
     OptimizerWrapper,
     Transform,
-    apply_updates,
+    grad_step,
 )
 from agilerl_tpu_torch.algorithms.core.registry import (
     HyperparameterConfig,
@@ -42,7 +42,7 @@ from agilerl_tpu_torch.algorithms.core.registry import (
 from agilerl_tpu_torch.llm import model as M
 from agilerl_tpu_torch.llm.generate import generate
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
-from agilerl_tpu_torch.utils.tree import tree_copy, tree_leaves, tree_map
+from agilerl_tpu_torch.utils.tree import tree_copy
 
 
 def default_hp_config() -> HyperparameterConfig:
@@ -95,21 +95,14 @@ def make_update_fn(config, tx: Transform, lora_scale: float, use_flash: bool = T
         use_fused_loss = use_flash
 
     def update(base, lora, opt_state, batch, clip, beta):
-        lo = tree_map(lambda t: t.detach().requires_grad_(True), lora)
-        lp = M.token_logprobs(
-            config, base, batch["tokens"], attention_mask=batch["mask"],
-            lora=lo, lora_scale=lora_scale, flash=use_flash, use_fused=use_fused_loss,
-        )
-        loss, kl = _grpo_loss_core(lp, batch, clip, beta)
-        leaves = tree_leaves(lo)
-        grads = torch.autograd.grad(loss, leaves)
-        it = iter(grads)
-        grads = tree_map(lambda _: next(it), lo)
-        with torch.no_grad():
-            lo = tree_map(torch.Tensor.detach, lo)
-            updates, opt_state = tx.update(grads, opt_state, lo)
-            lora = apply_updates(lo, updates)
-        return lora, opt_state, loss.detach(), kl.detach()
+        def loss_of(lo):
+            lp = M.token_logprobs(
+                config, base, batch["tokens"], attention_mask=batch["mask"],
+                lora=lo, lora_scale=lora_scale, flash=use_flash, use_fused=use_fused_loss,
+            )
+            return _grpo_loss_core(lp, batch, clip, beta)
+
+        return grad_step(loss_of, lora, tx, opt_state)
 
     return update
 

@@ -1,8 +1,10 @@
 """Weights from the JAX package's parameter trees, through numpy.
 
 Both packages use the same keys and the ``[in, out]`` layout, so no
-transposes are needed. The JAX tree is handed over as numpy arrays
-(``jax.tree_util.tree_map(np.asarray, params)``); nothing here imports jax.
+transposes are needed. MoE blocks carry their stacked ``[E, ...]`` expert
+weights and their ``router`` like any other block weight. The JAX tree is
+handed over as numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``);
+nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -37,7 +39,16 @@ def params_from_numpy(tree: Mapping, config: GPTConfig,
 
 def lora_from_numpy(tree: Mapping, device: DeviceLike = None) -> Params:
     """LoRA adapter tree ({"blocks": {i: {target: {"A", "B"}}}}) in f32."""
+    return f32_tree_from_numpy(tree, device)
+
+
+def f32_tree_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """Any nested dict of arrays as f32 tensors: the trainable trees of ILQL
+    and BC_LM (``{"gpt": model tree, "v_head", "q_head", "q2_head"}``, each
+    head ``{"kernel", "bias"}``) and ILQL's target-Q tree. They train the
+    whole model, so every weight stays f32 and is cast to ``config.dtype`` at
+    use, as the JAX package keeps them."""
     dev = resolve_device(device)
-    return {"blocks": {i: {t: {k: _tensor(w, torch.float32, dev) for k, w in ab.items()}
-                           for t, ab in layer.items()}
-                       for i, layer in tree["blocks"].items()}}
+    if isinstance(tree, Mapping):
+        return {k: f32_tree_from_numpy(v, dev) for k, v in tree.items()}
+    return _tensor(tree, torch.float32, dev)

@@ -1,6 +1,6 @@
 """Decoder-only transformer (Llama-class: RMSNorm, RoPE, SwiGLU, GQA) as plain
 functions over a nested dict of tensors: the port of
-``agilerl_tpu/llm/model.py`` (its dense half).
+``agilerl_tpu/llm/model.py`` (dense and MoE layers, dense KV cache).
 
 Parameters carry the JAX package's keys and ``[in, out]`` layout
 (``x @ w``), so weights move between the two through numpy with no transpose
@@ -10,9 +10,14 @@ weight to ``config.dtype`` at use; the port stores block weights in
 the lm head (or the tied embedding) in f32, because the logits are an f32
 product with an f32 head. LoRA adapters stay f32 and are cast at use.
 
-Not ported here: MoE layers (``n_experts > 0`` raises), the paged KV cache
-(serving slice), ``scan_layers``/``remat`` (XLA compile-time devices with no
-eager counterpart) and the ``*_shard_axes`` fields (distribution slice).
+A layer ``i`` with ``config.is_moe_layer(i)`` replaces the SwiGLU FFN by the
+routed experts of ``llm/moe.py`` (stacked ``[E, ...]`` weights and a
+``router``); ``forward(..., return_aux=True)`` also returns the sum of the
+layers' load-balance losses.
+
+Not ported here: the paged KV cache (serving slice), ``scan_layers``/``remat``
+(XLA compile-time devices with no eager counterpart) and the
+``*_shard_axes`` fields (distribution slice).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from agilerl_tpu_torch.llm.moe import moe_ffn
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
 from agilerl_tpu_torch.ops.decode_attention import chunked_cached_attention
 from agilerl_tpu_torch.ops.flash_attention_vjp import flash_attention_diff
@@ -48,11 +54,14 @@ class GPTConfig:
     rms_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
     use_flash_attention: bool = False  # flash kernel on the non-cached path
-    n_experts: int = 0  # MoE is not ported yet
+    n_experts: int = 0  # 0 = dense FFN everywhere
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    moe_every: int = 1  # layer i is MoE iff (i + 1) % moe_every == 0
+    router_aux_weight: float = 0.01
 
-    def __post_init__(self):
-        if self.n_experts > 0:
-            raise NotImplementedError("MoE layers are not ported to agilerl_tpu_torch yet")
+    def is_moe_layer(self, i: int) -> bool:
+        return self.n_experts > 0 and (i + 1) % self.moe_every == 0
 
     @property
     def kv_heads(self) -> int:
@@ -147,10 +156,17 @@ def init_params(generator: GeneratorLike, config: GPTConfig,
             "wv": _normal(gen, (d, nkv * hd), std, dt, dev),
             "wo": _normal(gen, (nh * hd, d), out_std, dt, dev),
             "ln2": ones(d),
-            "w_gate": _normal(gen, (d, f), std, dt, dev),
-            "w_up": _normal(gen, (d, f), std, dt, dev),
-            "w_down": _normal(gen, (f, d), out_std, dt, dev),
         }
+        if config.is_moe_layer(i):
+            E = config.n_experts
+            blk["router"] = _normal(gen, (d, E), std, dt, dev)
+            blk["w_gate"] = _normal(gen, (E, d, f), std, dt, dev)
+            blk["w_up"] = _normal(gen, (E, d, f), std, dt, dev)
+            blk["w_down"] = _normal(gen, (E, f, d), out_std, dt, dev)
+        else:
+            blk["w_gate"] = _normal(gen, (d, f), std, dt, dev)
+            blk["w_up"] = _normal(gen, (d, f), std, dt, dev)
+            blk["w_down"] = _normal(gen, (f, d), out_std, dt, dev)
         if config.qkv_bias:
             blk["bq"], blk["bk"], blk["bv"] = zeros(nh * hd), zeros(nkv * hd), zeros(nkv * hd)
         params["blocks"][str(i)] = blk
@@ -163,11 +179,20 @@ def init_params(generator: GeneratorLike, config: GPTConfig,
 # LoRA
 # --------------------------------------------------------------------------- #
 
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
+
+
 def init_lora(generator: GeneratorLike, config: GPTConfig, rank: int = 8,
               targets: Tuple[str, ...] = ("wq", "wv"),
               device: DeviceLike = None) -> Params:
     """f32 LoRA adapter subtree mirroring blocks: A ~ normal(0.02), B = 0,
-    so a fresh adapter is a no-op."""
+    so a fresh adapter is a no-op. FFN targets are refused on MoE models: the
+    expert weights are stacked ``[E, ...]`` and the routed FFN would never
+    read a dense-shaped adapter."""
+    if config.n_experts > 0 and any(t in ("w_gate", "w_up", "w_down") for t in targets):
+        raise ValueError(
+            "LoRA on FFN projections is not supported for MoE layers; "
+            f"restrict targets to attention projections {LORA_TARGETS}")
     dev = resolve_device(device)
     gen = _generator(generator, dev)
     d, hd = config.d_model, config.head_dim
@@ -256,13 +281,21 @@ def _qkv_rope(config: GPTConfig, blk, x, positions, lora_layer, lora_scale):
 
 
 def _block_ffn(config: GPTConfig, blk, h, lora_layer, lora_scale):
-    """Post-attention half of a block: RMSNorm + SwiGLU + residual."""
+    """Post-attention half of a block: RMSNorm + (MoE | SwiGLU) FFN + residual.
+    Returns (h_out, aux): the MoE layer's load-balance loss, 0.0 for a dense
+    layer (a Python float, so a dense forward launches nothing for it)."""
     dtype = h.dtype
     x = _rms(h, blk["ln2"], config.rms_eps)
+    if "router" in blk:
+        B, T, D = h.shape
+        out, aux = moe_ffn(x.reshape(B * T, D), blk["router"], blk["w_gate"], blk["w_up"],
+                           blk["w_down"], top_k=config.expert_top_k,
+                           capacity_factor=config.capacity_factor)
+        return h + out.reshape(B, T, D), aux
     gate = _maybe_lora(x, blk["w_gate"], lora_layer, "w_gate", lora_scale, dtype)
     up = _maybe_lora(x, blk["w_up"], lora_layer, "w_up", lora_scale, dtype)
     return h + _maybe_lora(F.silu(gate) * up, blk["w_down"], lora_layer, "w_down",
-                           lora_scale, dtype)
+                           lora_scale, dtype), 0.0
 
 
 def _dense_attention(config: GPTConfig, q, k, v, attention_mask):
@@ -292,12 +325,14 @@ def forward(
     lora: Optional[Params] = None,
     lora_scale: float = 2.0,
     flash: Optional[bool] = None,  # override config.use_flash_attention
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Returns (hidden [B, T, D] float32, new cache). With a cache, tokens are
-    appended at ``cache.length`` (all rows share it: left-pad ragged
-    prompts). The cache's k, v and mask are written IN PLACE (the JAX version
-    returns new arrays): the returned cache shares them with the one passed
-    in, with ``length`` advanced by T.
+    return_aux: bool = False,  # also return the MoE load-balance loss
+):
+    """Returns (hidden [B, T, D] float32, new cache), and with ``return_aux``
+    (hidden, cache, aux): aux is the layers' summed MoE load-balance loss
+    (f32). With a cache, tokens are appended at ``cache.length`` (all rows
+    share it: left-pad ragged prompts). The cache's k, v and mask are
+    written IN PLACE (the JAX version returns new arrays): the returned cache
+    shares them with the one passed in, with ``length`` advanced by T.
 
     ``flash`` routes the non-cached attention through the flash kernels
     (CUDA tensors; differentiable, with the backward kernels) or their plain
@@ -318,6 +353,7 @@ def forward(
         cache.mask[:, start:start + T] = attention_mask.to(torch.int32)
 
     H, hd = config.n_head, config.head_dim
+    aux_total = 0.0
     for i in range(config.n_layer):
         blk = params["blocks"][str(i)]
         lora_layer = lora["blocks"].get(str(i)) if lora is not None else None
@@ -337,12 +373,16 @@ def forward(
                 attn = _dense_attention(config, q, k, v, attention_mask)
             attn = attn.transpose(1, 2).reshape(B, T, H * hd)
         attn = _maybe_lora(attn, blk["wo"], lora_layer, "wo", lora_scale, dtype)
-        h = _block_ffn(config, blk, h + attn, lora_layer, lora_scale)
+        h, aux = _block_ffn(config, blk, h + attn, lora_layer, lora_scale)
+        aux_total = aux_total + aux
 
     new_cache = None
     if cache is not None:
         new_cache = KVCache(cache.k, cache.v, start + T, cache.mask)
-    return _rms(h, params["ln_f"], config.rms_eps).float(), new_cache
+    hidden = _rms(h, params["ln_f"], config.rms_eps).float()
+    if return_aux:
+        return hidden, new_cache, torch.as_tensor(aux_total, dtype=torch.float32, device=dev)
+    return hidden, new_cache
 
 
 def _head(config: GPTConfig, params: Params) -> torch.Tensor:
@@ -355,9 +395,12 @@ def logits_fn(config: GPTConfig, params: Params, hidden: torch.Tensor) -> torch.
     return hidden @ _head(config, params).float()
 
 
-def apply(config: GPTConfig, params: Params, tokens: torch.Tensor,
-          **kw) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Full forward to logits: (logits [B, T, V] float32, cache)."""
+def apply(config: GPTConfig, params: Params, tokens: torch.Tensor, **kw):
+    """Full forward to logits: (logits [B, T, V] float32, cache), and with
+    ``return_aux=True`` (logits, cache, MoE load-balance loss)."""
+    if kw.get("return_aux"):
+        hidden, caches, aux = forward(config, params, tokens, **kw)
+        return logits_fn(config, params, hidden), caches, aux
     hidden, caches = forward(config, params, tokens, **kw)
     return logits_fn(config, params, hidden), caches
 

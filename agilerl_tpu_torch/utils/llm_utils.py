@@ -1,6 +1,6 @@
 """Dataset-as-gym for LLM RL finetuning: the port of
 ``agilerl_tpu/utils/llm_utils.py`` (``CharTokenizer``, ``HuggingFaceGym``,
-``ReasoningGym``; ``PreferenceGym`` comes with DPO).
+``ReasoningGym`` for GRPO and ``PreferenceGym`` for DPO).
 
 Tokenizer protocol: ``encode(str) -> List[int]``, ``decode(List[int]) -> str``,
 ``pad_token_id``, ``eos_token_id``. Prompt batches, rewards and learn batches
@@ -209,3 +209,62 @@ class ReasoningGym(HuggingFaceGym):
         action_mask = np.zeros((B * G, P + N - 1), np.float32)
         action_mask[:, P - 1:] = np.asarray(completion_mask, np.float32)
         return ids, action_mask
+
+
+class PreferenceGym(HuggingFaceGym):
+    """Preference-pair batches for DPO. Dataset rows need prompt, chosen and
+    rejected keys; ``reset`` returns the chosen and rejected sequences
+    (prompt + completion + eos, left-padded) with their attention masks and
+    the completion-prediction loss masks ``[B, P-1]``."""
+
+    def __init__(
+        self,
+        *args,
+        prompt_key: str = "prompt",
+        chosen_key: str = "chosen",
+        rejected_key: str = "rejected",
+        max_completion_length: Optional[int] = None,
+        **kwargs,
+    ):
+        kwargs.setdefault("question_key", prompt_key)
+        super().__init__(*args, **kwargs)
+        self.prompt_key = prompt_key
+        self.chosen_key = chosen_key
+        self.rejected_key = rejected_key
+        self.max_completion_length = max_completion_length
+
+    def reset(self, eval_mode: bool = False) -> Dict[str, np.ndarray]:
+        return self._build_batch(self._next_batch(eval_mode))
+
+    def eval_batches(self):
+        """Iterate preference batches over the whole test split."""
+        for rows in self.eval_row_batches():
+            yield self._build_batch(rows)
+
+    def _build_batch(self, rows: List[Dict]) -> Dict[str, np.ndarray]:
+        tok = self.tokenizer
+
+        def build(key):
+            seqs, prompt_lens = [], []
+            for r in rows:
+                p = tok.encode(str(r[self.prompt_key]))
+                c = tok.encode(str(r[key])) + [tok.eos_token_id]
+                if self.max_completion_length:
+                    c = c[:self.max_completion_length]
+                seqs.append(p + c)
+                prompt_lens.append(len(p))
+            ids, attn = left_pad(seqs, pad_id=tok.pad_token_id)
+            # 1 where the prediction target is a completion token
+            P = ids.shape[1]
+            loss_mask = np.zeros((len(rows), P - 1), np.float32)
+            for i, (seq, plen) in enumerate(zip(seqs, prompt_lens)):
+                start = P - len(seq) + plen  # left-pad offset + prompt length
+                loss_mask[i, max(start - 1, 0):] = 1.0
+            return ids, attn, loss_mask
+
+        c_ids, c_attn, c_lm = build(self.chosen_key)
+        r_ids, r_attn, r_lm = build(self.rejected_key)
+        return {
+            "chosen_ids": c_ids, "chosen_mask": c_attn, "chosen_loss_mask": c_lm,
+            "rejected_ids": r_ids, "rejected_mask": r_attn, "rejected_loss_mask": r_lm,
+        }

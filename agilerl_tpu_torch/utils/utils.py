@@ -1,4 +1,4 @@
-"""Population factory and evolution glue: the port of the GRPO half of
+"""Population factory and evolution glue: the port of the LLM half of
 ``agilerl_tpu/utils/utils.py`` (``create_population``,
 ``tournament_selection_and_mutation``, ``consolidate_mutations``,
 ``print_hyperparams``). The other algorithms, env makers and population
@@ -13,7 +13,7 @@ import numpy as np
 
 from agilerl_tpu_torch.utils.rng import derive_rng
 
-# the JAX package's INIT_HP upper-case keys that name a GRPO constructor kwarg
+# the JAX package's INIT_HP upper-case keys that name a GRPO/DPO constructor kwarg
 _INIT_HP_MAP = {
     "BATCH_SIZE": "batch_size",
     "LR": "lr",
@@ -37,20 +37,24 @@ def create_population(
     seed: Optional[int] = None,
     **kwargs,
 ) -> List:
-    """Build a population of GRPO agents. ``kwargs`` go to every member
+    """Build a population of GRPO or DPO agents. ``kwargs`` go to every member
     (``config``, ``base_params``, token ids, ...); pass ``base_params`` to
     share one frozen base model across the population. Each member's seed is
     drawn from ``seed`` (or the global numpy stream), as in the JAX package."""
-    if algo != "GRPO":
-        raise NotImplementedError(f"create_population is ported for GRPO only, not {algo!r}")
-    from agilerl_tpu_torch.algorithms.grpo import GRPO
+    if algo == "GRPO":
+        from agilerl_tpu_torch.algorithms.grpo import GRPO as cls
+    elif algo == "DPO":
+        from agilerl_tpu_torch.algorithms.dpo import DPO as cls
+    else:
+        raise NotImplementedError(
+            f"create_population is ported for GRPO and DPO only, not {algo!r}")
 
     INIT_HP = dict(INIT_HP or {})
     pop_size = population_size or INIT_HP.get("POP_SIZE", INIT_HP.get("POPULATION_SIZE", 4))
     ctor_kwargs = {_INIT_HP_MAP[k]: v for k, v in INIT_HP.items() if k in _INIT_HP_MAP}
     ctor_kwargs.update(kwargs)
     rng = derive_rng(seed=seed)
-    return [GRPO(index=idx, hp_config=hp_config, device=device,
+    return [cls(index=idx, hp_config=hp_config, device=device,
                  seed=int(rng.integers(0, 2**31 - 1)), **ctor_kwargs)
             for idx in range(pop_size)]
 

@@ -30,10 +30,26 @@ of which ends the run with a non-zero exit on any failure:
    -> a reward computed from the completion ids -> ``learn`` (old and
    reference passes, then the update through all four backward kernels);
    launch counts per learn, finite losses, a moved adapter, and the adapter
-   gradient through the kernels held against the plain path and an f32 run;
+   gradient of one update through the kernels and through the plain path;
+4d. slice 3's path on the same weights: two ``DPO.learn`` calls on
+   PreferenceGym batches of 8 preference pairs of seeded text (rows of at
+   most 320 tokens), each timed as its reference passes and its update
+   (flash forward, dQ, dK/dV and fused forward, dH; launch counts per
+   learn), ``DPO.test`` over one eval batch, each of those kernels against
+   its plain version at the learn's chosen and rejected shapes, and the
+   adapter gradient of one update through the kernels and the plain path;
+   then one f32 copy of the weights holds both adapter gradients (4b's and
+   4d's) against an f32 run: the kernel path no further from it than twice
+   the plain path;
 4c. the evolution loop: ``finetune_llm_reasoning`` over a population of 2
    on the arithmetic ReasoningGym recipe, llama3-8b widths cut to 4 layers,
    through one tournament and one mutation round;
+4e. the rest of slice 3 at small size: ``finetune_llm_preference`` over a
+   population of 2 at llama3-8b widths cut to 4 layers, and the same loop
+   at a small f32 size on the card against the CPU; one ILQL learn and its
+   greedy and beam generation against the CPU; the HF checkpoint loader on
+   both committed fixtures against their golden logits; an MoE forward with
+   ``return_aux`` against the CPU;
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -664,7 +680,8 @@ def run_slice(torch, M, G, ops, presets, report):
     log(f"  scoring [{B}, {T}] (flash + fused): {t_score_a * 1e3:.1f} ms and "
         f"{t_score_r * 1e3:.1f} ms; peak memory {peak_gb:.1f} GB")
     report["slice"] = dict(
-        model="llama3-8b", layers=cfg.n_layer, rows=B, prompt_len=P, new_tokens=MAX_NEW_TOKENS,
+        model="llama3-8b",
+        layers=cfg.n_layer, rows=B, prompt_len=P, new_tokens=MAX_NEW_TOKENS,
         real_tokens=n_real, params_b=n_params / 1e9, prefill_ms=t_prefill * 1e3,
         decode_ms_per_step=t_decode * 1e3, generate_sampled_s=t_gen,
         generate_greedy_s=t_greedy, scoring_ms=[t_score_a * 1e3, t_score_r * 1e3],
@@ -698,21 +715,77 @@ def timed_calls(torch, fn, into):
     return run
 
 
-def lora_grad(torch, M, TG, tree, cfg, params, lora, batch, knobs, flash, fused):
-    """The adapter gradient of one GRPO update's loss on ``batch``, flat.
+def lora_grad(torch, tree, lora, loss_of):
+    """The gradient of ``loss_of(adapter)`` with respect to the adapter, flat."""
+    lo = tree.tree_map(lambda t: t.detach().clone().requires_grad_(True), lora)
+    grads = torch.autograd.grad(loss_of(lo), tree.tree_leaves(lo))
+    return torch.cat([g.flatten() for g in grads])
+
+
+def grpo_loss_of(M, TG, cfg, params, batch, knobs, flash, fused):
+    """One GRPO update's loss on ``batch`` as a function of the adapter.
     knobs: (lora_scale, clip_coef, beta)."""
     lora_scale, clip, beta = knobs
-    lo = tree.tree_map(lambda t: t.detach().clone().requires_grad_(True), lora)
-    lp = M.token_logprobs(cfg, params, batch["tokens"], attention_mask=batch["mask"], lora=lo,
-                          lora_scale=lora_scale, flash=flash, use_fused=fused)
-    loss, _ = TG._grpo_loss_core(lp, batch, clip, beta)
-    grads = torch.autograd.grad(loss, tree.tree_leaves(lo))
-    return torch.cat([g.flatten() for g in grads])
+
+    def loss_of(lo):
+        lp = M.token_logprobs(cfg, params, batch["tokens"], attention_mask=batch["mask"],
+                              lora=lo, lora_scale=lora_scale, flash=flash, use_fused=fused)
+        return TG._grpo_loss_core(lp, batch, clip, beta)[0]
+
+    return loss_of
+
+
+def bf16_grads(torch, tree, lora, loss_of_path, cfg, params, label):
+    """The first half of phase 4b's rule: the adapter gradient through the
+    kernels and through the plain bf16 path (dense attention + chunked
+    logprobs). ``loss_of_path(cfg, params, flash, fused)`` builds the loss;
+    ``f32_grad_agreement`` finishes the rule once the weights are f32."""
+    return dict(label=label, lora=lora, loss_of_path=loss_of_path,
+                kernel=lora_grad(torch, tree, lora, loss_of_path(cfg, params, True, True)),
+                plain=lora_grad(torch, tree, lora, loss_of_path(cfg, params, False, False)))
+
+
+def f32_grad_agreement(torch, tree, pending, cfg32, params32):
+    """Phase 4b's rule: the adapter gradient through the kernels must be no
+    further from an f32 run's than GRAD_FACTOR x the plain bf16 path's
+    (relative L2) + GRAD_FLOOR. ``pending`` comes from ``bf16_grads``."""
+    g_kernel, g_plain = pending["kernel"], pending["plain"]
+    g_32 = lora_grad(torch, tree, pending["lora"],
+                     pending["loss_of_path"](cfg32, params32, False, False))
+    torch.cuda.empty_cache()
+    norm = g_32.norm().item()
+    out = dict(grad_norm_f32=norm, grad_rel_kernel=(g_kernel - g_32).norm().item() / norm,
+               grad_rel_plain=(g_plain - g_32).norm().item() / norm,
+               grad_rel_kernel_vs_plain=(g_kernel - g_plain).norm().item() / norm,
+               grad_cosine_kernel_f32=torch.nn.functional.cosine_similarity(
+                   g_kernel, g_32, dim=0).item(), entries=g_32.numel())
+    log(f"  {pending['label']}: adapter gradient ({out['entries']} entries, |g| {norm:.3e}): "
+        f"relative L2 to f32: kernel path {out['grad_rel_kernel']:.3e}, plain path "
+        f"{out['grad_rel_plain']:.3e}; kernel vs plain {out['grad_rel_kernel_vs_plain']:.3e}; "
+        f"cosine(kernel, f32) {out['grad_cosine_kernel_f32']:.5f} (bound: kernel <= "
+        f"{GRAD_FACTOR} x plain + {GRAD_FLOOR})")
+    check(out["grad_rel_kernel"] <= GRAD_FACTOR * out["grad_rel_plain"] + GRAD_FLOOR,
+          f"{pending['label']}: the kernel path's adapter gradient is further from f32 than "
+          f"the plain path's")
+    return out
+
+
+def f32_weights(torch, cfg, params):
+    """An f32 copy of the bf16 weights, block by block, dropping the bf16
+    blocks as it goes (the last use of the bf16 8B weights)."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = {k: v.float() for k, v in params.items() if k != "blocks"}
+    params32["blocks"] = {}
+    for i in list(params["blocks"]):
+        params32["blocks"][i] = {n: w.float() for n, w in params["blocks"].pop(i).items()}
+    return cfg32, params32
 
 
 def run_learn(torch, M, ops, cfg, params, prompts, report):
     """Slice 2's path: two GRPO iterations at llama3-8b, then the adapter
-    gradient of one update through the kernels vs the plain path and f32."""
+    gradient of one update through the kernels and the plain path (held
+    against f32 by ``f32_grad_agreement``). Returns the path's launch counts
+    and the pending gradients."""
     import numpy as np
 
     from agilerl_tpu_torch.algorithms import grpo as TG
@@ -776,8 +849,8 @@ def run_learn(torch, M, ops, cfg, params, prompts, report):
     check(moved > 0, "the LoRA B matrices did not move")
 
     # the adapter gradient of one update on 4 rows (one per prompt), through
-    # the kernels, through the plain path (dense attention + chunked
-    # logprobs), and through the plain path in f32
+    # the kernels and through the plain path (dense attention + chunked
+    # logprobs); the f32 run comes after phase 4d
     rows = torch.arange(0, n_prompts * GROUP_SIZE, GROUP_SIZE, device="cuda")
     tokens, mask, loss_mask = agent._learn_masks(ids, action, attn)
     tokens, mask, loss_mask = tokens[rows], mask[rows], loss_mask[rows]
@@ -791,36 +864,13 @@ def run_learn(torch, M, ops, cfg, params, prompts, report):
                  ref_lp=ref * loss_mask, advantage=adv)
     actor = agent.actor.params
     knobs = (agent.lora_scale, agent.clip_coef, agent.beta)
-    g_kernel = lora_grad(torch, M, TG, tree, cfg, params, actor, batch, knobs, True, True)
-    g_plain = lora_grad(torch, M, TG, tree, cfg, params, actor, batch, knobs, False, False)
     del agent
-    # f32 copy of the bf16 weights, block by block, dropping the bf16 blocks
-    # (this is the last use of the 8B weights)
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    params32 = {k: v.float() for k, v in params.items() if k != "blocks"}
-    params32["blocks"] = {}
-    for i in list(params["blocks"]):
-        params32["blocks"][i] = {n: w.float() for n, w in params["blocks"].pop(i).items()}
-    torch.cuda.empty_cache()
-    g_32 = lora_grad(torch, M, TG, tree, cfg32, params32, actor, batch, knobs, False, False)
-    del params32
-    torch.cuda.empty_cache()
-    norm = g_32.norm().item()
-    rel_kernel = (g_kernel - g_32).norm().item() / norm
-    rel_plain = (g_plain - g_32).norm().item() / norm
-    rel_both = (g_kernel - g_plain).norm().item() / norm
-    cos = torch.nn.functional.cosine_similarity(g_kernel, g_32, dim=0).item()
-    log(f"  adapter gradient of one update (4 rows, {g_32.numel()} entries, |g| {norm:.3e}): "
-        f"relative L2 to f32: kernel path {rel_kernel:.3e}, plain path {rel_plain:.3e}; "
-        f"kernel vs plain {rel_both:.3e}; cosine(kernel, f32) {cos:.5f} (bound: kernel "
-        f"<= {GRAD_FACTOR} x plain + {GRAD_FLOOR})")
-    check(rel_kernel <= GRAD_FACTOR * rel_plain + GRAD_FLOOR,
-          "the kernel path's adapter gradient is further from f32 than the plain path's")
-    report["learn"] = dict(iterations=learns, lora_b_moved=moved, launches=launches,
-                           grad_norm_f32=norm, grad_rel_kernel=rel_kernel,
-                           grad_rel_plain=rel_plain, grad_rel_kernel_vs_plain=rel_both,
-                           grad_cosine_kernel_f32=cos)
-    return launches
+    grads = bf16_grads(
+        torch, tree, actor,
+        lambda c, p, flash, fused: grpo_loss_of(M, TG, c, p, batch, knobs, flash, fused),
+        cfg, params, "GRPO, one update on 4 rows (one per prompt)")
+    report["learn"] = dict(iterations=learns, lora_b_moved=moved, launches=launches)
+    return launches, grads
 
 
 # ------------------------------- phase 4c ---------------------------------- #
@@ -879,6 +929,384 @@ def run_evolution(torch, M, ops, presets, report):
           f"evolution loop missed a kernel: {launches}")
     report["evolution"] = dict(layers=cfg.n_layer, seconds=t_loop, fitnesses=fitnesses,
                                mutations=[a.mut for a in new_pop], launches=launches)
+
+
+# ------------------------------- phase 4d ---------------------------------- #
+
+DPO_PAIRS = 8  # preference pairs per learn
+DPO_GRAD_PAIRS = 2  # pairs in the f32 gradient check (f32 8B weights + activations)
+TEXT = "0123456789+-*=() abcdefghijklmnopqrstuvwxyz"  # CharTokenizer's alphabet
+
+
+def text_rows(n, seed, prompt_len, completion_len):
+    """Preference rows of seeded text: a prompt and chosen and rejected
+    completions, their lengths drawn from the (low, high) ranges given."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    chars = np.array(list(TEXT))
+
+    def text(bounds):
+        return "".join(rng.choice(chars, int(rng.integers(bounds[0], bounds[1] + 1))))
+
+    return [{"prompt": text(prompt_len), "chosen": text(completion_len),
+             "rejected": text(completion_len)} for _ in range(n)]
+
+
+def check_dpo_kernels(torch, M, tfa, tfl, cfg, params, lora, batch, report):
+    """Each kernel of the DPO path against its plain version at the shapes
+    the timed learn gave it, at phase 3's tolerances, for the chosen and the
+    rejected side: the fused forward and dH on that pass's own hidden states
+    [8 (T-1), 4096] against the [4096, 128256] head (dH's upstream: a seeded
+    coefficient per pair times the side's loss mask, as DPO's loss gives
+    it); the bf16 flash forward, dQ and dK/dV on seeded q/k/v [8, 32/8, T,
+    128] and dO in the model's strided views, under the side's padding mask."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    head = M._head(cfg, params).float().contiguous()
+    H, Hkv, d = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    worst = {}
+    for side in ("chosen", "rejected"):
+        ids, mask = batch[f"{side}_ids"], batch[f"{side}_mask"]
+        B, T = ids.shape
+        with torch.no_grad():
+            hidden, _ = M.forward(cfg, params, ids, attention_mask=mask, lora=lora, flash=True)
+        h = hidden[:, :-1].reshape(-1, hidden.shape[-1])
+        t = ids[:, 1:].reshape(-1)
+        lp, lse = tfl.fused_logprob_fwd_cuda(h, head, t)
+        want_lp, want_lse = tfl._plain_fwd(h, head, t, 1.0)
+        up = (torch.randn(B, 1, device="cuda", generator=g)
+              * batch[f"{side}_loss_mask"]).reshape(-1).contiguous()
+        dh = tfl.fused_logprob_dh_cuda(h, head, t, lse, up)
+        want_dh = tfl.plain_dh(h, head, t, lse, up)
+        torch.cuda.synchronize()
+        errs = {"lp": (lp - want_lp).abs().max().item(),
+                "lse": (lse - want_lse).abs().max().item(),
+                "dh": (dh - want_dh).abs().max().item()}
+        case = f"{side} hidden [{h.shape[0]}, {h.shape[1]}] x head {list(head.shape)}"
+        log(f"  fused {case}: max|lp-plain| {errs['lp']:.3e}, max|lse-plain| "
+            f"{errs['lse']:.3e} (tol 1e-04), max|dH-plain| {errs['dh']:.3e} "
+            f"(tol {FUSED_BWD_ATOL:.0e})")
+        check(errs["lp"] <= 1e-4 and errs["lse"] <= 1e-4 and errs["dh"] <= FUSED_BWD_ATOL,
+              f"fused kernels disagree at the DPO shape: {case}")
+        worst[f"fused {side}"] = errs
+        del hidden, h, want_lp, want_lse, dh, want_dh
+        torch.cuda.empty_cache()
+
+        q, k, v = flash_inputs(torch, B, H, Hkv, T, d, torch.bfloat16, True, g)
+        out, flse = tfa.flash_attention_fwd_cuda(q, k, v, mask, True)
+        ref, ref_lse = tfa.flash_attention_reference(q, k, v, mask, True)
+        dout = torch.randn(B, T, H, d, device="cuda", generator=g).to(torch.bfloat16)
+        dout = dout.transpose(1, 2)  # the gradient of the model's [B, T, H d] reshape
+        dd = (dout.float() * out.float()).sum(-1).contiguous()
+        dq = tfa.flash_attention_dq_cuda(q, k, v, dout, flse, dd, mask, True)
+        dk, dv = tfa.flash_attention_dkv_cuda(q, k, v, dout, flse, dd, mask, True)
+        want = tfa.flash_attention_bwd_reference(q, k, v, dout, flse, dd, mask, True)
+        torch.cuda.synchronize()
+        r = rows_with_a_visible_key(tfa, mask, True, B, T).expand(flse.shape)
+        ferr = {"out": (out[r].float() - ref[r].float()).abs().max().item(),
+                "lse": (flse[r] - ref_lse[r]).abs().max().item()}
+        case = f"{side} bf16 [{B}, {H}/{Hkv}, {T}, {d}] model views"
+        check(ferr["out"] <= 2e-2 and ferr["lse"] <= 1e-4,
+              f"flash forward disagrees at the DPO shape: {case}")
+        check(bool(torch.isfinite(out.float()).all() and torch.isfinite(flse).all()),
+              f"flash forward non-finite at the DPO shape: {case}")
+        for name, got, wnt in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            err, tol = bwd_error(torch, got, wnt, torch.bfloat16)
+            check(bool(torch.isfinite(got.float()).all()) and err <= tol,
+                  f"flash {name} disagrees at the DPO shape ({err} > {tol}): {case}")
+            ferr[name] = err
+        log(f"  flash {case}: max|out-plain| {ferr['out']:.3e} (tol 2e-02), max|lse-plain| "
+            f"{ferr['lse']:.3e} (tol 1e-04) over rows with a visible key; dq {ferr['dq']:.2e}, "
+            f"dk {ferr['dk']:.2e}, dv {ferr['dv']:.2e} (tol 1 % of the plain output's max)")
+        worst[f"flash {side}"] = ferr
+        del q, k, v, out, ref, dout, dq, dk, dv, want
+        torch.cuda.empty_cache()
+    report["dpo_kernel_checks"] = worst
+
+
+def run_dpo(torch, M, ops, tfa, tfl, cfg, params, report):
+    """Slice 3's path: two DPO learns at llama3-8b (phase 4's weights,
+    rank-8 LoRA on wq/wv) on PreferenceGym batches of 8 pairs, DPO.test over
+    one eval batch, each kernel at the learn's shapes against its plain
+    version, then the adapter gradient of one update through the kernels
+    and the plain path (held against f32 by ``f32_grad_agreement``). Returns
+    the path's launch counts (set to 0 before the two learns, read after
+    them) and the pending gradients."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms import dpo as TD
+    from agilerl_tpu_torch.utils import tree
+    from agilerl_tpu_torch.utils.llm_utils import CharTokenizer, PreferenceGym
+
+    tok = CharTokenizer()
+    lens = ((64, 256), (32, 63))  # rows of at most 256 + 63 + eos = 320 tokens
+    env = PreferenceGym(text_rows(DPO_PAIRS, 0, *lens), text_rows(DPO_PAIRS, 1, *lens), tok,
+                        data_batch_size=DPO_PAIRS)
+    agent = TD.DPO(config=cfg, base_params=params, pad_token_id=tok.pad_token_id,
+                   eos_token_id=tok.eos_token_id, seed=0, lora_rank=LORA_RANK,
+                   lora_targets=("wq", "wv"))
+    log(f"phase 4d: DPO learn at llama3-8b: {DPO_PAIRS} preference pairs (prompts "
+        f"{lens[0]} chars, completions {lens[1]}), rank-{LORA_RANK} LoRA on wq/wv, beta "
+        f"{agent.beta}, lr {agent.lr}")
+    b_before = [ab["B"].clone() for layer in agent.actor.params["blocks"].values()
+                for ab in layer.values()]
+    times = {"reference": [], "update": []}
+    agent._jit_cache["dpo_reference"] = timed_calls(torch, agent._dpo_reference_fn(),
+                                                    times["reference"])
+    agent._jit_cache["dpo_update"] = timed_calls(torch, agent._dpo_update_fn(), times["update"])
+    L = cfg.n_layer
+    want = {"flash_attention_fwd": 4 * L, "flash_attention_dq": 2 * L,
+            "flash_attention_dkv": 2 * L, "fused_logprob_fwd": 4, "fused_logprob_dh": 2,
+            "fused_logprob_dw": 0}
+    learns = []
+    ops.reset_kernel_counters()
+    for it in range(2):
+        batch = env.reset()
+        before = ops.kernel_counters()
+        n_ref, n_up = len(times["reference"]), len(times["update"])
+        torch.cuda.reset_peak_memory_stats()
+        (loss, acc), t_learn = host_s(torch, lambda: agent.learn(batch))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        after = ops.kernel_counters()
+        counts = {k: after[k] - before[k] for k in after}
+        check(counts == want, f"DPO learn {it}: launches {counts} != {want}")
+        check(np.isfinite(loss), f"DPO learn {it}: loss {loss}")
+        t_ref, t_up = times["reference"][n_ref:], times["update"][n_up:]
+        shapes = {side: list(batch[f"{side}_ids"].shape) for side in ("chosen", "rejected")}
+        learns.append(dict(loss=loss, accuracy=acc, learn_s=t_learn, reference_passes_s=t_ref,
+                           update_s=t_up, peak_memory_gb=peak_gb, launches=counts,
+                           shapes=shapes))
+        log(f"  learn {it}: {t_learn:.3f} s = reference passes {t_ref[0]:.3f} s, update "
+            f"{t_up[0]:.3f} s; loss {loss:.5f}, accuracy {acc:.3f}; chosen/rejected "
+            f"{shapes['chosen']}/{shapes['rejected']}; peak memory {peak_gb:.1f} GB")
+        log(f"    launches in this learn: {counts}")
+    launches = ops.kernel_counters()
+    moved = max((ab["B"] - b0).abs().max().item() for ab, b0 in zip(
+        (ab for layer in agent.actor.params["blocks"].values() for ab in layer.values()),
+        b_before))
+    log(f"  LoRA B moved by up to {moved:.3e} (two AdamW steps)")
+    check(moved > 0, "the LoRA B matrices did not move")
+    fitness, t_test = host_s(torch, lambda: agent.test(env))
+    log(f"  test over the eval split ({DPO_PAIRS} pairs, one batch): preference accuracy "
+        f"{fitness:.3f} in {t_test:.3f} s")
+    check(0.0 <= fitness <= 1.0 and agent.fitness == [fitness], "DPO.test fitness")
+
+    # each kernel at the shapes of the last learn's batch
+    full = agent._dpo_batch(batch)
+    check_dpo_kernels(torch, M, tfa, tfl, cfg, params, agent.actor.params, full, report)
+
+    # the adapter gradient of one update on the first pairs of the last
+    # batch, the reference logprobs (kernels, no gradient) held fixed
+    b = {k: v[:DPO_GRAD_PAIRS] for k, v in full.items()}
+    ref_c, ref_r = agent._dpo_reference_fn()(agent.reference.params, b)
+    beta, smooth, actor = agent.beta, agent.label_smoothing, agent.actor.params
+    del agent, full
+
+    def loss_of_path(c, p, flash, fused):
+        def seq(lo, side):  # lora_scale left at its default, as DPO's update leaves it
+            lp = M.token_logprobs(c, p, b[f"{side}_ids"], attention_mask=b[f"{side}_mask"],
+                                  lora=lo, flash=flash, use_fused=fused)
+            return (lp * b[f"{side}_loss_mask"]).sum(dim=-1)
+
+        return lambda lo: TD._dpo_loss(seq(lo, "chosen"), seq(lo, "rejected"), ref_c, ref_r,
+                                       beta, smooth)[0]
+
+    grads = bf16_grads(torch, tree, actor, loss_of_path, cfg, params,
+                       f"DPO, one update on {DPO_GRAD_PAIRS} pairs")
+    report["dpo"] = dict(pairs=DPO_PAIRS, learns=learns, lora_b_moved=moved, launches=launches,
+                         test_fitness=fitness, test_s=t_test)
+    return launches, grads
+
+
+# ------------------------------- phase 4e ---------------------------------- #
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def recording(fn, into):
+    """``fn`` with each result appended to ``into``."""
+    def run(*args):
+        into.append(fn(*args))
+        return into[-1]
+
+    return run
+
+
+def run_preference_loop(torch, M, ops, presets, report):
+    """finetune_llm_preference over a population of 2, llama3-8b widths cut
+    to EVO_LAYERS layers; then the same loop at a small f32 size on the card
+    and on the CPU from the same weights: the same losses (rtol 1e-5),
+    fitnesses and selection."""
+    import numpy as np
+
+    from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
+    from agilerl_tpu_torch.training.train_llm import finetune_llm_preference
+    from agilerl_tpu_torch.utils.llm_utils import CharTokenizer, PreferenceGym
+    from agilerl_tpu_torch.utils.utils import create_population
+
+    tok = CharTokenizer()
+    lens = ((16, 48), (4, 12))
+
+    def engines():
+        return (TournamentSelection(2, True, 2, 1, rng=np.random.default_rng(0)),
+                Mutations(no_mutation=0.5, architecture=0.0, parameters=0.0, activation=0.0,
+                          rl_hp=0.5, rand_seed=0))
+
+    def env():
+        return PreferenceGym(text_rows(16, 2, *lens), text_rows(8, 3, *lens), tok,
+                             data_batch_size=4)
+
+    def population(cfg, device, base, lr):
+        return create_population("DPO", population_size=2, seed=0, device=device, config=cfg,
+                                 base_params=base, pad_token_id=tok.pad_token_id,
+                                 eos_token_id=tok.eos_token_id, lora_rank=4,
+                                 INIT_HP={"LR": lr})
+
+    cfg = presets.preset("llama3-8b", n_layer=EVO_LAYERS, vocab_size=tok.vocab_size,
+                         max_seq_len=256)
+    log(f"phase 4e: preference loop: population 2, llama3-8b widths, {cfg.n_layer} layers, "
+        f"char vocab {cfg.vocab_size}")
+    pop = population(cfg, "cuda", M.init_params(1, cfg), 5e-6)
+    ops.reset_kernel_counters()
+    (new_pop, fitnesses), t_loop = host_s(torch, lambda: finetune_llm_preference(
+        pop, env(), max_steps=2, evaluation_interval=2, verbose=True, tournament=engines()[0],
+        mutation=engines()[1]))
+    launches = ops.kernel_counters()
+    log(f"  2 steps + eval + tournament + mutation in {t_loop:.1f} s; fitnesses {fitnesses}; "
+        f"next generation {[(a.index, a.mut) for a in new_pop]}; launches {launches}")
+    check(len(new_pop) == 2 and all(len(f) == 1 and 0 <= f[0] <= 1 for f in fitnesses),
+          "preference loop: population or fitnesses")
+    check(max(a.index for a in new_pop) == 2, "no tournament winner was cloned")
+    check(launches["fused_logprob_dw"] == 0 and all(
+        launches[k] > 0 for k in launches if k != "fused_logprob_dw"),
+        f"preference loop: launches {launches}")
+    out = dict(layers=cfg.n_layer, seconds=t_loop, fitnesses=fitnesses,
+               mutations=[a.mut for a in new_pop], launches=launches)
+
+    small = M.GPTConfig(vocab_size=tok.vocab_size, n_layer=2, n_head=4, n_kv_head=2,
+                        d_model=256, max_seq_len=128, dtype=torch.float32)
+    base = M.init_params(1, small, device="cpu")
+    runs = {}
+    for device in ("cpu", "cuda"):
+        pop = population(small, device, to_device(base, device), 1e-3)
+        if device == "cuda":  # the CPU population's adapters, on the card
+            for a, c in zip(pop, runs["cpu"]["pop"]):
+                a.actor.params = to_device(c["actor"], device)
+                a.reference.params = to_device(c["reference"], device)
+                a.optimizer.init(a.actor.params)
+        start = [dict(actor=a.actor.params, reference=a.reference.params) for a in pop]
+        losses = []
+        for a in pop:
+            a.learn = recording(a.learn, losses)
+        np.random.seed(0)  # clones draw their seeds from the global numpy stream
+        new_pop, fitnesses = finetune_llm_preference(
+            pop, env(), max_steps=2, evaluation_interval=2, verbose=False,
+            tournament=engines()[0], mutation=engines()[1])
+        runs[device] = dict(pop=start, losses=losses, fitnesses=fitnesses,
+                            selection=[(a.index, a.mut) for a in new_pop])
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    err = max(abs(g[0] - c[0]) / abs(c[0]) for g, c in zip(gpu["losses"], cpu["losses"]))
+    log(f"  small f32 loop, card vs CPU: losses rel err {err:.2e} (tol 1e-5); fitnesses "
+        f"{gpu['fitnesses']} / {cpu['fitnesses']}; selection {gpu['selection']}")
+    check(err <= 1e-5 and [g[1] for g in gpu["losses"]] == [c[1] for c in cpu["losses"]],
+          "small preference loop: the card's losses differ from the CPU's")
+    check(gpu["fitnesses"] == cpu["fitnesses"] and gpu["selection"] == cpu["selection"],
+          "small preference loop: fitnesses or selection differ from the CPU's")
+    out.update(small_loss_rel_err=err, small_fitnesses=gpu["fitnesses"])
+    report["preference_loop"] = out
+
+
+def run_offline_hf_moe(torch, M, report):
+    """ILQL (one learn, greedy and beam generate) at test_ilql.py's size, the
+    HF loader on both committed fixtures, and an MoE forward with
+    return_aux: each on the card against the same call on the CPU, or
+    against the fixtures' golden logits."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms import ilql as TI
+    from agilerl_tpu_torch.data.rl_data import Language_Observation, RL_Dataset
+    from agilerl_tpu_torch.llm import hf as H
+    from agilerl_tpu_torch.utils.llm_utils import CharTokenizer
+    from agilerl_tpu_torch.utils.tree import tree_leaves
+
+    out = {}
+    tok = CharTokenizer()
+    cfg = M.GPTConfig(vocab_size=tok.vocab_size, n_layer=2, n_head=4, d_model=64,
+                      max_seq_len=32, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    obs = []
+    for _ in range(32):
+        a, good = int(rng.integers(0, 5)), bool(rng.random() < 0.5)
+        obs.append(Language_Observation(sequence=[(f"{a}+1=", None),
+                                                  (str(a + good), 1.0 if good else -1.0)]))
+    batch = RL_Dataset(obs, tok, max_len=8).sample_batch(8, np.random.default_rng(0))
+    agents = {d: TI.ILQL(config=cfg, lr=1e-3, seed=0, device=d) for d in ("cpu", "cuda")}
+    agents["cuda"].actor.params = to_device(agents["cpu"].actor.params, "cuda")
+    agents["cuda"].target_q.params = to_device(agents["cpu"].target_q.params, "cuda")
+    agents["cuda"].optimizer.init(agents["cuda"].actor.params)
+    steps = {}
+    for d, agent in agents.items():
+        step = agent.jit_fn("train", agent._loss_fn)
+        p, tq, opt, total, terms = step(agent.actor.params, agent.target_q.params,
+                                        agent.optimizer.opt_state,
+                                        TI._offline_batch(batch, torch.device(d)))
+        agent.actor.params, agent.target_q.params, agent.optimizer.opt_state = p, tq, opt
+        steps[d] = [total.item(), *(t.item() for t in terms)], opt.inner_state[0].mu, tq
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(steps["cuda"][0], steps["cpu"][0]))
+    grad_err = max((g.cpu() - c).abs().max().item() / c.abs().max().item()
+                   for g, c in zip(tree_leaves(steps["cuda"][1]), tree_leaves(steps["cpu"][1])))
+    tq_err = max((g.cpu() - c).abs().max().item()
+                 for g, c in zip(tree_leaves(steps["cuda"][2]), tree_leaves(steps["cpu"][2])))
+    prompts = np.array([tok.encode("3+1="), tok.encode("4+1=")], np.int32)
+    gen = {d: [a.generate(prompts, np.ones_like(prompts), max_new_tokens=3, mode=m,
+                          beam_width=3) for m in ("greedy", "beam")] for d, a in agents.items()}
+    same = all(np.array_equal(g, c) for gm, cm in zip(gen["cuda"], gen["cpu"])
+               for g, c in zip(gm, cm))
+    log(f"  ILQL at test size, card vs CPU: loss and its 4 terms rel err {loss_err:.2e} (tol "
+        f"1e-5); gradients {grad_err:.2e} of each leaf's largest (tol 1e-5); polyak target "
+        f"{tq_err:.2e} (tol 5e-6); greedy and beam tokens identical: {same}")
+    check(loss_err <= 1e-5 and grad_err <= 1e-5 and tq_err <= 5e-6 and same,
+          "ILQL on the card disagrees with the CPU")
+    out["ilql"] = dict(loss_rel_err=loss_err, grad_rel_err=grad_err, target_err=tq_err,
+                       tokens_identical=same)
+
+    fixtures = Path(__file__).resolve().parent / "tests" / "fixtures"
+    for name in ("hf_llama_tiny", "hf_qwen2_tiny"):
+        golden = np.load(fixtures / name / "golden_logits.npz")
+        ids = torch.as_tensor(golden["token_ids"]).long().cuda()
+        c32, p32 = H.load_hf_model(str(fixtures / name), dtype=torch.float32)
+        got = M.apply(c32, p32, ids)[0].cpu().numpy()
+        err = float(np.max(np.abs(got - golden["logits"]) - 1e-4 * np.abs(golden["logits"])))
+        c16, p16 = H.load_hf_model(str(fixtures / name))
+        coarse = M.apply(dataclasses.replace(c16, dtype=torch.float32), p16, ids)[0]
+        scale = float(np.abs(golden["logits"]).max())
+        err16 = float(np.max(np.abs(coarse.cpu().numpy() - golden["logits"]))) / scale
+        log(f"  HF loader {name} on the card vs golden logits: f32 max(|d| - 1e-4 |ref|) "
+            f"{err:.2e} (tol 2e-4); bf16 max|d| / max|ref| {err16:.2e} (tol 3e-2)")
+        check(err <= 2e-4 and err16 <= 3e-2, f"{name}: loaded weights disagree with golden")
+        out[name] = dict(f32_err=err, bf16_rel_err=err16)
+
+    moe = M.GPTConfig(vocab_size=64, n_layer=4, n_head=2, d_model=32, max_seq_len=32,
+                      n_experts=4, moe_every=2, dtype=torch.float32)
+    params = M.init_params(3, moe, device="cpu")
+    tokens = (torch.arange(24).reshape(2, 12) * 5) % 64
+    res = {d: M.apply(moe, to_device(params, d), tokens.to(d), return_aux=True)
+           for d in ("cpu", "cuda")}
+    l_err = ((res["cuda"][0].cpu() - res["cpu"][0]).abs()
+             - 1e-5 * res["cpu"][0].abs()).max().item()
+    a_err = abs(res["cuda"][2].item() - res["cpu"][2].item()) / res["cpu"][2].item()
+    log(f"  MoE forward (moe_every 2, 4 experts) card vs CPU: logits max(|d| - 1e-5 |ref|) "
+        f"{l_err:.2e} (tol 1e-5); aux {res['cuda'][2].item():.6f}, rel err {a_err:.2e} "
+        f"(tol 1e-5)")
+    check(l_err <= 1e-5 and a_err <= 1e-5, "MoE on the card disagrees with the CPU")
+    out["moe"] = dict(logits_err=l_err, aux_rel_err=a_err, aux=res["cuda"][2].item())
+    report["offline_hf_moe"] = out
 
 
 # ------------------------------- phase 5 ----------------------------------- #
@@ -1212,6 +1640,7 @@ def main() -> None:
         from agilerl_tpu_torch.ops import _build
         from agilerl_tpu_torch.ops import flash_attention_vjp as tfa
         from agilerl_tpu_torch.ops import fused_loss as tfl
+        from agilerl_tpu_torch.utils import tree
     except ImportError as e:
         fail(f"run from the root of the repository ({e})")
 
@@ -1252,11 +1681,26 @@ def main() -> None:
 
     cfg, params, prompts, full_mask, _ = run_slice(torch, M, G, ops, presets, report)
     with torch.enable_grad():
-        launches = run_learn(torch, M, ops, cfg, params, prompts, report)
-    del params
-    torch.cuda.empty_cache()
-    with torch.enable_grad():
+        grpo_launches, grpo_grads = run_learn(torch, M, ops, cfg, params, prompts, report)
+        dpo_launches, dpo_grads = run_dpo(torch, M, ops, tfa, tfl, cfg, params, report)
+        # one f32 copy of the weights, made from (and replacing) the bf16
+        # blocks, serves both gradient checks
+        cfg32, params32 = f32_weights(torch, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        log("phases 4b and 4d: the adapter gradients against an f32 run")
+        report["learn"].update(f32_grad_agreement(torch, tree, grpo_grads, cfg32, params32))
+        report["dpo"].update(f32_grad_agreement(torch, tree, dpo_grads, cfg32, params32))
+        del params32, grpo_grads, dpo_grads
+        torch.cuda.empty_cache()
         run_evolution(torch, M, ops, presets, report)
+        t0 = time.perf_counter()
+        run_preference_loop(torch, M, ops, presets, report)
+        run_offline_hf_moe(torch, M, report)
+        report["phase_4e_s"] = time.perf_counter() - t0
+    log(f"phase 4e: {report['phase_4e_s']:.1f} s")
+    # each main path's counts were set to 0 just before it and read just after
+    launches = {k: grpo_launches[k] + dpo_launches[k] for k in grpo_launches}
 
     log("phase 5: kernel times at the main path's shapes")
     kernels = [time_flash(torch, F, tfa, cfg, full_mask, launches, report),
@@ -1264,7 +1708,9 @@ def main() -> None:
                time_fused(torch, F, tfl, cfg, n_rows, launches, report),
                *time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report)]
     for entry in kernels:
-        # the LoRA learn step freezes the head, so dW is not on the path
+        entry["launches_by_path"] = {"grpo_learn": grpo_launches[entry["name"]],
+                                     "dpo_learn": dpo_launches[entry["name"]]}
+        # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":
             check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")

@@ -33,6 +33,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import agilerl_tpu_torch.utils.utils, agilerl_tpu_torch.utils.llm_utils\n"
         "import agilerl_tpu_torch.data.language_environment\n"
         "import agilerl_tpu_torch.training.train_llm\n"
+        "import agilerl_tpu_torch.algorithms.dpo, agilerl_tpu_torch.algorithms.ilql\n"
+        "import agilerl_tpu_torch.modules.layers, agilerl_tpu_torch.data.rl_data\n"
+        "import agilerl_tpu_torch.llm.hf, agilerl_tpu_torch.llm.moe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'agilerl_tpu'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -68,6 +71,25 @@ def test_default_device_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_slice_3_entry_points_default_to_the_card():
+    """DPO, ILQL, BC_LM and load_hf_model take device=None as the card and
+    raise without one, rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from agilerl_tpu_torch.algorithms.dpo import DPO
+    from agilerl_tpu_torch.algorithms.ilql import BC_LM, ILQL
+    from agilerl_tpu_torch.llm import model as TM
+    from agilerl_tpu_torch.llm.hf import load_hf_model
+
+    cfg = TM.GPTConfig(vocab_size=17, n_layer=1, n_head=2, d_model=8, dtype=torch.float32)
+    for make in (lambda: DPO(config=cfg, seed=0), lambda: ILQL(config=cfg, seed=0),
+                 lambda: BC_LM(config=cfg, seed=0),
+                 lambda: load_hf_model(str(REPO / "tests" / "fixtures" / "hf_llama_tiny"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert DPO(config=cfg, seed=0, device="cpu").dev == torch.device("cpu")
 
 
 def test_kernel_build_raises_without_nvcc():

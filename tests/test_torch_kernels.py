@@ -409,3 +409,84 @@ def test_flash_kernel_rejects_unsupported_head_dim():
     q = torch.randn(1, 2, 8, 32, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_fwd_cuda(q, q, q)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+# DPO-shaped graphs: (model widths, chosen and rejected (B, T, left pads),
+# loss and gradient tolerances). f32 at head_dim 64: summation order and the
+# fused kernels' 3xTF32 products. bf16 at head_dim 128 (the bf16 wgmma flash
+# kernels; the fused head stays f32): phase 3's bf16 rule, 1 % of the largest
+# magnitude, for one bf16 rounding of an activation where its f32 value
+# straddles a bf16 step, carried through the model.
+DPO_GRAPH_CASES = {
+    "float32": (dict(n_head=4, n_kv_head=2, d_model=256),
+                ((3, 40, (0, 9, 30)), (3, 27, (4, 0, 17))), 1e-5, 1e-3),
+    "bfloat16": (dict(n_head=4, n_kv_head=2, d_model=512),
+                 ((3, 150, (0, 40, 130)), (3, 97, (10, 0, 70))), 1e-3, 1e-2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+@pytest.mark.parametrize("dtype", sorted(DPO_GRAPH_CASES))
+def test_dpo_update_graph_two_padded_passes(dtype):
+    """DPO's update graph: a chosen and a rejected batch of different lengths
+    and left padding go through token_logprobs (flash + fused) into one loss,
+    differentiated into the adapter once. On the card (the kernels: flash
+    forward, dQ, dK/dV and fused forward, dH per pass, no dW) the loss and
+    the adapter gradient equal the same graph on the CPU (the plain
+    versions): the loss at ``loss_rtol``, the gradient within ``grad_rel`` of
+    its largest entry (DPO_GRAPH_CASES)."""
+    from agilerl_tpu_torch.algorithms.dpo import DPO, _dpo_loss
+    from agilerl_tpu_torch.llm import model as TM
+    from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    widths, sides, loss_rtol, grad_rel = DPO_GRAPH_CASES[dtype]
+    cfg = TM.GPTConfig(vocab_size=1000, n_layer=2, max_seq_len=256, tie_embeddings=False,
+                       dtype=getattr(torch, dtype), **widths)
+    gc = torch.Generator().manual_seed(0)
+    batch = {}
+    for side, (B, T, pads) in zip(("chosen", "rejected"), sides):
+        mask = torch.ones(B, T, dtype=torch.int32)
+        for b, p in enumerate(pads):
+            mask[b, :p] = 0
+        # completion targets: the second half, real tokens only (as
+        # PreferenceGym's loss masks; a query row with no visible key is
+        # defined differently by the kernel and the plain version)
+        loss_mask = (mask[:, :-1] * mask[:, 1:]).float()
+        loss_mask[:, :T // 2] = 0.0
+        batch[f"{side}_ids"] = torch.randint(2, 1000, (B, T), generator=gc) * mask
+        batch[f"{side}_mask"] = mask
+        batch[f"{side}_loss_mask"] = loss_mask
+    params = TM.init_params(1, cfg, device="cpu")
+    lora = TM.init_lora(2, cfg, rank=4, device="cpu")
+    for layer in lora["blocks"].values():
+        for ab in layer.values():
+            ab["B"].normal_(0.0, 0.05, generator=gc)
+    ref = (-torch.rand(3, generator=gc) * 5, -torch.rand(3, generator=gc) * 5)
+
+    def loss_and_grad(device):
+        agent = DPO(config=cfg, base_params=_to(params, device), device=device, seed=0)
+        seq_logprob = agent._seq_logprob_fn()
+        b = _to(batch, device)
+        lo = tree_map(lambda t: t.detach().requires_grad_(True), _to(lora, device))
+        pol_c, pol_r = seq_logprob(lo, b, "chosen"), seq_logprob(lo, b, "rejected")
+        loss, _, _ = _dpo_loss(pol_c, pol_r, *(_to(r, device) for r in ref), 0.5, 0.1)
+        grads = torch.autograd.grad(loss, tree_leaves(lo))
+        return loss.item(), torch.cat([g.float().flatten() for g in grads]).cpu()
+
+    reset_kernel_counters()
+    loss_gpu, g_gpu = loss_and_grad("cuda")
+    L = cfg.n_layer
+    assert kernel_counters() == {"flash_attention_fwd": 2 * L, "flash_attention_dq": 2 * L,
+                                 "flash_attention_dkv": 2 * L, "fused_logprob_fwd": 2,
+                                 "fused_logprob_dh": 2, "fused_logprob_dw": 0}
+    loss_cpu, g_cpu = loss_and_grad("cpu")
+    assert math.isfinite(loss_gpu) and bool(torch.isfinite(g_gpu).all())
+    assert loss_gpu == pytest.approx(loss_cpu, rel=loss_rtol)
+    torch.testing.assert_close(g_gpu, g_cpu, rtol=0, atol=grad_rel * g_cpu.abs().max().item())

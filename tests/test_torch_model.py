@@ -210,8 +210,13 @@ def test_config_properties_match_jax():
         j = JM.GPTConfig(vocab_size=10, d_model=d_model, d_ff=d_ff, n_head=4)
         t = TM.GPTConfig(vocab_size=10, d_model=d_model, d_ff=d_ff, n_head=4)
         assert (t.ff_dim, t.head_dim, t.kv_heads) == (j.ff_dim, j.head_dim, j.kv_heads)
-    with pytest.raises(NotImplementedError):
-        TM.GPTConfig(vocab_size=10, n_experts=4)
+    # MoE layers are ported: the same layers route, with the same defaults
+    for n_experts, moe_every in ((0, 1), (4, 1), (4, 2), (2, 3)):
+        j = JM.GPTConfig(vocab_size=10, n_layer=6, n_experts=n_experts, moe_every=moe_every)
+        t = TM.GPTConfig(vocab_size=10, n_layer=6, n_experts=n_experts, moe_every=moe_every)
+        assert [t.is_moe_layer(i) for i in range(6)] == [j.is_moe_layer(i) for i in range(6)]
+        assert (t.expert_top_k, t.capacity_factor, t.router_aux_weight) == (
+            j.expert_top_k, j.capacity_factor, j.router_aux_weight)
 
 
 def test_presets_match_jax():
