@@ -10,17 +10,25 @@ Every log-probability pass goes through the flash attention and fused
 log-probability paths: on CUDA tensors their hand-written kernels, forward
 and backward; on CPU tensors their plain versions.
 
-Not ported yet: the serving tier (``continuous_decode``,
-``speculative_decode``, ``capture_logprobs``, ``attach_rollout_fleet``) and
-the sequence-parallel learn (``sequence_parallel_axis``); each raises
+Rollouts route as in the JAX package: through ``llm/serving.BucketedGenerator``
+by default (``bucketed_decode``; decode stops within one chunk of every row
+hitting EOS), through ``llm/serving.ContinuousGenerator`` on opt-in
+(``continuous_decode``, with ``speculative_decode`` and ``capture_logprobs``;
+group repeats of a prompt prefill once through the prefix cache), and
+through the dense ``generate`` when the batch does not fit the bucket grid
+(or, for the continuous tier, a row is all pad). Env
+``AGILERL_TPU_DISABLE_BUCKETED_DECODE=1`` turns both serving routes off;
+``AGILERL_TPU_CONTINUOUS_DECODE=1`` opts into the continuous one.
+
+Not ported yet: ``attach_rollout_fleet`` (the serving fleet) and the
+sequence-parallel learn (``sequence_parallel_axis``) raise
 ``NotImplementedError``; ``to_mesh`` (sharding plans) comes with the
-distribution slice. ``bucketed_decode`` is accepted and runs the dense
-generate path: in the JAX package bucketing only bounds the compile set, and
-its token stream is the dense path's.
+distribution slice.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -43,6 +51,10 @@ from agilerl_tpu_torch.llm import model as M
 from agilerl_tpu_torch.llm.generate import generate
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
 from agilerl_tpu_torch.utils.tree import tree_copy
+
+
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes")
 
 
 def default_hp_config() -> HyperparameterConfig:
@@ -142,12 +154,8 @@ class GRPO(EvolvableAlgorithm):
         device: DeviceLike = None,
         **kwargs,
     ):
-        for name, value in (("sequence_parallel_axis", sequence_parallel_axis),
-                            ("continuous_decode", continuous_decode),
-                            ("speculative_decode", speculative_decode),
-                            ("capture_logprobs", capture_logprobs)):
-            if value:
-                raise NotImplementedError(f"GRPO {name} is not ported yet")
+        if sequence_parallel_axis:
+            raise NotImplementedError("GRPO sequence_parallel_axis is not ported yet")
         super().__init__(index=index, hp_config=hp_config or default_hp_config(),
                          device=device, **kwargs)
         self.dev = resolve_device(device)
@@ -170,7 +178,23 @@ class GRPO(EvolvableAlgorithm):
         self.lora_rank = int(lora_rank)
         self.lora_targets = tuple(lora_targets)
         self.lora_scale = float(lora_scale)
-        self.bucketed_decode = bool(bucketed_decode)  # runs the dense path
+        # AGILERL_TPU_DISABLE_BUCKETED_DECODE turns BOTH serving routes off;
+        # the two flags are otherwise independent (continuous-only is valid)
+        serving_killed = _env_flag("AGILERL_TPU_DISABLE_BUCKETED_DECODE")
+        self.bucketed_decode = bool(bucketed_decode) and not serving_killed
+        # opt-in: rollouts through the continuous/paged tier
+        self.continuous_decode = (
+            bool(continuous_decode) or _env_flag("AGILERL_TPU_CONTINUOUS_DECODE")
+        ) and not serving_killed
+        # continuous-tier extras (not part of _serving_knobs: the bucketed
+        # generator takes neither)
+        self.speculative_decode = speculative_decode
+        self.capture_logprobs = bool(capture_logprobs)
+        self._bucketed_gen = None
+        self._bucketed_gen_knobs = None
+        self._continuous_gen = None
+        self._continuous_gen_knobs = None
+        self.last_generation_info = None
 
         if base_params is None:
             base_params = M.init_params(self.next_key(self.dev), config, device=self.dev)
@@ -214,6 +238,9 @@ class GRPO(EvolvableAlgorithm):
             "lora_targets": self.lora_targets,
             "lora_scale": self.lora_scale,
             "bucketed_decode": self.bucketed_decode,
+            "continuous_decode": self.continuous_decode,
+            "speculative_decode": self.speculative_decode,
+            "capture_logprobs": self.capture_logprobs,
             "device": self.device,
         }
 
@@ -227,6 +254,39 @@ class GRPO(EvolvableAlgorithm):
             self.reference.params = tree_copy(self.actor.params)
             self._reference_epoch = epoch
 
+    def _serving_knobs(self):
+        """The ONE sampling recipe both serving generators are built from."""
+        return dict(
+            max_new_tokens=self.max_output_tokens,
+            pad_id=self.pad_token_id, eos_id=self.eos_token_id,
+            temperature=self.temperature, top_k=self.top_k,
+            top_p=self.top_p, min_new_tokens=self.min_output_tokens,
+            lora_scale=self.lora_scale,
+        )
+
+    def _get_bucketed_generator(self):
+        """Lazily build (and rebuild on a knob change) the bucketed generator."""
+        from agilerl_tpu_torch.llm.serving import BucketedGenerator
+
+        knobs = self._serving_knobs()
+        if self._bucketed_gen is None or self._bucketed_gen_knobs != knobs:
+            self._bucketed_gen = BucketedGenerator(self.model_config, device=self.dev, **knobs)
+            self._bucketed_gen_knobs = knobs
+        return self._bucketed_gen
+
+    def _get_continuous_generator(self):
+        """Lazily build (and rebuild on a knob change) the continuous
+        generator. GRPO rollouts are the no-shed path: every row comes back."""
+        from agilerl_tpu_torch.llm.serving import ContinuousGenerator
+
+        knobs = dict(self._serving_knobs(), speculate=self.speculative_decode,
+                     capture_logprobs=self.capture_logprobs)
+        if self._continuous_gen is None or self._continuous_gen_knobs != knobs:
+            self._continuous_gen = ContinuousGenerator(self.model_config, device=self.dev,
+                                                       **knobs)
+            self._continuous_gen_knobs = knobs
+        return self._continuous_gen
+
     def attach_rollout_fleet(self, fleet) -> None:
         raise NotImplementedError("serving fleets are not ported yet")
 
@@ -235,9 +295,12 @@ class GRPO(EvolvableAlgorithm):
         return torch.as_tensor(np.asarray(x), device=self.dev, dtype=dtype)
 
     def get_action(self, prompts: Dict[str, np.ndarray], training: bool = True):
-        """Generate group_size completions per prompt on the dense generate
-        path. prompts: {"input_ids": [B, P], "attention_mask"}. Returns
-        (completion_ids [B*G, N], completion_mask [B*G, N]) as numpy."""
+        """Generate group_size completions per prompt. prompts: {"input_ids":
+        [B, P], "attention_mask"}. Returns (completion_ids [B*G, N],
+        completion_mask [B*G, N]) as numpy. Routes through the bucketed
+        generator (default) or the continuous one (opt-in), else the dense
+        path; the serving tiers' telemetry lands in
+        ``last_generation_info`` (None after a dense rollout)."""
         ids_np = np.asarray(prompts["input_ids"])
         mask_np = np.asarray(prompts["attention_mask"])
         g = self.group_size if training else 1
@@ -245,7 +308,28 @@ class GRPO(EvolvableAlgorithm):
         mask_np = np.repeat(mask_np, g, axis=0)
         if ids_np.shape[0] == 0:
             N = self.max_output_tokens
+            self.last_generation_info = None
             return np.zeros((0, N), np.int32), np.zeros((0, N), np.int32)
+        row_lens = mask_np.sum(axis=1)
+        longest = int(row_lens.max())
+        gen = None
+        if self.continuous_decode:
+            gen = self._get_continuous_generator()
+            # an all-pad row has no prompt to admit: the dense path takes it
+            if int(row_lens.min()) == 0 or not gen.fits(ids_np.shape[0], longest):
+                gen = None
+        elif self.bucketed_decode:
+            gen = self._get_bucketed_generator()
+            if not gen.fits(ids_np.shape[0], longest):
+                gen = None
+        if gen is not None:
+            # the continuous tier seeds its per-request keys on the host
+            key = self.next_key(self.dev if gen is self._bucketed_gen else "cpu")
+            seqs = [row[m.astype(bool)] for row, m in zip(ids_np, mask_np)]
+            comp, cmask, self.last_generation_info = gen.generate(
+                seqs, key, self.base_params, lora=self.actor.params, greedy=not training)
+            return comp, cmask
+        self.last_generation_info = None  # no stale serving telemetry
         comp, cmask = generate(
             self.model_config, self.base_params, self._as_tensor(ids_np, torch.long),
             self._as_tensor(mask_np, torch.int32), self.next_key(self.dev),

@@ -15,9 +15,15 @@ routed experts of ``llm/moe.py`` (stacked ``[E, ...]`` weights and a
 ``router``); ``forward(..., return_aux=True)`` also returns the sum of the
 layers' load-balance losses.
 
-Not ported here: the paged KV cache (serving slice), ``scan_layers``/``remat``
-(XLA compile-time devices with no eager counterpart) and the
-``*_shard_axes`` fields (distribution slice).
+The paged KV cache (``PagedKVCache``, the ``paged_*`` helpers and
+``forward_paged``) serves ``llm/serving.ContinuousGenerator``: one block pool
+shared by every in-flight sequence, written IN PLACE (the JAX version donates
+the pool and returns a new one).
+
+Not ported here: ``scan_layers``/``remat`` (XLA compile-time devices with no
+eager counterpart), the ``*_shard_axes`` fields (distribution slice) and the
+dense-attention kill switch of the paged forward
+(``AGILERL_TPU_DISABLE_CHUNKED_DECODE``).
 """
 
 from __future__ import annotations
@@ -104,6 +110,127 @@ def init_caches(config: GPTConfig, batch: int, max_len: Optional[int] = None,
                 device: DeviceLike = None) -> KVCache:
     """One stacked cache for the whole layer stack (leading axis = layer)."""
     return init_kv_cache(config, batch, max_len, device)
+
+
+# --------------------------------------------------------------------------- #
+# Paged KV cache: ONE physical block pool shared by every in-flight sequence
+# + per-slot int32 block tables. The serving tier
+# (llm/serving.ContinuousGenerator) owns the tables and the free list on the
+# host; the device only sees gathers and scatters through them.
+# --------------------------------------------------------------------------- #
+
+
+class PagedKVCache(NamedTuple):
+    """Physical KV block pool, stacked over layers. The ``paged_*`` writers
+    update ``k`` and ``v`` in place and return the same cache.
+
+    Block 0 is reserved as a garbage sink: free slots point their whole block
+    table at it, so masked writes always have a legal destination. Many
+    parked slots may write it in one step (duplicate targets, any of which
+    may win): nothing ever reads block 0 as real data."""
+
+    k: torch.Tensor  # [L, n_blocks, block_size, KV, hd]
+    v: torch.Tensor  # [L, n_blocks, block_size, KV, hd]
+
+    @property
+    def n_blocks(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+
+def init_paged_cache(config: GPTConfig, n_blocks: int, block_size: int,
+                     device: DeviceLike = None) -> PagedKVCache:
+    dev = resolve_device(device)
+    shape = (config.n_layer, n_blocks, block_size, config.kv_heads, config.head_dim)
+    return PagedKVCache(k=torch.zeros(shape, dtype=config.dtype, device=dev),
+                        v=torch.zeros(shape, dtype=config.dtype, device=dev))
+
+
+def paged_gather(pool_k: torch.Tensor, pool_v: torch.Tensor, block_tables: torch.Tensor):
+    """Per-slot contiguous KV slabs from ONE layer's pool ([nb, bs, KV, hd])
+    and the block tables [B, max_blocks] -> ([B, S, KV, hd], ...) with
+    S = max_blocks * bs: a per-layer temporary; the resident allocation
+    stays the shared pool."""
+    bs = pool_k.shape[1]
+    B, mb = block_tables.shape
+    flat = block_tables.reshape(-1).long()
+
+    def slab(pool):
+        return pool.index_select(0, flat).reshape(B, mb * bs, *pool.shape[2:])
+
+    return slab(pool_k), slab(pool_v)
+
+
+def paged_write_index(block_tables: torch.Tensor, write_pos: torch.Tensor,
+                      block_size: int) -> torch.Tensor:
+    """Flat pool index [B] (int64) of each slot's write position. Positions
+    past the table (only released slots, whose lengths keep advancing) clamp
+    into the last table entry; a released slot's table is all zero, so the
+    write lands in the garbage block."""
+    mb = block_tables.shape[1]
+    bidx = (write_pos // block_size).clamp_max(mb - 1).long()
+    phys = block_tables.gather(1, bidx[:, None])[:, 0].long()
+    return phys * block_size + (write_pos % block_size).long()
+
+
+def paged_scatter_tokens(cache: PagedKVCache, block_tables: torch.Tensor,
+                         write_pos: torch.Tensor, new_k: torch.Tensor,
+                         new_v: torch.Tensor) -> PagedKVCache:
+    """ONE bulk write of the step's new tokens into the pool across all
+    layers, in place. new_k/new_v: [L, B, KV, hd]; write_pos: [B]."""
+    L, nb, bs, KV, hd = cache.k.shape
+    idx = paged_write_index(block_tables, write_pos, bs)
+    cache.k.view(L, nb * bs, KV, hd)[:, idx] = new_k
+    cache.v.view(L, nb * bs, KV, hd)[:, idx] = new_v
+    return cache
+
+
+def paged_scatter_multi(cache: PagedKVCache, block_tables: torch.Tensor,
+                        write_pos: torch.Tensor, new_k: torch.Tensor,
+                        new_v: torch.Tensor) -> PagedKVCache:
+    """Bulk write of a multi-token verify window into the pool, in place.
+
+    new_k/new_v: [L, B, T, KV, hd]; write_pos: [B, T]. Positions at or past
+    the logical extent S are REDIRECTED to the garbage block 0 instead of
+    clamping into the last table entry: a full-table slot speculating near
+    its budget must never corrupt its own (possibly shared) final block.
+    Rejected-draft positions inside the extent are written as-is: they sit
+    past the slot's accepted length, are invisible to every mask, and are
+    rewritten before the sequence reaches them."""
+    L, nb, bs, KV, hd = cache.k.shape
+    B, T = write_pos.shape
+    mb = block_tables.shape[1]
+    bidx = (write_pos // bs).clamp_max(mb - 1).long()
+    phys = block_tables.gather(1, bidx).long()
+    phys = torch.where(write_pos < mb * bs, phys, 0)
+    idx = (phys * bs + (write_pos % bs).long()).reshape(-1)
+    cache.k.view(L, nb * bs, KV, hd)[:, idx] = new_k.reshape(L, B * T, KV, hd)
+    cache.v.view(L, nb * bs, KV, hd)[:, idx] = new_v.reshape(L, B * T, KV, hd)
+    return cache
+
+
+def paged_scatter_prompt(cache: PagedKVCache, block_ids: torch.Tensor,
+                         k_prompt: torch.Tensor, v_prompt: torch.Tensor) -> PagedKVCache:
+    """Write one request's prefilled prompt KV ([L, Pb, KV, hd], Pb a whole
+    number of blocks) into its physical blocks ([Pb // bs]), in place."""
+    L, _, bs, KV, hd = cache.k.shape
+    nb_p = k_prompt.shape[1] // bs
+    ids = block_ids.long()
+    cache.k[:, ids] = k_prompt.reshape(L, nb_p, bs, KV, hd).to(cache.k.dtype)
+    cache.v[:, ids] = v_prompt.reshape(L, nb_p, bs, KV, hd).to(cache.v.dtype)
+    return cache
+
+
+def paged_copy_block(cache: PagedKVCache, src, dst) -> PagedKVCache:
+    """Copy one physical block, in place (prefix-cache hit: the last prompt
+    block is duplicated into a private block so the first decode write
+    cannot touch the shared original)."""
+    cache.k[:, dst] = cache.k[:, src]
+    cache.v[:, dst] = cache.v[:, src]
+    return cache
 
 
 # --------------------------------------------------------------------------- #
@@ -383,6 +510,74 @@ def forward(
     if return_aux:
         return hidden, new_cache, torch.as_tensor(aux_total, dtype=torch.float32, device=dev)
     return hidden, new_cache
+
+
+def forward_paged(
+    config: GPTConfig,
+    params: Params,
+    tokens: torch.Tensor,       # [B, T] the current token(s) per slot
+    positions: torch.Tensor,    # [B] or [B, T] RoPE position(s)
+    write_pos: torch.Tensor,    # [B] or [B, T] logical cache slot(s) for K/V
+    cache: PagedKVCache,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    slot_mask: torch.Tensor,    # [B, S] 1 where the LOGICAL slot holds a real
+    # token, including the current token at write_pos (caller pre-sets it)
+    lora: Optional[Params] = None,
+    lora_scale: float = 2.0,
+    live: Optional[int] = None,
+):
+    """One decode forward over the slot pool: returns (hidden [B, T, D]
+    float32, (new_k, new_v)); the caller scatters the new KV into the pool
+    (``paged_scatter_tokens`` / ``paged_scatter_multi``) exactly once. The
+    pool is only read here.
+
+    Per-slot ``write_pos`` replaces forward-with-cache's shared length:
+    continuous batching admits slots at different times. Attention sees the
+    gathered slab with this step's K/V inserted (forward's pre-update
+    discipline); the projection/FFN maths is forward's own code and masked
+    slab positions contribute exact zeros, so greedy outputs match the dense
+    path.
+
+    T == 1 is the per-token decode step (positions/write_pos [B]; new KV
+    [L, B, KV, hd]). T > 1 is the speculative verify window (positions and
+    write_pos [B, T], consecutive per row, write_pos[:, 0] = lengths; new KV
+    [L, B, T, KV, hd]): query t attends to logical slots <= write_pos[:, 0]
+    + t that slot_mask marks valid. ``live``: a host upper bound of
+    max(write_pos[:, 0]) + T, which spares chunked attention its read of the
+    maximum."""
+    B, T = tokens.shape
+    dtype = config.dtype
+    dev = tokens.device
+    H, hd = config.n_head, config.head_dim
+    multi = write_pos.dim() == 2
+    pos2d = positions if positions.dim() == 2 else positions[:, None]
+    wp = write_pos if multi else write_pos[:, None]  # [B, T]
+    S = block_tables.shape[1] * cache.block_size
+    # the slab insert drops positions past the extent S (a released slot
+    # whose lengths ran on), as the JAX scatter does out of bounds: a row's T
+    # positions are consecutive and T <= S, so their residues mod S are
+    # distinct; a dropped position rewrites its residue's own old value
+    col = (wp % S).long()
+    keep = (wp < S)[..., None, None]
+    rows = torch.arange(B, device=dev)[:, None].expand(B, T)
+    h = F.embedding(tokens, params["tok_emb"]).to(dtype)
+    new_k, new_v = [], []
+    for i in range(config.n_layer):
+        blk = params["blocks"][str(i)]
+        lora_layer = lora["blocks"].get(str(i)) if lora is not None else None
+        x = _rms(h, blk["ln1"], config.rms_eps)
+        q, k, v = _qkv_rope(config, blk, x, pos2d, lora_layer, lora_scale)
+        k_slab, v_slab = paged_gather(cache.k[i], cache.v[i], block_tables)
+        k_slab[rows, col] = torch.where(keep, k, k_slab[rows, col])
+        v_slab[rows, col] = torch.where(keep, v, v_slab[rows, col])
+        attn = chunked_cached_attention(q, k_slab, v_slab, slot_mask, wp[:, 0], live=live)
+        attn = _maybe_lora(attn.reshape(B, T, H * hd), blk["wo"], lora_layer, "wo",
+                           lora_scale, dtype)
+        h, _ = _block_ffn(config, blk, h + attn, lora_layer, lora_scale)
+        new_k.append(k if multi else k[:, 0])
+        new_v.append(v if multi else v[:, 0])
+    hidden = _rms(h, params["ln_f"], config.rms_eps).float()
+    return hidden, (torch.stack(new_k), torch.stack(new_v))
 
 
 def _head(config: GPTConfig, params: Params) -> torch.Tensor:

@@ -1,0 +1,384 @@
+"""Metrics registry: counters, gauges, fixed-bucket histograms, warn-once
+and structured events. The port of ``agilerl_tpu/observability/registry.py``
+(whole), plus the process-default registry (``get_registry``,
+``warn_once``) that the JAX package keeps in ``observability/facade.py``.
+
+Dependency-free: the one process-local store that the serving tier (TTFT,
+decode-per-token, queue depth, prefix-cache and speculation counters) writes
+into. Events go to an attached sink, any object with ``emit(kind, fields)``;
+without one, :meth:`MetricsRegistry.emit` is a no-op.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+import time as _time
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+
+#: default latency-ish buckets (seconds): ~exponential 1ms .. 60s
+DEFAULT_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+
+
+def _sanitize(name: str) -> str:
+    """Prometheus metric names: [a-zA-Z_:][a-zA-Z0-9_:]*."""
+    out = "".join(c if c.isalnum() or c in "_:" else "_" for c in name)
+    return out if out and not out[0].isdigit() else "_" + out
+
+
+class Counter:
+    """Monotonically increasing count."""
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"counter {self.name} cannot decrease (inc {n})")
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    """Last-write-wins scalar."""
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._value = float("nan")
+
+    def set(self, v: float) -> None:
+        self._value = float(v)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Histogram:
+    """Fixed-bucket histogram with interpolated percentiles.
+
+    Buckets are upper bounds (a +inf overflow bucket is implicit). Percentiles
+    interpolate linearly inside the containing bucket, Prometheus
+    ``histogram_quantile`` style: the first finite bucket interpolates from 0
+    (values are assumed non-negative — latencies, durations, depths), and any
+    rank landing in the overflow bucket reports the largest finite bound (the
+    histogram cannot see beyond it).
+    """
+
+    def __init__(self, name: str, buckets: Sequence[float] = DEFAULT_BUCKETS,
+                 help: str = ""):
+        if not buckets:
+            raise ValueError("histogram needs at least one bucket bound")
+        bounds = sorted(float(b) for b in buckets)
+        if bounds != list(dict.fromkeys(bounds)):
+            raise ValueError(f"duplicate bucket bounds in {bounds}")
+        self.name = name
+        self.help = help
+        self.bounds: Tuple[float, ...] = tuple(bounds)
+        self._counts = [0] * (len(bounds) + 1)  # last = +inf overflow
+        self._sum = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        i = len(self.bounds)
+        for j, b in enumerate(self.bounds):
+            if v <= b:
+                i = j
+                break
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+            self._count += 1
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def percentile(self, q: float) -> float:
+        """q in [0, 100]. NaN on an empty histogram."""
+        if not 0 <= q <= 100:
+            raise ValueError(f"percentile {q} outside [0, 100]")
+        if self._count == 0:
+            return float("nan")
+        rank = (q / 100.0) * self._count
+        cum = 0
+        for i, c in enumerate(self._counts):
+            prev_cum = cum
+            cum += c
+            if cum >= rank and c > 0:
+                if i == len(self.bounds):
+                    # overflow bucket: unbounded above, report the edge
+                    return self.bounds[-1]
+                lo = 0.0 if i == 0 else self.bounds[i - 1]
+                hi = self.bounds[i]
+                return lo + (hi - lo) * (rank - prev_cum) / c
+        return self.bounds[-1]
+
+    def summary(self) -> Dict[str, float]:
+        return {
+            "count": self._count,
+            "sum": self._sum,
+            "p50": self.percentile(50),
+            "p95": self.percentile(95),
+            "p99": self.percentile(99),
+        }
+
+
+class MetricsRegistry:
+    """Process-local named metric store + warn-once + event fan-out.
+
+    ``counter/gauge/histogram`` are get-or-create; re-requesting a name
+    returns the same instrument (so call sites never coordinate). An attached
+    sink (any object with ``emit(kind, fields)``) receives every
+    :meth:`emit` — the registry is the single funnel for structured events.
+    """
+
+    def __init__(self, sink=None,
+                 bucket_overrides: Optional[Dict[str, Sequence[float]]] = None):
+        self._metrics: Dict[str, Any] = {}
+        self._lock = threading.Lock()
+        self._sink = sink
+        self._warned: set = set()
+        #: sanitized Prometheus name -> original name (collision guard)
+        self._sanitized: Dict[str, str] = {}
+        #: histogram name -> configured bucket bounds (takes precedence over
+        #: the call site's ``buckets=`` so an SLO spec can align bucket
+        #: edges with its thresholds — interpolated percentiles are exact at
+        #: an edge and an estimate inside a bucket)
+        self._bucket_overrides: Dict[str, Tuple[float, ...]] = {}
+        for name, bounds in (bucket_overrides or {}).items():
+            self.configure_buckets(name, bounds)
+
+    # -- instruments -------------------------------------------------------
+    def _get_or_create(self, name: str, cls, **kwargs):
+        collision: Optional[str] = None
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = cls(name, **kwargs)
+                self._metrics[name] = m
+                pname = _sanitize(name)
+                other = self._sanitized.setdefault(pname, name)
+                if other != name:
+                    collision = other
+            elif not isinstance(m, cls):
+                raise TypeError(
+                    f"metric {name!r} already registered as "
+                    f"{type(m).__name__}, not {cls.__name__}")
+        if collision is not None:
+            # outside the lock: warn_once re-enters it. Two DISTINCT metric
+            # names sanitizing to one Prometheus name would silently merge
+            # in prometheus_text() — scrapers would see two series under
+            # one name and aggregate garbage
+            self.warn_once(
+                f"sanitize-collision:{name}",
+                f"metric names {collision!r} and {name!r} both sanitize to "
+                f"Prometheus name {_sanitize(name)!r}; their exposition "
+                "lines will collide — rename one of them",
+                first=collision, second=name)
+        return m
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get_or_create(name, Counter, help=help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get_or_create(name, Gauge, help=help)
+
+    def configure_buckets(self, name: str,
+                          buckets: Sequence[float]) -> None:
+        """Pin the bucket bounds future :meth:`histogram` calls for ``name``
+        will use, overriding the call site's ``buckets=`` argument: how an SLO
+        spec aligns bucket edges with its thresholds BEFORE the instrumented
+        code path first observes. Configuring after the instrument exists
+        with different bounds cannot rebin live data — it warns once and
+        keeps the live instrument (every process must be configured
+        identically BEFORE traffic, or bucket-wise merges disagree)."""
+        bounds = tuple(sorted(float(b) for b in buckets))
+        if not bounds:
+            raise ValueError("configure_buckets needs at least one bound")
+        with self._lock:
+            live = self._metrics.get(name)
+        if isinstance(live, Histogram) and live.bounds != bounds:
+            self.warn_once(
+                f"bucket-config-late:{name}",
+                f"configure_buckets({name!r}) after the histogram exists "
+                f"with different bounds — live data cannot be rebinned; "
+                "keeping the live bounds (configure before first observe)",
+                configured=list(bounds), live=list(live.bounds))
+            return
+        self._bucket_overrides[name] = bounds
+
+    def bucket_bounds(self, name: str) -> Optional[Tuple[float, ...]]:
+        """The effective bucket bounds for ``name``: the live instrument's
+        if created, else the configured override, else None."""
+        with self._lock:
+            live = self._metrics.get(name)
+        if isinstance(live, Histogram):
+            return live.bounds
+        return self._bucket_overrides.get(name)
+
+    def histogram(self, name: str, buckets: Sequence[float] = DEFAULT_BUCKETS,
+                  help: str = "") -> Histogram:
+        override = self._bucket_overrides.get(name)
+        if override is not None:
+            buckets = override
+        h = self._get_or_create(name, Histogram, buckets=buckets, help=help)
+        # fast path: call sites pass the same module-constant tuple every
+        # time, so an elementwise equality short-circuits before the
+        # sort+float normalization (this runs per observe on hot paths)
+        if (override is None and tuple(buckets) != h.bounds
+                and h.bounds != tuple(sorted(float(b) for b in buckets))):
+            # two call sites disagree on bounds: the first one won (get-or-
+            # create semantics), and silent skew would make interpolated
+            # percentiles — and the aggregator's exact bucket-wise merge —
+            # quietly wrong for whichever site loses
+            self.warn_once(
+                f"bucket-skew:{name}",
+                f"histogram {name!r} requested with bucket bounds that "
+                f"differ from the live instrument's — the first creation "
+                "won; align the call sites (or configure_buckets up front)",
+                live=list(h.bounds))
+        return h
+
+    def timer(self, name: str, help: str = ""):
+        """Context manager accumulating the block's wall time into the
+        counter ``name`` (seconds) — the idiom behind the time-attribution
+        counters (``flywheel/learner_idle_s``, ``flywheel/decode_stall_s``,
+        ``pipeline/sync_wait_s``-style accounting): a counter, not a
+        histogram, because the question these answer is "how much of the
+        run was spent HERE", which is a sum."""
+        counter = self.counter(name, help=help)
+
+        @contextlib.contextmanager
+        def _timed():
+            t0 = _time.perf_counter()
+            try:
+                yield counter
+            finally:
+                counter.inc(_time.perf_counter() - t0)
+
+        return _timed()
+
+    # -- events ------------------------------------------------------------
+    def attach_sink(self, sink) -> None:
+        self._sink = sink
+
+    @property
+    def sink(self):
+        return self._sink
+
+    def emit(self, kind: str, **fields: Any) -> None:
+        """Write a structured event to the attached sink (no-op without one)."""
+        if self._sink is not None:
+            self._sink.emit(kind, fields)
+
+    def warn_once(self, key: str, message: str, **fields: Any) -> bool:
+        """Emit a ``warning`` event and bump ``warnings_total`` the FIRST time
+        `key` is seen; later calls are no-ops. Returns True when emitted."""
+        with self._lock:
+            if key in self._warned:
+                return False
+            self._warned.add(key)
+        self.counter("warnings_total", help="one-time warnings emitted").inc()
+        self.emit("warning", key=key, message=message, **fields)
+        import warnings
+
+        warnings.warn(message, RuntimeWarning, stacklevel=3)
+        return True
+
+    # -- exposition --------------------------------------------------------
+    def _items(self):
+        # copy under the lock: a scraper thread must not race a first-use
+        # metric insert ("dictionary changed size during iteration")
+        with self._lock:
+            return sorted(self._metrics.items())
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Plain-dict view: counters/gauges → value, histograms → summary."""
+        out: Dict[str, Any] = {}
+        for name, m in self._items():
+            out[name] = m.summary() if isinstance(m, Histogram) else m.value
+        return out
+
+    def dump(self) -> Dict[str, Any]:
+        """FULL-resolution state for a cross-process telemetry plane:
+        counters/gauges as raw values,
+        histograms as ``{bounds, counts, sum, count}`` — the mergeable
+        form (percentile summaries cannot be merged exactly; raw bucket
+        counts can, bucket-wise)."""
+        out: Dict[str, Any] = {"counters": {}, "gauges": {},
+                               "histograms": {}}
+        for name, m in self._items():
+            if isinstance(m, Counter):
+                out["counters"][name] = m.value
+            elif isinstance(m, Gauge):
+                out["gauges"][name] = m.value
+            elif isinstance(m, Histogram):
+                with m._lock:
+                    out["histograms"][name] = {
+                        "bounds": list(m.bounds),
+                        "counts": list(m._counts),
+                        "sum": m._sum,
+                        "count": m._count,
+                    }
+        return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format (counters, gauges, cumulative
+        histogram buckets + _sum/_count)."""
+        lines: List[str] = []
+        for name, m in self._items():
+            pname = _sanitize(name)
+            if isinstance(m, Counter):
+                lines.append(f"# TYPE {pname} counter")
+                if m.help:
+                    lines.append(f"# HELP {pname} {m.help}")
+                lines.append(f"{pname} {m.value}")
+            elif isinstance(m, Gauge):
+                lines.append(f"# TYPE {pname} gauge")
+                if m.help:
+                    lines.append(f"# HELP {pname} {m.help}")
+                v = m.value
+                lines.append(f"{pname} {'NaN' if math.isnan(v) else v}")
+            elif isinstance(m, Histogram):
+                lines.append(f"# TYPE {pname} histogram")
+                if m.help:
+                    lines.append(f"# HELP {pname} {m.help}")
+                cum = 0
+                for b, c in zip(m.bounds, m._counts):
+                    cum += c
+                    lines.append(f'{pname}_bucket{{le="{b}"}} {cum}')
+                lines.append(f'{pname}_bucket{{le="+Inf"}} {m.count}')
+                lines.append(f"{pname}_sum {m.sum}")
+                lines.append(f"{pname}_count {m.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+_default_registry = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """Process-default registry (used by call sites with no run in scope)."""
+    return _default_registry
+
+
+def warn_once(key: str, message: str, **fields: Any) -> bool:
+    return _default_registry.warn_once(key, message, **fields)

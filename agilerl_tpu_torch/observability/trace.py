@@ -1,0 +1,476 @@
+"""Distributed tracing: ``Tracer``/``Span`` with ambient context
+propagation, cross-process stitching, and a Perfetto exporter. The port of
+``agilerl_tpu/observability/trace.py`` (whole).
+
+- **Span** — ``trace_id`` / ``span_id`` / ``parent_id`` plus name, wall-clock
+  start/end, attributes, events and an ``ok``/``error`` status. Finished
+  spans are emitted as ONE structured record through the sink protocol
+  (``emit(kind, payload)``).
+- **Tracer** — creates spans. An *ambient* current span (``contextvars``)
+  parents nested ``with tracer.span(...)`` blocks; ``start_span`` gives the
+  manual lifecycle used for request-shaped spans that live across scheduler
+  ticks (``llm/serving.ContinuousGenerator``). ``inject``/``extract``
+  serialize a :class:`SpanContext` to a plain dict so spans stitch across
+  process boundaries.
+- **Sampling** — decided at the trace root, deterministically (a hash of
+  the trace id against ``sample_rate``, no RNG draw). Children inherit the
+  decision; ``force=True`` records ANOMALIES (sheds) even inside an
+  unsampled trace.
+- **No-op when unconfigured** — the process-default tracer has no sink:
+  ``span()``/``start_span()`` return ONE shared :class:`_NoopSpan`, so
+  instrumented hot paths cost a method call and an ``enabled`` check.
+
+Ids carry a per-process tag (sha1 of pod name + pid) plus a process-local
+counter — unique across pods with zero coordination and zero randomness.
+:func:`export_perfetto` converts span records to Chrome trace-event JSON
+loadable in ui.perfetto.dev.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import hashlib
+import itertools
+import json
+import os
+import tempfile
+import time
+from typing import Any, Dict, List, NamedTuple, Optional, Union
+
+
+class SpanContext(NamedTuple):
+    """The portable identity of a span — everything a child (in this
+    process or another) needs to link itself: ids + the sampling verdict."""
+
+    trace_id: str
+    span_id: str
+    sampled: bool
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"trace_id": self.trace_id, "span_id": self.span_id,
+                "sampled": bool(self.sampled)}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> Optional["SpanContext"]:
+        try:
+            return cls(str(d["trace_id"]), str(d["span_id"]),
+                       bool(d.get("sampled", False)))
+        except (TypeError, KeyError):
+            return None
+
+
+class _NoopSpan:
+    """The shared do-nothing span a disabled tracer hands out: every method
+    is a no-op, ``context()`` is None, and it works as a context manager —
+    call sites never branch on whether tracing is configured."""
+
+    __slots__ = ()
+
+    recording = False
+
+    def set_attribute(self, key: str, value: Any) -> "_NoopSpan":
+        return self
+
+    def set_attributes(self, **attributes: Any) -> "_NoopSpan":
+        return self
+
+    def add_event(self, name: str, **fields: Any) -> "_NoopSpan":
+        return self
+
+    def set_error(self, message: str = "") -> "_NoopSpan":
+        return self
+
+    def context(self) -> Optional[SpanContext]:
+        return None
+
+    def end(self, end_s: Optional[float] = None) -> None:
+        pass
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NOOP_SPAN = _NoopSpan()
+
+
+class Span:
+    """One timed operation in a trace. Emitted through the tracer's sink at
+    :meth:`end` (once). Usable as a context manager: entering makes it the
+    ambient parent for nested spans; an exception escaping the block marks
+    ``status="error"`` with the exception as the message."""
+
+    __slots__ = ("_tracer", "name", "trace_id", "span_id", "parent_id",
+                 "start_s", "end_s", "sampled", "status", "status_message",
+                 "attributes", "events", "_token", "_ended")
+
+    def __init__(self, tracer: "Tracer", name: str, trace_id: str,
+                 span_id: str, parent_id: Optional[str], start_s: float,
+                 sampled: bool, attributes: Optional[Dict[str, Any]] = None):
+        self._tracer = tracer
+        self.name = str(name)
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.start_s = start_s
+        self.end_s: Optional[float] = None
+        self.sampled = bool(sampled)
+        self.status = "ok"
+        self.status_message: Optional[str] = None
+        # unsampled spans keep ids (children stay linkable) but store
+        # nothing — attribute/event writes are dropped at the door
+        self.attributes: Optional[Dict[str, Any]] = (
+            dict(attributes) if (sampled and attributes) else
+            ({} if sampled else None))
+        self.events: Optional[List[Dict[str, Any]]] = [] if sampled else None
+        self._token = None
+        self._ended = False
+
+    @property
+    def recording(self) -> bool:
+        return self.sampled and not self._ended
+
+    def set_attribute(self, key: str, value: Any) -> "Span":
+        if self.attributes is not None:
+            self.attributes[str(key)] = value
+        return self
+
+    def set_attributes(self, **attributes: Any) -> "Span":
+        if self.attributes is not None:
+            self.attributes.update(attributes)
+        return self
+
+    def add_event(self, name: str, **fields: Any) -> "Span":
+        if self.events is not None:
+            self.events.append({"name": str(name),
+                                "ts": self._tracer._clock(), **fields})
+        return self
+
+    def set_error(self, message: str = "") -> "Span":
+        self.status = "error"
+        if message:
+            self.status_message = str(message)
+        return self
+
+    def context(self) -> SpanContext:
+        return SpanContext(self.trace_id, self.span_id, self.sampled)
+
+    def end(self, end_s: Optional[float] = None) -> None:
+        if self._ended:
+            return
+        self._ended = True
+        self.end_s = end_s if end_s is not None else self._tracer._clock()
+        if self.sampled:
+            self._tracer._emit(self)
+
+    # -- context-manager protocol (ambient propagation) --------------------
+    def __enter__(self) -> "Span":
+        self._token = _CURRENT.set(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._token is not None:
+            _CURRENT.reset(self._token)
+            self._token = None
+        if exc is not None and self.status == "ok":
+            self.set_error(f"{type(exc).__name__}: {exc}")
+        self.end()
+        return False
+
+
+#: the ambient current span (per thread / async context)
+_CURRENT: "contextvars.ContextVar[Optional[Span]]" = contextvars.ContextVar(
+    "agilerl_tpu_torch_current_span", default=None)
+
+
+def current_span() -> Optional[Span]:
+    """The ambient span set by the innermost active ``with tracer.span``."""
+    return _CURRENT.get()
+
+
+ParentLike = Union[None, Span, _NoopSpan, SpanContext, Dict[str, Any]]
+
+#: per-process tracer instance counter (mixed into the id tag so two
+#: tracers sharing a pod name in one process can never collide)
+_TRACER_NONCE = itertools.count(1)
+
+
+class Tracer:
+    """Span factory bound to one sink (the JSONL stream spans land in).
+
+    ``sample_rate`` applies to trace ROOTS: 1.0 records everything, 0.0 is
+    anomaly-only (only ``force=True`` spans record). ``pod`` names this
+    process in span records and Perfetto process lanes; it defaults to
+    ``pod-<pid>``. ``metrics`` (a MetricsRegistry) receives ``trace/*``
+    counters; ``clock`` must be a shared wall clock across pods
+    (``time.time``) so cross-process spans line up in the exporter."""
+
+    def __init__(self, sink=None, sample_rate: float = 1.0,
+                 pod: Optional[str] = None, metrics=None, clock=time.time):
+        self.sink = sink
+        self.sample_rate = float(sample_rate)
+        self.pod = str(pod) if pod is not None else f"pod-{os.getpid()}"
+        self.metrics = metrics
+        self._clock = clock
+        # id scheme: <8-hex tag><8-hex counter> — unique across pods AND
+        # across tracer instances in one process (the per-process nonce:
+        # two sequential runs reusing a pod name append to the same JSONL,
+        # and a restarted counter would otherwise collide their span ids),
+        # with no coordination and NO RNG draw (replay-deterministic)
+        self._tag = hashlib.sha1(
+            f"{self.pod}:{os.getpid()}:{next(_TRACER_NONCE)}".encode()
+        ).hexdigest()[:8]
+        # itertools.count.__next__ is atomic in CPython — id allocation is
+        # thread-safe without a lock on the hot path
+        self._ids = itertools.count(1)
+
+    @property
+    def enabled(self) -> bool:
+        return self.sink is not None
+
+    # -- internals ---------------------------------------------------------
+    def _next_id(self) -> str:
+        return f"{self._tag}{next(self._ids):08x}"
+
+    def _sampled_root(self, trace_id: str, force: bool) -> bool:
+        if force or self.sample_rate >= 1.0:
+            return True
+        if self.sample_rate <= 0.0:
+            return False
+        # deterministic: the SAME trace id samples the same way everywhere
+        h = int(hashlib.sha1(trace_id.encode()).hexdigest()[:8], 16)
+        return (h / float(0xFFFFFFFF)) < self.sample_rate
+
+    @staticmethod
+    def _resolve_parent(parent: ParentLike) -> Optional[SpanContext]:
+        if parent is None:
+            ambient = _CURRENT.get()
+            return ambient.context() if ambient is not None else None
+        if isinstance(parent, _NoopSpan):
+            return None
+        if isinstance(parent, Span):
+            return parent.context()
+        if isinstance(parent, SpanContext):
+            return parent
+        if isinstance(parent, dict):
+            return SpanContext.from_dict(parent)
+        return None
+
+    def _emit(self, span: Span) -> None:
+        record: Dict[str, Any] = {
+            "trace_id": span.trace_id,
+            "span_id": span.span_id,
+            "parent_id": span.parent_id,
+            "name": span.name,
+            "pod": self.pod,
+            "start_s": span.start_s,
+            "end_s": span.end_s,
+            "duration_s": (span.end_s - span.start_s
+                           if span.end_s is not None else None),
+            "status": span.status,
+        }
+        if span.status_message:
+            record["status_message"] = span.status_message
+        if span.attributes:
+            record["attributes"] = span.attributes
+        if span.events:
+            record["span_events"] = span.events
+        self.sink.emit("span", record)
+        if self.metrics is not None:
+            self.metrics.counter(
+                "trace/spans_total", help="span records emitted").inc()
+            if span.status == "error":
+                self.metrics.counter(
+                    "trace/error_spans_total",
+                    help="spans finished with error status").inc()
+
+    # -- span creation -----------------------------------------------------
+    def start_span(self, name: str, parent: ParentLike = None,
+                   force: bool = False,
+                   attributes: Optional[Dict[str, Any]] = None,
+                   ) -> Union[Span, _NoopSpan]:
+        """A span with a MANUAL lifecycle (caller holds it and calls
+        ``end()`` later — the request-shaped spans that live across
+        scheduler ticks). Does not touch the ambient context; parent
+        resolution still falls back to the ambient span when ``parent`` is
+        None. ``force=True`` records the span even in an unsampled trace
+        (the anomaly contract)."""
+        if self.sink is None:
+            return NOOP_SPAN
+        ctx = self._resolve_parent(parent)
+        if ctx is None:
+            trace_id = self._next_id()
+            sampled = self._sampled_root(trace_id, force)
+            parent_id = None
+        else:
+            trace_id = ctx.trace_id
+            sampled = bool(ctx.sampled or force)
+            parent_id = ctx.span_id
+        if force and self.metrics is not None:
+            self.metrics.counter(
+                "trace/forced_spans_total",
+                help="always-sampled anomaly spans").inc()
+        return Span(self, name, trace_id, self._next_id(), parent_id,
+                    self._clock(), sampled, attributes)
+
+    def span(self, name: str, parent: ParentLike = None, force: bool = False,
+             **attributes: Any) -> Union[Span, _NoopSpan]:
+        """The ``with`` form: entering makes the span ambient (nested spans
+        parent onto it automatically), exiting ends it (error status on an
+        escaping exception)."""
+        return self.start_span(name, parent=parent, force=force,
+                               attributes=attributes or None)
+
+    # -- cross-process propagation ----------------------------------------
+    def inject(self, span: Union[None, Span, _NoopSpan] = None,
+               ) -> Optional[Dict[str, Any]]:
+        """Serialize a span's context (default: the ambient one) to a plain
+        JSON/pickle-safe dict — the form that rides store manifests. None
+        when there is nothing to propagate."""
+        if span is None:
+            span = _CURRENT.get()
+        if span is None or isinstance(span, _NoopSpan):
+            return None
+        return span.context().to_dict()
+
+    def extract(self, ctx: Optional[Dict[str, Any]]) -> Optional[SpanContext]:
+        """Rebuild a :class:`SpanContext` from an injected dict (tolerant:
+        malformed/missing → None, the span becomes a fresh root)."""
+        if not isinstance(ctx, dict):
+            return None
+        return SpanContext.from_dict(ctx)
+
+
+#: the process-default tracer: DISABLED (no sink) until configured
+_default_tracer = Tracer()
+
+
+def get_tracer() -> Tracer:
+    """The process-default tracer (a no-op until :func:`set_tracer` /
+    :func:`configure_tracer` installs a configured one). Components read
+    this lazily so configuration after construction still takes effect."""
+    return _default_tracer
+
+
+def set_tracer(tracer: Optional[Tracer]) -> Tracer:
+    """Install ``tracer`` as the process default (None → a fresh disabled
+    tracer). Returns the PREVIOUS default so callers can restore it."""
+    global _default_tracer
+    previous = _default_tracer
+    _default_tracer = tracer if tracer is not None else Tracer()
+    return previous
+
+
+def configure_tracer(sink, sample_rate: float = 1.0,
+                     pod: Optional[str] = None, metrics=None) -> Tracer:
+    """Build a tracer and install it as the process default."""
+    tracer = Tracer(sink=sink, sample_rate=sample_rate, pod=pod,
+                    metrics=metrics)
+    set_tracer(tracer)
+    return tracer
+
+
+# --------------------------------------------------------------------------- #
+# Perfetto / Chrome-trace-event export
+# --------------------------------------------------------------------------- #
+
+def span_records(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Filter a JSONL event stream (``events.read_jsonl``) down to span
+    records."""
+    return [e for e in events if e.get("kind") == "span"]
+
+
+def export_perfetto(records: List[Dict[str, Any]],
+                    path: Optional[str] = None) -> Dict[str, Any]:
+    """Convert span records to Chrome trace-event JSON (loadable in
+    ui.perfetto.dev / chrome://tracing, beside torch.profiler's device
+    traces).
+
+    Each pod becomes a process lane and each trace a named thread lane, so
+    one request's hops line up as a row of ``X`` (complete) slices; span /
+    parent / trace ids and attributes land in ``args``. ``path`` (optional)
+    writes the JSON atomically and returns the document either way."""
+    records = [r for r in records
+               if r.get("kind", "span") == "span"
+               and r.get("end_s") is not None]  # 0.0 is a VALID end time
+                                                # under an injected clock
+    pids: Dict[str, int] = {}
+    tids: Dict[str, int] = {}
+    seen_lanes: set = set()  # (pid, tid) pairs that actually hold spans
+    events: List[Dict[str, Any]] = []
+    for r in records:
+        pod = str(r.get("pod", "pod"))
+        pid = pids.setdefault(pod, len(pids) + 1)
+        trace_id = str(r.get("trace_id", "?"))
+        tid = tids.setdefault(trace_id, len(tids) + 1)
+        seen_lanes.add((pid, tid))
+        args = {
+            "trace_id": trace_id,
+            "span_id": r.get("span_id"),
+            "parent_id": r.get("parent_id"),
+            "status": r.get("status", "ok"),
+        }
+        if r.get("status_message"):
+            args["status_message"] = r["status_message"]
+        args.update(r.get("attributes") or {})
+        events.append({
+            "name": str(r.get("name", "span")),
+            "cat": "error" if r.get("status") == "error" else "span",
+            "ph": "X",
+            "ts": float(r["start_s"]) * 1e6,  # microseconds
+            "dur": max((float(r["end_s"]) - float(r["start_s"])) * 1e6, 1.0),
+            "pid": pid,
+            "tid": tid,
+            "args": args,
+        })
+    for pod, pid in pids.items():
+        events.append({"ph": "M", "name": "process_name", "pid": pid,
+                       "args": {"name": pod}})
+    # name ONLY the (process, trace) lanes that hold spans — the full
+    # pods x traces cross product would bloat a big export by an order of
+    # magnitude and render empty labelled rows in every process lane
+    for trace_id, tid in tids.items():
+        for pid in pids.values():
+            if (pid, tid) in seen_lanes:
+                events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                               "tid": tid,
+                               "args": {"name": f"trace {trace_id}"}})
+    doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+    if path is not None:
+        # commit atomically so a kill mid-write can't leave a half-JSON
+        # file a viewer trusts
+        _atomic_write_bytes(path, json.dumps(doc).encode())
+    return doc
+
+
+def _atomic_write_bytes(path: str, data: bytes) -> None:
+    """Write ``data`` to ``path`` through a temporary file in the same
+    directory and an atomic rename, fsynced before the rename."""
+    d = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp-")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def trace_tree(records: List[Dict[str, Any]], trace_id: str,
+               ) -> Dict[Optional[str], List[Dict[str, Any]]]:
+    """Group one trace's span records by ``parent_id`` (None = roots) —
+    the reconstruction helper tests and offline analysis use."""
+    tree: Dict[Optional[str], List[Dict[str, Any]]] = {}
+    for r in records:
+        if r.get("trace_id") != trace_id:
+            continue
+        tree.setdefault(r.get("parent_id"), []).append(r)
+    for children in tree.values():
+        children.sort(key=lambda r: r.get("start_s", 0.0))
+    return tree

@@ -14,7 +14,7 @@ Visibility rule: slot j is visible to query t of row b iff
 from __future__ import annotations
 
 import math
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -51,10 +51,14 @@ def chunked_cached_attention(
     start: Union[int, torch.Tensor],  # [] or [B] cache length before this step
     *,
     block: int = 512,
+    live: Optional[int] = None,
 ) -> torch.Tensor:
     """Returns attention output [B, T, Hq, d]. The chunk count is a host
     value: an int ``start`` costs nothing, a tensor ``start`` costs one read
-    of its maximum."""
+    of its maximum unless ``live``, a host upper bound of ``max(start) + T``,
+    is given (chunks past the live prefix are wholly masked and add exact
+    zeros, so any bound gives the same output for every query row that sees
+    a slot)."""
     B, T, Hq, d = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     block = min(block, S)
@@ -65,7 +69,8 @@ def chunked_cached_attention(
     qr = q.reshape(B, T, Hkv, rep, d).float()
     t_ids = torch.arange(T, device=dev)
     start_b = _start_per_row(start, B, dev)
-    live = (start if isinstance(start, int) else int(start_b.max())) + T
+    if live is None:
+        live = (start if isinstance(start, int) else int(start_b.max())) + T
     n_chunks = min(-(-live // block), -(-S // block))
 
     m = torch.full((B, Hkv, rep, T), _NEG, dtype=torch.float32, device=dev)

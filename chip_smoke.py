@@ -31,6 +31,7 @@ of which ends the run with a non-zero exit on any failure:
    reference passes, then the update through all four backward kernels);
    launch counts per learn, finite losses, a moved adapter, and the adapter
    gradient of one update through the kernels and through the plain path;
+   the rollouts go through ``BucketedGenerator`` (``last_generation_info``);
 4d. slice 3's path on the same weights: two ``DPO.learn`` calls on
    PreferenceGym batches of 8 preference pairs of seeded text (rows of at
    most 320 tokens), each timed as its reference passes and its update
@@ -41,6 +42,20 @@ of which ends the run with a non-zero exit on any failure:
    then one f32 copy of the weights holds both adapter gradients (4b's and
    4d's) against an f32 run: the kernel path no further from it than twice
    the plain path;
+4f. slice 4a's serving tier on the same bf16 weights: ``ContinuousGenerator``
+   (8 slots, 32-token blocks, prompt buckets 64/128/256, 64 new tokens,
+   decode chunks of 16) serving phase 4's 4 prompts x 4 repeats, greedy
+   (held against phase 4's dense greedy rows: equal up to a first
+   difference where the two tokens' dense logits lie within twice phase 4's
+   kernel-vs-plain logprob spread), sampled (temperature 1, top-k 50),
+   speculative (greedy, the repeat batch served twice so the completion
+   cache drafts it), and with decode-captured logprobs held against
+   ``token_logprobs`` through the flash and fused kernels and through the
+   plain path; TTFT, decode time per token, tokens/s, prefix hits, free
+   blocks after draining and the pool's size; then a small f32 model on the
+   card against the CPU: continuous (plain and speculative) and bucketed
+   greedy equal to dense greedy, a verify step at draft_len 0 equal to one
+   decode step, captured logprobs equal to ``token_logprobs``;
 4c. the evolution loop: ``finetune_llm_reasoning`` over a population of 2
    on the arithmetic ReasoningGym recipe, llama3-8b widths cut to 4 layers,
    through one tournament and one mutation round;
@@ -690,7 +705,7 @@ def run_slice(torch, M, G, ops, presets, report):
         plain_vs_f32_max=d_plain.max().item(), plain_vs_f32_mean=d_plain.mean().item(),
         kernel_vs_plain_max=d_both.max().item(), kernel_vs_plain_mean=d_both.mean().item(),
         fused_e2e_max_abs=d_fused, adapters_max_abs=adapters_differ)
-    return cfg, params, (ptoks, pmask), full_mask, launches
+    return cfg, params, (ptoks, pmask), full_mask, greedy.cpu().numpy()
 
 
 # ------------------------------- phase 4b ---------------------------------- #
@@ -814,6 +829,12 @@ def run_learn(torch, M, ops, cfg, params, prompts, report):
     for it in range(2):
         (comp, cmask), t_gen = host_s(torch, lambda: agent.get_action(
             {"input_ids": ptoks, "attention_mask": pmask}))
+        info = agent.last_generation_info
+        check(info is not None, f"iteration {it}: get_action fell back to the dense path")
+        bg = agent._bucketed_gen
+        exited = bg.n_chunks - (info["decode_steps"] - 1) // bg.decode_chunk
+        log(f"  iteration {it}: rollout through BucketedGenerator: {info}; chunks skipped by "
+            f"the early exit: {exited}")
         rewards = completion_reward(comp).reshape(n_prompts, GROUP_SIZE).astype(np.float32)
         ids = np.concatenate([np.repeat(ptoks, GROUP_SIZE, 0), comp], axis=1)
         attn = np.concatenate([np.repeat(pmask, GROUP_SIZE, 0), cmask], axis=1)
@@ -832,6 +853,7 @@ def run_learn(torch, M, ops, cfg, params, prompts, report):
         check(np.isfinite(loss) and np.isfinite(kl), f"learn {it}: loss {loss}, kl {kl}")
         t_lp, t_up = times["logprobs"][n_lp:], times["update"][n_up:]
         learns.append(dict(loss=loss, kl=kl, reward_mean=float(rewards.mean()),
+                           generation_info=info, early_exit_chunks=exited,
                            generate_s=t_gen, learn_s=t_learn, old_ref_passes_s=t_lp,
                            update_s=t_up, peak_memory_gb=peak_gb, launches=counts,
                            operand_splits=splits))
@@ -871,6 +893,311 @@ def run_learn(torch, M, ops, cfg, params, prompts, report):
         cfg, params, "GRPO, one update on 4 rows (one per prompt)")
     report["learn"] = dict(iterations=learns, lora_b_moved=moved, launches=launches)
     return launches, grads
+
+
+# ------------------------------- phase 4f ---------------------------------- #
+
+SERVE = dict(slots=8, block_size=32, prompt_buckets=(64, 128, 256),
+             max_new_tokens=MAX_NEW_TOKENS, decode_chunk=16)
+SERVE_TOP_K = 50
+# Decode-captured logprobs against token_logprobs over prompt + completion:
+# both are bf16 through 32 layers, on other attention paths (paged decode
+# against flash / dense prefill). Within CAPTURE_FACTOR x the two scoring
+# paths' own disagreement (kernels vs plain), mean and max, or these floors.
+CAPTURE_FACTOR = 3.0
+CAPTURE_FLOOR = {"mean": 2e-2, "max": 0.25}
+# A greedy divergence between two bf16 paths is rounding when the dense
+# path's logits of the two tokens lie within GAP_FACTOR x phase 4's
+# kernel-vs-plain max logprob difference (two bf16 evaluations of one
+# sequence) of each other.
+GAP_FACTOR = 2.0
+SMALL_SERVE_LP_ATOL = 1e-4  # f32 small model: captured vs token_logprobs
+
+
+def timed_method(torch, obj, name, into):
+    """Wrap ``obj.name`` so each call's synchronized host time lands in ``into``."""
+    fn = getattr(obj, name)
+
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, run)
+
+
+def serve_once(torch, S, cfg, params, lora, seqs, label, gen=None, greedy=True, **kw):
+    """One ``ContinuousGenerator.generate`` over ``seqs`` (a new generator
+    unless ``gen`` is given), with its TTFTs, decode time and throughput."""
+    import numpy as np
+
+    from agilerl_tpu_torch.observability import MetricsRegistry
+
+    if gen is None:
+        gen = S.ContinuousGenerator(cfg, metrics=MetricsRegistry(), **SERVE, **kw)
+    decode_s, verify_s = [], []
+    timed_method(torch, gen, "_decode_chunk", decode_s)
+    timed_method(torch, gen, "_verify", verify_s)
+    ttft0 = len(gen._recent_ttft)
+    summ0 = gen.latency_summary()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comp, cmask, info = gen.generate(seqs, 7, params, lora=lora, greedy=greedy)
+    wall = time.perf_counter() - t0
+    summ = gen.latency_summary()
+    for name in ("_decode_chunk", "_verify"):
+        delattr(gen, name)
+    ttft = np.asarray(list(gen._recent_ttft)[ttft0:])
+    tokens = int(cmask.sum())
+    misses = len(seqs) - info["prefix_cache_hits"]
+    steps = len(decode_s) * gen.decode_chunk + len(verify_s)
+    dec_s = sum(decode_s) + sum(verify_s)
+    proposed = int(summ["spec_proposed_tokens_total"] - summ0["spec_proposed_tokens_total"])
+    accepted = int(summ["spec_accepted_tokens_total"] - summ0["spec_accepted_tokens_total"])
+    out = dict(
+        requests=len(seqs), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p95_s=float(np.percentile(ttft, 95)),
+        decode_steps=steps, decode_s=dec_s,
+        decode_ms_per_step=1e3 * dec_s / max(steps, 1),
+        # the miss path's first token comes from the prefill; the rest from decode
+        decode_ms_per_token=1e3 * dec_s / max(tokens - misses, 1),
+        verify_steps=len(verify_s), prefix_hits=info["prefix_cache_hits"],
+        free_blocks=info["free_blocks"], n_blocks=gen.n_blocks,
+        compiled_programs=info["compiled_programs"], pool_gb=gen.pool_bytes / 1e9,
+        spec_proposed=proposed, spec_accepted=accepted,
+        accept_rate=accepted / proposed if proposed else None)
+    log(f"  {label}: {tokens} tokens in {wall:.2f} s ({out['tokens_per_s']:.1f} tokens/s); "
+        f"TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms, p95 {out['ttft_p95_s'] * 1e3:.1f} ms; "
+        f"decode {out['decode_ms_per_step']:.1f} ms/step over {steps} steps "
+        f"({out['decode_ms_per_token']:.2f} ms per decoded token); prefix hits "
+        f"{out['prefix_hits']}; free blocks after draining {out['free_blocks']} of "
+        f"{gen.n_blocks - 1}; pool {out['pool_gb']:.3f} GB"
+        + (f"; speculation: {accepted}/{proposed} drafts accepted in {len(verify_s)} verify "
+           f"steps" if proposed else ""))
+    check(comp.shape == (len(seqs), MAX_NEW_TOKENS), f"{label}: completion shape")
+    check(bool(((comp >= 0) & (comp < cfg.vocab_size)).all()), f"{label}: token out of range")
+    check(bool(cmask.all()), f"{label}: no EOS set, yet a row stopped early")
+    check(info["free_blocks"] == gen.n_blocks - 1, f"{label}: blocks not all returned")
+    return gen, comp, info, out
+
+
+def greedy_divergence(torch, M, cfg, params, lora, prompt_np, dense, cont, spread):
+    """Rows of ``cont`` equal ``dense`` up to their first difference; there
+    the dense path's logits of the two tokens differ by at most GAP_FACTOR x
+    ``spread``. Returns (identical rows, largest gap)."""
+    import numpy as np
+
+    B, P = prompt_np[0].shape
+    diff = [(b, int(np.argmax(cont[b] != dense[b]))) for b in range(B)
+            if (cont[b] != dense[b]).any()]
+    gaps = []
+    if diff:
+        rows = [b for b, _ in diff]
+        toks = torch.as_tensor(np.concatenate([prompt_np[0][rows], dense[rows]], 1),
+                               device="cuda")
+        mask = torch.as_tensor(np.concatenate([prompt_np[1][rows], np.ones_like(dense[rows])],
+                                              1), device="cuda")
+        hidden, _ = M.forward(cfg, params, toks, attention_mask=mask, lora=lora, flash=False)
+        for i, (b, t) in enumerate(diff):
+            logits = M.logits_fn(cfg, params, hidden[i:i + 1, P + t - 1])[0]
+            gaps.append((logits[int(dense[b, t])] - logits[int(cont[b, t])]).item())
+    worst = max(gaps, default=0.0)
+    log(f"  greedy continuous vs dense generate: {B - len(diff)} of {B} rows identical; "
+        f"first differences at tokens {[t for _, t in diff]}, dense logit gaps "
+        f"{[round(g, 4) for g in gaps]} (bound {GAP_FACTOR} x {spread:.3e})")
+    check(worst <= GAP_FACTOR * spread,
+          "a greedy divergence from the dense path is larger than bf16 rounding explains")
+    return B - len(diff), worst
+
+
+def captured_vs_scoring(torch, M, ops, cfg, params, lora, prompt_np, comp, lps):
+    """Decode-captured logprobs against token_logprobs over prompt +
+    completion, through the kernels (flash #1, fused #5: counted) and
+    through the plain path. Returns (kernel-path launches, numbers)."""
+    import numpy as np
+
+    P = prompt_np[0].shape[1]
+    full = torch.as_tensor(np.concatenate([prompt_np[0], comp], 1), device="cuda")
+    mask = torch.as_tensor(np.concatenate([prompt_np[1], np.ones_like(comp)], 1),
+                           device="cuda")
+    before = ops.kernel_counters()
+    kernel = M.token_logprobs(cfg, params, full, mask, lora=lora, use_fused=True, flash=True)
+    after = ops.kernel_counters()
+    launches = {k: after[k] - before[k] for k in after}
+    plain = M.token_logprobs(cfg, params, full, mask, lora=lora, use_fused=False, flash=False)
+    cap = torch.as_tensor(lps, device="cuda")
+    kernel, plain = kernel[:, P - 1:], plain[:, P - 1:]
+    d = {"kernel": (cap - kernel).abs(), "plain": (cap - plain).abs(),
+         "scoring": (kernel - plain).abs()}
+    out = {f"{k}_{s}": getattr(v, s)().item() for k, v in d.items() for s in ("mean", "max")}
+    out["launches"] = launches
+    log(f"  captured logprobs vs token_logprobs over prompt + completion: kernel path "
+        f"(flash {launches['flash_attention_fwd']} launches, fused "
+        f"{launches['fused_logprob_fwd']}) mean|d| {out['kernel_mean']:.3e} max|d| "
+        f"{out['kernel_max']:.3e}; plain path mean {out['plain_mean']:.3e} max "
+        f"{out['plain_max']:.3e}; kernel vs plain mean {out['scoring_mean']:.3e} max "
+        f"{out['scoring_max']:.3e} (bound: {CAPTURE_FACTOR} x kernel vs plain, floors "
+        f"{CAPTURE_FLOOR})")
+    check(launches["flash_attention_fwd"] == cfg.n_layer and launches["fused_logprob_fwd"] == 1,
+          f"captured-logprob check did not go through the kernels: {launches}")
+    for path in ("kernel", "plain"):
+        for s in ("mean", "max"):
+            bound = max(CAPTURE_FACTOR * out[f"scoring_{s}"], CAPTURE_FLOOR[s])
+            check(out[f"{path}_{s}"] <= bound,
+                  f"captured logprobs: {path} path {s}|d| {out[f'{path}_{s}']:.3e} > {bound:.3e}")
+    return launches, out
+
+
+def serve_small(torch, M, G, S, TSP, ops, report):
+    """A small f32 model on the card against the CPU: continuous (plain and
+    speculative) and bucketed greedy serving equal dense greedy ``generate``
+    on both devices; a verify step at draft_len 0 equals one decode step
+    (sampled: the same draw); captured logprobs equal ``token_logprobs``
+    (the f32 flash and fused kernels on the card)."""
+    import numpy as np
+
+    from agilerl_tpu_torch.observability import MetricsRegistry
+    from agilerl_tpu_torch.utils.tree import tree_map
+
+    cfg = M.GPTConfig(vocab_size=1000, n_layer=2, n_head=4, n_kv_head=2, d_model=256,
+                      max_seq_len=256, tie_embeddings=False, dtype=torch.float32)
+    params = M.init_params(7, cfg, device="cpu")
+    # wider weights give decisive, varied argmaxes
+    params = {k: ({i: {n: (w * 8 if w.dim() == 2 else w) for n, w in b.items()}
+                   for i, b in v.items()} if k == "blocks" else v * 8)
+              for k, v in params.items()}
+    on = {"cpu": params, "cuda": tree_map(lambda t: t.cuda(), params)}
+    rng = np.random.default_rng(0)
+    base = [rng.integers(1, 1000, size=n).astype(np.int32) for n in (9, 30, 17, 60)]
+    seqs = base + base[:3]
+    kw = dict(max_new_tokens=12, prompt_buckets=(32, 64), block_size=16, slots=3,
+              decode_chunk=4, n_blocks=40)
+    rows = {Pb: [i for i, s in enumerate(seqs) if (32 if len(s) <= 32 else 64) == Pb]
+            for Pb in (32, 64)}
+    out = {}
+    for dev, p in on.items():
+        dense = {}
+        for Pb, idx in rows.items():
+            toks, mask = G.left_pad([seqs[i] for i in idx], 0, Pb)
+            comp, _ = G.generate(cfg, p, torch.as_tensor(toks, device=dev),
+                                 torch.as_tensor(mask, device=dev), None, max_new_tokens=12,
+                                 temperature=0.0)
+            dense.update(zip(idx, comp.cpu().numpy()))
+        want = np.stack([dense[i] for i in range(len(seqs))])
+        got = {}
+        for name, spec in (("continuous", None), ("speculative", {"k": 3})):
+            gen = S.ContinuousGenerator(cfg, metrics=MetricsRegistry(), speculate=spec,
+                                        device=dev, **kw)
+            got[name], _, info = gen.generate(seqs, 0, p, greedy=True)
+            check(info["prefix_cache_hits"] == 3, f"small {dev} {name}: prefix hits {info}")
+        bucketed = S.BucketedGenerator(cfg, max_new_tokens=12, prompt_buckets=(64,),
+                                       row_buckets=(8,), decode_chunk=4, device=dev,
+                                       metrics=MetricsRegistry())
+        got["bucketed"] = bucketed.generate(seqs, None, p, greedy=True)[0]
+        for name, comp in got.items():
+            check(np.array_equal(comp, want), f"small {dev}: {name} greedy != dense greedy")
+        out[dev] = want
+        # a verify step at draft_len 0 is one decode step (sampled: same draw)
+        gen = S.ContinuousGenerator(cfg, metrics=MetricsRegistry(), device=dev, **kw)
+        for s_ in seqs[:3]:
+            gen.submit(s_)
+        gen._admit(p, None, greedy=False)
+        knobs = dict(lora=None, lora_scale=2.0, temperature=0.8, top_k=20, top_p=None,
+                     eos_id=None, pad_id=0, min_new_tokens=None)
+        dc, (dt, _) = G.paged_decode_step(cfg, p, gen._device_carry(), **knobs)
+        drafts = torch.full((kw["slots"], 3), 5, dtype=torch.int32, device=dev)
+        vc, (vt, _, vn, _) = TSP.paged_verify_step(
+            cfg, p, gen._device_carry(), drafts,
+            torch.zeros(kw["slots"], dtype=torch.int32, device=dev), **knobs)
+        check(bool((vt[:, 0] == dt).all()) and bool((vn == 1).all())
+              and all(bool((a == b.to(a.dtype)).all()) for a, b in zip(vc[2:], dc[2:])),
+              f"small {dev}: verify at draft_len 0 != one decode step")
+        # captured logprobs (sampled) against token_logprobs through the
+        # kernels and the plain path, on the init weights (unscaled: the
+        # f32 tolerance is absolute, as small_model_check's)
+        p0 = M.init_params(7, cfg, device=dev)
+        gen = S.ContinuousGenerator(cfg, metrics=MetricsRegistry(), device=dev,
+                                    capture_logprobs=True, temperature=0.9, top_k=30, **kw)
+        comp, cmask, info = gen.generate(seqs, 3, p0)
+        ptoks, pmask = G.left_pad(seqs, 0, 64)
+        full = torch.as_tensor(np.concatenate([ptoks, comp], 1), device=dev)
+        fmask = torch.as_tensor(np.concatenate([pmask, cmask], 1), device=dev)
+        for path, fused in (("kernel", True), ("plain", False)):
+            before = ops.kernel_counters()
+            lp = M.token_logprobs(cfg, p0, full, fmask, use_fused=fused, flash=fused)
+            launched = {k: v - before[k] for k, v in ops.kernel_counters().items()}
+            lp = lp[:, 63:].cpu().numpy()
+            err = float(np.abs(info["logprobs"] - lp)[cmask == 1].max())
+            check(err <= SMALL_SERVE_LP_ATOL,
+                  f"small {dev}: captured logprobs off the {path} path by {err:.3e}")
+            if dev == "cuda" and fused:
+                check(launched["flash_attention_fwd"] == 2 and launched["fused_logprob_fwd"] == 1,
+                      f"small model scoring did not go through the kernels: {launched}")
+            out[f"{dev}_capture_{path}_err"] = err
+    check(np.array_equal(out["cuda"], out["cpu"]), "small model: card and CPU greedy differ")
+    errs = {k: v for k, v in out.items() if k.endswith("_err")}
+    log(f"  small f32 model (2 layers, d_model 256, 4/2 heads), card and CPU: continuous, "
+        f"speculative and bucketed greedy == dense greedy; verify at draft_len 0 == one "
+        f"decode step; captured logprobs vs token_logprobs max|d| {errs} "
+        f"(tol {SMALL_SERVE_LP_ATOL:.0e})")
+    report["serving"]["small"] = errs
+
+
+def run_serving(torch, M, G, ops, cfg, params, prompts, dense_greedy, report):
+    """Slice 4a's path at llama3-8b: ContinuousGenerator serving phase 4's
+    4 prompts x 4 repeats (more requests than slots, 12 prefix hits) greedy,
+    sampled, speculative and with captured logprobs. Returns the launch
+    counts of the path (the captured-logprob check through the kernels)."""
+    from agilerl_tpu_torch.llm import serving as S
+    from agilerl_tpu_torch.llm import speculate as TSP
+
+    ptoks, pmask = prompts
+    n_prompts, P = ptoks.shape
+    log(f"phase 4f: serving at llama3-8b: {n_prompts} prompts x {GROUP_SIZE} repeats on "
+        f"{SERVE['slots']} slots, blocks of {SERVE['block_size']} tokens, prompt buckets "
+        f"{SERVE['prompt_buckets']}, {MAX_NEW_TOKENS} new tokens, decode chunks of "
+        f"{SERVE['decode_chunk']}, rank-{LORA_RANK} LoRA on wq/wv")
+    seqs = [row[m.astype(bool)] for row, m in zip(ptoks, pmask) for _ in range(GROUP_SIZE)]
+    prompt_np = (ptoks.repeat(GROUP_SIZE, 0), pmask.repeat(GROUP_SIZE, 0))
+    lora = make_adapter(torch, M, cfg, 1)  # phase 4's actor adapter
+    report["serving"] = {}
+    ops.reset_kernel_counters()
+    # warm the path (allocator, cuBLAS shapes) outside the timed runs
+    serve_once(torch, S, cfg, params, lora, seqs[:2], "warm-up (2 requests)")
+    gen, greedy, _, r = serve_once(torch, S, cfg, params, lora, seqs, "greedy")
+    check(r["prefix_hits"] == n_prompts * (GROUP_SIZE - 1), f"prefix hits {r['prefix_hits']}")
+    report["serving"]["greedy"] = r
+    same, gap = greedy_divergence(torch, M, cfg, params, lora, prompt_np, dense_greedy,
+                                  greedy, report["slice"]["kernel_vs_plain_max"])
+    report["serving"]["greedy"].update(rows_identical_to_dense=same, worst_dense_gap=gap)
+    _, _, _, r = serve_once(torch, S, cfg, params, lora, seqs, "sampled (temperature 1, "
+                            f"top-k {SERVE_TOP_K})", greedy=False, top_k=SERVE_TOP_K,
+                            temperature=1.0)
+    report["serving"]["sampled"] = r
+    spec, first, _, r1 = serve_once(torch, S, cfg, params, lora, seqs,
+                                    "speculative greedy, first pass", speculate=True)
+    _, second, _, r2 = serve_once(torch, S, cfg, params, lora, seqs,
+                                  "speculative greedy, the same batch again", gen=spec)
+    report["serving"]["speculative"] = dict(
+        first=r1, second=r2,
+        rows_identical_to_plain=[int((first == greedy).all(1).sum()),
+                                 int((second == greedy).all(1).sum())])
+    log(f"  speculative rows identical to the plain greedy run: "
+        f"{report['serving']['speculative']['rows_identical_to_plain']} of {len(seqs)}")
+    gen, comp, info, r = serve_once(torch, S, cfg, params, lora, seqs,
+                                    "sampled with captured logprobs", greedy=False,
+                                    top_k=SERVE_TOP_K, temperature=1.0,
+                                    capture_logprobs=True)
+    launches, cap = captured_vs_scoring(torch, M, ops, cfg, params, lora, prompt_np, comp,
+                                        info["logprobs"])
+    report["serving"]["captured"] = dict(r, **cap)
+    path_launches = ops.kernel_counters()
+    check(path_launches == {k: launches[k] for k in path_launches},
+          f"serving launched a kernel outside the scoring check: {path_launches}")
+    serve_small(torch, M, G, S, TSP, ops, report)
+    return path_launches
 
 
 # ------------------------------- phase 4c ---------------------------------- #
@@ -1679,10 +2006,15 @@ def main() -> None:
     check_fused_bwd(torch, tfl, report, n_rows, 4096)
     small_model_check(torch, M, ops, report)
 
-    cfg, params, prompts, full_mask, _ = run_slice(torch, M, G, ops, presets, report)
+    cfg, params, prompts, full_mask, dense_greedy = run_slice(torch, M, G, ops, presets, report)
     with torch.enable_grad():
         grpo_launches, grpo_grads = run_learn(torch, M, ops, cfg, params, prompts, report)
         dpo_launches, dpo_grads = run_dpo(torch, M, ops, tfa, tfl, cfg, params, report)
+    t0 = time.perf_counter()
+    serve_launches = run_serving(torch, M, G, ops, cfg, params, prompts, dense_greedy, report)
+    report["phase_4f_s"] = time.perf_counter() - t0
+    log(f"phase 4f: {report['phase_4f_s']:.1f} s")
+    with torch.enable_grad():
         # one f32 copy of the weights, made from (and replacing) the bf16
         # blocks, serves both gradient checks
         cfg32, params32 = f32_weights(torch, cfg, params)
@@ -1700,7 +2032,8 @@ def main() -> None:
         report["phase_4e_s"] = time.perf_counter() - t0
     log(f"phase 4e: {report['phase_4e_s']:.1f} s")
     # each main path's counts were set to 0 just before it and read just after
-    launches = {k: grpo_launches[k] + dpo_launches[k] for k in grpo_launches}
+    launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k]
+                for k in grpo_launches}
 
     log("phase 5: kernel times at the main path's shapes")
     kernels = [time_flash(torch, F, tfa, cfg, full_mask, launches, report),
@@ -1709,7 +2042,8 @@ def main() -> None:
                *time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report)]
     for entry in kernels:
         entry["launches_by_path"] = {"grpo_learn": grpo_launches[entry["name"]],
-                                     "dpo_learn": dpo_launches[entry["name"]]}
+                                     "dpo_learn": dpo_launches[entry["name"]],
+                                     "serving_capture": serve_launches[entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":

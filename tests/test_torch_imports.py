@@ -36,6 +36,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import agilerl_tpu_torch.algorithms.dpo, agilerl_tpu_torch.algorithms.ilql\n"
         "import agilerl_tpu_torch.modules.layers, agilerl_tpu_torch.data.rl_data\n"
         "import agilerl_tpu_torch.llm.hf, agilerl_tpu_torch.llm.moe\n"
+        "import agilerl_tpu_torch.llm.serving, agilerl_tpu_torch.llm.speculate\n"
+        "import agilerl_tpu_torch.observability, agilerl_tpu_torch.observability.registry\n"
+        "import agilerl_tpu_torch.observability.trace\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'agilerl_tpu'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -90,6 +93,22 @@ def test_slice_3_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert DPO(config=cfg, seed=0, device="cpu").dev == torch.device("cpu")
+
+
+def test_serving_entry_points_default_to_the_card():
+    """The serving generators, the paged pool and GRPO's routes take
+    device=None as the card and raise without one: no quiet CPU serving."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from agilerl_tpu_torch.llm import model as TM
+    from agilerl_tpu_torch.llm.serving import BucketedGenerator, ContinuousGenerator
+
+    cfg = TM.GPTConfig(vocab_size=17, n_layer=1, n_head=2, d_model=8, dtype=torch.float32)
+    for make in (lambda: BucketedGenerator(cfg), lambda: ContinuousGenerator(cfg),
+                 lambda: TM.init_paged_cache(cfg, 4, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert ContinuousGenerator(cfg, device="cpu").dev == torch.device("cpu")
 
 
 def test_kernel_build_raises_without_nvcc():

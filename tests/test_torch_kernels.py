@@ -490,3 +490,110 @@ def test_dpo_update_graph_two_padded_passes(dtype):
     assert math.isfinite(loss_gpu) and bool(torch.isfinite(g_gpu).all())
     assert loss_gpu == pytest.approx(loss_cpu, rel=loss_rtol)
     torch.testing.assert_close(g_gpu, g_cpu, rtol=0, atol=grad_rel * g_cpu.abs().max().item())
+
+
+# --------------------------------------------------------------------------- #
+# The serving tier on the card (torch ops, no kernel of its own)
+# --------------------------------------------------------------------------- #
+
+
+def _small_serving_model(seed=7):
+    from agilerl_tpu_torch.llm import model as TM
+
+    cfg = TM.GPTConfig(vocab_size=1000, n_layer=2, n_head=4, n_kv_head=2, d_model=256,
+                       max_seq_len=256, tie_embeddings=False, dtype=torch.float32)
+    params = TM.init_params(seed, cfg, device="cpu")
+    # wider weights give decisive, varied argmaxes
+    params = {k: ({i: {n: (w * 8 if w.dim() == 2 else w) for n, w in b.items()}
+                   for i, b in v.items()} if k == "blocks" else v * 8)
+              for k, v in params.items()}
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+def test_serving_greedy_matches_dense_on_the_card(monkeypatch):
+    """f32 small model: continuous (plain and speculative) and bucketed
+    greedy serving on the card give dense greedy ``generate``'s tokens, and
+    the CPU's."""
+    import numpy as np
+
+    from agilerl_tpu_torch.llm import generate as TG
+    from agilerl_tpu_torch.llm.serving import BucketedGenerator, ContinuousGenerator
+    from agilerl_tpu_torch.observability import MetricsRegistry
+    from agilerl_tpu_torch.utils.tree import tree_map
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, params = _small_serving_model()
+    gparams = tree_map(lambda t: t.cuda(), params)
+    rng = np.random.default_rng(0)
+    base = [rng.integers(1, 1000, size=n).astype(np.int32) for n in (9, 30, 17, 60)]
+    seqs = base + base[:3]  # more requests than slots, prefix hits
+    kw = dict(max_new_tokens=12, prompt_buckets=(32, 64), block_size=16, slots=3,
+              decode_chunk=4, n_blocks=40)
+    dense = {}
+    for Pb in (32, 64):
+        rows = [i for i, s in enumerate(seqs) if (32 if len(s) <= 32 else 64) == Pb]
+        toks, mask = TG.left_pad([seqs[i] for i in rows], 0, Pb)
+        comp, _ = TG.generate(cfg, gparams, torch.as_tensor(toks).cuda(),
+                              torch.as_tensor(mask).cuda(), None, max_new_tokens=12,
+                              temperature=0.0)
+        dense.update(zip(rows, comp.cpu().numpy()))
+    want = np.stack([dense[i] for i in range(len(seqs))])
+    for spec in (None, {"k": 3}):
+        outs = {}
+        for dev, p in (("cuda", gparams), ("cpu", params)):
+            gen = ContinuousGenerator(cfg, metrics=MetricsRegistry(), speculate=spec,
+                                      device=dev, **kw)
+            outs[dev], _, info = gen.generate(seqs, 0, p, greedy=True)
+            assert info["prefix_cache_hits"] == 3
+            assert gen.allocator.available() == kw["n_blocks"] - 1
+        np.testing.assert_array_equal(outs["cuda"], want)
+        np.testing.assert_array_equal(outs["cpu"], want)
+    bucketed = BucketedGenerator(cfg, max_new_tokens=12, prompt_buckets=(64,),
+                                 row_buckets=(8,), decode_chunk=4, device="cuda",
+                                 metrics=MetricsRegistry())
+    comp, _, _ = bucketed.generate(seqs, None, gparams, greedy=True)
+    np.testing.assert_array_equal(comp, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+def test_paged_writes_past_the_extent_on_the_card():
+    """A released slot whose lengths ran past the logical extent S: the
+    paged scatters and the slab insert redirect or drop its writes on CUDA
+    (an out-of-range index would device-assert) and agree with the CPU
+    outside the garbage block."""
+    from agilerl_tpu_torch.llm import model as TM
+
+    cfg, params = _small_serving_model()
+    g = torch.Generator().manual_seed(0)
+    L, KV, hd, nb, bs = cfg.n_layer, cfg.kv_heads, cfg.head_dim, 10, 4
+    pool_k = torch.randn(L, nb, bs, KV, hd, generator=g) * 0.3
+    pool_v = torch.randn(L, nb, bs, KV, hd, generator=g) * 0.3
+    tables = torch.tensor([[1, 2, 3, 4], [5, 6, 0, 0], [0, 0, 0, 0]], dtype=torch.int32)
+    S = 4 * bs
+    lengths = torch.tensor([6, 3, S + 5], dtype=torch.int32)
+    mask = (torch.arange(S)[None] <= lengths[:, None]).int()
+    mask[2] = 0
+    tok = torch.randint(1, cfg.vocab_size, (3, 3), generator=g)
+    new_k = torch.randn(L, 3, KV, hd, generator=g)
+    new_k3 = torch.randn(L, 3, 3, KV, hd, generator=g)
+    wp3 = lengths[:, None] + torch.arange(3)[None]
+    wp3[0] += S - 8  # slot 0's window crosses the extent
+
+    def run(dev):
+        to = lambda t: t.to(dev)  # noqa: E731
+        cache = TM.PagedKVCache(to(pool_k.clone()), to(pool_v.clone()))
+        TM.paged_scatter_tokens(cache, to(tables), to(lengths), to(new_k), to(new_k))
+        TM.paged_scatter_multi(cache, to(tables), to(wp3), to(new_k3), to(new_k3))
+        p = {k: ({i: {n: to(w) for n, w in b.items()} for i, b in v.items()}
+                 if k == "blocks" else to(v)) for k, v in params.items()}
+        hidden, (nk, _) = TM.forward_paged(cfg, p, to(tok), to(wp3), to(wp3), cache,
+                                           to(tables), to(mask))
+        if dev == "cuda":
+            torch.cuda.synchronize()  # surfaces a device assert here
+        return cache.k[:, 1:].cpu(), hidden[:2].cpu(), nk.cpu()
+
+    for a, b in zip(run("cuda"), run("cpu")):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
