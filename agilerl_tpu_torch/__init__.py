@@ -12,10 +12,16 @@ Slice 1: the LLM rollout + GRPO scoring pass (``llm.model``, ``llm.generate``,
 of the LLM stack: DPO (``algorithms.dpo``, ``utils.llm_utils.PreferenceGym``,
 ``training.train_llm.finetune_llm_preference``), ILQL and BC_LM
 (``algorithms.ilql``, ``modules.layers``, ``data.rl_data``), MoE layers
-(``llm.moe``) and the HF checkpoint loader (``llm.hf``). The kernels
+(``llm.moe``) and the HF checkpoint loader (``llm.hf``). Slice 4a: the
+single-replica serving tier (``llm.serving``, ``llm.speculate``, the paged
+KV cache; ``observability`` registry and tracing). Slice 4b: the serving
+fleet and the online GRPO flywheel (``llm.router``, ``llm.fleet``,
+``llm.autoscale``, ``llm.flywheel``, ``training.train_llm_online``,
+``resilience``, the rest of ``observability``). The kernels
 written for Hopper live under ``csrc/`` behind ``ops.flash_attention_vjp``
 (flash attention forward, dQ, dK/dV) and ``ops.fused_loss`` (fused lm-head
 log-probability forward, dH, dW).
 """
 
-__all__ = ["algorithms", "data", "hpo", "llm", "modules", "ops", "training", "utils"]
+__all__ = ["algorithms", "data", "hpo", "llm", "modules", "observability", "ops",
+           "resilience", "training", "utils"]

@@ -19,10 +19,11 @@ through the dense ``generate`` when the batch does not fit the bucket grid
 (or, for the continuous tier, a row is all pad). Env
 ``AGILERL_TPU_DISABLE_BUCKETED_DECODE=1`` turns both serving routes off;
 ``AGILERL_TPU_CONTINUOUS_DECODE=1`` opts into the continuous one.
+``attach_rollout_fleet`` routes continuous rollouts through a
+``llm/fleet.ServingFleet`` (the online flywheel's rollout tier).
 
-Not ported yet: ``attach_rollout_fleet`` (the serving fleet) and the
-sequence-parallel learn (``sequence_parallel_axis``) raise
-``NotImplementedError``; ``to_mesh`` (sharding plans) comes with the
+Not ported yet: the sequence-parallel learn (``sequence_parallel_axis``)
+raises ``NotImplementedError``; ``to_mesh`` (sharding plans) comes with the
 distribution slice.
 """
 
@@ -195,6 +196,9 @@ class GRPO(EvolvableAlgorithm):
         self._continuous_gen = None
         self._continuous_gen_knobs = None
         self.last_generation_info = None
+        # a ServingFleet routing continuous rollouts (attach_rollout_fleet);
+        # not part of init_dict: a clone decodes on its own generators
+        self.rollout_fleet = None
 
         if base_params is None:
             base_params = M.init_params(self.next_key(self.dev), config, device=self.dev)
@@ -288,7 +292,36 @@ class GRPO(EvolvableAlgorithm):
         return self._continuous_gen
 
     def attach_rollout_fleet(self, fleet) -> None:
-        raise NotImplementedError("serving fleets are not ported yet")
+        """Route continuous rollouts through a ``llm/fleet.ServingFleet``:
+        prefix-affinity routing over N replicas instead of a private
+        generator. The fleet's sampling recipe must match this agent's (same
+        ``generate`` key-fold contract, so a fleet and a bare generator given
+        the same key produce identical streams); a mismatch would silently
+        change the rollout distribution, so it is rejected. Sets
+        ``continuous_decode``. ``None`` detaches and restores the pre-attach
+        ``continuous_decode``."""
+        if fleet is None:
+            if self.rollout_fleet is not None:
+                self.continuous_decode = self._pre_fleet_continuous_decode
+            self.rollout_fleet = None
+            return
+        ref = fleet._grid_ref()
+        theirs = dict(
+            max_new_tokens=ref.max_new_tokens, pad_id=ref.pad_id,
+            eos_id=ref.eos_id, temperature=ref.temperature,
+            top_k=ref.top_k, top_p=ref.top_p,
+            min_new_tokens=ref.min_new_tokens, lora_scale=ref.lora_scale,
+        )
+        mine = self._serving_knobs()
+        if theirs != mine:
+            raise ValueError(
+                f"fleet sampling recipe {theirs} does not match this "
+                f"agent's serving knobs {mine}; build the fleet from the "
+                "same recipe (ContinuousGenerator kwargs) as the agent")
+        if self.rollout_fleet is None:
+            self._pre_fleet_continuous_decode = self.continuous_decode
+        self.rollout_fleet = fleet
+        self.continuous_decode = True
 
     # ------------------------------------------------------------------ #
     def _as_tensor(self, x, dtype=None) -> torch.Tensor:
@@ -299,8 +332,9 @@ class GRPO(EvolvableAlgorithm):
         [B, P], "attention_mask"}. Returns (completion_ids [B*G, N],
         completion_mask [B*G, N]) as numpy. Routes through the bucketed
         generator (default) or the continuous one (opt-in), else the dense
-        path; the serving tiers' telemetry lands in
-        ``last_generation_info`` (None after a dense rollout)."""
+        path; an attached fleet takes the continuous route. The serving
+        tiers' telemetry lands in ``last_generation_info`` (None after a
+        dense rollout)."""
         ids_np = np.asarray(prompts["input_ids"])
         mask_np = np.asarray(prompts["attention_mask"])
         g = self.group_size if training else 1
@@ -314,7 +348,8 @@ class GRPO(EvolvableAlgorithm):
         longest = int(row_lens.max())
         gen = None
         if self.continuous_decode:
-            gen = self._get_continuous_generator()
+            gen = (self.rollout_fleet if self.rollout_fleet is not None
+                   else self._get_continuous_generator())
             # an all-pad row has no prompt to admit: the dense path takes it
             if int(row_lens.min()) == 0 or not gen.fits(ids_np.shape[0], longest):
                 gen = None

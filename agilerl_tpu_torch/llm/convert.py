@@ -5,11 +5,16 @@ transposes are needed. MoE blocks carry their stacked ``[E, ...]`` expert
 weights and their ``router`` like any other block weight. The JAX tree is
 handed over as numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``);
 nothing here imports jax.
+
+``tensor_to_host`` / ``tensor_from_host`` carry one tensor through a pickle
+that a process without a card can read (the fleet's KV transfers): numpy has
+no bfloat16, so a bf16 tensor travels as its ``uint16`` bit pattern with the
+dtype's name and comes back bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,3 +57,24 @@ def f32_tree_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     if isinstance(tree, Mapping):
         return {k: f32_tree_from_numpy(v, dev) for k, v in tree.items()}
     return _tensor(tree, torch.float32, dev)
+
+
+def tensor_to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """(host numpy array, dtype name) for ``t``; a bf16 tensor becomes its
+    ``uint16`` bit pattern."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16), "bfloat16"
+    return t.cpu().numpy(), str(t.dtype).replace("torch.", "")
+
+
+def tensor_from_host(a: np.ndarray, dtype: Optional[str] = None,
+                     device: DeviceLike = None) -> torch.Tensor:
+    """The inverse of ``tensor_to_host``: ``dtype`` None keeps the array's own
+    dtype."""
+    dev = resolve_device(device)
+    a = np.asarray(a)
+    if dtype == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    t = torch.from_numpy(a.copy())
+    return t.to(device=dev, dtype=getattr(torch, dtype) if dtype else t.dtype)

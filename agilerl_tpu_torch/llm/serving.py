@@ -44,6 +44,7 @@ import torch
 
 from agilerl_tpu_torch import observability
 from agilerl_tpu_torch.llm import model as M
+from agilerl_tpu_torch.llm.convert import tensor_from_host
 from agilerl_tpu_torch.llm.generate import (
     decode_step,
     fold_in,
@@ -750,7 +751,11 @@ class ContinuousGenerator:
 
     def _scatter_import(self, block_ids: np.ndarray, k: np.ndarray, v: np.ndarray) -> None:
         self._programs.add(("scatter_import", k.shape[1]))
-        M.paged_scatter_prompt(self._pool, self._t(block_ids), self._t(k), self._t(v))
+        # a bf16 pool's KV travels as its uint16 bit pattern (numpy has no bf16)
+        dtype = "bfloat16" if self.config.dtype == torch.bfloat16 else None
+        M.paged_scatter_prompt(self._pool, self._t(block_ids),
+                               tensor_from_host(k, dtype, self.dev),
+                               tensor_from_host(v, dtype, self.dev))
 
     def _device_carry(self):
         return (self._pool, self._t(self._tables), self._t(self._mask),
@@ -878,10 +883,12 @@ class ContinuousGenerator:
     ) -> Optional[int]:
         """Enqueue a request whose prompt KV a prefill worker already
         computed (the disaggregated topology's decode-side entry).
-        ``k_prompt``/``v_prompt`` are ``[L, Pb, KV, hd]`` at THIS generator's
-        prompt bucket. ``tok0``/``done0``/``key_next`` are the prefill head's
-        first token, its EOS state and the advanced counter key; admission
-        seeds the slot with them as the local miss path would. ``key`` is
+        ``k_prompt``/``v_prompt`` are host arrays ``[L, Pb, KV, hd]`` at THIS
+        generator's prompt bucket, in ``llm/convert.tensor_to_host``'s form
+        (a bf16 pool's KV as its ``uint16`` bit pattern).
+        ``tok0``/``done0``/``key_next`` are the prefill head's first token,
+        its EOS state and the advanced counter key; admission seeds the slot
+        with them as the local miss path would. ``key`` is
         the RAW request key, kept so a prefix-cache HIT resumes the same
         stream without the import."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
@@ -928,6 +935,11 @@ class ContinuousGenerator:
 
     def _occupancy(self) -> int:
         return sum(r is not None for r in self._slot_req)
+
+    def backlog(self) -> int:
+        """Queued + in-flight rows: the load signal the fleet router
+        dispatches on."""
+        return len(self._queue) + self._occupancy()
 
     def _ensure_pool(self) -> None:
         if self._pool is None:

@@ -1,0 +1,184 @@
+"""Structured JSONL event sinks: the port of
+``agilerl_tpu/observability/events.py`` (whole).
+
+One event per line: ``{"seq": N, "ts": unix_seconds, "kind": ..., **payload}``.
+``seq`` is a per-sink monotone index: consumers sort/validate on it rather than wall time,
+which can repeat at millisecond granularity.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List
+
+
+def _jsonable(v: Any) -> Any:
+    """Best-effort coercion for numpy/torch scalars and arrays."""
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    if isinstance(v, dict):
+        return {str(k): _jsonable(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    item = getattr(v, "item", None)
+    if callable(item):
+        try:
+            return item()
+        except Exception:
+            pass
+    tolist = getattr(v, "tolist", None)
+    if callable(tolist):
+        try:
+            return tolist()
+        except Exception:
+            pass
+    return repr(v)
+
+
+def _resume_seq(path: str) -> int:
+    """Continue the monotone ``seq`` past an existing file's last event —
+    appending a second run must not restart at 0 (consumers order on seq).
+
+    The FINAL line may be torn (a crash mid-write leaves a truncated tail;
+    append-mode JSONL tolerates that by design), so the scan walks
+    BACKWARDS through the tail window to the last *parseable* event — a
+    torn tail must not reset seq to 0 and break the monotone contract."""
+    try:
+        with open(path, "rb") as fh:
+            fh.seek(0, 2)
+            size = fh.tell()
+            if size == 0:
+                return 0
+            fh.seek(max(0, size - 65536))
+            lines = fh.read().splitlines()
+        for last in reversed(lines):
+            try:
+                return int(json.loads(last)["seq"]) + 1
+            except (ValueError, KeyError, TypeError):
+                continue
+        return 0
+    except (OSError, ValueError, KeyError, IndexError, TypeError):
+        return 0
+
+
+class JsonlSink:
+    """Append structured events to a JSONL file, flushing per line so a
+    crashed run still leaves a readable timeline."""
+
+    def __init__(self, path: str):
+        self.path = str(path)
+        self._seq = _resume_seq(self.path)
+        self._fh = open(self.path, "a", encoding="utf-8")
+        # a torn final line (no trailing newline — crash mid-write) must
+        # not absorb the first appended record into its garbage: resume
+        # appending on a fresh line
+        try:
+            with open(self.path, "rb") as fh:
+                fh.seek(0, 2)
+                if fh.tell() > 0:
+                    fh.seek(-1, 2)
+                    if fh.read(1) != b"\n":
+                        self._fh.write("\n")
+        except OSError:  # pragma: no cover - exotic filesystems
+            pass
+        self._lock = threading.Lock()
+
+    def emit(self, kind: str, payload: Dict[str, Any]) -> None:
+        record = {"seq": None, "ts": round(time.time(), 6), "kind": str(kind)}
+        record.update({k: _jsonable(v) for k, v in payload.items()})
+        with self._lock:
+            if self._fh.closed:
+                return  # late event after close(): drop, never crash the run
+            record["seq"] = self._seq
+            self._seq += 1
+            self._fh.write(json.dumps(record) + "\n")
+            self._fh.flush()
+
+    @property
+    def closed(self) -> bool:
+        return self._fh.closed
+
+    def flush(self) -> None:
+        """Flush + best-effort fsync — the resilience PreemptionGuard calls
+        this (from the main thread, at the first step boundary after a
+        preemption signal) so the timeline is durable even when the grace
+        window expires before the final snapshot."""
+        with self._lock:
+            if self._fh.closed:
+                return
+            self._fh.flush()
+            try:
+                os.fsync(self._fh.fileno())
+            except OSError:  # pragma: no cover - exotic filesystems
+                pass
+
+    def close(self) -> None:
+        with self._lock:
+            if not self._fh.closed:
+                self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class MemorySink:
+    """In-process sink for tests and interactive inspection."""
+
+    def __init__(self):
+        self.events: List[Dict[str, Any]] = []
+        self._seq = 0
+        self._lock = threading.Lock()
+
+    def emit(self, kind: str, payload: Dict[str, Any]) -> None:
+        record = {"seq": None, "ts": round(time.time(), 6), "kind": str(kind)}
+        record.update({k: _jsonable(v) for k, v in payload.items()})
+        with self._lock:
+            record["seq"] = self._seq
+            self._seq += 1
+            self.events.append(record)
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class NullSink:
+    """Discard everything (the default when telemetry is not configured)."""
+
+    def emit(self, kind: str, payload: Dict[str, Any]) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def read_jsonl(path: str) -> List[Dict[str, Any]]:
+    """Load a JSONL event file, skipping blank AND unparseable lines.
+
+    Torn lines are possible BY DESIGN (a crash mid-write truncates the
+    tail; the restarted sink keeps it and appends on a fresh line), so the
+    post-crash reconstruction workflow — ``span_records(read_jsonl(...))``
+    → ``export_perfetto`` — must read past them, not raise on the exact
+    file the crash tooling exists for. Every parseable event is returned."""
+    out = []
+    with open(path, encoding="utf-8") as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                continue  # torn/garbage line: tolerated by design
+    return out

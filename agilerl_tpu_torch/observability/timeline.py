@@ -1,0 +1,218 @@
+"""Per-step timeline: step time, throughput, MFU, device memory. The port
+of ``agilerl_tpu/observability/timeline.py`` (whole).
+
+Wraps :class:`agilerl_tpu_torch.utils.profiling.StepTimer` and reuses the
+SAME FLOPs accounting (``transformer_flops_per_token`` + ``PEAK_BF16_FLOPS``)
+so every MFU reading comes from one table. Aggregation rides
+:class:`agilerl_tpu_torch.utils.log_utils.CombineLogs`.
+
+MFU is emitted only on a card with a published bf16 peak in the table; on
+the CPU or an unknown card there is no MFU reading.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from agilerl_tpu_torch.utils.log_utils import CombineLogs
+from agilerl_tpu_torch.utils.profiling import (
+    StepTimer,
+    peak_flops_info,
+    transformer_flops_per_token,
+)
+
+
+def device_memory_stats(device=None) -> Dict[str, float]:
+    """``{bytes_in_use, peak_bytes_in_use, bytes_limit}`` for the card
+    (``torch.cuda.memory_stats`` / ``max_memory_allocated``); {} on the CPU
+    or without a card."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return {}
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {}
+    stats = torch.cuda.memory_stats(device)
+    return {
+        "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+        "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(device)),
+        "bytes_limit": int(torch.cuda.get_device_properties(device).total_memory),
+    }
+
+
+class StepTimeline:
+    """Emit one ``step`` event per training step through a registry.
+
+    ``step()`` is called once per host-visible training step; the timeline
+    computes ``step_time_s`` (rolling window via StepTimer), optional
+    ``env_steps_per_sec`` / ``tokens_per_sec``, and — when a model config and
+    token count are given on a device with a defined peak — ``mfu``.
+    """
+
+    def __init__(
+        self,
+        registry,
+        name: str = "train",
+        model_config=None,
+        window: int = 20,
+        memory_stats_every: int = 50,
+        step_event_every: int = 1,
+    ):
+        self.registry = registry
+        self.name = name
+        self.model_config = model_config
+        self.timer = StepTimer(window=window)
+        self.memory_stats_every = int(memory_stats_every)
+        # histograms/gauges update every step; the JSONL `step` event is
+        # emitted every Nth step (hot off-policy loops with a JsonlSink
+        # should raise this — per-line flush on every env step is disk-bound;
+        # 0 disables step events entirely)
+        self.step_event_every = int(step_event_every)
+        self.step_index = 0
+        # O(1) running (sum, count) per metric: a 10M-step run must not grow
+        # host memory; aggregate() feeds these into CombineLogs for the
+        # cross-host reduce
+        self._acc: Dict[str, Any] = {}
+        # pass our registry so an unknown-chip fallback warning lands in THIS
+        # run's event stream, not just the process-default registry
+        peak, estimated = peak_flops_info(registry=registry)
+        self._peak_flops = peak
+        self._peak_estimated = estimated
+        self._flops_per_token = (
+            transformer_flops_per_token(model_config)
+            if model_config is not None else None
+        )
+
+    def set_model_config(self, model_config) -> None:
+        """(Re)bind the transformer config used for MFU accounting — loops
+        that only learn the config from their population call this once."""
+        self.model_config = model_config
+        self._flops_per_token = (
+            transformer_flops_per_token(model_config)
+            if model_config is not None else None
+        )
+
+    def step(
+        self,
+        env_steps: int = 0,
+        tokens: int = 0,
+        agent_index: Optional[int] = None,
+        metrics: Optional[Dict[str, float]] = None,
+        host_time_s: Optional[float] = None,
+        device_time_s: Optional[float] = None,
+    ) -> Optional[Dict[str, Any]]:
+        """Record one step. The FIRST call only arms the timer (no interval
+        exists yet) and returns None. Histograms/gauges/aggregates update on
+        every call; the JSONL ``step`` event (and its payload build + memory
+        probe) happens every ``step_event_every``-th step — the method
+        returns the payload when one was emitted, else None.
+
+        ``host_time_s`` / ``device_time_s`` come from pipelined loops: host = time actively stepping the env /
+        staging on host; device = time the host spent BLOCKED on device
+        results (action syncs + explicit cadence syncs). The derived
+        ``overlap_fraction`` gauge is ``1 - device_time_s / step_time_s`` —
+        the fraction of the step during which device work ran hidden under
+        host work; it rises toward 1 as pipelining takes hold."""
+        dt = self.timer.tick()
+        if dt is None:
+            return None
+        env_rate = round(env_steps / dt, 2) if env_steps else None
+        mfu = None
+        if tokens and self._flops_per_token is not None and self._peak_flops:
+            mfu = round(
+                self._flops_per_token * tokens / (dt * self._peak_flops), 4)
+        overlap = None
+        if device_time_s is not None and dt > 0:
+            overlap = round(min(max(1.0 - device_time_s / dt, 0.0), 1.0), 4)
+
+        self.registry.histogram(
+            f"{self.name}/step_time_s",
+            help="per-step wall time").observe(dt)
+        if env_rate is not None:
+            self.registry.gauge(f"{self.name}/env_steps_per_sec").set(env_rate)
+        if mfu is not None:
+            self.registry.gauge(f"{self.name}/mfu").set(mfu)
+        if host_time_s is not None:
+            self.registry.gauge(f"{self.name}/host_time_s").set(host_time_s)
+        if device_time_s is not None:
+            self.registry.gauge(f"{self.name}/device_time_s").set(device_time_s)
+        if overlap is not None:
+            self.registry.gauge(f"{self.name}/overlap_fraction").set(overlap)
+        self.registry.counter(f"{self.name}/steps_total").inc()
+        for k, v in (("step_time_s", dt), ("env_steps_per_sec", env_rate),
+                     ("mfu", mfu), ("host_time_s", host_time_s),
+                     ("device_time_s", device_time_s),
+                     ("overlap_fraction", overlap)):
+            if v is not None:
+                total, n = self._acc.get(k, (0.0, 0))
+                self._acc[k] = (total + v, n + 1)
+
+        emit = (self.step_event_every
+                and self.step_index % self.step_event_every == 0)
+        event: Optional[Dict[str, Any]] = None
+        if emit:
+            event = {
+                "name": self.name,
+                "step": self.step_index,
+                "step_time_s": round(dt, 9),
+            }
+            if agent_index is not None:
+                event["agent"] = int(agent_index)
+            if env_rate is not None:
+                event["env_steps_per_sec"] = env_rate
+            if host_time_s is not None:
+                event["host_time_s"] = round(host_time_s, 9)
+            if device_time_s is not None:
+                event["device_time_s"] = round(device_time_s, 9)
+            if overlap is not None:
+                event["overlap_fraction"] = overlap
+            if tokens:
+                event["tokens_per_sec"] = round(tokens / dt, 2)
+                if mfu is not None:
+                    event["mfu"] = mfu
+                    event["estimated"] = bool(self._peak_estimated)
+            if metrics:
+                event.update({k: float(v) for k, v in metrics.items()})
+            if (self.memory_stats_every
+                    and self.step_index % self.memory_stats_every == 0):
+                mem = device_memory_stats()
+                if mem:
+                    event["memory"] = mem
+            self.registry.emit("step", **event)
+        self.step_index += 1
+        return event
+
+    def aggregate(self, across_hosts: bool = False) -> Dict[str, float]:
+        """Weighted-mean step metrics since the last aggregate() — reduced
+        over every host when ``across_hosts`` (CombineLogs ride-along: each
+        metric enters as its local mean weighted by its sample count)."""
+        combine = CombineLogs()
+        for k, (total, n) in self._acc.items():
+            combine.accum({k: total / n}, weight=n)
+        self._acc = {}
+        return combine.reduce(across_hosts=across_hosts)
+
+
+class PhaseTimer:
+    """``with PhaseTimer(reg, "serving/prefill"): ...`` → histogram observe."""
+
+    def __init__(self, registry, name: str, buckets=None):
+        self.registry = registry
+        self.name = name
+        self.buckets = buckets
+        self._t0 = None
+        self.elapsed_s: Optional[float] = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed_s = time.perf_counter() - self._t0
+        kwargs = {"buckets": self.buckets} if self.buckets is not None else {}
+        self.registry.histogram(self.name, **kwargs).observe(self.elapsed_s)
+        return False

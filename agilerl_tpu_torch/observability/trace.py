@@ -33,7 +33,6 @@ import hashlib
 import itertools
 import json
 import os
-import tempfile
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Union
 
@@ -441,25 +440,10 @@ def export_perfetto(records: List[Dict[str, Any]],
     if path is not None:
         # commit atomically so a kill mid-write can't leave a half-JSON
         # file a viewer trusts
-        _atomic_write_bytes(path, json.dumps(doc).encode())
+        from agilerl_tpu_torch.resilience.atomic import atomic_write_bytes
+
+        atomic_write_bytes(path, json.dumps(doc).encode())
     return doc
-
-
-def _atomic_write_bytes(path: str, data: bytes) -> None:
-    """Write ``data`` to ``path`` through a temporary file in the same
-    directory and an atomic rename, fsynced before the rename."""
-    d = os.path.dirname(os.path.abspath(path))
-    fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp-")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
 
 
 def trace_tree(records: List[Dict[str, Any]], trace_id: str,

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+import numpy as np
 import torch
 
 
@@ -31,3 +32,18 @@ def tree_leaves(tree: Any) -> List[Any]:
 def tree_copy(tree: Any) -> Any:
     """A copy of every tensor leaf (``jnp.copy``); other leaves are kept."""
     return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """Every tensor leaf as a host numpy array (``jax.device_get``); other
+    leaves are kept. A pickle of the result loads without a card."""
+    return tree_map(
+        lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def tree_from_numpy(tree: Any, device) -> Any:
+    """The inverse of ``tree_to_numpy``: every numpy leaf as a tensor of the
+    same dtype on ``device``; other leaves are kept."""
+    return tree_map(
+        lambda x: torch.from_numpy(x.copy()).to(device) if isinstance(x, np.ndarray) else x,
+        tree)

@@ -56,6 +56,27 @@ of which ends the run with a non-zero exit on any failure:
    card against the CPU: continuous (plain and speculative) and bucketed
    greedy equal to dense greedy, a verify step at draft_len 0 equal to one
    decode step, captured logprobs equal to ``token_logprobs``;
+4g. slice 4b on the same bf16 weights: a unified ``ServingFleet`` of 2
+   replicas (4f's recipe, captured logprobs) serving 4f's 16 requests (held
+   to 4f's single-generator rows by the near-tie rule; affinity, prefix hits
+   per replica, TTFT, decode per replica step, tokens/s, free blocks,
+   program count), the same batch with replica 1 killed after the first
+   chunk, and the disaggregated topology (1 prefill worker, KV through the
+   transfer store: transfers, MB, export/import seconds, a warm repeat with
+   no transfer), both held to the unified rows by the same rule; then
+   ``finetune_llm_reasoning_online`` on the arithmetic recipe (16 rows, 64
+   new tokens, staleness 1, 2 epochs) with the rollouts through the unified
+   fleet under an ``AutoscalePolicy``: per epoch rollout and learner times,
+   launches per learner step (flash forward, dQ, dK/dV, fused forward, dH)
+   and per rollout (none: the fleet's captured logprobs stand in for the
+   dense behavior forward, which is checked once after), stalls, stale
+   drops, autoscale decisions, finite losses, a moving adapter, and each
+   learner kernel against its plain version at a learner batch's shapes;
+   then a small f32 model on the card against the CPU: unified,
+   disaggregated and failover fleets, one generator and dense greedy
+   token-identical, the staleness-0 flywheel equal to the interleaved loop
+   and its batches through a learner on the CPU giving the card's adapter,
+   and a weight bump flushing every replica's prefix cache;
 4c. the evolution loop: ``finetune_llm_reasoning`` over a population of 2
    on the arithmetic ReasoningGym recipe, llama3-8b widths cut to 4 layers,
    through one tournament and one mutation round;
@@ -87,6 +108,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -914,18 +936,30 @@ GAP_FACTOR = 2.0
 SMALL_SERVE_LP_ATOL = 1e-4  # f32 small model: captured vs token_logprobs
 
 
-def timed_method(torch, obj, name, into):
-    """Wrap ``obj.name`` so each call's synchronized host time lands in ``into``."""
+def timed_method(torch, obj, name, into, ops=None, extra=None):
+    """Wrap ``obj.name`` (a method of an instance, or of a class) so each
+    call's synchronized host time lands in ``into``; given ``ops``, a dict
+    of the time, the call's kernel launches, its arguments, its output and
+    ``extra()`` read after it. Returns the unwrapped method."""
     fn = getattr(obj, name)
 
     def run(*args, **kw):
+        torch.cuda.synchronize()
+        before = ops.kernel_counters() if ops is not None else None
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         torch.cuda.synchronize()
-        into.append(time.perf_counter() - t0)
+        seconds = time.perf_counter() - t0
+        if ops is None:
+            into.append(seconds)
+        else:
+            after = ops.kernel_counters()
+            into.append(dict(s=seconds, launches={k: after[k] - before[k] for k in after},
+                             args=args, out=out, extra=extra() if extra is not None else None))
         return out
 
     setattr(obj, name, run)
+    return fn
 
 
 def serve_once(torch, S, cfg, params, lora, seqs, label, gen=None, greedy=True, **kw):
@@ -983,7 +1017,8 @@ def serve_once(torch, S, cfg, params, lora, seqs, label, gen=None, greedy=True, 
     return gen, comp, info, out
 
 
-def greedy_divergence(torch, M, cfg, params, lora, prompt_np, dense, cont, spread):
+def greedy_divergence(torch, M, cfg, params, lora, prompt_np, dense, cont, spread,
+                      label="greedy continuous vs dense generate"):
     """Rows of ``cont`` equal ``dense`` up to their first difference; there
     the dense path's logits of the two tokens differ by at most GAP_FACTOR x
     ``spread``. Returns (identical rows, largest gap)."""
@@ -1004,11 +1039,11 @@ def greedy_divergence(torch, M, cfg, params, lora, prompt_np, dense, cont, sprea
             logits = M.logits_fn(cfg, params, hidden[i:i + 1, P + t - 1])[0]
             gaps.append((logits[int(dense[b, t])] - logits[int(cont[b, t])]).item())
     worst = max(gaps, default=0.0)
-    log(f"  greedy continuous vs dense generate: {B - len(diff)} of {B} rows identical; "
+    log(f"  {label}: {B - len(diff)} of {B} rows identical; "
         f"first differences at tokens {[t for _, t in diff]}, dense logit gaps "
         f"{[round(g, 4) for g in gaps]} (bound {GAP_FACTOR} x {spread:.3e})")
     check(worst <= GAP_FACTOR * spread,
-          "a greedy divergence from the dense path is larger than bf16 rounding explains")
+          f"{label}: a greedy divergence is larger than bf16 rounding explains")
     return B - len(diff), worst
 
 
@@ -1149,7 +1184,8 @@ def run_serving(torch, M, G, ops, cfg, params, prompts, dense_greedy, report):
     """Slice 4a's path at llama3-8b: ContinuousGenerator serving phase 4's
     4 prompts x 4 repeats (more requests than slots, 12 prefix hits) greedy,
     sampled, speculative and with captured logprobs. Returns the launch
-    counts of the path (the captured-logprob check through the kernels)."""
+    counts of the path (the captured-logprob check through the kernels) and
+    the greedy rows."""
     from agilerl_tpu_torch.llm import serving as S
     from agilerl_tpu_torch.llm import speculate as TSP
 
@@ -1197,7 +1233,525 @@ def run_serving(torch, M, G, ops, cfg, params, prompts, dense_greedy, report):
     check(path_launches == {k: launches[k] for k in path_launches},
           f"serving launched a kernel outside the scoring check: {path_launches}")
     serve_small(torch, M, G, S, TSP, ops, report)
-    return path_launches
+    return path_launches, greedy
+
+
+# ------------------------------- phase 4g ---------------------------------- #
+
+FLY_EPOCHS = 2
+FLY_PROMPTS = 4  # data batch: x group 4 = 16 rows
+SMALL_FLY_ADAPTER_RTOL = 1e-3  # small f32 flywheel, card learner vs CPU learner
+
+
+def fly_reward(completion, answer, prompt):
+    """The arithmetic reward plus the share of digits in the completion:
+    at random weights only the digit share differs between completions."""
+    return arith_reward(completion, answer, prompt) + \
+        sum(ch.isdigit() for ch in completion) / max(len(completion), 1)
+
+
+def folded_char_tokenizer():
+    """phase 4c's CharTokenizer, whose decode folds every id outside its
+    alphabet onto it. llama3-8b's random weights emit ids across all 128,256
+    entries; the plain decode drops those, so every completion would decode
+    empty and every reward would be equal (zero advantage, no update)."""
+    from agilerl_tpu_torch.utils.llm_utils import CharTokenizer
+
+    class Folded(CharTokenizer):
+        def decode(self, ids):
+            n = self.vocab_size - 2
+            return "".join(self._i2c[2 + (int(i) - 2) % n] for i in ids if int(i) >= 2)
+
+    return Folded()
+
+
+# TTFT buckets of the fleets: 1 ms steps to 2 s, 10 ms steps to 60 s (the
+# serving default's steps of 0.1 to 30 s would blur p50 and p95 of 16 requests)
+TTFT_FINE = tuple(round(1e-3 * i, 6) for i in range(1, 2000)) + tuple(
+    round(1e-2 * i, 6) for i in range(200, 6001)) + (120.0,)
+
+
+def dump_percentile(h, q):
+    """The q-th percentile of a histogram dump, interpolated inside its
+    bucket as the registry's ``Histogram.percentile`` does."""
+    rank, cum = q / 100.0 * h["count"], 0
+    for i, c in enumerate(h["counts"]):
+        if c and cum + c >= rank:
+            if i == len(h["bounds"]):
+                return h["bounds"][-1]
+            lo = 0.0 if i == 0 else h["bounds"][i - 1]
+            return lo + (h["bounds"][i] - lo) * (rank - cum) / c
+        cum += c
+    return float("nan")
+
+
+def fleet_run(torch, fleet, seqs, params, lora, label, kill_after_first_step=None):
+    """Serve ``seqs`` (greedy) through ``fleet`` by submit / step / result,
+    timing every replica's decode chunks; routing comes from the fleet's
+    ``fleet_route`` events, TTFT from its merged ``serving/ttft_s``
+    histogram (this run's share). Returns (rows, numbers)."""
+    import numpy as np
+
+    members = list(fleet._serving_members().values())
+    decode_s = []
+    for m in members:
+        timed_method(torch, m.gen, "_decode_chunk", decode_s)
+
+    def ttft_hist():
+        return fleet.merged_dump(counters=[], histograms=["serving/ttft_s"])["histograms"].get(
+            "serving/ttft_s")
+
+    ttft0 = ttft_hist()
+    hits0 = {m.rid: m.gen.metrics.counter("serving/prefix_cache_hits_total").value
+             for m in members}
+    events = fleet.metrics.sink.events
+    n_events = len(events)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [fleet.submit(s, key=[7, i], no_shed=True) for i, s in enumerate(seqs)]
+    if kill_after_first_step is not None:
+        fleet.step(params, lora=lora, greedy=True)
+        fleet.kill_replica(kill_after_first_step)
+    fleet.run_until_drained(params, lora=lora, greedy=True)
+    rows = [fleet.result(t) for t in tickets]
+    wall = time.perf_counter() - t0
+    for m in members:
+        delattr(m.gen, "_decode_chunk")
+    comp = np.stack([r[0] for r in rows])
+    cmask = np.stack([r[1] for r in rows])
+    routes = {t: [e["replica"] for e in events[n_events:]
+                  if e["kind"] == "fleet_route" and e["ticket"] == t and "replica" in e]
+              for t in tickets}
+    ttft = ttft_hist()
+    if ttft0 is not None:
+        ttft = dict(bounds=ttft["bounds"], count=ttft["count"] - ttft0["count"],
+                    counts=[x - y for x, y in zip(ttft["counts"], ttft0["counts"])])
+    tokens = int(cmask.sum())
+    steps = len(decode_s) * members[0].gen.decode_chunk
+    alive = fleet._serving_members(alive=True).values()
+    out = dict(
+        requests=len(seqs), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        ttft_p50_s=dump_percentile(ttft, 50), ttft_p95_s=dump_percentile(ttft, 95),
+        decode_steps=steps, decode_ms_per_step=1e3 * sum(decode_s) / max(steps, 1),
+        routed_to=[routes[t][0] for t in tickets], served_by=[routes[t][-1] for t in tickets],
+        prefix_hits={m.rid: m.gen.metrics.counter("serving/prefix_cache_hits_total").value
+                     - hits0[m.rid] for m in members},
+        free_blocks={m.rid: m.gen.allocator.available() for m in alive},
+        n_blocks=members[0].gen.n_blocks, compiled_programs=fleet.compiled_programs,
+        rebalanced=fleet.latency_summary()["fleet"]["rebalanced_requests_total"])
+    log(f"  {label}: {tokens} tokens in {wall:.2f} s ({out['tokens_per_s']:.1f} tokens/s); "
+        f"TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms, p95 {out['ttft_p95_s'] * 1e3:.1f} ms; "
+        f"decode {out['decode_ms_per_step']:.1f} ms per replica step over {steps} steps; "
+        f"routed to {out['routed_to']}; served by {out['served_by']}; prefix hits per "
+        f"replica {out['prefix_hits']}; free blocks {out['free_blocks']} of "
+        f"{out['n_blocks'] - 1}; {out['compiled_programs']} program signatures; "
+        f"re-dispatched {out['rebalanced']:.0f}")
+    # a re-dispatched request observes its first token again on the survivor
+    check(ttft["count"] >= len(seqs), f"{label}: {ttft['count']} first tokens observed")
+    check(comp.shape == (len(seqs), MAX_NEW_TOKENS) and bool(cmask.all()),
+          f"{label}: completion shape or an early stop without EOS")
+    check(all(v == out["n_blocks"] - 1 for v in out["free_blocks"].values()),
+          f"{label}: blocks not all returned")
+    return comp, out
+
+
+def run_fleet_and_flywheel(torch, M, G, ops, tfa, tfl, cfg, params, prompts, served_greedy,
+                           report):
+    """Slice 4b's path at llama3-8b on phase 4's bf16 weights: a unified
+    ServingFleet of 2 replicas serving phase 4f's 16 requests (held to 4f's
+    single-generator rows by the near-tie rule), the same batch with a
+    replica killed after the first chunk, the disaggregated topology (1
+    prefill worker + 2 decode replicas, KV through the transfer store), then
+    finetune_llm_reasoning_online on the arithmetic recipe with the rollouts
+    through the unified fleet under an AutoscalePolicy, and each learner
+    kernel at a learner batch's shapes against its plain version. Returns
+    the path's launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.grpo import GRPO
+    from agilerl_tpu_torch.llm.autoscale import AutoscalePolicy
+    from agilerl_tpu_torch.llm.convert import lora_from_numpy
+    from agilerl_tpu_torch.llm.fleet import ServingFleet
+    from agilerl_tpu_torch.llm.flywheel import RolloutPod, WeightStore
+    from agilerl_tpu_torch.observability import MemorySink, MetricsRegistry, RunTelemetry
+    from agilerl_tpu_torch.training.train_llm_online import finetune_llm_reasoning_online
+    from agilerl_tpu_torch.utils.llm_utils import ReasoningGym
+    from agilerl_tpu_torch.utils.tree import tree_leaves, tree_to_numpy
+
+    ptoks, pmask = prompts
+    n_prompts = ptoks.shape[0]
+    seqs = [row[m.astype(bool)] for row, m in zip(ptoks, pmask) for _ in range(GROUP_SIZE)]
+    prompt_np = (ptoks.repeat(GROUP_SIZE, 0), pmask.repeat(GROUP_SIZE, 0))
+    spread = report["slice"]["kernel_vs_plain_max"]
+    lora = make_adapter(torch, M, cfg, 1)  # phase 4's actor adapter, as 4f
+    tok = folded_char_tokenizer()
+    # no EOS: the fleet serves 4f's requests with 4f's recipe, every row 64 tokens
+    agent = GRPO(config=cfg, base_params=params, pad_token_id=tok.pad_token_id,
+                 eos_token_id=None, seed=0, batch_size=16,
+                 group_size=GROUP_SIZE, max_output_tokens=MAX_NEW_TOKENS,
+                 lora_rank=LORA_RANK, lora_targets=("wq", "wv"))
+    grid = 2 * len(SERVE["prompt_buckets"]) + 2  # prefill + import per bucket, decode, copy
+    knobs = dict(SERVE, **{k: v for k, v in agent._serving_knobs().items()
+                           if k != "max_new_tokens"})
+
+    def new_fleet(**kw):
+        return ServingFleet(cfg, 2, metrics=MetricsRegistry(sink=MemorySink()),
+                            capture_logprobs=True,
+                            bucket_overrides={"serving/ttft_s": TTFT_FINE}, **knobs, **kw)
+
+    log(f"phase 4g: serving fleet at llama3-8b: 2 replicas x {SERVE['slots']} slots, "
+        f"{n_prompts} prompts x {GROUP_SIZE} repeats, captured logprobs")
+    fr = report["fleet"] = {}
+    ops.reset_kernel_counters()
+    t0 = time.perf_counter()
+    fleet = new_fleet()
+    unified, fr["unified"] = fleet_run(torch, fleet, seqs, params, lora, "unified fleet")
+    check(sum(fr["unified"]["prefix_hits"].values()) == n_prompts * (GROUP_SIZE - 1),
+          "unified fleet: the repeats did not hit the prefix cache")
+    check(all(len(set(fr["unified"]["routed_to"][i:i + GROUP_SIZE])) == 1
+              for i in range(0, len(seqs), GROUP_SIZE)),
+          "unified fleet: a prompt's repeats were routed to two replicas")
+    check(fr["unified"]["compiled_programs"] <= 2 * grid, "unified fleet: program count")
+    same, gap = greedy_divergence(torch, M, cfg, params, lora, prompt_np, served_greedy,
+                                  unified, spread, "unified fleet vs phase 4f's generator")
+    fr["unified"].update(rows_identical_to_4f=same, worst_gap=gap)
+
+    failover = new_fleet()
+    rows, fr["failover"] = fleet_run(torch, failover, seqs, params, lora,
+                                     "failover (replica 1 killed after the first chunk)",
+                                     kill_after_first_step=1)
+    check(fr["failover"]["rebalanced"] > 0, "failover: nothing was re-dispatched")
+    check(set(fr["failover"]["served_by"]) == {0}, "failover: a row was served by the dead replica")
+    same, gap = greedy_divergence(torch, M, cfg, params, lora, prompt_np, unified, rows,
+                                  spread, "failover vs the unified fleet")
+    fr["failover"].update(rows_identical_to_unified=same, worst_gap=gap)
+    del failover
+
+    with tempfile.TemporaryDirectory() as xfer:
+        dis = new_fleet(topology="disaggregated", n_prefill=1, transfer_dir=xfer)
+        exports, import_s = [], []
+        timed_method(torch, dis.store, "export", exports, ops=ops)
+        timed_method(torch, dis.store, "load", import_s)
+        rows, fr["disaggregated"] = fleet_run(torch, dis, seqs, params, lora,
+                                              "disaggregated (1 prefill worker, 2 decode)")
+        reg = dis.metrics
+        transfers = reg.counter("fleet/kv_transfers_total").value
+        export_s = [r["s"] for r in exports]
+        sizes = [(r["args"][1]["k"].nbytes + r["args"][1]["v"].nbytes) / 2 ** 20
+                 for r in exports]
+        del exports
+        _, warm = fleet_run(torch, dis, seqs[:1], params, lora, "warm repeat of one prompt")
+        warm_transfers = reg.counter("fleet/kv_transfers_total").value - transfers
+    fr["disaggregated"].update(
+        transfers=transfers, mb_per_transfer=sizes, export_s=export_s, import_s=import_s,
+        imports=reg.counter("fleet/kv_imports_total").value, warm_repeat_transfers=warm_transfers,
+        warm_repeat_hits=warm["prefix_hits"])
+    log(f"  KV transfers {transfers:.0f}: {[round(x, 2) for x in sizes]} MB each; export "
+        f"{[round(x, 3) for x in export_s]} s, import {[round(x, 3) for x in import_s]} s; "
+        f"a warm repeat made {warm_transfers:.0f} transfers")
+    check(transfers > 0 and warm_transfers == 0, "disaggregated: transfers, or the warm repeat")
+    check(fr["disaggregated"]["compiled_programs"] <= 2 * grid + len(SERVE["prompt_buckets"]),
+          "disaggregated fleet: program count")
+    same, gap = greedy_divergence(torch, M, cfg, params, lora, prompt_np, unified, rows,
+                                  spread, "disaggregated vs the unified fleet")
+    fr["disaggregated"].update(rows_identical_to_unified=same, worst_gap=gap)
+    del dis
+    fleet_launches = ops.kernel_counters()
+    check(set(fleet_launches.values()) == {0}, f"the fleet launched a kernel: {fleet_launches}")
+    fr["seconds"] = time.perf_counter() - t0
+
+    # ---- the online flywheel, rollouts through the unified fleet ----
+    log(f"phase 4g: finetune_llm_reasoning_online at llama3-8b: {FLY_PROMPTS} prompts x group "
+        f"{GROUP_SIZE}, {MAX_NEW_TOKENS} new tokens, max_staleness_epochs 1, {FLY_EPOCHS} "
+        f"epochs, rollouts through the unified fleet under AutoscalePolicy(1..3)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    env = ReasoningGym(arith_rows(64, 0), arith_rows(8, 1), tok, reward_fn=fly_reward,
+                       data_batch_size=FLY_PROMPTS)
+    sink = MemorySink()
+    telem = RunTelemetry(registry=MetricsRegistry(sink=sink), lineage=False)
+    reg = telem.registry
+    policy = AutoscalePolicy(min_replicas=1, max_replicas=3, metrics=reg)
+    applies = []
+    timed_method(torch, policy, "apply", applies, ops=ops, extra=lambda: policy.last_decision)
+
+    def counters():
+        return {k: reg.counter(k).value for k in (
+            "flywheel/decode_stalls_total", "flywheel/trajectories_dropped_stale_total",
+            "flywheel/logprob_forwards_saved_total", "flywheel/decode_stall_s")}
+
+    rollouts, learns = [], []
+    real_rollout = timed_method(torch, RolloutPod, "rollout_once", rollouts, ops=ops)
+    # the adapter after each learner step: the epoch it publishes
+    adapters = [tree_to_numpy(agent.actor.params)]
+
+    def after_learn():
+        adapters.append(tree_to_numpy(agent.actor.params))
+        return counters()
+
+    timed_method(torch, agent, "learn_from_trajectory", learns, ops=ops, extra=after_learn)
+    ops.reset_kernel_counters()
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            t1 = time.perf_counter()
+            _, fitnesses = finetune_llm_reasoning_online(
+                agent, env, work, max_epochs=FLY_EPOCHS, evaluation_interval=FLY_EPOCHS,
+                max_staleness_epochs=1, fleet=fleet, autoscaler=policy, telemetry=telem,
+                telemetry_export_dir=f"{work}/telemetry", verbose=True)
+            fly_s = time.perf_counter() - t1
+        finally:
+            RolloutPod.rollout_once = real_rollout
+        fly_launches = ops.kernel_counters()
+        store = WeightStore(f"{work}/weights", metrics=MetricsRegistry())
+        epochs = store.epochs()
+        latest, published = store.load_latest()
+        snapshots = sorted(p.name for p in (Path(work) / "telemetry").iterdir())
+    del agent.learn_from_trajectory
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.n_layer
+    want = {"flash_attention_fwd": 3 * L, "flash_attention_dq": L, "flash_attention_dkv": L,
+            "fused_logprob_fwd": 3, "fused_logprob_dh": 1, "fused_logprob_dw": 0}
+    losses = [e["train/loss"] for e in sink.events if e["kind"] == "metrics"
+              and "train/loss" in e]
+    moved = [max(float(np.abs(a["blocks"][i][t]["B"] - b["blocks"][i][t]["B"]).max())
+                 for i in a["blocks"] for t in a["blocks"][i])
+             for a, b in zip(adapters, adapters[1:])]
+    decisions = [dict(verdict=r["extra"]["verdict"], triggers=r["extra"]["triggers"],
+                      actioned=r["out"], replicas=r["extra"]["signals"]["replicas"])
+                 for r in applies]
+    per_epoch = [dict(rollout_s=r["s"], rollout_launches=r["launches"],
+                      learner_step_s=l_["s"], learner_launches=l_["launches"],
+                      after=l_["extra"])
+                 for r, l_ in zip(rollouts, learns)]
+    for i, e in enumerate(per_epoch):
+        log(f"  epoch {i + 1}: rollout {e['rollout_s']:.2f} s, learner step "
+            f"{e['learner_step_s']:.3f} s; launches per learner step {e['learner_launches']}; "
+            f"per rollout {e['rollout_launches']}; counters {e['after']}")
+    log(f"  autoscaler decisions: {decisions}")
+    log(f"  losses {losses}; fitness {fitnesses}; adapter moved between published epochs by "
+        f"{moved}; epochs {epochs}; telemetry pods {snapshots}; {fly_s:.1f} s; peak memory "
+        f"{peak_gb:.1f} GB")
+    check(len(learns) == FLY_EPOCHS and len(losses) == FLY_EPOCHS, "flywheel: learner epochs")
+    check(all(np.isfinite(x) for x in losses), f"flywheel: losses {losses}")
+    check(all(e["learner_launches"] == want for e in per_epoch),
+          f"flywheel: launches per learner step != {want}")
+    check(all(set(e["rollout_launches"].values()) == {0} for e in per_epoch),
+          "flywheel: a rollout with captured logprobs launched a kernel")
+    check(reg.counter("flywheel/logprob_forwards_saved_total").value == len(rollouts),
+          "flywheel: a rollout did not use its captured logprobs")
+    check(epochs == list(range(FLY_EPOCHS + 1)) and all(m > 0 for m in moved),
+          "flywheel: the adapter did not move between published epochs")
+    check(latest == FLY_EPOCHS and all(np.array_equal(a, b) for a, b in zip(
+        tree_leaves(published), tree_leaves(adapters[-1]))),
+          "flywheel: the newest published epoch is not the learner's adapter")
+    check(all(fly_launches[k] == FLY_EPOCHS * want[k] for k in want),
+          f"flywheel path launches {fly_launches} != {FLY_EPOCHS} learner steps")
+    check(snapshots == ["pod_rollout_0"], f"telemetry export: {snapshots}")
+
+    # a rollout without captured logprobs runs the dense behavior forward:
+    # one scoring pass through flash #1 and fused #5 (comparison launches,
+    # after the path's counts were read), here under the adapter epoch the
+    # last batch was decoded with
+    last = rollouts[-1]["out"]
+    agent.actor.params = lora_from_numpy(adapters[last.weight_epoch], device="cuda")
+    before = ops.kernel_counters()
+    dense = agent.behavior_logprobs(last.ids, last.action_masks)
+    after = ops.kernel_counters()
+    dense_launches = {k: after[k] - before[k] for k in after}
+    check(dense_launches["flash_attention_fwd"] == L and dense_launches["fused_logprob_fwd"] == 1,
+          f"dense behavior forward: launches {dense_launches}")
+    am = last.action_masks > 0
+    d = np.abs(last.behavior_lp - dense)[am]
+    log(f"  captured behavior record vs the dense forward (flash {L}, fused 1 launches): "
+        f"mean|d| {d.mean():.3e}, max|d| {d.max():.3e}")
+    check(d.mean() <= max(CAPTURE_FACTOR * report["serving"]["captured"]["scoring_mean"],
+                          CAPTURE_FLOOR["mean"])
+          and d.max() <= max(CAPTURE_FACTOR * report["serving"]["captured"]["scoring_max"],
+                             CAPTURE_FLOOR["max"]),
+          "flywheel: captured behavior logprobs far from the dense forward")
+    report["flywheel"] = dict(
+        epochs=per_epoch, losses=losses, fitnesses=fitnesses, autoscale=decisions,
+        adapter_moved=moved, seconds=fly_s, peak_memory_gb=peak_gb, launches=fly_launches,
+        dense_behavior_launches=dense_launches, captured_vs_dense_mean=float(d.mean()),
+        captured_vs_dense_max=float(d.max()), replicas_after=len(fleet.replica_ids))
+
+    # each learner kernel at the shapes of the last learner batch
+    tokens, mask, loss_mask = agent._learn_masks(last.ids, last.action_masks,
+                                                 last.attention_mask)
+    report["flywheel"]["kernel_checks"] = check_learn_kernels(
+        torch, M, tfa, tfl, cfg, params, agent.actor.params,
+        [("learner batch", tokens, mask, loss_mask)], "flywheel learner")
+    del fleet, agent, rollouts, learns, adapters, applies
+    torch.cuda.empty_cache()
+    fleet_small(torch, M, G, ops, report)
+    return fly_launches
+
+
+def fleet_small(torch, M, G, ops, report):
+    """A small f32 model on the card against the CPU: the unified fleet, the
+    disaggregated fleet, a fleet after kill_replica, one ContinuousGenerator
+    and dense greedy generate give the same tokens on both devices; on the
+    card the staleness-0 flywheel gives the interleaved loop's losses on the
+    same batches, and a weight-epoch bump flushes every replica's prefix
+    cache; the card's flywheel batches through a learner pod on the CPU
+    give the card's losses and adapter."""
+    import tempfile
+
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.grpo import GRPO
+    from agilerl_tpu_torch.llm.fleet import ServingFleet
+    from agilerl_tpu_torch.llm.flywheel import (LearnerPod, OnlineGRPOFlywheel, RolloutPod,
+                                                TrajectoryStore, WeightStore)
+    from agilerl_tpu_torch.llm.serving import ContinuousGenerator
+    from agilerl_tpu_torch.observability import MetricsRegistry
+    from agilerl_tpu_torch.training.train_llm import finetune_llm_reasoning
+    from agilerl_tpu_torch.utils.llm_utils import CharTokenizer, ReasoningGym
+    from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = M.GPTConfig(vocab_size=1000, n_layer=2, n_head=4, n_kv_head=2, d_model=256,
+                      max_seq_len=256, tie_embeddings=False, dtype=torch.float32)
+    params = M.init_params(7, cfg, device="cpu")
+    params = {k: ({i: {n: (w * 8 if w.dim() == 2 else w) for n, w in b.items()}
+                   for i, b in v.items()} if k == "blocks" else v * 8)
+              for k, v in params.items()}
+    on = {"cpu": params, "cuda": tree_map(lambda t: t.cuda(), params)}
+    rng = np.random.default_rng(0)
+    base = [rng.integers(1, 1000, size=n).astype(np.int32) for n in (9, 30, 17, 60)]
+    seqs = base + base[:3]
+    kw = dict(max_new_tokens=12, prompt_buckets=(32, 64), block_size=16, slots=3,
+              decode_chunk=4)
+    out = {}
+    with tempfile.TemporaryDirectory() as xfer:
+        for dev, p in on.items():
+            rows = {}
+            dense = {}
+            for Pb in (32, 64):
+                idx = [i for i, s in enumerate(seqs) if (32 if len(s) <= 32 else 64) == Pb]
+                toks, mask = G.left_pad([seqs[i] for i in idx], 0, Pb)
+                comp, _ = G.generate(cfg, p, torch.as_tensor(toks, device=dev),
+                                     torch.as_tensor(mask, device=dev), None,
+                                     max_new_tokens=12, temperature=0.0)
+                dense.update(zip(idx, comp.cpu().numpy()))
+            rows["dense"] = np.stack([dense[i] for i in range(len(seqs))])
+            gen = ContinuousGenerator(cfg, metrics=MetricsRegistry(), device=dev, **kw)
+            rows["single"] = gen.generate(seqs, 0, p, greedy=True)[0]
+            fl = ServingFleet(cfg, 2, metrics=MetricsRegistry(), device=dev, **kw)
+            rows["unified"] = fl.generate(seqs, 0, p, greedy=True)[0]
+            fl = ServingFleet(cfg, 2, topology="disaggregated", transfer_dir=f"{xfer}/{dev}",
+                              metrics=MetricsRegistry(), device=dev, **kw)
+            rows["disaggregated"] = fl.generate(seqs, 0, p, greedy=True)[0]
+            check(fl.metrics.counter("fleet/kv_imports_total").value > 0,
+                  f"small {dev}: no KV import")
+            fl = ServingFleet(cfg, 2, metrics=MetricsRegistry(), device=dev, **kw)
+            tickets = [fl.submit(s, key=[0, i], no_shed=True) for i, s in enumerate(seqs)]
+            fl.step(p, greedy=True)
+            fl.kill_replica(fl.replica_ids[0])
+            fl.run_until_drained(p, greedy=True)
+            rows["failover"] = np.stack([fl.result(t)[0] for t in tickets])
+            for name, r in rows.items():
+                check(np.array_equal(r, rows["dense"]), f"small {dev}: {name} != dense greedy")
+            out[dev] = rows["dense"]
+    check(np.array_equal(out["cuda"], out["cpu"]), "small fleet: card and CPU greedy differ")
+
+    # the staleness-0 flywheel against the interleaved loop, on the card
+    tok = CharTokenizer()
+
+    def env():
+        # distinct characters: a reward that differs between sampled
+        # completions, so no group's advantage is all zero
+        return ReasoningGym(arith_rows(16, 0), arith_rows(4, 1), tok,
+                            reward_fn=lambda c, a, p: float(len(set(c))), data_batch_size=2)
+
+    # the char vocabulary and unscaled init weights: sampled completions vary
+    cfg_fly = dataclasses.replace(cfg, vocab_size=tok.vocab_size)
+    p0 = M.init_params(7, cfg_fly, device="cuda")
+
+    def agent():
+        return GRPO(config=cfg_fly, base_params=p0, pad_token_id=0,
+                    eos_token_id=tok.eos_token_id, seed=0, group_size=2, batch_size=4,
+                    max_output_tokens=4, lr=1e-3)
+
+    ref, losses = agent(), []
+    learn = ref.learn
+    ref.learn = lambda batch: losses.append(learn(batch)[0]) or (losses[-1], 0.0)
+    finetune_llm_reasoning([ref], env(), max_steps=3, evaluation_interval=10, verbose=False)
+    rollouts = []
+    with tempfile.TemporaryDirectory() as work:
+        fa, reg = agent(), MetricsRegistry()
+        ws = WeightStore(f"{work}/w", metrics=reg)
+        ts = TrajectoryStore(f"{work}/t", metrics=reg)
+        start = tree_map(lambda t: t.detach().cpu(), fa.actor.params)
+        pod = RolloutPod(fa, env(), ws, ts, metrics=reg)
+        timed_method(torch, pod, "rollout_once", rollouts, ops=ops)
+        fly = OnlineGRPOFlywheel(pod, LearnerPod(fa, ws, ts, max_staleness_epochs=0,
+                                                 metrics=reg), metrics=reg)
+        fly.run(3)
+        # the card's batches through a learner pod on the CPU (the plain
+        # versions): rollouts are not replayed there, as a sampled rollout
+        # draws from a torch.Generator, whose stream differs by device (as
+        # do the seeded initial weights: the CPU learner starts from the card's)
+        fc = GRPO(config=cfg_fly, base_params=tree_map(lambda t: t.cpu(), p0), pad_token_id=0,
+                  eos_token_id=tok.eos_token_id, seed=0, group_size=2, batch_size=4,
+                  max_output_tokens=4, lr=1e-3, device="cpu")
+        fc.actor.params = start
+        ws_c = WeightStore(f"{work}/wc", metrics=reg)
+        ts_c = TrajectoryStore(f"{work}/tc", metrics=reg)
+        learner_c = LearnerPod(fc, ws_c, ts_c, max_staleness_epochs=0, metrics=reg)
+        for r in rollouts:
+            ts_c.publish(r["out"])
+            learner_c.step()
+    # the first step's loss of equal-length rows is zero up to rounding (the
+    # z-scored advantages cancel over the tokens), but its gradient is not:
+    # the adapters carry the comparison
+    check(np.allclose(fly.learner.losses, losses, rtol=1e-4, atol=1e-7),
+          f"small flywheel: losses {fly.learner.losses} != the interleaved loop's {losses}")
+    pairs = list(zip(tree_leaves(ref.actor.params), tree_leaves(fa.actor.params)))
+    adapter_err = max((a - b).abs().max().item() for a, b in pairs)
+    moved = max(a.abs().max().item() for a, _ in pairs[1::2])  # the B matrices start at 0
+    check(adapter_err <= 1e-4 * moved and moved > 0,
+          f"small flywheel: adapter {adapter_err:.3e} from the interleaved loop's "
+          f"(moved {moved:.3e})")
+    # the CPU learner shuffles its rows with its own generator: another
+    # summation order, which AdamW's per-entry normalisation magnifies where
+    # an entry's gradient is small. Its losses are sums of O(1) terms that
+    # cancel to zero up to rounding (equal-length rows), so the adapters
+    # carry the comparison, in relative L2 over the adapter's change.
+    card = [a.cpu() for a in tree_leaves(fa.actor.params)]
+    cpu_err = max((a - b).abs().max().item() for a, b in zip(card, tree_leaves(fc.actor.params)))
+    cpu_rel = (sum(((a - b) ** 2).sum() for a, b in zip(card, tree_leaves(fc.actor.params)))
+               / sum(((a - b) ** 2).sum() for a, b in zip(card, tree_leaves(start)))).sqrt().item()
+    check(learner_c.trained_seqs == fly.learner.trained_seqs
+          and np.allclose(learner_c.losses, fly.learner.losses, rtol=1e-4, atol=1e-5),
+          f"small flywheel: CPU learner losses {learner_c.losses} != the card's "
+          f"{fly.learner.losses}")
+    check(cpu_rel <= SMALL_FLY_ADAPTER_RTOL,
+          f"small flywheel: CPU learner adapter {cpu_rel:.3e} (relative L2) from the card's")
+
+    # a weight-epoch bump flushes every replica's prefix cache
+    lora_a = M.init_lora(1, cfg, 4, ("wq", "wv"))
+    lora_b = tree_map(lambda t: t + 0.01, lora_a)
+    fl = ServingFleet(cfg, 2, metrics=MetricsRegistry(), device="cuda", **kw)
+    fl.generate(seqs, 2, on["cuda"], lora=lora_a, greedy=True)
+    fl.generate(seqs, 3, on["cuda"], lora=lora_b, greedy=True)
+    flushes = [m.gen.metrics.counter("serving/prefix_cache_invalidations_total").value
+               for m in fl._serving_members().values()]
+    check(all(f >= 1 for f in flushes), f"small fleet: a replica kept its prefix cache {flushes}")
+    log(f"  small f32 model, card and CPU: unified, disaggregated and failover fleets, one "
+        f"generator and dense greedy give the same tokens; flywheel (staleness 0) losses "
+        f"{[round(x, 6) for x in fly.learner.losses]} == the interleaved loop's "
+        f"{[round(x, 6) for x in losses]} (rtol 1e-4), adapter max|d| {adapter_err:.3e} "
+        f"(moved {moved:.3e}); the card's batches through a CPU learner: losses "
+        f"{[round(x, 6) for x in learner_c.losses]}, adapter max|d| {cpu_err:.3e}, relative "
+        f"L2 {cpu_rel:.3e} (tol {SMALL_FLY_ADAPTER_RTOL:.0e}); "
+        f"prefix-cache flushes per replica on a weight bump {flushes}")
+    report["flywheel"]["small"] = dict(losses=fly.learner.losses, interleaved=losses,
+                                       adapter_err=adapter_err, adapter_moved=moved,
+                                       cpu_losses=learner_c.losses, cpu_adapter_err=cpu_err,
+                                       cpu_adapter_rel=cpu_rel,
+                                       flushes=flushes)
 
 
 # ------------------------------- phase 4c ---------------------------------- #
@@ -1280,20 +1834,20 @@ def text_rows(n, seed, prompt_len, completion_len):
              "rejected": text(completion_len)} for _ in range(n)]
 
 
-def check_dpo_kernels(torch, M, tfa, tfl, cfg, params, lora, batch, report):
-    """Each kernel of the DPO path against its plain version at the shapes
-    the timed learn gave it, at phase 3's tolerances, for the chosen and the
-    rejected side: the fused forward and dH on that pass's own hidden states
-    [8 (T-1), 4096] against the [4096, 128256] head (dH's upstream: a seeded
-    coefficient per pair times the side's loss mask, as DPO's loss gives
-    it); the bf16 flash forward, dQ and dK/dV on seeded q/k/v [8, 32/8, T,
-    128] and dO in the model's strided views, under the side's padding mask."""
+def check_learn_kernels(torch, M, tfa, tfl, cfg, params, lora, sides, path):
+    """Each kernel of a learn path against its plain version at the shapes
+    the path gave it, at phase 3's tolerances, for each (name, ids, mask,
+    loss mask) in ``sides``: the fused forward and dH on that pass's own
+    hidden states [B (T-1), 4096] against the [4096, 128256] head (dH's
+    upstream: a seeded coefficient per row times the loss mask, as the
+    sequence losses give it); the bf16 flash forward, dQ and dK/dV on seeded
+    q/k/v [B, 32/8, T, 128] and dO in the model's strided views, under the
+    side's padding mask. Returns the worst errors."""
     g = torch.Generator(device="cuda").manual_seed(21)
     head = M._head(cfg, params).float().contiguous()
     H, Hkv, d = cfg.n_head, cfg.kv_heads, cfg.head_dim
     worst = {}
-    for side in ("chosen", "rejected"):
-        ids, mask = batch[f"{side}_ids"], batch[f"{side}_mask"]
+    for side, ids, mask, loss_mask in sides:
         B, T = ids.shape
         with torch.no_grad():
             hidden, _ = M.forward(cfg, params, ids, attention_mask=mask, lora=lora, flash=True)
@@ -1301,8 +1855,7 @@ def check_dpo_kernels(torch, M, tfa, tfl, cfg, params, lora, batch, report):
         t = ids[:, 1:].reshape(-1)
         lp, lse = tfl.fused_logprob_fwd_cuda(h, head, t)
         want_lp, want_lse = tfl._plain_fwd(h, head, t, 1.0)
-        up = (torch.randn(B, 1, device="cuda", generator=g)
-              * batch[f"{side}_loss_mask"]).reshape(-1).contiguous()
+        up = (torch.randn(B, 1, device="cuda", generator=g) * loss_mask).reshape(-1).contiguous()
         dh = tfl.fused_logprob_dh_cuda(h, head, t, lse, up)
         want_dh = tfl.plain_dh(h, head, t, lse, up)
         torch.cuda.synchronize()
@@ -1314,7 +1867,7 @@ def check_dpo_kernels(torch, M, tfa, tfl, cfg, params, lora, batch, report):
             f"{errs['lse']:.3e} (tol 1e-04), max|dH-plain| {errs['dh']:.3e} "
             f"(tol {FUSED_BWD_ATOL:.0e})")
         check(errs["lp"] <= 1e-4 and errs["lse"] <= 1e-4 and errs["dh"] <= FUSED_BWD_ATOL,
-              f"fused kernels disagree at the DPO shape: {case}")
+              f"fused kernels disagree at the {path} shape: {case}")
         worst[f"fused {side}"] = errs
         del hidden, h, want_lp, want_lse, dh, want_dh
         torch.cuda.empty_cache()
@@ -1334,13 +1887,13 @@ def check_dpo_kernels(torch, M, tfa, tfl, cfg, params, lora, batch, report):
                 "lse": (flse[r] - ref_lse[r]).abs().max().item()}
         case = f"{side} bf16 [{B}, {H}/{Hkv}, {T}, {d}] model views"
         check(ferr["out"] <= 2e-2 and ferr["lse"] <= 1e-4,
-              f"flash forward disagrees at the DPO shape: {case}")
+              f"flash forward disagrees at the {path} shape: {case}")
         check(bool(torch.isfinite(out.float()).all() and torch.isfinite(flse).all()),
-              f"flash forward non-finite at the DPO shape: {case}")
+              f"flash forward non-finite at the {path} shape: {case}")
         for name, got, wnt in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
             err, tol = bwd_error(torch, got, wnt, torch.bfloat16)
             check(bool(torch.isfinite(got.float()).all()) and err <= tol,
-                  f"flash {name} disagrees at the DPO shape ({err} > {tol}): {case}")
+                  f"flash {name} disagrees at the {path} shape ({err} > {tol}): {case}")
             ferr[name] = err
         log(f"  flash {case}: max|out-plain| {ferr['out']:.3e} (tol 2e-02), max|lse-plain| "
             f"{ferr['lse']:.3e} (tol 1e-04) over rows with a visible key; dq {ferr['dq']:.2e}, "
@@ -1348,7 +1901,7 @@ def check_dpo_kernels(torch, M, tfa, tfl, cfg, params, lora, batch, report):
         worst[f"flash {side}"] = ferr
         del q, k, v, out, ref, dout, dq, dk, dv, want
         torch.cuda.empty_cache()
-    report["dpo_kernel_checks"] = worst
+    return worst
 
 
 def run_dpo(torch, M, ops, tfa, tfl, cfg, params, report):
@@ -1420,7 +1973,10 @@ def run_dpo(torch, M, ops, tfa, tfl, cfg, params, report):
 
     # each kernel at the shapes of the last learn's batch
     full = agent._dpo_batch(batch)
-    check_dpo_kernels(torch, M, tfa, tfl, cfg, params, agent.actor.params, full, report)
+    report["dpo_kernel_checks"] = check_learn_kernels(
+        torch, M, tfa, tfl, cfg, params, agent.actor.params,
+        [(side, full[f"{side}_ids"], full[f"{side}_mask"], full[f"{side}_loss_mask"])
+         for side in ("chosen", "rejected")], "DPO")
 
     # the adapter gradient of one update on the first pairs of the last
     # batch, the reference logprobs (kernels, no gradient) held fixed
@@ -2011,9 +2567,17 @@ def main() -> None:
         grpo_launches, grpo_grads = run_learn(torch, M, ops, cfg, params, prompts, report)
         dpo_launches, dpo_grads = run_dpo(torch, M, ops, tfa, tfl, cfg, params, report)
     t0 = time.perf_counter()
-    serve_launches = run_serving(torch, M, G, ops, cfg, params, prompts, dense_greedy, report)
+    serve_launches, served_greedy = run_serving(torch, M, G, ops, cfg, params, prompts,
+                                                dense_greedy, report)
     report["phase_4f_s"] = time.perf_counter() - t0
     log(f"phase 4f: {report['phase_4f_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        fly_launches = run_fleet_and_flywheel(torch, M, G, ops, tfa, tfl, cfg, params,
+                                              prompts, served_greedy, report)
+    report["phase_4g_s"] = time.perf_counter() - t0
+    log(f"phase 4g: {report['phase_4g_s']:.1f} s")
     with torch.enable_grad():
         # one f32 copy of the weights, made from (and replacing) the bf16
         # blocks, serves both gradient checks
@@ -2032,7 +2596,7 @@ def main() -> None:
         report["phase_4e_s"] = time.perf_counter() - t0
     log(f"phase 4e: {report['phase_4e_s']:.1f} s")
     # each main path's counts were set to 0 just before it and read just after
-    launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k]
+    launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
                 for k in grpo_launches}
 
     log("phase 5: kernel times at the main path's shapes")
@@ -2043,7 +2607,8 @@ def main() -> None:
     for entry in kernels:
         entry["launches_by_path"] = {"grpo_learn": grpo_launches[entry["name"]],
                                      "dpo_learn": dpo_launches[entry["name"]],
-                                     "serving_capture": serve_launches[entry["name"]]}
+                                     "serving_capture": serve_launches[entry["name"]],
+                                     "flywheel": fly_launches[entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":

@@ -39,6 +39,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import agilerl_tpu_torch.llm.serving, agilerl_tpu_torch.llm.speculate\n"
         "import agilerl_tpu_torch.observability, agilerl_tpu_torch.observability.registry\n"
         "import agilerl_tpu_torch.observability.trace\n"
+        "import agilerl_tpu_torch.resilience, agilerl_tpu_torch.resilience.atomic\n"
+        "import agilerl_tpu_torch.resilience.store, agilerl_tpu_torch.resilience.membership\n"
+        "import agilerl_tpu_torch.resilience.facade, agilerl_tpu_torch.llm.router\n"
+        "import agilerl_tpu_torch.llm.fleet, agilerl_tpu_torch.llm.autoscale\n"
+        "import agilerl_tpu_torch.llm.flywheel, agilerl_tpu_torch.training.train_llm_online\n"
+        "import agilerl_tpu_torch.observability.events, agilerl_tpu_torch.observability.lineage\n"
+        "import agilerl_tpu_torch.observability.timeline, agilerl_tpu_torch.observability.facade\n"
+        "import agilerl_tpu_torch.observability.export, agilerl_tpu_torch.observability.slo\n"
+        "import agilerl_tpu_torch.utils.log_utils, agilerl_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'agilerl_tpu'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -109,6 +118,27 @@ def test_serving_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert ContinuousGenerator(cfg, device="cpu").dev == torch.device("cpu")
+
+
+def test_fleet_entry_points_default_to_the_card(tmp_path):
+    """The serving fleet, its prefill worker and the online flywheel's
+    rollouts take device=None as the card and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from agilerl_tpu_torch.llm import model as TM
+    from agilerl_tpu_torch.llm.fleet import PrefillWorker, ServingFleet
+
+    cfg = TM.GPTConfig(vocab_size=17, n_layer=1, n_head=2, d_model=8, dtype=torch.float32)
+    for make in (lambda: ServingFleet(cfg, 1, prompt_buckets=(32,)),
+                 lambda: ServingFleet(cfg, 1, topology="disaggregated", transfer_dir=tmp_path,
+                                      prompt_buckets=(32,)),
+                 lambda: PrefillWorker(cfg, prompt_buckets=(32,))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    fleet = ServingFleet(cfg, 2, prompt_buckets=(32,), device="cpu")
+    assert {m.gen.dev for m in fleet._members.values()} == {torch.device("cpu")}
+    fleet.scale_up()
+    assert fleet._members[2].gen.dev == torch.device("cpu")
 
 
 def test_kernel_build_raises_without_nvcc():

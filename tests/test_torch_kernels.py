@@ -597,3 +597,65 @@ def test_paged_writes_past_the_extent_on_the_card():
 
     for a, b in zip(run("cuda"), run("cpu")):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+def test_fleet_greedy_on_the_card_matches_the_cpu(monkeypatch, tmp_path):
+    """f32 small model: the unified fleet, the disaggregated fleet (prompt KV
+    through the transfer store) and a fleet after kill_replica give the same
+    greedy tokens on the card as on the CPU, and as one generator."""
+    import numpy as np
+
+    from agilerl_tpu_torch.llm.fleet import ServingFleet
+    from agilerl_tpu_torch.llm.serving import ContinuousGenerator
+    from agilerl_tpu_torch.observability import MetricsRegistry
+    from agilerl_tpu_torch.utils.tree import tree_map
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, params = _small_serving_model()
+    gparams = tree_map(lambda t: t.cuda(), params)
+    rng = np.random.default_rng(1)
+    base = [rng.integers(1, 1000, size=n).astype(np.int32) for n in (9, 30, 17, 60)]
+    seqs = base + base[:3]
+    kw = dict(max_new_tokens=12, prompt_buckets=(32, 64), block_size=16, slots=3,
+              decode_chunk=4)
+    rows = {}
+    for dev, p in (("cuda", gparams), ("cpu", params)):
+        gen = ContinuousGenerator(cfg, metrics=MetricsRegistry(), device=dev, **kw)
+        rows[dev, "single"] = gen.generate(seqs, 0, p, greedy=True)[0]
+        fl = ServingFleet(cfg, 2, metrics=MetricsRegistry(), device=dev, **kw)
+        rows[dev, "unified"] = fl.generate(seqs, 0, p, greedy=True)[0]
+        fl = ServingFleet(cfg, 2, topology="disaggregated", transfer_dir=tmp_path / dev,
+                          metrics=MetricsRegistry(), device=dev, **kw)
+        rows[dev, "disaggregated"] = fl.generate(seqs, 0, p, greedy=True)[0]
+        assert fl.metrics.counter("fleet/kv_imports_total").value > 0
+        fl = ServingFleet(cfg, 2, metrics=MetricsRegistry(), device=dev, **kw)
+        tickets = [fl.submit(s, key=[i, 0], no_shed=True) for i, s in enumerate(seqs)]
+        fl.step(p, greedy=True)
+        fl.kill_replica(fl.replica_ids[0])
+        fl.run_until_drained(p, greedy=True)
+        rows[dev, "failover"] = np.stack([fl.result(t)[0] for t in tickets])
+    for name in ("unified", "disaggregated", "failover"):
+        for dev in ("cuda", "cpu"):
+            np.testing.assert_array_equal(rows[dev, name], rows["cpu", "single"])
+    np.testing.assert_array_equal(rows["cuda", "single"], rows["cpu", "single"])
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+def test_bf16_kv_transfer_round_trip_on_the_card(tmp_path):
+    """A bf16 prompt KV computed on the card crosses the transfer store as
+    host numpy and lands back on the card bit for bit."""
+    from agilerl_tpu_torch.llm.convert import tensor_from_host, tensor_to_host
+    from agilerl_tpu_torch.llm.fleet import KVTransferStore
+    from agilerl_tpu_torch.observability import MetricsRegistry
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    k = (torch.randn(4, 64, 2, 128, device="cuda", generator=g) * 30).to(torch.bfloat16)
+    host, dtype = tensor_to_host(k)
+    store = KVTransferStore(tmp_path, metrics=MetricsRegistry())
+    path = store.export("transfer_000001", {"k": host, "hashes": []})
+    back = tensor_from_host(store.load(path)["k"], dtype, "cuda")
+    assert back.device.type == "cuda" and back.dtype == torch.bfloat16
+    assert torch.equal(back.view(torch.int16), k.view(torch.int16))
