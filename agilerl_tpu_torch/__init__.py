@@ -17,11 +17,15 @@ single-replica serving tier (``llm.serving``, ``llm.speculate``, the paged
 KV cache; ``observability`` registry and tracing). Slice 4b: the serving
 fleet and the online GRPO flywheel (``llm.router``, ``llm.fleet``,
 ``llm.autoscale``, ``llm.flywheel``, ``training.train_llm_online``,
-``resilience``, the rest of ``observability``). The kernels
+``resilience``, the rest of ``observability``). Slice 5a: evolutionary PPO
+(``typing``, ``utils.spaces``, ``modules.{base,mlp,configs}``, ``networks``,
+``components.rollout_buffer``, ``envs``, ``rollouts``, ``algorithms.ppo``,
+the architecture and parameter mutations, ``training.train_on_policy``).
+The kernels
 written for Hopper live under ``csrc/`` behind ``ops.flash_attention_vjp``
 (flash attention forward, dQ, dK/dV) and ``ops.fused_loss`` (fused lm-head
 log-probability forward, dH, dW).
 """
 
-__all__ = ["algorithms", "data", "hpo", "llm", "modules", "observability", "ops",
-           "resilience", "training", "utils"]
+__all__ = ["algorithms", "components", "data", "envs", "hpo", "llm", "modules", "networks",
+           "observability", "ops", "resilience", "rollouts", "training", "utils"]

@@ -8,8 +8,11 @@ returns a fresh generator on the device asked for (the counterpart of
 ``jax.random.split``). ``jit_fn`` is a plain cache of the built callables,
 dropped after a mutation as the JAX package drops its jitted functions.
 
-Checkpointing (``checkpoint_dict``, ``save_checkpoint``, ``load``),
-``RLAlgorithm`` and ``MultiAgentRLAlgorithm`` are not ported yet.
+``RLAlgorithm`` (the single-agent base of PPO) and
+``load_params_from_numpy`` (a JAX agent's network weights into the port)
+come with the classic RL slice. Checkpointing (``checkpoint_dict``,
+``save_checkpoint``, ``load``) and ``MultiAgentRLAlgorithm`` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from agilerl_tpu_torch.algorithms.core.registry import (
     NetworkGroup,
     OptimizerConfig,
 )
-from agilerl_tpu_torch.ops import DeviceLike
+from agilerl_tpu_torch.ops import DeviceLike, resolve_device
 from agilerl_tpu_torch.utils.rng import global_seed
+from agilerl_tpu_torch.utils.spaces import as_tensor, preprocess_observation
 from agilerl_tpu_torch.utils.tree import tree_copy
 
 _SEED_BOUND = 2 ** 62
@@ -180,3 +184,67 @@ def _net_pairs(a, b):
             yield from _net_pairs(a[k], b[k])
     else:
         yield a, b
+
+
+class RLAlgorithm(EvolvableAlgorithm):
+    """Single-agent RL base: the port of ``RLAlgorithm``. ``device=None``
+    means the card (raising without one); ``self.dev`` is the resolved
+    device every network, buffer and generator of the agent lives on."""
+
+    def __init__(self, observation_space, action_space, device: DeviceLike = None, **kwargs):
+        super().__init__(device=device, **kwargs)
+        self.dev = resolve_device(device)
+        self.observation_space = observation_space
+        self.action_space = action_space
+
+    def preprocess_observation(self, obs: Any) -> Any:
+        return preprocess_observation(self.observation_space, obs, self.dev)
+
+    def test(self, env, swap_channels: bool = False, max_steps: Optional[int] = None,
+             loop: int = 3, sum_scores: bool = True) -> float:
+        """Mean return over ``loop`` rounds of greedy episodes, one per
+        vectorised env; appended to ``fitness``. Returns and done flags stay
+        on the device; each step syncs once, to test whether every env is
+        done."""
+        from agilerl_tpu_torch.rollouts.on_policy import env_action
+
+        rewards = []
+        num_envs = getattr(env, "num_envs", 1)
+        for _ in range(loop):
+            obs, _ = env.reset()
+            done = torch.zeros(num_envs, dtype=torch.bool, device=self.dev)
+            total = torch.zeros(num_envs, dtype=torch.float64, device=self.dev)
+            steps = 0
+            while not bool(done.all()):
+                action = self.get_action(obs, training=False)
+                if num_envs == 1 and action.dim() > 0 and not hasattr(env, "num_envs"):
+                    action = action[0]
+                obs, reward, terminated, truncated, _ = env.step(env_action(env, action))
+                step_done = torch.logical_or(as_tensor(terminated, self.dev).to(torch.bool),
+                                             as_tensor(truncated, self.dev).to(torch.bool))
+                total = total + as_tensor(reward, self.dev).to(torch.float64) * (~done)
+                done = torch.logical_or(done, step_done)
+                steps += 1
+                if max_steps is not None and steps >= max_steps:
+                    break
+            rewards.append(total.mean() if sum_scores else total)
+        fitness = float(torch.stack(rewards).mean())
+        self.fitness.append(fitness)
+        return fitness
+
+
+def load_params_from_numpy(agent: EvolvableAlgorithm, trees: Dict[str, Any]) -> None:
+    """Load JAX-package network parameters (``{attr: numpy tree}`` for every
+    registered network of ``agent``, eval and shared) into the agent's
+    networks through ``networks.base.params_from_numpy``, each checked
+    against its config, then re-init every optimizer for them."""
+    from agilerl_tpu_torch.networks.base import params_from_numpy
+
+    names = agent.registry.all_network_names()
+    if set(trees) != set(names):
+        raise ValueError(f"expected trees for {sorted(names)}, got {sorted(trees)}")
+    for name in names:
+        net = getattr(agent, name)
+        net.params = params_from_numpy(trees[name], net.config, agent.dev,
+                                       extra=net.extra_template())
+    agent.reinit_optimizers()

@@ -17,7 +17,10 @@ steps:
   (``optax.inject_hyperparams``), so ``set_lr`` edits the state in place and
   rebuilds nothing.
 
-Updates are functional: new tensors, under ``torch.no_grad``.
+Updates are functional: new tensors, under ``torch.no_grad``. Adam, the
+learning-rate scale and the parameter update run as multi-tensor
+(``torch._foreach_*``) ops over all leaves, each step of the formula one
+launch, as optax runs them leaf by leaf.
 """
 
 from __future__ import annotations
@@ -84,10 +87,11 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 def clip_by_global_norm(max_norm: float) -> Transform:
     def update(updates, state, params=None):
+        # selected on the device: no host sync per step
         g_norm = global_norm(updates)
-        if bool(g_norm < max_norm):
-            return updates, state
-        return tree_map(lambda t: (t / g_norm.to(t.dtype)) * max_norm, updates), state
+        keep = g_norm < max_norm
+        return tree_map(lambda t: torch.where(keep, t, (t / g_norm.to(t.dtype)) * max_norm),
+                        updates), state
 
     return Transform(_empty, update)
 
@@ -99,12 +103,18 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                          tree_map(torch.zeros_like, params))
 
     def update(updates, state, params=None):
-        mu = tree_map(lambda g, t: (1 - b1) * g + b1 * t, updates, state.mu)
-        nu = tree_map(lambda g, t: (1 - b2) * (g * g) + b2 * t, updates, state.nu)
+        # one multi-tensor launch per step of the formula over every leaf
+        g, m, v = tree_leaves(updates), tree_leaves(state.mu), tree_leaves(state.nu)
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1), torch._foreach_mul(m, b1))
+        nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
+                                torch._foreach_mul(v, b2))
         count = state.count + 1
         c1, c2 = 1 - b1 ** count, 1 - b2 ** count
-        out = tree_map(lambda m, v: (m / c1) / (torch.sqrt(v / c2 + eps_root) + eps), mu, nu)
-        return out, AdamState(count, mu, nu)
+        den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_add(
+            torch._foreach_div(nu, c2), eps_root)), eps)
+        out = torch._foreach_div(torch._foreach_div(mu, c1), den)
+        return (_like(updates, out),
+                AdamState(count, _like(updates, mu), _like(updates, nu)))
 
     return Transform(init, update)
 
@@ -125,7 +135,7 @@ def scale_by_learning_rate(learning_rate: Union[float, Schedule]) -> Transform:
         return Transform(lambda params: ScheduleState(0), update)
 
     def update_const(updates, state, params=None):
-        return tree_map(lambda g: g * (-learning_rate), updates), state
+        return _like(updates, torch._foreach_mul(tree_leaves(updates), -learning_rate)), state
 
     return Transform(_empty, update_const)
 
@@ -160,7 +170,14 @@ def inject_hyperparams(factory: Callable[..., Transform]) -> Callable[..., Trans
 
 
 def apply_updates(params: Tree, updates: Tree) -> Tree:
-    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+    new = torch._foreach_add(tree_leaves(params), tree_leaves(updates))
+    return tree_map(lambda p, n: n.to(p.dtype), params, _like(params, new))
+
+
+def _like(tree: Tree, leaves) -> Tree:
+    """``leaves`` (in ``tree_leaves`` order) in the structure of ``tree``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def grad_step(loss_of: Callable[[Tree], Tuple[torch.Tensor, Any]], params: Tree,

@@ -1,2 +1,3 @@
-"""Functional layers of the port (``layers``); the evolvable modules come with
-the classic RL slice."""
+"""Functional layers (``layers``) and the evolvable modules of the classic
+RL stack (``base``, ``mlp``, ``configs``); the CNN, LSTM, multi-input, SimBa
+and ResNet modules come with slice 5b."""

@@ -1,0 +1,129 @@
+"""Evolutionary on-policy training loop: the port of
+``agilerl_tpu/training/train_on_policy.py``.
+
+Per generation every agent collects ``learn_step`` steps from ``env`` and
+learns, ``evo_steps // (learn_step * num_envs)`` times (at least once);
+then every agent is evaluated with ``test``, and the population goes
+through tournament selection and mutation. The ``telemetry=`` hook goes
+through the observability facade: the loop ticks its step timeline per
+learn, records each evaluation, and emits one ``generation`` event per
+generation with the host seconds spent collecting, learning, evaluating
+and evolving (each phase ends on a device sync of its own), the number of
+``learn`` calls, the fitnesses and the mutations drawn.
+
+``resilience=``, ``resume``, ``checkpoint=`` / ``save_elite`` and
+``wb=True`` raise ``NotImplementedError`` until the distribution slice.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from agilerl_tpu_torch.observability import init_run_telemetry
+from agilerl_tpu_torch.rollouts.on_policy import collect_rollouts
+from agilerl_tpu_torch.utils.utils import print_hyperparams, tournament_selection_and_mutation
+
+
+def _refuse_unported(**hooks) -> None:
+    for name, value in hooks.items():
+        if value:
+            raise NotImplementedError(f"train_on_policy {name}= is not ported yet "
+                                      "(the distribution slice)")
+
+
+def train_on_policy(
+    env,
+    env_name: str,
+    algo: str,
+    pop: List,
+    INIT_HP: Optional[Dict] = None,
+    MUT_P: Optional[Dict] = None,
+    swap_channels: bool = False,
+    max_steps: int = 50_000,
+    evo_steps: int = 5_000,
+    eval_steps: Optional[int] = None,
+    eval_loop: int = 1,
+    target: Optional[float] = None,
+    tournament=None,
+    mutation=None,
+    checkpoint: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
+    overwrite_checkpoints: bool = False,
+    save_elite: bool = False,
+    elite_path: Optional[str] = None,
+    wb: bool = False,
+    verbose: bool = True,
+    accelerator=None,
+    wandb_api_key: Optional[str] = None,
+    resume: bool = False,
+    telemetry=None,
+    resilience=None,
+) -> Tuple[List, List[List[float]]]:
+    """Returns (population, per-agent fitness histories)."""
+    _refuse_unported(resilience=resilience, resume=resume, checkpoint=checkpoint,
+                     save_elite=save_elite, wb=wb)
+    telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
+    telem.attach_evolution(tournament, mutation)
+    num_envs = getattr(env, "num_envs", 1)
+    pop_fitnesses: List[List[float]] = [[] for _ in pop]
+    total_steps = 0
+    generation = 0
+    try:
+        start = time.time()
+        while np.min([agent.steps[-1] for agent in pop]) < max_steps:
+            secs = {"collect_s": 0.0, "learn_s": 0.0}
+            learn_calls = 0
+            for agent in pop:
+                steps = 0
+                agent._last_obs = None  # fresh episodes per generation
+                for _ in range(max(evo_steps // (agent.learn_step * num_envs), 1)):
+                    t0 = time.perf_counter()
+                    collect_rollouts(agent, env, n_steps=agent.learn_step)
+                    t1 = time.perf_counter()
+                    agent.learn()
+                    secs["collect_s"] += t1 - t0
+                    secs["learn_s"] += time.perf_counter() - t1
+                    learn_calls += 1
+                    steps += agent.learn_step * num_envs
+                    total_steps += agent.learn_step * num_envs
+                    telem.step(env_steps=agent.learn_step * num_envs, agent_index=agent.index)
+                agent.steps[-1] += steps
+
+            t0 = time.perf_counter()
+            fitnesses = [agent.test(env, swap_channels=swap_channels, max_steps=eval_steps,
+                                    loop=eval_loop) for agent in pop]
+            secs["eval_s"] = time.perf_counter() - t0
+            for i, f in enumerate(fitnesses):
+                pop_fitnesses[i].append(f)
+            telem.record_eval(pop, fitnesses)
+            fps = total_steps / (time.time() - start)
+            telem.log_step({"global_step": total_steps, "fps": fps,
+                            "eval/mean_fitness": float(np.mean(fitnesses))})
+            if verbose:
+                print(f"--- steps {total_steps} fps {fps:.0f} "
+                      f"fitness {[f'{f:.1f}' for f in fitnesses]}")
+                print_hyperparams(pop)
+
+            t0 = time.perf_counter()
+            if tournament is not None and mutation is not None:
+                pop = tournament_selection_and_mutation(
+                    pop, tournament, mutation, env_name=env_name, algo=algo,
+                    elite_path=elite_path, save_elite=save_elite)
+            secs["evo_s"] = time.perf_counter() - t0
+            telem.log_step({"generation": generation, "total_steps": total_steps,
+                            "learn_calls": learn_calls, "fitness": [float(f) for f in fitnesses],
+                            "mutations": [str(a.mut) for a in pop], **secs},
+                           kind="generation")
+            generation += 1
+
+            for agent in pop:
+                agent.steps.append(agent.steps[-1])
+            if target is not None and np.min(fitnesses) >= target:
+                break
+    finally:
+        if telemetry is None:
+            telem.close()
+    return pop, pop_fitnesses

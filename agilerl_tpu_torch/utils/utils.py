@@ -1,11 +1,13 @@
-"""Population factory and evolution glue: the port of the LLM half of
-``agilerl_tpu/utils/utils.py`` (``create_population``,
-``tournament_selection_and_mutation``, ``consolidate_mutations``,
-``print_hyperparams``). The other algorithms, env makers and population
-checkpoints come with their slices."""
+"""Population factory, env maker and evolution glue: the port of
+``agilerl_tpu/utils/utils.py`` for GRPO, DPO and PPO (``create_population``,
+``make_vect_envs``, ``tournament_selection_and_mutation``,
+``consolidate_mutations``, ``print_hyperparams``). The other algorithms
+and population checkpoints come with their slices."""
 
 from __future__ import annotations
 
+import importlib
+import inspect
 import zlib
 from typing import Any, Dict, List, Optional
 
@@ -13,14 +15,44 @@ import numpy as np
 
 from agilerl_tpu_torch.utils.rng import derive_rng
 
-# the JAX package's INIT_HP upper-case keys that name a GRPO/DPO constructor kwarg
+# the JAX package's INIT_HP key -> constructor kwarg map (each algorithm
+# takes the keys its constructor names)
 _INIT_HP_MAP = {
-    "BATCH_SIZE": "batch_size",
-    "LR": "lr",
-    "CLIP_COEF": "clip_coef",
-    "MAX_GRAD_NORM": "max_grad_norm",
-    "UPDATE_EPOCHS": "update_epochs",
+    "BATCH_SIZE": "batch_size", "LR": "lr", "LR_ACTOR": "lr_actor", "LR_CRITIC": "lr_critic",
+    "GAMMA": "gamma", "TAU": "tau", "LEARN_STEP": "learn_step", "DOUBLE": "double",
+    "N_STEP": "n_step", "PER": "per", "NUM_ATOMS": "num_atoms", "V_MIN": "v_min",
+    "V_MAX": "v_max", "CLIP_COEF": "clip_coef", "ENT_COEF": "ent_coef", "VF_COEF": "vf_coef",
+    "MAX_GRAD_NORM": "max_grad_norm", "UPDATE_EPOCHS": "update_epochs",
+    "GAE_LAMBDA": "gae_lambda", "TARGET_KL": "target_kl", "POLICY_FREQ": "policy_freq",
+    "O_U_NOISE": "O_U_noise", "EXPL_NOISE": "expl_noise", "MEAN_NOISE": "mean_noise",
+    "THETA": "theta", "DT": "dt", "NUM_ENVS": "num_envs", "AGENT_IDS": "agent_ids",
+    "LAMBDA": "lamb", "REG": "reg",
 }
+
+
+def _named_ctor_params(cls) -> set:
+    """Named constructor parameters across the class's MRO."""
+    named = set()
+    for c in cls.__mro__:
+        init = c.__dict__.get("__init__")
+        if init is None:
+            continue
+        for p in inspect.signature(init).parameters.values():
+            if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY):
+                named.add(p.name)
+    return named
+
+
+# the algorithms ported so far, by name -> module of agilerl_tpu_torch.algorithms
+_ALGO_MODULES = {"GRPO": "grpo", "DPO": "dpo", "PPO": "ppo"}
+
+
+def _algo_class(algo: str):
+    if algo not in _ALGO_MODULES:
+        raise NotImplementedError(
+            f"create_population is ported for {', '.join(_ALGO_MODULES)}, not {algo!r}")
+    return getattr(importlib.import_module(
+        f"agilerl_tpu_torch.algorithms.{_ALGO_MODULES[algo]}"), algo)
 
 
 def create_population(
@@ -37,26 +69,63 @@ def create_population(
     seed: Optional[int] = None,
     **kwargs,
 ) -> List:
-    """Build a population of GRPO or DPO agents. ``kwargs`` go to every member
-    (``config``, ``base_params``, token ids, ...); pass ``base_params`` to
-    share one frozen base model across the population. Each member's seed is
-    drawn from ``seed`` (or the global numpy stream), as in the JAX package."""
-    if algo == "GRPO":
-        from agilerl_tpu_torch.algorithms.grpo import GRPO as cls
-    elif algo == "DPO":
-        from agilerl_tpu_torch.algorithms.dpo import DPO as cls
-    else:
-        raise NotImplementedError(
-            f"create_population is ported for GRPO and DPO only, not {algo!r}")
-
+    """Build a population of GRPO, DPO or PPO agents. Each member gets the
+    ``INIT_HP`` keys its constructor names, and ``observation_space``,
+    ``action_space``, ``net_config`` and ``num_envs`` where it names them
+    (PPO). ``kwargs`` go to every member (GRPO/DPO: ``config``,
+    ``base_params``, token ids, ...; pass ``base_params`` to share one frozen
+    base model). Each member's seed is drawn from ``seed`` (or the global
+    numpy stream), as in the JAX package; ``device=None`` puts every member
+    on the card."""
+    cls = _algo_class(algo)
     INIT_HP = dict(INIT_HP or {})
     pop_size = population_size or INIT_HP.get("POP_SIZE", INIT_HP.get("POPULATION_SIZE", 4))
-    ctor_kwargs = {_INIT_HP_MAP[k]: v for k, v in INIT_HP.items() if k in _INIT_HP_MAP}
+    named = _named_ctor_params(cls)
+    ctor_kwargs = {_INIT_HP_MAP[k]: v for k, v in INIT_HP.items()
+                   if _INIT_HP_MAP.get(k) in named}
     ctor_kwargs.update(kwargs)
+    if "num_envs" in named:
+        ctor_kwargs.setdefault("num_envs", num_envs)
+    ctor_kwargs.update({k: v for k, v in (("observation_space", observation_space),
+                                          ("action_space", action_space),
+                                          ("net_config", net_config)) if k in named})
     rng = derive_rng(seed=seed)
     return [cls(index=idx, hp_config=hp_config, device=device,
-                 seed=int(rng.integers(0, 2**31 - 1)), **ctor_kwargs)
+                seed=int(rng.integers(0, 2**31 - 1)), **ctor_kwargs)
             for idx in range(pop_size)]
+
+
+def make_vect_envs(
+    env_name: Optional[str] = None,
+    num_envs: int = 1,
+    *,
+    make_env: Optional[Any] = None,
+    should_async_vector: bool = True,
+    prefer_device: bool = True,
+    device=None,
+    seed: int = 0,
+    **env_kwargs,
+):
+    """Vectorised envs: an id of the port's registry (``envs/classic.py``)
+    becomes a ``TorchVecEnv`` on ``device`` (``None``: the card, raising
+    without one); any other id, or ``make_env``, goes through gymnasium's
+    vector envs on the host (gymnasium is imported only then)."""
+    if make_env is None and prefer_device and env_name is not None:
+        from agilerl_tpu_torch.envs import classic
+
+        if env_name in classic.REGISTRY:
+            from agilerl_tpu_torch.envs.core import TorchVecEnv
+
+            return TorchVecEnv(classic.make(env_name), num_envs=num_envs, seed=seed,
+                               device=device)
+    import gymnasium as gym
+
+    if make_env is not None:
+        fns = [make_env for _ in range(num_envs)]
+    else:
+        fns = [lambda: gym.make(env_name, **env_kwargs) for _ in range(num_envs)]
+    vec_cls = gym.vector.AsyncVectorEnv if should_async_vector else gym.vector.SyncVectorEnv
+    return vec_cls(fns)
 
 
 def consolidate_mutations(population: List) -> None:

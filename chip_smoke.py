@@ -86,6 +86,18 @@ of which ends the run with a non-zero exit on any failure:
    greedy and beam generation against the CPU; the HF checkpoint loader on
    both committed fixtures against their golden logits; an MoE forward with
    ``return_aux`` against the CPU;
+4h. slice 5a, evolutionary PPO at configs/training/ppo.yaml's widths
+   (CartPole-v1 as a ``TorchVecEnv`` of 16 envs, population 4, learn_step
+   128, batch 256, 4 epochs, latent 32, hidden [64]; max_steps cut from
+   200,000 to 30,720 = 3 generations): ``train_on_policy`` through
+   ``create_population("PPO")`` and ``make_vect_envs`` (env-steps/s; per
+   generation the seconds collecting, learning, evaluating and evolving, ms
+   per learn, fitnesses, mutations; no kernel is on this path); on a clone
+   of the elite one mutation of each class, each followed by a collect and
+   a finite learn, with preserved slabs bit-equal and the buffer following
+   learn_step; the host syncs of one collect_rollouts and one learn; both
+   PPO probe checks; the env step, logp and value, GAE and one learn on the
+   card against the CPU;
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -2192,6 +2204,371 @@ def run_offline_hf_moe(torch, M, report):
     report["offline_hf_moe"] = out
 
 
+# ------------------------------- phase 4h ---------------------------------- #
+# configs/training/ppo.yaml (the card's machine has no PyYAML): evolutionary
+# PPO on CartPole-v1, 16 envs, population 4. The one cut: MAX_STEPS 200,000
+# -> 30,720 (3 generations of EVO_STEPS), for time.
+PPO_ENV = "CartPole-v1"
+PPO_INIT_HP = {"POP_SIZE": 4, "BATCH_SIZE": 256, "LR": 3e-4, "GAMMA": 0.99, "GAE_LAMBDA": 0.95,
+               "CLIP_COEF": 0.2, "ENT_COEF": 0.01, "VF_COEF": 0.5, "MAX_GRAD_NORM": 0.5,
+               "UPDATE_EPOCHS": 4, "LEARN_STEP": 128, "NUM_ENVS": 16}
+PPO_NET = {"latent_dim": 32, "encoder_config": {"hidden_size": (64,)}}
+PPO_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activation=0.0,
+                    rl_hp=0.2)
+PPO_TOURNAMENT = (2, True, 4, 1)  # size, elitism, population, eval loop
+PPO_EVO_STEPS = 10_240
+PPO_MAX_STEPS = 30_720  # cut from 200,000
+# tests/test_algorithms/test_ppo.py:87-108: the probe checks' settings
+PPO_PROBE = dict(num_envs=8, learn_step=16, batch_size=64, update_epochs=4, lr=3e-3, gamma=0.5,
+                 ent_coef=0.05, seed=3,
+                 net_config={"latent_dim": 16, "encoder_config": {"hidden_size": (32,)}})
+PPO_PROBE_ITERS = 80
+# card against CPU, f32 with TF32 off: env steps within a few ulps of
+# sin/cos (atol 1e-5; a termination flag may differ only within 1e-5 of its
+# bound); logp and value atol 1e-5; GAE atol 1e-5 (128 steps of
+# accumulation); one learn of one minibatch: loss rtol 1e-5, Adam's first
+# moment within 1e-5 of each leaf's largest entry, weights atol 5e-6 where
+# |g| >= 1e-6 or g == 0 (below, Adam's first step turns summation order
+# into steps of up to lr)
+PPO_ENV_ATOL = 1e-5
+PPO_NET_ATOL = 1e-5
+PPO_GAE_ATOL = 1e-5
+PPO_LOSS_RTOL = 1e-5
+PPO_WEIGHT_ATOL = 5e-6
+
+
+def flat_params(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_params(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v
+    return out
+
+
+def preserved_ok(torch, before, after):
+    """Every leaf's overlap with its pre-mutation self equals it bit for bit."""
+    for path, new in flat_params(after).items():
+        old = before.get(path)
+        if old is None or old.dim() != new.dim():
+            continue
+        sl = tuple(slice(0, min(o, n)) for o, n in zip(old.shape, new.shape))
+        if not torch.equal(old[sl], new[sl]):
+            return False
+    return True
+
+
+def count_syncs(torch, fn):
+    """(result, host syncs, {"file:line": count} of where they happened) of
+    ``fn`` under torch.cuda.set_sync_debug_mode."""
+    import collections
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+    shown = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            # the innermost frames of the port or of torch's Python code
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "agilerl_tpu_torch" in f.filename or "/torch/" in f.filename]
+            sites[" < ".join(f"{Path(f.filename).parent.name}/{Path(f.filename).name}"
+                             f":{f.lineno}" for f in frames[::-1][:3])] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            warnings.showwarning = shown
+    return out, sum(sites.values()), dict(sites)
+
+
+def ppo_mutation_checks(torch, agent, env, report):
+    """One mutation of each class on ``agent`` (a clone of the elite), each
+    followed by a collect and a learn: finite losses, preserved slabs
+    bit-equal to the pre-mutation weights, the buffer's horizon following
+    learn_step."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.core.registry import HyperparameterConfig
+    from agilerl_tpu_torch.algorithms.ppo import default_hp_config
+    from agilerl_tpu_torch.hpo import Mutations
+    from agilerl_tpu_torch.rollouts.on_policy import collect_rollouts
+
+    hp_all = default_hp_config()
+    rows = []
+    steps = (["encoder.add_layer", "encoder.add_node", "encoder.remove_node", "add_latent_node",
+              "param", "batch_size", "learn_step"])
+    for i, what in enumerate(steps):
+        before = {n: flat_params(getattr(agent, n).params) for n in ("actor", "critic")}
+        mut = Mutations(no_mutation=0, architecture=0, parameters=0, activation=0, rl_hp=0,
+                        rand_seed=100 + i)
+        if what == "param":
+            mut.parameter_mutation(agent)
+            changed = sum(int((before["actor"][p] != v).sum())
+                          for p, v in flat_params(agent.actor.params).items())
+            total = sum(v.numel() for v in before["actor"].values())
+            check(0.05 < changed / total < 0.15,
+                  f"parameter noise touched {changed} of {total} entries")
+            check(preserved_ok(torch, before["critic"], agent.critic.params),
+                  "parameter noise moved the critic")
+        elif what in ("batch_size", "learn_step"):
+            kept = agent.registry.hp_config
+            agent.registry.hp_config = HyperparameterConfig(**{what: hp_all[what]})
+            mut.rl_hyperparam_mutation(agent)
+            agent.registry.hp_config = kept
+            check(agent.mut == what, f"rl-hp draw gave {agent.mut}")
+        else:
+            seed = 7 + i
+            for n in ("actor", "critic"):
+                getattr(agent, n).apply_mutation(what, rng=np.random.default_rng(seed))
+            agent.reinit_optimizers()
+            agent.mutation_hook()
+            agent.mut = what
+            for n in ("actor", "critic"):
+                check(preserved_ok(torch, before[n], getattr(agent, n).params),
+                      f"{what}: {n}'s preserved slabs moved")
+        agent._last_obs = None
+        reward = collect_rollouts(agent, env)
+        loss = agent.learn()
+        rows.append(dict(mutation=agent.mut, loss=loss, reward=reward,
+                         learn_step=agent.learn_step, batch_size=agent.batch_size,
+                         buffer_rows=int(agent.rollout_buffer.state.data["obs"].shape[0]),
+                         encoder=list(agent.actor.config.encoder.hidden_size),
+                         head=list(agent.actor.config.head.hidden_size),
+                         latent=agent.actor.config.latent_dim))
+        check(np.isfinite(loss), f"{what}: learn gave {loss}")
+        check(agent.rollout_buffer.capacity == agent.learn_step == rows[-1]["buffer_rows"],
+              f"{what}: buffer rows {rows[-1]['buffer_rows']} for learn_step {agent.learn_step}")
+        log(f"  {what}: {rows[-1]}")
+    report["mutations"] = rows
+
+
+def ppo_card_vs_cpu(torch, agent, report):
+    """The env step, get_action_and_value's logp and value, GAE and one learn
+    on the card against the CPU, on the same states, weights and buffer."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.core.base import load_params_from_numpy
+    from agilerl_tpu_torch.algorithms.ppo import PPO
+    from agilerl_tpu_torch.components.rollout_buffer import _compute_gae
+    from agilerl_tpu_torch.envs import classic
+    from agilerl_tpu_torch.utils.tree import tree_to_numpy
+
+    out = {}
+    rng = np.random.default_rng(0)
+    n = 4096
+    bounds = {"CartPole-v1": [(0, 2.4), (2, 12 * 3.141592653589793 / 180)],
+              "MountainCar-v0": [(0, 0.5)]}
+    for name, fields in (("CartPole-v1", [(-2.6, 2.6), (-3, 3), (-0.25, 0.25), (-3, 3)]),
+                         ("Pendulum-v1", [(-7, 7), (-8, 8)]),
+                         ("MountainCar-v0", [(-1.25, 0.6), (-0.07, 0.07)])):
+        env = classic.make(name)
+        vals = [rng.uniform(lo, hi, n).astype(np.float32) for lo, hi in fields]
+        if hasattr(env.action_space, "n"):
+            act = rng.integers(0, env.action_space.n, n)
+        else:
+            act = rng.uniform(-2.5, 2.5, (n, 1)).astype(np.float32)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            state = type(env.reset_fn(1, torch.Generator(device=dev))[0])(
+                *(torch.from_numpy(v).to(dev) for v in vals))
+            res[dev] = env.step_fn(state, torch.from_numpy(act).to(dev),
+                                   torch.Generator(device=dev))
+        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            [*res["cuda"][0], res["cuda"][1], res["cuda"][2]],
+            [*res["cpu"][0], res["cpu"][1], res["cpu"][2]]))
+        flips = res["cuda"][3].cpu() != res["cpu"][3]
+        near = torch.zeros(n, dtype=torch.bool)
+        obs = res["cpu"][1]
+        for col, b in bounds.get(name, []):
+            near |= (obs[:, col].abs() - b).abs() <= PPO_ENV_ATOL
+        check(err <= PPO_ENV_ATOL, f"{name} step on the card vs CPU: {err}")
+        check(not bool((flips & ~near).any()), f"{name}: termination differs off its bound")
+        out[f"env_{name}"] = dict(max_abs_err=err, flag_flips=int(flips.sum()))
+
+    args = dict(agent.init_dict, update_epochs=1,
+                batch_size=agent.learn_step * agent.num_envs)
+    cuda_agent = PPO(**{**args, "device": "cuda"}, seed=1)
+    cpu_agent = PPO(**{**args, "device": "cpu"}, seed=1)
+    trees = {n: tree_to_numpy(getattr(agent, n).params) for n in ("actor", "critic")}
+    for a in (cuda_agent, cpu_agent):
+        for n in ("actor", "critic"):  # the elite's mutated architecture
+            getattr(a, n).config = getattr(agent, n).config
+        load_params_from_numpy(a, trees)
+    T, N = cuda_agent.learn_step, cuda_agent.num_envs
+    obs = rng.uniform(-1, 1, (T, N, 4)).astype(np.float32) * np.array([2.4, 3, 0.2, 3], np.float32)
+    actions = rng.integers(0, 2, (T, N))
+    logp_v = {}
+    for a, dev in ((cuda_agent, "cuda"), (cpu_agent, "cpu")):
+        o = torch.from_numpy(obs.reshape(-1, 4)).to(dev)
+        lp, _ = a.actor.evaluate_actions(o, torch.from_numpy(actions.reshape(-1)).to(dev))
+        logp_v[dev] = (lp.cpu(), a.value_of(o).cpu())
+    err = max(float((x - y).abs().max()) for x, y in zip(logp_v["cuda"], logp_v["cpu"]))
+    check(err <= PPO_NET_ATOL, f"logp/value on the card vs CPU: {err}")
+    out["logp_value_max_abs_err"] = err
+
+    rewards = rng.normal(size=(T, N)).astype(np.float32)
+    dones = (rng.random((T, N)) < 0.05).astype(np.float32)
+    values = logp_v["cpu"][1].numpy().reshape(T, N)
+    last = rng.uniform(-1, 1, (N, 4)).astype(np.float32)
+    gae = {dev: _compute_gae(*(torch.from_numpy(x).to(dev) for x in
+                               (rewards, values, dones, values[-1])), None, 0.99, 0.95)
+           for dev in ("cuda", "cpu")}
+    err = max(float((x.cpu() - y).abs().max()) for x, y in zip(gae["cuda"], gae["cpu"]))
+    check(err <= PPO_GAE_ATOL, f"GAE on the card vs CPU: {err}")
+    out["gae_max_abs_err"] = err
+
+    noise = rng.normal(size=(T, N)).astype(np.float32) * 0.2
+    for a in (cuda_agent, cpu_agent):
+        lp = logp_v["cpu"][0].numpy().reshape(T, N) + noise
+        for t in range(T):
+            a.rollout_buffer.add(obs=obs[t], action=actions[t], reward=rewards[t],
+                                 done=dones[t], value=values[t], log_prob=lp[t])
+        a._last_obs = last
+        a._last_done = torch.zeros(N, device=a.dev)
+    losses = [cuda_agent.learn(), cpu_agent.learn()]
+    check(abs(losses[0] - losses[1]) <= PPO_LOSS_RTOL * abs(losses[1]) + 1e-7,
+          f"learn loss on the card vs CPU: {losses}")
+    mu = [flat_params(a.optimizer.opt_state[1].inner_state[0].mu) for a in
+          (cuda_agent, cpu_agent)]
+    worst_mu, worst_w, exempt, total = 0.0, 0.0, 0, 0
+    for (p, m_gpu), w_gpu, w_cpu in zip(
+            mu[0].items(),
+            flat_params({"actor": cuda_agent.actor.params, "critic": cuda_agent.critic.params}).values(),
+            flat_params({"actor": cpu_agent.actor.params, "critic": cpu_agent.critic.params}).values()):
+        m_cpu = mu[1][p]
+        scale = float(m_cpu.abs().max()) + 1e-12
+        worst_mu = max(worst_mu, float((m_gpu.cpu() - m_cpu).abs().max()) / scale)
+        g = m_cpu.abs() / 0.1
+        ok = (g >= 1e-6) | (g == 0)
+        exempt += int((~ok).sum())
+        total += ok.numel()
+        if ok.any():
+            worst_w = max(worst_w, float((w_gpu.cpu() - w_cpu)[ok].abs().max()))
+    check(worst_mu <= 1e-5, f"Adam first moment on the card vs CPU: {worst_mu}")
+    check(worst_w <= PPO_WEIGHT_ATOL, f"weights after learn on the card vs CPU: {worst_w}")
+    check(exempt < 0.1 * total, f"{exempt} of {total} weights held by gradient alone")
+    out.update(learn_loss=losses, first_moment_rel_err=worst_mu, weight_max_abs_err=worst_w,
+               weights_held_by_gradient=exempt, weights=total)
+    log(f"  card vs CPU: {out}")
+    report["card_vs_cpu"] = out
+
+
+def run_on_policy(torch, ops, report):
+    """Phase 4h: evolutionary PPO at configs/training/ppo.yaml's widths
+    through train_on_policy (3 generations), each mutation class followed
+    by a learn, both PPO probe checks, the card against the CPU, and the
+    host syncs of one collect_rollouts."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.ppo import PPO
+    from agilerl_tpu_torch.envs.probe import (
+        FixedObsPolicyEnv,
+        PolicyEnv,
+        check_policy_on_policy_with_probe_env,
+    )
+    from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
+    from agilerl_tpu_torch.observability.events import MemorySink
+    from agilerl_tpu_torch.observability.facade import RunTelemetry
+    from agilerl_tpu_torch.observability.registry import MetricsRegistry
+    from agilerl_tpu_torch.rollouts.on_policy import collect_rollouts
+    from agilerl_tpu_torch.training.train_on_policy import train_on_policy
+    from agilerl_tpu_torch.utils.utils import create_population, make_vect_envs
+
+    out = {}
+    log(f"phase 4h: evolutionary PPO on {PPO_ENV}, {PPO_INIT_HP['NUM_ENVS']} envs, "
+        f"population {PPO_INIT_HP['POP_SIZE']}, max_steps {PPO_MAX_STEPS} (cut from 200,000)")
+    # clones (the tournament's) and rollout buffers draw their seeds from the
+    # global numpy stream, as in the JAX package: seed it so the phase replays
+    np.random.seed(0)
+    env = make_vect_envs(PPO_ENV, PPO_INIT_HP["NUM_ENVS"])
+    check(env.device.type == "cuda", f"make_vect_envs put the env on {env.device}")
+    pop = create_population("PPO", env.single_observation_space, env.single_action_space,
+                            PPO_NET, PPO_INIT_HP, num_envs=PPO_INIT_HP["NUM_ENVS"], seed=0)
+    check(all(a.dev.type == "cuda" for a in pop), "create_population left the card")
+    sink = MemorySink()
+    telem = RunTelemetry(registry=MetricsRegistry(sink=sink), lineage=False)
+    tournament = TournamentSelection(*PPO_TOURNAMENT, rng=np.random.default_rng(0))
+    mutation = Mutations(**PPO_MUTATION, rand_seed=0)
+    ops.reset_kernel_counters()
+    (pop, fitnesses), t_loop = host_s(torch, lambda: train_on_policy(
+        env, PPO_ENV, "PPO", pop, INIT_HP=PPO_INIT_HP, max_steps=PPO_MAX_STEPS,
+        evo_steps=PPO_EVO_STEPS, tournament=tournament, mutation=mutation, telemetry=telem,
+        verbose=False))
+    launches = ops.kernel_counters()
+    gens = [e for e in sink.events if e["kind"] == "generation"]
+    env_steps = gens[-1]["total_steps"]
+    for g in gens:
+        g["ms_per_learn"] = 1e3 * g["learn_s"] / g["learn_calls"]
+        log(f"  generation {g['generation']}: collect {g['collect_s']:.2f} s, learn "
+            f"{g['learn_s']:.2f} s ({g['ms_per_learn']:.1f} ms per learn), eval "
+            f"{g['eval_s']:.2f} s, tournament + mutation {g['evo_s']:.3f} s; fitness "
+            f"{[round(f, 1) for f in g['fitness']]}; mutations {g['mutations']}")
+    out.update(loop_s=t_loop, env_steps=env_steps, env_steps_per_s=env_steps / t_loop,
+               generations=[{k: g[k] for k in ("generation", "collect_s", "learn_s",
+                                               "learn_calls", "ms_per_learn", "eval_s",
+                                               "evo_s", "fitness", "mutations")} for g in gens],
+               launches=launches)
+    log(f"  {env_steps} env steps in {t_loop:.1f} s: {env_steps / t_loop:.0f} env-steps/s; "
+        f"kernel launches {launches}")
+    # a learn_step mutation can leave an agent short of EVO_STEPS per
+    # generation (evo_steps // (learn_step * num_envs) learns): one more then.
+    # Every agent adds at least the fewest steps any learn_step of its range
+    # gives a generation, which bounds the count from above.
+    ls_range = pop[0].registry.hp_config["learn_step"]
+    n_envs = PPO_INIT_HP["NUM_ENVS"]
+    fewest = min(max(PPO_EVO_STEPS // (ls * n_envs), 1) * ls * n_envs
+                 for ls in range(int(ls_range.min), int(ls_range.max) + 1))
+    most_gens = -(-PPO_MAX_STEPS // fewest)
+    out.update(most_generations=most_gens)
+    check(PPO_MAX_STEPS // PPO_EVO_STEPS <= len(gens) <= most_gens,
+          f"{len(gens)} generations, not {PPO_MAX_STEPS // PPO_EVO_STEPS}..{most_gens}")
+    check(all(np.isfinite(f).all() and len(f) == len(gens) for f in fitnesses),
+          f"fitnesses {fitnesses}")
+    check(all(a.steps[-1] >= PPO_MAX_STEPS for a in pop), "agents short of max_steps")
+
+    elite = pop[0].clone(index=100)
+    t0 = time.perf_counter()
+    ppo_mutation_checks(torch, elite, env, out)
+    out["mutation_checks_s"] = time.perf_counter() - t0
+
+    # host syncs of one collect_rollouts and one learn (design target: O(1))
+    elite._last_obs = None
+    reward, syncs, sites = count_syncs(torch, lambda: collect_rollouts(elite, env))
+    _, learn_syncs, learn_sites = count_syncs(torch, elite.learn)
+    out.update(collect_syncs=syncs, collect_sync_sites=sites, collect_steps=elite.learn_step,
+               learn_syncs=learn_syncs, learn_sync_sites=learn_sites)
+    log(f"  host syncs: {syncs} in one collect_rollouts of {elite.learn_step} steps {sites}, "
+        f"{learn_syncs} in one learn {learn_sites}")
+    # one for the mean reward, one inside torch.cuda (not traced yet); without
+    # target_kl a learn reads its losses once
+    check(syncs <= 2, f"{syncs} host syncs in one collect_rollouts of {elite.learn_step} steps")
+    check(elite.target_kl is None and learn_syncs <= 1, f"{learn_syncs} host syncs in one learn")
+
+    probes = {}
+    for env_cls in (FixedObsPolicyEnv, PolicyEnv):
+        probe = env_cls()
+        t0 = time.perf_counter()
+        check_policy_on_policy_with_probe_env(
+            probe, PPO, dict(PPO_PROBE, observation_space=probe.observation_space,
+                             action_space=probe.action_space), train_iters=PPO_PROBE_ITERS)
+        probes[env_cls.__name__] = time.perf_counter() - t0
+        log(f"  probe {env_cls.__name__}: passed in {probes[env_cls.__name__]:.1f} s")
+    out["probes_s"] = probes
+
+    ppo_card_vs_cpu(torch, elite, out)
+    report["on_policy"] = out
+    return launches
+
+
 # ------------------------------- phase 5 ----------------------------------- #
 
 
@@ -2595,6 +2972,10 @@ def main() -> None:
         run_offline_hf_moe(torch, M, report)
         report["phase_4e_s"] = time.perf_counter() - t0
     log(f"phase 4e: {report['phase_4e_s']:.1f} s")
+    t0 = time.perf_counter()
+    on_policy_launches = run_on_policy(torch, ops, report)
+    report["phase_4h_s"] = time.perf_counter() - t0
+    log(f"phase 4h: {report['phase_4h_s']:.1f} s")
     # each main path's counts were set to 0 just before it and read just after
     launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
                 for k in grpo_launches}
@@ -2608,7 +2989,8 @@ def main() -> None:
         entry["launches_by_path"] = {"grpo_learn": grpo_launches[entry["name"]],
                                      "dpo_learn": dpo_launches[entry["name"]],
                                      "serving_capture": serve_launches[entry["name"]],
-                                     "flywheel": fly_launches[entry["name"]]}
+                                     "flywheel": fly_launches[entry["name"]],
+                                     "on_policy": on_policy_launches[entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":

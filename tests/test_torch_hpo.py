@@ -2,7 +2,11 @@
 with the JAX package's, on the CPU: tournament selection and hyperparameter
 mutation make the same picks and draw the same values from the same numpy
 seeds, and finetune_llm_reasoning trains and evolves a population of two
-tiny GRPO agents end to end."""
+tiny GRPO agents end to end; over PPO populations on carried weights every
+mutation class gives the JAX package's choices, configs and preserved
+weights, and a learn_step mutation resizes the rollout buffer."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -11,14 +15,21 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from agilerl_tpu.algorithms.core.registry import (  # noqa: E402
+    HyperparameterConfig as JHyperparameterConfig,
+    RLParameter as JRLParameter,
+)
 from agilerl_tpu.algorithms.grpo import GRPO as JGRPO  # noqa: E402
+from agilerl_tpu.algorithms.ppo import PPO as JPPO  # noqa: E402
 from agilerl_tpu.hpo import Mutations as JMutations  # noqa: E402
 from agilerl_tpu.hpo import TournamentSelection as JTournament  # noqa: E402
 from agilerl_tpu.llm import model as JM  # noqa: E402
 from agilerl_tpu.utils.llm_utils import CharTokenizer as JCharTokenizer  # noqa: E402
 from agilerl_tpu.utils.llm_utils import ReasoningGym as JReasoningGym  # noqa: E402
 from agilerl_tpu.utils.rng import derive_rng as j_derive_rng  # noqa: E402
+from agilerl_tpu_torch.algorithms.core.base import load_params_from_numpy  # noqa: E402
 from agilerl_tpu_torch.algorithms.grpo import GRPO as TGRPO  # noqa: E402
+from agilerl_tpu_torch.algorithms.ppo import PPO as TPPO  # noqa: E402
 from agilerl_tpu_torch.data.language_environment import (  # noqa: E402
     TokenPolicyAdapter,
     interact_environment,
@@ -183,3 +194,166 @@ def test_language_environment_bridge():
 
     obs, seq = interact_environment(Env(), TokenPolicyAdapter(Echo(), TOK))
     assert [s[1] for s in seq] == ["=", "=", None] and seq[0][2] == 1.0
+
+
+# --------------------- PPO populations (Queue 1's slice 5a) -------------------- #
+
+PPO_NET = {"latent_dim": 16,
+           "encoder_config": {"hidden_size": (32,), "min_mlp_nodes": 16, "max_mlp_nodes": 96},
+           "head_config": {"hidden_size": (24,), "min_mlp_nodes": 16, "max_mlp_nodes": 96}}
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def _sync(jagent, tagent):
+    """Carry the JAX agent's network weights into the port's agent."""
+    load_params_from_numpy(tagent, {n: _np(getattr(jagent, n).params)
+                                    for n in ("actor", "critic")})
+
+
+def _ppo_populations(n=4):
+    """The same n PPO agents in each package, with the global numpy stream at
+    the same point for both (clones draw their seeds from it)."""
+    from gymnasium import spaces as gspaces
+
+    obs_space, action_space = gspaces.Box(-1.0, 1.0, (4,), np.float32), gspaces.Discrete(2)
+    kw = dict(net_config=PPO_NET, num_envs=2, learn_step=16, batch_size=32)
+    np.random.seed(5)
+    jpop = [JPPO(obs_space, action_space, index=i, seed=i, **kw) for i in range(n)]
+    np.random.seed(5)
+    tpop = [TPPO(obs_space, action_space, index=i, seed=i, device="cpu", **kw) for i in range(n)]
+    for j, t in zip(jpop, tpop):
+        _sync(j, t)
+    fitness = np.random.default_rng(8).normal(size=(n, 2)).tolist()
+    for pop in (jpop, tpop):
+        for a, f in zip(pop, fitness):
+            a.fitness = list(f)
+    return jpop, tpop
+
+
+def _ppo_summary(pop):
+    return [(a.index, tuple(a.fitness), a.mut, a.lr, a.batch_size, a.learn_step, a.ent_coef,
+             a.rollout_buffer.capacity, dataclasses.asdict(a.actor.config),
+             dataclasses.asdict(a.critic.config)) for a in pop]
+
+
+def test_ppo_tournament_and_mutation_match_jax():
+    """Tournament, then two rounds of mutation drawing every class: the
+    same elite, children, mut strings, configs and hyperparameters as the
+    JAX package; after an architecture mutation every preserved slab equals
+    the JAX package's bit for bit (grown slabs by shape); parameter noise
+    touches ~10 % of the policy's entries with sd 0.1 and nothing else; the
+    other mutations leave the weights as they were."""
+    jpop, tpop = _ppo_populations()
+    jt = JTournament(2, True, 4, 1, rng=np.random.default_rng(3))
+    tt = TournamentSelection(2, True, 4, 1, rng=np.random.default_rng(3))
+    np.random.seed(99)
+    jelite, jnext = jt.select(jpop)
+    np.random.seed(99)
+    telite, tnext = tt.select(tpop)
+    assert jelite.index == telite.index
+    assert [(a.index, a.fitness) for a in jnext] == [(a.index, a.fitness) for a in tnext]
+    kw = dict(no_mutation=0.1, architecture=0.4, new_layer_prob=0.3, parameters=0.25,
+              activation=0.1, rl_hp=0.15, mutation_sd=0.1, rand_seed=5)
+    jm, tm = JMutations(**kw), Mutations(**kw)
+    seen = set()
+    for _ in range(2):
+        for j, t in zip(jnext, tnext):
+            _sync(j, t)
+        old = [{n: _np(getattr(j, n).params) for n in ("actor", "critic")} for j in jnext]
+        jnext = jm.mutation(jnext)
+        tnext = tm.mutation(tnext)
+        assert _ppo_summary(tnext) == _ppo_summary(jnext)
+        for before, j, t in zip(old, jnext, tnext):
+            kind = ("param" if t.mut == "param" else
+                    "arch" if "." in t.mut or "latent" in t.mut else "same")
+            seen.add(kind)
+            for name in ("actor", "critic"):
+                b, jp, tp = before[name], _flat(getattr(j, name).params), \
+                    _flat(getattr(t, name).params)
+                b = _flat(b)
+                assert jp.keys() == tp.keys()
+                if kind == "param" and name == "actor":
+                    diff = np.concatenate([(tp[p] - b[p]).ravel() for p in b])
+                    frac = np.mean(diff != 0)
+                    assert 0.06 < frac < 0.14, frac
+                    assert 0.07 < diff[diff != 0].std() < 0.13
+                    continue
+                for p in jp:
+                    assert jp[p].shape == tp[p].shape, p
+                    if p in b and b[p].ndim == jp[p].ndim:
+                        sl = tuple(slice(0, min(o, q)) for o, q in zip(b[p].shape, jp[p].shape))
+                        np.testing.assert_array_equal(tp[p][sl], b[p][sl], err_msg=str(p))
+                        np.testing.assert_array_equal(tp[p][sl], jp[p][sl], err_msg=str(p))
+                    else:
+                        assert kind == "arch", p
+            # the optimizer follows the new shapes
+            mu = t.optimizer.opt_state[1].inner_state[0].mu
+            assert mu["actor"]["head"]["output"]["kernel"].shape == \
+                t.actor.params["head"]["output"]["kernel"].shape
+    assert seen == {"param", "arch", "same"}
+
+
+def test_architecture_mutation_rolls_back_on_failure():
+    _, tpop = _ppo_populations(1)
+    agent = tpop[0]
+    before = {n: _flat(getattr(agent, n).params) for n in ("actor", "critic")}
+    opt = agent.optimizer.opt_state
+    cfg = agent.actor.config
+
+    def boom(*a, **k):
+        raise RuntimeError("injected")
+
+    agent.critic.apply_mutation = boom
+    with pytest.warns(RuntimeWarning, match="rolled back"):
+        Mutations(no_mutation=0, architecture=1, parameters=0, activation=0, rl_hp=0,
+                  rand_seed=0).mutation([agent])
+    assert agent.mut == "None" and agent.actor.config == cfg
+    assert agent.optimizer.opt_state is opt
+    for n in ("actor", "critic"):
+        after = _flat(getattr(agent, n).params)
+        assert after.keys() == before[n].keys()
+        for p in after:
+            np.testing.assert_array_equal(after[p], before[n][p])
+
+
+def test_learn_step_mutation_resizes_the_rollout_buffer():
+    """The port's repair of the JAX package's hpo/mutation.py:303-305 branch:
+    a learn_step mutation gives the buffer the new horizon, reallocated at
+    the next collect, in both packages."""
+    from agilerl_tpu_torch.algorithms.core.registry import HyperparameterConfig, RLParameter
+    from agilerl_tpu_torch.envs.classic import CartPole
+    from agilerl_tpu_torch.envs.core import TorchVecEnv
+    from agilerl_tpu_torch.rollouts.on_policy import collect_rollouts
+
+    jpop, tpop = _ppo_populations(1)
+    env = TorchVecEnv(CartPole(), 2, device="cpu")
+    tagent = tpop[0]
+    collect_rollouts(tagent, env)
+    tagent.learn()
+    assert tagent.rollout_buffer.state.data["obs"].shape[:2] == (16, 2)
+    for agent, hp, M in ((jpop[0], JHyperparameterConfig, JMutations),
+                         (tagent, HyperparameterConfig, Mutations)):
+        agent.registry.hp_config = hp(learn_step=(JRLParameter if M is JMutations
+                                                  else RLParameter)(min=8, max=64, dtype=int))
+        M(no_mutation=0, architecture=0, parameters=0, activation=0, rl_hp=1,
+          rand_seed=1).mutation([agent])
+        assert agent.mut == "learn_step" and agent.learn_step != 16
+        assert agent.rollout_buffer.capacity == agent.learn_step
+        assert agent.rollout_buffer.state is None
+    assert tagent.learn_step == jpop[0].learn_step
+    collect_rollouts(tagent, env)
+    assert np.isfinite(tagent.learn())
+    assert tagent.rollout_buffer.state.data["obs"].shape[:2] == (tagent.learn_step, 2)

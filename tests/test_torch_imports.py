@@ -15,6 +15,19 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 
+# the classic RL slice's modules (Queue 1's slice 5a)
+_CLASSIC_IMPORTS = (
+    "import agilerl_tpu_torch.typing, agilerl_tpu_torch.utils.spaces\n"
+    "import agilerl_tpu_torch.modules.base, agilerl_tpu_torch.modules.mlp\n"
+    "import agilerl_tpu_torch.modules.configs, agilerl_tpu_torch.networks.distributions\n"
+    "import agilerl_tpu_torch.networks.base, agilerl_tpu_torch.networks.actors\n"
+    "import agilerl_tpu_torch.networks.value_networks\n"
+    "import agilerl_tpu_torch.components.rollout_buffer, agilerl_tpu_torch.envs.core\n"
+    "import agilerl_tpu_torch.envs.classic, agilerl_tpu_torch.envs.probe\n"
+    "import agilerl_tpu_torch.rollouts.on_policy, agilerl_tpu_torch.algorithms.ppo\n"
+    "import agilerl_tpu_torch.training.train_on_policy\n"
+)
+
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
@@ -48,6 +61,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import agilerl_tpu_torch.observability.timeline, agilerl_tpu_torch.observability.facade\n"
         "import agilerl_tpu_torch.observability.export, agilerl_tpu_torch.observability.slo\n"
         "import agilerl_tpu_torch.utils.log_utils, agilerl_tpu_torch.utils.profiling\n"
+        + _CLASSIC_IMPORTS +
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'agilerl_tpu'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -169,3 +183,56 @@ def test_counters_reset_and_cpu_calls_do_not_count():
     flash_attention_diff(q, q, q)
     fused_token_logprob(torch.randn(3, 4), torch.randn(4, 5), torch.tensor([0, 1, 2]))
     assert set(kernel_counters().values()) == {0}
+
+
+def test_classic_slice_imports_neither_gymnasium_nor_yaml():
+    """The device envs and PPO need neither: gymnasium is imported only by
+    make_vect_envs for an env id outside the port's registry, PyYAML only
+    when a YAML path is loaded."""
+    code = ("import json, sys\n" + _CLASSIC_IMPORTS
+            + "import agilerl_tpu_torch.utils.utils, agilerl_tpu_torch.hpo.mutation\n"
+            "print(json.dumps(sorted(m for m in sys.modules\n"
+            "                        if m.split('.')[0] in ('gymnasium', 'gym', 'yaml', 'jax',\n"
+            "                                               'agilerl_tpu'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_classic_entry_points_default_to_the_card():
+    """PPO, TorchVecEnv, make_vect_envs, create_population("PPO"),
+    EvolvableMLP, the actor and value networks and RolloutBuffer take
+    device=None as the card and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from agilerl_tpu_torch.algorithms.ppo import PPO
+    from agilerl_tpu_torch.components.rollout_buffer import RolloutBuffer
+    from agilerl_tpu_torch.envs.classic import CartPole
+    from agilerl_tpu_torch.envs.core import TorchVecEnv
+    from agilerl_tpu_torch.modules.mlp import EvolvableMLP
+    from agilerl_tpu_torch.networks.actors import StochasticActor
+    from agilerl_tpu_torch.networks.value_networks import ValueNetwork
+    from agilerl_tpu_torch.utils.utils import create_population, make_vect_envs
+
+    env = CartPole()
+    for make in (lambda: PPO(env.observation_space, env.action_space, seed=0),
+                 lambda: TorchVecEnv(env, 2),
+                 lambda: make_vect_envs("CartPole-v1", 2),
+                 lambda: create_population("PPO", env.observation_space, env.action_space,
+                                           population_size=2, seed=0),
+                 lambda: EvolvableMLP(num_inputs=4, num_outputs=2, hidden_size=(8,)),
+                 lambda: StochasticActor(env.observation_space, env.action_space),
+                 lambda: ValueNetwork(env.observation_space),
+                 lambda: RolloutBuffer(capacity=4, num_envs=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    agent = PPO(env.observation_space, env.action_space, seed=0, device="cpu")
+    assert agent.dev == torch.device("cpu")
+    assert {p.device for p in agent.actor.params["head"]["output"].values()} == {agent.dev}
+    assert make_vect_envs("CartPole-v1", 2, device="cpu").device == torch.device("cpu")
+    assert EvolvableMLP(num_inputs=4, num_outputs=2, hidden_size=(8,),
+                        device="cpu").device == torch.device("cpu")
+    assert ValueNetwork(env.observation_space, device="cpu").device == torch.device("cpu")
+    assert RolloutBuffer(capacity=4, num_envs=2, device="cpu").device == torch.device("cpu")
