@@ -96,6 +96,26 @@ def clip_by_global_norm(max_norm: float) -> Transform:
     return Transform(_empty, update)
 
 
+def clip_by_member_global_norm(max_norm: float) -> Transform:
+    """``clip_by_global_norm`` over a population's stacked leaves ``[P, ...]``:
+    one norm per member, over every dimension but the first, as a vmapped
+    ``optax.clip_by_global_norm`` takes it (``clip_by_global_norm`` on the
+    stacked tree would take one norm for the whole population)."""
+
+    def update(updates, state, params=None):
+        leaves = tree_leaves(updates)
+        sq = sum(torch.sum(x.float().square().reshape(x.shape[0], -1), dim=1) for x in leaves)
+        g_norm = torch.sqrt(sq)  # [P]
+
+        def clip(t):
+            n = g_norm.to(t.dtype).view((-1,) + (1,) * (t.dim() - 1))
+            return torch.where(n < max_norm, t, (t / n) * max_norm)
+
+        return tree_map(clip, updates), state
+
+    return Transform(_empty, update)
+
+
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                   eps_root: float = 0.0) -> Transform:
     def init(params):

@@ -4,8 +4,8 @@
 Storage is a dict of ``[T, N, ...]`` tensors on the buffer's device,
 allocated at the first ``add``; the write cursor is a host integer, so no
 step syncs the device. GAE is the JAX reverse scan as a loop over time on
-the device. ``get_sequences`` (recurrent PPO's BPTT chunks) raises until
-slice 5b.
+the device. ``get_sequences`` cuts the buffer into recurrent PPO's BPTT
+chunks, each with the hidden state stored at its first step.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from agilerl_tpu_torch.ops import resolve_device
 from agilerl_tpu_torch.utils.rng import derive_key
 from agilerl_tpu_torch.utils.spaces import as_tensor
-from agilerl_tpu_torch.utils.tree import tree_map
+from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -85,8 +85,16 @@ class RolloutBuffer:
                           device=self.device)
 
     def add(self, **step: PyTree) -> None:
-        """step keys: obs, action, reward, done, value, log_prob (+ action_mask)."""
+        """step keys: obs, action, reward, done, value, log_prob (+ action_mask,
+        + hidden_state when recurrent). An empty buffer whose stored shapes
+        no longer fit the step (a hidden state after an architecture
+        mutation) is allocated anew."""
         step = {k: tree_map(lambda x: as_tensor(x, self.device), v) for k, v in step.items()}
+        if self.state is not None and self.state.t == 0 and any(
+                tuple(b.shape[1:]) != tuple(x.shape)
+                for k, v in step.items() if k in self.state.data
+                for b, x in zip(tree_leaves(self.state.data[k]), tree_leaves(v))):
+            self.state = None
         if self.state is None:
             zeros = torch.zeros((self.capacity, self.num_envs), device=self.device)
             self.state = RolloutState({k: tree_map(self._alloc, v) for k, v in step.items()},
@@ -139,6 +147,26 @@ class RolloutBuffer:
     def get_all_flat(self) -> Dict[str, PyTree]:
         return tree_map(lambda buf: buf.reshape((-1,) + tuple(buf.shape[2:])), self._flat_data())
 
-    def get_sequences(self, seq_len: int, key: Optional[torch.Generator] = None):
-        raise NotImplementedError("recurrent (BPTT) sequences come with the LSTM, "
-                                  "Queue 1's slice 5b")
+    def get_sequences(self, seq_len: int, key: Optional[torch.Generator] = None
+                      ) -> Dict[str, PyTree]:
+        """The buffer as ``[n_chunks * N, seq_len, ...]`` sequences (chunk-major,
+        then env; time-major within a sequence), with ``hidden_state`` leaves
+        ``[L, N, H]`` per step kept only at each sequence's first step, as
+        ``[n_chunks * N, L, H]``. Where ``seq_len`` does not divide the
+        capacity (after a learn_step mutation) the last rows are left out;
+        the JAX package asserts instead."""
+        s = self.state
+        n_chunks = self.capacity // seq_len
+        keep = n_chunks * seq_len
+
+        def chop(buf):  # [T, N, ...] -> [n_chunks * N, seq_len, ...]
+            x = buf[:keep].reshape((n_chunks, seq_len) + tuple(buf.shape[1:]))
+            return x.transpose(1, 2).reshape((n_chunks * self.num_envs, seq_len)
+                                             + tuple(buf.shape[2:]))
+
+        def chop_hidden(buf):  # [T, L, N, H] -> [n_chunks * N, L, H]
+            x = buf[:keep:seq_len].transpose(1, 2)
+            return x.reshape((n_chunks * self.num_envs,) + tuple(x.shape[2:]))
+
+        return {k: tree_map(chop_hidden if k == "hidden_state" else chop, v)
+                for k, v in self._flat_data().items()}

@@ -58,17 +58,18 @@ def _select(done: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 
 def make_autoreset_step(env: TorchEnv) -> Callable:
     """The vector step with per-env autoreset. Every call also draws one
-    reset per env (used where done), as the JAX step does."""
+    reset per env (used where done), as the JAX step does; a caller that
+    drew its resets beforehand passes them as ``reset=(state, obs)``."""
     max_steps = env.max_episode_steps or 10 ** 9
 
-    def vec_step(vstate: VecState, actions: torch.Tensor):
+    def vec_step(vstate: VecState, actions: torch.Tensor, reset=None):
         n = vstate.step_count.shape[0]
         new_state, obs, reward, terminated, truncated = env.step_fn(
             vstate.env_state, actions, vstate.gen)
         step_count = vstate.step_count + 1
         truncated = torch.logical_or(truncated, step_count >= max_steps)
         done = torch.logical_or(terminated, truncated)
-        reset_state, reset_obs = env.reset_fn(n, vstate.gen)
+        reset_state, reset_obs = reset if reset is not None else env.reset_fn(n, vstate.gen)
         out_state = tree_map(lambda r, s: _select(done, r, s), reset_state, new_state)
         out_obs = tree_map(lambda r, o: _select(done, r, o), reset_obs, obs)
         out_count = torch.where(done, torch.zeros_like(step_count), step_count)

@@ -2,9 +2,9 @@
 single-agent on-policy half of ``agilerl_tpu/envs/probe.py`` (the five probe
 families over vector / image / Dict observations and discrete / continuous
 actions, with their ground-truth tables, and
-``check_policy_on_policy_with_probe_env``). Batched over ``[N]`` tensors.
-The Q-learning probes and checks come with DQN, ``MemoryEnv`` with the
-LSTM (Queue 1's slices 5c and 5b)."""
+``check_policy_on_policy_with_probe_env``) and ``MemoryEnv``, the POMDP
+probe of recurrent PPO. Batched over ``[N]`` tensors. The Q-learning
+probes and checks come with DQN (Queue 1's slice 5c)."""
 
 from __future__ import annotations
 
@@ -308,6 +308,38 @@ PolicyContActionsEnv = _variant(_Policy, "PolicyContActionsEnv", "vector", True)
 PolicyContActionsImageEnv = _variant(_Policy, "PolicyContActionsImageEnv", "image", True)
 PolicyContActionsImageEnvSimple = _variant(_Policy, "PolicyContActionsImageEnvSimple", "image", True)
 PolicyContActionsDictEnv = _variant(_Policy, "PolicyContActionsDictEnv", "dict", True)
+
+
+class _ScalarState(NamedTuple):
+    obs: torch.Tensor  # [N, 2]: [cue, is_first_step]
+    t: torch.Tensor  # [N] int32
+
+
+class MemoryEnv(TorchEnv):
+    """POMDP probe: a cue bit is shown only at t = 0, and at t = 2 the agent
+    must act equal to it (+1, else -1). Solvable only with memory: it
+    separates recurrent PPO from flat PPO."""
+
+    max_episode_steps = 3
+
+    def __init__(self):
+        self.observation_space = Box(0.0, 1.0, (2,), np.float32)
+        self.action_space = Discrete(2)
+
+    def reset_fn(self, n, gen):
+        cue = _bernoulli(n, gen).float()
+        obs = torch.stack([cue, torch.ones_like(cue)], dim=-1)
+        return _ScalarState(obs, torch.zeros(n, dtype=torch.int32, device=cue.device)), obs
+
+    def step_fn(self, state, action, gen):
+        t = state.t + 1
+        cue = state.obs[:, 0]
+        done = t >= 3
+        hit = action.to(torch.int32) == cue.to(torch.int32)
+        reward = torch.where(done, torch.where(hit, 1.0, -1.0), 0.0)
+        blank = torch.zeros_like(state.obs)
+        new = _ScalarState(torch.stack([cue, torch.zeros_like(cue)], dim=-1), t)
+        return new, blank, reward, done, torch.zeros_like(done)
 
 
 # --------------------------------------------------------------------------- #

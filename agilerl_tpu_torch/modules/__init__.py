@@ -1,3 +1,3 @@
-"""Functional layers (``layers``) and the evolvable modules of the classic
-RL stack (``base``, ``mlp``, ``configs``); the CNN, LSTM, multi-input, SimBa
-and ResNet modules come with slice 5b."""
+"""Functional layers (``layers``, ``custom_components``) and the evolvable
+modules of the classic RL stack: ``base``, ``mlp``, ``cnn``, ``resnet``,
+``simba``, ``lstm``, ``multi_input``, ``dummy`` and the net ``configs``."""

@@ -4,9 +4,9 @@ A network is (frozen ``NetworkConfig``, params ``{"encoder", "head"}``),
 encoder -> latent -> head, with the JAX package's flat mutation namespace
 ("add_latent_node", "encoder.add_layer", "head.add_node", ...), so the HPO
 engine samples a method on the policy and replays the same name on the
-other networks. Only the MLP encoder is ported: the CNN, LSTM,
-multi-input, SimBa and ResNet encoders raise ``NotImplementedError`` until
-slice 5b.
+other networks. The encoder follows the observation space: a multi-input
+encoder for Dict / Tuple spaces, a CNN (or, with ``resnet``, a ResNet) for
+images, else an LSTM with ``recurrent``, a SimBa with ``simba`` or an MLP.
 
 ``params_from_numpy`` carries a JAX network's parameters (numpy trees) into
 the port, checked path by path and shape by shape against the config's own
@@ -29,19 +29,29 @@ from agilerl_tpu_torch.modules.base import (
     preserve_params,
     split_key,
 )
+from agilerl_tpu_torch.modules.cnn import CNNConfig, EvolvableCNN
+from agilerl_tpu_torch.modules.lstm import EvolvableLSTM, LSTMConfig
 from agilerl_tpu_torch.modules.mlp import EvolvableMLP, MLPConfig
+from agilerl_tpu_torch.modules.multi_input import (
+    EvolvableMultiInput,
+    MultiInputConfig,
+    _build_sub_configs,
+)
+from agilerl_tpu_torch.modules.resnet import EvolvableResNet, ResNetConfig
+from agilerl_tpu_torch.modules.simba import EvolvableSimBa, SimBaConfig
 from agilerl_tpu_torch.ops import resolve_device
 from agilerl_tpu_torch.utils.rng import derive_key, derive_rng
-from agilerl_tpu_torch.utils.spaces import is_image_space, obs_dim, space_kind
+from agilerl_tpu_torch.utils.spaces import image_shape_nhwc, is_image_space, obs_dim, space_kind
 from agilerl_tpu_torch.utils.tree import tree_copy
 
-ENCODER_TYPES = {"mlp": EvolvableMLP}
-
-_NOT_PORTED = "the {} encoder is not ported yet (Queue 1's slice 5b)"
-
-
-def _unported(kind: str):
-    raise NotImplementedError(_NOT_PORTED.format(kind))
+ENCODER_TYPES = {
+    "mlp": EvolvableMLP,
+    "cnn": EvolvableCNN,
+    "multi_input": EvolvableMultiInput,
+    "lstm": EvolvableLSTM,
+    "simba": EvolvableSimBa,
+    "resnet": EvolvableResNet,
+}
 
 
 def default_encoder_config(
@@ -52,18 +62,34 @@ def default_encoder_config(
     resnet: bool = False,
     encoder_config: Optional[dict] = None,
 ) -> Tuple[str, Any]:
-    """Encoder kind + config for the observation space: an MLP for vector
-    spaces; the other families raise until slice 5b."""
+    """Encoder kind + config for the observation space."""
     encoder_config = dict(encoder_config or {})
     if space_kind(observation_space) in ("dict", "tuple"):
-        _unported("multi-input")
+        return "multi_input", MultiInputConfig(
+            sub_configs=_build_sub_configs(observation_space), num_outputs=latent_dim,
+            **encoder_config)
+    if resnet and is_image_space(observation_space):
+        return "resnet", ResNetConfig(input_shape=image_shape_nhwc(observation_space),
+                                      num_outputs=latent_dim, **encoder_config)
     if is_image_space(observation_space):
-        _unported("ResNet" if resnet else "CNN")
+        # defaults scaled to the image: the Atari-style (8, 4) / (4, 2) stack
+        # collapses anything under ~36 px to zero spatial dims
+        h, w, _ = image_shape_nhwc(observation_space)
+        if min(h, w) >= 36:
+            defaults = ((32, 32), (8, 4), (4, 2))
+        elif min(h, w) >= 8:
+            defaults = ((32, 32), (3, 3), (2, 2))
+        else:
+            defaults = ((16,), (min(2, h, w),), (1,))
+        for k, v in zip(("channel_size", "kernel_size", "stride_size"), defaults):
+            encoder_config.setdefault(k, v)
+        return "cnn", CNNConfig(input_shape=image_shape_nhwc(observation_space),
+                                num_outputs=latent_dim, **encoder_config)
     dim = obs_dim(observation_space)
     if recurrent:
-        _unported("LSTM")
+        return "lstm", LSTMConfig(num_inputs=dim, num_outputs=latent_dim, **encoder_config)
     if simba:
-        _unported("SimBa")
+        return "simba", SimBaConfig(num_inputs=dim, num_outputs=latent_dim, **encoder_config)
     encoder_config.setdefault("hidden_size", (64,))
     encoder_config.setdefault("output_vanish", False)
     return "mlp", MLPConfig(num_inputs=dim, num_outputs=latent_dim, **encoder_config)
@@ -97,8 +123,6 @@ class NetworkConfig:
 
 
 def _encoder_cls(kind: str):
-    if kind not in ENCODER_TYPES:
-        _unported(kind)
     return ENCODER_TYPES[kind]
 
 

@@ -77,26 +77,41 @@ def _md_slices(config: DistConfig):
     return out
 
 
-def _gumbel_argmax(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    u = torch.rand(logits.shape, generator=gen, device=logits.device, dtype=logits.dtype)
+def _gumbel_argmax(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def draw_noise(config: DistConfig, shape, gen: torch.Generator,
+               dtype=torch.float32) -> torch.Tensor:
+    """The draws one ``sample`` of head outputs of ``shape`` consumes: uniform
+    for the discrete families (Gumbel-max, Bernoulli), standard normal for
+    the normal."""
+    if config.kind == "normal":
+        return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+    return torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
+
+
+def sample_from_noise(config: DistConfig, logits: torch.Tensor, noise: torch.Tensor,
+                      dist_extra: Optional[dict] = None,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sample`` on draws made beforehand (``draw_noise``): a pure function,
+    so it runs under ``torch.func.vmap``."""
+    logits = apply_mask(config, logits, mask)
+    if config.kind == "categorical":
+        return _gumbel_argmax(logits, noise)
+    if config.kind == "multidiscrete":
+        return torch.stack([_gumbel_argmax(logits[..., s:s + n], noise[..., s:s + n])
+                            for s, n in _md_slices(config)], dim=-1)
+    if config.kind == "bernoulli":
+        return (noise < torch.sigmoid(logits)).to(torch.int32)
+    action = logits + torch.exp(dist_extra["log_std"]) * noise
+    return torch.tanh(action) if config.squash else action
 
 
 def sample(config: DistConfig, logits: torch.Tensor, gen: torch.Generator,
            dist_extra: Optional[dict] = None, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    logits = apply_mask(config, logits, mask)
-    if config.kind == "categorical":
-        return _gumbel_argmax(logits, gen)
-    if config.kind == "multidiscrete":
-        return torch.stack([_gumbel_argmax(logits[..., s:s + n], gen)
-                            for s, n in _md_slices(config)], dim=-1)
-    if config.kind == "bernoulli":
-        u = torch.rand(logits.shape, generator=gen, device=logits.device, dtype=logits.dtype)
-        return (u < torch.sigmoid(logits)).to(torch.int32)
-    std = torch.exp(dist_extra["log_std"])
-    eps = torch.randn(logits.shape, generator=gen, device=logits.device, dtype=logits.dtype)
-    action = logits + std * eps
-    return torch.tanh(action) if config.squash else action
+    return sample_from_noise(config, logits, draw_noise(config, logits.shape, gen, logits.dtype),
+                             dist_extra, mask)
 
 
 def mode(config: DistConfig, logits: torch.Tensor,

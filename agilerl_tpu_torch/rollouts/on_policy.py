@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from agilerl_tpu_torch.utils.spaces import as_tensor
+from agilerl_tpu_torch.utils.tree import tree_map
 
 
 def env_action(env, action: torch.Tensor):
@@ -42,6 +43,8 @@ def collect_rollouts(agent, env, n_steps: Optional[int] = None) -> float:
         agent._last_obs = obs
         agent._last_info = info
         agent._last_done = torch.zeros(agent.num_envs, device=dev)
+        if agent.recurrent:
+            agent._hidden = agent.get_initial_hidden_state()
     obs = agent._last_obs
     info = getattr(agent, "_last_info", None)
 
@@ -57,6 +60,7 @@ def collect_rollouts(agent, env, n_steps: Optional[int] = None) -> float:
     total_reward = torch.zeros((), device=dev)
     done = agent._last_done
     for _ in range(n_steps):
+        hidden_before = agent._hidden_for(agent.num_envs) if agent.recurrent else None
         action_mask = (info.get("action_mask")
                        if agent._masked_env and isinstance(info, dict) else None)
         action, logp, value, _ = agent.get_action_and_value(obs, action_mask=action_mask)
@@ -79,6 +83,10 @@ def collect_rollouts(agent, env, n_steps: Optional[int] = None) -> float:
             step["action_mask"] = (
                 as_tensor(action_mask, dev).float() if action_mask is not None
                 else torch.ones((agent.num_envs,) + agent._mask_shape, device=dev))
+        if agent.recurrent:
+            step["hidden_state"] = hidden_before
+            keep = (1.0 - done)[None, :, None]
+            agent._hidden = tree_map(lambda h: h * keep, agent._hidden)
         buf.add(**step)
         total_reward = total_reward + reward.mean()
         obs = next_obs

@@ -98,6 +98,21 @@ of which ends the run with a non-zero exit on any failure:
    learn_step; the host syncs of one collect_rollouts and one learn; both
    PPO probe checks; the env step, logp and value, GAE and one learn on the
    card against the CPU;
+4i. slice 5e's head, the population as one program at bench.py's width
+   (``EvoPPO`` through ``ScanRun``: CartPole-v1, population 64 x 128 envs x
+   64 steps, latent 64, hidden [64], 1 epoch x 4 minibatches; 1 warm-up + 5
+   timed generations): env-steps/s, the seconds of rollout, GAE + update
+   and evolve, host syncs per generation (<= 1), peak memory, launches and
+   the device's busy time of a profiled generation; a member alone against
+   its slice of the batched iteration and one update on the card against
+   the CPU; the JAX package's learning gate on seeds 0, 1, 2, each in a
+   process of its own (``chip_smoke.py --population-gate SEED``), at least
+   two passing;
+4j. slice 5b: ``train_on_policy`` on configs/training/ppo/ppo_image.yaml
+   (CNN on VisualCartPole-v0) and ppo_recurrent.yaml (LSTM, recurrent PPO)
+   at their widths, evo_steps cut to 2,048 and max_steps to 4,096 (2
+   generations); the recurrent memory gate on ``MemoryEnv``; each new
+   encoder's apply on the card against the CPU;
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -2569,6 +2584,428 @@ def run_on_policy(torch, ops, report):
     return launches
 
 
+# ------------------------------- phase 4i ---------------------------------- #
+# bench.py's bench_evoppo at its TPU defaults (BASELINE.md's workload):
+# CartPole-v1, population 64 x 128 envs x 64 rollout steps, actor and critic
+# with an MLP encoder (latent 64, hidden [64]) and an MLP head (hidden [64]),
+# adam(3e-4), 1 epoch of 4 minibatches; one warm-up generation, then 5 timed.
+POP = dict(pop=64, num_envs=128, rollout_len=64, latent=64, hidden=64, update_epochs=1,
+           num_minibatches=4, lr=3e-4, warmup=1, timed=5)
+# tests/test_parallel/test_population.py:100-122, the JAX package's learning
+# gate: pop 4, 16 envs, rollout 32, latent 32, hidden 64, 2 epochs, 4
+# minibatches, 180 generations; early (first 10) best < 150, late (last 30)
+# best > 250 and > 4 x early, mid (55..85) best > 1.5 x early. Seeds fixed
+# before the first run; at least two of three must pass.
+POP_GATE = dict(pop=4, num_envs=16, rollout_len=32, latent=32, hidden=64, update_epochs=2,
+                num_minibatches=4, lr=3e-4, generations=180)
+POP_GATE_SEEDS = (0, 1, 2)
+# a member alone against its slice of the batched iteration, on the same
+# draws (atol 1e-5); one _ppo_update card vs CPU on the same state and rows.
+# Weights wherever the member's Adam first moment is >= 1e-6: below it,
+# Adam's normalised step turns summation order (bmm against mm, card
+# against CPU) into steps of up to lr, so those entries are held through
+# their moments alone (phase 4h's rule)
+POP_MEMBER_ATOL = 1e-5
+POP_WEIGHT_ATOL = 5e-6
+POP_MOMENT_RTOL = 1e-5
+
+
+def evo_ppo(torch, cfg, device=None):
+    from agilerl_tpu_torch.algorithms.core.optimizer import adam
+    from agilerl_tpu_torch.envs.classic import CartPole
+    from agilerl_tpu_torch.modules.mlp import MLPConfig
+    from agilerl_tpu_torch.networks import distributions as D
+    from agilerl_tpu_torch.networks.base import NetworkConfig, default_encoder_config
+    from agilerl_tpu_torch.parallel import EvoPPO
+
+    env = CartPole()
+    latent, hidden = cfg["latent"], cfg["hidden"]
+    kind, enc = default_encoder_config(env.observation_space, latent_dim=latent,
+                                       encoder_config={"hidden_size": (hidden,)})
+    nets = [NetworkConfig(encoder_kind=kind, encoder=enc, latent_dim=latent,
+                          head=MLPConfig(num_inputs=latent, num_outputs=n, hidden_size=(hidden,)))
+            for n in (2, 1)]
+    return EvoPPO(env, *nets, D.dist_config_from_space(env.action_space), adam(cfg["lr"]),
+                  num_envs=cfg["num_envs"], rollout_len=cfg["rollout_len"],
+                  update_epochs=cfg["update_epochs"], num_minibatches=cfg["num_minibatches"],
+                  device=device)
+
+
+def population_gate_child(seed: int) -> None:
+    """One learning-gate run on the card, in its own process (the parent runs
+    the three seeds side by side): prints {"seed", "best", "s"}."""
+    import torch
+
+    from agilerl_tpu_torch.parallel import ScanRun
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    torch.set_num_threads(1)  # three of these share the host's cores
+    run = ScanRun(evo_ppo(torch, POP_GATE), POP_GATE["pop"], seed=seed)
+    t0 = time.perf_counter()
+    best = [float(f.max()) for f in run.run(POP_GATE["generations"])]
+    print(json.dumps({"seed": seed, "best": best, "s": time.perf_counter() - t0}), flush=True)
+
+
+def gate_verdict(best):
+    early, mid, late = (float(sum(x) / len(x)) for x in (best[:10], best[55:85], best[-30:]))
+    ok = early < 150 and late > 250 and late > 4 * early and mid > 1.5 * early
+    return dict(early=early, mid=mid, late=late, passed=ok)
+
+
+def parts_of_a_generation(torch, evo, pop, gen):
+    """One generation with each part ended on a synchronize: (pop, fitness,
+    {"rollout_s", "gae_update_s", "evolve_s"})."""
+    t = [time.perf_counter()]
+    draws = evo.draw_iteration(pop.ep_ret.shape[0], gen)
+    traj, env_state, count, obs, ep_ret, fitness = evo._rollout(pop, draws, gen)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    adv, ret = evo._gae(traj, evo._value_v(pop.critic, obs))
+    actor, critic, opt, _ = evo._ppo_update(pop.actor, pop.critic, pop.opt_state, traj, adv,
+                                            ret, draws["perm"])
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    pop = pop._replace(actor=actor, critic=critic, opt_state=opt, env_state=env_state,
+                       step_count=count, obs=obs, ep_ret=ep_ret)
+    pop = evo.evolve(pop, fitness, gen)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    return pop, fitness, dict(rollout_s=t[1] - t[0], gae_update_s=t[2] - t[1],
+                              evolve_s=t[3] - t[2])
+
+
+def profile_generation(torch, fn):
+    """Kernel launches and device-busy ms of one call of ``fn`` under
+    torch.profiler, with its wall ms; None where the trace shows no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.device_time_total for e in kernels)
+    if not kernels or busy_us <= 0:
+        return dict(launches=None, device_busy_ms=None, wall_ms=1e3 * wall)
+    return dict(launches=len(kernels), device_busy_ms=busy_us / 1e3, wall_ms=1e3 * wall,
+                idle_share=1.0 - busy_us / 1e3 / (1e3 * wall))
+
+
+def slice_member(torch, tree, p):
+    from agilerl_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x[p:p + 1] if isinstance(x, torch.Tensor) else x, tree)
+
+
+def weights_rule(torch, got, want, mu):
+    """Max |got - want| over entries whose |mu| >= 1e-6 (or mu == 0), and
+    the share of entries exempted."""
+    from agilerl_tpu_torch.utils.tree import tree_leaves
+
+    worst, exempt, total = 0.0, 0, 0
+    for g, w, m in zip(tree_leaves(got), tree_leaves(want), tree_leaves(mu)):
+        g, w, m = g.float().cpu(), w.float().cpu(), m.float().cpu()
+        ok = (m.abs() >= 1e-6) | (m == 0)
+        if ok.any():
+            worst = max(worst, float((g - w).abs()[ok].max()))
+        exempt += int((~ok).sum())
+        total += m.numel()
+    return worst, exempt / max(total, 1)
+
+
+def run_population(torch, ops, report):
+    """Phase 4i: the evolutionary population as one program (EvoPPO through
+    ScanRun) at bench.py's pop-64 width: env-steps/s of 5 timed
+    generations, the seconds of each part, host syncs, peak memory, launches
+    and the device's busy share of one generation; a member's slice against
+    the member alone; one update card vs CPU; the JAX package's learning
+    gate on seeds 0, 1, 2 in three processes side by side."""
+    from agilerl_tpu_torch.parallel import ScanRun
+    from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    out = {"config": POP}
+    P, N, T = POP["pop"], POP["num_envs"], POP["rollout_len"]
+    log(f"phase 4i: EvoPPO population as one program on CartPole-v1: population {P} x {N} "
+        f"envs x {T} steps, latent {POP['latent']}, hidden [{POP['hidden']}], "
+        f"{POP['update_epochs']} epoch x {POP['num_minibatches']} minibatches")
+    evo = evo_ppo(torch, POP)
+    check(evo.device.type == "cuda", f"EvoPPO put its population on {evo.device}")
+    run = ScanRun(evo, P, seed=0)
+    check({x.device.type for x in tree_leaves(run.pop) if isinstance(x, torch.Tensor)}
+          == {"cuda"}, "ScanRun's population left the card")
+    ops.reset_kernel_counters()
+    (first,), warm_s = host_s(torch, lambda: run.run(POP["warmup"]))
+    torch.cuda.reset_peak_memory_stats()
+    hist, timed_s = host_s(torch, lambda: run.run(POP["timed"]))
+    launches = ops.kernel_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = P * N * T * POP["timed"]
+    check(hist.shape == (POP["timed"], P) and bool((hist == hist).all()),
+          f"fitness history {hist.shape}")
+    out.update(warmup_s=warm_s, timed_s=timed_s, env_steps=steps,
+               env_steps_per_s=steps / timed_s, s_per_generation=timed_s / POP["timed"],
+               peak_gb=peak_gb, launches=launches, first_best=float(first.max()),
+               first_mean=float(first.mean()), final_best=float(hist[-1].max()),
+               final_mean=float(hist[-1].mean()), smi=nvidia_smi_line(),
+               clocks=nvidia_smi_clocks())
+    log(f"  {steps} env steps in {timed_s:.3f} s: {steps / timed_s:.0f} env-steps/s, "
+        f"{1e3 * timed_s / POP['timed']:.1f} ms per generation (warm-up {warm_s:.2f} s); "
+        f"peak {peak_gb:.3f} GB; fitness best/mean {first.max():.1f}/{first.mean():.1f} -> "
+        f"{hist[-1].max():.1f}/{hist[-1].mean():.1f}; {out['smi']}")
+    # a site that count_syncs also reports around a call that does nothing is
+    # the instrument's own (torch/cuda's set_sync_debug_mode), not the run's
+    _, _, base_sites = count_syncs(torch, lambda: None)
+    _, _, sites = count_syncs(torch, lambda: run.run(1))
+    syncs = sum(n for site, n in sites.items() if site not in base_sites)
+    out.update(syncs_per_generation=syncs, sync_sites=sites, instrument_sites=base_sites)
+    check(syncs <= 1, f"{syncs} host syncs in one generation {sites} (the instrument alone: "
+          f"{base_sites})")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    parts = []
+    pop = run.pop
+    for _ in range(3):
+        pop, _, p = parts_of_a_generation(torch, evo, pop, gen)
+        parts.append(p)
+    out["parts"] = parts
+    prof = profile_generation(torch, lambda: run.run(1))
+    out["profile"] = prof
+    log(f"  host syncs per generation: {syncs} {sites} (the instrument alone: {base_sites}); "
+        f"parts (s) "
+        f"{[{k: round(v, 4) for k, v in p.items()} for p in parts]}; one generation under "
+        f"torch.profiler: {prof}")
+
+    # a member's slice of the batched iteration against the member alone
+    pop = run.pop
+    draws = evo.draw_iteration(P, gen)
+    batched, fit = evo.member_iteration(pop, draws)
+    member = {}
+    for p in (0, min(37, P - 1)):
+        alone_draws = {"action": draws["action"][:, p:p + 1], "perm": draws["perm"][:, p:p + 1],
+                       "reset": tree_map(lambda x, _p=p: x[:, _p:_p + 1], draws["reset"])}
+        alone, fit1 = evo.member_iteration(slice_member(torch, pop, p), alone_draws)
+        mine = slice_member(torch, batched, p)
+        state_err = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(tree_leaves((alone.obs, alone.ep_ret, alone.env_state)),
+                                        tree_leaves((mine.obs, mine.ep_ret, mine.env_state))))
+        w_err, exempt = weights_rule(torch, (alone.actor, alone.critic),
+                                     (mine.actor, mine.critic), alone.opt_state[0].mu)
+        fit_err = float((fit1[0] - fit[p]).abs())
+        member[p] = dict(fitness_err=fit_err, state_err=state_err, weight_err=w_err,
+                         exempt_share=exempt)
+        check(fit_err <= POP_MEMBER_ATOL * max(1.0, float(fit[p].abs())) and
+              state_err <= POP_MEMBER_ATOL and w_err <= POP_MEMBER_ATOL and exempt < 0.15,
+              f"member {p} alone vs its slice of the batched iteration: {member[p]}")
+    out["member_vs_batched"] = member
+
+    # one _ppo_update, card vs CPU, on the same 4 members, trajectory and rows
+    evo_cpu = evo_ppo(torch, POP, device="cpu")
+    sub = tree_map(lambda x: x[:4] if isinstance(x, torch.Tensor) else x, pop)
+    sub_draws = {"action": draws["action"][:, :4], "perm": draws["perm"][:, :4],
+                 "reset": tree_map(lambda x: x[:, :4], draws["reset"])}
+    traj, _, _, obs, _, _ = evo._rollout(sub, sub_draws)
+    adv, ret = evo._gae(traj, evo._value_v(sub.critic, obs))
+    cpu = lambda t: tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, t)  # noqa
+    args = (sub.actor, sub.critic, sub.opt_state, traj, adv, ret, sub_draws["perm"])
+    ca, cc, copt, closs = evo._ppo_update(*args)
+    ha, hc, hopt, hloss = evo_cpu._ppo_update(*cpu(args))
+    loss_err = float((closs.cpu() - hloss).abs().max() / hloss.abs().max())
+    mu_err = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                 for a, b in zip(tree_leaves(copt[0].mu), tree_leaves(hopt[0].mu)))
+    w_err, exempt = weights_rule(torch, (ca, cc), (ha, hc), hopt[0].mu)
+    out["card_vs_cpu"] = dict(loss_rel_err=loss_err, mu_rel_err=mu_err, weight_err=w_err,
+                              exempt_share=exempt)
+    log(f"  member alone vs batched {member}; card vs CPU update {out['card_vs_cpu']}")
+    check(loss_err <= POP_MOMENT_RTOL and mu_err <= POP_MOMENT_RTOL and
+          w_err <= POP_WEIGHT_ATOL and exempt < 0.15, f"update card vs CPU: {out['card_vs_cpu']}")
+
+    # the learning gate, three seeds in three processes side by side
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--population-gate", str(s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for s in POP_GATE_SEEDS]
+    gates = {}
+    try:
+        for s, proc in zip(POP_GATE_SEEDS, procs):
+            stdout, stderr = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"gate seed {s} exited {proc.returncode}: {stderr[-2000:]}")
+            res = json.loads(stdout.strip().splitlines()[-1])
+            gates[s] = dict(gate_verdict(res["best"]), s=res["s"],
+                            best_every_10=res["best"][::10])
+            log(f"  learning gate seed {s}: {gates[s]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out.update(gates=gates, gates_s=time.perf_counter() - t0)
+    passed = sum(g["passed"] for g in gates.values())
+    check(passed >= 2, f"the learning gate passed on {passed} of seeds {POP_GATE_SEEDS}")
+    report["population"] = out
+    return launches
+
+
+# ------------------------------- phase 4j ---------------------------------- #
+# configs/training/ppo/ppo_image.yaml (CNN on VisualCartPole-v0) and
+# configs/training/ppo/ppo_recurrent.yaml (LSTM; its RECURRENT: true is
+# passed as PPO's recurrent=True) at their widths, each through
+# train_on_policy. Cuts, for time: EVO_STEPS 10,000 -> 2,048 and MAX_STEPS
+# 200,000 -> 4,096 (2 generations of 2 collect + learn pairs per agent).
+PPO_5B_COMMON = {"POP_SIZE": 4, "BATCH_SIZE": 128, "GAMMA": 0.99, "GAE_LAMBDA": 0.95,
+                 "LEARN_STEP": 128, "VF_COEF": 0.5, "MAX_GRAD_NORM": 0.5, "UPDATE_EPOCHS": 4,
+                 "NUM_ENVS": 8, "ENT_COEF": 0.01}
+PPO_5B = {
+    "image": dict(env="VisualCartPole-v0", hp={**PPO_5B_COMMON, "LR": 0.00025, "CLIP_COEF": 0.1},
+                  net={"latent_dim": 128, "encoder_config": {
+                      "channel_size": (16, 32), "kernel_size": (4, 3), "stride_size": (2, 2)}},
+                  kind="cnn", recurrent=False),
+    "recurrent": dict(env="CartPole-v1", hp={**PPO_5B_COMMON, "LR": 0.0003, "CLIP_COEF": 0.2},
+                      net={"latent_dim": 64, "recurrent": True,
+                           "encoder_config": {"hidden_size": 64}},
+                      kind="lstm", recurrent=True),
+}
+PPO_5B_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activation=0.0,
+                       rl_hp=0.2, mutation_sd=0.1)
+PPO_5B_EVO_STEPS = 2_048  # cut from 10,000
+PPO_5B_MAX_STEPS = 4_096  # cut from 200,000
+# tests/test_algorithms/test_recurrent_memory.py:15-43
+MEMORY_GATE = dict(num_envs=8, learn_step=24, seq_len=3, batch_size=96, update_epochs=4,
+                   lr=5e-3, gamma=0.9, ent_coef=0.02, recurrent=True, seed=1,
+                   net_config={"latent_dim": 16,
+                               "encoder_config": {"hidden_size": 32, "num_layers": 1}})
+MEMORY_ITERS = 60
+ENCODER_ATOL = 1e-5  # f32 with TF32 off: summation order
+
+
+def encoders_card_vs_cpu(torch, out):
+    """Each new encoder's apply on the card against the CPU, on the same
+    (carried) weights and inputs."""
+    import numpy as np
+
+    from agilerl_tpu_torch.modules.cnn import EvolvableCNN
+    from agilerl_tpu_torch.modules.lstm import EvolvableLSTM
+    from agilerl_tpu_torch.modules.multi_input import EvolvableMultiInput
+    from agilerl_tpu_torch.modules.resnet import EvolvableResNet
+    from agilerl_tpu_torch.modules.simba import EvolvableSimBa
+    from agilerl_tpu_torch.utils.spaces import Box, Dict, Discrete
+    from agilerl_tpu_torch.utils.tree import tree_map
+
+    rng = np.random.default_rng(4)
+    img = rng.uniform(0, 1, (32, 24, 24, 1)).astype(np.float32)
+    vec = rng.normal(size=(32, 6)).astype(np.float32)
+    space = Dict({"img": Box(0.0, 1.0, (24, 24, 1)), "vec": Box(-1.0, 1.0, (6,)),
+                  "d": Discrete(3)})
+    cases = {
+        "cnn": (lambda d: EvolvableCNN(input_shape=(24, 24, 1), num_outputs=128,
+                                       channel_size=(16, 32), kernel_size=(4, 3),
+                                       stride_size=(2, 2), device=d), img),
+        "resnet": (lambda d: EvolvableResNet(input_shape=(24, 24, 1), num_outputs=64,
+                                             device=d), img),
+        "simba": (lambda d: EvolvableSimBa(num_inputs=6, num_outputs=64, device=d), vec),
+        "lstm": (lambda d: EvolvableLSTM(num_inputs=6, num_outputs=64, num_layers=2, device=d),
+                 rng.normal(size=(16, 32, 6)).astype(np.float32)),
+        "multi_input": (lambda d: EvolvableMultiInput(space, num_outputs=64, device=d),
+                        {"img": img, "vec": vec,
+                         "d": np.eye(3, dtype=np.float32)[rng.integers(0, 3, 32)]}),
+    }
+    errs = {}
+    for name, (make, x) in cases.items():
+        m_cpu = make("cpu")
+        m_card = make("cuda")
+        m_card.params = tree_map(lambda t: t.cuda(), m_cpu.params)
+        xs = tree_map(lambda a: torch.from_numpy(a), x)
+        got = type(m_card).apply(m_card.config, m_card.params, tree_map(lambda t: t.cuda(), xs))
+        want = type(m_cpu).apply(m_cpu.config, m_cpu.params, xs)
+        errs[name] = float((got.cpu() - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and errs[name] <= ENCODER_ATOL,
+              f"{name} encoder on the card vs CPU: {errs[name]}")
+    out["encoders_card_vs_cpu"] = errs
+    log(f"  encoders, card vs CPU (max abs err): {errs}")
+
+
+def run_encoders_and_recurrent(torch, ops, report):
+    """Phase 4j: Queue 1's slice 5b on the card: train_on_policy on the image
+    (CNN) and recurrent (LSTM) configs for 2 generations each, the
+    recurrent memory gate on MemoryEnv, and each new encoder's apply card
+    vs CPU."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.ppo import PPO
+    from agilerl_tpu_torch.envs.core import TorchVecEnv
+    from agilerl_tpu_torch.envs.probe import MemoryEnv
+    from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
+    from agilerl_tpu_torch.observability.events import MemorySink
+    from agilerl_tpu_torch.observability.facade import RunTelemetry
+    from agilerl_tpu_torch.observability.registry import MetricsRegistry
+    from agilerl_tpu_torch.rollouts.on_policy import collect_rollouts
+    from agilerl_tpu_torch.training.train_on_policy import train_on_policy
+    from agilerl_tpu_torch.utils.utils import create_population, make_vect_envs
+
+    out = {}
+    launches = {k: 0 for k in ops.kernel_counters()}
+    for name, c in PPO_5B.items():
+        log(f"phase 4j: train_on_policy, {name} config ({c['kind']}) on {c['env']}: "
+            f"{c['hp']['NUM_ENVS']} envs, population {c['hp']['POP_SIZE']}, evo_steps "
+            f"{PPO_5B_EVO_STEPS}, max_steps {PPO_5B_MAX_STEPS} (cut from 10,000 / 200,000)")
+        np.random.seed(0)
+        env = make_vect_envs(c["env"], c["hp"]["NUM_ENVS"])
+        pop = create_population("PPO", env.single_observation_space, env.single_action_space,
+                                c["net"], c["hp"], num_envs=c["hp"]["NUM_ENVS"], seed=0,
+                                recurrent=c["recurrent"])
+        check(all(a.actor.config.encoder_kind == c["kind"] and a.recurrent == c["recurrent"]
+                  and a.dev.type == "cuda" for a in pop), f"{name}: population {pop[0].actor.config}")
+        sink = MemorySink()
+        telem = RunTelemetry(registry=MetricsRegistry(sink=sink), lineage=False)
+        ops.reset_kernel_counters()
+        (pop, fitnesses), t_loop = host_s(torch, lambda: train_on_policy(
+            env, c["env"], "PPO", pop, INIT_HP=c["hp"], max_steps=PPO_5B_MAX_STEPS,
+            evo_steps=PPO_5B_EVO_STEPS,
+            tournament=TournamentSelection(2, True, c["hp"]["POP_SIZE"], 1,
+                                           rng=np.random.default_rng(0)),
+            mutation=Mutations(**PPO_5B_MUTATION, rand_seed=0), telemetry=telem, verbose=False))
+        for k, v in ops.kernel_counters().items():
+            launches[k] += v
+        gens = [e for e in sink.events if e["kind"] == "generation"]
+        env_steps = gens[-1]["total_steps"]
+        check(2 <= len(gens) <= 6 and all(np.isfinite(f).all() for f in fitnesses),
+              f"{name}: {len(gens)} generations, fitnesses {fitnesses}")
+        out[name] = dict(loop_s=t_loop, env_steps=env_steps, env_steps_per_s=env_steps / t_loop,
+                         generations=[{k: g[k] for k in ("generation", "collect_s", "learn_s",
+                                                         "learn_calls", "eval_s", "evo_s",
+                                                         "fitness", "mutations")}
+                                      for g in gens])
+        log(f"  {name}: {env_steps} env steps in {t_loop:.1f} s ({env_steps / t_loop:.0f} "
+            f"env-steps/s); per generation collect / learn / eval s "
+            f"{[(round(g['collect_s'], 2), round(g['learn_s'], 2), round(g['eval_s'], 2)) for g in gens]}; "
+            f"fitness {[[round(x, 1) for x in g['fitness']] for g in gens]}; mutations "
+            f"{[g['mutations'] for g in gens]}")
+
+    log(f"phase 4j: recurrent memory gate on MemoryEnv, {MEMORY_GATE['num_envs']} envs, "
+        f"{MEMORY_ITERS} iterations")
+    probe = MemoryEnv()
+    vec = TorchVecEnv(probe, num_envs=MEMORY_GATE["num_envs"], seed=0)
+    agent = PPO(probe.observation_space, probe.action_space, **MEMORY_GATE)
+    t0 = time.perf_counter()
+    rewards = []
+    for _ in range(MEMORY_ITERS):
+        rewards.append(collect_rollouts(agent, vec, n_steps=agent.learn_step))
+        agent.learn()
+    late = float(np.mean(rewards[-10:]))
+    greedy = agent.test(vec, loop=1)
+    out["memory_gate"] = dict(late_mean_reward=late, s=time.perf_counter() - t0,
+                              greedy_return=greedy, rewards_every_10=rewards[::10])
+    log(f"  memory gate: late mean reward {late:.3f} (> 0.15), greedy return per episode "
+        f"{greedy:.2f}, {out['memory_gate']['s']:.1f} s")
+    check(late > 0.15, f"recurrent PPO failed the memory gate: {late:.3f}")
+
+    encoders_card_vs_cpu(torch, out)
+    report["encoders_recurrent"] = out
+    return launches
+
+
 # ------------------------------- phase 5 ----------------------------------- #
 
 
@@ -2976,6 +3413,14 @@ def main() -> None:
     on_policy_launches = run_on_policy(torch, ops, report)
     report["phase_4h_s"] = time.perf_counter() - t0
     log(f"phase 4h: {report['phase_4h_s']:.1f} s")
+    t0 = time.perf_counter()
+    population_launches = run_population(torch, ops, report)
+    report["phase_4i_s"] = time.perf_counter() - t0
+    log(f"phase 4i: {report['phase_4i_s']:.1f} s")
+    t0 = time.perf_counter()
+    encoder_launches = run_encoders_and_recurrent(torch, ops, report)
+    report["phase_4j_s"] = time.perf_counter() - t0
+    log(f"phase 4j: {report['phase_4j_s']:.1f} s")
     # each main path's counts were set to 0 just before it and read just after
     launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
                 for k in grpo_launches}
@@ -2990,7 +3435,9 @@ def main() -> None:
                                      "dpo_learn": dpo_launches[entry["name"]],
                                      "serving_capture": serve_launches[entry["name"]],
                                      "flywheel": fly_launches[entry["name"]],
-                                     "on_policy": on_policy_launches[entry["name"]]}
+                                     "on_policy": on_policy_launches[entry["name"]],
+                                     "population": population_launches[entry["name"]],
+                                     "encoders_recurrent": encoder_launches[entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":
@@ -3006,4 +3453,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--population-gate":
+        population_gate_child(int(sys.argv[2]))
+    else:
+        main()

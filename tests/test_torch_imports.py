@@ -26,6 +26,13 @@ _CLASSIC_IMPORTS = (
     "import agilerl_tpu_torch.envs.classic, agilerl_tpu_torch.envs.probe\n"
     "import agilerl_tpu_torch.rollouts.on_policy, agilerl_tpu_torch.algorithms.ppo\n"
     "import agilerl_tpu_torch.training.train_on_policy\n"
+    # the population program and the other encoders (Queue 1's slices 5e-head, 5b)
+    "import agilerl_tpu_torch.parallel, agilerl_tpu_torch.parallel.generation\n"
+    "import agilerl_tpu_torch.parallel.population, agilerl_tpu_torch.protocols\n"
+    "import agilerl_tpu_torch.modules.custom_components, agilerl_tpu_torch.modules.cnn\n"
+    "import agilerl_tpu_torch.modules.resnet, agilerl_tpu_torch.modules.simba\n"
+    "import agilerl_tpu_torch.modules.lstm, agilerl_tpu_torch.modules.multi_input\n"
+    "import agilerl_tpu_torch.modules.dummy\n"
 )
 
 
@@ -202,8 +209,9 @@ def test_classic_slice_imports_neither_gymnasium_nor_yaml():
 
 
 def test_classic_entry_points_default_to_the_card():
-    """PPO, TorchVecEnv, make_vect_envs, create_population("PPO"),
-    EvolvableMLP, the actor and value networks and RolloutBuffer take
+    """PPO (flat and recurrent), TorchVecEnv, make_vect_envs,
+    create_population("PPO"), EvolvableMLP and the other five encoders, the
+    actor and value networks, RolloutBuffer, EvoPPO and ScanRun take
     device=None as the card and raise without one."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
@@ -214,6 +222,14 @@ def test_classic_entry_points_default_to_the_card():
     from agilerl_tpu_torch.modules.mlp import EvolvableMLP
     from agilerl_tpu_torch.networks.actors import StochasticActor
     from agilerl_tpu_torch.networks.value_networks import ValueNetwork
+    from agilerl_tpu_torch.modules.cnn import EvolvableCNN
+    from agilerl_tpu_torch.modules.lstm import EvolvableLSTM
+    from agilerl_tpu_torch.modules.multi_input import EvolvableMultiInput
+    from agilerl_tpu_torch.modules.resnet import EvolvableResNet
+    from agilerl_tpu_torch.modules.simba import EvolvableSimBa
+    from agilerl_tpu_torch.parallel import ScanRun
+    from agilerl_tpu_torch.utils.spaces import Box, Dict
+    from agilerl_tpu_torch.utils.tree import tree_leaves
     from agilerl_tpu_torch.utils.utils import create_population, make_vect_envs
 
     env = CartPole()
@@ -225,9 +241,20 @@ def test_classic_entry_points_default_to_the_card():
                  lambda: EvolvableMLP(num_inputs=4, num_outputs=2, hidden_size=(8,)),
                  lambda: StochasticActor(env.observation_space, env.action_space),
                  lambda: ValueNetwork(env.observation_space),
-                 lambda: RolloutBuffer(capacity=4, num_envs=2)):
+                 lambda: RolloutBuffer(capacity=4, num_envs=2),
+                 lambda: PPO(env.observation_space, env.action_space, seed=0, recurrent=True),
+                 lambda: EvolvableCNN(input_shape=(8, 8, 3), num_outputs=2),
+                 lambda: EvolvableResNet(input_shape=(8, 8, 3), num_outputs=2),
+                 lambda: EvolvableSimBa(num_inputs=4, num_outputs=2),
+                 lambda: EvolvableLSTM(num_inputs=4, num_outputs=2),
+                 lambda: EvolvableMultiInput(Dict({"a": Box(-1.0, 1.0, (3,))}), num_outputs=2),
+                 lambda: _evo_ppo(env, None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+    evo = _evo_ppo(env, "cpu")
+    assert evo.device == torch.device("cpu")
+    run = ScanRun(evo, pop_size=2, seed=0)
+    assert {x.device for x in tree_leaves(run.pop) if isinstance(x, torch.Tensor)} == {evo.device}
     agent = PPO(env.observation_space, env.action_space, seed=0, device="cpu")
     assert agent.dev == torch.device("cpu")
     assert {p.device for p in agent.actor.params["head"]["output"].values()} == {agent.dev}
@@ -236,3 +263,17 @@ def test_classic_entry_points_default_to_the_card():
                         device="cpu").device == torch.device("cpu")
     assert ValueNetwork(env.observation_space, device="cpu").device == torch.device("cpu")
     assert RolloutBuffer(capacity=4, num_envs=2, device="cpu").device == torch.device("cpu")
+
+
+def _evo_ppo(env, device):
+    from agilerl_tpu_torch.algorithms.core.optimizer import adam
+    from agilerl_tpu_torch.modules.mlp import MLPConfig
+    from agilerl_tpu_torch.networks import distributions as D
+    from agilerl_tpu_torch.networks.base import NetworkConfig, default_encoder_config
+    from agilerl_tpu_torch.parallel import EvoPPO
+
+    kind, enc = default_encoder_config(env.observation_space, 8)
+    cfgs = [NetworkConfig(kind, enc, MLPConfig(num_inputs=8, num_outputs=n, hidden_size=(8,)),
+                          latent_dim=8) for n in (2, 1)]
+    return EvoPPO(env, *cfgs, D.dist_config_from_space(env.action_space), adam(1e-3),
+                  num_envs=2, rollout_len=4, device=device)

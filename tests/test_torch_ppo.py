@@ -363,9 +363,10 @@ def test_train_on_policy_refuses_unported_hooks():
         name = next(iter(hook))
         with pytest.raises(NotImplementedError, match=name):
             train_on_policy(env, "CartPole-v1", "PPO", pop, max_steps=1, **hook)
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        TPPO(env.single_observation_space, env.single_action_space, recurrent=True,
-             device="cpu")
+    # recurrent PPO is ported (Queue 1's slice 5b): an LSTM encoder, no refusal
+    agent = TPPO(env.single_observation_space, env.single_action_space, recurrent=True,
+                 device="cpu")
+    assert agent.recurrent and agent.actor.config.encoder_kind == "lstm"
 
 
 def test_multi_tensor_adam_equals_the_per_leaf_formula():

@@ -212,12 +212,13 @@ def test_clone_is_independent_and_unported_encoders_raise():
     c.apply_mutation("head.add_node", rng=np.random.default_rng(0))
     assert c.config != tn.config
     assert tn.params["head"]["layer_0"]["kernel"].shape[1] == 24
-    for space, kw in ((gspaces.Box(0.0, 1.0, (8, 8, 3), np.float32), {}),
-                      (gspaces.Dict({"a": gspaces.Discrete(2)}), {}),
-                      (gspaces.Box(-1.0, 1.0, (3,), np.float32), {"recurrent": True}),
-                      (S.Box(-1.0, 1.0, (3,), np.float32), {"simba": True})):
-        with pytest.raises(NotImplementedError, match="slice 5b"):
-            TValue(space, device="cpu", **kw)
+    # the other encoders are ported (Queue 1's slice 5b): each space builds its own
+    for space, kw, kind in ((gspaces.Box(0.0, 1.0, (8, 8, 3), np.float32), {}, "cnn"),
+                            (gspaces.Dict({"a": gspaces.Discrete(2)}), {}, "multi_input"),
+                            (gspaces.Box(-1.0, 1.0, (3,), np.float32), {"recurrent": True},
+                             "lstm"),
+                            (S.Box(-1.0, 1.0, (3,), np.float32), {"simba": True}, "simba")):
+        assert TValue(space, device="cpu", **kw).config.encoder_kind == kind
 
 
 def test_own_spaces_match_gymnasium_helpers():
