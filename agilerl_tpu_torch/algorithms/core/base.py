@@ -8,16 +8,25 @@ returns a fresh generator on the device asked for (the counterpart of
 ``jax.random.split``). ``jit_fn`` is a plain cache of the built callables,
 dropped after a mutation as the JAX package drops its jitted functions.
 
-``RLAlgorithm`` (the single-agent base of PPO) and
+``RLAlgorithm`` (the single-agent base of PPO and the DQN family) and
 ``load_params_from_numpy`` (a JAX agent's network weights into the port)
-come with the classic RL slice. Checkpointing (``checkpoint_dict``,
-``save_checkpoint``, ``load``) and ``MultiAgentRLAlgorithm`` are not ported
-yet.
+come with the classic RL slice. ``MultiAgentRLAlgorithm`` is not ported yet.
+
+Checkpoints (``checkpoint_dict``, ``save_checkpoint``, ``load_checkpoint``,
+``load``) are a pickle of host numpy: every network's config and weights,
+every optimizer's learning rate and state, the training attributes and the
+hyperparameters, written atomically (``resilience/atomic.py``). The random
+streams are not in them (a weight restore does not replay an old stream), so
+a file loads on any device, with or without a card. The JAX package's
+checkpoints pickle ``agilerl_tpu`` classes, so the port does not load them;
+carry JAX weights with ``load_params_from_numpy`` instead.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+import pickle
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -32,7 +41,7 @@ from agilerl_tpu_torch.algorithms.core.registry import (
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
 from agilerl_tpu_torch.utils.rng import global_seed
 from agilerl_tpu_torch.utils.spaces import as_tensor, preprocess_observation
-from agilerl_tpu_torch.utils.tree import tree_copy
+from agilerl_tpu_torch.utils.tree import tree_copy, tree_from_numpy, tree_to_numpy
 
 _SEED_BOUND = 2 ** 62
 
@@ -170,6 +179,81 @@ class EvolvableAlgorithm:
     def _on_clone(self, parent: "EvolvableAlgorithm") -> None:
         """Subclass hook for extra copied state."""
 
+    # -- checkpoints ----------------------------------------------------- #
+    def checkpoint_dict(self) -> Dict[str, Any]:
+        """The agent as host numpy: networks (config + weights), optimizers
+        (lr + state), training attributes and hyperparameters."""
+
+        def blob(net):
+            if isinstance(net, dict):
+                return {k: blob(v) for k, v in net.items()}
+            return {"config": net.config, "params": tree_to_numpy(net.params)}
+
+        attrs = {"index": self.index, "fitness": self.fitness, "scores": self.scores,
+                 "steps": self.steps, "mut": self.mut}
+        for hp in self.hp_config.names():
+            attrs[hp] = getattr(self, hp)
+        return {
+            "agilerl_tpu_torch_class": type(self).__name__,
+            "init_dict": self.init_dict,
+            "networks": {n: blob(net) for n, net in self.evolvable_attributes().items()},
+            "optimizers": {cfg.name: {"lr": getattr(self, cfg.name).lr,
+                                      "state": tree_to_numpy(getattr(self, cfg.name).opt_state)}
+                           for cfg in self.registry.optimizer_configs},
+            "attrs": attrs,
+        }
+
+    def save_checkpoint(self, path: Union[str, Path]) -> None:
+        """Atomic save (temporary file, fsync, ``os.replace``): a kill in the
+        middle leaves the previous checkpoint or the new one, never a torn
+        pickle."""
+        from agilerl_tpu_torch.resilience.atomic import atomic_write_bytes
+
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        atomic_write_bytes(path, pickle.dumps(self.checkpoint_dict(),
+                                              protocol=pickle.HIGHEST_PROTOCOL))
+
+    def load_checkpoint(self, path: Union[str, Path]) -> None:
+        with open(path, "rb") as f:
+            self._restore(pickle.load(f))
+
+    def _restore(self, ckpt: Dict[str, Any]) -> None:
+        dev = getattr(self, "dev", None) or resolve_device(self.device)
+
+        def load(net, blob):
+            if isinstance(net, dict):
+                for k in net:
+                    load(net[k], blob[k])
+                return
+            net.config = blob["config"]
+            net.params = tree_from_numpy(blob["params"], dev)
+
+        for name, blob in ckpt["networks"].items():
+            load(getattr(self, name), blob)
+        for cname, blob in ckpt["optimizers"].items():
+            opt: OptimizerWrapper = getattr(self, cname)
+            opt.lr = blob["lr"]
+            opt.tx = opt._build()
+            opt.opt_state = tree_from_numpy(blob["state"], dev)
+        for k, v in ckpt["attrs"].items():
+            setattr(self, k, v)
+        self._clear_jit_cache()
+
+    @classmethod
+    def load(cls, path: Union[str, Path], device: DeviceLike = None):
+        """An agent rebuilt from a checkpoint file on ``device``, whatever
+        device it was saved from: ``None`` means the card, as in every
+        constructor, and raises without one. Checkpoints written by the JAX
+        package pickle ``agilerl_tpu`` classes and do not load here."""
+        with open(path, "rb") as f:
+            ckpt = pickle.load(f)
+        init = dict(ckpt["init_dict"])
+        init["device"] = device
+        agent = cls(**init)
+        agent._restore(ckpt)
+        return agent
+
 
 def _params_of(net) -> Any:
     if isinstance(net, dict):
@@ -237,7 +321,9 @@ def load_params_from_numpy(agent: EvolvableAlgorithm, trees: Dict[str, Any]) -> 
     """Load JAX-package network parameters (``{attr: numpy tree}`` for every
     registered network of ``agent``, eval and shared) into the agent's
     networks through ``networks.base.params_from_numpy``, each checked
-    against its config, then re-init every optimizer for them."""
+    against its config and its class's own init (the noisy layers' mean and
+    sigma weights, Rainbow's value stream), then re-init every optimizer for
+    them."""
     from agilerl_tpu_torch.networks.base import params_from_numpy
 
     names = agent.registry.all_network_names()
@@ -246,5 +332,5 @@ def load_params_from_numpy(agent: EvolvableAlgorithm, trees: Dict[str, Any]) -> 
     for name in names:
         net = getattr(agent, name)
         net.params = params_from_numpy(trees[name], net.config, agent.dev,
-                                       extra=net.extra_template())
+                                       extra=net.extra_template(), init=type(net).init_params)
     agent.reinit_optimizers()

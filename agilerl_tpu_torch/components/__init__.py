@@ -1,1 +1,1 @@
-"""Rollout storage of the on-policy algorithms."""
+"""Rollout and replay storage of the on-policy and off-policy algorithms."""

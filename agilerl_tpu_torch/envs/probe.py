@@ -1,10 +1,11 @@
-"""Probe environments and the on-policy learning check: the port of the
-single-agent on-policy half of ``agilerl_tpu/envs/probe.py`` (the five probe
-families over vector / image / Dict observations and discrete / continuous
-actions, with their ground-truth tables, and
-``check_policy_on_policy_with_probe_env``) and ``MemoryEnv``, the POMDP
-probe of recurrent PPO. Batched over ``[N]`` tensors. The Q-learning
-probes and checks come with DQN (Queue 1's slice 5c)."""
+"""Probe environments and the learning checks: the port of the single-agent
+part of ``agilerl_tpu/envs/probe.py`` (the five probe families over vector /
+image / Dict observations and discrete / continuous actions, with their
+ground-truth tables; ``check_policy_on_policy_with_probe_env``,
+``fill_buffer_random`` and ``check_q_learning_with_probe_env``) and
+``MemoryEnv``, the POMDP probe of recurrent PPO. Batched over ``[N]``
+tensors. ``check_policy_q_learning_with_probe_env`` needs DDPG / TD3 and
+comes with them (Queue 1's slice 5c-ii)."""
 
 from __future__ import annotations
 
@@ -387,3 +388,60 @@ def check_policy_on_policy_with_probe_env(
             assert int(action[0]) == int(pol), f"policy({obs!r}) = {action[0]}, want {pol}"
         else:
             np.testing.assert_allclose(action.reshape(-1), pol, atol=atol)
+
+
+# --------------------------------------------------------------------------- #
+# The Q-learning check
+# --------------------------------------------------------------------------- #
+
+
+def fill_buffer_random(env: TorchEnv, memory, steps: int, num_envs: int = 8, seed: int = 0):
+    """``steps`` vector steps of uniform-random actions (numpy, from
+    ``seed``) on ``num_envs`` envs on the buffer's device, each stored with
+    its true successor (``final_obs``) and its terminated flag."""
+    vec = TorchVecEnv(env, num_envs=num_envs, seed=seed, device=memory.device)
+    obs, _ = vec.reset(seed=seed)
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        if space_kind(env.action_space) == "box":
+            action = rng.uniform(env.action_space.low, env.action_space.high,
+                                 size=(num_envs,) + tuple(env.action_space.shape))
+            action = torch.from_numpy(action.astype(np.float32))
+        else:
+            action = torch.from_numpy(rng.integers(0, env.action_space.n, size=num_envs))
+        next_obs, reward, terminated, truncated, info = vec.step(action.to(memory.device))
+        memory.add({"obs": obs, "action": action, "reward": reward.float(),
+                    "next_obs": info.get("final_obs", next_obs),
+                    "done": terminated.float()}, batched=True)
+        obs = next_obs
+    return memory
+
+
+def check_q_learning_with_probe_env(env: TorchEnv, algo_class, algo_args: dict,
+                                    learn_steps: int = 500, seed: int = 42,
+                                    atol: float = 0.3) -> None:
+    """Train a Q-learner on a probe env's random-action buffer (256
+    transitions) and assert its Q-values against the env's table (a
+    discounting probe: Q(s1) ~ 1 and Q(s0) ~ gamma * Q(s1))."""
+    from agilerl_tpu_torch.components.replay_buffer import ReplayBuffer
+
+    agent = algo_class(**algo_args)
+    memory = ReplayBuffer(max_size=2048, device=agent.dev, seed=seed)
+    fill_buffer_random(env, memory, steps=256 // 8, num_envs=8, seed=seed)
+    for _ in range(learn_steps):
+        agent.learn(memory.sample(64))
+
+    def q_of(obs):
+        pre = agent.preprocess_observation(_batched_table_obs(obs))
+        return agent.actor(pre).detach().cpu().numpy()
+
+    if getattr(env, "checks_discounting", False):
+        q0 = float(q_of(env.sample_obs[0]).max())
+        q1 = float(q_of(env.sample_obs[1]).max())
+        np.testing.assert_allclose(q1, 1.0, atol=max(atol, 0.15))
+        np.testing.assert_allclose(q0, agent.gamma * q1, atol=max(atol, 0.15))
+        return
+    for obs, qrow in zip(env.sample_obs, env.q_values):
+        if qrow is None:
+            continue
+        np.testing.assert_allclose(q_of(obs)[0], qrow, atol=atol)

@@ -333,15 +333,20 @@ class EvolvableNetwork:
 
 
 def params_from_numpy(tree: Mapping, config: NetworkConfig, device=None,
-                      extra: Optional[Mapping[str, Any]] = None) -> Dict:
+                      extra: Optional[Mapping[str, Any]] = None, init=None) -> Dict:
     """A JAX network's parameters (a numpy tree:
     ``jax.tree_util.tree_map(np.asarray, net.params)``) as f32 tensors on
     ``device``, after checking that their paths and shapes are those of
-    ``config``'s own init plus ``extra`` (``{"dist": ...}`` of a
-    StochasticActor). Raises ``ValueError`` on any difference."""
+    ``config``'s own init (``init``, a network class's ``init_params``:
+    ``EvolvableNetwork.init_params`` when None; ``RainbowQNetwork``'s adds
+    the value stream) plus ``extra`` (``{"dist": ...}`` of a
+    StochasticActor). Noisy layers carry ``kernel_mu`` / ``kernel_sigma`` /
+    ``bias_mu`` / ``bias_sigma`` by the same rule. Raises ``ValueError`` on
+    any difference."""
     from agilerl_tpu_torch.llm.convert import f32_tree_from_numpy
 
-    template = EvolvableNetwork.init_params(torch.Generator().manual_seed(0), config)
+    init = init or EvolvableNetwork.init_params
+    template = init(torch.Generator().manual_seed(0), config)
     template.update(dict(extra or {}))
     want = {p: tuple(v.shape) for p, v in _flatten_with_paths(template).items()}
     got = {p: tuple(np.shape(v)) for p, v in _numpy_paths(tree).items()}

@@ -1,7 +1,7 @@
 """The population as one program on one card: the port of
 ``agilerl_tpu/parallel/`` for evolutionary PPO (``generation``,
 ``population``). Pod sharding (slice 6), the off-policy scan tier
-(``DeviceReplayRing``, ``ScanOffPolicy``: slice 5c) and the multi-agent
+(``DeviceReplayRing``, ``ScanOffPolicy``: slice 5c-scan) and the multi-agent
 population (slice 5d) come with their slices; the first two raise until then."""
 
 from agilerl_tpu_torch.parallel.generation import (

@@ -13,8 +13,8 @@ for every member, and the gather keeps it as it is.
 
 ``make_pod_generation`` and ``ScanRun(mesh=, plan=)`` (a population sharded
 over several cards) come with Queue 1's slice 6; ``DeviceReplayRing``,
-``ScanOffPolicy`` and the ring helpers with slice 5c, whose replay-buffer
-arithmetic they reuse.
+``ScanOffPolicy`` and the ring helpers with slice 5c-scan, over the replay
+buffers of ``components/replay_buffer.py``.
 """
 
 from __future__ import annotations
@@ -133,11 +133,11 @@ def make_pod_generation(*args, **kwargs) -> Callable:
 
 
 # --------------------------------------------------------------------------- #
-# The off-policy scan tier (Queue 1's slice 5c)
+# The off-policy scan tier (Queue 1's slice 5c-scan)
 # --------------------------------------------------------------------------- #
 
-_OFF_POLICY = ("{} (the off-policy scan tier) comes with Queue 1's slice 5c, whose "
-               "replay-buffer arithmetic it reuses")
+_OFF_POLICY = ("{} (the off-policy scan tier) comes with Queue 1's slice 5c-scan, which "
+               "stacks the replay buffers of components/replay_buffer.py over a population")
 
 
 class DeviceReplayRing:

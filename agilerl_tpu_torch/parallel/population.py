@@ -204,7 +204,9 @@ class EvoPPO:
         """``rollout_len`` steps of every member; returns (trajectory of
         [T, P, N] tensors, env state, step counts, obs, ep_ret, fitness [P]).
         The reward in the trajectory carries the truncation bootstrap
-        ``+ gamma * V(final_obs) * truncated``."""
+        ``+ gamma * V(final_obs) * (truncated & ~terminated)``: unlike the
+        JAX package, a step that terminates on its last allowed step is not
+        bootstrapped (``rollouts/on_policy.py``)."""
         P, N = state.ep_ret.shape
         env_state = tree_map(_flat, state.env_state)
         count = _flat(state.step_count)
@@ -222,9 +224,10 @@ class EvoPPO:
             unflat = (P, N)
             reward, term, trunc = reward.view(unflat), term.view(unflat), trunc.view(unflat)
             done = torch.logical_or(term, trunc).float()
-            # time-limit bootstrapping at truncations (fold gamma * V(s_final))
+            # time-limit bootstrapping where the time limit cut an episode that
+            # did not terminate (fold gamma * V(s_final))
             v_final = self._value_v(state.critic, final_obs.view(unflat + final_obs.shape[1:]))
-            reward_adj = reward + self.gamma * v_final * trunc.float()
+            reward_adj = reward + self.gamma * v_final * torch.logical_and(trunc, ~term).float()
             ep_ret = ep_ret + reward
             fsum = fsum + torch.sum(ep_ret * done, dim=1)
             fn = fn + torch.sum(done, dim=1)

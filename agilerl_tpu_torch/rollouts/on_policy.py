@@ -3,10 +3,18 @@
 
 Against a device env (``TorchVecEnv``) actions, rewards and dones stay on
 the device for the whole call: the truncation bootstrap is folded in on
-every step, masked by ``truncated`` (the same numbers as the JAX package's
-``if truncated.any()`` without its sync), the reward is summed on the
-device, and the call syncs once, for the mean reward it returns. Envs with
-a host API (gymnasium vector envs) get numpy actions.
+every step, masked by ``truncated & ~terminated`` (the JAX package's ``if
+truncated.any()`` without its sync), the reward is summed on the device,
+and the call syncs once, for the mean reward it returns. Envs with a host
+API (gymnasium vector envs) get numpy actions.
+
+One deviation from the JAX package: a step that both terminates and
+truncates (an episode that ends on its last allowed step; the autoreset
+flags it truncated, as gymnasium's ``TimeLimit`` does) gets no
+``gamma * V(final_obs)``. The JAX package bootstraps it on ``truncated``
+alone, which adds a value to a terminal reward (``MemoryEnv``, whose every
+episode ends at its limit, then reads a mean step reward near 3 where a
+step earns at most 1/3).
 """
 
 from __future__ import annotations
@@ -71,12 +79,13 @@ def collect_rollouts(agent, env, n_steps: Optional[int] = None) -> float:
         truncated = as_tensor(truncated, dev).to(torch.bool)
         done = torch.logical_or(terminated, truncated).float()
         reward = as_tensor(reward, dev).float()
-        # time-limit bootstrapping: a truncated episode folds gamma * V(s')
-        # into its last reward, so GAE (which treats done as terminal) stays
-        # unbiased at truncation
+        # time-limit bootstrapping: an episode cut by its time limit (and not
+        # terminated) folds gamma * V(s') into its last reward, so GAE (which
+        # treats done as terminal) stays unbiased at truncation
         if isinstance(info, dict) and "final_obs" in info:
             v_final = agent.value_of(info["final_obs"])
-            reward = reward + agent.gamma * v_final * truncated
+            cut = torch.logical_and(truncated, ~terminated.to(torch.bool))
+            reward = reward + agent.gamma * v_final * cut
         step = dict(obs=obs, action=action, reward=reward, done=done, value=value,
                     log_prob=logp)
         if agent._masked_env:

@@ -11,8 +11,12 @@ generation with the host seconds spent collecting, learning, evaluating
 and evolving (each phase ends on a device sync of its own), the number of
 ``learn`` calls, the fitnesses and the mutations drawn.
 
-``resilience=``, ``resume``, ``checkpoint=`` / ``save_elite`` and
-``wb=True`` raise ``NotImplementedError`` until the distribution slice.
+``checkpoint=`` (every that many env steps, into ``checkpoint_path``),
+``resume`` (each member from its checkpoint before the first generation)
+and ``save_elite`` work as in the JAX package
+(``utils/utils.py``'s population checkpoints). ``resilience=`` and
+``wb=True`` raise ``NotImplementedError`` until slice 6 (distribution and
+infrastructure).
 """
 
 from __future__ import annotations
@@ -24,14 +28,20 @@ import numpy as np
 
 from agilerl_tpu_torch.observability import init_run_telemetry
 from agilerl_tpu_torch.rollouts.on_policy import collect_rollouts
-from agilerl_tpu_torch.utils.utils import print_hyperparams, tournament_selection_and_mutation
+from agilerl_tpu_torch.utils.utils import (
+    print_hyperparams,
+    resume_population_from_checkpoint,
+    save_population_checkpoint,
+    tournament_selection_and_mutation,
+)
 
 
-def _refuse_unported(**hooks) -> None:
+def refuse_unported(loop: str, **hooks) -> None:
+    """Raise for the hooks that wait for slice 6 (``resilience=``, ``wb=``)."""
     for name, value in hooks.items():
         if value:
-            raise NotImplementedError(f"train_on_policy {name}= is not ported yet "
-                                      "(the distribution slice)")
+            raise NotImplementedError(f"{loop} {name}= is not ported yet (slice 6: "
+                                      "distribution and infrastructure)")
 
 
 def train_on_policy(
@@ -63,13 +73,15 @@ def train_on_policy(
     resilience=None,
 ) -> Tuple[List, List[List[float]]]:
     """Returns (population, per-agent fitness histories)."""
-    _refuse_unported(resilience=resilience, resume=resume, checkpoint=checkpoint,
-                     save_elite=save_elite, wb=wb)
+    refuse_unported("train_on_policy", resilience=resilience, wb=wb)
+    if resume:
+        resume_population_from_checkpoint(pop, checkpoint_path)
     telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
     num_envs = getattr(env, "num_envs", 1)
     pop_fitnesses: List[List[float]] = [[] for _ in pop]
     total_steps = 0
+    checkpoint_count = 0
     generation = 0
     try:
         start = time.time()
@@ -121,6 +133,10 @@ def train_on_policy(
 
             for agent in pop:
                 agent.steps.append(agent.steps[-1])
+            if checkpoint is not None and checkpoint_path is not None:
+                if total_steps // checkpoint > checkpoint_count:
+                    save_population_checkpoint(pop, checkpoint_path, overwrite_checkpoints)
+                    checkpoint_count = total_steps // checkpoint
             if target is not None and np.min(fitnesses) >= target:
                 break
     finally:

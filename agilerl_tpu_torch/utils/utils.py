@@ -1,14 +1,18 @@
-"""Population factory, env maker and evolution glue: the port of
-``agilerl_tpu/utils/utils.py`` for GRPO, DPO and PPO (``create_population``,
-``make_vect_envs``, ``tournament_selection_and_mutation``,
-``consolidate_mutations``, ``print_hyperparams``). The other algorithms
-and population checkpoints come with their slices."""
+"""Population factory, env maker, evolution glue and population
+checkpoints: the port of ``agilerl_tpu/utils/utils.py`` for GRPO, DPO, PPO,
+DQN, RainbowDQN and CQN (``create_population``, ``make_vect_envs``,
+``tournament_selection_and_mutation`` with ``save_elite``,
+``save_population_checkpoint``, ``resume_population_from_checkpoint``,
+``load_population_checkpoint``, ``consolidate_mutations``,
+``print_hyperparams``). The other algorithms come with their slices."""
 
 from __future__ import annotations
 
 import importlib
 import inspect
+import pickle
 import zlib
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -44,7 +48,8 @@ def _named_ctor_params(cls) -> set:
 
 
 # the algorithms ported so far, by name -> module of agilerl_tpu_torch.algorithms
-_ALGO_MODULES = {"GRPO": "grpo", "DPO": "dpo", "PPO": "ppo"}
+_ALGO_MODULES = {"GRPO": "grpo", "DPO": "dpo", "PPO": "ppo", "DQN": "dqn",
+                 "RainbowDQN": "dqn_rainbow", "CQN": "cqn"}
 
 
 def _algo_class(algo: str):
@@ -69,10 +74,10 @@ def create_population(
     seed: Optional[int] = None,
     **kwargs,
 ) -> List:
-    """Build a population of GRPO, DPO or PPO agents. Each member gets the
-    ``INIT_HP`` keys its constructor names, and ``observation_space``,
-    ``action_space``, ``net_config`` and ``num_envs`` where it names them
-    (PPO). ``kwargs`` go to every member (GRPO/DPO: ``config``,
+    """Build a population of GRPO, DPO, PPO, DQN, RainbowDQN or CQN agents.
+    Each member gets the ``INIT_HP`` keys its constructor names, and
+    ``observation_space``, ``action_space``, ``net_config`` and ``num_envs``
+    where it names them. ``kwargs`` go to every member (GRPO/DPO: ``config``,
     ``base_params``, token ids, ...; pass ``base_params`` to share one frozen
     base model). Each member's seed is drawn from ``seed`` (or the global
     numpy stream), as in the JAX package; ``device=None`` puts every member
@@ -159,15 +164,73 @@ def tournament_selection_and_mutation(
     language_model: bool = False,
     lineage=None,
 ) -> List:
-    """select -> mutate. ``lineage`` attaches to both engines for this call.
-    Saving the elite needs checkpoints, which are not ported yet."""
-    if save_elite:
-        raise NotImplementedError("saving the elite needs checkpoints, not ported yet")
+    """select -> mutate -> with ``save_elite``, checkpoint the elite at
+    ``elite_path`` (a directory, or a path without a suffix, gets
+    ``{algo}_elite.ckpt``). ``lineage`` attaches to both engines for this
+    call."""
     if lineage is not None:
         tournament.lineage = lineage
         mutation.lineage = lineage
-    _, population = tournament.select(population)
-    return mutation.mutation(population)
+    elite, population = tournament.select(population)
+    population = mutation.mutation(population)
+    if save_elite and elite_path is not None:
+        path = Path(elite_path)
+        if path.suffix == "":
+            path = path / f"{algo or elite.algo}_elite.ckpt"
+        elite.save_checkpoint(path)
+    return population
+
+
+def _member_path(save_path: str, index: int, suffix_step: Optional[int] = None) -> Path:
+    p = Path(save_path)
+    stem = f"{p.stem}_{index}" if suffix_step is None else f"{p.stem}_{index}_step{suffix_step}"
+    return p.parent / f"{stem}{p.suffix or '.ckpt'}"
+
+
+def save_population_checkpoint(population: List, save_path: str,
+                               overwrite_checkpoints: bool = True, accelerator=None) -> None:
+    """Checkpoint every member at ``{stem}_{index}{suffix}``; without
+    ``overwrite_checkpoints`` the member's step count joins the name, so the
+    history is kept."""
+    for agent in population:
+        agent.save_checkpoint(_member_path(
+            save_path, agent.index, None if overwrite_checkpoints else agent.steps[-1]))
+
+
+def resume_population_from_checkpoint(pop: List, checkpoint_path: Optional[str]) -> List:
+    """Restore each member in place from its ``{stem}_{index}`` file where
+    one exists (members without one keep their fresh weights). A torn or
+    incompatible file is skipped with a warning, the member rolled back to
+    its weights from before the attempt."""
+    if checkpoint_path is None:
+        return pop
+    from agilerl_tpu_torch.observability import warn_once
+
+    for agent in pop:
+        f = _member_path(checkpoint_path, agent.index)
+        if not f.exists():
+            continue
+        before = agent.checkpoint_dict()
+        try:
+            agent.load_checkpoint(f)
+        except (pickle.UnpicklingError, EOFError, OSError, AttributeError, KeyError,
+                IndexError, ValueError, ImportError) as e:
+            try:
+                agent._restore(before)
+                detail = f"agent {agent.index} keeps its current weights"
+            except Exception:
+                detail = f"agent {agent.index} could not be rolled back and may be inconsistent"
+            warn_once(f"resume:corrupt_checkpoint:{f.name}",
+                      f"skipping corrupt/torn checkpoint {f} ({type(e).__name__}: {e}): {detail}")
+    return pop
+
+
+def load_population_checkpoint(algo: str, save_path: str, indices: List[int],
+                               device=None, **kwargs) -> List:
+    """Agents rebuilt from their ``{stem}_{index}`` checkpoints on
+    ``device`` (``None`` means the card, as in ``load``)."""
+    cls = _algo_class(algo)
+    return [cls.load(_member_path(save_path, idx), device=device) for idx in indices]
 
 
 def print_hyperparams(population: List) -> None:

@@ -113,6 +113,20 @@ of which ends the run with a non-zero exit on any failure:
    at their widths, evo_steps cut to 2,048 and max_steps to 4,096 (2
    generations); the recurrent memory gate on ``MemoryEnv``; each new
    encoder's apply on the card against the CPU;
+4k. slice 5c-i: ``train_off_policy`` on configs/training/dqn/dqn_rainbow.yaml
+   (Rainbow: PER + 3-step + C51 + noisy nets; CartPole-v1 as a
+   ``TorchVecEnv`` of 16 envs, population 4, buffers of 20,000 rows;
+   evo_steps cut from 10,000 to 3,200 and max_steps from 200,000 to 6,400
+   = 2 generations) and on dqn.yaml
+   (double DQN, uniform buffer; 1 generation): env-steps/s, per generation
+   the seconds acting and stepping the env, dispatching the learn steps,
+   waiting for the device, evaluating and evolving, fitnesses, peak memory;
+   the host syncs of one ``learn_from_buffer`` (0) and per env step of the
+   loop (<= 1), ms and launches per ``learn_from_buffer``; DQN's Q-learning
+   probes (ConstantReward, ObsDependentReward, DiscountedReward, Policy)
+   and Rainbow's on ConstantReward; a checkpoint round trip; one DQN, CQN
+   and Rainbow learn and the PER sample on the card against the CPU (no
+   kernel is on this path);
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -3006,6 +3020,308 @@ def run_encoders_and_recurrent(torch, ops, report):
     return launches
 
 
+# ------------------------------- phase 4k ---------------------------------- #
+# configs/training/dqn/dqn_rainbow.yaml (the card's machine has no PyYAML),
+# wired as benchmarking/benchmarking_rainbow.py:24-40 wires it: CartPole-v1
+# as a TorchVecEnv of 16 envs, population 4, batch 64, lr 1e-3, gamma 0.99,
+# learn_step 4, tau 0.01, a PER buffer (alpha 0.6) and a paired 3-step buffer
+# of 20,000 rows each, 51 atoms on [0, 200], noisy nets, latent 32, hidden
+# [64]. Cuts, for time: evo_steps 10,000 -> 3,200 and max_steps 200,000 ->
+# 6,400 (2 generations of 200 vector steps per agent; the 4 agents' 25,600
+# env steps still wrap the rings). evo_steps is cut, not max_steps alone, to
+# keep a second generation: only there do the tournament's clones and
+# mutated agents learn from the buffer. At 10,000 / 20,000 the phase took 174.5 s and at 4,000 / 8,000
+# 92.8-110.4 s (its Rainbow loop 48.8-71.0 s) on an H100 80GB HBM3 at
+# 700 W. Then configs/training/dqn/dqn.yaml (double DQN, a uniform buffer
+# of 20,000 rows) for 1 generation (max_steps -> 3,200).
+OFF_ENV = "CartPole-v1"
+RAINBOW_HP = {"POP_SIZE": 4, "BATCH_SIZE": 64, "LR": 1e-3, "GAMMA": 0.99, "LEARN_STEP": 4,
+              "TAU": 0.01, "NUM_ATOMS": 51, "V_MIN": 0.0, "V_MAX": 200.0, "N_STEP": 3,
+              "PER": True, "NUM_ENVS": 16}
+DQN_HP = {"POP_SIZE": 4, "BATCH_SIZE": 64, "LR": 1e-3, "GAMMA": 0.99, "LEARN_STEP": 4,
+          "TAU": 0.01, "DOUBLE": True, "NUM_ENVS": 16}
+OFF_NET = {"latent_dim": 32, "encoder_config": {"hidden_size": (64,)}}
+OFF_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activation=0.0,
+                    rl_hp=0.2, mutation_sd=0.1)
+OFF_MEMORY = 20_000
+OFF_ALPHA = 0.6
+OFF_EVO_STEPS = 3_200  # cut from 10,000
+OFF_LOOPS = (("rainbow", "RainbowDQN", RAINBOW_HP, 6_400),  # cut from 200,000
+             ("dqn", "DQN", DQN_HP, 3_200))  # cut from 200,000
+OFF_SYNC_STEPS = 1_024  # the short run whose host syncs are counted (64 vector steps)
+# tests/test_algorithms/test_probe_grid.py:55-67 (DQN) and
+# test_learning_correctness.py:17-27 (Rainbow on ConstantReward)
+DQN_PROBE = dict(lr=2e-3, gamma=0.9, tau=0.5, double=False, seed=0,
+                 net_config={"latent_dim": 16, "encoder_config": {"hidden_size": (32,)}})
+RAINBOW_PROBE = dict(num_atoms=21, v_min=0.0, v_max=2.0, lr=2e-3, tau=0.5, gamma=0.9, seed=0,
+                     net_config={"latent_dim": 16, "encoder_config": {"hidden_size": (32,)}})
+# card against CPU, f32 with TF32 off: one learn's loss rtol 1e-5, each
+# weight within 1e-5 of its leaf's largest entry where |g| >= 1e-6 or g == 0
+# (below, Adam's first step turns summation order into steps of up to lr);
+# Rainbow at noise_std 0, its noise scales (kernel_sigma, bias_sigma) left
+# out: their gradient is the noise, drawn from each device's own generator;
+# the PER sample on the same draws: the same indices, weights atol 1e-6
+OFF_RTOL = 1e-5
+PER_WEIGHT_ATOL = 1e-6
+
+
+def off_policy_card_vs_cpu(torch, memory, out):
+    """One DQN (double), CQN and Rainbow learn (noise_std 0, a PER tuple with
+    the paired n-step batch) on the card against the CPU on the same batch
+    and weights, and the PER sample of the Rainbow run's buffer on the same
+    draws."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.core.base import load_params_from_numpy
+    from agilerl_tpu_torch.algorithms.cqn import CQN
+    from agilerl_tpu_torch.algorithms.dqn import DQN
+    from agilerl_tpu_torch.algorithms.dqn_rainbow import RainbowDQN
+    from agilerl_tpu_torch.components.replay_buffer import PrioritizedReplayBuffer, _per_sample
+    from agilerl_tpu_torch.envs.classic import CartPole
+    from agilerl_tpu_torch.utils.tree import tree_to_numpy
+
+    env = CartPole()
+    rng = np.random.default_rng(6)
+    scale = np.array([2.4, 3, 0.2, 3], np.float32)
+
+    def batch(n=64):
+        return {"obs": rng.uniform(-1, 1, (n, 4)).astype(np.float32) * scale,
+                "action": rng.integers(0, 2, n),
+                "reward": rng.uniform(0, 1, n).astype(np.float32),
+                "next_obs": rng.uniform(-1, 1, (n, 4)).astype(np.float32) * scale,
+                "done": (rng.random(n) < 0.1).astype(np.float32)}
+
+    res = {}
+    for name, cls, kw in (("dqn", DQN, dict(double=True)), ("cqn", CQN, {}),
+                          ("rainbow", RainbowDQN, dict(num_atoms=51, v_min=0.0, v_max=200.0,
+                                                       noise_std=0.0))):
+        agents = {dev: cls(env.observation_space, env.action_space, net_config=OFF_NET,
+                           lr=1e-3, gamma=0.99, tau=0.01, seed=1, device=dev, **kw)
+                  for dev in ("cuda", "cpu")}
+        load_params_from_numpy(agents["cuda"], {n: tree_to_numpy(getattr(agents["cpu"], n).params)
+                                                for n in ("actor", "actor_target")})
+        exp = batch()
+        if name == "rainbow":
+            exp = (exp, np.arange(64), rng.uniform(0.3, 1.0, 64).astype(np.float32), batch())
+        losses = {dev: a.learn(exp) for dev, a in agents.items()}
+        if name == "rainbow":
+            pri_err = float(np.abs(losses["cuda"][1] - losses["cpu"][1]).max()
+                            / np.abs(losses["cpu"][1]).max())
+            losses = {dev: v[0] for dev, v in losses.items()}
+        loss_err = abs(losses["cuda"] - losses["cpu"]) / max(abs(losses["cpu"]), 1e-12)
+        mu = agents["cpu"].optimizer.opt_state.inner_state[0].mu
+        worst, exempt, total = 0.0, 0, 0
+        for net in ("actor", "actor_target"):
+            got = flat_params(getattr(agents["cuda"], net).params)
+            for p, w in flat_params(getattr(agents["cpu"], net).params).items():
+                if p.endswith(("/kernel_sigma", "/bias_sigma")):
+                    continue
+                g = flat_params(mu)[p].abs() / 0.1
+                ok = (g >= 1e-6) | (g == 0)
+                exempt += int((~ok).sum())
+                total += ok.numel()
+                if ok.any():
+                    d = (got[p].cpu() - w).abs()[ok].max() / (w.abs().max() + 1e-12)
+                    worst = max(worst, float(d))
+        res[name] = dict(loss=losses, loss_rel_err=loss_err, weight_rel_err=worst,
+                         weights_held_by_gradient=exempt, weights=total)
+        if name == "rainbow":
+            res[name]["priority_rel_err"] = pri_err
+            check(pri_err <= OFF_RTOL, f"rainbow priorities on the card vs CPU: {pri_err}")
+        check(loss_err <= OFF_RTOL, f"{name} learn loss on the card vs CPU: {losses}")
+        check(worst <= OFF_RTOL, f"{name} weights after learn on the card vs CPU: {worst}")
+        check(exempt < 0.1 * total, f"{name}: {exempt} of {total} weights held by gradient")
+
+    cpu_mem = PrioritizedReplayBuffer(memory.max_size, alpha=memory.alpha, device="cpu")
+    cpu_mem.load_state_dict(memory.state_dict())
+    u = torch.rand(256, generator=torch.Generator().manual_seed(3))
+    _, idx_c, w_c = _per_sample(memory.per_state, u.cuda(), 0.4)
+    _, idx, w = _per_sample(cpu_mem.per_state, u, 0.4)
+    same = bool(torch.equal(idx_c.cpu(), idx))
+    w_err = float((w_c.cpu() - w).abs().max())
+    res["per_sample"] = dict(rows=len(memory), same_indices=same, weight_max_abs_err=w_err)
+    check(same and w_err <= PER_WEIGHT_ATOL,
+          f"PER sample on the card vs CPU: indices equal {same}, weights {w_err}")
+    out["card_vs_cpu"] = res
+    log(f"  card vs CPU: {res}")
+
+
+def run_off_policy(torch, ops, report):
+    """Phase 4k: Queue 1's slice 5c-i on the card: train_off_policy on the
+    Rainbow config (2 generations) and the DQN config (1 generation), the
+    host syncs of one learn_from_buffer (0) and per env step (<= 1), ms and
+    launches per learn_from_buffer, the Q-learning probes, a checkpoint round
+    trip, and one learn of each algorithm and the PER sample card vs CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.dqn import DQN
+    from agilerl_tpu_torch.algorithms.dqn_rainbow import RainbowDQN
+    from agilerl_tpu_torch.components.replay_buffer import (
+        MultiStepReplayBuffer,
+        PrioritizedReplayBuffer,
+        ReplayBuffer,
+    )
+    from agilerl_tpu_torch.envs.probe import (
+        ConstantRewardEnv,
+        DiscountedRewardEnv,
+        ObsDependentRewardEnv,
+        PolicyEnv,
+        check_q_learning_with_probe_env,
+    )
+    from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
+    from agilerl_tpu_torch.observability.events import MemorySink
+    from agilerl_tpu_torch.observability.facade import RunTelemetry
+    from agilerl_tpu_torch.observability.registry import MetricsRegistry
+    from agilerl_tpu_torch.training.train_off_policy import train_off_policy
+    from agilerl_tpu_torch.utils.utils import create_population, make_vect_envs
+
+    out = {}
+    launches = {k: 0 for k in ops.kernel_counters()}
+    np.random.seed(0)
+    env = make_vect_envs(OFF_ENV, 16)
+    check(env.device.type == "cuda", f"make_vect_envs put the env on {env.device}")
+    for name, algo, hp, max_steps in OFF_LOOPS:
+        per = hp.get("PER", False)
+        log(f"phase 4k: train_off_policy, {algo} on {OFF_ENV}: {hp['NUM_ENVS']} envs, population "
+            f"{hp['POP_SIZE']}, {'PER + 3-step' if per else 'uniform'} buffer of {OFF_MEMORY} "
+            f"rows, evo_steps {OFF_EVO_STEPS}, max_steps {max_steps} (cut from 10,000 / 200,000)")
+        pop = create_population(algo, env.single_observation_space, env.single_action_space,
+                                OFF_NET, hp, seed=0)
+        check(all(a.dev.type == "cuda" for a in pop), "create_population left the card")
+        memory = (PrioritizedReplayBuffer(OFF_MEMORY, alpha=OFF_ALPHA) if per
+                  else ReplayBuffer(OFF_MEMORY))
+        n_mem = MultiStepReplayBuffer(OFF_MEMORY, n_step=3, gamma=hp["GAMMA"]) if per else None
+        sink = MemorySink()
+        telem = RunTelemetry(registry=MetricsRegistry(sink=sink), lineage=False)
+        ops.reset_kernel_counters()
+        torch.cuda.reset_peak_memory_stats()
+        (pop, fitnesses), t_loop = host_s(torch, lambda: train_off_policy(
+            env, OFF_ENV, algo, pop, memory, INIT_HP=hp, max_steps=max_steps,
+            evo_steps=OFF_EVO_STEPS, n_step=per, per=per, n_step_memory=n_mem,
+            tournament=TournamentSelection(2, True, hp["POP_SIZE"], 1,
+                                           rng=np.random.default_rng(0)),
+            mutation=Mutations(**OFF_MUTATION, rand_seed=0), telemetry=telem, verbose=False,
+            seed=0))
+        for k, v in ops.kernel_counters().items():
+            launches[k] += v
+        gens = [e for e in sink.events if e["kind"] == "generation"]
+        env_steps = gens[-1]["total_steps"]
+        # each agent adds evo_steps // num_envs vector steps per generation
+        per_gen = OFF_EVO_STEPS // hp["NUM_ENVS"] * hp["NUM_ENVS"]
+        check(len(gens) == -(-max_steps // per_gen)
+              and all(np.isfinite(f).all() and len(f) == len(gens) for f in fitnesses)
+              and all(np.isfinite(g["last_losses"]).all() for g in gens),
+              f"{name}: {len(gens)} generations, fitnesses {fitnesses}")
+        # every env step writes a row; each agent's run leaves its last
+        # n_step - 1 vector steps unfolded
+        rows = env_steps - (hp["POP_SIZE"] * len(gens) * 2 * 16 if per else 0)
+        check(len(memory) == min(OFF_MEMORY, rows) and (n_mem is None or len(n_mem) == len(memory)),
+              f"{name}: buffers hold {len(memory)} / {n_mem and len(n_mem)} rows, not {rows}")
+        keys = ("generation", "act_s", "learn_s", "sync_s", "eval_s", "evo_s", "learn_calls",
+                "fitness", "mutations", "last_losses")
+        # learn_step 4 < 16 envs: every vector step learns once the buffer
+        # holds a batch, so the vector steps without a learn are the warm-up
+        vec_steps = hp["POP_SIZE"] * (OFF_EVO_STEPS // hp["NUM_ENVS"])
+        for g in gens:
+            g["warmup_share"] = 1.0 - g["learn_calls"] / vec_steps
+        out[name] = dict(loop_s=t_loop, env_steps=env_steps, env_steps_per_s=env_steps / t_loop,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         generations=[{k: g[k] for k in keys + ("warmup_share",)}
+                                      for g in gens])
+        for g in gens:
+            log(f"  {name} generation {g['generation']}: act + env step {g['act_s']:.2f} s, "
+                f"learn {g['learn_s']:.2f} s ({g['learn_calls']} calls of {vec_steps} vector "
+                f"steps, warm-up share {g['warmup_share']:.4f}), device wait "
+                f"{g['sync_s']:.3f} s, eval {g['eval_s']:.2f} s, tournament + mutation "
+                f"{g['evo_s']:.3f} s; fitness {[round(f, 1) for f in g['fitness']]}; mutations "
+                f"{g['mutations']}")
+        log(f"  {name}: {env_steps} env steps in {t_loop:.1f} s ({env_steps / t_loop:.0f} "
+            f"env-steps/s); peak {out[name]['peak_gb']:.3f} GB")
+        if per:
+            rainbow_pop, rainbow_mem, rainbow_nmem = pop, memory, n_mem
+    out["launches"] = launches
+
+    # one learn_from_buffer on the Rainbow run's buffers: host syncs, ms, launches
+    agent = rainbow_pop[0]
+    learn = lambda: agent.learn_from_buffer(rainbow_mem, rainbow_nmem)  # noqa: E731
+    _, _, base_sites = count_syncs(torch, lambda: None)
+    _, _, sites = count_syncs(torch, learn)
+    learn_syncs = sum(n for site, n in sites.items() if site not in base_sites)
+    check(learn_syncs == 0, f"{learn_syncs} host syncs in one learn_from_buffer {sites}")
+    for _ in range(5):
+        learn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        learn()
+    torch.cuda.synchronize()
+    ms_learn = 1e3 * (time.perf_counter() - t0) / 50
+    prof = profile_generation(torch, learn)
+    out.update(learn_from_buffer_syncs=learn_syncs, learn_sync_sites=sites,
+               ms_per_learn_from_buffer=ms_learn, learn_from_buffer_profile=prof)
+    log(f"  learn_from_buffer (Rainbow, PER + 3-step, batch 64): {learn_syncs} host syncs "
+        f"{sites}, {ms_learn:.2f} ms per call (50 calls), under torch.profiler {prof}")
+
+    # host syncs per env step: the same loop, one agent, OFF_SYNC_STEPS env
+    # steps, everything counted (the agent's last-loss and return reads,
+    # and a one-step evaluation, included)
+    probe_agent = agent.clone(index=50)
+    probe_agent.steps = [0]
+    _, _, sites = count_syncs(torch, lambda: train_off_policy(
+        env, OFF_ENV, "RainbowDQN", [probe_agent], rainbow_mem, max_steps=OFF_SYNC_STEPS,
+        evo_steps=OFF_SYNC_STEPS, eval_steps=1, n_step=True, per=True,
+        n_step_memory=rainbow_nmem, verbose=False))
+    step_syncs = sum(n for site, n in sites.items() if site not in base_sites)
+    vec_steps = OFF_SYNC_STEPS // 16
+    out.update(loop_syncs=step_syncs, loop_sync_sites=sites,
+               syncs_per_env_step=step_syncs / vec_steps)
+    log(f"  host syncs in {vec_steps} vector steps of the loop (evaluation included): "
+        f"{step_syncs} {sites}")
+    check(step_syncs <= vec_steps, f"{step_syncs} host syncs in {vec_steps} env steps")
+
+    probes = {}
+    for env_cls in (ConstantRewardEnv, ObsDependentRewardEnv, DiscountedRewardEnv, PolicyEnv):
+        probe = env_cls()
+        t0 = time.perf_counter()
+        check_q_learning_with_probe_env(
+            probe, DQN, dict(DQN_PROBE, observation_space=probe.observation_space,
+                             action_space=probe.action_space), learn_steps=400)
+        probes[f"DQN/{env_cls.__name__}"] = time.perf_counter() - t0
+    probe = ConstantRewardEnv()
+    t0 = time.perf_counter()
+    check_q_learning_with_probe_env(
+        probe, RainbowDQN, dict(RAINBOW_PROBE, observation_space=probe.observation_space,
+                                action_space=probe.action_space), learn_steps=300, atol=0.2)
+    probes["RainbowDQN/ConstantRewardEnv"] = time.perf_counter() - t0
+    out["probes_s"] = probes
+    log(f"  Q-learning probes passed: {probes}")
+
+    # a checkpoint round trip on the card: save, load, the same greedy actions
+    obs = torch.rand(256, 4, device="cuda", generator=torch.Generator(device="cuda").manual_seed(
+        2)) * 2 - 1
+    # (a file written on the CPU loads onto the card too: device=None is the card)
+    with tempfile.TemporaryDirectory() as work:
+        path, cpu_path = Path(work) / "rainbow.ckpt", Path(work) / "rainbow_cpu.ckpt"
+        agent.save_checkpoint(path)
+        loaded = RainbowDQN.load(path)
+        RainbowDQN.load(path, device="cpu").save_checkpoint(cpu_path)
+        from_cpu = RainbowDQN.load(cpu_path)
+    want = agent.get_action(obs, training=False)
+    same = bool(torch.equal(loaded.get_action(obs, training=False), want))
+    same_cpu = bool(torch.equal(from_cpu.get_action(obs, training=False), want))
+    check(loaded.dev.type == "cuda" and same, f"checkpoint round trip: same actions {same}")
+    check(from_cpu.dev.type == "cuda" and same_cpu,
+          f"CPU-saved checkpoint loads onto the card ({from_cpu.dev}): same actions {same_cpu}")
+    out["checkpoint_round_trip"] = dict(same_greedy_actions=same,
+                                        cpu_saved_on_card_same_greedy_actions=same_cpu)
+
+    off_policy_card_vs_cpu(torch, rainbow_mem, out)
+    report["off_policy"] = out
+    return launches
+
+
 # ------------------------------- phase 5 ----------------------------------- #
 
 
@@ -3421,6 +3737,10 @@ def main() -> None:
     encoder_launches = run_encoders_and_recurrent(torch, ops, report)
     report["phase_4j_s"] = time.perf_counter() - t0
     log(f"phase 4j: {report['phase_4j_s']:.1f} s")
+    t0 = time.perf_counter()
+    off_policy_launches = run_off_policy(torch, ops, report)
+    report["phase_4k_s"] = time.perf_counter() - t0
+    log(f"phase 4k: {report['phase_4k_s']:.1f} s")
     # each main path's counts were set to 0 just before it and read just after
     launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
                 for k in grpo_launches}
@@ -3437,7 +3757,8 @@ def main() -> None:
                                      "flywheel": fly_launches[entry["name"]],
                                      "on_policy": on_policy_launches[entry["name"]],
                                      "population": population_launches[entry["name"]],
-                                     "encoders_recurrent": encoder_launches[entry["name"]]}
+                                     "encoders_recurrent": encoder_launches[entry["name"]],
+                                     "off_policy": off_policy_launches[entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":

@@ -33,6 +33,12 @@ _CLASSIC_IMPORTS = (
     "import agilerl_tpu_torch.modules.resnet, agilerl_tpu_torch.modules.simba\n"
     "import agilerl_tpu_torch.modules.lstm, agilerl_tpu_torch.modules.multi_input\n"
     "import agilerl_tpu_torch.modules.dummy\n"
+    # replay buffers, the DQN family and the off-policy loop (Queue 1's slice 5c-i)
+    "import agilerl_tpu_torch.components.replay_buffer, agilerl_tpu_torch.components.sampler\n"
+    "import agilerl_tpu_torch.components.segment_tree, agilerl_tpu_torch.components.data\n"
+    "import agilerl_tpu_torch.algorithms.core.fused, agilerl_tpu_torch.networks.q_networks\n"
+    "import agilerl_tpu_torch.algorithms.dqn, agilerl_tpu_torch.algorithms.dqn_rainbow\n"
+    "import agilerl_tpu_torch.algorithms.cqn, agilerl_tpu_torch.training.train_off_policy\n"
 )
 
 
@@ -208,11 +214,13 @@ def test_classic_slice_imports_neither_gymnasium_nor_yaml():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-def test_classic_entry_points_default_to_the_card():
+def test_classic_entry_points_default_to_the_card(tmp_path):
     """PPO (flat and recurrent), TorchVecEnv, make_vect_envs,
     create_population("PPO"), EvolvableMLP and the other five encoders, the
-    actor and value networks, RolloutBuffer, EvoPPO and ScanRun take
-    device=None as the card and raise without one."""
+    actor and value networks, RolloutBuffer, EvoPPO and ScanRun, the three
+    replay buffers, DQN, RainbowDQN and CQN, and load /
+    load_population_checkpoint of a file saved on the CPU take device=None as
+    the card and raise without one."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     from agilerl_tpu_torch.algorithms.ppo import PPO
@@ -227,12 +235,28 @@ def test_classic_entry_points_default_to_the_card():
     from agilerl_tpu_torch.modules.multi_input import EvolvableMultiInput
     from agilerl_tpu_torch.modules.resnet import EvolvableResNet
     from agilerl_tpu_torch.modules.simba import EvolvableSimBa
+    from agilerl_tpu_torch.algorithms.cqn import CQN
+    from agilerl_tpu_torch.algorithms.dqn import DQN
+    from agilerl_tpu_torch.algorithms.dqn_rainbow import RainbowDQN
+    from agilerl_tpu_torch.components.replay_buffer import (
+        MultiStepReplayBuffer,
+        PrioritizedReplayBuffer,
+        ReplayBuffer,
+    )
     from agilerl_tpu_torch.parallel import ScanRun
     from agilerl_tpu_torch.utils.spaces import Box, Dict
     from agilerl_tpu_torch.utils.tree import tree_leaves
-    from agilerl_tpu_torch.utils.utils import create_population, make_vect_envs
+    from agilerl_tpu_torch.utils.utils import (
+        create_population,
+        load_population_checkpoint,
+        make_vect_envs,
+        save_population_checkpoint,
+    )
 
     env = CartPole()
+    saved = DQN(env.observation_space, env.action_space, seed=0, device="cpu")
+    saved.save_checkpoint(tmp_path / "dqn.ckpt")
+    save_population_checkpoint([saved], str(tmp_path / "pop.ckpt"))
     for make in (lambda: PPO(env.observation_space, env.action_space, seed=0),
                  lambda: TorchVecEnv(env, 2),
                  lambda: make_vect_envs("CartPole-v1", 2),
@@ -248,7 +272,16 @@ def test_classic_entry_points_default_to_the_card():
                  lambda: EvolvableSimBa(num_inputs=4, num_outputs=2),
                  lambda: EvolvableLSTM(num_inputs=4, num_outputs=2),
                  lambda: EvolvableMultiInput(Dict({"a": Box(-1.0, 1.0, (3,))}), num_outputs=2),
-                 lambda: _evo_ppo(env, None)):
+                 lambda: _evo_ppo(env, None),
+                 lambda: ReplayBuffer(16), lambda: MultiStepReplayBuffer(16),
+                 lambda: PrioritizedReplayBuffer(16),
+                 lambda: DQN(env.observation_space, env.action_space, seed=0),
+                 lambda: RainbowDQN(env.observation_space, env.action_space, seed=0),
+                 lambda: CQN(env.observation_space, env.action_space, seed=0),
+                 lambda: create_population("RainbowDQN", env.observation_space,
+                                           env.action_space, population_size=2, seed=0),
+                 lambda: DQN.load(tmp_path / "dqn.ckpt"),
+                 lambda: load_population_checkpoint("DQN", str(tmp_path / "pop.ckpt"), [0])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     evo = _evo_ppo(env, "cpu")
@@ -263,6 +296,16 @@ def test_classic_entry_points_default_to_the_card():
                         device="cpu").device == torch.device("cpu")
     assert ValueNetwork(env.observation_space, device="cpu").device == torch.device("cpu")
     assert RolloutBuffer(capacity=4, num_envs=2, device="cpu").device == torch.device("cpu")
+    for cls in (ReplayBuffer, MultiStepReplayBuffer, PrioritizedReplayBuffer):
+        assert cls(16, device="cpu").device == torch.device("cpu")
+    for cls in (DQN, RainbowDQN, CQN):
+        q = cls(env.observation_space, env.action_space, seed=0, device="cpu")
+        assert {p.device for p in q.actor_target.params["head"]["output"].values()} == {q.dev}
+    for q in (DQN.load(tmp_path / "dqn.ckpt", device="cpu"),
+              load_population_checkpoint("DQN", str(tmp_path / "pop.ckpt"), [0],
+                                         device="cpu")[0]):
+        assert q.dev == torch.device("cpu")
+        assert {p.device for p in q.actor.params["head"]["output"].values()} == {q.dev}
 
 
 def _evo_ppo(env, device):
@@ -277,3 +320,13 @@ def _evo_ppo(env, device):
                           latent_dim=8) for n in (2, 1)]
     return EvoPPO(env, *cfgs, D.dist_config_from_space(env.action_space), adam(1e-3),
                   num_envs=2, rollout_len=4, device=device)
+
+
+def test_off_policy_scan_tier_still_raises():
+    """The off-policy population as one program waits for Queue 1's slice
+    5c-scan."""
+    from agilerl_tpu_torch.parallel import DeviceReplayRing, ScanOffPolicy
+
+    for cls in (DeviceReplayRing, ScanOffPolicy):
+        with pytest.raises(NotImplementedError, match="slice 5c-scan"):
+            cls()

@@ -151,18 +151,36 @@ def test_rollout_and_fitness_match_jax(T, finishes):
     draws = {"action": torch.from_numpy(u.astype(np.float32))[:, None],
              "reset": (CartPoleState(*(torch.from_numpy(x)[:, None] for x in rs)),
                        torch.from_numpy(ro)[:, None])}
-    traj, _, _, _, ep_ret, fitness = tevo._rollout(_port_state(jevo, tevo, jpop), draws)
+    state = _port_state(jevo, tevo, jpop)
+    steps = []  # (terminated & truncated, V(final_obs)) of each step, seen by the port
+    vec_step = tevo._vec_step
+
+    def recording_step(*args, **kw):
+        out = vec_step(*args, **kw)
+        both = torch.logical_and(out[3], out[4])
+        steps.append((both, tevo._value(jax.tree_util.tree_map(lambda x: x[0], state.critic),
+                                        out[5])))
+        return out
+
+    tevo._vec_step = recording_step
+    traj, _, _, _, ep_ret, fitness = tevo._rollout(state, draws)
     assert bool(np.asarray(jtraj["done"]).any()) == finishes
     np.testing.assert_array_equal(traj["action"][:, 0].numpy(), actions)
     np.testing.assert_array_equal(traj["done"][:, 0].numpy(), np.asarray(jtraj["done"]))
+    # the JAX package bootstraps every truncated step; the port not one that
+    # also terminates (Queue 3's repair): its reward is the JAX one minus
+    # gamma * V(final_obs) there, and the JAX one everywhere else
+    both = torch.stack([b for b, _ in steps]).numpy()
+    v_final = torch.stack([v for _, v in steps]).numpy()
+    want = dict(jtraj, reward=np.asarray(jtraj["reward"]) - tevo.gamma * v_final * both)
     for k in ("obs", "logp", "value", "reward"):
-        np.testing.assert_allclose(traj[k][:, 0].numpy(), np.asarray(jtraj[k]), rtol=1e-5,
+        np.testing.assert_allclose(traj[k][:, 0].numpy(), np.asarray(want[k]), rtol=1e-5,
                                    atol=1e-5, err_msg=k)
     np.testing.assert_allclose(ep_ret[0].numpy(), np.asarray(jep), rtol=1e-6)
     np.testing.assert_allclose(fitness[0].item(), float(jfit), rtol=1e-5)
     if not finishes:
         np.testing.assert_allclose(
-            fitness[0].item(), float(np.mean(np.asarray(jtraj["reward"]))) * 500, rtol=1e-5)
+            fitness[0].item(), float(np.mean(want["reward"])) * 500, rtol=1e-5)
 
 
 def _random_traj(rng, P, T, N):

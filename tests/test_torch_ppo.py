@@ -7,6 +7,8 @@ action spaces, masked too (atol 1e-5), sampling by distribution, GAE
 (Discrete and Box, with and without target_kl), clone and population
 seeds; then the slice end to end on the CPU."""
 
+from typing import NamedTuple
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,9 @@ from agilerl_tpu_torch.networks import distributions as TD  # noqa: E402
 from agilerl_tpu_torch.rollouts.on_policy import collect_rollouts  # noqa: E402
 from agilerl_tpu_torch.training.train_on_policy import train_on_policy  # noqa: E402
 from agilerl_tpu_torch.utils.utils import create_population, make_vect_envs  # noqa: E402
+from agilerl_tpu_torch.envs.core import TorchEnv  # noqa: E402
+from agilerl_tpu_torch.utils import tree as TT  # noqa: E402
+from agilerl_tpu_torch.utils.spaces import Box, Discrete  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -354,15 +359,40 @@ def test_collect_latches_an_action_mask_from_step_infos():
     assert np.isfinite(agent.learn())
 
 
-def test_train_on_policy_refuses_unported_hooks():
+def test_train_on_policy_refuses_unported_hooks(tmp_path):
+    """resilience= and wb= raise until slice 6; checkpoint=, resume and
+    save_elite are ported (Queue 1's item 2) and run."""
     env = make_vect_envs("CartPole-v1", 2, device="cpu")
     pop = create_population("PPO", env.single_observation_space, env.single_action_space,
-                            NET, {"POP_SIZE": 1}, num_envs=2, device="cpu", seed=0)
-    for hook in (dict(resilience=object()), dict(resume=True), dict(checkpoint=100),
-                 dict(save_elite=True), dict(wb=True)):
+                            NET, {"POP_SIZE": 2, "LEARN_STEP": 8, "BATCH_SIZE": 16},
+                            num_envs=2, device="cpu", seed=0)
+    for hook in (dict(resilience=object()), dict(wb=True)):
         name = next(iter(hook))
         with pytest.raises(NotImplementedError, match=name):
             train_on_policy(env, "CartPole-v1", "PPO", pop, max_steps=1, **hook)
+    path = tmp_path / "ppo.ckpt"
+    pop, _ = train_on_policy(env, "CartPole-v1", "PPO", pop, max_steps=16, evo_steps=16,
+                             eval_steps=5, checkpoint=16, checkpoint_path=str(path),
+                             overwrite_checkpoints=True, save_elite=True,
+                             elite_path=str(tmp_path),
+                             tournament=TournamentSelection(2, True, 2, 1,
+                                                            rng=np.random.default_rng(0)),
+                             mutation=Mutations(1.0, 0, 0, 0, 0, 0, rand_seed=0),
+                             verbose=False)
+    assert (tmp_path / "PPO_elite.ckpt").exists()
+    # one file per member, by its index (the tournament's clone has a new one)
+    assert {f.name for f in tmp_path.glob("ppo_*.ckpt")} == {f"ppo_{a.index}.ckpt" for a in pop}
+    fresh = create_population("PPO", env.single_observation_space, env.single_action_space,
+                              NET, {"POP_SIZE": 2, "LEARN_STEP": 8, "BATCH_SIZE": 16},
+                              num_envs=2, device="cpu", seed=9)
+    fresh, _ = train_on_policy(env, "CartPole-v1", "PPO", fresh, max_steps=0, resume=True,
+                               checkpoint_path=str(path), verbose=False)
+    saved = {a.index: a for a in pop}
+    for b in fresh:  # a member without a file keeps its fresh weights
+        same = torch.equal(b.actor.params["head"]["output"]["kernel"],
+                           saved[b.index].actor.params["head"]["output"]["kernel"]
+                           if b.index in saved else torch.zeros(()))
+        assert same == (b.index in saved)
     # recurrent PPO is ported (Queue 1's slice 5b): an LSTM encoder, no refusal
     agent = TPPO(env.single_observation_space, env.single_action_space, recurrent=True,
                  device="cpu")
@@ -403,3 +433,72 @@ def test_multi_tensor_adam_equals_the_per_leaf_formula():
     for got, want in zip(tree_leaves(wrapper.opt_state[1].inner_state[0].nu),
                          tree_leaves(ref_state.nu)):
         assert torch.equal(got, want)
+
+
+class _LimitState(NamedTuple):
+    t: torch.Tensor
+    ends: torch.Tensor  # the env terminates on its last allowed step
+
+
+class _EndsAtItsLimit(TorchEnv):
+    """Episodes of 3 steps, reward 1 per step, obs [t / 3]: on even envs the
+    3rd step terminates, and being the time limit it truncates too; odd
+    envs are cut by the time limit alone."""
+
+    max_episode_steps = 3
+    observation_space = Box(0.0, 1.0, (1,), np.float32)
+    action_space = Discrete(2)
+
+    def reset_fn(self, n, gen):
+        dev = gen.device
+        state = _LimitState(torch.zeros(n, dtype=torch.int32, device=dev),
+                            torch.arange(n, device=dev) % 2 == 0)
+        return state, torch.zeros(n, 1, device=dev)
+
+    def step_fn(self, state, action, gen):
+        t = state.t + 1
+        term = state.ends & (t >= 3)
+        return (_LimitState(t, state.ends), (t.float() / 3)[:, None], torch.ones_like(t.float()),
+                term, torch.zeros_like(term))
+
+
+@pytest.mark.parametrize("collect", ["per_agent", "evo_ppo"])
+def test_terminal_step_at_the_time_limit_gets_no_bootstrap(collect):
+    """Queue 3's repair: a step that both terminates and truncates keeps its
+    reward (no gamma * V(final_obs)); a step cut by the time limit alone gets
+    the bootstrap; every other step keeps its reward. In the per-agent
+    collect and in EvoPPO's rollout."""
+    from agilerl_tpu_torch.algorithms.core.optimizer import adam
+    from agilerl_tpu_torch.envs.core import TorchVecEnv
+    from agilerl_tpu_torch.modules.mlp import MLPConfig
+    from agilerl_tpu_torch.networks.base import EvolvableNetwork, NetworkConfig
+    from agilerl_tpu_torch.networks.base import default_encoder_config
+    from agilerl_tpu_torch.parallel import EvoPPO
+
+    env = _EndsAtItsLimit()
+    final = torch.ones(1, 1)  # the obs a 3-step episode ends on
+    if collect == "per_agent":
+        agent = TPPO(env.observation_space, env.action_space, num_envs=4, learn_step=7,
+                     net_config=NET, seed=0, device="cpu")
+        collect_rollouts(agent, TorchVecEnv(env, 4, device="cpu"))
+        reward = agent.rollout_buffer.state.data["reward"]  # [T, N]
+        gamma, v_final = agent.gamma, float(agent.value_of(final)[0])
+    else:
+        kind, enc = default_encoder_config(env.observation_space, 8)
+        cfgs = [NetworkConfig(kind, enc, MLPConfig(num_inputs=8, num_outputs=n,
+                                                   hidden_size=(8,)), latent_dim=8)
+                for n in (2, 1)]
+        evo = EvoPPO(env, *cfgs, TD.dist_config_from_space(env.action_space), adam(1e-3),
+                     num_envs=4, rollout_len=7, device="cpu")
+        pop = evo.init_population(0, 1)
+        gen = torch.Generator().manual_seed(0)
+        traj = evo._rollout(pop, evo.draw_iteration(1, gen), gen)[0]
+        reward = traj["reward"][:, 0]
+        critic = {k: TT.tree_map(lambda x: x[0], v) for k, v in pop.critic.items()}
+        gamma = evo.gamma
+        v_final = float(EvolvableNetwork.apply(cfgs[1], critic, final)[0, 0])
+    assert abs(v_final) > 1e-4
+    ends = torch.tensor([2, 5])  # the steps on which the episodes end
+    want = torch.ones(7, 4)
+    want[ends[:, None], torch.tensor([1, 3])] = 1.0 + gamma * v_final  # cut, not terminated
+    np.testing.assert_allclose(reward.numpy(), want.numpy(), rtol=1e-6, atol=1e-7)

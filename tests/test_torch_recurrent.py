@@ -173,3 +173,16 @@ def test_recurrent_collect_and_learn_survive_an_architecture_mutation():
         tagent.critic.config.encoder.hidden_size
     assert np.isfinite(tagent.learn())
     assert np.isfinite(tagent.test(env, loop=1))
+
+
+def test_memory_env_terminal_steps_get_no_bootstrap():
+    """MemoryEnv ends every episode on its last allowed step, so the
+    autoreset flags that step truncated as well as terminated. The collect
+    stores its reward as it is (Queue 3's repair: the JAX package adds
+    gamma * V(final_obs) there): every stored reward is -1, 0 or +1."""
+    _, tagent = _pair()
+    env = TorchVecEnv(MemoryEnv(), num_envs=3, seed=0, device="cpu")
+    collect_rollouts(tagent, env)
+    reward = tagent.rollout_buffer.state.data["reward"]
+    assert set(reward.unique().tolist()) <= {-1.0, 0.0, 1.0}
+    assert bool((reward != 0).any())
