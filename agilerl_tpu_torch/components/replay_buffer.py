@@ -200,11 +200,16 @@ class ReplayBuffer:
             self._device_add(tree_map(lambda x: x[lo:lo + self.max_size], chunk))
         self._size_host = min(self._size_host + rows, self.max_size)
 
-    def sample(self, batch_size: int, key: Optional[torch.Generator] = None) -> PyTree:
+    def sample(self, batch_size: int, key: Optional[torch.Generator] = None,
+               draws: Optional[torch.Tensor] = None) -> PyTree:
+        """``batch_size`` rows at uniform indices (``draws``, when given,
+        are the indices)."""
         self.flush()
         assert self.state is not None and len(self) > 0, "buffer is empty"
-        key = key if key is not None else self._draw_key()
-        return _gather(self.state, draw_indices(key, batch_size, self.state.size))
+        if draws is None:
+            key = key if key is not None else self._draw_key()
+            draws = draw_indices(key, batch_size, self.state.size)
+        return _gather(self.state, as_tensor(draws, self.device).long())
 
     def sample_from_indices(self, idx) -> PyTree:
         self.flush()
@@ -499,13 +504,17 @@ class PrioritizedReplayBuffer(ReplayBuffer):
                 torch.ones((), dtype=torch.float32, device=self.device))
         self.per_state = _per_add(self.per_state, rows)
 
-    def sample(self, batch_size: int, beta: float = 0.4,
-               key: Optional[torch.Generator] = None) -> Tuple[PyTree, torch.Tensor, torch.Tensor]:
+    def sample(self, batch_size: int, beta: float = 0.4, key: Optional[torch.Generator] = None,
+               draws: Optional[torch.Tensor] = None
+               ) -> Tuple[PyTree, torch.Tensor, torch.Tensor]:
+        """``(batch, idx, weights)`` by inverse CDF at uniforms in [0, 1)
+        (``draws``, when given, are the uniforms)."""
         self.flush()
         assert self.per_state is not None and len(self) > 0, "buffer is empty"
-        key = key if key is not None else self._draw_key()
-        u = torch.rand(batch_size, generator=key, device=key.device)
-        return _per_sample(self.per_state, u, float(beta))
+        if draws is None:
+            key = key if key is not None else self._draw_key()
+            draws = torch.rand(batch_size, generator=key, device=key.device)
+        return _per_sample(self.per_state, as_tensor(draws, self.device), float(beta))
 
     def update_priorities(self, idx, priorities) -> None:
         self.per_state = _per_update(self.per_state, as_tensor(idx, self.device).long(),

@@ -13,6 +13,7 @@ from agilerl_tpu_torch.components.replay_buffer import (
     draw_indices,
     drain_staging,
 )
+from agilerl_tpu_torch.utils.spaces import as_tensor
 
 
 class Sampler:
@@ -42,22 +43,26 @@ class Sampler:
         drain_staging(self.memory, self.n_step_memory)
 
     def sample(self, batch_size: int, beta: Optional[float] = None, idxs=None,
-               key: Optional[torch.Generator] = None):
+               key: Optional[torch.Generator] = None, draws: Optional[torch.Tensor] = None):
+        """``draws`` stand in for the memory's own: PER's uniforms, or the
+        uniform indices."""
         if self._iter is not None:
             return next(self._iter)
         self.flush()
         if self.per:
             batch, idx, weights = self.memory.sample(
-                batch_size, beta=beta if beta is not None else 0.4, key=key)
+                batch_size, beta=beta if beta is not None else 0.4, key=key, draws=draws)
             if self.n_step_memory is not None:
                 return batch, idx, weights, self.n_step_memory.sample_from_indices(idx)
             return batch, idx, weights
         if idxs is not None:
             return self.memory.sample_from_indices(idxs)
         if self.n_step_memory is not None:
-            key = key if key is not None else self.memory._draw_key()
-            idx = draw_indices(key, batch_size, len(self.memory))
+            if draws is None:
+                key = key if key is not None else self.memory._draw_key()
+                draws = draw_indices(key, batch_size, len(self.memory))
+            idx = as_tensor(draws, self.memory.device).long()
             weights = torch.ones(batch_size, dtype=torch.float32, device=idx.device)
             return (self.memory.sample_from_indices(idx), idx, weights,
                     self.n_step_memory.sample_from_indices(idx))
-        return self.memory.sample(batch_size, key=key)
+        return self.memory.sample(batch_size, key=key, draws=draws)

@@ -2,10 +2,9 @@
 part of ``agilerl_tpu/envs/probe.py`` (the five probe families over vector /
 image / Dict observations and discrete / continuous actions, with their
 ground-truth tables; ``check_policy_on_policy_with_probe_env``,
-``fill_buffer_random`` and ``check_q_learning_with_probe_env``) and
-``MemoryEnv``, the POMDP probe of recurrent PPO. Batched over ``[N]``
-tensors. ``check_policy_q_learning_with_probe_env`` needs DDPG / TD3 and
-comes with them (Queue 1's slice 5c-ii)."""
+``fill_buffer_random``, ``check_q_learning_with_probe_env`` and
+``check_policy_q_learning_with_probe_env``) and ``MemoryEnv``, the POMDP
+probe of recurrent PPO. Batched over ``[N]`` tensors."""
 
 from __future__ import annotations
 
@@ -445,3 +444,42 @@ def check_q_learning_with_probe_env(env: TorchEnv, algo_class, algo_args: dict,
         if qrow is None:
             continue
         np.testing.assert_allclose(q_of(obs)[0], qrow, atol=atol)
+
+
+def check_policy_q_learning_with_probe_env(env: TorchEnv, algo_class, algo_args: dict,
+                                           learn_steps: int = 400, seed: int = 42,
+                                           atol: float = 0.25) -> None:
+    """Train an actor-critic off-policy agent (DDPG / TD3) on a continuous
+    probe env's random-action buffer (512 transitions) and assert its critic
+    against the env's Q table (a discounting probe: critic(s1, a) ~ 1 and
+    critic(s0, a) ~ gamma * critic(s1, a)) and its greedy action against the
+    policy table."""
+    from agilerl_tpu_torch.components.replay_buffer import ReplayBuffer
+
+    agent = algo_class(**algo_args)
+    memory = ReplayBuffer(max_size=2048, device=agent.dev, seed=seed)
+    fill_buffer_random(env, memory, steps=64, num_envs=8, seed=seed)
+    for _ in range(learn_steps):
+        agent.learn(memory.sample(64))
+
+    def q_of(obs, act):
+        pre = agent.preprocess_observation(_batched_table_obs(obs))
+        action = torch.as_tensor(np.asarray(act, np.float32)[None], device=agent.dev)
+        return agent.critic(pre, action).detach().cpu().numpy().reshape(-1)
+
+    if getattr(env, "checks_discounting", False):
+        q0 = float(q_of(env.sample_obs[0], env.sample_actions[0])[0])
+        q1 = float(q_of(env.sample_obs[1], env.sample_actions[1])[0])
+        np.testing.assert_allclose(q1, 1.0, atol=max(atol, 0.15))
+        np.testing.assert_allclose(q0, agent.gamma * q1, atol=max(atol, 0.15))
+        return
+    if env.q_values is not None and env.sample_actions is not None:
+        for obs, act, qrow in zip(env.sample_obs, env.sample_actions, env.q_values):
+            if qrow is not None:
+                np.testing.assert_allclose(q_of(obs, act), qrow, atol=atol)
+    if env.policy_values is not None:
+        for obs, pol in zip(env.sample_obs, env.policy_values):
+            if pol is None:
+                continue
+            action = agent.get_action(_batched_table_obs(obs), training=False)
+            np.testing.assert_allclose(action.cpu().numpy().reshape(-1), pol, atol=atol)

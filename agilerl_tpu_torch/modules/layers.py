@@ -100,14 +100,33 @@ def noisy_dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
     }
 
 
-def _scaled_noise(gen: torch.Generator, n: int) -> torch.Tensor:
-    x = torch.randn((n,), generator=gen, dtype=torch.float32, device=gen.device)
+class NoiseStream:
+    """Standard normals drawn beforehand (a ``[..., count]`` tensor), handed
+    out in order in place of a generator's draws: the noisy layers of one
+    apply take ``in + out`` entries each, input side first. A population
+    program passes one per member under ``vmap``."""
+
+    def __init__(self, normals: torch.Tensor):
+        self.normals = normals
+        self.offset = 0
+
+    def take(self, n: int) -> torch.Tensor:
+        out = self.normals[..., self.offset:self.offset + n]
+        self.offset += n
+        return out
+
+
+def _scaled_noise(gen, n: int) -> torch.Tensor:
+    if isinstance(gen, NoiseStream):
+        x = gen.take(n)
+    else:
+        x = torch.randn((n,), generator=gen, dtype=torch.float32, device=gen.device)
     return torch.sign(x) * torch.sqrt(torch.abs(x))
 
 
-def noisy_dense_apply(params: Params, x: torch.Tensor,
-                      gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Apply a noisy linear layer. gen=None -> deterministic (eval) path."""
+def noisy_dense_apply(params: Params, x: torch.Tensor, gen=None) -> torch.Tensor:
+    """Apply a noisy linear layer: its noise from ``gen`` (a generator or a
+    ``NoiseStream``); None -> deterministic (eval) path."""
     if gen is None:
         return x @ params["kernel_mu"] + params["bias_mu"]
     in_dim, out_dim = params["kernel_mu"].shape

@@ -91,6 +91,17 @@ def _value_config(config: RainbowConfig):
     return config_replace(config.head, num_outputs=config.num_atoms)
 
 
+def noise_count(config: RainbowConfig) -> int:
+    """Standard normals one noisy apply of a ``RainbowQNetwork`` takes from
+    a ``modules.layers.NoiseStream``: ``in + out`` per noisy layer of the
+    advantage and value streams."""
+    total = 0
+    for mlp in (config.head, _value_config(config)):
+        sizes = (mlp.num_inputs,) + tuple(mlp.hidden_size) + (mlp.num_outputs,)
+        total += sum(a + b for a, b in zip(sizes[:-1], sizes[1:]))
+    return total
+
+
 def support(config: RainbowConfig, device=None) -> torch.Tensor:
     """The atoms' values: ``linspace(v_min, v_max, num_atoms)`` in f32."""
     return torch.linspace(config.v_min, config.v_max, config.num_atoms, dtype=torch.float32,

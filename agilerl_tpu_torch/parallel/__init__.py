@@ -1,11 +1,13 @@
 """The population as one program on one card: the port of
 ``agilerl_tpu/parallel/`` for evolutionary PPO (``generation``,
-``population``). Pod sharding (slice 6), the off-policy scan tier
-(``DeviceReplayRing``, ``ScanOffPolicy``: slice 5c-scan) and the multi-agent
-population (slice 5d) come with their slices; the first two raise until then."""
+``population``) and the off-policy family (the stacked replay rings,
+``ScanOffPolicy``, ``off_policy``: ``EvoDQN``, ``EvoRainbow``, ``EvoDDPG``,
+``EvoTD3``). Pod sharding (slice 6) and the multi-agent population (slice
+5d) come with their slices; ``make_pod_generation`` raises until then."""
 
 from agilerl_tpu_torch.parallel.generation import (
     DeviceReplayRing,
+    ScanMemberState,
     ScanOffPolicy,
     ScanRun,
     apply_evolution,
@@ -16,12 +18,22 @@ from agilerl_tpu_torch.parallel.generation import (
     mutation_noise,
     population_load_state_dict,
     population_state_dict,
+    ring_init,
+    ring_nstep_gather,
+    ring_sample_per,
+    ring_sample_uniform,
+    ring_update_priorities,
+    ring_write,
     tournament_select,
 )
+from agilerl_tpu_torch.parallel.off_policy import EvoDDPG, EvoDQN, EvoRainbow, EvoTD3
 from agilerl_tpu_torch.parallel.population import EvoPPO, MemberState
 
 __all__ = [
-    "DeviceReplayRing", "EvoPPO", "MemberState", "ScanOffPolicy", "ScanRun", "apply_evolution", "evolve_actor_critic",
+    "DeviceReplayRing", "EvoDDPG", "EvoDQN", "EvoPPO", "EvoRainbow", "EvoTD3", "MemberState",
+    "ScanMemberState", "ScanOffPolicy", "ScanRun", "apply_evolution", "evolve_actor_critic",
     "gaussian_mutate", "make_pod_generation", "make_vmap_generation", "mutation_noise",
-    "population_load_state_dict", "population_state_dict", "tournament_select",
+    "population_load_state_dict", "population_state_dict", "ring_init", "ring_nstep_gather",
+    "ring_sample_per", "ring_sample_uniform", "ring_update_priorities", "ring_write",
+    "tournament_select",
 ]

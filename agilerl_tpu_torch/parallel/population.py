@@ -38,6 +38,8 @@ from agilerl_tpu_torch.networks import distributions as D
 from agilerl_tpu_torch.networks.base import EvolvableNetwork, NetworkConfig
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
 from agilerl_tpu_torch.parallel.generation import (
+    _flat,
+    _stack,
     evolve_actor_critic,
     make_pod_generation,
     make_vmap_generation,
@@ -57,15 +59,6 @@ class MemberState(NamedTuple):
     step_count: torch.Tensor  # [P, N] int32
     obs: torch.Tensor  # [P, N, ...]
     ep_ret: torch.Tensor  # [P, N] running episode return (spans generations)
-
-
-def _stack(*members):
-    return torch.stack(members) if isinstance(members[0], torch.Tensor) else members[0]
-
-
-def _flat(x: torch.Tensor) -> torch.Tensor:
-    """[P, N, ...] -> [P * N, ...]"""
-    return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

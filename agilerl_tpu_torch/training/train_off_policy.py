@@ -10,10 +10,12 @@ goes through tournament selection and mutation.
 Transitions are staged and written ``flush_every`` steps at a time
 (default 8); learning goes through the agent's ``learn_from_buffer``
 (sample, learn and PER write-back in one call, no host sync, the loss left
-on the device). The JAX loop's second path, ``Sampler.sample`` + ``learn``
-+ ``update_priorities`` for agents without a fused learn (DDPG, TD3), comes
-with those agents in slice 5c-ii; until then such an agent, or a buffer
-without device state, is refused. Against a device env (``TorchVecEnv``)
+on the device). An agent without a fused learn for the buffer (DDPG and TD3
+under PER) takes the JAX loop's second path, ``sampled_learn``:
+``Sampler.sample`` + ``learn`` + ``update_priorities`` when ``learn``
+returns priorities; its ``learn`` reads the loss on the host, one sync per
+learn. A buffer that is not one of the port's is refused. Against a device
+env (``TorchVecEnv``)
 actions, rewards, episode returns and the staged rows stay on the device,
 so an env step makes no host sync; the loop reads the device once per
 agent and generation (the last loss and the mean episode return). Against
@@ -40,7 +42,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from agilerl_tpu_torch.components.replay_buffer import drain_staging
+from agilerl_tpu_torch.components.replay_buffer import ReplayBuffer, drain_staging
+from agilerl_tpu_torch.components.sampler import Sampler
 from agilerl_tpu_torch.observability import init_run_telemetry
 from agilerl_tpu_torch.rollouts.on_policy import env_action
 from agilerl_tpu_torch.training.train_on_policy import refuse_unported
@@ -121,6 +124,25 @@ def _logical_or(a, b):
     return np.logical_or(a, b)
 
 
+def sampled_learn(agent, sampler: Sampler, memory, per: bool, draws=None):
+    """The JAX loop's learn path for an agent without a fused learn
+    (``train_off_policy.py:313-331``): under PER, ``sampler.sample`` at
+    ``beta = agent.beta`` (0.4 when the agent has none), ``agent.learn`` on
+    the tuple, then ``memory.update_priorities`` where ``learn`` returned
+    priorities; else ``agent.learn`` on a uniform sample. ``draws`` stand in
+    for the memory's own (PER's uniforms, or the indices). Returns the loss."""
+    if per:
+        sampled = sampler.sample(agent.batch_size, beta=getattr(agent, "beta", None),
+                                 draws=draws)
+        result = agent.learn(sampled)
+        new_priorities = result[1] if isinstance(result, tuple) else None
+        if new_priorities is not None:
+            memory.update_priorities(sampled[1], new_priorities)
+        return result[0] if isinstance(result, tuple) else result
+    result = agent.learn(sampler.sample(agent.batch_size, draws=draws))
+    return result[0] if isinstance(result, tuple) else result
+
+
 class _EpisodeScores:
     """Per-env running returns and the finished episodes' sum and count, on
     ``device`` (the env's; a host env's on the CPU), read once."""
@@ -185,14 +207,10 @@ def train_off_policy(
 ) -> Tuple[List, List[List[float]]]:
     """Returns (population, per-agent fitness histories)."""
     refuse_unported("train_off_policy", resilience=resilience, wb=wb)
-    for agent in pop:
-        if not (hasattr(agent, "learn_from_buffer")
-                and (not per or getattr(agent, "supports_fused_per", False))
-                and hasattr(memory, "per_state" if per else "state")):
-            raise NotImplementedError(
-                f"train_off_policy learns through learn_from_buffer on a port replay buffer; "
-                f"{type(agent).__name__} on {type(memory).__name__} needs the sampled "
-                "learn path, which is not ported yet (slice 5c-ii: DDPG, TD3, offline)")
+    if not isinstance(memory, ReplayBuffer):
+        raise NotImplementedError(
+            f"train_off_policy learns from the port's replay buffers "
+            f"(components/replay_buffer.py), not a {type(memory).__name__}")
     if resume:
         resume_population_from_checkpoint(pop, checkpoint_path)
     telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
@@ -212,6 +230,7 @@ def train_off_policy(
         elif not getattr(buf, "_flush_every_user_set", False):
             buf.flush_every = 8
     paired = n_step_memory if n_step else None
+    sampler = Sampler(memory=memory, per=per, n_step_memory=paired)
     num_envs = getattr(env, "num_envs", 1)
     batched = num_envs > 1
     env_dev = getattr(env, "device", None)
@@ -242,6 +261,8 @@ def train_off_policy(
                 scores = _EpisodeScores(num_envs, env_dev if device_env else "cpu")
                 steps = 0
                 learn_every = max(agent.learn_step, 1)
+                fused = hasattr(agent, "learn_from_buffer") and (
+                    not per or getattr(agent, "supports_fused_per", False))
                 for _ in range(max(evo_steps // num_envs, 1)):
                     t_act = time.perf_counter()
                     action_mask = info.get("action_mask") if isinstance(info, dict) else None
@@ -295,7 +316,8 @@ def train_off_policy(
                         drain_staging(memory, paired)
                         if len(memory) >= agent.batch_size and len(memory) >= learning_delay:
                             learn_calls += 1
-                            pending_loss = agent.learn_from_buffer(memory, paired)
+                            pending_loss = (agent.learn_from_buffer(memory, paired) if fused
+                                            else sampled_learn(agent, sampler, memory, per))
                     t_done = time.perf_counter()
                     secs["learn_s"] += t_done - t_learn
                     telem.step(env_steps=num_envs, agent_index=agent.index,

@@ -1,6 +1,6 @@
 """Population factory, env maker, evolution glue and population
 checkpoints: the port of ``agilerl_tpu/utils/utils.py`` for GRPO, DPO, PPO,
-DQN, RainbowDQN and CQN (``create_population``, ``make_vect_envs``,
+DQN, RainbowDQN, CQN, DDPG and TD3 (``create_population``, ``make_vect_envs``,
 ``tournament_selection_and_mutation`` with ``save_elite``,
 ``save_population_checkpoint``, ``resume_population_from_checkpoint``,
 ``load_population_checkpoint``, ``consolidate_mutations``,
@@ -49,7 +49,7 @@ def _named_ctor_params(cls) -> set:
 
 # the algorithms ported so far, by name -> module of agilerl_tpu_torch.algorithms
 _ALGO_MODULES = {"GRPO": "grpo", "DPO": "dpo", "PPO": "ppo", "DQN": "dqn",
-                 "RainbowDQN": "dqn_rainbow", "CQN": "cqn"}
+                 "RainbowDQN": "dqn_rainbow", "CQN": "cqn", "DDPG": "ddpg", "TD3": "td3"}
 
 
 def _algo_class(algo: str):
@@ -74,8 +74,8 @@ def create_population(
     seed: Optional[int] = None,
     **kwargs,
 ) -> List:
-    """Build a population of GRPO, DPO, PPO, DQN, RainbowDQN or CQN agents.
-    Each member gets the ``INIT_HP`` keys its constructor names, and
+    """Build a population of GRPO, DPO, PPO, DQN, RainbowDQN, CQN, DDPG or
+    TD3 agents. Each member gets the ``INIT_HP`` keys its constructor names, and
     ``observation_space``, ``action_space``, ``net_config`` and ``num_envs``
     where it names them. ``kwargs`` go to every member (GRPO/DPO: ``config``,
     ``base_params``, token ids, ...; pass ``base_params`` to share one frozen

@@ -89,7 +89,7 @@ of which ends the run with a non-zero exit on any failure:
 4h. slice 5a, evolutionary PPO at configs/training/ppo.yaml's widths
    (CartPole-v1 as a ``TorchVecEnv`` of 16 envs, population 4, learn_step
    128, batch 256, 4 epochs, latent 32, hidden [64]; max_steps cut from
-   200,000 to 30,720 = 3 generations): ``train_on_policy`` through
+   200,000 to 20,480 = 2 generations): ``train_on_policy`` through
    ``create_population("PPO")`` and ``make_vect_envs`` (env-steps/s; per
    generation the seconds collecting, learning, evaluating and evolving, ms
    per learn, fitnesses, mutations; no kernel is on this path); on a clone
@@ -100,7 +100,7 @@ of which ends the run with a non-zero exit on any failure:
    card against the CPU;
 4i. slice 5e's head, the population as one program at bench.py's width
    (``EvoPPO`` through ``ScanRun``: CartPole-v1, population 64 x 128 envs x
-   64 steps, latent 64, hidden [64], 1 epoch x 4 minibatches; 1 warm-up + 5
+   64 steps, latent 64, hidden [64], 1 epoch x 4 minibatches; 1 warm-up + 3
    timed generations): env-steps/s, the seconds of rollout, GAE + update
    and evolve, host syncs per generation (<= 1), peak memory, launches and
    the device's busy time of a profiled generation; a member alone against
@@ -117,8 +117,7 @@ of which ends the run with a non-zero exit on any failure:
    (Rainbow: PER + 3-step + C51 + noisy nets; CartPole-v1 as a
    ``TorchVecEnv`` of 16 envs, population 4, buffers of 20,000 rows;
    evo_steps cut from 10,000 to 3,200 and max_steps from 200,000 to 6,400
-   = 2 generations) and on dqn.yaml
-   (double DQN, uniform buffer; 1 generation): env-steps/s, per generation
+   = 2 generations): env-steps/s, per generation
    the seconds acting and stepping the env, dispatching the learn steps,
    waiting for the device, evaluating and evolving, fitnesses, peak memory;
    the host syncs of one ``learn_from_buffer`` (0) and per env step of the
@@ -127,6 +126,31 @@ of which ends the run with a non-zero exit on any failure:
    and Rainbow's on ConstantReward; a checkpoint round trip; one DQN, CQN
    and Rainbow learn and the PER sample on the card against the CPU (no
    kernel is on this path);
+4l. slice 5c-ii: ``train_off_policy`` on configs/training/ddpg/ddpg.yaml
+   (DDPG, OU noise) and td3.yaml (TD3) at their widths (Pendulum-v1 as a
+   ``TorchVecEnv`` of 16 envs, population 4, batch 128, a 100,000-row
+   buffer, latent 64, hidden [64]; evo_steps cut to 1,600 and max_steps to
+   3,200 = 2 generations), DDPG once more on a PER buffer through the loop's
+   sampled path (1 generation): env-steps/s and the parts of each
+   generation; the host syncs of one DDPG ``learn_from_buffer`` (0) and per
+   env step (<= 1), its ms and launches; both policy probes; a DDPG
+   checkpoint round trip; one DDPG and one TD3 learn on the card against the
+   CPU; then configs/training/cqn.yaml through ``train_offline`` on a
+   20,000-row dataset that ``collect_offline_dataset`` collects on the
+   device CartPole-v1 (evo_steps cut to 150, max_steps to 300 = 2
+   generations);
+4m. slice 5c-scan, the off-policy population as one program: bench.py's
+   bench_anakin programs at its defaults (``EvoDQN`` on CartPole-v1 and
+   ``EvoDDPG`` on Pendulum-v1, 8 envs x 256 steps, population 1; 1 warm-up
+   + 3 timed generations through ``ScanRun``) beside the per-agent loop at
+   the same widths; ``EvoDQN`` at the distributed harness's member widths at
+   population 8; ``EvoRainbow`` and ``EvoTD3`` at a small width; host syncs
+   per generation (<= 1), the launches and busy share of one profiled
+   generation; a member alone against its batched slice; the cross-tier
+   gate (the scan DQN's and DDPG's per-tick losses against the per-agent
+   ``learn_from_buffer`` on the same transitions and draws, rtol 1e-4); one
+   ``EvoDDPG`` generation on the card against the CPU (no kernel is on
+   these paths);
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -2236,7 +2260,8 @@ def run_offline_hf_moe(torch, M, report):
 # ------------------------------- phase 4h ---------------------------------- #
 # configs/training/ppo.yaml (the card's machine has no PyYAML): evolutionary
 # PPO on CartPole-v1, 16 envs, population 4. The one cut: MAX_STEPS 200,000
-# -> 30,720 (3 generations of EVO_STEPS), for time.
+# -> 20,480 (2 generations of EVO_STEPS; 30,720 and 3 generations until the
+# off-policy slices' phases 4l and 4m came), for time.
 PPO_ENV = "CartPole-v1"
 PPO_INIT_HP = {"POP_SIZE": 4, "BATCH_SIZE": 256, "LR": 3e-4, "GAMMA": 0.99, "GAE_LAMBDA": 0.95,
                "CLIP_COEF": 0.2, "ENT_COEF": 0.01, "VF_COEF": 0.5, "MAX_GRAD_NORM": 0.5,
@@ -2246,7 +2271,7 @@ PPO_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activatio
                     rl_hp=0.2)
 PPO_TOURNAMENT = (2, True, 4, 1)  # size, elitism, population, eval loop
 PPO_EVO_STEPS = 10_240
-PPO_MAX_STEPS = 30_720  # cut from 200,000
+PPO_MAX_STEPS = 20_480  # cut from 200,000
 # tests/test_algorithms/test_ppo.py:87-108: the probe checks' settings
 PPO_PROBE = dict(num_envs=8, learn_step=16, batch_size=64, update_epochs=4, lr=3e-3, gamma=0.5,
                  ent_coef=0.05, seed=3,
@@ -2493,7 +2518,7 @@ def ppo_card_vs_cpu(torch, agent, report):
 
 def run_on_policy(torch, ops, report):
     """Phase 4h: evolutionary PPO at configs/training/ppo.yaml's widths
-    through train_on_policy (3 generations), each mutation class followed
+    through train_on_policy (2 generations), each mutation class followed
     by a learn, both PPO probe checks, the card against the CPU, and the
     host syncs of one collect_rollouts."""
     import numpy as np
@@ -2602,9 +2627,10 @@ def run_on_policy(torch, ops, report):
 # bench.py's bench_evoppo at its TPU defaults (BASELINE.md's workload):
 # CartPole-v1, population 64 x 128 envs x 64 rollout steps, actor and critic
 # with an MLP encoder (latent 64, hidden [64]) and an MLP head (hidden [64]),
-# adam(3e-4), 1 epoch of 4 minibatches; one warm-up generation, then 5 timed.
+# adam(3e-4), 1 epoch of 4 minibatches; one warm-up generation, then 3 timed
+# (5 until phases 4l and 4m came).
 POP = dict(pop=64, num_envs=128, rollout_len=64, latent=64, hidden=64, update_epochs=1,
-           num_minibatches=4, lr=3e-4, warmup=1, timed=5)
+           num_minibatches=4, lr=3e-4, warmup=1, timed=3)
 # tests/test_parallel/test_population.py:100-122, the JAX package's learning
 # gate: pop 4, 16 envs, rollout 32, latent 32, hidden 64, 2 epochs, 4
 # minibatches, 180 generations; early (first 10) best < 150, late (last 30)
@@ -2733,7 +2759,7 @@ def weights_rule(torch, got, want, mu):
 
 def run_population(torch, ops, report):
     """Phase 4i: the evolutionary population as one program (EvoPPO through
-    ScanRun) at bench.py's pop-64 width: env-steps/s of 5 timed
+    ScanRun) at bench.py's pop-64 width: env-steps/s of 3 timed
     generations, the seconds of each part, host syncs, peak memory, launches
     and the device's busy share of one generation; a member's slice against
     the member alone; one update card vs CPU; the JAX package's learning
@@ -3032,22 +3058,20 @@ def run_encoders_and_recurrent(torch, ops, report):
 # keep a second generation: only there do the tournament's clones and
 # mutated agents learn from the buffer. At 10,000 / 20,000 the phase took 174.5 s and at 4,000 / 8,000
 # 92.8-110.4 s (its Rainbow loop 48.8-71.0 s) on an H100 80GB HBM3 at
-# 700 W. Then configs/training/dqn/dqn.yaml (double DQN, a uniform buffer
-# of 20,000 rows) for 1 generation (max_steps -> 3,200).
+# 700 W. configs/training/dqn/dqn.yaml's 1-generation loop (double DQN, a
+# uniform buffer of 20,000 rows) was cut when phases 4l and 4m came: its
+# learn stays held card vs CPU, and phase 4m runs the per-agent DQN loop.
 OFF_ENV = "CartPole-v1"
 RAINBOW_HP = {"POP_SIZE": 4, "BATCH_SIZE": 64, "LR": 1e-3, "GAMMA": 0.99, "LEARN_STEP": 4,
               "TAU": 0.01, "NUM_ATOMS": 51, "V_MIN": 0.0, "V_MAX": 200.0, "N_STEP": 3,
               "PER": True, "NUM_ENVS": 16}
-DQN_HP = {"POP_SIZE": 4, "BATCH_SIZE": 64, "LR": 1e-3, "GAMMA": 0.99, "LEARN_STEP": 4,
-          "TAU": 0.01, "DOUBLE": True, "NUM_ENVS": 16}
 OFF_NET = {"latent_dim": 32, "encoder_config": {"hidden_size": (64,)}}
 OFF_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activation=0.0,
                     rl_hp=0.2, mutation_sd=0.1)
 OFF_MEMORY = 20_000
 OFF_ALPHA = 0.6
 OFF_EVO_STEPS = 3_200  # cut from 10,000
-OFF_LOOPS = (("rainbow", "RainbowDQN", RAINBOW_HP, 6_400),  # cut from 200,000
-             ("dqn", "DQN", DQN_HP, 3_200))  # cut from 200,000
+OFF_LOOPS = (("rainbow", "RainbowDQN", RAINBOW_HP, 6_400),)  # cut from 200,000
 OFF_SYNC_STEPS = 1_024  # the short run whose host syncs are counted (64 vector steps)
 # tests/test_algorithms/test_probe_grid.py:55-67 (DQN) and
 # test_learning_correctness.py:17-27 (Rainbow on ConstantReward)
@@ -3148,8 +3172,8 @@ def off_policy_card_vs_cpu(torch, memory, out):
 
 def run_off_policy(torch, ops, report):
     """Phase 4k: Queue 1's slice 5c-i on the card: train_off_policy on the
-    Rainbow config (2 generations) and the DQN config (1 generation), the
-    host syncs of one learn_from_buffer (0) and per env step (<= 1), ms and
+    Rainbow config (2 generations), the host syncs of one learn_from_buffer
+    (0) and per env step (<= 1), ms and
     launches per learn_from_buffer, the Q-learning probes, a checkpoint round
     trip, and one learn of each algorithm and the PER sample card vs CPU."""
     import tempfile
@@ -3319,6 +3343,624 @@ def run_off_policy(torch, ops, report):
 
     off_policy_card_vs_cpu(torch, rainbow_mem, out)
     report["off_policy"] = out
+    return launches
+
+
+# ------------------------------- phase 4l ---------------------------------- #
+# configs/training/ddpg/ddpg.yaml and configs/training/td3.yaml (the card's
+# machine has no PyYAML): Pendulum-v1 as a TorchVecEnv of 16 envs,
+# population 4, batch 128, lr 1e-4 / 1e-3, gamma 0.99, learn_step 2, tau
+# 0.005, policy_freq 2, OU noise for DDPG (theta 0.15, dt 0.01) and Gaussian
+# for TD3 (expl_noise 0.1), a uniform buffer of 100,000 rows, latent 64,
+# hidden [64]. Cuts, for time: evo_steps 10,000 -> 1,600 and max_steps
+# 200,000 -> 3,200 (2 generations: the tournament's clones and mutated agents
+# learn from the buffer in the second). Then DDPG on a PrioritizedReplayBuffer
+# (alpha 0.6) through the loop's sampled path for 1 generation (max_steps ->
+# 1,600), and configs/training/cqn.yaml through train_offline: batch 64, lr
+# 1e-3, learn_step 1, tau 0.01, double, a buffer of 20,000 rows filled once
+# from a 20,000-row dataset that collect_offline_dataset makes on the device
+# CartPole-v1 (16 envs, random actions: the config's DATASET file is not in
+# the repository), latent 32, hidden [64]; evo_steps cut 5,000 -> 150 and
+# max_steps 50,000 -> 300 (2 generations; at 250 / 500 the loop took 15.2 s
+# on an H100 80GB HBM3 at 700 W, every learn reading its loss).
+CONT_ENV = "Pendulum-v1"
+DDPG_HP = {"POP_SIZE": 4, "BATCH_SIZE": 128, "LR_ACTOR": 1e-4, "LR_CRITIC": 1e-3,
+           "GAMMA": 0.99, "LEARN_STEP": 2, "TAU": 0.005, "POLICY_FREQ": 2, "O_U_NOISE": True,
+           "EXPL_NOISE": 0.1, "THETA": 0.15, "DT": 0.01, "NUM_ENVS": 16}
+TD3_HP = dict(DDPG_HP, O_U_NOISE=False)
+CONT_NET = {"latent_dim": 64, "encoder_config": {"hidden_size": (64,)}}
+CONT_MEMORY = 100_000
+CONT_EVO_STEPS = 1_600  # cut from 10,000
+CONT_LOOPS = (("ddpg", "DDPG", DDPG_HP, False, 3_200),  # max_steps cut from 200,000
+              ("td3", "TD3", TD3_HP, False, 3_200),
+              ("ddpg_per", "DDPG", DDPG_HP, True, 1_600))
+CONT_SYNC_STEPS = 512  # the short run whose host syncs are counted (32 vector steps)
+# tests/test_algorithms/test_ddpg_probe.py's settings, for DDPG and TD3
+CONT_PROBE = dict(lr_actor=3e-3, lr_critic=5e-3, gamma=0.9, tau=0.3, policy_freq=1,
+                  O_U_noise=False, seed=2,
+                  net_config={"latent_dim": 16, "encoder_config": {"hidden_size": (32,)}})
+CQN_HP = {"POP_SIZE": 4, "BATCH_SIZE": 64, "LR": 1e-3, "GAMMA": 0.99, "LEARN_STEP": 1,
+          "TAU": 0.01, "DOUBLE": True}
+CQN_NET = {"latent_dim": 32, "encoder_config": {"hidden_size": (64,)}}
+CQN_MEMORY = 20_000
+CQN_ROWS = 20_000
+CQN_EVO_STEPS = 150  # cut from 5,000
+CQN_MAX_STEPS = 300  # cut from 50,000
+
+
+def continuous_card_vs_cpu(torch, out):
+    """One DDPG learn (critic and actor steps) and one TD3 learn (its
+    smoothing normals given) on the card against the CPU, on the same batch
+    and weights: the loss and every weight by phase 4k's rule."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.core import fused as F
+    from agilerl_tpu_torch.algorithms.core.base import load_params_from_numpy
+    from agilerl_tpu_torch.algorithms.ddpg import DDPG
+    from agilerl_tpu_torch.algorithms.td3 import TD3
+    from agilerl_tpu_torch.envs.classic import Pendulum
+    from agilerl_tpu_torch.utils.tree import tree_map, tree_to_numpy
+
+    env = Pendulum()
+    rng = np.random.default_rng(7)
+    batch = {"obs": rng.uniform(-1, 1, (128, 3)).astype(np.float32) * [1, 1, 8],
+             "action": rng.uniform(-2, 2, (128, 1)).astype(np.float32),
+             "reward": rng.uniform(-16, 0, 128).astype(np.float32),
+             "next_obs": rng.uniform(-1, 1, (128, 3)).astype(np.float32) * [1, 1, 8],
+             "done": np.zeros(128, np.float32)}
+    batch = {k: v.astype(np.float32) for k, v in batch.items()}
+    normal = torch.randn(128, 1, generator=torch.Generator().manual_seed(4))
+    res = {}
+    for name, cls in (("ddpg", DDPG), ("td3", TD3)):
+        agents = {dev: cls(env.observation_space, env.action_space, net_config=CONT_NET,
+                           lr_actor=1e-3, lr_critic=1e-3, gamma=0.99, tau=0.005,
+                           policy_freq=1, seed=1, device=dev) for dev in ("cuda", "cpu")}
+        names = agents["cpu"].registry.all_network_names()
+        load_params_from_numpy(agents["cuda"], {n: tree_to_numpy(getattr(agents["cpu"], n).params)
+                                                for n in names})
+        losses = {}
+        for dev, a in agents.items():
+            if name == "ddpg":
+                losses[dev] = a.learn(batch)
+            else:
+                pre = F.preprocess_batch(batch, a.observation_space, a.dev)
+                losses[dev] = float(a._twin_update(pre, None, normal.to(a.dev), True))
+                a._actor_update(pre)
+        loss_err = abs(losses["cuda"] - losses["cpu"]) / max(abs(losses["cpu"]), 1e-12)
+        worst, exempt = 0.0, 0.0
+        for cfg in agents["cpu"].registry.optimizer_configs:
+            # the first step's gradient (Adam's first moment / (1 - b1))
+            grad = tree_map(lambda m: m / 0.1,
+                            getattr(agents["cpu"], cfg.name).opt_state.inner_state[0].mu)
+            for net in cfg.networks:
+                w, e = weights_rule(torch, getattr(agents["cuda"], net).params,
+                                    getattr(agents["cpu"], net).params, grad)
+                worst, exempt = max(worst, w), max(exempt, e)
+        res[name] = dict(loss=losses, loss_rel_err=loss_err, weight_max_abs_err=worst,
+                         exempt_share=exempt)
+        check(loss_err <= OFF_RTOL, f"{name} learn loss on the card vs CPU: {losses}")
+        check(worst <= OFF_RTOL, f"{name} weights after learn on the card vs CPU: {worst}")
+        check(exempt < 0.1, f"{name}: {exempt:.3f} of the weights held by gradient")
+    out["card_vs_cpu"] = res
+    log(f"  card vs CPU: {res}")
+
+
+def run_off_policy_continuous(torch, ops, report):
+    """Phase 4l: Queue 1's slice 5c-ii on the card: train_off_policy with
+    DDPG and TD3 on their configs (2 generations each) and DDPG on PER
+    through the sampled path (1 generation), the host syncs of one DDPG
+    learn_from_buffer (0) and per env step (<= 1), ms and launches per
+    learn_from_buffer, both policy probes, a DDPG checkpoint round trip, one
+    DDPG and one TD3 learn card vs CPU; then cqn.yaml through train_offline
+    on a dataset collected on the device. Returns the kernel launches of the
+    continuous loops and of the offline loop."""
+    import tempfile
+
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.cqn import CQN
+    from agilerl_tpu_torch.algorithms.ddpg import DDPG
+    from agilerl_tpu_torch.algorithms.td3 import TD3
+    from agilerl_tpu_torch.components.replay_buffer import PrioritizedReplayBuffer, ReplayBuffer
+    from agilerl_tpu_torch.envs.probe import (
+        FixedObsPolicyEnv,
+        check_policy_q_learning_with_probe_env,
+    )
+    from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
+    from agilerl_tpu_torch.observability.events import MemorySink
+    from agilerl_tpu_torch.observability.facade import RunTelemetry
+    from agilerl_tpu_torch.observability.registry import MetricsRegistry
+    from agilerl_tpu_torch.training.train_off_policy import train_off_policy
+    from agilerl_tpu_torch.training.train_offline import train_offline
+    from agilerl_tpu_torch.utils.minari_utils import collect_offline_dataset
+    from agilerl_tpu_torch.utils.utils import create_population, make_vect_envs
+
+    out = {}
+    launches = {k: 0 for k in ops.kernel_counters()}
+    np.random.seed(0)
+    env = make_vect_envs(CONT_ENV, 16)
+    check(env.device.type == "cuda", f"make_vect_envs put the env on {env.device}")
+    keys = ("generation", "act_s", "learn_s", "sync_s", "eval_s", "evo_s", "learn_calls",
+            "fitness", "mutations", "last_losses")
+    for name, algo, hp, per, max_steps in CONT_LOOPS:
+        log(f"phase 4l: train_off_policy, {algo} on {CONT_ENV}: 16 envs, population "
+            f"{hp['POP_SIZE']}, {'PER (sampled path)' if per else 'uniform'} buffer of "
+            f"{CONT_MEMORY} rows, evo_steps {CONT_EVO_STEPS}, max_steps {max_steps} (cut from "
+            f"10,000 / 200,000)")
+        pop = create_population(algo, env.single_observation_space, env.single_action_space,
+                                CONT_NET, hp, seed=0)
+        check(all(a.dev.type == "cuda" for a in pop), "create_population left the card")
+        memory = (PrioritizedReplayBuffer(CONT_MEMORY, alpha=OFF_ALPHA) if per
+                  else ReplayBuffer(CONT_MEMORY))
+        sink = MemorySink()
+        telem = RunTelemetry(registry=MetricsRegistry(sink=sink), lineage=False)
+        ops.reset_kernel_counters()
+        torch.cuda.reset_peak_memory_stats()
+        (pop, fitnesses), t_loop = host_s(torch, lambda: train_off_policy(
+            env, CONT_ENV, algo, pop, memory, INIT_HP=hp, max_steps=max_steps,
+            evo_steps=CONT_EVO_STEPS, per=per,
+            tournament=TournamentSelection(2, True, hp["POP_SIZE"], 1,
+                                           rng=np.random.default_rng(0)),
+            mutation=Mutations(**OFF_MUTATION, rand_seed=0), telemetry=telem, verbose=False,
+            seed=0))
+        for k, v in ops.kernel_counters().items():
+            launches[k] += v
+        gens = [e for e in sink.events if e["kind"] == "generation"]
+        env_steps = gens[-1]["total_steps"]
+        check(len(gens) == max_steps // CONT_EVO_STEPS
+              and all(np.isfinite(f).all() and len(f) == len(gens) for f in fitnesses)
+              and all(np.isfinite(g["last_losses"]).all() and g["learn_calls"] > 0
+                      for g in gens),
+              f"{name}: {len(gens)} generations, fitnesses {fitnesses}")
+        check(len(memory) == min(CONT_MEMORY, env_steps),
+              f"{name}: the buffer holds {len(memory)} rows, not {env_steps}")
+        if per:
+            # DDPG's learn has no priority output: every row keeps the first max
+            check(float(memory.per_state.max_priority) == 1.0,
+                  f"{name}: max priority {float(memory.per_state.max_priority)}")
+        out[name] = dict(loop_s=t_loop, env_steps=env_steps, env_steps_per_s=env_steps / t_loop,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         generations=[{k: g[k] for k in keys} for g in gens])
+        for g in gens:
+            log(f"  {name} generation {g['generation']}: act + env step {g['act_s']:.2f} s, "
+                f"learn {g['learn_s']:.2f} s ({g['learn_calls']} calls), device wait "
+                f"{g['sync_s']:.3f} s, eval {g['eval_s']:.2f} s, tournament + mutation "
+                f"{g['evo_s']:.3f} s; fitness {[round(f, 1) for f in g['fitness']]}; mutations "
+                f"{g['mutations']}")
+        log(f"  {name}: {env_steps} env steps in {t_loop:.1f} s ({env_steps / t_loop:.0f} "
+            f"env-steps/s); peak {out[name]['peak_gb']:.3f} GB")
+        if name == "ddpg":
+            ddpg_pop, ddpg_mem = pop, memory
+
+    # one DDPG learn_from_buffer on the DDPG run's buffer: host syncs, ms, launches
+    agent = ddpg_pop[0]
+    learn = lambda: agent.learn_from_buffer(ddpg_mem)  # noqa: E731
+    _, _, base_sites = count_syncs(torch, lambda: None)
+    _, _, sites = count_syncs(torch, learn)
+    learn_syncs = sum(n for site, n in sites.items() if site not in base_sites)
+    check(learn_syncs == 0, f"{learn_syncs} host syncs in one learn_from_buffer {sites}")
+    for _ in range(5):
+        learn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        learn()
+    torch.cuda.synchronize()
+    ms_learn = 1e3 * (time.perf_counter() - t0) / 50
+    prof = [profile_generation(torch, learn) for _ in range(2)]  # one with the actor step
+    out.update(learn_from_buffer_syncs=learn_syncs, learn_sync_sites=sites,
+               ms_per_learn_from_buffer=ms_learn, learn_from_buffer_profile=prof)
+    log(f"  learn_from_buffer (DDPG, batch 128): {learn_syncs} host syncs {sites}, "
+        f"{ms_learn:.2f} ms per call (50 calls), two calls under torch.profiler {prof}")
+
+    # host syncs per env step: the same loop, one agent, CONT_SYNC_STEPS env steps
+    probe_agent = agent.clone(index=50)
+    probe_agent.steps = [0]
+    _, _, sites = count_syncs(torch, lambda: train_off_policy(
+        env, CONT_ENV, "DDPG", [probe_agent], ddpg_mem, max_steps=CONT_SYNC_STEPS,
+        evo_steps=CONT_SYNC_STEPS, eval_steps=1, verbose=False))
+    step_syncs = sum(n for site, n in sites.items() if site not in base_sites)
+    vec_steps = CONT_SYNC_STEPS // 16
+    out.update(loop_syncs=step_syncs, loop_sync_sites=sites,
+               syncs_per_env_step=step_syncs / vec_steps)
+    log(f"  host syncs in {vec_steps} vector steps of the loop (evaluation included): "
+        f"{step_syncs} {sites}")
+    check(step_syncs <= vec_steps, f"{step_syncs} host syncs in {vec_steps} env steps")
+
+    probes = {}
+    for cls in (DDPG, TD3):
+        probe = FixedObsPolicyEnv(continuous=True)
+        t0 = time.perf_counter()
+        check_policy_q_learning_with_probe_env(
+            probe, cls, dict(CONT_PROBE, observation_space=probe.observation_space,
+                             action_space=probe.action_space), learn_steps=400)
+        probes[f"{cls.__name__}/FixedObsPolicyEnv(continuous)"] = time.perf_counter() - t0
+    out["probes_s"] = probes
+    log(f"  policy probes passed: {probes}")
+
+    obs = torch.rand(256, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(
+        2)) * 2 - 1
+    with tempfile.TemporaryDirectory() as work:
+        path = Path(work) / "ddpg.ckpt"
+        agent.save_checkpoint(path)
+        loaded = DDPG.load(path)
+    same = bool(torch.equal(loaded.get_action(obs, training=False),
+                            agent.get_action(obs, training=False)))
+    check(loaded.dev.type == "cuda" and same, f"DDPG checkpoint round trip: same actions {same}")
+    out["checkpoint_round_trip"] = dict(same_greedy_actions=same)
+    continuous_card_vs_cpu(torch, out)
+    report["off_policy_continuous"] = out
+
+    # cqn.yaml through train_offline, on a dataset collected on the device
+    off = {}
+    cart = make_vect_envs("CartPole-v1", 16)
+    ds, collect_s = host_s(torch, lambda: collect_offline_dataset(cart, steps=CQN_ROWS, seed=0))
+    rows = len(ds["observations"])
+    check(rows == CQN_ROWS and all(len(v) == rows for v in ds.values())
+          and 0 < ds["terminals"].sum() < rows and isinstance(ds["actions"], np.ndarray),
+          f"dataset: {rows} rows, {ds['terminals'].sum()} terminals")
+    log(f"phase 4l: train_offline, CQN on a {rows}-row CartPole-v1 dataset collected on the "
+        f"card in {collect_s:.2f} s: population {CQN_HP['POP_SIZE']}, batch 64, buffer "
+        f"{CQN_MEMORY}, evo_steps {CQN_EVO_STEPS}, max_steps {CQN_MAX_STEPS} (cut from 5,000 / "
+        f"50,000)")
+    pop = create_population("CQN", cart.single_observation_space, cart.single_action_space,
+                            CQN_NET, CQN_HP, seed=0)
+    memory = ReplayBuffer(CQN_MEMORY)
+    ops.reset_kernel_counters()
+    (pop, fitnesses), t_loop = host_s(torch, lambda: train_offline(
+        cart, "CartPole-v1", ds, "CQN", pop, memory, INIT_HP=CQN_HP, max_steps=CQN_MAX_STEPS,
+        evo_steps=CQN_EVO_STEPS,
+        tournament=TournamentSelection(2, True, CQN_HP["POP_SIZE"], 1,
+                                       rng=np.random.default_rng(0)),
+        mutation=Mutations(**OFF_MUTATION, rand_seed=0), verbose=False))
+    offline_launches = ops.kernel_counters()
+    # the loop's steps: learn_step per learn (1 unless a mutation moved it)
+    steps = sum(a.steps[-1] for a in pop)
+    gens = len(fitnesses[0])
+    check(len(memory) == CQN_ROWS and all(isinstance(a, CQN) for a in pop)
+          and gens >= CQN_MAX_STEPS // CQN_EVO_STEPS
+          and all(a.steps[-1] >= CQN_MAX_STEPS for a in pop)
+          and all(np.isfinite(f).all() and len(f) == gens for f in fitnesses),
+          f"train_offline: fitnesses {fitnesses}")
+    off.update(collect_s=collect_s, rows=rows, terminals=int(ds["terminals"].sum()),
+               loop_s=t_loop, generations=gens, steps=steps, steps_per_s=steps / t_loop,
+               fitness=[list(map(float, f)) for f in fitnesses], launches=offline_launches)
+    log(f"  {gens} generations, {steps} learn steps in {t_loop:.1f} s ({steps / t_loop:.0f} "
+        f"per s, evaluation included); fitness {off['fitness']}")
+    report["offline"] = off
+    return launches, offline_launches
+
+
+# ------------------------------- phase 4m ---------------------------------- #
+# bench.py's bench_anakin at its defaults (bench.py:1059-1232): EvoDQN on
+# CartPole-v1 and EvoDDPG on Pendulum-v1, 8 envs x 256 steps, buffer 10,000,
+# batch 64, learn_every 4, latent 32, hidden [64], adam(1e-3) (EvoDDPG:
+# adam(1e-4) / adam(1e-3)), population 1; 1 warm-up + 3 timed generations,
+# beside the per-agent loop at the same widths as bench_anakin runs it
+# (staging, flush every 8, learn_from_buffer every 4 vector steps; 64 warm-up
+# + 256 timed steps). Then EvoDQN at benchmarking_off_policy_distributed.py's
+# member widths (32 envs x 128 steps, batch 64, learn_every 1, buffer 10,000)
+# at population 8 (two members per device x four devices, here on one
+# card), and EvoRainbow / EvoTD3 at a small width (8 envs x 64 steps, buffer
+# 2,048, batch 32, population 4; 1 warm-up + 1 timed generation). Nothing
+# is cut.
+ANAKIN = dict(num_envs=8, steps_per_iter=256, buffer_size=10_000, batch_size=64,
+              learn_every=4, latent=32, hidden=64, warmup=1, timed=3)
+SCAN_DIST = dict(num_envs=32, steps_per_iter=128, buffer_size=10_000, batch_size=64,
+                 learn_every=1, pop=8)
+SCAN_SMALL = dict(num_envs=8, steps_per_iter=64, buffer_size=2_048, batch_size=32, pop=4)
+# tests/test_parallel/test_cross_tier.py's gate: 30 ticks, 4 envs, batch 16,
+# buffer 128, latent 16, hidden [32], losses rtol 1e-4 (atol 1e-6)
+CROSS_TIER = dict(ticks=30, num_envs=4, batch_size=16, buffer_size=128, rtol=1e-4, atol=1e-6,
+                  net={"latent_dim": 16, "encoder_config": {"hidden_size": (32,)}})
+SCAN_MEMBER_ATOL = 1e-5  # a member alone against its batched slice (summation order)
+
+
+def scan_net(env, outputs, latent, hidden, **head_kw):
+    """bench_anakin's net_cfg: an MLP encoder and an MLP head."""
+    from agilerl_tpu_torch.modules.mlp import MLPConfig
+    from agilerl_tpu_torch.networks.base import NetworkConfig, default_encoder_config
+
+    kind, enc = default_encoder_config(env.observation_space, latent_dim=latent,
+                                       encoder_config={"hidden_size": (hidden,)})
+    return NetworkConfig(encoder_kind=kind, encoder=enc,
+                         head=MLPConfig(num_inputs=head_kw.pop("num_inputs", latent),
+                                        num_outputs=outputs, hidden_size=(hidden,), **head_kw),
+                         latent_dim=latent)
+
+
+def scan_engines(cfg, device=None):
+    """bench_anakin's EvoDQN and EvoDDPG at ``cfg``'s widths."""
+    from agilerl_tpu_torch.algorithms.core.optimizer import adam
+    from agilerl_tpu_torch.envs.classic import CartPole, Pendulum
+    from agilerl_tpu_torch.parallel import EvoDDPG, EvoDQN
+
+    kw = {k: cfg[k] for k in ("num_envs", "steps_per_iter", "buffer_size", "batch_size",
+                              "learn_every")}
+    L, H = cfg["latent"], cfg["hidden"]
+    cart, pend = CartPole(), Pendulum()
+    dqn = EvoDQN(cart, scan_net(cart, 2, L, H), adam(1e-3), device=device, **kw)
+    ddpg = EvoDDPG(pend, scan_net(pend, 1, L, H, output_activation="Tanh"),
+                   scan_net(pend, 1, L, H, num_inputs=L + 1), device=device, **kw)
+    return dqn, ddpg
+
+
+def per_agent_sps(torch, algo):
+    """bench_anakin's per-agent protocol at its widths on the device env:
+    env-steps/s of 256 timed vector steps after 64 warm-up steps."""
+    from agilerl_tpu_torch.algorithms.ddpg import DDPG
+    from agilerl_tpu_torch.algorithms.dqn import DQN
+    from agilerl_tpu_torch.components.replay_buffer import ReplayBuffer
+    from agilerl_tpu_torch.envs.classic import CartPole, Pendulum
+    from agilerl_tpu_torch.envs.core import TorchVecEnv
+
+    N, B, every = ANAKIN["num_envs"], ANAKIN["batch_size"], ANAKIN["learn_every"]
+    net = {"latent_dim": ANAKIN["latent"], "encoder_config": {"hidden_size": (ANAKIN["hidden"],)}}
+    if algo == "dqn":
+        env = TorchVecEnv(CartPole(), num_envs=N, seed=0)
+        agent = DQN(env.single_observation_space, env.single_action_space, batch_size=B,
+                    lr=1e-3, net_config=net, seed=0)
+        act = lambda obs: agent.get_action(obs, epsilon=0.1)  # noqa: E731
+    else:
+        env = TorchVecEnv(Pendulum(), num_envs=N, seed=0)
+        agent = DDPG(env.single_observation_space, env.single_action_space, batch_size=B,
+                     O_U_noise=False, net_config=net, seed=0)
+        act = lambda obs: agent.get_action(obs)  # noqa: E731
+    memory = ReplayBuffer(ANAKIN["buffer_size"], seed=0, flush_every=8)
+
+    def loop(n_steps):
+        obs, _ = env.reset()
+        for t in range(n_steps):
+            action = act(obs)
+            next_obs, reward, term, trunc, _ = env.step(action)
+            memory.stage({"obs": obs, "action": action, "reward": reward.float(),
+                          "next_obs": next_obs, "done": term.float()}, batched=True)
+            obs = next_obs
+            if t % every == 0:
+                memory.flush()
+                if len(memory) >= B:
+                    agent.learn_from_buffer(memory)
+
+    loop(max(ANAKIN["steps_per_iter"] // 4, 2 * every * B // N))
+    _, t = host_s(torch, lambda: loop(ANAKIN["steps_per_iter"]))
+    return ANAKIN["steps_per_iter"] * N / t
+
+
+def timed_scan(torch, evo, pop_size, warmup, timed, seed=0):
+    """(ScanRun, {warm-up s, timed s, env-steps/s, ms per generation, peak
+    GB, fitness}) of ``warmup`` + ``timed`` generations."""
+    import numpy as np
+
+    from agilerl_tpu_torch.parallel import ScanRun
+
+    run = ScanRun(evo, pop_size, seed=seed)
+    _, warm_s = host_s(torch, lambda: run.run(warmup))
+    torch.cuda.reset_peak_memory_stats()
+    hist, timed_s = host_s(torch, lambda: run.run(timed))
+    steps = pop_size * evo.env_steps_per_generation * timed
+    check(hist.shape == (timed, pop_size) and bool(np.isfinite(hist).all()),
+          f"{type(evo).__name__}: fitness history {hist}")
+    return run, dict(warmup_s=warm_s, timed_s=timed_s, env_steps=steps,
+                     env_steps_per_s=steps / timed_s, ms_per_generation=1e3 * timed_s / timed,
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     fitness=hist.tolist(), learn_count=run.pop.learn_count)
+
+
+def member_slice(torch, tree, p, dim=0):
+    from agilerl_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.narrow(dim, p, 1).clone() if isinstance(x, torch.Tensor) else x,
+                    tree)
+
+
+def scan_cross_tier(torch, kind):
+    """The JAX cross-tier gate on the card: CROSS_TIER's ticks of one member
+    against the per-agent learn_from_buffer on the member's transitions and
+    sample indices, from the member's weights and Adam state. Returns the
+    count compared and the worst relative loss error."""
+    from agilerl_tpu_torch.algorithms.ddpg import DDPG
+    from agilerl_tpu_torch.algorithms.dqn import DQN
+    from agilerl_tpu_torch.components.replay_buffer import ReplayBuffer
+    from agilerl_tpu_torch.envs.classic import CartPole, Pendulum
+    from agilerl_tpu_torch.parallel import EvoDDPG, EvoDQN
+    from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    c = CROSS_TIER
+    kw = dict(num_envs=c["num_envs"], steps_per_iter=c["ticks"], buffer_size=c["buffer_size"],
+              batch_size=c["batch_size"], gamma=0.99, tau=0.01)
+    if kind == "dqn":
+        env = CartPole()
+        agent = DQN(env.observation_space, env.action_space, batch_size=c["batch_size"],
+                    lr=1e-3, gamma=0.99, tau=0.01, net_config=c["net"], seed=0)
+        evo = EvoDQN(env, agent.actor.config, agent.optimizer.tx, **kw)
+        pairs = (("actor", "params"), ("actor_target", "target"))
+        opts = (("optimizer", "opt_state"),)
+    else:
+        env = Pendulum()
+        agent = DDPG(env.observation_space, env.action_space, batch_size=c["batch_size"],
+                     lr_actor=1e-4, lr_critic=1e-3, gamma=0.99, tau=0.01, policy_freq=2,
+                     O_U_noise=False, net_config=c["net"], seed=0)
+        evo = EvoDDPG(env, agent.actor.config, agent.critic.config,
+                      tx_actor=agent.actor_optimizer.tx, tx_critic=agent.critic_optimizer.tx,
+                      policy_freq=2, **kw)
+        pairs = (("actor", "actor"), ("actor_target", "actor_target"), ("critic", "critic"),
+                 ("critic_target", "critic_target"))
+        opts = (("actor_optimizer", "actor_opt"), ("critic_optimizer", "critic_opt"))
+    pop = evo.init_population(1, 1)
+    first = lambda x: x[0].clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+    for mine, theirs in pairs:
+        getattr(agent, mine).params = tree_map(first, getattr(pop.learner, theirs))
+    for mine, theirs in opts:
+        getattr(agent, mine).opt_state = tree_map(first, getattr(pop.learner, theirs))
+    draws = evo.draw_iteration(pop, torch.Generator(device="cuda").manual_seed(2))
+    end, _, record = evo.member_iteration_debug(pop, draws)
+    memory = ReplayBuffer(c["buffer_size"])
+    worst, compared = 0.0, 0
+    for rec in record:
+        memory.add({k: rec["transition"][k][0] for k in ("obs", "action", "reward", "next_obs",
+                                                         "done")}, batched=True)
+        if rec["do_learn"]:
+            got = float(agent.learn_from_buffer(memory, draws=rec["sample"][0]))
+            want = float(rec["loss"][0])
+            check(abs(got - want) <= c["atol"] + c["rtol"] * abs(want),
+                  f"{kind} cross-tier: tick loss {want} (scan) vs {got} (per agent)")
+            worst = max(worst, abs(got - want) / max(abs(want), 1e-12))
+            compared += 1
+    check(compared >= c["ticks"] // 2, f"{kind} cross-tier: only {compared} learns compared")
+    for mine, theirs in pairs:
+        for a, b in zip(tree_leaves(getattr(agent, mine).params),
+                        tree_leaves(getattr(end.learner, theirs))):
+            check(bool(torch.allclose(a, b[0], rtol=c["rtol"], atol=c["atol"])),
+                  f"{kind} cross-tier: end weights of {mine}")
+    return dict(compared=compared, worst_loss_rel_err=worst)
+
+
+def scan_card_vs_cpu(torch, out):
+    """One EvoDDPG generation (SCAN_SMALL widths, learn_every 1, population
+    2: continuous actions, so rounding moves no discrete choice) on the card
+    and on the CPU from the same population and draws: fitness rtol 1e-4,
+    the rings' rows atol 1e-3, every learner weight atol 1e-4 where its Adam
+    first moment is >= 1e-6 (phase 4i's rule)."""
+    from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = dict(SCAN_SMALL, learn_every=1, latent=32, hidden=64)
+    _, evo = scan_engines(cfg)
+    _, evo_cpu = scan_engines(cfg, device="cpu")
+    pop = evo.init_population(3, 2)
+    draws = evo.draw_iteration(pop, torch.Generator(device="cuda").manual_seed(3))
+    to_cpu = lambda x: x.cpu().clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+    cpu_pop, cpu_draws = tree_map(to_cpu, pop), tree_map(to_cpu, draws)
+    card, fit = evo.member_iteration(pop, draws)
+    cpu, fit_cpu = evo_cpu.member_iteration(cpu_pop, cpu_draws)
+    fit_err = float((fit.cpu() - fit_cpu).abs().max() / fit_cpu.abs().max())
+    worst, exempt = 0.0, 0.0
+    for net, opt in (("actor", "actor_opt"), ("critic", "critic_opt")):
+        mu = getattr(cpu.learner, opt)[0].mu
+        w, e = weights_rule(torch, getattr(card.learner, net), getattr(cpu.learner, net), mu)
+        worst, exempt = max(worst, w), max(exempt, e)
+    ring_err = max(float((a.cpu().float() - b.float()).abs().max())
+                   for a, b in zip(tree_leaves(card.ring.storage), tree_leaves(cpu.ring.storage)))
+    out["card_vs_cpu"] = dict(fitness_rel_err=fit_err, weight_max_abs_err=worst,
+                              exempt_share=exempt, ring_max_abs_err=ring_err,
+                              learn_count=card.learn_count)
+    log(f"  one EvoDDPG generation card vs CPU: {out['card_vs_cpu']}")
+    # the actor's first moments at lr 1e-4 sit below 1e-6 for ~8-13 % of
+    # its entries after a generation's learns: those are held by them alone
+    check(fit_err <= 1e-4 and worst <= 1e-4 and ring_err <= 1e-3 and exempt < 0.25,
+          f"EvoDDPG generation card vs CPU: {out['card_vs_cpu']}")
+
+
+def run_off_policy_scan(torch, ops, report):
+    """Phase 4m: Queue 1's slice 5c-scan on the card: bench_anakin's
+    EvoDQN and EvoDDPG through ScanRun (1 warm-up + 3 timed generations)
+    beside the per-agent loop, EvoDQN at the distributed harness's member
+    widths at population 8, EvoRainbow and EvoTD3 at a small width; host
+    syncs (<= 1), launches and busy share of one generation; a member alone
+    against its batched slice; the cross-tier loss gate for DQN and DDPG;
+    one EvoDDPG generation card vs CPU. Returns the kernel launches."""
+    from agilerl_tpu_torch.envs.classic import CartPole, Pendulum
+    from agilerl_tpu_torch.networks.q_networks import RainbowQNetwork
+    from agilerl_tpu_torch.parallel import EvoDQN, EvoRainbow, EvoTD3
+    from agilerl_tpu_torch.utils.tree import tree_copy, tree_leaves
+
+    out = {"anakin": ANAKIN, "distributed": SCAN_DIST, "small": SCAN_SMALL, "parts_s": {}}
+    launches = {k: 0 for k in ops.kernel_counters()}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        out["parts_s"][name] = now - t_part[0]
+        t_part[0] = now
+
+    def count(fn):
+        ops.reset_kernel_counters()
+        result = fn()
+        for k, v in ops.kernel_counters().items():
+            launches[k] += v
+        return result
+
+    dqn, ddpg = scan_engines(ANAKIN)
+    check(dqn.device.type == "cuda" and ddpg.device.type == "cuda", "a scan engine left the card")
+    _, _, base_sites = count_syncs(torch, lambda: None)
+    for name, evo in (("dqn", dqn), ("ddpg", ddpg)):
+        log(f"phase 4m: {type(evo).__name__} through ScanRun at bench_anakin's defaults: "
+            f"{ANAKIN['num_envs']} envs x {ANAKIN['steps_per_iter']} steps, population 1")
+        run, res = count(lambda: timed_scan(torch, evo, 1, ANAKIN["warmup"], ANAKIN["timed"]))
+        _, _, sites = count(lambda: count_syncs(torch, lambda: run.run(1)))
+        syncs = sum(n for site, n in sites.items() if site not in base_sites)
+        check(syncs <= 1, f"{name}: {syncs} host syncs in one generation {sites}")
+        # one generation under torch.profiler (its event processing takes
+        # longer than the generation: one profile for the phase)
+        prof = (count(lambda: profile_generation(torch, lambda: run.run(1))) if name == "dqn"
+                else None)
+        res.update(syncs_per_generation=syncs, sync_sites=sites, profile=prof,
+                   per_agent_env_steps_per_s=per_agent_sps(torch, name))
+        res["speedup_over_per_agent"] = res["env_steps_per_s"] / res["per_agent_env_steps_per_s"]
+        out[f"anakin_{name}"] = res
+        log(f"  {res['env_steps_per_s']:.0f} env-steps/s ({res['ms_per_generation']:.1f} ms per "
+            f"generation, warm-up {res['warmup_s']:.2f} s; per-agent loop "
+            f"{res['per_agent_env_steps_per_s']:.0f}, x{res['speedup_over_per_agent']:.2f}); "
+            f"{res['learn_count']} learns; peak {res['peak_gb']:.3f} GB; {syncs} host syncs "
+            f"{sites}; one generation under torch.profiler {prof}")
+        part(f"anakin_{name}")
+
+    log(f"phase 4m: EvoDQN at the distributed harness's member widths: population "
+        f"{SCAN_DIST['pop']} x {SCAN_DIST['num_envs']} envs x {SCAN_DIST['steps_per_iter']} steps")
+    cart = CartPole()
+    dist = EvoDQN(cart, scan_net(cart, 2, 32, 64),
+                  **{k: v for k, v in SCAN_DIST.items() if k != "pop"})
+    run, res = count(lambda: timed_scan(torch, dist, SCAN_DIST["pop"], 1, ANAKIN["timed"]))
+    _, _, sites = count(lambda: count_syncs(torch, lambda: run.run(1)))
+    syncs = sum(n for site, n in sites.items() if site not in base_sites)
+    check(syncs <= 1, f"distributed: {syncs} host syncs in one generation {sites}")
+    res.update(syncs_per_generation=syncs)
+    # a member alone against its slice of the batched program (same draws)
+    pop = run.pop
+    draws = dist.draw_iteration(pop, torch.Generator(device="cuda").manual_seed(9))
+    batched, fit = dist.member_iteration(tree_copy(pop), draws)
+    p = 5
+    alone, fit1 = dist.member_iteration(member_slice(torch, pop, p),
+                                        member_slice(torch, draws, p, dim=1))
+    worst = 0.0
+    for a, b in zip(tree_leaves(alone), tree_leaves(member_slice(torch, batched, p))):
+        if isinstance(a, torch.Tensor):
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+        else:
+            check(a == b, f"member {p} alone: host value {a} != {b}")
+    fit_err = float((fit1 - fit[p:p + 1]).abs().max())
+    res.update(member_alone_max_abs_err=worst, member_alone_fitness_err=fit_err)
+    check(worst <= SCAN_MEMBER_ATOL and fit_err <= SCAN_MEMBER_ATOL,
+          f"member {p} alone vs its batched slice: {worst}, fitness {fit_err}")
+    out["distributed_dqn"] = res
+    log(f"  {res['env_steps_per_s']:.0f} env-steps/s ({res['ms_per_generation']:.1f} ms per "
+        f"generation); peak {res['peak_gb']:.3f} GB; {syncs} host syncs; member {p} alone vs "
+        f"its slice: max abs err {worst}, fitness {fit_err}")
+    part("distributed_dqn")
+
+    pend = Pendulum()
+    small = {k: SCAN_SMALL[k] for k in ("num_envs", "steps_per_iter", "buffer_size", "batch_size")}
+    rq = RainbowQNetwork(cart.observation_space, cart.action_space, num_atoms=51, v_min=0.0,
+                         v_max=200.0, latent_dim=32, encoder_config={"hidden_size": (64,)},
+                         head_config={"hidden_size": (64,)})
+    for name, evo in (("rainbow", EvoRainbow(cart, rq.config, **small)),
+                      ("td3", EvoTD3(pend, scan_net(pend, 1, 32, 64, output_activation="Tanh"),
+                                     scan_net(pend, 1, 32, 64, num_inputs=33), **small))):
+        log(f"phase 4m: {type(evo).__name__} through ScanRun: population {SCAN_SMALL['pop']} x "
+            f"{SCAN_SMALL['num_envs']} envs x {SCAN_SMALL['steps_per_iter']} steps")
+        _, res = count(lambda: timed_scan(torch, evo, SCAN_SMALL["pop"], 1, 1))
+        out[name] = res
+        log(f"  {res['env_steps_per_s']:.0f} env-steps/s ({res['ms_per_generation']:.1f} ms per "
+            f"generation); {res['learn_count']} learns; fitness {res['fitness']}")
+        part(name)
+
+    out["cross_tier"] = {k: scan_cross_tier(torch, k) for k in ("dqn", "ddpg")}
+    log(f"  cross-tier loss gate (scan vs per-agent learn_from_buffer): {out['cross_tier']}")
+    part("cross_tier")
+    scan_card_vs_cpu(torch, out)
+    part("card_vs_cpu")
+    log(f"  phase 4m parts (s): {out['parts_s']}")
+    out["launches"] = dict(launches)
+    report["off_policy_scan"] = out
     return launches
 
 
@@ -3741,6 +4383,14 @@ def main() -> None:
     off_policy_launches = run_off_policy(torch, ops, report)
     report["phase_4k_s"] = time.perf_counter() - t0
     log(f"phase 4k: {report['phase_4k_s']:.1f} s")
+    t0 = time.perf_counter()
+    continuous_launches, offline_launches = run_off_policy_continuous(torch, ops, report)
+    report["phase_4l_s"] = time.perf_counter() - t0
+    log(f"phase 4l: {report['phase_4l_s']:.1f} s")
+    t0 = time.perf_counter()
+    scan_launches = run_off_policy_scan(torch, ops, report)
+    report["phase_4m_s"] = time.perf_counter() - t0
+    log(f"phase 4m: {report['phase_4m_s']:.1f} s")
     # each main path's counts were set to 0 just before it and read just after
     launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
                 for k in grpo_launches}
@@ -3758,7 +4408,10 @@ def main() -> None:
                                      "on_policy": on_policy_launches[entry["name"]],
                                      "population": population_launches[entry["name"]],
                                      "encoders_recurrent": encoder_launches[entry["name"]],
-                                     "off_policy": off_policy_launches[entry["name"]]}
+                                     "off_policy": off_policy_launches[entry["name"]],
+                                     "off_policy_continuous": continuous_launches[entry["name"]],
+                                     "offline": offline_launches[entry["name"]],
+                                     "off_policy_scan": scan_launches[entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":

@@ -39,6 +39,10 @@ _CLASSIC_IMPORTS = (
     "import agilerl_tpu_torch.algorithms.core.fused, agilerl_tpu_torch.networks.q_networks\n"
     "import agilerl_tpu_torch.algorithms.dqn, agilerl_tpu_torch.algorithms.dqn_rainbow\n"
     "import agilerl_tpu_torch.algorithms.cqn, agilerl_tpu_torch.training.train_off_policy\n"
+    # DDPG, TD3, offline and the off-policy population program (slices 5c-ii, 5c-scan)
+    "import agilerl_tpu_torch.algorithms.ddpg, agilerl_tpu_torch.algorithms.td3\n"
+    "import agilerl_tpu_torch.utils.minari_utils, agilerl_tpu_torch.training.train_offline\n"
+    "import agilerl_tpu_torch.parallel.off_policy\n"
 )
 
 
@@ -308,6 +312,57 @@ def test_classic_entry_points_default_to_the_card(tmp_path):
         assert {p.device for p in q.actor.params["head"]["output"].values()} == {q.dev}
 
 
+def test_off_policy_slice_imports_no_h5py_and_defaults_to_the_card():
+    """DDPG, TD3, the offline loop and the off-policy population programs
+    import neither jax, the JAX package, h5py, gymnasium nor PyYAML; DDPG,
+    TD3, create_population("DDPG" / "TD3"), EvoDQN, EvoRainbow, EvoDDPG,
+    EvoTD3 and collect_offline_dataset (on a device env) take device=None as
+    the card and raise without one."""
+    code = ("import json, sys\n" + _CLASSIC_IMPORTS
+            + "print(json.dumps(sorted(m for m in sys.modules\n"
+            "                        if m.split('.')[0] in ('h5py', 'gymnasium', 'yaml', 'jax',\n"
+            "                                               'agilerl_tpu'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from agilerl_tpu_torch.algorithms.ddpg import DDPG
+    from agilerl_tpu_torch.algorithms.td3 import TD3
+    from agilerl_tpu_torch.envs.classic import CartPole, Pendulum
+    from agilerl_tpu_torch.networks.actors import DeterministicActor
+    from agilerl_tpu_torch.networks.q_networks import ContinuousQNetwork, QNetwork, RainbowQNetwork
+    from agilerl_tpu_torch.parallel import EvoDDPG, EvoDQN, EvoRainbow, EvoTD3
+    from agilerl_tpu_torch.utils.minari_utils import collect_offline_dataset
+    from agilerl_tpu_torch.utils.utils import create_population
+
+    pend, cart = Pendulum(), CartPole()
+    q = QNetwork(cart.observation_space, cart.action_space, device="cpu").config
+    rq = RainbowQNetwork(cart.observation_space, cart.action_space, device="cpu").config
+    a = DeterministicActor(pend.observation_space, pend.action_space, device="cpu").config
+    c = ContinuousQNetwork(pend.observation_space, pend.action_space, device="cpu").config
+    for make in (lambda: DDPG(pend.observation_space, pend.action_space, seed=0),
+                 lambda: TD3(pend.observation_space, pend.action_space, seed=0),
+                 lambda: create_population("DDPG", pend.observation_space, pend.action_space,
+                                           population_size=2, seed=0),
+                 lambda: create_population("TD3", pend.observation_space, pend.action_space,
+                                           population_size=2, seed=0),
+                 lambda: EvoDQN(cart, q), lambda: EvoRainbow(cart, rq),
+                 lambda: EvoDDPG(pend, a, c), lambda: EvoTD3(pend, a, c),
+                 lambda: collect_offline_dataset(cart, steps=8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    for cls in (DDPG, TD3):
+        agent = cls(pend.observation_space, pend.action_space, seed=0, device="cpu")
+        assert {p.device for p in agent.critic_target.params["head"]["output"].values()} == \
+            {agent.dev} == {torch.device("cpu")}
+    assert EvoDDPG(pend, a, c, device="cpu").init_population(0, 2).obs.device.type == "cpu"
+    assert collect_offline_dataset(cart, steps=8, num_envs=2,
+                                   device="cpu")["observations"].shape == (8, 4)
+
+
 def _evo_ppo(env, device):
     from agilerl_tpu_torch.algorithms.core.optimizer import adam
     from agilerl_tpu_torch.modules.mlp import MLPConfig
@@ -323,10 +378,12 @@ def _evo_ppo(env, device):
 
 
 def test_off_policy_scan_tier_still_raises():
-    """The off-policy population as one program waits for Queue 1's slice
-    5c-scan."""
-    from agilerl_tpu_torch.parallel import DeviceReplayRing, ScanOffPolicy
+    """The off-policy population as one program runs on one card (slice
+    5c-scan); its pod-sharded generation still raises, naming slice 6."""
+    from agilerl_tpu_torch.envs.classic import CartPole
+    from agilerl_tpu_torch.parallel import ScanOffPolicy
 
-    for cls in (DeviceReplayRing, ScanOffPolicy):
-        with pytest.raises(NotImplementedError, match="slice 5c-scan"):
-            cls()
+    engine = ScanOffPolicy(CartPole(), None, num_envs=2, device="cpu")
+    assert engine.env_steps_per_generation == 2 * 128
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        engine.make_pod_generation()

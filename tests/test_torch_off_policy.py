@@ -231,8 +231,8 @@ def test_checkpoint_save_resume_round_trip(algo, tmp_path):
 
 def test_save_elite_writes_a_file_and_unported_hooks_raise(tmp_path):
     """save_elite checkpoints the tournament's elite as {algo}_elite.ckpt;
-    resilience= and wb= still raise, naming slice 6, and an agent without a
-    fused PER learn raises, naming slice 5c-ii."""
+    resilience= and wb= still raise, naming slice 6, and a buffer that is not
+    one of the port's is refused."""
     env = make_vect_envs("CartPole-v1", 2, device="cpu")
     pop = create_population("DQN", env.single_observation_space, env.single_action_space,
                             NET, {"POP_SIZE": 2}, seed=0, device="cpu")
@@ -251,7 +251,5 @@ def test_save_elite_writes_a_file_and_unported_hooks_raise(tmp_path):
         with pytest.raises(NotImplementedError, match="slice 6"):
             train_off_policy(env, "CartPole-v1", "DQN", pop, RB.ReplayBuffer(8, device="cpu"),
                              max_steps=1, **hook)
-    pop[0].supports_fused_per = False
-    with pytest.raises(NotImplementedError, match="slice 5c-ii"):
-        train_off_policy(env, "CartPole-v1", "DQN", pop,
-                         RB.PrioritizedReplayBuffer(8, device="cpu"), per=True, max_steps=1)
+    with pytest.raises(NotImplementedError, match="port's replay buffers"):
+        train_off_policy(env, "CartPole-v1", "DQN", pop, object(), per=True, max_steps=1)

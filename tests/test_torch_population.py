@@ -33,6 +33,7 @@ from agilerl_tpu_torch.networks import distributions as D  # noqa: E402
 from agilerl_tpu_torch.networks.base import EvolvableNetwork, NetworkConfig  # noqa: E402
 from agilerl_tpu_torch.parallel import (  # noqa: E402
     DeviceReplayRing,
+    EvoDQN,
     EvoPPO,
     MemberState,
     ScanOffPolicy,
@@ -415,6 +416,9 @@ def test_two_generation_pop4_smoke_and_unported_tiers_raise():
         tevo.make_pod_generation()
     with pytest.raises(NotImplementedError, match="slice 6"):
         ScanRun(tevo, pop_size=2, mesh=object())
-    for cls in (DeviceReplayRing, ScanOffPolicy):
-        with pytest.raises(NotImplementedError, match="slice 5c"):
-            cls(capacity=8)
+    # the off-policy tier (slice 5c-scan) runs on one card; its pod path waits too
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        ScanOffPolicy(CartPole(), None, device="cpu").make_pod_generation()
+    assert isinstance(ScanRun(EvoDQN(CartPole(), _configs("torch")[0], num_envs=2,
+                                     steps_per_iter=2, buffer_size=8, device="cpu"),
+                              pop_size=2).pop.ring, DeviceReplayRing)
