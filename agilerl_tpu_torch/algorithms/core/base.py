@@ -10,7 +10,12 @@ dropped after a mutation as the JAX package drops its jitted functions.
 
 ``RLAlgorithm`` (the single-agent base of PPO and the DQN family) and
 ``load_params_from_numpy`` (a JAX agent's network weights into the port)
-come with the classic RL slice. ``MultiAgentRLAlgorithm`` is not ported yet.
+come with the classic RL slice. ``MultiAgentRLAlgorithm`` and
+``MultiAgentSetup`` (the base of MADDPG, MATD3 and IPPO: agent grouping by
+id prefix, per-agent and centralised-critic net configs, ``test`` over a
+dict-API vector env) come with the multi-agent slice; networks held in
+dicts (per agent or per group) checkpoint, clone and load JAX weights as
+single networks do.
 
 Checkpoints (``checkpoint_dict``, ``save_checkpoint``, ``load_checkpoint``,
 ``load``) are a pickle of host numpy: every network's config and weights,
@@ -24,6 +29,7 @@ carry JAX weights with ``load_params_from_numpy`` instead.
 
 from __future__ import annotations
 
+import enum
 import pickle
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Union
@@ -40,8 +46,12 @@ from agilerl_tpu_torch.algorithms.core.registry import (
 )
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
 from agilerl_tpu_torch.utils.rng import global_seed
-from agilerl_tpu_torch.utils.spaces import as_tensor, preprocess_observation
-from agilerl_tpu_torch.utils.tree import tree_copy, tree_from_numpy, tree_to_numpy
+from agilerl_tpu_torch.utils.spaces import (
+    as_tensor,
+    is_single_observation,
+    preprocess_observation,
+)
+from agilerl_tpu_torch.utils.tree import tree_copy, tree_from_numpy, tree_map, tree_to_numpy
 
 _SEED_BOUND = 2 ** 62
 
@@ -270,6 +280,182 @@ def _net_pairs(a, b):
         yield a, b
 
 
+class MultiAgentSetup(enum.Enum):
+    """Observation-space structure of a multi-agent problem."""
+
+    HOMOGENEOUS = "homogeneous"  # all agents share one observation space
+    MIXED = "mixed"  # agents group into more than one space class
+    HETEROGENEOUS = "heterogeneous"  # every agent's space differs
+
+
+class MultiAgentRLAlgorithm(EvolvableAlgorithm):
+    """Multi-agent base: the port of the JAX ``MultiAgentRLAlgorithm``.
+    Agents group by id prefix (``speaker_0`` -> ``speaker``), each group
+    homogeneous in its spaces. ``device=None`` means the card (raising
+    without one); ``self.dev`` is the resolved device of every network."""
+
+    def __init__(self, observation_spaces, action_spaces, agent_ids=None,
+                 device: DeviceLike = None, **kwargs):
+        super().__init__(device=device, **kwargs)
+        self.dev = resolve_device(device)
+        if agent_ids is None:
+            agent_ids = list(observation_spaces.keys())
+        self.agent_ids = list(agent_ids)
+        self.n_agents = len(self.agent_ids)
+        self.observation_spaces = dict(observation_spaces)
+        self.action_spaces = dict(action_spaces)
+        self.grouped_agents = self._group_agents()
+
+    @staticmethod
+    def get_group_id(agent_id: str) -> str:
+        """``speaker_0`` -> ``speaker``; an id without a numeric suffix is its
+        own group."""
+        parts = str(agent_id).rsplit("_", 1)
+        if len(parts) == 2 and parts[1].isdigit():
+            return parts[0]
+        return str(agent_id)
+
+    def _group_agents(self) -> Dict[str, List[str]]:
+        groups: Dict[str, List[str]] = {}
+        for aid in self.agent_ids:
+            groups.setdefault(self.get_group_id(aid), []).append(aid)
+        for gid, members in groups.items():
+            obs_ = {repr(self.observation_spaces[m]) for m in members}
+            act_ = {repr(self.action_spaces[m]) for m in members}
+            assert len(obs_) == 1 and len(act_) == 1, (
+                f"Agents in group {gid!r} must share observation/action spaces")
+        return groups
+
+    @property
+    def unique_observation_spaces(self) -> Dict[str, Any]:
+        """One observation space per distinct space, keyed by the first group
+        that carries it."""
+        seen: Dict[str, Any] = {}
+        sigs: set = set()
+        for gid, members in self.grouped_agents.items():
+            sig = repr(self.observation_spaces[members[0]])
+            if sig not in sigs:
+                sigs.add(sig)
+                seen[gid] = self.observation_spaces[members[0]]
+        return seen
+
+    def get_setup(self) -> MultiAgentSetup:
+        n_unique = len({repr(s) for s in self.observation_spaces.values()})
+        if n_unique == 1:
+            return MultiAgentSetup.HOMOGENEOUS
+        if n_unique < self.n_agents:
+            return MultiAgentSetup.MIXED
+        return MultiAgentSetup.HETEROGENEOUS
+
+    def build_net_config(self, net_config: Optional[Dict[str, Any]] = None
+                         ) -> Dict[str, Dict[str, Any]]:
+        """Per-agent net config from one user dict, keyed by agent id, group
+        id or flat. A flat ``encoder_config`` is filtered per agent to the
+        keys its space's encoder family takes; an explicit per-agent or
+        per-group override is kept as it is."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for aid in self.agent_ids:
+            cfg, override = self._merged_net_config(net_config, aid)
+            if cfg.get("encoder_config") and "encoder_config" not in override:
+                cfg["encoder_config"] = self._filter_for_space(cfg, self.observation_spaces[aid])
+            out[aid] = cfg
+        return out
+
+    def _merged_net_config(self, net_config, aid):
+        """(flat defaults updated by the agent's or group's override, the
+        override)."""
+        net_config = dict(net_config or {})
+        id_keys = {k for k in net_config if k in self.agent_ids or k in self.grouped_agents}
+        flat = {k: v for k, v in net_config.items() if k not in id_keys}
+        override = net_config.get(aid)
+        if override is None:
+            override = net_config.get(self.get_group_id(aid), {})
+        return {**flat, **override}, override
+
+    @staticmethod
+    def _filter_for_space(cfg: Dict[str, Any], space) -> Dict[str, Any]:
+        from agilerl_tpu_torch.networks.base import filter_encoder_config
+
+        return filter_encoder_config(
+            space, cfg.get("encoder_config"), latent_dim=int(cfg.get("latent_dim", 32)),
+            simba=bool(cfg.get("simba", False)), recurrent=bool(cfg.get("recurrent", False)),
+            resnet=bool(cfg.get("resnet", False)))
+
+    def build_critic_config(self, critic_space, net_config: Optional[Dict[str, Any]] = None
+                            ) -> Dict[str, Dict[str, Any]]:
+        """Per-agent config of a centralised critic over ``critic_space``:
+        the user's own encoder_config filtered against the critic's space."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for aid in self.agent_ids:
+            cfg, _ = self._merged_net_config(net_config, aid)
+            if cfg.get("encoder_config"):
+                cfg["encoder_config"] = self._filter_for_space(cfg, critic_space)
+            out[aid] = cfg
+        return out
+
+    def preprocess_observation(self, obs: Dict[str, Any]) -> Dict[str, Any]:
+        return {aid: preprocess_observation(self.observation_spaces[aid], obs[aid], self.dev)
+                for aid in self.agent_ids}
+
+    def sum_shared_rewards(self, rewards: Dict[str, Any]) -> Dict[str, Any]:
+        """Every agent gets the sum of all agents' rewards (f64; tensors stay
+        on their device)."""
+        vals = list(rewards.values())
+        if any(isinstance(v, torch.Tensor) for v in vals):
+            total = sum(as_tensor(v, self.dev).double() for v in vals)
+        else:
+            total = sum(np.asarray(v, np.float64) for v in vals)
+        return {aid: total for aid in self.agent_ids}
+
+    def batched_observation(self, obs: Dict[str, Any]):
+        """(preprocessed ``[B, ...]`` observations per agent, whether ``obs``
+        was one unbatched observation per agent)."""
+        pre = self.preprocess_observation(obs)
+        aid = self.agent_ids[0]
+        single = is_single_observation(pre[aid], self.observation_spaces[aid])
+        if single:
+            pre = tree_map(lambda x: x[None], pre)
+        return pre, single
+
+    def test(self, env, swap_channels: bool = False, max_steps: Optional[int] = None,
+             loop: int = 3, sum_scores: bool = True) -> float:
+        """Mean over ``loop`` rounds of the summed (or, without
+        ``sum_scores``, agent-averaged) greedy episode return of each
+        vectorised env; appended to ``fitness``. Returns and done flags stay
+        on the device; each step syncs once, to test whether every env is
+        done. NaN placeholders are zeroed first."""
+        from agilerl_tpu_torch.rollouts.on_policy import env_action
+        from agilerl_tpu_torch.vector.pz_vec_env import sanitize_ma_transition
+
+        rewards = []
+        num_envs = getattr(env, "num_envs", 1)
+        for _ in range(loop):
+            obs, info = env.reset()
+            done = torch.zeros(num_envs, dtype=torch.bool, device=self.dev)
+            total = torch.zeros(num_envs, dtype=torch.float64, device=self.dev)
+            steps = 0
+            while not bool(done.all()):
+                action = self.get_action(obs, training=False, infos=info)
+                obs, reward, terminated, truncated, info = env.step(
+                    {a: env_action(env, v) for a, v in action.items()})
+                obs, reward = sanitize_ma_transition(obs, reward)
+                agg = sum(as_tensor(reward[a], self.dev).double().reshape(-1)
+                          for a in self.agent_ids)
+                if not sum_scores:
+                    agg = agg / self.n_agents
+                total = total + agg * (~done)
+                for a in self.agent_ids:
+                    done = done | as_tensor(terminated[a], self.dev).bool().reshape(-1) \
+                        | as_tensor(truncated[a], self.dev).bool().reshape(-1)
+                steps += 1
+                if max_steps is not None and steps >= max_steps:
+                    break
+            rewards.append(total.mean())
+        fitness = float(torch.stack(rewards).mean())
+        self.fitness.append(fitness)
+        return fitness
+
+
 class RLAlgorithm(EvolvableAlgorithm):
     """Single-agent RL base: the port of ``RLAlgorithm``. ``device=None``
     means the card (raising without one); ``self.dev`` is the resolved
@@ -319,18 +505,27 @@ class RLAlgorithm(EvolvableAlgorithm):
 
 def load_params_from_numpy(agent: EvolvableAlgorithm, trees: Dict[str, Any]) -> None:
     """Load JAX-package network parameters (``{attr: numpy tree}`` for every
-    registered network of ``agent``, eval and shared) into the agent's
-    networks through ``networks.base.params_from_numpy``, each checked
+    registered network of ``agent``, eval and shared; a dict of networks,
+    per agent or per group, takes a dict of trees under the same keys) into
+    the agent's networks through ``networks.base.params_from_numpy``, each checked
     against its config and its class's own init (the noisy layers' mean and
     sigma weights, Rainbow's value stream), then re-init every optimizer for
     them."""
     from agilerl_tpu_torch.networks.base import params_from_numpy
 
+    def load(net, tree, where):
+        if isinstance(net, dict):
+            if set(tree) != set(net):
+                raise ValueError(f"{where}: expected trees for {sorted(net)}, got {sorted(tree)}")
+            for k in net:
+                load(net[k], tree[k], f"{where}[{k!r}]")
+            return
+        net.params = params_from_numpy(tree, net.config, agent.dev,
+                                       extra=net.extra_template(), init=type(net).init_params)
+
     names = agent.registry.all_network_names()
     if set(trees) != set(names):
         raise ValueError(f"expected trees for {sorted(names)}, got {sorted(trees)}")
     for name in names:
-        net = getattr(agent, name)
-        net.params = params_from_numpy(trees[name], net.config, agent.dev,
-                                       extra=net.extra_template(), init=type(net).init_params)
+        load(getattr(agent, name), trees[name], name)
     agent.reinit_optimizers()

@@ -11,6 +11,11 @@ from a ``torch.Generator`` (the JAX key's counterpart), so it matches by
 distribution only. The activation branch is a no-op for agents that do not
 support it (the policy-gradient ones). The sharding branch raises until
 the distribution slice.
+
+One repair against the JAX package: a ``learn_step`` mutation resizes every
+rollout buffer of the agent, IPPO's per-group ``rollout_buffers`` too; the
+JAX engine resizes ``rollout_buffer`` only, so an IPPO agent there keeps
+its old horizon (GAE and the minibatches then run over stale rows).
 """
 
 from __future__ import annotations
@@ -197,10 +202,15 @@ class Mutations:
                     # a scheduled optimizer bakes lr into its transform: the
                     # cached update callable holds the stale one
                     agent._clear_jit_cache()
-        if name == "learn_step" and hasattr(agent, "rollout_buffer"):
-            # the buffer's horizon is the new learn_step, allocated afresh
-            agent.rollout_buffer.capacity = int(new_value)
-            agent.rollout_buffer.state = None
+        if name == "learn_step":
+            # every rollout buffer's horizon (IPPO keeps one per group) is
+            # the new learn_step, allocated afresh
+            buffers = list(getattr(agent, "rollout_buffers", {}).values())
+            if hasattr(agent, "rollout_buffer"):
+                buffers.append(agent.rollout_buffer)
+            for buf in buffers:
+                buf.capacity = int(new_value)
+                buf.state = None
         agent.mut = name
         return agent
 

@@ -1,8 +1,8 @@
 """Custom layer components: the port of ``agilerl_tpu/modules/custom_components.py``
 (``NewGELU``, the image residual block and the SimBa residual MLP block, as
 init/apply pairs over dict parameters with the JAX package's keys; the
-noisy linear layer is ``layers.noisy_dense_*``). ``GumbelSoftmax`` comes
-with MADDPG's slice."""
+noisy linear layer is ``layers.noisy_dense_*``), and ``gumbel_softmax``
+(exported as ``GumbelSoftmax``), MADDPG's discrete sampler."""
 
 from __future__ import annotations
 
@@ -27,6 +27,30 @@ from agilerl_tpu_torch.modules.layers import noisy_dense_init as NoisyLinear_ini
 def NewGELU(x: torch.Tensor) -> torch.Tensor:
     """tanh-approximated GELU."""
     return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def gumbel_uniforms(shape, gen: torch.Generator) -> torch.Tensor:
+    """The uniforms one ``gumbel_softmax`` of logits ``shape`` consumes, in
+    ``[1e-10, 1)`` (the JAX package's ``uniform(minval=1e-10)``)."""
+    return 1e-10 + torch.rand(shape, generator=gen, device=gen.device)
+
+
+def gumbel_softmax(logits: torch.Tensor, u: torch.Tensor, tau: float = 1.0,
+                   hard: bool = True) -> torch.Tensor:
+    """Gumbel-softmax sample of ``logits`` on uniforms ``u`` drawn first
+    (``gumbel_uniforms``): ``softmax((logits + g) / tau)`` with
+    ``g = -log(-log(u + 1e-10))``; with ``hard``, the one-hot of its argmax
+    carrying the soft sample's gradient (straight-through
+    ``y_hard + y - y.detach()``)."""
+    g = -torch.log(-torch.log(u + 1e-10))
+    y = torch.softmax((logits + g) / tau, dim=-1)
+    if hard:
+        y_hard = F.one_hot(torch.argmax(y, dim=-1), logits.shape[-1]).to(y.dtype)
+        y = y_hard + y - y.detach()
+    return y
+
+
+GumbelSoftmax = gumbel_softmax
 
 
 def residual_block_init(gen: torch.Generator, channels: int, kernel: int = 3) -> Dict:

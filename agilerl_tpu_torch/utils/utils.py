@@ -1,10 +1,15 @@
 """Population factory, env maker, evolution glue and population
 checkpoints: the port of ``agilerl_tpu/utils/utils.py`` for GRPO, DPO, PPO,
-DQN, RainbowDQN, CQN, DDPG and TD3 (``create_population``, ``make_vect_envs``,
-``tournament_selection_and_mutation`` with ``save_elite``,
-``save_population_checkpoint``, ``resume_population_from_checkpoint``,
-``load_population_checkpoint``, ``consolidate_mutations``,
-``print_hyperparams``). The other algorithms come with their slices."""
+DQN, RainbowDQN, CQN, DDPG, TD3, MADDPG, MATD3 and IPPO (``create_population``,
+``make_vect_envs``, ``tournament_selection_and_mutation`` with
+``save_elite``, ``save_population_checkpoint``,
+``resume_population_from_checkpoint``, ``load_population_checkpoint``,
+``consolidate_mutations``, ``print_hyperparams``), and the multi-agent info
+helpers (``get_env_defined_actions``, ``extract_action_masks``,
+``process_ma_infos``, ``apply_env_defined_actions``,
+``forced_action_arrays``). A device env gives ``{}`` infos, for which the
+helpers do nothing; ``make_multi_agent_vect_envs`` (PettingZoo) comes with
+Queue 1's item 5d-pz. The other algorithms come with their slices."""
 
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ def _named_ctor_params(cls) -> set:
 
 # the algorithms ported so far, by name -> module of agilerl_tpu_torch.algorithms
 _ALGO_MODULES = {"GRPO": "grpo", "DPO": "dpo", "PPO": "ppo", "DQN": "dqn",
-                 "RainbowDQN": "dqn_rainbow", "CQN": "cqn", "DDPG": "ddpg", "TD3": "td3"}
+                 "RainbowDQN": "dqn_rainbow", "CQN": "cqn", "DDPG": "ddpg", "TD3": "td3",
+                 "MADDPG": "maddpg", "MATD3": "matd3", "IPPO": "ippo"}
 
 
 def _algo_class(algo: str):
@@ -74,12 +80,14 @@ def create_population(
     seed: Optional[int] = None,
     **kwargs,
 ) -> List:
-    """Build a population of GRPO, DPO, PPO, DQN, RainbowDQN, CQN, DDPG or
-    TD3 agents. Each member gets the ``INIT_HP`` keys its constructor names, and
-    ``observation_space``, ``action_space``, ``net_config`` and ``num_envs``
-    where it names them. ``kwargs`` go to every member (GRPO/DPO: ``config``,
-    ``base_params``, token ids, ...; pass ``base_params`` to share one frozen
-    base model). Each member's seed is drawn from ``seed`` (or the global
+    """Build a population of GRPO, DPO, PPO, DQN, RainbowDQN, CQN, DDPG, TD3,
+    MADDPG, MATD3 or IPPO agents. Each member gets the ``INIT_HP`` keys its
+    constructor names (``AGENT_IDS`` as ``agent_ids``), and
+    ``observation_space``, ``action_space`` (a multi-agent algorithm's
+    ``observation_spaces`` / ``action_spaces``: the per-agent dicts),
+    ``net_config`` and ``num_envs`` where it names them. ``kwargs`` go to
+    every member (GRPO/DPO: ``config``, ``base_params``, token ids, ...;
+    pass ``base_params`` to share one frozen base model). Each member's seed is drawn from ``seed`` (or the global
     numpy stream), as in the JAX package; ``device=None`` puts every member
     on the card."""
     cls = _algo_class(algo)
@@ -93,6 +101,8 @@ def create_population(
         ctor_kwargs.setdefault("num_envs", num_envs)
     ctor_kwargs.update({k: v for k, v in (("observation_space", observation_space),
                                           ("action_space", action_space),
+                                          ("observation_spaces", observation_space),
+                                          ("action_spaces", action_space),
                                           ("net_config", net_config)) if k in named})
     rng = derive_rng(seed=seed)
     return [cls(index=idx, hp_config=hp_config, device=device,
@@ -240,3 +250,142 @@ def print_hyperparams(population: List) -> None:
         fit = np.mean(agent.fitness[-5:]) if agent.fitness else float("nan")
         print(f"Agent {agent.index}: fitness(5)={fit:.2f} mut={agent.mut} "
               f"steps={agent.steps[-1]} {hps}")
+
+
+# --------------------------------------------------------------------------- #
+# Multi-agent info helpers
+# --------------------------------------------------------------------------- #
+
+
+def get_env_defined_actions(info: Dict[str, Any], agents) -> Optional[Dict[str, Any]]:
+    """Per-agent env-dictated actions of a PettingZoo info dict; None when
+    no agent has one."""
+    eda = {agent: info.get(agent, {}).get("env_defined_action", None) for agent in agents}
+    if all(v is None for v in eda.values()):
+        return None
+    return eda
+
+
+def extract_action_masks(info: Dict[str, Any], agents) -> Optional[Dict[str, Any]]:
+    """Per-agent invalid-action masks of a PettingZoo info dict; None when
+    absent."""
+    masks = {agent: info.get(agent, {}).get("action_mask", None) for agent in agents}
+    if all(v is None for v in masks.values()):
+        return None
+    return masks
+
+
+def process_ma_infos(infos: Optional[Dict[str, Any]], agent_ids, device=None):
+    """(action masks, env-defined actions) of a PettingZoo info dict: masks
+    as ``[B, n]`` tensors on ``device`` (at least 2-D) or None per agent;
+    ``(None, None)`` for an empty info (a device env's)."""
+    if not infos:
+        return None, None
+    import torch
+
+    masks = None
+    raw_masks = extract_action_masks(infos, agent_ids)
+    if raw_masks is not None:
+        masks = {}
+        for a in agent_ids:
+            m = raw_masks[a]
+            if m is not None:
+                m = m if isinstance(m, torch.Tensor) else torch.as_tensor(np.asarray(m))
+                m = m.to(device) if device is not None else m
+                m = m[None] if m.dim() < 2 else m
+            masks[a] = m
+    return masks, get_env_defined_actions(infos, agent_ids)
+
+
+def _apply_eda_np(forced, cur: np.ndarray) -> np.ndarray:
+    if isinstance(forced, np.ma.MaskedArray):
+        keep = np.ma.getmaskarray(forced)
+        vals = np.broadcast_to(forced.filled(0), cur.shape)
+        return np.where(np.broadcast_to(keep, cur.shape), cur, vals.astype(cur.dtype))
+    forced_arr = np.asarray(forced)
+    if forced_arr.dtype.kind == "f" and np.isnan(forced_arr).any():
+        vals = np.broadcast_to(forced_arr, cur.shape)
+        return np.where(np.isnan(vals), cur, np.nan_to_num(vals).astype(cur.dtype))
+    return np.broadcast_to(forced_arr.astype(cur.dtype), cur.shape).copy()
+
+
+def apply_env_defined_actions(eda: Optional[Dict[str, Any]], out: Dict[str, Any]
+                              ) -> Dict[str, Any]:
+    """Overwrite policy actions with env-dictated ones, row by row: a numpy
+    masked array forces its unmasked rows, a float array with NaN its
+    non-NaN rows, anything else every row. An action tensor is read to the
+    host for it and written back to its device (one host read per forced
+    agent: only host PettingZoo envs dictate actions)."""
+    if eda is None:
+        return out
+    out = dict(out)
+    for a, forced in eda.items():
+        if forced is None:
+            continue
+        cur = out[a]
+        if hasattr(cur, "detach"):
+            import torch
+
+            host = _apply_eda_np(forced, cur.detach().cpu().numpy())
+            out[a] = torch.as_tensor(host, device=cur.device)
+        else:
+            out[a] = _apply_eda_np(forced, np.asarray(cur))
+    return out
+
+
+def forced_action_arrays(eda: Optional[Dict[str, Any]], agent_ids, batch: int,
+                         action_spaces=None):
+    """Env-defined actions as per-agent host ``(values, valid)`` pairs of
+    the action's shape, to be resolved inside an on-policy act before the
+    log-prob (valid element-wise: a NaN or masked component keeps the
+    policy's component). ``action_spaces`` fixes the target shape as
+    ``(batch,) + the space's action dims``. None when nothing is forced."""
+    if eda is None:
+        return None
+    from agilerl_tpu_torch.utils.spaces import space_kind
+
+    def space_trailing(space):
+        if space is None:
+            return None
+        kind = space_kind(space)
+        if kind == "multidiscrete":
+            return (len(space.nvec),)
+        if kind in ("box", "multibinary"):
+            return tuple(space.shape)
+        return ()
+
+    def row_shape(arr, trailing):
+        if trailing is not None:
+            return (batch,) + trailing
+        if arr.ndim == 0:
+            return (batch,)
+        if arr.shape[0] == batch:
+            return arr.shape
+        return (batch,) + arr.shape
+
+    out = {}
+    for a in agent_ids:
+        forced = eda.get(a)
+        if forced is None:
+            continue
+        trailing = space_trailing(action_spaces.get(a) if action_spaces else None)
+        if isinstance(forced, np.ma.MaskedArray):
+            arr = np.asarray(forced.filled(0))
+            invalid = np.ma.getmaskarray(forced)
+        else:
+            arr = np.asarray(forced)
+            invalid = np.isnan(arr) if arr.dtype.kind == "f" else np.zeros(arr.shape, bool)
+        tgt = row_shape(arr, trailing)
+        # a [B, 1] column against a scalar-per-row target drops its unit dims
+        while arr.ndim > len(tgt) and arr.shape[-1] == 1:
+            arr, invalid = arr[..., 0], invalid[..., 0]
+        try:
+            vals = np.broadcast_to(arr, tgt).copy()
+        except ValueError:
+            raise ValueError(
+                f"env_defined_action for {a!r} has shape {np.asarray(forced).shape}, "
+                f"incompatible with the action target shape {tgt}") from None
+        if vals.dtype.kind == "f":
+            vals = np.nan_to_num(vals)
+        out[a] = (vals, (~np.broadcast_to(invalid, tgt)).copy())
+    return out if out else None

@@ -43,6 +43,14 @@ _CLASSIC_IMPORTS = (
     "import agilerl_tpu_torch.algorithms.ddpg, agilerl_tpu_torch.algorithms.td3\n"
     "import agilerl_tpu_torch.utils.minari_utils, agilerl_tpu_torch.training.train_offline\n"
     "import agilerl_tpu_torch.parallel.off_policy\n"
+    # multi-agent RL and its population program (Queue 1's slice 5d)
+    "import agilerl_tpu_torch.envs.multi_agent, agilerl_tpu_torch.envs.probe_ma\n"
+    "import agilerl_tpu_torch.vector, agilerl_tpu_torch.vector.pz_vec_env\n"
+    "import agilerl_tpu_torch.components.multi_agent_replay_buffer\n"
+    "import agilerl_tpu_torch.algorithms.maddpg, agilerl_tpu_torch.algorithms.matd3\n"
+    "import agilerl_tpu_torch.algorithms.ippo, agilerl_tpu_torch.parallel.multi_agent\n"
+    "import agilerl_tpu_torch.training.train_multi_agent_off_policy\n"
+    "import agilerl_tpu_torch.training.train_multi_agent_on_policy\n"
 )
 
 
@@ -387,3 +395,50 @@ def test_off_policy_scan_tier_still_raises():
     assert engine.env_steps_per_generation == 2 * 128
     with pytest.raises(NotImplementedError, match="slice 6"):
         engine.make_pod_generation()
+
+
+def test_multi_agent_entry_points_default_to_the_card():
+    """The multi-agent slice imports neither jax, the JAX package, gymnasium
+    nor PyYAML (the _CLASSIC_IMPORTS tests above); SimpleSpreadTorch (a
+    stateless env, through its vector env), MultiAgentTorchVecEnv,
+    MultiAgentReplayBuffer, MADDPG, MATD3, IPPO, create_population of each
+    and EvoIPPO take device=None as the card and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from agilerl_tpu_torch.algorithms.core.optimizer import adam
+    from agilerl_tpu_torch.algorithms.ippo import IPPO
+    from agilerl_tpu_torch.algorithms.maddpg import MADDPG
+    from agilerl_tpu_torch.algorithms.matd3 import MATD3
+    from agilerl_tpu_torch.components.multi_agent_replay_buffer import MultiAgentReplayBuffer
+    from agilerl_tpu_torch.envs.multi_agent import MultiAgentTorchVecEnv, SimpleSpreadTorch
+    from agilerl_tpu_torch.modules.mlp import MLPConfig
+    from agilerl_tpu_torch.networks import distributions as D
+    from agilerl_tpu_torch.networks.base import NetworkConfig, default_encoder_config
+    from agilerl_tpu_torch.parallel import EvoIPPO
+    from agilerl_tpu_torch.utils.utils import create_population
+
+    env = SimpleSpreadTorch(2)
+    obs, act, ids = env.observation_spaces, env.action_spaces, env.agent_ids
+    kind, enc = default_encoder_config(obs[ids[0]], 8)
+    cfgs = [NetworkConfig(kind, enc, MLPConfig(num_inputs=8, num_outputs=n, hidden_size=(8,)),
+                          latent_dim=8) for n in (5, 1)]
+    dist = D.dist_config_from_space(act[ids[0]])
+    makes = [lambda: MultiAgentTorchVecEnv(env, 2), lambda: MultiAgentReplayBuffer(16, ids),
+             lambda: EvoIPPO(env, *cfgs, dist, adam(1e-3), num_envs=2, rollout_len=4)]
+    for cls in (MADDPG, MATD3, IPPO):
+        makes.append(lambda cls=cls: cls(obs, act, agent_ids=ids, seed=0))
+        makes.append(lambda cls=cls: create_population(cls.__name__, obs, act,
+                                                       population_size=2, seed=0))
+    for make in makes:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert MultiAgentTorchVecEnv(env, 2, device="cpu").reset()[0][ids[0]].device.type == "cpu"
+    assert MultiAgentReplayBuffer(16, ids, device="cpu").device == torch.device("cpu")
+    for cls in (MADDPG, MATD3, IPPO):
+        agent = create_population(cls.__name__, obs, act, population_size=1, seed=0,
+                                  device="cpu")[0]
+        assert agent.dev == torch.device("cpu")
+        assert {p.device for p in agent.actors[next(iter(agent.actors))].params["head"][
+            "output"].values()} == {agent.dev}
+    evo = EvoIPPO(env, *cfgs, dist, adam(1e-3), num_envs=2, rollout_len=4, device="cpu")
+    assert evo.init_population(0, 2).obs.device.type == "cpu"
