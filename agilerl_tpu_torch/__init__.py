@@ -21,6 +21,10 @@ fleet and the online GRPO flywheel (``llm.router``, ``llm.fleet``,
 (``typing``, ``utils.spaces``, ``modules.{base,mlp,configs}``, ``networks``,
 ``components.rollout_buffer``, ``envs``, ``rollouts``, ``algorithms.ppo``,
 the architecture and parameter mutations, ``training.train_on_policy``).
+Later slices add the off-policy, offline and multi-agent families, the
+evolvable transformers (``modules.gpt``, ``modules.bert``), the contextual
+bandits (``algorithms.neural_ucb_bandit``, ``training.train_bandits``) and
+the PettingZoo vector envs and agent wrappers (``vector``, ``wrappers``).
 The kernels
 written for Hopper live under ``csrc/`` behind ``ops.flash_attention_vjp``
 (flash attention forward, dQ, dK/dV) and ``ops.fused_loss`` (fused lm-head
@@ -28,4 +32,5 @@ log-probability forward, dH, dW).
 """
 
 __all__ = ["algorithms", "components", "data", "envs", "hpo", "llm", "modules", "networks",
-           "observability", "ops", "resilience", "rollouts", "training", "utils"]
+           "observability", "ops", "resilience", "rollouts", "training", "utils", "vector",
+           "wrappers"]

@@ -57,7 +57,14 @@
 //   first kv tile and the dQ blocks of the last q tile meet the most tiles.
 // - f32: the products as f32 FMAs (no tensor cores: TF32 would lose the f32
 //   inputs' precision), 256 threads in a 16 x 16 grid over tiles staged
-//   transposed in shared memory ([d][64 + 1] floats).
+//   transposed in shared memory ([d][64 + 1] floats; 32-row tiles at d =
+//   256, where four 64-row ones would not fit).
+//
+// Head dims: built for d = 64, 128 and 256; the wrapper runs any other d <=
+// 256 at the next of these on zero-padded copies (see the forward). At d =
+// 256 a bf16 block owns half of the output columns (two blocks per tile,
+// each recomputing the scores over the whole of d), so that dQ, or dK and
+// dV, keep the 64 accumulator registers a thread they take at d = 128.
 //
 // What bounds it on the H100. At the GRPO learn shapes ([16, 32/8, 320, 128]
 // bf16) the bytes (q, k, v, dO, lse, D read once; dQ or dK/dV written once)
@@ -94,22 +101,33 @@ struct Params {
 
 // ------------------------------ bf16: wgmma -------------------------------- //
 
+// Output columns a bf16 block owns: all of d up to 128; at d = 256 one half
+// (column group), so that dQ (or dK and dV) keep the registers they take at
+// d = 128. Each group's block recomputes the scores over the whole of d.
 template <int HD>
-__global__ void __launch_bounds__(WG_NT, 2)
+__host__ __device__ constexpr int out_cols() {
+  return HD > 128 ? 128 : HD;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG_NT, HD > 128 ? 1 : 2)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap to, const Params p) {
   constexpr int TB = tile_bytes<HD>();
+  constexpr int OD = out_cols<HD>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int nt = (p.T + BQ - 1) / BQ;
   // block order: the q tile slowest, then b, then the head (a GQA group's
-  // heads side by side); under causal masking the last q tile, which meets
-  // the most kv tiles, first
-  const int slot = blockIdx.x / (p.B * p.H);
+  // heads side by side), then the column group; under causal masking the
+  // last q tile, which meets the most kv tiles, first
+  const int cg = blockIdx.x % (HD / OD);
+  const int blk = blockIdx.x / (HD / OD);
+  const int slot = blk / (p.B * p.H);
   const int qt = p.causal ? nt - 1 - slot : slot;
-  const int b = blockIdx.x / p.H % p.B;
-  const int h = blockIdx.x % p.H;
+  const int b = blk / p.H % p.B;
+  const int h = blk % p.H;
   const int q0 = qt * BQ;
   const int hk = h / (p.H / p.Hkv);
   // kv tile kt carries a visible key for some row of this q tile iff its
@@ -151,9 +169,9 @@ __global__ void __launch_bounds__(WG_NT, 2)
     lse_r[i] = real ? p.lse[bh * p.T + qrow[i]] : 0.f;
     dd_r[i] = real ? p.dd[bh * p.T + qrow[i]] : 0.f;
   }
-  float acc[HD / 2];
+  float acc[OD / 2];
 #pragma unroll
-  for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+  for (int j = 0; j < OD / 2; ++j) acc[j] = 0.f;
 
   mbar_wait(sm.res_bar(), 0);
   Pipe pipe;
@@ -193,14 +211,16 @@ __global__ void __launch_bounds__(WG_NT, 2)
       s[j] = pr * (dp[j] - dd_r[i]);
     }
 
-    // dQ += round(dS) K: K read as stored ([keys][HD]: MN-major), 16 keys a step
+    // dQ += round(dS) K: K read as stored ([keys][HD]: MN-major), 16 keys a
+    // step, from the column group's first box
     uint32_t a[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], s, kk);
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], desc_sw128_mn(ks + kk * 2048, BOX), 1);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, a[kk], desc_sw128_mn(ks + cg * (OD / 64) * BOX + kk * 2048, BOX), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc);
@@ -212,9 +232,9 @@ __global__ void __launch_bounds__(WG_NT, 2)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (qrow[i] < p.T) {
-      const long long at = (bh * p.T + qrow[i]) * HD + c0;
+      const long long at = (bh * p.T + qrow[i]) * HD + cg * OD + c0;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
+      for (int n = 0; n < OD / 8; ++n)
         *reinterpret_cast<uint32_t*>(&dq[at + n * 8]) =
             pack_bf16(acc[4 * n + 2 * i] * p.scale, acc[4 * n + 2 * i + 1] * p.scale);
     }
@@ -228,13 +248,17 @@ __global__ void __launch_bounds__(WG_NT, 1)
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap to, const Params p) {
   constexpr int TB = tile_bytes<HD>();
+  constexpr int OD = out_cols<HD>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int nt = (p.T + BK - 1) / BK;
-  // block order: the kv tile slowest, then b, then the kv head; under causal
-  // masking the first kv tile, which meets the most q tiles, first
-  const int kt = blockIdx.x / (p.B * p.Hkv);
-  const int b = blockIdx.x / p.Hkv % p.B;
-  const int hk = blockIdx.x % p.Hkv;
+  // block order: the kv tile slowest, then b, then the kv head, then the
+  // column group; under causal masking the first kv tile, which meets the
+  // most q tiles, first
+  const int cg = blockIdx.x % (HD / OD);
+  const int blk = blockIdx.x / (HD / OD);
+  const int kt = blk / (p.B * p.Hkv);
+  const int b = blk / p.Hkv % p.B;
+  const int hk = blk % p.Hkv;
   const int k0 = kt * BK;
   const int rep = p.H / p.Hkv;
   const long long bk = (long long)b * p.Hkv + hk;
@@ -244,8 +268,9 @@ __global__ void __launch_bounds__(WG_NT, 1)
   if (f >= p.T) {  // no visible key in this kv tile: dK = dV = 0
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
     const int rows = min(BK, p.T - k0);
-    for (int e = threadIdx.x; e < rows * (HD / 8); e += WG_NT) {
-      const long long at = (bk * p.T + k0 + e / (HD / 8)) * HD + (e % (HD / 8)) * 8;
+    for (int e = threadIdx.x; e < rows * (OD / 8); e += WG_NT) {
+      const long long at =
+          (bk * p.T + k0 + e / (OD / 8)) * HD + cg * OD + (e % (OD / 8)) * 8;
       *reinterpret_cast<uint4*>(static_cast<bf16*>(p.dk) + at) = zero;
       *reinterpret_cast<uint4*>(static_cast<bf16*>(p.dv) + at) = zero;
     }
@@ -283,9 +308,9 @@ __global__ void __launch_bounds__(WG_NT, 1)
     key[i] = k0 + r0 + 8 * i;
     kvis[i] = key_visible(p.mask, p.T, b, key[i]);
   }
-  float dk[HD / 2], dv[HD / 2];
+  float dk[OD / 2], dv[OD / 2];
 #pragma unroll
-  for (int j = 0; j < HD / 2; ++j) dk[j] = dv[j] = 0.f;
+  for (int j = 0; j < OD / 2; ++j) dk[j] = dv[j] = 0.f;
 
   mbar_wait(sm.res_bar(), 0);
   Pipe pipe;
@@ -335,7 +360,8 @@ __global__ void __launch_bounds__(WG_NT, 1)
         }
 
         // dV += round(P^T) dO and dK += round(dS^T) Q: dO and Q read as
-        // stored ([queries][HD]: MN-major), 16 queries a step
+        // stored ([queries][HD]: MN-major), 16 queries a step, from the
+        // column group's first box
         uint32_t pa[2][4], da[2][4];
 #pragma unroll
         for (int kq = 0; kq < 2; ++kq) {
@@ -347,7 +373,7 @@ __global__ void __launch_bounds__(WG_NT, 1)
         wgmma_fence();
 #pragma unroll
         for (int kq = 0; kq < 2; ++kq) {
-          const uint32_t off = (half * 32 + kq * 16) * 128;
+          const uint32_t off = cg * (OD / 64) * BOX + (half * 32 + kq * 16) * 128;
           wgmma_rs(dv, pa[kq], desc_sw128_mn(os + off, BOX), 1);
           wgmma_rs(dk, da[kq], desc_sw128_mn(qs + off, BOX), 1);
         }
@@ -366,9 +392,9 @@ __global__ void __launch_bounds__(WG_NT, 1)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (key[i] < p.T) {
-      const long long at = (bk * p.T + key[i]) * HD + c0;
+      const long long at = (bk * p.T + key[i]) * HD + cg * OD + c0;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
+      for (int n = 0; n < OD / 8; ++n) {
         const int j = 4 * n + 2 * i;
         *reinterpret_cast<uint32_t*>(&dkg[at + n * 8]) =
             pack_bf16(dk[j] * p.scale, dk[j + 1] * p.scale);
@@ -380,17 +406,25 @@ __global__ void __launch_bounds__(WG_NT, 1)
 
 // ------------------------------ f32: FMAs ---------------------------------- //
 
-constexpr int LD = 65;  // row pitch (floats) of a transposed [d][64] tile
 constexpr int NT = 256;
 
-// rows [r0, r0 + 64) of a [T, HD] slice (row stride st) into dst[HD][LD],
-// transposed; rows at or past T read as 0. Consecutive threads take
-// consecutive columns: coalesced reads, and stores 65 floats apart, which
-// fall in distinct banks.
+// Rows R of a tile: 64, and 32 at d = 256, where four [d][65] tiles would
+// not fit in shared memory. A transposed [d][R] tile has a row pitch of
+// LD = R + 1 floats.
 template <int HD>
+__host__ __device__ constexpr int f32_rows() {
+  return HD > 128 ? 32 : 64;
+}
+
+// rows [r0, r0 + R) of a [T, HD] slice (row stride st) into dst[HD][R + 1],
+// transposed; rows at or past T read as 0. Consecutive threads take
+// consecutive columns: coalesced reads, and stores R + 1 floats apart (an
+// odd pitch), which fall in distinct banks.
+template <int HD, int R>
 __device__ __forceinline__ void load_t(float* dst, const float* src, long long st, int r0,
                                        int seq) {
-  for (int e = threadIdx.x; e < 64 * HD; e += NT) {
+  constexpr int LD = R + 1;
+  for (int e = threadIdx.x; e < R * HD; e += NT) {
     const int r = e / HD, c = e - (e / HD) * HD;
     const int row = r0 + r;
     dst[c * LD + r] = row < seq ? src[row * st + c] : 0.f;
@@ -399,20 +433,23 @@ __device__ __forceinline__ void load_t(float* dst, const float* src, long long s
 
 template <int HD>
 constexpr int dq_smem_bytes() {
-  // Qt, dOt, Kt, Vt [HD][LD]; dS [BQ][LD]; lse, D [BQ]; key visibility [BK]
-  return (4 * HD * LD + BQ * LD + 2 * BQ) * 4 + BK * 4;
+  // Qt, dOt, Kt, Vt [HD][LD]; dS [R][LD]; lse, D [R]; key visibility [R]
+  constexpr int R = f32_rows<HD>(), LD = R + 1;
+  return (4 * HD * LD + R * LD + 2 * R) * 4 + R * 4;
 }
 
 template <int HD>
 constexpr int dkv_smem_bytes() {
-  // Kt, Vt, Qt, dOt [HD][LD]; P^T, dS^T [BK][LD]; lse, D [BQ]; visibility [BK]
-  return (4 * HD * LD + 2 * BK * LD + 2 * BQ) * 4 + BK * 4;
+  // Kt, Vt, Qt, dOt [HD][LD]; P^T, dS^T [R][LD]; lse, D [R]; visibility [R]
+  constexpr int R = f32_rows<HD>(), LD = R + 1;
+  return (4 * HD * LD + 2 * R * LD + 2 * R) * 4 + R * 4;
 }
 
 template <int HD>
 __global__ void __launch_bounds__(NT) flash_dq_f32_kernel(const Params p) {
-  constexpr int RI = BQ / 16;  // query rows per thread
-  constexpr int CJ = BK / 16;  // key columns per thread
+  constexpr int R = f32_rows<HD>(), LD = R + 1;
+  constexpr int RI = R / 16;  // query rows per thread
+  constexpr int CJ = R / 16;  // key columns per thread
   constexpr int OJ = HD / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qt = smem;
@@ -420,9 +457,9 @@ __global__ void __launch_bounds__(NT) flash_dq_f32_kernel(const Params p) {
   float* Kt = Ot + HD * LD;
   float* Vt = Kt + HD * LD;
   float* Ss = Vt + HD * LD;
-  float* row_lse = Ss + BQ * LD;
-  float* row_dd = row_lse + BQ;
-  int* pm = reinterpret_cast<int*>(row_dd + BQ);
+  float* row_lse = Ss + R * LD;
+  float* row_dd = row_lse + R;
+  int* pm = reinterpret_cast<int*>(row_dd + R);
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
@@ -431,14 +468,14 @@ __global__ void __launch_bounds__(NT) flash_dq_f32_kernel(const Params p) {
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * R;
   const int seq = p.T;
 
   const float* kg = static_cast<const float*>(p.k) + b * p.skb + hk * p.skh;
   const float* vg = static_cast<const float*>(p.v) + b * p.svb + hk * p.svh;
-  load_t<HD>(Qt, static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh, p.sqt, q0, seq);
-  load_t<HD>(Ot, static_cast<const float*>(p.dout) + b * p.sob + h * p.soh, p.sot, q0, seq);
-  if (tid < BQ) {
+  load_t<HD, R>(Qt, static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh, p.sqt, q0, seq);
+  load_t<HD, R>(Ot, static_cast<const float*>(p.dout) + b * p.sob + h * p.soh, p.sot, q0, seq);
+  if (tid < R) {
     const int row = q0 + tid;
     const long long at = (long long)bh * seq + row;
     row_lse[tid] = row < seq ? p.lse[at] : 0.f;
@@ -451,15 +488,15 @@ __global__ void __launch_bounds__(NT) flash_dq_f32_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < OJ; ++j) acc[i][j] = 0.f;
 
-  const int kv_end = p.causal ? min(seq, q0 + BQ) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  const int kv_end = p.causal ? min(seq, q0 + R) : seq;
+  for (int k0 = 0; k0 < kv_end; k0 += R) {
     __syncthreads();  // the previous tile's readers are done (and Qt, dOt stored)
-    load_t<HD>(Kt, kg, p.skt, k0, seq);
-    load_t<HD>(Vt, vg, p.svt, k0, seq);
-    if (tid < BK) pm[tid] = key_visible(p.mask, p.T, b, k0 + tid);
+    load_t<HD, R>(Kt, kg, p.skt, k0, seq);
+    load_t<HD, R>(Vt, vg, p.svt, k0, seq);
+    if (tid < R) pm[tid] = key_visible(p.mask, p.T, b, k0 + tid);
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T for this thread's 4 x 4 elements
+    // S = Q K^T and dP = dO V^T for this thread's RI x CJ elements
     float s[RI][CJ], dp[RI][CJ];
 #pragma unroll
     for (int i = 0; i < RI; ++i)
@@ -501,9 +538,9 @@ __global__ void __launch_bounds__(NT) flash_dq_f32_kernel(const Params p) {
     }
     __syncthreads();
 
-    // dQ += dS K: K read from its transposed tile, 65 floats apart per thread
+    // dQ += dS K: K read from its transposed tile, LD floats apart per thread
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < R; ++kk) {
       float sv[RI], kv[OJ];
 #pragma unroll
       for (int i = 0; i < RI; ++i) sv[i] = Ss[(ty + 16 * i) * LD + kk];
@@ -530,8 +567,9 @@ __global__ void __launch_bounds__(NT) flash_dq_f32_kernel(const Params p) {
 
 template <int HD>
 __global__ void __launch_bounds__(NT) flash_dkv_f32_kernel(const Params p) {
-  constexpr int RI = BK / 16;  // key rows per thread
-  constexpr int CJ = BQ / 16;  // query columns per thread
+  constexpr int R = f32_rows<HD>(), LD = R + 1;
+  constexpr int RI = R / 16;  // key rows per thread
+  constexpr int CJ = R / 16;  // query columns per thread
   constexpr int OJ = HD / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Kt = smem;
@@ -539,10 +577,10 @@ __global__ void __launch_bounds__(NT) flash_dkv_f32_kernel(const Params p) {
   float* Qt = Vt + HD * LD;
   float* Ot = Qt + HD * LD;
   float* Ps = Ot + HD * LD;  // P^T  [key][query]
-  float* Ss = Ps + BK * LD;  // dS^T [key][query]
-  float* row_lse = Ss + BK * LD;
-  float* row_dd = row_lse + BQ;
-  int* pm = reinterpret_cast<int*>(row_dd + BQ);
+  float* Ss = Ps + R * LD;  // dS^T [key][query]
+  float* row_lse = Ss + R * LD;
+  float* row_dd = row_lse + R;
+  int* pm = reinterpret_cast<int*>(row_dd + R);
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
@@ -551,12 +589,12 @@ __global__ void __launch_bounds__(NT) flash_dkv_f32_kernel(const Params p) {
   const int b = bk / p.Hkv;
   const int hk = bk - b * p.Hkv;
   const int rep = p.H / p.Hkv;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * R;
   const int seq = p.T;
 
-  load_t<HD>(Kt, static_cast<const float*>(p.k) + b * p.skb + hk * p.skh, p.skt, k0, seq);
-  load_t<HD>(Vt, static_cast<const float*>(p.v) + b * p.svb + hk * p.svh, p.svt, k0, seq);
-  if (tid < BK) pm[tid] = key_visible(p.mask, p.T, b, k0 + tid);
+  load_t<HD, R>(Kt, static_cast<const float*>(p.k) + b * p.skb + hk * p.skh, p.skt, k0, seq);
+  load_t<HD, R>(Vt, static_cast<const float*>(p.v) + b * p.svb + hk * p.svh, p.svt, k0, seq);
+  if (tid < R) pm[tid] = key_visible(p.mask, p.T, b, k0 + tid);
 
   float dk[RI][OJ], dv[RI][OJ];
 #pragma unroll
@@ -565,16 +603,16 @@ __global__ void __launch_bounds__(NT) flash_dkv_f32_kernel(const Params p) {
     for (int j = 0; j < OJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
   // q tiles wholly before this kv tile see none of its keys (causal)
-  const int q_start = p.causal ? (k0 / BQ) * BQ : 0;
+  const int q_start = p.causal ? (k0 / R) * R : 0;
   for (int h = hk * rep; h < (hk + 1) * rep; ++h) {
     const int bh = b * p.H + h;
     const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
     const float* og = static_cast<const float*>(p.dout) + b * p.sob + h * p.soh;
-    for (int q0 = q_start; q0 < seq; q0 += BQ) {
+    for (int q0 = q_start; q0 < seq; q0 += R) {
       __syncthreads();  // the previous tile's readers are done
-      load_t<HD>(Qt, qg, p.sqt, q0, seq);
-      load_t<HD>(Ot, og, p.sot, q0, seq);
-      if (tid < BQ) {
+      load_t<HD, R>(Qt, qg, p.sqt, q0, seq);
+      load_t<HD, R>(Ot, og, p.sot, q0, seq);
+      if (tid < R) {
         const int row = q0 + tid;
         const long long at = (long long)bh * seq + row;
         row_lse[tid] = row < seq ? p.lse[at] : 0.f;
@@ -627,7 +665,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_f32_kernel(const Params p) {
 
       // dV += P^T dO, dK += dS^T Q: dO and Q read from their transposed tiles
 #pragma unroll 4
-      for (int kk = 0; kk < BQ; ++kk) {
+      for (int kk = 0; kk < R; ++kk) {
         float pv[RI], sv[RI], ov[OJ], qv[OJ];
 #pragma unroll
         for (int i = 0; i < RI; ++i) {
@@ -691,7 +729,7 @@ cudaError_t launch_wgmma(Kernel kernel, int heads, const Params& p, cudaStream_t
   if (err) return static_cast<cudaError_t>(err);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  const long long blocks = (long long)p.B * nt * heads;
+  const long long blocks = (long long)p.B * nt * heads * (HD / out_cols<HD>());
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, WG_NT, bytes, stream>>>(tq, tk, tv, to, p);
   return cudaGetLastError();
@@ -721,10 +759,14 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v, c
   if (is_bf16) {
     if (d == 128) return launch_wgmma<128>(flash_dq_wgmma_kernel<128>, H, p, st);
     if (d == 64) return launch_wgmma<64>(flash_dq_wgmma_kernel<64>, H, p, st);
+    if (d == 256) return launch_wgmma<256>(flash_dq_wgmma_kernel<256>, H, p, st);
   } else {
-    const dim3 grid((T + BQ - 1) / BQ, B * H);
+    const dim3 grid((T + f32_rows<128>() - 1) / f32_rows<128>(), B * H);
+    const dim3 grid256((T + f32_rows<256>() - 1) / f32_rows<256>(), B * H);
     if (d == 128) return launch(flash_dq_f32_kernel<128>, NT, dq_smem_bytes<128>(), grid, p, st);
     if (d == 64) return launch(flash_dq_f32_kernel<64>, NT, dq_smem_bytes<64>(), grid, p, st);
+    if (d == 256)
+      return launch(flash_dq_f32_kernel<256>, NT, dq_smem_bytes<256>(), grid256, p, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -740,11 +782,15 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, 
   if (is_bf16) {
     if (d == 128) return launch_wgmma<128>(flash_dkv_wgmma_kernel<128>, Hkv, p, st);
     if (d == 64) return launch_wgmma<64>(flash_dkv_wgmma_kernel<64>, Hkv, p, st);
+    if (d == 256) return launch_wgmma<256>(flash_dkv_wgmma_kernel<256>, Hkv, p, st);
   } else {
-    const dim3 grid((T + BK - 1) / BK, B * Hkv);
+    const dim3 grid((T + f32_rows<128>() - 1) / f32_rows<128>(), B * Hkv);
+    const dim3 grid256((T + f32_rows<256>() - 1) / f32_rows<256>(), B * Hkv);
     if (d == 128)
       return launch(flash_dkv_f32_kernel<128>, NT, dkv_smem_bytes<128>(), grid, p, st);
     if (d == 64) return launch(flash_dkv_f32_kernel<64>, NT, dkv_smem_bytes<64>(), grid, p, st);
+    if (d == 256)
+      return launch(flash_dkv_f32_kernel<256>, NT, dkv_smem_bytes<256>(), grid256, p, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

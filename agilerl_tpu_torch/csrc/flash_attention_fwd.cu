@@ -29,11 +29,12 @@
 //   views; rows at or past T arrive as zeros. S = Q K^T runs as wgmma
 //   m64n64k16 with both operands K-major from swizzled shared memory; p goes
 //   from the S accumulator, rounded to bf16, straight in as the register A
-//   operand of O += P V (m64n{d}k16), whose B operand V is read as stored
-//   ([keys][d]: MN-major) through wgmma's transpose bit: no transposed copy
-//   of V. The consumer issues tile j's S and then tile j - 1's P V, and runs
-//   tile j's softmax while the tensor cores do that P V (the rescale of O
-//   waits for it). Scores are kept in log2 units (exp2).
+//   operand of O += P V (m64n{d}k16; at d = 256 two m64n128k16), whose B
+//   operand V is read as stored ([keys][d]: MN-major) through wgmma's
+//   transpose bit: no transposed copy of V. The consumer issues tile j's S
+//   and then tile j - 1's P V, and runs tile j's softmax while the tensor
+//   cores do that P V (the rescale of O waits for it). Scores are kept in
+//   log2 units (exp2).
 //   Tiles without a visible key are skipped by the backward's rule: each
 //   block finds the first visible key of the kv tiles it may meet (one warp
 //   ballot per 64 keys of the mask) and visits a kv tile only when that key
@@ -46,6 +47,15 @@
 //   Rows with a visible key get the TPU kernel's result.
 // - f32: the products as f32 FMAs from shared memory (no tensor cores: TF32
 //   would lose the f32 inputs' precision), 256 threads in a 16 x 16 grid.
+//
+// Head dims: the kernels are built for d = 64, 128 and 256. The wrapper
+// (ops/flash_attention_vjp.py) runs any other d <= 256 at the next of these
+// on copies of q, k and v zero-padded along d, with the scale of the true
+// d, and slices out's padded columns off: zero columns add nothing to a
+// score, and out's columns past d come out zero. At d = 256 the bf16 kernel
+// runs one block an SM (its shared memory, 161 KB, and 128 accumulator
+// registers a thread for O leave no room for a second); the f32 kernel
+// takes 211 KB of shared memory.
 //   It visits every kv tile up to the causal bound; a row with no visible key
 //   holds the mean of v over the masked keys it met (finite).
 //
@@ -84,7 +94,7 @@ struct Params {
 // ------------------------------ bf16: wgmma -------------------------------- //
 
 template <int HD>
-__global__ void __launch_bounds__(WG_NT, 2)
+__global__ void __launch_bounds__(WG_NT, HD > 128 ? 1 : 2)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, const Params p) {
@@ -175,7 +185,7 @@ __global__ void __launch_bounds__(WG_NT, 2)
       mbar_wait(sm.full_b(pending.stage), pending.phase);
       const uint32_t vs = sm.stage(pending.stage) + TB;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, a[kk], desc_sw128_mn(vs + kk * 2048, BOX), 1);
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_wide<HD>(o, a[kk], vs + kk * 2048, 1);
       wgmma_commit();
       wgmma_wait<1>();  // S is done; P V may still run
     } else {
@@ -240,7 +250,7 @@ __global__ void __launch_bounds__(WG_NT, 2)
     wgmma_fence();
     const uint32_t vs = sm.stage(pending.stage) + TB;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, a[kk], desc_sw128_mn(vs + kk * 2048, BOX), 1);
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_wide<HD>(o, a[kk], vs + kk * 2048, 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(o);
@@ -464,9 +474,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (is_bf16) {
     if (d == 128) return launch_wgmma<128>(p, st);
     if (d == 64) return launch_wgmma<64>(p, st);
+    if (d == 256) return launch_wgmma<256>(p, st);
   } else {
     if (d == 128) return launch(flash_fwd_f32_kernel<128>, NT, f32_smem_bytes<128>(), p, st);
     if (d == 64) return launch(flash_fwd_f32_kernel<64>, NT, f32_smem_bytes<64>(), p, st);
+    if (d == 256) return launch(flash_fwd_f32_kernel<256>, NT, f32_smem_bytes<256>(), p, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

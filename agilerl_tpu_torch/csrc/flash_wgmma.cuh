@@ -2,8 +2,9 @@
 // wgmma kernels of csrc/flash_attention_fwd.cu (out, lse) and
 // csrc/flash_attention_bwd.cu (dQ, dK/dV).
 //
-// - tiles: 64 rows x d bf16, held in shared memory as d / 64 TMA boxes of
-//   [64 rows][64 bf16] with the 128-byte swizzle (hopper.cuh's 4-D maps);
+// - tiles: 64 rows x d bf16 (d = 64, 128 or 256), held in shared memory as
+//   d / 64 TMA boxes of [64 rows][64 bf16] with the 128-byte swizzle
+//   (hopper.cuh's 4-D maps);
 // - a block's shared memory: NRES resident tiles, a ring of STAGES stages of
 //   two streamed tiles (a, b), full/empty mbarriers for the pair (or, SPLIT,
 //   for each tile of it), and the resident tiles' barrier, then the first
@@ -121,6 +122,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d += A B for a [64, N] accumulator, B MN-major at shared address b: one
+// product up to N = 128, else N / 128 products of n = 128 (a thread's
+// accumulator entries 64 c .. 64 c + 63 are columns 128 c .. 128 c + 127,
+// whose B starts two boxes on)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint32_t b, int scale_d) {
+  if constexpr (N <= 128) {
+    wgmma_rs(d, a, desc_sw128_mn(b, BOX), scale_d);
+  } else {
+#pragma unroll
+    for (int c = 0; c < N / 128; ++c)
+      wgmma_rs(*reinterpret_cast<float(*)[64]>(&d[64 * c]), a,
+               desc_sw128_mn(b + c * 2 * BOX, BOX), scale_d);
+  }
 }
 
 // Shared memory of a block: resident tiles res(0 .. NRES - 1); stage s holds

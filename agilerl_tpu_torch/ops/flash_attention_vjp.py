@@ -24,6 +24,15 @@ kernels run, or the call raises: ``csrc/flash_attention_fwd.cu`` (replaces
 the TPU kernel ``_fwd_kernel``) and ``csrc/flash_attention_bwd.cu``
 (``_dq_kernel`` and ``_dkv_kernel``).
 
+Head dims: the TPU kernels take any d (their blocks span the whole head
+dim). The CUDA kernels are built for d = 64, 128 and 256; the wrappers run
+any other d <= 256 at the smallest of these that holds it
+(``flash_head_dim_plan``), on copies of q, k, v (and dO) zero-padded along
+d, with the scale 1/sqrt(d) of the true d, and slice the padded columns off
+out, dq, dk and dv. Zero columns add nothing to a score, and the outputs'
+padded columns come out zero. A head dim past 256 raises ``ValueError`` on
+CUDA tensors (a deviation: the TPU kernels and the plain versions take it).
+
 Query rows with no visible key (left padding under causal masking, a batch
 row of padding only) come out of the forward finite, and callers read the
 other rows only. The bf16 kernel gives them out = 0 and lse = -1e30 +
@@ -47,7 +56,25 @@ from agilerl_tpu_torch.ops import check_kernel_input
 from agilerl_tpu_torch.ops._build import load_library
 
 _NEG = -1e30
-_SUPPORTED_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128, 256)
+
+
+def flash_head_dim_plan(d: int) -> int:
+    """The head dim the CUDA kernels run a head dim ``d`` at: the smallest
+    of 64, 128 and 256 that is at least ``d``. Raises ``ValueError`` for
+    ``d`` past 256, the kernels' limit."""
+    if d < 1:
+        raise ValueError(f"head_dim {d} must be positive")
+    for hd in _KERNEL_HEAD_DIMS:
+        if d <= hd:
+            return hd
+    raise ValueError(f"head_dim {d} exceeds the flash kernels' limit of "
+                     f"{_KERNEL_HEAD_DIMS[-1]}")
+
+
+def _pad_head(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """``t`` with its last dim zero-padded to ``hd`` (a contiguous copy)."""
+    return t if t.shape[-1] == hd else torch.nn.functional.pad(t, (0, hd - t.shape[-1]))
 
 
 def _visible(T: int, padding_mask: Optional[torch.Tensor], causal: bool,
@@ -72,14 +99,17 @@ def flash_attention_reference(
     v: torch.Tensor,
     padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain masked softmax with the kernel's numerics: f32 scores, masked
     scores -1e30, p rounded to v's dtype before the P.V product,
-    out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))."""
+    out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)). ``scale``
+    defaults to 1/sqrt(d)."""
     B, H, T, d = q.shape
     rep = H // k.shape[1]
     k, v = _repeat_kv(k, rep), _repeat_kv(v, rep)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     s = torch.where(_visible(T, padding_mask, causal, q.device), s, _NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -97,16 +127,18 @@ def flash_attention_bwd_reference(
     dd: torch.Tensor,
     padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the TPU kernels' formulas (``_dq_kernel``,
     ``_dkv_kernel``), not autograd through the forward: p is
     ``where(visible, exp(s - lse), 0)``, so rows with no visible key give
     p = 0 (the plain forward gives them p = 1 over the masked keys).
-    ``dd`` is ``rowsum(dO * O)`` minus the lse cotangent, f32 [B, H, T]."""
+    ``dd`` is ``rowsum(dO * O)`` minus the lse cotangent, f32 [B, H, T];
+    ``scale`` defaults to 1/sqrt(d)."""
     B, H, T, d = q.shape
     Hkv = k.shape[1]
     rep = H // Hkv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     kr, vr = _repeat_kv(k, rep), _repeat_kv(v, rep)
     s = torch.matmul(q.float(), kr.float().transpose(-1, -2)) * scale
     visible = _visible(T, padding_mask, causal, q.device)
@@ -141,8 +173,8 @@ def _check_qkv(q, k, v, name: str) -> Tuple[int, int, int, int, int]:
                          f"match q {tuple(q.shape)}")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"q heads {H} are not a multiple of kv heads {Hkv}")
-    if d not in _SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_SUPPORTED_HEAD_DIMS}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in the kernels' {_KERNEL_HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the kernel's grid")
     return B, H, Hkv, T, d
@@ -187,9 +219,19 @@ def flash_attention_fwd_cuda(
     v: torch.Tensor,
     padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_attention_fwd.cu`` on the current stream.
-    q/k/v may be strided views over (b, h, t) but must be contiguous in d."""
+    q/k/v may be strided views over (b, h, t) but must be contiguous in d.
+    A head dim the kernel is not built for runs zero-padded
+    (``flash_head_dim_plan``); ``scale`` defaults to 1/sqrt(d)."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    hd = flash_head_dim_plan(d)
+    if hd != d:
+        out, lse = flash_attention_fwd_cuda(
+            _pad_head(q, hd), _pad_head(k, hd), _pad_head(v, hd), padding_mask, causal, scale)
+        return out[..., :d], lse
     B, H, Hkv, T, d = _check_qkv(q, k, v, "flash_attention_fwd_cuda")
     dev = q.device
     if q.dtype == torch.bfloat16:
@@ -206,8 +248,7 @@ def flash_attention_fwd_cuda(
                  mask.data_ptr() if mask is not None else None,
                  out.data_ptr(), lse.data_ptr(), B, H, Hkv, T, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 int(causal), int(q.dtype == torch.bfloat16),
-                 1.0 / math.sqrt(d), stream)
+                 int(causal), int(q.dtype == torch.bfloat16), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
     flash_attention_fwd_cuda.launches += 1
@@ -254,7 +295,7 @@ def _bwd_inputs(q, k, v, dout, lse, dd, padding_mask, name):
     return (B, H, Hkv, T, d), dout, mask, strides
 
 
-def _launch_bwd(fn_name, outs, q, k, v, dout, lse, dd, mask, strides, shape, causal):
+def _launch_bwd(fn_name, outs, q, k, v, dout, lse, dd, mask, strides, shape, causal, scale):
     B, H, Hkv, T, d = shape
     argtypes = list(_BWD_ARGTYPES)
     argtypes[7:8] = [ctypes.c_void_p] * len(outs)
@@ -266,16 +307,23 @@ def _launch_bwd(fn_name, outs, q, k, v, dout, lse, dd, mask, strides, shape, cau
                  lse.data_ptr(), dd.data_ptr(),
                  mask.data_ptr() if mask is not None else None,
                  *(o.data_ptr() for o in outs), B, H, Hkv, T, d,
-                 strides.data_ptr(), int(causal), int(q.dtype == torch.bfloat16),
-                 1.0 / math.sqrt(d), stream)
+                 strides.data_ptr(), int(causal), int(q.dtype == torch.bfloat16), scale,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
 
 
 def flash_attention_dq_cuda(q, k, v, dout, lse, dd, padding_mask=None,
-                            causal: bool = True) -> torch.Tensor:
+                            causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
     """Launch the dQ kernel of ``csrc/flash_attention_bwd.cu``: dq
-    [B, H, T, d] in q's dtype. q/k/v/dout may be strided over (b, h, t)."""
+    [B, H, T, d] in q's dtype. q/k/v/dout may be strided over (b, h, t); a
+    head dim the kernel is not built for runs zero-padded."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    hd = flash_head_dim_plan(d)
+    if hd != d:
+        return flash_attention_dq_cuda(*(_pad_head(t, hd) for t in (q, k, v, dout)), lse, dd,
+                                       padding_mask, causal, scale)[..., :d]
     shape, dout, mask, strides = _bwd_inputs(q, k, v, dout, lse, dd, padding_mask,
                                              "flash_attention_dq_cuda")
     B, H, _, T, d = shape
@@ -283,7 +331,7 @@ def flash_attention_dq_cuda(q, k, v, dout, lse, dd, padding_mask=None,
     if T == 0:
         return dq
     _launch_bwd("flash_attention_dq", (dq,), q, k, v, dout, lse, dd, mask, strides, shape,
-                causal)
+                causal, scale)
     flash_attention_dq_cuda.launches += 1
     return dq
 
@@ -293,10 +341,18 @@ flash_attention_dq_cuda.kernel_name = "flash_attention_dq"
 flash_attention_dq_cuda.source = "flash_attention_bwd"
 
 
-def flash_attention_dkv_cuda(q, k, v, dout, lse, dd, padding_mask=None,
-                             causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_dkv_cuda(q, k, v, dout, lse, dd, padding_mask=None, causal: bool = True,
+                             scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel of ``csrc/flash_attention_bwd.cu``: (dk, dv)
-    [B, Hkv, T, d] in k's dtype, summed over each GQA group in the kernel."""
+    [B, Hkv, T, d] in k's dtype, summed over each GQA group in the kernel; a
+    head dim the kernel is not built for runs zero-padded."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    hd = flash_head_dim_plan(d)
+    if hd != d:
+        dk, dv = flash_attention_dkv_cuda(*(_pad_head(t, hd) for t in (q, k, v, dout)), lse,
+                                          dd, padding_mask, causal, scale)
+        return dk[..., :d], dv[..., :d]
     shape, dout, mask, strides = _bwd_inputs(q, k, v, dout, lse, dd, padding_mask,
                                              "flash_attention_dkv_cuda")
     B, H, Hkv, T, d = shape
@@ -305,7 +361,7 @@ def flash_attention_dkv_cuda(q, k, v, dout, lse, dd, padding_mask=None,
     if T == 0:
         return dk, dv
     _launch_bwd("flash_attention_dkv", (dk, dv), q, k, v, dout, lse, dd, mask, strides, shape,
-                causal)
+                causal, scale)
     flash_attention_dkv_cuda.launches += 1
     return dk, dv
 
@@ -330,9 +386,14 @@ def _fwd(q, k, v, padding_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
 def _bwd(q, k, v, dout, lse, dd, padding_mask, causal):
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, dout, lse, dd, padding_mask, causal)
-    dq = flash_attention_dq_cuda(q, k, v, dout, lse, dd, padding_mask, causal)
-    dk, dv = flash_attention_dkv_cuda(q, k, v, dout, lse, dd, padding_mask, causal)
-    return dq, dk, dv
+    # one zero-padded copy of q, k, v and dO serves both kernels
+    d = q.shape[-1]
+    hd = flash_head_dim_plan(d)
+    q, k, v, dout = (_pad_head(t, hd) for t in (q, k, v, dout))
+    scale = 1.0 / math.sqrt(d)
+    dq = flash_attention_dq_cuda(q, k, v, dout, lse, dd, padding_mask, causal, scale)
+    dk, dv = flash_attention_dkv_cuda(q, k, v, dout, lse, dd, padding_mask, causal, scale)
+    return dq[..., :d], dk[..., :d], dv[..., :d]
 
 
 class _FlashAttention(torch.autograd.Function):

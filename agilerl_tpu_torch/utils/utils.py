@@ -1,15 +1,16 @@
 """Population factory, env maker, evolution glue and population
 checkpoints: the port of ``agilerl_tpu/utils/utils.py`` for GRPO, DPO, PPO,
-DQN, RainbowDQN, CQN, DDPG, TD3, MADDPG, MATD3 and IPPO (``create_population``,
+DQN, RainbowDQN, CQN, DDPG, TD3, MADDPG, MATD3, IPPO, NeuralUCB and NeuralTS
+(``create_population``,
 ``make_vect_envs``, ``tournament_selection_and_mutation`` with
 ``save_elite``, ``save_population_checkpoint``,
 ``resume_population_from_checkpoint``, ``load_population_checkpoint``,
 ``consolidate_mutations``, ``print_hyperparams``), and the multi-agent info
 helpers (``get_env_defined_actions``, ``extract_action_masks``,
 ``process_ma_infos``, ``apply_env_defined_actions``,
-``forced_action_arrays``). A device env gives ``{}`` infos, for which the
-helpers do nothing; ``make_multi_agent_vect_envs`` (PettingZoo) comes with
-Queue 1's item 5d-pz. The other algorithms come with their slices."""
+``forced_action_arrays``), and ``make_multi_agent_vect_envs`` (the
+PettingZoo vector envs). A device env gives ``{}`` infos, for which the
+helpers do nothing. The other algorithms come with their slices."""
 
 from __future__ import annotations
 
@@ -55,7 +56,8 @@ def _named_ctor_params(cls) -> set:
 # the algorithms ported so far, by name -> module of agilerl_tpu_torch.algorithms
 _ALGO_MODULES = {"GRPO": "grpo", "DPO": "dpo", "PPO": "ppo", "DQN": "dqn",
                  "RainbowDQN": "dqn_rainbow", "CQN": "cqn", "DDPG": "ddpg", "TD3": "td3",
-                 "MADDPG": "maddpg", "MATD3": "matd3", "IPPO": "ippo"}
+                 "MADDPG": "maddpg", "MATD3": "matd3", "IPPO": "ippo",
+                 "NeuralUCB": "neural_ucb_bandit", "NeuralTS": "neural_ts_bandit"}
 
 
 def _algo_class(algo: str):
@@ -81,8 +83,8 @@ def create_population(
     **kwargs,
 ) -> List:
     """Build a population of GRPO, DPO, PPO, DQN, RainbowDQN, CQN, DDPG, TD3,
-    MADDPG, MATD3 or IPPO agents. Each member gets the ``INIT_HP`` keys its
-    constructor names (``AGENT_IDS`` as ``agent_ids``), and
+    MADDPG, MATD3, IPPO, NeuralUCB or NeuralTS agents. Each member gets the
+    ``INIT_HP`` keys its constructor names (``AGENT_IDS`` as ``agent_ids``), and
     ``observation_space``, ``action_space`` (a multi-agent algorithm's
     ``observation_spaces`` / ``action_spaces``: the per-agent dicts),
     ``net_config`` and ``num_envs`` where it names them. ``kwargs`` go to
@@ -141,6 +143,22 @@ def make_vect_envs(
         fns = [lambda: gym.make(env_name, **env_kwargs) for _ in range(num_envs)]
     vec_cls = gym.vector.AsyncVectorEnv if should_async_vector else gym.vector.SyncVectorEnv
     return vec_cls(fns)
+
+
+def make_multi_agent_vect_envs(env, num_envs: int = 1, should_async_vector: bool = True,
+                               **env_kwargs):
+    """``num_envs`` copies of a PettingZoo parallel env, ``env(**env_kwargs)``
+    each, vectorised: in worker processes (``AsyncPettingZooVecEnv``) or in
+    this one (``PettingZooVecEnv``). The factory is bound with
+    ``functools.partial``, which the async env's ``spawn`` workers can
+    unpickle when ``env`` is a module-level class or function (the JAX
+    package binds a lambda)."""
+    import functools
+
+    from agilerl_tpu_torch.vector import AsyncPettingZooVecEnv, PettingZooVecEnv
+
+    fns = [functools.partial(env, **env_kwargs) for _ in range(num_envs)]
+    return (AsyncPettingZooVecEnv if should_async_vector else PettingZooVecEnv)(fns)
 
 
 def consolidate_mutations(population: List) -> None:

@@ -19,8 +19,10 @@ of which ends the run with a non-zero exit on any failure:
    tolerances (the bf16 flash forward and backward also at T = 2048, with a
    kv tile of padding, q tiles wholly in padding and the model's strided
    GQA 32/8 views, and twice for bit-identical results; the fused dH and dW
-   also at D = 200 with ragged row counts), and the 3xTF32 operand split
-   against its plain version bit for bit;
+   also at D = 200 with ragged row counts), the flash forward, dQ and dK/dV
+   at head dims 16, 20, 32, 68, 72, 80, 96 and 256 (zero-padded to the
+   built 64, 128 or 256), and the 3xTF32 operand split against its plain
+   version bit for bit;
 4. slice 1's path at llama3-8b, full width and depth, seeded random
    weights: sampled and greedy ``generate`` for 4 ragged prompts x group 4,
    then ``token_logprobs`` (fused kernel + flash kernel) over prompt +
@@ -47,9 +49,9 @@ of which ends the run with a non-zero exit on any failure:
    decode chunks of 16) serving phase 4's 4 prompts x 4 repeats, greedy
    (held against phase 4's dense greedy rows: equal up to a first
    difference where the two tokens' dense logits lie within twice phase 4's
-   kernel-vs-plain logprob spread), sampled (temperature 1, top-k 50),
-   speculative (greedy, the repeat batch served twice so the completion
-   cache drafts it), and with decode-captured logprobs held against
+   kernel-vs-plain logprob spread), speculative (greedy, the repeat batch
+   served twice so the completion cache drafts it), and sampled
+   (temperature 1, top-k 50) with decode-captured logprobs held against
    ``token_logprobs`` through the flash and fused kernels and through the
    plain path; TTFT, decode time per token, tokens/s, prefix hits, free
    blocks after draining and the pool's size; then a small f32 model on the
@@ -61,9 +63,10 @@ of which ends the run with a non-zero exit on any failure:
    to 4f's single-generator rows by the near-tie rule; affinity, prefix hits
    per replica, TTFT, decode per replica step, tokens/s, free blocks,
    program count), the same batch with replica 1 killed after the first
-   chunk, and the disaggregated topology (1 prefill worker, KV through the
-   transfer store: transfers, MB, export/import seconds, a warm repeat with
-   no transfer), both held to the unified rows by the same rule; then
+   chunk, and the disaggregated topology on 8 of the requests (every prompt
+   with two repeats; 1 prefill worker, KV through the transfer store:
+   transfers, MB, export/import seconds, a warm repeat with no transfer),
+   both held to the unified rows by the same rule; then
    ``finetune_llm_reasoning_online`` on the arithmetic recipe (16 rows, 64
    new tokens, staleness 1, 2 epochs) with the rollouts through the unified
    fleet under an ``AutoscalePolicy``: per epoch rollout and learner times,
@@ -89,7 +92,7 @@ of which ends the run with a non-zero exit on any failure:
 4h. slice 5a, evolutionary PPO at configs/training/ppo.yaml's widths
    (CartPole-v1 as a ``TorchVecEnv`` of 16 envs, population 4, learn_step
    128, batch 256, 4 epochs, latent 32, hidden [64]; evo_steps cut from
-   10,240 to 5,120 and max_steps from 200,000 to 10,240 = 2 generations):
+   10,240 to 5,120 and max_steps from 200,000 to 8,192 = 2 generations):
    ``train_on_policy`` through
    ``create_population("PPO")`` and ``make_vect_envs`` (env-steps/s; per
    generation the seconds collecting, learning, evaluating and evolving, ms
@@ -131,8 +134,8 @@ of which ends the run with a non-zero exit on any failure:
 4l. slice 5c-ii: ``train_off_policy`` on configs/training/ddpg/ddpg.yaml
    (DDPG, OU noise) and td3.yaml (TD3) at their widths (Pendulum-v1 as a
    ``TorchVecEnv`` of 16 envs, population 4, batch 128, a 100,000-row
-   buffer, latent 64, hidden [64]; evo_steps cut to 800 and max_steps to
-   1,600 = 2 generations), DDPG once more on a PER buffer through the loop's
+   buffer, latent 64, hidden [64]; evo_steps cut to 400 and max_steps to
+   800 = 2 generations), DDPG once more on a PER buffer through the loop's
    sampled path (1 generation): env-steps/s and the parts of each
    generation; the host syncs of one DDPG ``learn_from_buffer`` (0) and per
    env step (<= 1), its ms and launches; both policy probes; a DDPG
@@ -160,7 +163,7 @@ of which ends the run with a non-zero exit on any failure:
    at their widths on ``SimpleSpreadTorch(n_agents=2)`` (a
    ``MultiAgentTorchVecEnv`` of 8 envs, population 4, batch 128, a
    100,000-row ``MultiAgentReplayBuffer``, latent 64, hidden [64];
-   evo_steps cut to 400 and max_steps to 800 = 2 generations):
+   evo_steps cut to 200 and max_steps to 400 = 2 generations):
    env-steps/s and the parts of each generation; the host syncs of one
    learn (1, the loss read) and of the loop's vector steps without learns;
    ms and launches per learn; a discrete and a continuous MADDPG probe and
@@ -178,6 +181,33 @@ of which ends the run with a non-zero exit on any failure:
    generation, a member alone against its batched slice, one generation's
    rollout and update on the card against the CPU (no kernel is on these
    paths);
+4q. the evolvable transformers with flash on: ``EvolvableGPT`` at
+   llm/presets.py's gpt2-small (12 layers x 12 heads, d 768, vocab 50,257,
+   bf16 blocks, random weights from seed 0): forward and backward of
+   next-token cross-entropy on 8 x 1,024 tokens (ms, peak memory, 12 + 12 +
+   12 flash launches, ``estimate_mfu``), then add_node, add_layer,
+   remove_node, remove_layer and add_expert on an MoE variant, each with the
+   new head dim, the preserved slabs bit-equal, a step through the kernels
+   and phase 4's agreement rule; the flash kernels' time at head dims 64,
+   68, 80 and 128 (the padding's cost); ``EvolvableBERT`` at the
+   Transformer-base widths (6 + 6 layers, d 512, 8 heads, vocab 37,000, T
+   256) forward and backward and each mutation; a small f32 GPT (head dim
+   20) and BERT on the card against the CPU;
+4p. the contextual bandits: NeuralUCB and NeuralTS through
+   ``train_bandits`` at configs/training/bandit/*.yaml's widths on their
+   iris (tests/fixtures/iris/iris.csv; population 4, batch 64, a 10,000-row
+   buffer, latent 32, hidden [64]; evo_steps cut to 125 and max_steps to
+   250 = 2 generations): pulls/s, the parts of each generation, the best
+   final fitness (>= 0.6), the host syncs, ms and launches of a pull and a
+   learn; both on the card against the CPU at carried weights (arms, U, a
+   learn's loss and weights);
+4r. the PettingZoo path: a parallel-API env over one CPU SimpleSpreadTorch(2)
+   vectorised by ``make_multi_agent_vect_envs`` in worker processes and in
+   this one (8 envs), MADDPG through ``train_multi_agent_off_policy`` on each
+   (maddpg.yaml's widths, evo_steps 120, max_steps 240): env-steps/s, the
+   host syncs of a vector step, the workers' start-up seconds; then
+   ``AsyncAgentsWrapper(RSNorm(MADDPG))`` over 2 envs (in this process)
+   whose agent_1 dies mid-episode (no kernel is on 4p or 4r);
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -251,8 +281,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -617,6 +651,75 @@ def check_flash_bwd(torch, tfa, report):
         "output's max (bf16 rounding of the output and of p / dS)")
     report["flash_bwd_checks"] = worst
     report["flash_bwd_deterministic"] = True
+
+
+# Head dims past the built 64 / 128 (run zero-padded to 64, 128 or 256) and
+# 256 itself: the tutorials' small models (16, 20, 32), the evolvable GPT's
+# node mutations at gpt2-small (68, 72, 80) and 96.
+PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256)
+
+
+def check_flash_head_dims(torch, tfa, report):
+    """Flash forward, dQ and dK/dV at PADDED_HEAD_DIMS, f32 and bf16, causal,
+    with a ragged mask and GQA 4/2, against the plain versions at the true d
+    (forward: check_flash's tolerances over rows with a visible key; backward:
+    bwd_error's); every call counted as a launch; bf16 repeated for
+    bit-identical results."""
+    from agilerl_tpu_torch.ops import kernel_counters, reset_kernel_counters
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    atol = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+    worst = {}
+    B, H, Hkv, T = 3, 4, 2, 150
+    mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    mask[1, :37] = 0
+    mask[2, :T - 5] = 0
+    r = rows_with_a_visible_key(tfa, mask, True, B, T).expand(B, H, T)
+    for d in PADDED_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            case = f"{str(dtype)[6:]} d={d} (run at {tfa.flash_head_dim_plan(d)})"
+            q, k, v = flash_inputs(torch, B, H, Hkv, T, d, dtype, True, g)
+            reset_kernel_counters()
+            out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, True)
+            dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+            dd = (dout.float() * out.float()).sum(-1).contiguous()
+            dq = tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True)
+            dk, dv = tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True)
+            torch.cuda.synchronize()
+            counts = kernel_counters()
+            check(counts["flash_attention_fwd"] == counts["flash_attention_dq"] ==
+                  counts["flash_attention_dkv"] == 1, f"flash kernels not launched: {case}")
+            ref, ref_lse = tfa.flash_attention_reference(q, k, v, mask, True)
+            want = tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, True)
+            check(out.shape == q.shape and dq.shape == q.shape and dk.shape == k.shape,
+                  f"flash output shapes: {case}")
+            err = (out[r].float() - ref[r].float()).abs().max().item()
+            lerr = (lse[r] - ref_lse[r]).abs().max().item()
+            check(err <= atol[dtype] and lerr <= 1e-4,
+                  f"flash forward disagrees ({err}, {lerr}): {case}")
+            errs = {"out": err, "lse": lerr}
+            for name, got, ref_g in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+                e, tol = bwd_error(torch, got, ref_g, dtype)
+                check(bool(torch.isfinite(got.float()).all()) and e <= tol,
+                      f"flash {name} disagrees ({e} > {tol}): {case}")
+                errs[name] = e
+            if dtype == torch.bfloat16:
+                again = (tfa.flash_attention_fwd_cuda(q, k, v, mask, True)[0],
+                         tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True),
+                         *tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True))
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip((out, dq, dk, dv), again)),
+                      f"two launches differ: {case}")
+            log(f"  flash head dim {case}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                + (", repeats bit-identical" if dtype == torch.bfloat16 else ""))
+            worst[case] = errs
+    q = torch.zeros(1, 2, 8, 320, device="cuda")
+    try:
+        tfa.flash_attention_fwd_cuda(q, q, q)
+        fail("flash at head dim 320 did not raise")
+    except ValueError as e:
+        log(f"  flash head dim 320 raises: {e}")
+    report["flash_head_dim_checks"] = worst
 
 
 def check_fused_bwd(torch, tfl, report, n_rows, d_model):
@@ -1300,10 +1403,6 @@ def run_serving(torch, M, G, ops, cfg, params, prompts, dense_greedy, report):
     same, gap = greedy_divergence(torch, M, cfg, params, lora, prompt_np, dense_greedy,
                                   greedy, report["slice"]["kernel_vs_plain_max"])
     report["serving"]["greedy"].update(rows_identical_to_dense=same, worst_dense_gap=gap)
-    _, _, _, r = serve_once(torch, S, cfg, params, lora, seqs, "sampled (temperature 1, "
-                            f"top-k {SERVE_TOP_K})", greedy=False, top_k=SERVE_TOP_K,
-                            temperature=1.0)
-    report["serving"]["sampled"] = r
     spec, first, _, r1 = serve_once(torch, S, cfg, params, lora, seqs,
                                     "speculative greedy, first pass", speculate=True)
     _, second, _, r2 = serve_once(torch, S, cfg, params, lora, seqs,
@@ -1526,8 +1625,10 @@ def run_fleet_and_flywheel(torch, M, G, ops, tfa, tfl, cfg, params, prompts, ser
         exports, import_s = [], []
         timed_method(torch, dis.store, "export", exports, ops=ops)
         timed_method(torch, dis.store, "load", import_s)
-        rows, fr["disaggregated"] = fleet_run(torch, dis, seqs, params, lora,
-                                              "disaggregated (1 prefill worker, 2 decode)")
+        # half of the batch: every prompt with two of its repeats
+        rows, fr["disaggregated"] = fleet_run(torch, dis, seqs[::2], params, lora,
+                                              "disaggregated (1 prefill worker, 2 decode), 8 "
+                                              "of the 16 requests")
         reg = dis.metrics
         transfers = reg.counter("fleet/kv_transfers_total").value
         export_s = [r["s"] for r in exports]
@@ -1546,8 +1647,9 @@ def run_fleet_and_flywheel(torch, M, G, ops, tfa, tfl, cfg, params, prompts, ser
     check(transfers > 0 and warm_transfers == 0, "disaggregated: transfers, or the warm repeat")
     check(fr["disaggregated"]["compiled_programs"] <= 2 * grid + len(SERVE["prompt_buckets"]),
           "disaggregated fleet: program count")
-    same, gap = greedy_divergence(torch, M, cfg, params, lora, prompt_np, unified, rows,
-                                  spread, "disaggregated vs the unified fleet")
+    same, gap = greedy_divergence(torch, M, cfg, params, lora,
+                                  tuple(a[::2] for a in prompt_np), unified[::2], rows, spread,
+                                  "disaggregated vs the unified fleet")
     fr["disaggregated"].update(rows_identical_to_unified=same, worst_gap=gap)
     del dis
     fleet_launches = ops.kernel_counters()
@@ -2287,10 +2389,10 @@ def run_offline_hf_moe(torch, M, report):
 # ------------------------------- phase 4h ---------------------------------- #
 # configs/training/ppo.yaml (the card's machine has no PyYAML): evolutionary
 # PPO on CartPole-v1, 16 envs, population 4. Cuts, for time: MAX_STEPS
-# 200,000 -> 10,240 and EVO_STEPS 10,240 -> 5,120 (2 generations of 2
-# collect + learn pairs per agent; 30,720 / 10,240 and 3 generations until
-# the off-policy slices' phases 4l and 4m came, 20,480 / 10,240 until the
-# multi-agent slice's phases 4n and 4o came).
+# 200,000 -> 8,192 and EVO_STEPS 10,240 -> 5,120 (2 generations of 2
+# collect + learn pairs per agent, about 4,100 steps each; 10,240 ran a
+# third generation until the slice of the evolvable transformers, the
+# bandits and the PettingZoo envs came).
 PPO_ENV = "CartPole-v1"
 PPO_INIT_HP = {"POP_SIZE": 4, "BATCH_SIZE": 256, "LR": 3e-4, "GAMMA": 0.99, "GAE_LAMBDA": 0.95,
                "CLIP_COEF": 0.2, "ENT_COEF": 0.01, "VF_COEF": 0.5, "MAX_GRAD_NORM": 0.5,
@@ -2300,7 +2402,7 @@ PPO_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activatio
                     rl_hp=0.2)
 PPO_TOURNAMENT = (2, True, 4, 1)  # size, elitism, population, eval loop
 PPO_EVO_STEPS = 5_120  # cut from 10,240
-PPO_MAX_STEPS = 10_240  # cut from 200,000
+PPO_MAX_STEPS = 8_192  # cut from 200,000
 # tests/test_algorithms/test_ppo.py:87-108: the probe checks' settings
 PPO_PROBE = dict(num_envs=8, learn_step=16, batch_size=64, update_epochs=4, lr=3e-3, gamma=0.5,
                  ent_coef=0.05, seed=3,
@@ -3385,11 +3487,11 @@ def run_off_policy(torch, ops, report):
 # population 4, batch 128, lr 1e-4 / 1e-3, gamma 0.99, learn_step 2, tau
 # 0.005, policy_freq 2, OU noise for DDPG (theta 0.15, dt 0.01) and Gaussian
 # for TD3 (expl_noise 0.1), a uniform buffer of 100,000 rows, latent 64,
-# hidden [64]. Cuts, for time: evo_steps 10,000 -> 800 and max_steps
-# 200,000 -> 1,600 (2 generations: the tournament's clones and mutated agents
-# learn from the buffer in the second; 1,600 / 3,200 until phases 4n and 4o
-# came). Then DDPG on a PrioritizedReplayBuffer (alpha 0.6) through the
-# loop's sampled path for 1 generation (max_steps -> 800), and
+# hidden [64]. Cuts, for time: evo_steps 10,000 -> 400 and max_steps
+# 200,000 -> 800 (2 generations: the tournament's clones and mutated agents
+# learn from the buffer in the second; 800 / 1,600 until phases 4q, 4p and
+# 4r came). Then DDPG on a PrioritizedReplayBuffer (alpha 0.6) through the
+# loop's sampled path for 1 generation (max_steps -> 400), and
 # configs/training/cqn.yaml through train_offline: batch 64, lr 1e-3,
 # learn_step 1, tau 0.01, double, a buffer of 20,000 rows filled once
 # from a 20,000-row dataset that collect_offline_dataset makes on the device
@@ -3405,10 +3507,10 @@ DDPG_HP = {"POP_SIZE": 4, "BATCH_SIZE": 128, "LR_ACTOR": 1e-4, "LR_CRITIC": 1e-3
 TD3_HP = dict(DDPG_HP, O_U_NOISE=False)
 CONT_NET = {"latent_dim": 64, "encoder_config": {"hidden_size": (64,)}}
 CONT_MEMORY = 100_000
-CONT_EVO_STEPS = 800  # cut from 10,000
-CONT_LOOPS = (("ddpg", "DDPG", DDPG_HP, False, 1_600),  # max_steps cut from 200,000
-              ("td3", "TD3", TD3_HP, False, 1_600),
-              ("ddpg_per", "DDPG", DDPG_HP, True, 800))
+CONT_EVO_STEPS = 400  # cut from 10,000
+CONT_LOOPS = (("ddpg", "DDPG", DDPG_HP, False, 800),  # max_steps cut from 200,000
+              ("td3", "TD3", TD3_HP, False, 800),
+              ("ddpg_per", "DDPG", DDPG_HP, True, 400))
 CONT_SYNC_STEPS = 512  # the short run whose host syncs are counted (32 vector steps)
 # tests/test_algorithms/test_ddpg_probe.py's settings, for DDPG and TD3
 CONT_PROBE = dict(lr_actor=3e-3, lr_critic=5e-3, gamma=0.9, tau=0.3, policy_freq=1,
@@ -4014,9 +4116,10 @@ def run_off_policy_scan(torch, ops, report):
 # in the repository): 8 envs, population 4, batch 128, learn_step 5, tau
 # 0.01, gamma 0.95, expl_noise 0.1, a buffer of 100,000 rows, latent 64,
 # hidden [64]; MATD3 policy_freq 2; the yaml's mutation probabilities. Cuts,
-# for time: evo_steps 10,000 -> 400 and max_steps 100,000 -> 800 (2
+# for time: evo_steps 10,000 -> 200 and max_steps 100,000 -> 400 (2
 # generations, so that the tournament's clones and mutated agents learn; at
-# 800 / 1,600 the two loops took 35.3 s on an H100 80GB HBM3 at 700 W).
+# 800 / 1,600 the two loops took 35.3 s on an H100 80GB HBM3 at 700 W, at
+# 400 / 800 24.3 s).
 MA_AGENTS = 2
 MADDPG_HP = {"POP_SIZE": 4, "BATCH_SIZE": 128, "LR_ACTOR": 1e-4, "LR_CRITIC": 1e-3,
              "GAMMA": 0.95, "LEARN_STEP": 5, "TAU": 0.01, "EXPL_NOISE": 0.1, "NUM_ENVS": 8}
@@ -4025,8 +4128,8 @@ MA_NET = {"latent_dim": 64, "encoder_config": {"hidden_size": (64,)}}
 MA_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activation=0.0,
                    rl_hp=0.2, mutation_sd=0.1)
 MA_MEMORY = 100_000
-MA_EVO_STEPS = 400  # cut from 10,000
-MA_MAX_STEPS = 800  # cut from 100,000
+MA_EVO_STEPS = 200  # cut from 10,000
+MA_MAX_STEPS = 400  # cut from 100,000
 MA_SYNC_STEPS = 256  # the short run whose host syncs are counted (32 vector steps)
 # tests/test_envs/test_probe_ma.py's settings (one discrete and one
 # continuous MADDPG probe, the discounting probe for MATD3) at 250 learns
@@ -4506,6 +4609,615 @@ def run_multi_agent_on_policy(torch, ops, report):
     return loop_launches, scan_launches
 
 
+# ------------------------------- phase 4q ---------------------------------- #
+# The evolvable transformers with flash on. EvolvableGPT at llm/presets.py's
+# "gpt2-small" (the public GPT-2 small widths: vocab 50,257, 12 layers x 12
+# heads, d 768, d_ff 3,072, T 1,024; bf16 blocks, f32 head, random weights
+# from seed 0): one forward and backward of next-token cross-entropy on
+# 8 x 1,024 seeded tokens (1 warm-up + GPT_TIMED timed steps), then
+# add_node, add_layer, remove_node and remove_layer (max_layers 13, so that
+# add_layer adds a block), each followed by a step through the kernels, and
+# add_expert on an MoE variant (4 experts on every second layer). Each
+# mutated model is held to the plain path by phase 4's agreement rule on
+# GPT_AGREE_ROWS rows. EvolvableBERT at the Transformer-base widths
+# (Vaswani et al. 2017: 6 + 6 layers, d 512, 8 heads, d_ff 2,048, vocab
+# 37,000, T 256; f32) forward and backward on 16 x 256, and each mutation.
+GPT_BATCH, GPT_T, GPT_TIMED, GPT_AGREE_ROWS = 8, 1024, 3, 2
+GPT_MOE = dict(n_experts=4, expert_top_k=2, moe_every=2)
+BERT_BASE = dict(vocab_size=37_000, n_encoder_layers=6, n_decoder_layers=6, n_head=8,
+                 d_model=512, d_ff=2_048, max_seq_len=256)
+BERT_BATCH = 16
+SMALL_GPT = dict(vocab_size=97, n_layer=2, n_head=4, n_kv_head=2, d_model=80, max_seq_len=64,
+                 use_flash_attention=True)  # head dim 20
+SMALL_BERT = dict(vocab_size=97, n_encoder_layers=2, n_decoder_layers=2, n_head=4, d_model=64,
+                  max_seq_len=32)
+
+
+def gpt_loss_and_grads(torch, F, gpt_cls, cfg, params, tokens):
+    """Next-token cross-entropy of ``tokens`` and its gradient in every
+    parameter (flash forward, dQ and dK/dV on the model's attention)."""
+    from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        logits = gpt_cls.apply(cfg, p, tokens)
+        loss = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               tokens[:, 1:].reshape(-1).long())
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+    return loss.detach(), grads
+
+
+def transformer_logprobs(torch, gpt_cls, cfg, params, tokens):
+    logits = gpt_cls.apply(cfg, params, tokens)
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    return lp.gather(-1, tokens[:, 1:].long()[..., None])[..., 0]
+
+
+def gpt_agreement(torch, gpt_cls, cfg, params, tokens):
+    """Phase 4's rule on a mutated model: token logprobs through the flash
+    kernels no further from an f32 run of the same weights than the plain
+    bf16 path's (x1.5 mean, x2 max, + E2E_FLOOR)."""
+    kernel = transformer_logprobs(torch, gpt_cls, cfg, params, tokens)
+    plain = transformer_logprobs(torch, gpt_cls,
+                                 dataclasses.replace(cfg, use_flash_attention=False), params,
+                                 tokens)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, use_flash_attention=False)
+    params32 = {k: ({i: {n: w.float() for n, w in blk.items()} for i, blk in v.items()}
+                    if k == "blocks" else v.float()) for k, v in params.items()}
+    exact = transformer_logprobs(torch, gpt_cls, cfg32, params32, tokens)
+    d_k, d_p = (kernel - exact).abs(), (plain - exact).abs()
+    res = dict(kernel_mean=d_k.mean().item(), kernel_max=d_k.max().item(),
+               plain_mean=d_p.mean().item(), plain_max=d_p.max().item())
+    ok = (res["kernel_mean"] <= E2E_MEAN_FACTOR * res["plain_mean"] + E2E_FLOOR
+          and res["kernel_max"] <= E2E_MAX_FACTOR * res["plain_max"] + E2E_FLOOR)
+    return ok, res
+
+
+def preserved_slabs(torch, old, new):
+    """(slabs compared, whether each leaf's overlap with its old self holds
+    the old weights bit for bit)."""
+    old_f, new_f = flat_params(old), flat_params(new)
+    n, same = 0, True
+    for path, o in old_f.items():
+        w = new_f.get(path)
+        if w is None or w.dim() != o.dim():
+            continue
+        sl = tuple(slice(0, min(a, b)) for a, b in zip(o.shape, w.shape))
+        same = same and torch.equal(o[sl], w[sl])
+        n += 1
+    return n, same
+
+
+def time_padding(torch, tfa):
+    """The flash forward + dQ + dK/dV at gpt2-small's attention shape
+    ([8, 12, 1024, d] bf16, causal, no mask) at head dim 64 (built), 68 and
+    80 (run zero-padded to 128, the wrappers' copies included) and 128:
+    ms per call of the three, in two rounds."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    fns = {}
+    for d in (64, 68, 80, 128):
+        q, k, v = flash_inputs(torch, GPT_BATCH, 12, 12, GPT_T, d, torch.bfloat16, True, g)
+        out, lse = tfa.flash_attention_fwd_cuda(q, k, v, None, True)
+        dout = torch.randn_like(out)
+        dd = (dout.float() * out.float()).sum(-1).contiguous()
+
+        def call(q=q, k=k, v=v, dout=dout, lse=lse, dd=dd):
+            tfa.flash_attention_fwd_cuda(q, k, v, None, True)
+            tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, None, True)
+            tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, None, True)
+        fns[f"d{d}"] = call
+    rounds = timed_abba(torch, fns, {n: 20 for n in fns})
+    return {n: sum(r) / 2 for n, r in rounds.items()}
+
+
+def small_transformers_card_vs_cpu(torch, F, out):
+    """A small f32 GPT (flash on, head dim 20: the f32 kernels run padded to
+    64) and a small BERT on the card against the CPU on the same weights:
+    logits, and the GPT loss's gradient, within SMALL_MODEL_ATOL of the
+    output's scale."""
+    from agilerl_tpu_torch.modules.bert import EvolvableBERT
+    from agilerl_tpu_torch.modules.gpt import EvolvableGPT
+    from agilerl_tpu_torch.utils.tree import tree_map
+
+    gpt = EvolvableGPT(dtype=torch.float32, device="cpu", key=torch.Generator().manual_seed(3),
+                       **SMALL_GPT)
+    bert = EvolvableBERT(device="cpu", key=torch.Generator().manual_seed(4), **SMALL_BERT)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, 97, (3, 48), generator=g)
+    src = torch.randint(0, 97, (3, 20), generator=g)
+    tgt = torch.randint(0, 97, (3, 12), generator=g)
+    res = {}
+    for name, model, args in (("gpt", gpt, (tokens,)), ("bert", bert, (src, tgt))):
+        cuda = tree_map(lambda t: t.cuda(), model.params)
+        got = type(model).apply(model.config, cuda, *(a.cuda() for a in args))
+        want = type(model).apply(model.config, model.params, *args)
+        res[f"{name}_logits"] = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    _, gg = gpt_loss_and_grads(torch, F, EvolvableGPT, gpt.config,
+                               tree_map(lambda t: t.cuda(), gpt.params), tokens.cuda())
+    _, gc = gpt_loss_and_grads(torch, F, EvolvableGPT, gpt.config, gpt.params, tokens)
+    res["gpt_grads"] = max((a.cpu() - b).abs().max().item() / b.abs().max().clamp(min=1e-30).item()
+                           for a, b in zip(gg, gc))
+    out["small_card_vs_cpu"] = res
+    log(f"  small f32 GPT (head dim 20, flash) and BERT, card vs CPU (max |d| / max |out|): {res}")
+    check(all(v <= SMALL_MODEL_ATOL for v in res.values()),
+          f"small transformers card vs CPU: {res}")
+
+
+def run_transformers(torch, ops, presets, report):
+    """Phase 4q: the evolvable transformers on the card (see the constants
+    above). Returns the kernel launches of the GPT steps (the main path)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from agilerl_tpu_torch.modules.bert import EvolvableBERT
+    from agilerl_tpu_torch.modules.gpt import EvolvableGPT
+    from agilerl_tpu_torch.ops import flash_attention_vjp as tfa
+    from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    out = {}
+    launches = {k: 0 for k in ops.kernel_counters()}
+    cfg = presets.preset("gpt2-small")
+    check(cfg.use_flash_attention and cfg.dtype == torch.bfloat16, f"gpt2-small preset: {cfg}")
+    gpt = EvolvableGPT(config=cfg, max_layers=13, key=torch.Generator().manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_T), generator=g, device="cuda")
+    agree_tokens = tokens[:GPT_AGREE_ROWS]
+
+    def step(model, toks=tokens):
+        ops.reset_kernel_counters()
+        loss, grads = gpt_loss_and_grads(torch, F, EvolvableGPT, model.config, model.params,
+                                         toks)
+        torch.cuda.synchronize()
+        counts = ops.kernel_counters()
+        for k, v in counts.items():
+            launches[k] += v
+        finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(x).all()) for x in grads)
+        return float(loss), counts, finite
+
+    log(f"phase 4q: EvolvableGPT at gpt2-small ({cfg.n_layer} layers x {cfg.n_head} heads, d "
+        f"{cfg.d_model}, head dim {cfg.head_dim}, vocab {cfg.vocab_size}), flash on, bf16 "
+        f"blocks; forward + backward of next-token cross-entropy on {GPT_BATCH} x {GPT_T}")
+    step(gpt)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(GPT_TIMED):
+        loss, counts, finite = step(gpt)
+    ms = 1e3 * (time.perf_counter() - t0) / GPT_TIMED
+    per = {k: v for k, v in counts.items() if v}
+    mfu = gpt.estimate_mfu(GPT_BATCH * GPT_T, ms / 1e3)
+    out["gpt2_small"] = dict(ms_per_step=ms, loss=loss, launches_per_step=per,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9, mfu=mfu,
+                             params=gpt.param_count())
+    log(f"  gpt2-small step: {ms:.2f} ms ({GPT_TIMED} steps, host clock + synchronize), loss "
+        f"{loss:.4f}, peak {out['gpt2_small']['peak_gb']:.2f} GB, flash launches per step "
+        f"{per}, estimate_mfu at the card's bf16 peak {mfu}")
+    check(finite and per == {"flash_attention_fwd": cfg.n_layer, "flash_attention_dq": cfg.n_layer,
+                             "flash_attention_dkv": cfg.n_layer},
+          f"gpt2-small step: finite {finite}, launches {per}")
+
+    mutations = []
+    for name in ("add_node", "add_layer", "remove_node", "remove_layer"):
+        old = tree_map(lambda t: t.clone(), gpt.params)
+        t0 = time.perf_counter()
+        info = getattr(gpt, name)(rng=np.random.default_rng(len(mutations)))
+        torch.cuda.synchronize()
+        t_mut = time.perf_counter() - t0
+        n_slabs, same = preserved_slabs(torch, old, gpt.params)
+        del old
+        loss, counts, finite = step(gpt)
+        ok, agree = gpt_agreement(torch, EvolvableGPT, gpt.config, gpt.params, agree_tokens)
+        c = gpt.config
+        rec = dict(mutation=name, info=info, n_layer=c.n_layer, d_model=c.d_model,
+                   head_dim=c.head_dim, kernel_head_dim=tfa.flash_head_dim_plan(c.head_dim),
+                   mutate_s=t_mut, slabs=n_slabs, preserved=same, loss=loss,
+                   launches={k: v for k, v in counts.items() if v}, agreement=agree)
+        mutations.append(rec)
+        log(f"  {name} {info}: {c.n_layer} layers, d {c.d_model}, head dim {c.head_dim} (kernels "
+            f"at {rec['kernel_head_dim']}), {t_mut:.2f} s; {n_slabs} slabs preserved bit-equal "
+            f"{same}; step loss {loss:.4f}, launches {rec['launches']}; vs f32 {agree}")
+        check(same and finite and counts["flash_attention_dq"] == c.n_layer
+              and counts["flash_attention_dkv"] == c.n_layer and ok,
+              f"gpt2-small after {name}: {rec}")
+    del gpt
+    torch.cuda.empty_cache()
+
+    moe = EvolvableGPT(config=dataclasses.replace(cfg, **GPT_MOE),
+                       key=torch.Generator().manual_seed(1))
+    old = tree_map(lambda t: t.clone(), moe.params)
+    info = moe.add_expert()
+    n_slabs, same = preserved_slabs(torch, old, moe.params)
+    del old
+    loss, counts, finite = step(moe, tokens[:2])
+    ok, agree = gpt_agreement(torch, EvolvableGPT, moe.config, moe.params, agree_tokens)
+    rec = dict(mutation="add_expert", info=info, n_experts=moe.config.n_experts, slabs=n_slabs,
+               preserved=same, loss=loss, launches={k: v for k, v in counts.items() if v},
+               agreement=agree)
+    mutations.append(rec)
+    log(f"  MoE variant {GPT_MOE} add_expert: {rec}")
+    check(same and finite and counts["flash_attention_dkv"] == moe.config.n_layer and ok,
+          f"MoE add_expert: {rec}")
+    out["mutations"] = mutations
+    del moe
+    torch.cuda.empty_cache()
+
+    out["padding_ms"] = time_padding(torch, tfa)
+    log(f"  flash forward + dQ + dK/dV at [8, 12, 1024, d] bf16 causal, ms per call by head dim "
+        f"(68 and 80 run padded to 128): {out['padding_ms']}")
+
+    bert = EvolvableBERT(key=torch.Generator().manual_seed(2), **BERT_BASE)
+    src = torch.randint(0, BERT_BASE["vocab_size"], (BERT_BATCH, BERT_BASE["max_seq_len"]),
+                        generator=g, device="cuda")
+    tgt = torch.randint(0, BERT_BASE["vocab_size"], (BERT_BATCH, BERT_BASE["max_seq_len"]),
+                        generator=g, device="cuda")
+
+    def bert_step():
+        p = tree_map(lambda t: t.detach().requires_grad_(True), bert.params)
+        with torch.enable_grad():
+            logits = EvolvableBERT.apply(bert.config, p, src, tgt=tgt)
+            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tgt.reshape(-1))
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        return float(loss), all(bool(torch.isfinite(x).all()) for x in grads)
+
+    bert_step()
+    t0 = time.perf_counter()
+    for _ in range(GPT_TIMED):
+        loss, finite = bert_step()
+    bert_ms = 1e3 * (time.perf_counter() - t0) / GPT_TIMED
+    bert_muts = []
+    for i, name in enumerate(("add_layer", "add_node", "remove_node", "remove_layer")):
+        old = tree_map(lambda t: t.clone(), bert.params)
+        info = getattr(bert, name)(rng=np.random.default_rng(10 + i))
+        n_slabs, same = preserved_slabs(torch, old, bert.params)
+        del old
+        m_loss, m_finite = bert_step()
+        c = bert.config
+        bert_muts.append(dict(mutation=name, info=info, layers=[c.n_encoder_layers,
+                                                                c.n_decoder_layers],
+                              d_model=c.d_model, slabs=n_slabs, preserved=same, loss=m_loss))
+        check(same and m_finite, f"EvolvableBERT after {name}: {bert_muts[-1]}")
+    out["bert_base"] = dict(ms_per_step=bert_ms, loss=loss, params=bert.param_count(),
+                            mutations=bert_muts)
+    log(f"  EvolvableBERT Transformer-base, {BERT_BATCH} x {BERT_BASE['max_seq_len']} f32: "
+        f"forward + backward {bert_ms:.2f} ms, loss {loss:.4f}; mutations {bert_muts}")
+    check(finite, "EvolvableBERT step not finite")
+    del bert
+    torch.cuda.empty_cache()
+    small_transformers_card_vs_cpu(torch, F, out)
+    out["launches"] = dict(launches)
+    report["evolvable_gpt"] = out
+    return launches
+
+
+# ------------------------------- phase 4p ---------------------------------- #
+# configs/training/bandit/neural_ucb.yaml and neural_ts.yaml at their widths
+# on their BANDIT_DATASET, iris (tests/fixtures/iris/iris.csv: 150 x 4, 3
+# classes, so 3 arms of 12-wide contexts): population 4, batch 64, lr 1e-3,
+# lambda 1, reg 6.25e-4, learn_step 2, a 10,000-row buffer, latent 32,
+# hidden [64], tournament 2 with elitism, the yamls' mutation
+# probabilities. Cuts, for time: evo_steps 1,000 -> 125 and max_steps
+# 10,000 -> 250 (2 generations, so that mutated clones learn; at 250 / 500
+# the NeuralUCB loop alone took 29.6 s on an H100 80GB HBM3 at 700 W).
+BANDIT_HP = {"POP_SIZE": 4, "BATCH_SIZE": 64, "LR": 1e-3, "LAMBDA": 1.0, "REG": 0.000625,
+             "LEARN_STEP": 2}
+BANDIT_NET = {"latent_dim": 32, "encoder_config": {"hidden_size": (64,)}}
+BANDIT_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activation=0.0,
+                       rl_hp=0.2, mutation_sd=0.1)
+BANDIT_MEMORY = 10_000
+BANDIT_EVO_STEPS = 125  # cut from 1,000
+BANDIT_MAX_STEPS = 250  # cut from 10,000
+BANDIT_GATE = 0.6  # best final fitness (random pulls score 1/3)
+BANDIT_RTOL = 1e-5
+IRIS = Path(__file__).resolve().parent / "tests" / "fixtures" / "iris" / "iris.csv"
+
+
+def bandits_card_vs_cpu(torch, env, out):
+    """NeuralUCB and NeuralTS (on the same normal draws) on the card against
+    the CPU at carried weights: three pulls (the arms, U) and one learn (the
+    loss, the weights by phase 4k's rule), rtol 1e-5."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.core.base import load_params_from_numpy
+    from agilerl_tpu_torch.algorithms.neural_ts_bandit import NeuralTS
+    from agilerl_tpu_torch.algorithms.neural_ucb_bandit import NeuralUCB
+    from agilerl_tpu_torch.utils.tree import tree_leaves, tree_to_numpy
+
+    res = {}
+    for name, cls in (("NeuralUCB", NeuralUCB), ("NeuralTS", NeuralTS)):
+        agents = {dev: cls(env.observation_space, env.action_space, net_config=BANDIT_NET,
+                           lamb=1.0, reg=BANDIT_HP["REG"], seed=3, device=dev)
+                  for dev in ("cuda", "cpu")}
+        load_params_from_numpy(agents["cuda"], {"actor": tree_to_numpy(agents["cpu"].actor.params)})
+        agents["cuda"]._reinit_bandit_grads()
+        rng = np.random.default_rng(5)
+        arms, u_err = {"cuda": [], "cpu": []}, 0.0
+        for _ in range(3):
+            ctx = env._context(int(rng.integers(0, env.num_samples)))
+            draws = rng.normal(size=env.arms).astype(np.float32)
+            for dev, agent in agents.items():
+                kw = {"draws": draws} if name == "NeuralTS" else {}
+                arms[dev].append(int(agent.get_action(ctx, **kw)))
+            u_err = max([u_err] + [float((a.cpu() - b).abs().max() / b.abs().max())
+                                   for a, b in zip(tree_leaves(agents["cuda"].U),
+                                                   tree_leaves(agents["cpu"].U))])
+        batch = {"obs": rng.normal(size=(64, env.context_dim)).astype(np.float32),
+                 "reward": rng.integers(0, 2, 64).astype(np.float32)}
+        losses = {dev: agent.learn(batch) for dev, agent in agents.items()}
+        mu = agents["cpu"].optimizer.opt_state.inner_state[0].mu
+        w_err, exempt = weights_rule(torch, agents["cuda"].actor.params,
+                                     agents["cpu"].actor.params, mu)
+        loss_err = abs(losses["cuda"] - losses["cpu"]) / max(abs(losses["cpu"]), 1e-12)
+        res[name] = dict(arms=arms, u_rel_err=u_err, loss_rel_err=loss_err, weight_err=w_err,
+                         exempt_share=exempt)
+        check(arms["cuda"] == arms["cpu"] and u_err <= BANDIT_RTOL and loss_err <= BANDIT_RTOL
+              and w_err <= BANDIT_RTOL and exempt < 0.15, f"{name} card vs CPU: {res[name]}")
+    out["card_vs_cpu"] = res
+    log(f"  card vs CPU: {res}")
+
+
+def run_bandits(torch, ops, report):
+    """Phase 4p: NeuralUCB and NeuralTS through train_bandits on iris (see
+    the constants above): pulls/s, the parts of each generation, fitnesses
+    and the learning gate; ms, launches and host syncs of one pull and one
+    learn; card vs CPU. Returns the kernel launches of the loops."""
+    import numpy as np
+
+    from agilerl_tpu_torch.components.replay_buffer import ReplayBuffer
+    from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
+    from agilerl_tpu_torch.observability.events import MemorySink
+    from agilerl_tpu_torch.observability.facade import RunTelemetry
+    from agilerl_tpu_torch.observability.registry import MetricsRegistry
+    from agilerl_tpu_torch.training.train_bandits import train_bandits
+    from agilerl_tpu_torch.utils.utils import create_population
+    from agilerl_tpu_torch.wrappers.learning import BanditEnv
+
+    data = np.loadtxt(IRIS, delimiter=",", skiprows=1)
+    check(data.shape == (150, 5), f"iris fixture shape {data.shape}")
+    env = BanditEnv(data[:, :4], data[:, 4].astype(np.int64))
+    out = {"env": dict(samples=env.num_samples, arms=env.arms, context_dim=env.context_dim)}
+    launches = {k: 0 for k in ops.kernel_counters()}
+    _, _, base_sites = count_syncs(torch, lambda: None)
+    for algo in ("NeuralUCB", "NeuralTS"):
+        log(f"phase 4p: train_bandits, {algo} on iris ({env.num_samples} x {env.dim}, "
+            f"{env.arms} arms): population {BANDIT_HP['POP_SIZE']}, batch "
+            f"{BANDIT_HP['BATCH_SIZE']}, buffer {BANDIT_MEMORY}, evo_steps {BANDIT_EVO_STEPS}, "
+            f"max_steps {BANDIT_MAX_STEPS} (cut from 1,000 / 10,000)")
+        np.random.seed(0)
+        pop = create_population(algo, env.observation_space, env.action_space, BANDIT_NET,
+                                BANDIT_HP, seed=0)
+        check(all(a.dev.type == "cuda" for a in pop), "create_population left the card")
+        sink = MemorySink()
+        telem = RunTelemetry(registry=MetricsRegistry(sink=sink), lineage=False)
+        ops.reset_kernel_counters()
+        (pop, fitnesses), t_loop = host_s(torch, lambda: train_bandits(
+            env, "iris", algo, pop, ReplayBuffer(BANDIT_MEMORY, seed=0), INIT_HP=BANDIT_HP,
+            max_steps=BANDIT_MAX_STEPS, evo_steps=BANDIT_EVO_STEPS,
+            tournament=TournamentSelection(2, True, BANDIT_HP["POP_SIZE"], 1,
+                                           rng=np.random.default_rng(0)),
+            mutation=Mutations(**BANDIT_MUTATION, rand_seed=0), telemetry=telem,
+            verbose=False))
+        for k, v in ops.kernel_counters().items():
+            launches[k] += v
+        gens = [e for e in sink.events if e["kind"] == "generation"]
+        pulls = sum(g["pulls"] for g in gens)
+        best = max(f[-1] for f in fitnesses)
+        rec = dict(loop_s=t_loop, pulls=pulls, pulls_per_s=pulls / t_loop,
+                   fitness=fitnesses, best_final_fitness=best,
+                   generations=[{k: g[k] for k in ("generation", "act_s", "learn_s", "eval_s",
+                                                   "evo_s", "learn_calls", "fitness",
+                                                   "mutations")} for g in gens])
+        for gen in gens:
+            log(f"  {algo} generation {gen['generation']}: pulls {gen['act_s']:.2f} s, learns "
+                f"{gen['learn_s']:.2f} s ({gen['learn_calls']} calls), eval {gen['eval_s']:.2f} "
+                f"s, tournament + mutation {gen['evo_s']:.3f} s; fitness "
+                f"{[round(f, 3) for f in gen['fitness']]}; mutations {gen['mutations']}")
+        log(f"  {algo}: {pulls} pulls in {t_loop:.1f} s ({pulls / t_loop:.0f} pulls/s); best "
+            f"final fitness {best:.3f} (gate {BANDIT_GATE})")
+        check(len(gens) == BANDIT_MAX_STEPS // BANDIT_EVO_STEPS and best >= BANDIT_GATE,
+              f"{algo}: {len(gens)} generations, fitnesses {fitnesses}")
+
+        agent = pop[0]
+        ctx = env.reset()
+        memory = ReplayBuffer(256, seed=1)
+        for _ in range(128):
+            arm = agent.get_action(ctx)
+            nxt, r = env.step(arm)
+            memory.add({"obs": ctx[int(arm)], "reward": r})
+            ctx = nxt
+        learn = lambda: agent.learn(memory.sample(agent.batch_size))  # noqa: E731
+        for what, fn in (("pull", lambda: agent.get_action(ctx)), ("learn", learn)):
+            _, _, sites = count_syncs(torch, fn)
+            syncs = sum(n for site, n in sites.items() if site not in base_sites)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(30):
+                fn()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 30
+            prof = profile_generation(torch, fn)
+            rec[what] = dict(syncs=syncs, sync_sites=sites, ms=ms, profile=prof)
+            log(f"  {algo} {what}: {syncs} host syncs {sites}, {ms:.2f} ms per call (30 calls), "
+                f"under torch.profiler {prof}")
+            # a pull uploads the host env's context and reads the arm back
+            check(syncs <= (2 if what == "pull" else 1), f"{algo}: {syncs} host syncs in one "
+                  f"{what}")
+        out[algo] = rec
+    bandits_card_vs_cpu(torch, env, out)
+    out["launches"] = dict(launches)
+    report["bandits"] = out
+    return launches
+
+
+# ------------------------------- phase 4r ---------------------------------- #
+# The PettingZoo path: a parallel-API env over one CPU SimpleSpreadTorch(2)
+# (numpy in, numpy out; agents empty at the episode's end), vectorised by
+# make_multi_agent_vect_envs in worker processes and in this one, 8 envs;
+# MADDPG through train_multi_agent_off_policy at 4n's maddpg.yaml widths,
+# evo_steps 120 and max_steps 240 (cut from 10,000 / 100,000: 2
+# generations; at 200 / 400 the phase took 28.5-34.8 s on an H100 80GB HBM3
+# at 700 W); then AsyncAgentsWrapper and RSNorm over 2 envs in this process
+# whose second agent dies mid-episode.
+PZ_ENVS = 8
+PZ_EVO_STEPS = 120  # cut from 10,000
+PZ_MAX_STEPS = 240  # cut from 100,000
+PZ_WRAPPER_STEPS = 12
+
+
+class SpreadParallelEnv:
+    """A PettingZoo parallel env over one SimpleSpreadTorch(2) on the CPU;
+    with ``die_at``, agent_1 leaves the dicts from that step to the end of
+    the episode. Module-level, so spawned workers can unpickle it."""
+
+    def __init__(self, die_at=None, seed=0):
+        import torch
+
+        from agilerl_tpu_torch.envs.multi_agent import SimpleSpreadTorch
+
+        self._env = SimpleSpreadTorch(2)
+        self.possible_agents = list(self._env.agent_ids)
+        self.agents = []
+        self.die_at = die_at
+        self._gen = torch.Generator().manual_seed(seed)
+        self._state = None
+
+    def observation_space(self, agent):
+        return self._env.observation_spaces[agent]
+
+    def action_space(self, agent):
+        return self._env.action_spaces[agent]
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self._gen.manual_seed(seed)
+        self._state, obs = self._env.reset_fn(1, self._gen)
+        self.agents = list(self.possible_agents)
+        return {a: o[0].numpy() for a, o in obs.items()}, {}
+
+    def step(self, actions):
+        import torch
+
+        acts = {a: torch.as_tensor([int(actions.get(a, 0))]) for a in self.possible_agents}
+        self._state, obs, rew, term, trunc = self._env.step_fn(self._state, acts)
+        if self.die_at is not None and int(self._state.t[0]) >= self.die_at:
+            self.agents = [a for a in self.agents if a != "agent_1"]
+        alive = self.agents
+        out = ({a: obs[a][0].numpy() for a in alive}, {a: float(rew[a][0]) for a in alive},
+               {a: bool(term[a][0]) for a in alive}, {a: bool(trunc[a][0]) for a in alive}, {})
+        if bool(trunc[self.possible_agents[0]][0]):
+            self.agents = []
+        return out
+
+    def close(self):
+        pass
+
+
+def run_pettingzoo(torch, ops, report):
+    """Phase 4r (see the constants above): env-steps/s of MADDPG's loop on
+    the sync and the async PettingZoo vector envs, the host syncs of a
+    vector step, the async workers' start-up seconds; AsyncAgentsWrapper and
+    RSNorm over a dying agent. Returns the kernel launches of the loops."""
+    import numpy as np
+
+    from agilerl_tpu_torch.components.multi_agent_replay_buffer import MultiAgentReplayBuffer
+    from agilerl_tpu_torch.observability.events import MemorySink
+    from agilerl_tpu_torch.observability.facade import RunTelemetry
+    from agilerl_tpu_torch.observability.registry import MetricsRegistry
+    from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
+    from agilerl_tpu_torch.training.train_multi_agent_off_policy import (
+        train_multi_agent_off_policy,
+    )
+    from agilerl_tpu_torch.utils.utils import create_population, make_multi_agent_vect_envs
+    from agilerl_tpu_torch.wrappers import AsyncAgentsWrapper, RSNorm
+
+    out = {}
+    launches = {k: 0 for k in ops.kernel_counters()}
+    _, _, base_sites = count_syncs(torch, lambda: None)
+    for mode in (False, True):
+        name = "async" if mode else "sync"
+        t0 = time.perf_counter()
+        env = make_multi_agent_vect_envs(SpreadParallelEnv, num_envs=PZ_ENVS,
+                                         should_async_vector=mode)
+        try:
+            env.reset(seed=0)
+            start_s = time.perf_counter() - t0
+            log(f"phase 4r: train_multi_agent_off_policy, MADDPG on the {name} PettingZoo vector "
+                f"env ({PZ_ENVS} x SimpleSpreadTorch(2) on the CPU; started in {start_s:.2f} s): "
+                f"population {MADDPG_HP['POP_SIZE']}, evo_steps {PZ_EVO_STEPS}, max_steps "
+                f"{PZ_MAX_STEPS} (cut from 10,000 / 100,000)")
+            np.random.seed(0)
+            pop = create_population("MADDPG", env.observation_spaces, env.action_spaces, MA_NET,
+                                    MADDPG_HP, seed=0, agent_ids=env.agent_ids)
+            memory = MultiAgentReplayBuffer(MA_MEMORY, env.agent_ids)
+            sink = MemorySink()
+            telem = RunTelemetry(registry=MetricsRegistry(sink=sink), lineage=False)
+            ops.reset_kernel_counters()
+            (pop, fitnesses), t_loop = host_s(torch, lambda: train_multi_agent_off_policy(
+                env, "simple_spread_pz", "MADDPG", pop, memory, INIT_HP=MADDPG_HP,
+                max_steps=PZ_MAX_STEPS, evo_steps=PZ_EVO_STEPS,
+                tournament=TournamentSelection(2, True, MADDPG_HP["POP_SIZE"], 1,
+                                               rng=np.random.default_rng(0)),
+                mutation=Mutations(**MA_MUTATION, rand_seed=0), telemetry=telem,
+                verbose=False, seed=0))
+            for k, v in ops.kernel_counters().items():
+                launches[k] += v
+            gens = [e for e in sink.events if e["kind"] == "generation"]
+            env_steps = gens[-1]["total_steps"]
+            check(len(gens) == PZ_MAX_STEPS // PZ_EVO_STEPS and len(memory) == env_steps
+                  and all(np.isfinite(f).all() for f in fitnesses)
+                  and all(g["learn_calls"] > 0 for g in gens),
+                  f"MADDPG on the {name} PettingZoo env: {len(gens)} generations, {fitnesses}")
+            agent = pop[0]
+            obs, _ = env.reset(seed=1)
+
+            def vector_step():
+                acts = agent.get_action(obs)
+                return env.step({a: v.cpu().numpy() for a, v in acts.items()})
+
+            _, _, sites = count_syncs(torch, vector_step)
+            syncs = sum(n for site, n in sites.items() if site not in base_sites)
+            out[name] = dict(start_s=start_s, loop_s=t_loop, env_steps=env_steps,
+                             env_steps_per_s=env_steps / t_loop, syncs_per_vector_step=syncs,
+                             sync_sites=sites,
+                             generations=[{k: g[k] for k in ("generation", "act_s", "learn_s",
+                                                             "eval_s", "evo_s", "learn_calls",
+                                                             "fitness")} for g in gens])
+            log(f"  MADDPG on the {name} env: {env_steps} env steps in {t_loop:.1f} s "
+                f"({env_steps / t_loop:.0f} env-steps/s); {syncs} host syncs per vector step "
+                f"{sites}; generations {out[name]['generations']}")
+        finally:
+            env.close()
+        if mode:
+            check(not any(p.is_alive() for p in env._procs), "async env workers outlive close")
+
+    # a dying agent through both wrappers (the vector env in this process:
+    # the async one's start-up is timed above)
+    env = make_multi_agent_vect_envs(SpreadParallelEnv, num_envs=2, should_async_vector=False,
+                                     die_at=3)
+    try:
+        wrapped = AsyncAgentsWrapper(RSNorm(pop[0]))
+        obs, _ = env.reset(seed=2)
+        closed, nan_rows = 0, 0
+        for _ in range(PZ_WRAPPER_STEPS):
+            nan_rows += int(np.isnan(obs["agent_1"]).all(axis=1).sum())
+            acts = wrapped.get_action(obs)
+            obs, rew, term, trunc, info = env.step(
+                {a: np.nan_to_num(np.asarray(v, np.float64)).astype(np.int64)
+                 for a, v in acts.items()})
+            closed += len(wrapped.record_step(obs, acts, rew, term))
+        rms = wrapped.agent.obs_rms["agent_0"]
+        out["wrappers"] = dict(steps=PZ_WRAPPER_STEPS, nan_rows_seen=nan_rows,
+                               transitions_closed=closed, rms_count=rms.count,
+                               stats=type(rms.mean).__name__)
+        log(f"  AsyncAgentsWrapper(RSNorm(MADDPG)) over 2 envs whose agent_1 dies at step 3: "
+            f"{out['wrappers']}")
+        check(nan_rows > 0 and closed > 0 and rms.count > 1, f"wrappers: {out['wrappers']}")
+    finally:
+        env.close()
+    out["launches"] = dict(launches)
+    report["pettingzoo"] = out
+    return launches
+
+
 # ------------------------------- phase 5 ----------------------------------- #
 
 
@@ -4873,6 +5585,7 @@ def main() -> None:
     n_rows = GROUP_SIZE * len(PROMPT_LENS) * (max(PROMPT_LENS) + MAX_NEW_TOKENS - 1)
     check_fused(torch, tfl, report, n_rows, 4096)
     check_flash_bwd(torch, tfa, report)
+    check_flash_head_dims(torch, tfa, report)
     check_fused_bwd(torch, tfl, report, n_rows, 4096)
     small_model_check(torch, M, ops, report)
 
@@ -4941,6 +5654,18 @@ def main() -> None:
     ma_on_launches, ma_scan_launches = run_multi_agent_on_policy(torch, ops, report)
     report["phase_4o_s"] = time.perf_counter() - t0
     log(f"phase 4o: {report['phase_4o_s']:.1f} s")
+    t0 = time.perf_counter()
+    gpt_launches = run_transformers(torch, ops, presets, report)
+    report["phase_4q_s"] = time.perf_counter() - t0
+    log(f"phase 4q: {report['phase_4q_s']:.1f} s")
+    t0 = time.perf_counter()
+    bandit_launches = run_bandits(torch, ops, report)
+    report["phase_4p_s"] = time.perf_counter() - t0
+    log(f"phase 4p: {report['phase_4p_s']:.1f} s")
+    t0 = time.perf_counter()
+    pz_launches = run_pettingzoo(torch, ops, report)
+    report["phase_4r_s"] = time.perf_counter() - t0
+    log(f"phase 4r: {report['phase_4r_s']:.1f} s")
     # each main path's counts were set to 0 just before it and read just after
     launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
                 for k in grpo_launches}
@@ -4964,7 +5689,10 @@ def main() -> None:
                                      "off_policy_scan": scan_launches[entry["name"]],
                                      "multi_agent_off_policy": ma_off_launches[entry["name"]],
                                      "multi_agent_on_policy": ma_on_launches[entry["name"]],
-                                     "multi_agent_scan": ma_scan_launches[entry["name"]]}
+                                     "multi_agent_scan": ma_scan_launches[entry["name"]],
+                                     "evolvable_gpt": gpt_launches[entry["name"]],
+                                     "bandits": bandit_launches[entry["name"]],
+                                     "pettingzoo": pz_launches[entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":

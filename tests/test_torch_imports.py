@@ -51,6 +51,16 @@ _CLASSIC_IMPORTS = (
     "import agilerl_tpu_torch.algorithms.ippo, agilerl_tpu_torch.parallel.multi_agent\n"
     "import agilerl_tpu_torch.training.train_multi_agent_off_policy\n"
     "import agilerl_tpu_torch.training.train_multi_agent_on_policy\n"
+    # the evolvable transformers, the bandits and the PettingZoo stack (Queue
+    # 1's items 8, 7 and 6, with wrappers/agent.py)
+    "import agilerl_tpu_torch.modules, agilerl_tpu_torch.modules.gpt\n"
+    "import agilerl_tpu_torch.modules.bert, agilerl_tpu_torch.wrappers\n"
+    "import agilerl_tpu_torch.wrappers.learning, agilerl_tpu_torch.wrappers.agent\n"
+    "import agilerl_tpu_torch.wrappers.pettingzoo_wrappers\n"
+    "import agilerl_tpu_torch.algorithms.neural_ucb_bandit\n"
+    "import agilerl_tpu_torch.algorithms.neural_ts_bandit\n"
+    "import agilerl_tpu_torch.training.train_bandits\n"
+    "import agilerl_tpu_torch.vector.pz_async_vec_env\n"
 )
 
 
@@ -442,3 +452,32 @@ def test_multi_agent_entry_points_default_to_the_card():
             "output"].values()} == {agent.dev}
     evo = EvoIPPO(env, *cfgs, dist, adam(1e-3), num_envs=2, rollout_len=4, device="cpu")
     assert evo.init_population(0, 2).obs.device.type == "cpu"
+
+
+def test_transformer_and_bandit_entry_points_default_to_the_card():
+    """EvolvableGPT, EvolvableBERT, NeuralUCB, NeuralTS and
+    create_population of the bandits take device=None as the card and raise
+    without one; device="cpu" builds them on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from agilerl_tpu_torch.algorithms.neural_ts_bandit import NeuralTS
+    from agilerl_tpu_torch.algorithms.neural_ucb_bandit import NeuralUCB
+    from agilerl_tpu_torch.modules import EvolvableBERT, EvolvableGPT
+    from agilerl_tpu_torch.utils.spaces import Box, Discrete
+    from agilerl_tpu_torch.utils.utils import create_population
+
+    gpt = dict(vocab_size=17, n_layer=1, n_head=2, d_model=16, max_seq_len=8)
+    bert = dict(vocab_size=17, n_encoder_layers=1, n_decoder_layers=1, n_head=2, d_model=16,
+                max_seq_len=8)
+    obs, act = Box(-1.0, 1.0, (6,)), Discrete(3)
+    makes = [lambda: EvolvableGPT(**gpt), lambda: EvolvableBERT(**bert),
+             lambda: NeuralUCB(obs, act, seed=0), lambda: NeuralTS(obs, act, seed=0),
+             lambda: create_population("NeuralUCB", obs, act, population_size=1, seed=0)]
+    for make in makes:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert EvolvableGPT(**gpt, device="cpu").params["ln_f"].device.type == "cpu"
+    assert EvolvableBERT(**bert, device="cpu").params["lm_head"].device.type == "cpu"
+    agent = create_population("NeuralTS", obs, act, population_size=1, seed=0, device="cpu")[0]
+    assert agent.dev == torch.device("cpu") and agent.U["head"]["output"]["bias"].device == \
+        agent.dev

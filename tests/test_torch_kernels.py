@@ -146,9 +146,9 @@ def test_kernels_raise_when_a_gradient_is_needed():
     counts = kernel_counters()
     assert counts["flash_attention_dq"] == 1 and counts["flash_attention_dkv"] == 1
     assert counts["fused_logprob_dh"] == 1 and counts["fused_logprob_dw"] == 0
-    q32 = torch.randn(1, 2, 8, 32, device="cuda", requires_grad=True)
-    with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention_diff(q32, q32, q32)
+    q320 = torch.randn(1, 2, 8, 320, device="cuda", requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim 320 exceeds"):
+        tfa.flash_attention_diff(q320, q320, q320)
 
 
 def _bwd_case(dtype, causal, pad_rows, strided, T, d, H, Hkv, with_lse, seed=0):
@@ -406,9 +406,54 @@ def test_autograd_gradients_match_plain_path():
 @pytest.mark.cuda
 @pytest.mark.usefixtures("cuda_only")
 def test_flash_kernel_rejects_unsupported_head_dim():
-    q = torch.randn(1, 2, 8, 32, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
+    """Head dims past 256, the kernels' limit, raise; every smaller one runs
+    (``test_flash_kernels_at_every_head_dim``)."""
+    q = torch.randn(1, 2, 8, 320, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 320 exceeds"):
         tfa.flash_attention_fwd_cuda(q, q, q)
+
+
+# Head dims the kernels are not built for (run zero-padded to 64, 128 or
+# 256) and 256 itself: the evolvable GPT's node mutations (68, 72, 80), the
+# tutorials' small models (16, 20, 32) and 96.
+PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", PADDED_HEAD_DIMS)
+def test_flash_kernels_at_every_head_dim(d, dtype):
+    """Forward, dQ and dK/dV at head dims past the built 64 / 128, with a
+    ragged mask, GQA 4/2 and causal masking, against the plain versions at
+    the true d (rows with a visible key; the tolerances above); each launch
+    counted, and bf16 repeats bit-identical."""
+    q, k, v, mask = _flash_case(2, 4, 2, 150, d, dtype, (0, 37), True)
+    reset_kernel_counters()
+    out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, True)
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, mask, True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+    dd = (dout.float() * out.float()).sum(-1).contiguous()
+    dq = tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True)
+    dk, dv = tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True)
+    rq, rk, rv = tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, True)
+    torch.cuda.synchronize()
+    assert kernel_counters()["flash_attention_fwd"] == 1
+    assert kernel_counters()["flash_attention_dq"] == kernel_counters()["flash_attention_dkv"] == 1
+    assert out.shape == q.shape and dq.shape == q.shape and dk.shape == k.shape
+    r = _rows_with_a_visible_key(mask, True, 2, 150).expand(lse.shape)
+    torch.testing.assert_close(out[r].float(), ref[r].float(), rtol=0, atol=FLASH_ATOL[dtype])
+    torch.testing.assert_close(lse[r], ref_lse[r], rtol=0, atol=1e-4)
+    for got, want, what in ((dq, rq, "dq"), (dk, rk, "dk"), (dv, rv, "dv")):
+        assert torch.isfinite(got.float()).all(), what
+        _close(got, want, dtype, f"d={d} {what}")
+    if dtype == torch.bfloat16:
+        again = (tfa.flash_attention_fwd_cuda(q, k, v, mask, True)[0],
+                 tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True),
+                 *tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True))
+        for a, b in zip((out, dq, dk, dv), again):
+            assert torch.equal(a, b)
 
 
 def _to(tree, device):
