@@ -89,12 +89,13 @@ class EvolvableAlgorithm:
         return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
     def rng_state(self) -> Dict[str, Any]:
-        """Picklable capture of both random streams (torch generator state +
-        numpy Generator state)."""
-        return {"torch_key": self._key.get_state(), "np_rng": self.rng.bit_generator.state}
+        """Host capture of both random streams: the CPU generator's state as
+        a numpy byte array, and the numpy Generator's state."""
+        return {"torch_key": self._key.get_state().numpy().copy(),
+                "np_rng": self.rng.bit_generator.state}
 
     def set_rng_state(self, state: Dict[str, Any]) -> None:
-        self._key.set_state(state["torch_key"])
+        self._key.set_state(torch.from_numpy(np.asarray(state["torch_key"], np.uint8).copy()))
         bg = getattr(np.random, state["np_rng"]["bit_generator"])()
         bg.state = state["np_rng"]
         self.rng = np.random.Generator(bg)
@@ -248,7 +249,23 @@ class EvolvableAlgorithm:
             opt.opt_state = tree_from_numpy(blob["state"], dev)
         for k, v in ckpt["attrs"].items():
             setattr(self, k, v)
+        self._resize_rollout_buffers()
         self._clear_jit_cache()
+
+    def _resize_rollout_buffers(self) -> None:
+        """A restored ``learn_step`` sizes the rollout buffers (IPPO keeps one
+        per group), as its mutation does: a buffer of another horizon is
+        allocated afresh. The JAX package's ``_restore`` keeps the
+        constructor's horizon (a whole-run resume of a PPO population after
+        a ``learn_step`` mutation raised an ``IndexError`` in the port until
+        this resize)."""
+        bufs = list(getattr(self, "rollout_buffers", {}).values())
+        if getattr(self, "rollout_buffer", None) is not None:
+            bufs.append(self.rollout_buffer)
+        for buf in bufs:
+            if buf.capacity != int(self.learn_step):
+                buf.capacity = int(self.learn_step)
+                buf.state = None
 
     @classmethod
     def load(cls, path: Union[str, Path], device: DeviceLike = None):
@@ -260,9 +277,15 @@ class EvolvableAlgorithm:
             ckpt = pickle.load(f)
         init = dict(ckpt["init_dict"])
         init["device"] = device
-        agent = cls(**init)
+        agent = cls(**cls._init_from_checkpoint(init, device))
         agent._restore(ckpt)
         return agent
+
+    @classmethod
+    def _init_from_checkpoint(cls, init: Dict[str, Any], device: DeviceLike) -> Dict[str, Any]:
+        """Subclass hook: constructor kwargs from a checkpoint's
+        ``init_dict`` (host values back onto ``device``)."""
+        return init
 
 
 def _params_of(net) -> Any:

@@ -51,7 +51,7 @@ from agilerl_tpu_torch.algorithms.core.registry import (
 from agilerl_tpu_torch.llm import model as M
 from agilerl_tpu_torch.llm.generate import generate
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
-from agilerl_tpu_torch.utils.tree import tree_copy
+from agilerl_tpu_torch.utils.tree import tree_copy, tree_from_numpy, tree_map, tree_to_numpy
 
 
 def _env_flag(name: str) -> bool:
@@ -86,6 +86,23 @@ def _grpo_loss_core(lp, batch, clip, beta):
     loss = ((pg + beta * kl) * batch["loss_mask"]).sum() / denom
     kl_mean = (kl * batch["loss_mask"]).sum() / denom
     return loss, kl_mean
+
+
+def base_to_host(params: Any) -> Dict[str, Any]:
+    """A frozen base as host numpy: every leaf's array (a bf16 leaf as its
+    ``uint16`` bits) and dtype name, as two trees."""
+    from agilerl_tpu_torch.llm.convert import tensor_to_host
+
+    return {"host_arrays": tree_map(lambda t: tensor_to_host(t)[0], params),
+            "dtypes": tree_map(lambda t: str(t.dtype).replace("torch.", ""), params)}
+
+
+def base_from_host(blob: Dict[str, Any], device) -> Any:
+    """The inverse of ``base_to_host``, on ``device``."""
+    from agilerl_tpu_torch.llm.convert import tensor_from_host
+
+    return tree_map(lambda a, d: tensor_from_host(a, d, device), blob["host_arrays"],
+                    blob["dtypes"])
 
 
 class _LoraNet:
@@ -251,6 +268,36 @@ class GRPO(EvolvableAlgorithm):
     def _on_clone(self, parent) -> None:
         self.reference.params = tree_copy(parent.reference.params)
         self._reference_epoch = parent._reference_epoch
+
+    # -- checkpoints ----------------------------------------------------- #
+    def checkpoint_dict(self, include_base: bool = True) -> Dict[str, Any]:
+        """The base class's checkpoint plus the reference adapter and the
+        dataset epoch it was taken at, so a restored agent keeps the
+        reference of its epoch's start (the JAX package keeps neither, and
+        its resumed agent re-copies the restored actor into the reference
+        at its next ``set_reference_policy``). ``init_dict``'s frozen base
+        is host numpy (bf16 as its ``uint16`` bits), so ``load`` rebuilds the
+        agent from the file alone; ``include_base=False`` leaves it out
+        (``None``), as a whole-run snapshot does."""
+        ckpt = super().checkpoint_dict()
+        ckpt["init_dict"] = dict(ckpt["init_dict"], base_params=(
+            base_to_host(self.base_params) if include_base else None))
+        ckpt["reference"] = {"params": tree_to_numpy(self.reference.params),
+                             "epoch": int(self._reference_epoch)}
+        return ckpt
+
+    def _restore(self, ckpt: Dict[str, Any]) -> None:
+        super()._restore(ckpt)
+        ref = ckpt.get("reference")
+        if ref is not None:
+            self.reference.params = tree_from_numpy(ref["params"], self.dev)
+            self._reference_epoch = int(ref["epoch"])
+
+    @classmethod
+    def _init_from_checkpoint(cls, init: Dict[str, Any], device) -> Dict[str, Any]:
+        if isinstance(init.get("base_params"), dict) and "host_arrays" in init["base_params"]:
+            init["base_params"] = base_from_host(init["base_params"], resolve_device(device))
+        return init
 
     def set_reference_policy(self, epoch: int) -> None:
         """Refresh the reference adapter from the actor once per dataset epoch."""

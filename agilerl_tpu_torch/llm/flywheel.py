@@ -314,12 +314,6 @@ class TrajectoryStore:
         return out
 
 
-def _rng_to_host(state: Dict[str, Any]) -> Dict[str, Any]:
-    """An agent's ``rng_state()`` with its ``torch.Generator`` state (a CPU
-    byte tensor) as a numpy byte array."""
-    return dict(state, torch_key=state["torch_key"].numpy().copy())
-
-
 def _prompt_hashes(prompts: Dict[str, np.ndarray]) -> List[str]:
     """Per-prompt sha1 provenance over the REAL (unpadded) token ids."""
     ids = np.asarray(prompts["input_ids"])
@@ -587,7 +581,7 @@ class LearnerPod:
             "opt_state": tree_to_numpy(a.optimizer.opt_state),
             "reference": tree_to_numpy(a.reference.params),
             "reference_epoch": int(a._reference_epoch),
-            "rng": _rng_to_host(a.rng_state()),
+            "rng": a.rng_state(),
             "steps": list(a.steps),
             "losses": list(self.losses),
             "kls": list(self.kls),
@@ -635,8 +629,7 @@ class LearnerPod:
             a.optimizer.opt_state = tree_from_numpy(state["opt_state"], a.dev)
             a.reference.params = lora_from_numpy(state["reference"], device=a.dev)
             a._reference_epoch = int(state["reference_epoch"])
-            a.set_rng_state(dict(state["rng"],
-                                 torch_key=torch.from_numpy(state["rng"]["torch_key"].copy())))
+            a.set_rng_state(state["rng"])
             a.steps = [int(s) for s in state["steps"]]
             self.losses = [float(x) for x in state["losses"]]
             self.kls = [float(x) for x in state["kls"]]

@@ -39,6 +39,7 @@ from agilerl_tpu_torch.algorithms.dqn import soft_update_
 from agilerl_tpu_torch.envs.core import VecState, make_autoreset_step
 from agilerl_tpu_torch.modules.base import split_key
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
+from agilerl_tpu_torch.utils.rng import generator_from_host, generator_to_host
 from agilerl_tpu_torch.utils.spaces import preprocess_observation
 from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -638,7 +639,8 @@ class ScanRun:
     ``fitness_best`` / ``fitness_mean`` / ``generation_time_s`` metrics, and
     duck-types the resilience capture protocol (``checkpoint_dict`` /
     ``_restore`` / ``rng_state`` / ``set_rng_state``; the generator's state
-    travels as a numpy byte array)."""
+    travels as a numpy byte array with its device type), so
+    ``Resilience.attach(pop=[run])`` snapshots and resumes it."""
 
     def __init__(self, engine, pop_size: int, seed: int = 0, mesh=None, telemetry=None,
                  index: int = 0, plan=None):
@@ -685,7 +687,7 @@ class ScanRun:
     # -- resilience capture protocol ---------------------------------------- #
     def checkpoint_dict(self) -> Dict[str, Any]:
         return {
-            "agilerl_tpu_class": type(self).__name__,
+            "agilerl_tpu_torch_class": type(self).__name__,
             "pop_size": self.pop_size,
             "generation": self.generation,
             "fitness_history": list(self.fitness_history),
@@ -700,7 +702,10 @@ class ScanRun:
         self.fitness_history = list(ckpt["fitness_history"])
 
     def rng_state(self) -> Dict[str, Any]:
-        return {"key": self._gen.get_state().numpy().copy()}
+        blob = generator_to_host(self._gen)
+        return {"key": blob["state"], "device": blob["device"]}
 
     def set_rng_state(self, state: Dict[str, Any]) -> None:
-        self._gen.set_state(torch.from_numpy(np.asarray(state["key"], dtype=np.uint8).copy()))
+        """Raises when the state was taken from a generator of another
+        device type (a card run's into a CPU run, or back)."""
+        generator_from_host(self._gen, {"device": state["device"], "state": state["key"]})

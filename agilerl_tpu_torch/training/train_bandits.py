@@ -15,7 +15,11 @@ the host seconds spent pulling (``act_s``: action and env step), learning
 (``learn_s``), evaluating (``eval_s``) and evolving (``evo_s``), the pulls,
 the learn calls, fitnesses and mutations. ``checkpoint=`` /
 ``checkpoint_path``, ``resume`` and ``save_elite`` work as in the JAX
-package; ``resilience=`` and ``wb=True`` raise until slice 6.
+package. ``resilience=`` (``resilience/facade.Resilience``) takes whole-run
+snapshots (population, the buffer, the env's and every other random stream,
+counters) at the generation boundaries and a final one on a preemption
+request; with ``resume`` the run continues from the newest complete
+snapshot, the same run bit for bit. ``wb=True`` raises until slice 6.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from agilerl_tpu_torch.observability import init_run_telemetry
+from agilerl_tpu_torch.resilience.facade import max_fitness
 from agilerl_tpu_torch.training.train_on_policy import refuse_unported
 from agilerl_tpu_torch.utils.utils import (
     print_hyperparams,
@@ -67,8 +72,8 @@ def train_bandits(
     flush_every: Optional[int] = None,
     resilience=None,
 ) -> Tuple[List, List[List[float]]]:
-    refuse_unported("train_bandits", resilience=resilience, wb=wb)
-    if resume:
+    refuse_unported("train_bandits", wb=wb)
+    if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
     telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
@@ -84,11 +89,27 @@ def train_bandits(
     total_steps = 0
     checkpoint_count = 0
     generation = 0
+
+    def _counters():
+        return {"total_steps": total_steps, "checkpoint_count": checkpoint_count,
+                "pop_fitnesses": pop_fitnesses, "generation": generation}
+
     try:
+        if resilience is not None:
+            resilience.attach(pop=pop, memory=memory, tournament=tournament, mutation=mutation,
+                              telemetry=telem, env=env)
+            if resume:
+                restored = resilience.resume(_counters())
+                total_steps = int(restored["total_steps"])
+                checkpoint_count = int(restored["checkpoint_count"])
+                pop_fitnesses = [list(f) for f in restored["pop_fitnesses"]]
+                generation = int(restored["generation"])
         while np.min([agent.steps[-1] for agent in pop]) < max_steps:
             secs = {"act_s": 0.0, "learn_s": 0.0}
             learn_calls = 0
             for agent in pop:
+                if resilience is not None and resilience.abort_generation:
+                    break
                 context = env.reset()
                 regret_free = 0.0
                 learn_every = max(agent.learn_step, 1)
@@ -124,9 +145,15 @@ def train_bandits(
                     secs["learn_s"] += t_done - t_learn
                     telem.step(env_steps=1, agent_index=agent.index,
                                host_time_s=t_learn - t_act, device_time_s=t_done - t_learn)
+                    if resilience is not None and resilience.abort_generation:
+                        break
                 if use_staging:
                     memory.flush()
                 agent.scores.append(regret_free / max(evo_steps, 1))
+
+            if resilience is not None and resilience.abort_generation:
+                resilience.step_boundary(total_steps, _counters(), pop=pop)
+                break
 
             t0 = time.perf_counter()
             fitnesses = [agent.test(env, max_steps=eval_steps or 100, loop=eval_loop)
@@ -155,13 +182,19 @@ def train_bandits(
             generation += 1
             for agent in pop:
                 agent.steps.append(agent.steps[-1])
-            if checkpoint is not None and checkpoint_path is not None:
+            if resilience is not None:
+                if resilience.step_boundary(total_steps, _counters(), pop=pop,
+                                            fitness=max_fitness(fitnesses)):
+                    break
+            elif checkpoint is not None and checkpoint_path is not None:
                 if total_steps // checkpoint > checkpoint_count:
                     save_population_checkpoint(pop, checkpoint_path, overwrite_checkpoints)
                     checkpoint_count = total_steps // checkpoint
             if target is not None and np.min(fitnesses) >= target:
                 break
     finally:
+        if resilience is not None:
+            resilience.close()
         if telemetry is None:
             telem.close()
     return pop, pop_fitnesses

@@ -4,9 +4,16 @@
 per-epoch reference refresh, and tournament selection and hyperparameter
 mutation every ``evaluation_interval`` steps.
 
-Not ported yet, and raising when asked for: the ``telemetry=`` and
-``resilience=`` hooks (observability and resilience layers), population
-checkpoints and resume, and saving the elite.
+Every hook the JAX loops take runs: ``telemetry=`` (the observability
+facade, its step timeline bound to the population's model config so each
+step emits MFU), ``resilience=`` and ``resume`` (whole-run snapshots through
+``resilience/facade.Resilience``: the population without its frozen base,
+each agent's reference adapter, every random stream, the gym's data stream
+and, for the reasoning loop, the prompt batch carried to the next step),
+``checkpoint_interval`` / ``checkpoint_path`` / ``overwrite_checkpoints``
+(self-contained population checkpoints that ``load`` rebuilds from, the
+frozen base inside them as host numpy) and ``save_elite`` / ``elite_path``.
+``wb=True`` raises until slice 6.
 """
 
 from __future__ import annotations
@@ -15,7 +22,15 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from agilerl_tpu_torch.utils.utils import print_hyperparams, tournament_selection_and_mutation
+from agilerl_tpu_torch.observability import init_run_telemetry
+from agilerl_tpu_torch.resilience.facade import max_fitness
+from agilerl_tpu_torch.training.train_on_policy import refuse_unported
+from agilerl_tpu_torch.utils.utils import (
+    print_hyperparams,
+    resume_population_from_checkpoint,
+    save_population_checkpoint,
+    tournament_selection_and_mutation,
+)
 
 
 def _assert_llm_mutations(mutation) -> None:
@@ -27,11 +42,22 @@ def _assert_llm_mutations(mutation) -> None:
     assert mutation.activation_mut == 0, "activation mutation must be 0 for LLMs"
 
 
-def _refuse_unported(loop: str, **hooks) -> None:
-    """The observability, resilience and checkpoint hooks are not ported yet."""
-    for name, value in hooks.items():
-        if value:
-            raise NotImplementedError(f"{loop} {name}= is not ported yet")
+def _boundary(step, counters, pop, fitnesses, stop, resilience, checkpoint_interval,
+              checkpoint_path, overwrite_checkpoints) -> bool:
+    """The end of a step: a snapshot (cadence, preemption, or the final one
+    when the run reached its target) or a legacy population checkpoint.
+    Returns True when a preemption asked the loop to exit."""
+    last_fitness = None if fitnesses is None else max_fitness(fitnesses)
+    if resilience is not None:
+        if resilience.step_boundary(step, counters(), pop=pop, fitness=last_fitness):
+            return True
+        if stop:
+            # the state that reached the target is the state on disk
+            resilience.snapshot(step, counters(), kind="final", fitness=last_fitness)
+    elif checkpoint_interval is not None and checkpoint_path is not None:
+        if stop or step % checkpoint_interval == 0:
+            save_population_checkpoint(pop, checkpoint_path, overwrite_checkpoints)
+    return False
 
 
 def finetune_llm_reasoning(
@@ -59,38 +85,78 @@ def finetune_llm_reasoning(
 ) -> Tuple[List, List[List[float]]]:
     """GRPO reasoning finetune. Returns (population, per-agent fitnesses)."""
     _assert_llm_mutations(mutation)
-    _refuse_unported("finetune_llm_reasoning", telemetry=telemetry, resilience=resilience,
-                     wb=wb, resume=resume, checkpoint_path=checkpoint_path,
-                     save_elite=save_elite)
+    refuse_unported("finetune_llm_reasoning", wb=wb)
+    if resume and resilience is None:
+        resume_population_from_checkpoint(pop, checkpoint_path)
+    telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
+    telem.attach_evolution(tournament, mutation)
+    if telem.timeline.model_config is None:
+        # the population's transformer config lets the timeline emit MFU
+        telem.timeline.set_model_config(getattr(pop[0], "model_config", None))
     pop_fitnesses: List[List[float]] = [[] for _ in pop]
-    prompts = env.reset()
-    for step in range(1, max_steps + 1):
-        for agent in pop:
-            agent.set_reference_policy(env.num_epochs)
-            completions, completion_mask = agent.get_action(prompts)
-            ids, action_masks = env.assemble_learn_batch(completions, completion_mask)
-            next_prompts, rewards = env.step(completions, completion_mask)
-            loss, kl = agent.learn((ids, action_masks, rewards))
-            agent.steps[-1] += int(np.asarray(rewards).size)
-            if verbose:
-                print(f"[{step}] agent {agent.index} loss {loss:.4f} "
-                      f"reward {np.mean(rewards):.3f}")
-            prompts = next_prompts
+    done_steps = 0
+    # each env.step returns the NEXT batch, carried as ``prompts``: it
+    # belongs to the snapshot (a resumed run that re-reset the env would
+    # draw another batch and leave the uninterrupted stream)
+    prompts = None
 
-        stop = False
-        if step % evaluation_interval == 0:
-            fitnesses = [agent.test(env) for agent in pop]
-            for i, f in enumerate(fitnesses):
-                pop_fitnesses[i].append(f)
-            if verbose:
-                print(f"=== eval @ {step}: {[f'{f:.3f}' for f in fitnesses]}")
-                print_hyperparams(pop)
-            if tournament is not None and mutation is not None:
-                pop = tournament_selection_and_mutation(pop, tournament, mutation,
-                                                        language_model=True)
-            stop = max_reward is not None and np.max(fitnesses) >= max_reward
-        if stop:
-            break
+    def _counters():
+        return {"done_steps": done_steps, "pop_fitnesses": pop_fitnesses, "prompts": prompts}
+
+    try:
+        if resilience is not None:
+            resilience.attach(pop=pop, tournament=tournament, mutation=mutation,
+                              telemetry=telem, env=env)
+            if resume:
+                restored = resilience.resume(_counters())
+                done_steps = int(restored["done_steps"])
+                pop_fitnesses = [list(f) for f in restored["pop_fitnesses"]]
+                prompts = restored.get("prompts")
+        if prompts is None:
+            prompts = env.reset()
+        for step in range(done_steps + 1, max_steps + 1):
+            for agent in pop:
+                agent.set_reference_policy(env.num_epochs)
+                completions, completion_mask = agent.get_action(prompts)
+                ids, action_masks = env.assemble_learn_batch(completions, completion_mask)
+                next_prompts, rewards = env.step(completions, completion_mask)
+                loss, kl = agent.learn((ids, action_masks, rewards))
+                agent.steps[-1] += int(np.asarray(rewards).size)
+                if verbose:
+                    print(f"[{step}] agent {agent.index} loss {loss:.4f} "
+                          f"reward {np.mean(rewards):.3f}")
+                telem.log_step({"train/loss": loss, "train/mean_reward": float(np.mean(rewards)),
+                                "agent": agent.index})
+                telem.step(tokens=int(np.asarray(ids).size), agent_index=agent.index,
+                           metrics={"loss": float(loss)})
+                prompts = next_prompts
+
+            stop, fitnesses = False, None
+            if step % evaluation_interval == 0:
+                fitnesses = [agent.test(env) for agent in pop]
+                for i, f in enumerate(fitnesses):
+                    pop_fitnesses[i].append(f)
+                if verbose:
+                    print(f"=== eval @ {step}: {[f'{f:.3f}' for f in fitnesses]}")
+                    print_hyperparams(pop)
+                telem.record_eval(pop, fitnesses)
+                telem.log_step({"eval/mean_fitness": float(np.mean(fitnesses))})
+                if tournament is not None and mutation is not None:
+                    pop = tournament_selection_and_mutation(
+                        pop, tournament, mutation, language_model=True,
+                        elite_path=elite_path, save_elite=save_elite)
+                stop = max_reward is not None and np.max(fitnesses) >= max_reward
+            done_steps = step
+            if _boundary(step, _counters, pop, fitnesses, stop, resilience, checkpoint_interval,
+                         checkpoint_path, overwrite_checkpoints) or stop:
+                break
+    finally:
+        # a crash escaping the loop must not leak the guard's signal handlers
+        # (or an unflushed telemetry sink) into a caller that goes on
+        if resilience is not None:
+            resilience.close()
+        if telemetry is None:
+            telem.close()
     return pop, pop_fitnesses
 
 
@@ -118,30 +184,60 @@ def finetune_llm_preference(
 ) -> Tuple[List, List[List[float]]]:
     """DPO preference finetune. Returns (population, per-agent fitnesses)."""
     _assert_llm_mutations(mutation)
-    _refuse_unported("finetune_llm_preference", telemetry=telemetry, resilience=resilience,
-                     wb=wb, resume=resume, checkpoint_path=checkpoint_path,
-                     save_elite=save_elite)
+    refuse_unported("finetune_llm_preference", wb=wb)
+    if resume and resilience is None:
+        resume_population_from_checkpoint(pop, checkpoint_path)
+    telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
+    telem.attach_evolution(tournament, mutation)
+    if telem.timeline.model_config is None:
+        telem.timeline.set_model_config(getattr(pop[0], "model_config", None))
     pop_fitnesses: List[List[float]] = [[] for _ in pop]
-    for step in range(1, max_steps + 1):
-        batch = env.reset()
-        for agent in pop:
-            agent.set_reference_policy(env.num_epochs)
-            loss, acc = agent.learn(batch)
-            agent.steps[-1] += len(batch["chosen_ids"])
-            if verbose:
-                print(f"[{step}] agent {agent.index} dpo loss {loss:.4f} acc {acc:.3f}")
+    done_steps = 0
 
-        stop = False
-        if step % evaluation_interval == 0:
-            fitnesses = [agent.test(env) for agent in pop]
-            for i, f in enumerate(fitnesses):
-                pop_fitnesses[i].append(f)
-            if verbose:
-                print(f"=== eval @ {step}: {[f'{f:.3f}' for f in fitnesses]}")
-            if tournament is not None and mutation is not None:
-                pop = tournament_selection_and_mutation(pop, tournament, mutation,
-                                                        language_model=True)
-            stop = max_reward is not None and np.max(fitnesses) >= max_reward
-        if stop:
-            break
+    def _counters():
+        return {"done_steps": done_steps, "pop_fitnesses": pop_fitnesses}
+
+    try:
+        if resilience is not None:
+            resilience.attach(pop=pop, tournament=tournament, mutation=mutation,
+                              telemetry=telem, env=env)
+            if resume:
+                restored = resilience.resume(_counters())
+                done_steps = int(restored["done_steps"])
+                pop_fitnesses = [list(f) for f in restored["pop_fitnesses"]]
+        for step in range(done_steps + 1, max_steps + 1):
+            batch = env.reset()
+            for agent in pop:
+                agent.set_reference_policy(env.num_epochs)
+                loss, acc = agent.learn(batch)
+                agent.steps[-1] += len(batch["chosen_ids"])
+                if verbose:
+                    print(f"[{step}] agent {agent.index} dpo loss {loss:.4f} acc {acc:.3f}")
+                telem.log_step({"train/loss": loss, "train/acc": acc, "agent": agent.index})
+                telem.step(tokens=int(np.asarray(batch["chosen_ids"]).size),
+                           agent_index=agent.index, metrics={"loss": float(loss)})
+
+            stop, fitnesses = False, None
+            if step % evaluation_interval == 0:
+                fitnesses = [agent.test(env) for agent in pop]
+                for i, f in enumerate(fitnesses):
+                    pop_fitnesses[i].append(f)
+                if verbose:
+                    print(f"=== eval @ {step}: {[f'{f:.3f}' for f in fitnesses]}")
+                telem.record_eval(pop, fitnesses)
+                telem.log_step({"eval/mean_fitness": float(np.mean(fitnesses))})
+                if tournament is not None and mutation is not None:
+                    pop = tournament_selection_and_mutation(
+                        pop, tournament, mutation, language_model=True,
+                        elite_path=elite_path, save_elite=save_elite)
+                stop = max_reward is not None and np.max(fitnesses) >= max_reward
+            done_steps = step
+            if _boundary(step, _counters, pop, fitnesses, stop, resilience, checkpoint_interval,
+                         checkpoint_path, overwrite_checkpoints) or stop:
+                break
+    finally:
+        if resilience is not None:
+            resilience.close()
+        if telemetry is None:
+            telem.close()
     return pop, pop_fitnesses

@@ -9,9 +9,13 @@ let decode run ahead of learn.
 
 ``telemetry=`` and ``telemetry_export_dir=`` work as in the reference:
 losses route through the ``RunTelemetry`` facade, evaluations feed its
-lineage and eval events. Not ported yet, and raising
-``NotImplementedError``: ``resilience=`` (snapshots and resume), ``plan=`` /
-``mesh=`` (a sharded learner) and ``wb=True``.
+lineage and eval events. ``resilience=`` snapshots the learner agent, its
+random streams, the env's data stream and the rollout pod's carried prompt
+batch at every evaluation boundary; ``resume`` continues the epoch line from
+the newest complete snapshot (post-snapshot weight epochs and trajectory
+leftovers are purged and the restored adapter re-published). Not ported
+yet, and raising ``NotImplementedError``: ``plan=`` / ``mesh=`` (a sharded
+learner) and ``wb=True``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from agilerl_tpu_torch.llm.flywheel import (
     WeightStore,
 )
 from agilerl_tpu_torch.observability import init_run_telemetry
-from agilerl_tpu_torch.training.train_llm import _assert_llm_mutations, _refuse_unported
+from agilerl_tpu_torch.resilience.facade import max_fitness
+from agilerl_tpu_torch.training.train_llm import _assert_llm_mutations
+from agilerl_tpu_torch.training.train_on_policy import refuse_unported
 
 
 def finetune_llm_reasoning_online(
@@ -71,8 +77,7 @@ def finetune_llm_reasoning_online(
             "start at epoch 0 under a reused workdir's newer epochs and "
             "drop every batch as negative-lag)")
     _assert_llm_mutations(mutation)
-    _refuse_unported("finetune_llm_reasoning_online", resilience=resilience,
-                     plan=plan, mesh=mesh, wb=wb)
+    refuse_unported("finetune_llm_reasoning_online", plan=plan, mesh=mesh, wb=wb)
     telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
     if telem.timeline.model_config is None:
         telem.timeline.set_model_config(getattr(agent, "model_config", None))
@@ -107,7 +112,28 @@ def finetune_llm_reasoning_online(
     done_epochs = 0
     n_logged = 0
     tokens_logged = 0
+
+    def _counters():
+        # the rollout pod's carried prompt batch (each env.step returns the
+        # NEXT batch) belongs to the snapshot, as in the interleaved loop
+        return {"done_epochs": done_epochs, "pop_fitnesses": [fitnesses],
+                "prompts": rollout._prompts}
+
     try:
+        if resilience is not None:
+            resilience.attach(pop=[agent], telemetry=telem, env=env)
+            if resume:
+                restored = resilience.resume(_counters())
+                done_epochs = int(restored["done_epochs"])
+                fitnesses = list(restored["pop_fitnesses"][0])
+                rollout._prompts = restored.get("prompts")
+                # continue the epoch line where the snapshot left it: purge
+                # post-snapshot weight epochs and pre-crash trajectories,
+                # then re-publish so actors adopt the RESTORED adapter
+                learner.epoch = done_epochs
+                weight_store.truncate_above(done_epochs)
+                traj_store.clear()
+                learner.publish()
         start = time.time()
         while done_epochs < max_epochs:
             target = min(done_epochs + evaluation_interval, max_epochs)
@@ -128,7 +154,16 @@ def finetune_llm_reasoning_online(
                       f"{len(learner.dropped_seqs)}")
             telem.record_eval([agent], [fitness])
             telem.log_step({"eval/mean_fitness": fitness})
-            if max_reward is not None and fitness >= max_reward:
+            stop = max_reward is not None and fitness >= max_reward
+            if resilience is not None:
+                last_fitness = max_fitness([fitness])
+                if resilience.step_boundary(done_epochs, _counters(), pop=[agent],
+                                            fitness=last_fitness):
+                    break
+                if stop:
+                    resilience.snapshot(done_epochs, _counters(), kind="final",
+                                        fitness=last_fitness)
+            if stop:
                 break
         if verbose:
             print(f"flywheel finished {done_epochs} epochs in "
@@ -136,8 +171,10 @@ def finetune_llm_reasoning_online(
                   f"{int(reg.counter('flywheel/decode_stalls_total').value)},"
                   f" dropped stale: {len(learner.dropped_seqs)})")
     finally:
-        # a crash escaping the loop must not leave an unflushed telemetry
-        # sink behind in a caller that catches the exception
+        # a crash escaping the loop must not leak the guard's signal handlers
+        # or leave an unflushed telemetry sink behind
+        if resilience is not None:
+            resilience.close()
         if telemetry is None:
             telem.close()
     return agent, fitnesses

@@ -19,7 +19,11 @@ host seconds spent acting and stepping (``act_s``), learning (``learn_s``),
 evaluating (``eval_s``) and evolving (``evo_s``), the learn calls, the last
 losses, the fitnesses and the mutations. ``checkpoint=`` /
 ``checkpoint_path``, ``resume`` and ``save_elite`` work as in the JAX
-package; ``resilience=`` and ``wb=True`` raise until slice 6.
+package. ``resilience=``
+(``resilience/facade.Resilience``) takes whole-run snapshots at the
+generation boundaries and a final one on a preemption request; with
+``resume`` the run continues from the newest complete snapshot, the same
+run bit for bit. ``wb=True`` raises until slice 6.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 
 from agilerl_tpu_torch.components.replay_buffer import ReplayBuffer
 from agilerl_tpu_torch.observability import init_run_telemetry
+from agilerl_tpu_torch.resilience.facade import max_fitness
 from agilerl_tpu_torch.rollouts.on_policy import env_action
 from agilerl_tpu_torch.training.train_off_policy import _f32
 from agilerl_tpu_torch.training.train_on_policy import refuse_unported
@@ -76,12 +81,12 @@ def train_multi_agent_off_policy(
     resilience=None,
 ) -> Tuple[List, List[List[float]]]:
     """Returns (population, per-agent fitness histories)."""
-    refuse_unported("train_multi_agent_off_policy", resilience=resilience, wb=wb)
+    refuse_unported("train_multi_agent_off_policy", wb=wb)
     if not isinstance(memory, ReplayBuffer):
         raise NotImplementedError(
             f"train_multi_agent_off_policy learns from the port's replay buffers "
             f"(components/multi_agent_replay_buffer.py), not a {type(memory).__name__}")
-    if resume:
+    if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
     telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
@@ -97,13 +102,29 @@ def train_multi_agent_off_policy(
     total_steps = 0
     checkpoint_count = 0
     generation = 0
+
+    def _counters():
+        return {"total_steps": total_steps, "checkpoint_count": checkpoint_count,
+                "pop_fitnesses": pop_fitnesses, "generation": generation}
+
     try:
+        if resilience is not None:
+            resilience.attach(pop=pop, memory=memory, tournament=tournament, mutation=mutation,
+                              telemetry=telem, env=env)
+            if resume:
+                restored = resilience.resume(_counters())
+                total_steps = int(restored["total_steps"])
+                checkpoint_count = int(restored["checkpoint_count"])
+                pop_fitnesses = [list(f) for f in restored["pop_fitnesses"]]
+                generation = int(restored["generation"])
         start = time.time()
         while np.min([agent.steps[-1] for agent in pop]) < max_steps:
             secs = {"act_s": 0.0, "learn_s": 0.0}
             learn_calls = 0
             losses = []
             for agent in pop:
+                if resilience is not None and resilience.abort_generation:
+                    break
                 obs, info = env.reset()
                 steps = 0
                 last_loss = None
@@ -136,10 +157,16 @@ def train_multi_agent_off_policy(
                     secs["learn_s"] += t_done - t_learn
                     telem.step(env_steps=num_envs, agent_index=agent.index,
                                host_time_s=t_done - t_learn, device_time_s=t_learn - t_act)
+                    if resilience is not None and resilience.abort_generation:
+                        break
                 memory.flush()
                 if last_loss is not None:
                     losses.append(last_loss)
                 agent.steps[-1] += steps
+
+            if resilience is not None and resilience.abort_generation:
+                resilience.step_boundary(total_steps, _counters(), pop=pop)
+                break
 
             t0 = time.perf_counter()
             fitnesses = [agent.test(env, max_steps=eval_steps, loop=eval_loop,
@@ -171,13 +198,19 @@ def train_multi_agent_off_policy(
 
             for agent in pop:
                 agent.steps.append(agent.steps[-1])
-            if checkpoint is not None and checkpoint_path is not None:
+            if resilience is not None:
+                if resilience.step_boundary(total_steps, _counters(), pop=pop,
+                                            fitness=max_fitness(fitnesses)):
+                    break
+            elif checkpoint is not None and checkpoint_path is not None:
                 if total_steps // checkpoint > checkpoint_count:
                     save_population_checkpoint(pop, checkpoint_path, overwrite_checkpoints)
                     checkpoint_count = total_steps // checkpoint
             if target is not None and np.min(fitnesses) >= target:
                 break
     finally:
+        if resilience is not None:
+            resilience.close()
         if telemetry is None:
             telem.close()
     return pop, pop_fitnesses

@@ -9,7 +9,11 @@ and the population goes through tournament selection and mutation. The
 host seconds spent collecting, learning, evaluating and evolving, the
 learn calls, the fitnesses and the mutations. ``checkpoint=`` /
 ``checkpoint_path``, ``resume`` and ``save_elite`` work as in the JAX
-package; ``resilience=`` and ``wb=True`` raise until slice 6.
+package. ``resilience=``
+(``resilience/facade.Resilience``) takes whole-run snapshots at the
+generation boundaries and a final one on a preemption request; with
+``resume`` the run continues from the newest complete snapshot, the same
+run bit for bit. ``wb=True`` raises until slice 6.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from agilerl_tpu_torch.observability import init_run_telemetry
+from agilerl_tpu_torch.resilience.facade import max_fitness
 from agilerl_tpu_torch.training.train_on_policy import refuse_unported
 from agilerl_tpu_torch.utils.utils import (
     print_hyperparams,
@@ -58,8 +63,8 @@ def train_multi_agent_on_policy(
     resilience=None,
 ) -> Tuple[List, List[List[float]]]:
     """Returns (population, per-agent fitness histories)."""
-    refuse_unported("train_multi_agent_on_policy", resilience=resilience, wb=wb)
-    if resume:
+    refuse_unported("train_multi_agent_on_policy", wb=wb)
+    if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
     telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
@@ -68,12 +73,28 @@ def train_multi_agent_on_policy(
     total_steps = 0
     checkpoint_count = 0
     generation = 0
+
+    def _counters():
+        return {"total_steps": total_steps, "checkpoint_count": checkpoint_count,
+                "pop_fitnesses": pop_fitnesses, "generation": generation}
+
     try:
+        if resilience is not None:
+            resilience.attach(pop=pop, tournament=tournament, mutation=mutation,
+                              telemetry=telem, env=env)
+            if resume:
+                restored = resilience.resume(_counters())
+                total_steps = int(restored["total_steps"])
+                checkpoint_count = int(restored["checkpoint_count"])
+                pop_fitnesses = [list(f) for f in restored["pop_fitnesses"]]
+                generation = int(restored["generation"])
         start = time.time()
         while np.min([agent.steps[-1] for agent in pop]) < max_steps:
             secs = {"collect_s": 0.0, "learn_s": 0.0}
             learn_calls = 0
             for agent in pop:
+                if resilience is not None and resilience.abort_generation:
+                    break
                 steps = 0
                 agent._last_obs = None  # fresh episodes per generation
                 for _ in range(max(evo_steps // (agent.learn_step * num_envs), 1)):
@@ -87,7 +108,13 @@ def train_multi_agent_on_policy(
                     steps += agent.learn_step * num_envs
                     total_steps += agent.learn_step * num_envs
                     telem.step(env_steps=agent.learn_step * num_envs, agent_index=agent.index)
+                    if resilience is not None and resilience.abort_generation:
+                        break
                 agent.steps[-1] += steps
+
+            if resilience is not None and resilience.abort_generation:
+                resilience.step_boundary(total_steps, _counters(), pop=pop)
+                break
 
             t0 = time.perf_counter()
             fitnesses = [agent.test(env, max_steps=eval_steps, loop=eval_loop,
@@ -118,13 +145,19 @@ def train_multi_agent_on_policy(
 
             for agent in pop:
                 agent.steps.append(agent.steps[-1])
-            if checkpoint is not None and checkpoint_path is not None:
+            if resilience is not None:
+                if resilience.step_boundary(total_steps, _counters(), pop=pop,
+                                            fitness=max_fitness(fitnesses)):
+                    break
+            elif checkpoint is not None and checkpoint_path is not None:
                 if total_steps // checkpoint > checkpoint_count:
                     save_population_checkpoint(pop, checkpoint_path, overwrite_checkpoints)
                     checkpoint_count = total_steps // checkpoint
             if target is not None and np.min(fitnesses) >= target:
                 break
     finally:
+        if resilience is not None:
+            resilience.close()
         if telemetry is None:
             telem.close()
     return pop, pop_fitnesses

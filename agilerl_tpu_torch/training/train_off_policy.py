@@ -31,7 +31,12 @@ staging and dispatching the learn steps (``learn_s``), waiting for the
 device at the end of each agent's run (``sync_s``), evaluating (``eval_s``)
 and evolving (``evo_s``), the learn calls, fitnesses and mutations.
 ``checkpoint=`` / ``checkpoint_path``, ``resume`` and ``save_elite`` work
-as in the JAX package; ``resilience=`` and ``wb=True`` raise until slice 6.
+as in the JAX package. ``resilience=`` (``resilience/facade.Resilience``)
+takes whole-run snapshots at the generation boundaries (population, replay
+rings, every random stream, counters, lineage) and a final one on a
+preemption request; with ``resume`` the run continues from the newest
+complete snapshot, the same run bit for bit. ``wb=True`` raises until
+slice 6.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 from agilerl_tpu_torch.components.replay_buffer import ReplayBuffer, drain_staging
 from agilerl_tpu_torch.components.sampler import Sampler
 from agilerl_tpu_torch.observability import init_run_telemetry
+from agilerl_tpu_torch.resilience import max_fitness
 from agilerl_tpu_torch.rollouts.on_policy import env_action
 from agilerl_tpu_torch.training.train_on_policy import refuse_unported
 from agilerl_tpu_torch.utils.spaces import as_tensor
@@ -206,12 +212,12 @@ def train_off_policy(
     resilience=None,
 ) -> Tuple[List, List[List[float]]]:
     """Returns (population, per-agent fitness histories)."""
-    refuse_unported("train_off_policy", resilience=resilience, wb=wb)
+    refuse_unported("train_off_policy", wb=wb)
     if not isinstance(memory, ReplayBuffer):
         raise NotImplementedError(
             f"train_off_policy learns from the port's replay buffers "
             f"(components/replay_buffer.py), not a {type(memory).__name__}")
-    if resume:
+    if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
     telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
@@ -244,13 +250,30 @@ def train_off_policy(
     total_steps = 0
     checkpoint_count = 0
     generation = 0
+
+    def _counters():
+        return {"total_steps": total_steps, "checkpoint_count": checkpoint_count,
+                "epsilon": epsilon, "pop_fitnesses": pop_fitnesses, "generation": generation}
+
     try:
+        if resilience is not None:
+            resilience.attach(pop=pop, memory=memory, n_step_memory=paired,
+                              tournament=tournament, mutation=mutation, telemetry=telem, env=env)
+            if resume:
+                restored = resilience.resume(_counters())
+                total_steps = int(restored["total_steps"])
+                checkpoint_count = int(restored["checkpoint_count"])
+                epsilon = float(restored["epsilon"])
+                pop_fitnesses = [list(f) for f in restored["pop_fitnesses"]]
+                generation = int(restored["generation"])
         start = time.time()
         while np.min([agent.steps[-1] for agent in pop]) < max_steps:
             secs = {"act_s": 0.0, "learn_s": 0.0, "sync_s": 0.0}
             learn_calls = 0
             losses = []
             for agent in pop:
+                if resilience is not None and resilience.abort_generation:
+                    break
                 obs, info = env.reset()
                 prev_done = np.zeros(num_envs, dtype=bool)
                 prev_transition = None
@@ -322,6 +345,8 @@ def train_off_policy(
                     secs["learn_s"] += t_done - t_learn
                     telem.step(env_steps=num_envs, agent_index=agent.index,
                                host_time_s=t_done - t_learn, device_time_s=t_learn - t_act)
+                    if resilience is not None and resilience.abort_generation:
+                        break  # the final snapshot is taken at the boundary below
 
                 # the agent's one wait on the device: the last loss and its returns
                 drain_staging(memory, paired)
@@ -331,6 +356,13 @@ def train_off_policy(
                 agent.steps[-1] += steps
                 agent.scores.append(scores.mean())
                 secs["sync_s"] += time.perf_counter() - t_sync
+
+            if resilience is not None and resilience.abort_generation:
+                # on_preempt="now": the final snapshot mid-generation, without
+                # the eval and the evolution; under "finish_generation" the
+                # boundary below takes it instead
+                resilience.step_boundary(total_steps, _counters(), pop=pop)
+                break
 
             t0 = time.perf_counter()
             fitnesses = [agent.test(env, swap_channels=swap_channels, max_steps=eval_steps,
@@ -363,13 +395,22 @@ def train_off_policy(
 
             for agent in pop:
                 agent.steps.append(agent.steps[-1])
-            if checkpoint is not None and checkpoint_path is not None:
+            if resilience is not None:
+                # cadence snapshot when due; the final one and a clean exit
+                # when a preemption was requested
+                if resilience.step_boundary(total_steps, _counters(), pop=pop,
+                                            fitness=max_fitness(fitnesses)):
+                    break
+            elif checkpoint is not None and checkpoint_path is not None:
                 if total_steps // checkpoint > checkpoint_count:
                     save_population_checkpoint(pop, checkpoint_path, overwrite_checkpoints)
                     checkpoint_count = total_steps // checkpoint
             if target is not None and np.min(fitnesses) >= target:
                 break
     finally:
+        # a crash escaping the loop must not leak the guard's signal handlers
+        if resilience is not None:
+            resilience.close()
         if telemetry is None:
             telem.close()
     return pop, pop_fitnesses

@@ -9,8 +9,12 @@ add, when the buffer is empty (a resumed buffer keeps its rows). Each learn
 is the agent's ``learn`` on ``memory.sample``, which reads its loss on the
 host (one sync per learn, as in the JAX loop). ``checkpoint=`` /
 ``checkpoint_path``, ``resume`` and ``save_elite`` work as in the JAX
-package, through the population checkpoints of ``utils/utils.py``;
-``resilience=`` and ``wb=True`` raise until slice 6.
+package, through the population checkpoints of ``utils/utils.py``.
+``resilience=`` (``resilience/facade.Resilience``) takes whole-run
+snapshots (population, the buffer, every random stream, counters) at the
+generation boundaries and a final one on a preemption request; with
+``resume`` the run continues from the newest complete snapshot (a restored
+buffer skips the dataset's ingest). ``wb=True`` raises until slice 6.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from agilerl_tpu_torch.observability import init_run_telemetry
+from agilerl_tpu_torch.resilience.facade import max_fitness
 from agilerl_tpu_torch.training.train_on_policy import refuse_unported
 from agilerl_tpu_torch.utils.utils import (
     print_hyperparams,
@@ -62,8 +67,8 @@ def train_offline(
 ) -> Tuple[List, List[List[float]]]:
     """``dataset``: observations / actions / rewards / next_observations /
     terminals arrays. Returns (population, per-agent fitness histories)."""
-    refuse_unported("train_offline", resilience=resilience, wb=wb)
-    if resume:
+    refuse_unported("train_offline", wb=wb)
+    if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
     telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
@@ -71,7 +76,21 @@ def train_offline(
     pop_fitnesses: List[List[float]] = [[] for _ in pop]
     total_steps = 0
     checkpoint_count = 0
+
+    def _counters():
+        return {"total_steps": total_steps, "checkpoint_count": checkpoint_count,
+                "pop_fitnesses": pop_fitnesses}
+
     try:
+        if resilience is not None:
+            resilience.attach(pop=pop, memory=memory, tournament=tournament, mutation=mutation,
+                              telemetry=telem, env=env)
+            if resume:
+                # a restored buffer skips the dataset's ingest below
+                restored = resilience.resume(_counters())
+                total_steps = int(restored["total_steps"])
+                checkpoint_count = int(restored["checkpoint_count"])
+                pop_fitnesses = [list(f) for f in restored["pop_fitnesses"]]
         if len(memory) == 0:
             memory.add({"obs": np.asarray(dataset["observations"]),
                         "action": np.asarray(dataset["actions"]).squeeze(),
@@ -82,11 +101,18 @@ def train_offline(
         start = time.time()
         while np.min([agent.steps[-1] for agent in pop]) < max_steps:
             for agent in pop:
+                if resilience is not None and resilience.abort_generation:
+                    break
                 for _ in range(max(evo_steps // max(agent.learn_step, 1), 1)):
                     agent.learn(memory.sample(agent.batch_size))
                     agent.steps[-1] += agent.learn_step
                     total_steps += agent.learn_step
                     telem.step(env_steps=agent.learn_step, agent_index=agent.index)
+                    if resilience is not None and resilience.abort_generation:
+                        break
+            if resilience is not None and resilience.abort_generation:
+                resilience.step_boundary(total_steps, _counters(), pop=pop)
+                break
 
             fitnesses = [agent.test(env, swap_channels=swap_channels, max_steps=eval_steps,
                                     loop=eval_loop) for agent in pop]
@@ -106,13 +132,19 @@ def train_offline(
                     elite_path=elite_path, save_elite=save_elite)
             for agent in pop:
                 agent.steps.append(agent.steps[-1])
-            if checkpoint is not None and checkpoint_path is not None:
+            if resilience is not None:
+                if resilience.step_boundary(total_steps, _counters(), pop=pop,
+                                            fitness=max_fitness(fitnesses)):
+                    break
+            elif checkpoint is not None and checkpoint_path is not None:
                 if total_steps // checkpoint > checkpoint_count:
                     save_population_checkpoint(pop, checkpoint_path, overwrite_checkpoints)
                     checkpoint_count = total_steps // checkpoint
             if target is not None and np.min(fitnesses) >= target:
                 break
     finally:
+        if resilience is not None:
+            resilience.close()
         if telemetry is None:
             telem.close()
     return pop, pop_fitnesses

@@ -14,9 +14,12 @@ and evolving (each phase ends on a device sync of its own), the number of
 ``checkpoint=`` (every that many env steps, into ``checkpoint_path``),
 ``resume`` (each member from its checkpoint before the first generation)
 and ``save_elite`` work as in the JAX package
-(``utils/utils.py``'s population checkpoints). ``resilience=`` and
-``wb=True`` raise ``NotImplementedError`` until slice 6 (distribution and
-infrastructure).
+(``utils/utils.py``'s population checkpoints). ``resilience=``
+(``resilience/facade.Resilience``) takes whole-run snapshots at the
+generation boundaries and a final one on a preemption request; with
+``resume`` the run continues from the newest complete snapshot, the same run
+bit for bit. ``wb=True`` raises ``NotImplementedError`` until slice 6
+(distribution and infrastructure).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from agilerl_tpu_torch.observability import init_run_telemetry
+from agilerl_tpu_torch.resilience.facade import max_fitness
 from agilerl_tpu_torch.rollouts.on_policy import collect_rollouts
 from agilerl_tpu_torch.utils.utils import (
     print_hyperparams,
@@ -37,7 +41,7 @@ from agilerl_tpu_torch.utils.utils import (
 
 
 def refuse_unported(loop: str, **hooks) -> None:
-    """Raise for the hooks that wait for slice 6 (``resilience=``, ``wb=``)."""
+    """Raise for the hooks that wait for slice 6 (``wb=``)."""
     for name, value in hooks.items():
         if value:
             raise NotImplementedError(f"{loop} {name}= is not ported yet (slice 6: "
@@ -73,8 +77,8 @@ def train_on_policy(
     resilience=None,
 ) -> Tuple[List, List[List[float]]]:
     """Returns (population, per-agent fitness histories)."""
-    refuse_unported("train_on_policy", resilience=resilience, wb=wb)
-    if resume:
+    refuse_unported("train_on_policy", wb=wb)
+    if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
     telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
@@ -83,12 +87,28 @@ def train_on_policy(
     total_steps = 0
     checkpoint_count = 0
     generation = 0
+
+    def _counters():
+        return {"total_steps": total_steps, "checkpoint_count": checkpoint_count,
+                "pop_fitnesses": pop_fitnesses, "generation": generation}
+
     try:
+        if resilience is not None:
+            resilience.attach(pop=pop, tournament=tournament, mutation=mutation,
+                              telemetry=telem, env=env)
+            if resume:
+                restored = resilience.resume(_counters())
+                total_steps = int(restored["total_steps"])
+                checkpoint_count = int(restored["checkpoint_count"])
+                pop_fitnesses = [list(f) for f in restored["pop_fitnesses"]]
+                generation = int(restored["generation"])
         start = time.time()
         while np.min([agent.steps[-1] for agent in pop]) < max_steps:
             secs = {"collect_s": 0.0, "learn_s": 0.0}
             learn_calls = 0
             for agent in pop:
+                if resilience is not None and resilience.abort_generation:
+                    break
                 steps = 0
                 agent._last_obs = None  # fresh episodes per generation
                 for _ in range(max(evo_steps // (agent.learn_step * num_envs), 1)):
@@ -102,7 +122,14 @@ def train_on_policy(
                     steps += agent.learn_step * num_envs
                     total_steps += agent.learn_step * num_envs
                     telem.step(env_steps=agent.learn_step * num_envs, agent_index=agent.index)
+                    if resilience is not None and resilience.abort_generation:
+                        break
                 agent.steps[-1] += steps
+
+            if resilience is not None and resilience.abort_generation:
+                # on_preempt="now": the final snapshot mid-generation
+                resilience.step_boundary(total_steps, _counters(), pop=pop)
+                break
 
             t0 = time.perf_counter()
             fitnesses = [agent.test(env, swap_channels=swap_channels, max_steps=eval_steps,
@@ -133,13 +160,19 @@ def train_on_policy(
 
             for agent in pop:
                 agent.steps.append(agent.steps[-1])
-            if checkpoint is not None and checkpoint_path is not None:
+            if resilience is not None:
+                if resilience.step_boundary(total_steps, _counters(), pop=pop,
+                                            fitness=max_fitness(fitnesses)):
+                    break
+            elif checkpoint is not None and checkpoint_path is not None:
                 if total_steps // checkpoint > checkpoint_count:
                     save_population_checkpoint(pop, checkpoint_path, overwrite_checkpoints)
                     checkpoint_count = total_steps // checkpoint
             if target is not None and np.min(fitnesses) >= target:
                 break
     finally:
+        if resilience is not None:
+            resilience.close()
         if telemetry is None:
             telem.close()
     return pop, pop_fitnesses

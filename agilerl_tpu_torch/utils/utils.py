@@ -1,16 +1,22 @@
 """Population factory, env maker, evolution glue and population
-checkpoints: the port of ``agilerl_tpu/utils/utils.py`` for GRPO, DPO, PPO,
+checkpoints: the port of ``agilerl_tpu/utils/utils.py`` (all of it but
+``gather_across_hosts``, ``aggregate_metrics_across_hosts`` and
+``init_wandb``, which wait for slice 6) for GRPO, DPO, PPO,
 DQN, RainbowDQN, CQN, DDPG, TD3, MADDPG, MATD3, IPPO, NeuralUCB and NeuralTS
 (``create_population``,
 ``make_vect_envs``, ``tournament_selection_and_mutation`` with
 ``save_elite``, ``save_population_checkpoint``,
 ``resume_population_from_checkpoint``, ``load_population_checkpoint``,
-``consolidate_mutations``, ``print_hyperparams``), and the multi-agent info
-helpers (``get_env_defined_actions``, ``extract_action_masks``,
-``process_ma_infos``, ``apply_env_defined_actions``,
-``forced_action_arrays``), and ``make_multi_agent_vect_envs`` (the
-PettingZoo vector envs). A device env gives ``{}`` infos, for which the
-helpers do nothing. The other algorithms come with their slices."""
+``consolidate_mutations``, ``print_hyperparams``, ``get_algo_class``), the
+multi-agent info helpers (``get_env_defined_actions``,
+``extract_action_masks``, ``process_ma_infos``,
+``apply_env_defined_actions``, ``forced_action_arrays``),
+``make_multi_agent_vect_envs`` (the PettingZoo vector envs) and the host
+helpers ``make_skill_vect_envs`` (gymnasium, imported at the call),
+``observation_space_channels_to_first``, ``calculate_vectorized_scores``,
+``plot_population_score`` (matplotlib, imported at the call) and
+``default_progress_bar`` (tqdm, imported at the call). A device env gives
+``{}`` infos, for which the helpers do nothing."""
 
 from __future__ import annotations
 
@@ -66,6 +72,16 @@ def _algo_class(algo: str):
             f"create_population is ported for {', '.join(_ALGO_MODULES)}, not {algo!r}")
     return getattr(importlib.import_module(
         f"agilerl_tpu_torch.algorithms.{_ALGO_MODULES[algo]}"), algo)
+
+
+def get_algo_class(algo: str):
+    """The algorithm class of a name (``"Rainbow DQN"`` is ``RainbowDQN``);
+    an unknown name raises ``KeyError`` listing the known ones."""
+    name = "RainbowDQN" if algo == "Rainbow DQN" else algo
+    if name not in _ALGO_MODULES:
+        raise KeyError(f"Unknown algorithm {algo!r}; known: "
+                       f"{sorted(list(_ALGO_MODULES) + ['Rainbow DQN'])}")
+    return _algo_class(name)
 
 
 def create_population(
@@ -161,6 +177,96 @@ def make_multi_agent_vect_envs(env, num_envs: int = 1, should_async_vector: bool
     return (AsyncPettingZooVecEnv if should_async_vector else PettingZooVecEnv)(fns)
 
 
+def make_skill_vect_envs(env_name: str, skill, num_envs: int = 1):
+    """A gymnasium ``AsyncVectorEnv`` of ``num_envs`` copies of ``env_name``,
+    each wrapped in the curriculum ``skill`` (``wrappers/learning.Skill``);
+    gymnasium is imported here."""
+    import gymnasium as gym
+
+    return gym.vector.AsyncVectorEnv(
+        [lambda: skill(gym.make(env_name)) for _ in range(num_envs)])
+
+
+def observation_space_channels_to_first(observation_space):
+    """An image space's ``[H, W, C]`` as ``[C, H, W]``, through ``Dict`` and
+    ``Tuple`` spaces; other spaces are returned as they are. The port's CNN
+    is NHWC, so this serves channels-first torch policies (``MakeEvolvable``)
+    and configs that set ``swap_channels``. Works on the port's spaces and
+    on gymnasium's (the result is of the input's classes)."""
+    from agilerl_tpu_torch.utils.spaces import space_kind
+
+    kind = space_kind(observation_space)
+    if kind == "dict":
+        return type(observation_space)(
+            {k: observation_space_channels_to_first(v)
+             for k, v in observation_space.spaces.items()})
+    if kind == "tuple":
+        return type(observation_space)(
+            tuple(observation_space_channels_to_first(s) for s in observation_space.spaces))
+    if kind == "box" and len(observation_space.shape) == 3:
+        return type(observation_space)(low=np.moveaxis(observation_space.low, -1, 0),
+                                       high=np.moveaxis(observation_space.high, -1, 0),
+                                       dtype=observation_space.dtype)
+    return observation_space
+
+
+def calculate_vectorized_scores(rewards: np.ndarray, terminations: np.ndarray,
+                                include_unterminated: bool = False,
+                                only_first_episode: bool = True) -> List[float]:
+    """Episode scores from per-env reward rows ``[num_envs, T]``, cut at
+    termination points: each env's first episode (or, with
+    ``only_first_episode=False``, every one, and with
+    ``include_unterminated`` the unfinished tail too); an env that never
+    terminates scores its whole row."""
+    rewards, terminations = np.asarray(rewards), np.asarray(terminations)
+    episode_rewards: List[float] = []
+    for env_index in range(rewards.shape[0]):
+        term_idx = np.where(terminations[env_index] == 1)[0]
+        if len(term_idx) == 0:
+            episode_rewards.append(float(np.sum(rewards[env_index])))
+            continue
+        start = 0
+        for t in term_idx:
+            episode_rewards.append(float(np.sum(rewards[env_index, start:t + 1])))
+            start = t + 1
+            if only_first_episode:
+                break
+        if include_unterminated and not only_first_episode and start < rewards.shape[1]:
+            episode_rewards.append(float(np.sum(rewards[env_index, start:])))
+    return episode_rewards
+
+
+def plot_population_score(pop, path: Optional[str] = None):
+    """Each agent's fitness history as one curve (matplotlib, imported here;
+    None when it is not installed). Saved to ``path`` when given."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    fig, ax = plt.subplots()
+    for agent in pop:
+        ax.plot(agent.fitness, label=f"agent {agent.index}")
+    ax.set_xlabel("evaluation")
+    ax.set_ylabel("fitness")
+    ax.legend()
+    if path:
+        fig.savefig(path)
+    return fig
+
+
+def default_progress_bar(total: int, desc: str = ""):
+    """A tqdm ``trange`` (imported here), or a plain ``range`` without tqdm."""
+    try:
+        from tqdm import trange
+
+        return trange(total, desc=desc)
+    except ImportError:
+        return range(total)
+
+
 def consolidate_mutations(population: List) -> None:
     """Cross-process mutation-consistency check: every process runs the same
     seeded RNG, so the decisions are already identical; this verifies it
@@ -238,7 +344,10 @@ def resume_population_from_checkpoint(pop: List, checkpoint_path: Optional[str])
         f = _member_path(checkpoint_path, agent.index)
         if not f.exists():
             continue
-        before = agent.checkpoint_dict()
+        # the rollback needs no frozen LLM base (``_restore`` ignores init_dict)
+        before = (agent.checkpoint_dict(include_base=False)
+                  if getattr(agent, "base_params", None) is not None
+                  else agent.checkpoint_dict())
         try:
             agent.load_checkpoint(f)
         except (pickle.UnpicklingError, EOFError, OSError, AttributeError, KeyError,

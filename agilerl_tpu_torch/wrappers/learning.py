@@ -10,7 +10,7 @@ contexts in the same order.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 
@@ -51,6 +51,18 @@ class BanditEnv:
         reward = np.float32(1.0 if int(action) == int(self.targets[self._idx]) else 0.0)
         self._idx = int(self._rng.integers(0, self.num_samples))
         return self._context(self._idx), reward
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The sample stream and the current sample: what a whole-run
+        snapshot needs to continue the same pulls (the JAX package's
+        ``BanditEnv`` has no ``state_dict``, so its snapshots do not)."""
+        return {"rng": self._rng.bit_generator.state, "idx": self._idx}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        bg = getattr(np.random, state["rng"]["bit_generator"])()
+        bg.state = state["rng"]
+        self._rng = np.random.Generator(bg)
+        self._idx = int(state["idx"])
 
 
 class Skill:

@@ -92,7 +92,7 @@ of which ends the run with a non-zero exit on any failure:
 4h. slice 5a, evolutionary PPO at configs/training/ppo.yaml's widths
    (CartPole-v1 as a ``TorchVecEnv`` of 16 envs, population 4, learn_step
    128, batch 256, 4 epochs, latent 32, hidden [64]; evo_steps cut from
-   10,240 to 5,120 and max_steps from 200,000 to 8,192 = 2 generations):
+   10,240 to 2,048 and max_steps from 200,000 to 4,096 = 2 generations):
    ``train_on_policy`` through
    ``create_population("PPO")`` and ``make_vect_envs`` (env-steps/s; per
    generation the seconds collecting, learning, evaluating and evolving, ms
@@ -121,7 +121,7 @@ of which ends the run with a non-zero exit on any failure:
 4k. slice 5c-i: ``train_off_policy`` on configs/training/dqn/dqn_rainbow.yaml
    (Rainbow: PER + 3-step + C51 + noisy nets; CartPole-v1 as a
    ``TorchVecEnv`` of 16 envs, population 4, buffers of 20,000 rows;
-   evo_steps cut from 10,000 to 2,560 and max_steps from 200,000 to 5,120
+   evo_steps cut from 10,000 to 1,536 and max_steps from 200,000 to 3,072
    = 2 generations): env-steps/s, per generation
    the seconds acting and stepping the env, dispatching the learn steps,
    waiting for the device, evaluating and evolving, fitnesses, peak memory;
@@ -134,8 +134,8 @@ of which ends the run with a non-zero exit on any failure:
 4l. slice 5c-ii: ``train_off_policy`` on configs/training/ddpg/ddpg.yaml
    (DDPG, OU noise) and td3.yaml (TD3) at their widths (Pendulum-v1 as a
    ``TorchVecEnv`` of 16 envs, population 4, batch 128, a 100,000-row
-   buffer, latent 64, hidden [64]; evo_steps cut to 400 and max_steps to
-   800 = 2 generations), DDPG once more on a PER buffer through the loop's
+   buffer, latent 64, hidden [64]; evo_steps cut to 256 and max_steps to
+   512 = 2 generations), DDPG once more on a PER buffer through the loop's
    sampled path (1 generation): env-steps/s and the parts of each
    generation; the host syncs of one DDPG ``learn_from_buffer`` (0) and per
    env step (<= 1), its ms and launches; both policy probes; a DDPG
@@ -163,7 +163,7 @@ of which ends the run with a non-zero exit on any failure:
    at their widths on ``SimpleSpreadTorch(n_agents=2)`` (a
    ``MultiAgentTorchVecEnv`` of 8 envs, population 4, batch 128, a
    100,000-row ``MultiAgentReplayBuffer``, latent 64, hidden [64];
-   evo_steps cut to 200 and max_steps to 400 = 2 generations):
+   evo_steps cut to 120 and max_steps to 240 = 2 generations):
    env-steps/s and the parts of each generation; the host syncs of one
    learn (1, the loss read) and of the loop's vector steps without learns;
    ms and launches per learn; a discrete and a continuous MADDPG probe and
@@ -208,6 +208,24 @@ of which ends the run with a non-zero exit on any failure:
    host syncs of a vector step, the workers' start-up seconds; then
    ``AsyncAgentsWrapper(RSNorm(MADDPG))`` over 2 envs (in this process)
    whose agent_1 dies mid-episode (no kernel is on 4p or 4r);
+4s. the resilience facade: GRPO through ``finetune_llm_reasoning`` with
+   ``resilience=`` at llama3-8b (full width and depth, bf16 blocks, char
+   vocab, LoRA rank 8; population 2 on one base, data batch 2, group 4, 16
+   new tokens, eval every 2 steps with a tournament and RL-HP mutation):
+   run A takes 4 steps; run B is sent a real SIGTERM during step 2 and ends
+   with one preempt snapshot (its bytes on disk, its save seconds, no base
+   weights in it); run C, a fresh population from the same seeds, resumes
+   it (resume seconds) and must equal run A: completions token for token,
+   losses, rewards, fitnesses, actor and reference adapters and Adam
+   moments bit for bit (launches of #1, #3, #4, #5, #6 counted over A, B,
+   C; each kernel against its plain version at the learn's shapes, and
+   twice on the same inputs for bit-identical output); ``train_off_policy``
+   DQN at dqn.yaml's widths on the device CartPole with a crash injected
+   into the second snapshot's commit, resumed from the first to the
+   uninterrupted run's fitness stream and weights; ``ScanRun(EvoPPO)`` at
+   4i's widths snapshotted after 1 generation and resumed into another
+   seed, 2 generations bit-equal; ``MakeEvolvable`` of a torch.nn MLP and
+   CNN on the card against the module;
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -2389,10 +2407,11 @@ def run_offline_hf_moe(torch, M, report):
 # ------------------------------- phase 4h ---------------------------------- #
 # configs/training/ppo.yaml (the card's machine has no PyYAML): evolutionary
 # PPO on CartPole-v1, 16 envs, population 4. Cuts, for time: MAX_STEPS
-# 200,000 -> 8,192 and EVO_STEPS 10,240 -> 5,120 (2 generations of 2
-# collect + learn pairs per agent, about 4,100 steps each; 10,240 ran a
-# third generation until the slice of the evolvable transformers, the
-# bandits and the PettingZoo envs came).
+# 200,000 -> 4,096 and EVO_STEPS 10,240 -> 2,048 (2 generations of one
+# collect + learn pair per agent, 2,048 steps each; 8,192 / 5,120, two pairs,
+# until the resilience phase 4s came; 10,240 ran a third generation until
+# the slice of the evolvable transformers, the bandits and the PettingZoo
+# envs came).
 PPO_ENV = "CartPole-v1"
 PPO_INIT_HP = {"POP_SIZE": 4, "BATCH_SIZE": 256, "LR": 3e-4, "GAMMA": 0.99, "GAE_LAMBDA": 0.95,
                "CLIP_COEF": 0.2, "ENT_COEF": 0.01, "VF_COEF": 0.5, "MAX_GRAD_NORM": 0.5,
@@ -2401,8 +2420,8 @@ PPO_NET = {"latent_dim": 32, "encoder_config": {"hidden_size": (64,)}}
 PPO_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activation=0.0,
                     rl_hp=0.2)
 PPO_TOURNAMENT = (2, True, 4, 1)  # size, elitism, population, eval loop
-PPO_EVO_STEPS = 5_120  # cut from 10,240
-PPO_MAX_STEPS = 8_192  # cut from 200,000
+PPO_EVO_STEPS = 2_048  # cut from 10,240
+PPO_MAX_STEPS = 4_096  # cut from 200,000
 # tests/test_algorithms/test_ppo.py:87-108: the probe checks' settings
 PPO_PROBE = dict(num_envs=8, learn_step=16, batch_size=64, update_epochs=4, lr=3e-3, gamma=0.5,
                  ent_coef=0.05, seed=3,
@@ -3185,9 +3204,10 @@ def run_encoders_and_recurrent(torch, ops, report):
 # as a TorchVecEnv of 16 envs, population 4, batch 64, lr 1e-3, gamma 0.99,
 # learn_step 4, tau 0.01, a PER buffer (alpha 0.6) and a paired 3-step buffer
 # of 20,000 rows each, 51 atoms on [0, 200], noisy nets, latent 32, hidden
-# [64]. Cuts, for time: evo_steps 10,000 -> 2,560 and max_steps 200,000 ->
-# 5,120 (2 generations of 160 vector steps per agent; the 4 agents' 20,480
-# env steps still wrap the rings; 3,200 / 6,400 until phases 4n and 4o
+# [64]. Cuts, for time: evo_steps 10,000 -> 1,536 and max_steps 200,000 ->
+# 3,072 (2 generations of 96 vector steps per agent: the 4 agents' 12,288
+# env steps fill 61 % of the rings; 2,560 / 5,120, whose 20,480 steps
+# wrapped them, until phase 4s came; 3,200 / 6,400 until phases 4n and 4o
 # came). evo_steps is cut, not max_steps alone, to keep a second
 # generation: only there do the tournament's clones and mutated agents
 # learn from the buffer. At 10,000 / 20,000 the phase took 174.5 s, at
@@ -3205,8 +3225,8 @@ OFF_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activatio
                     rl_hp=0.2, mutation_sd=0.1)
 OFF_MEMORY = 20_000
 OFF_ALPHA = 0.6
-OFF_EVO_STEPS = 2_560  # cut from 10,000
-OFF_LOOPS = (("rainbow", "RainbowDQN", RAINBOW_HP, 5_120),)  # cut from 200,000
+OFF_EVO_STEPS = 1_536  # cut from 10,000
+OFF_LOOPS = (("rainbow", "RainbowDQN", RAINBOW_HP, 3_072),)  # cut from 200,000
 OFF_SYNC_STEPS = 1_024  # the short run whose host syncs are counted (64 vector steps)
 # tests/test_algorithms/test_probe_grid.py:55-67 (DQN) and
 # test_learning_correctness.py:17-27 (Rainbow on ConstantReward)
@@ -3487,11 +3507,12 @@ def run_off_policy(torch, ops, report):
 # population 4, batch 128, lr 1e-4 / 1e-3, gamma 0.99, learn_step 2, tau
 # 0.005, policy_freq 2, OU noise for DDPG (theta 0.15, dt 0.01) and Gaussian
 # for TD3 (expl_noise 0.1), a uniform buffer of 100,000 rows, latent 64,
-# hidden [64]. Cuts, for time: evo_steps 10,000 -> 400 and max_steps
-# 200,000 -> 800 (2 generations: the tournament's clones and mutated agents
-# learn from the buffer in the second; 800 / 1,600 until phases 4q, 4p and
-# 4r came). Then DDPG on a PrioritizedReplayBuffer (alpha 0.6) through the
-# loop's sampled path for 1 generation (max_steps -> 400), and
+# hidden [64]. Cuts, for time: evo_steps 10,000 -> 256 and max_steps
+# 200,000 -> 512 (2 generations: the tournament's clones and mutated agents
+# learn from the buffer in the second; 400 / 800 until phase 4s came, 800 /
+# 1,600 until phases 4q, 4p and 4r came). Then DDPG on a
+# PrioritizedReplayBuffer (alpha 0.6) through the loop's sampled path for 1
+# generation (max_steps -> 256), and
 # configs/training/cqn.yaml through train_offline: batch 64, lr 1e-3,
 # learn_step 1, tau 0.01, double, a buffer of 20,000 rows filled once
 # from a 20,000-row dataset that collect_offline_dataset makes on the device
@@ -3507,10 +3528,10 @@ DDPG_HP = {"POP_SIZE": 4, "BATCH_SIZE": 128, "LR_ACTOR": 1e-4, "LR_CRITIC": 1e-3
 TD3_HP = dict(DDPG_HP, O_U_NOISE=False)
 CONT_NET = {"latent_dim": 64, "encoder_config": {"hidden_size": (64,)}}
 CONT_MEMORY = 100_000
-CONT_EVO_STEPS = 400  # cut from 10,000
-CONT_LOOPS = (("ddpg", "DDPG", DDPG_HP, False, 800),  # max_steps cut from 200,000
-              ("td3", "TD3", TD3_HP, False, 800),
-              ("ddpg_per", "DDPG", DDPG_HP, True, 400))
+CONT_EVO_STEPS = 256  # cut from 10,000 (400 until phase 4s came)
+CONT_LOOPS = (("ddpg", "DDPG", DDPG_HP, False, 512),  # max_steps cut from 200,000
+              ("td3", "TD3", TD3_HP, False, 512),
+              ("ddpg_per", "DDPG", DDPG_HP, True, 256))
 CONT_SYNC_STEPS = 512  # the short run whose host syncs are counted (32 vector steps)
 # tests/test_algorithms/test_ddpg_probe.py's settings, for DDPG and TD3
 CONT_PROBE = dict(lr_actor=3e-3, lr_critic=5e-3, gamma=0.9, tau=0.3, policy_freq=1,
@@ -4116,10 +4137,10 @@ def run_off_policy_scan(torch, ops, report):
 # in the repository): 8 envs, population 4, batch 128, learn_step 5, tau
 # 0.01, gamma 0.95, expl_noise 0.1, a buffer of 100,000 rows, latent 64,
 # hidden [64]; MATD3 policy_freq 2; the yaml's mutation probabilities. Cuts,
-# for time: evo_steps 10,000 -> 200 and max_steps 100,000 -> 400 (2
+# for time: evo_steps 10,000 -> 120 and max_steps 100,000 -> 240 (2
 # generations, so that the tournament's clones and mutated agents learn; at
 # 800 / 1,600 the two loops took 35.3 s on an H100 80GB HBM3 at 700 W, at
-# 400 / 800 24.3 s).
+# 400 / 800 24.3 s; 200 / 400 until phase 4s came).
 MA_AGENTS = 2
 MADDPG_HP = {"POP_SIZE": 4, "BATCH_SIZE": 128, "LR_ACTOR": 1e-4, "LR_CRITIC": 1e-3,
              "GAMMA": 0.95, "LEARN_STEP": 5, "TAU": 0.01, "EXPL_NOISE": 0.1, "NUM_ENVS": 8}
@@ -4128,8 +4149,8 @@ MA_NET = {"latent_dim": 64, "encoder_config": {"hidden_size": (64,)}}
 MA_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activation=0.0,
                    rl_hp=0.2, mutation_sd=0.1)
 MA_MEMORY = 100_000
-MA_EVO_STEPS = 200  # cut from 10,000
-MA_MAX_STEPS = 400  # cut from 100,000
+MA_EVO_STEPS = 120  # cut from 10,000 (200 until phase 4s came)
+MA_MAX_STEPS = 240  # cut from 100,000 (400 until phase 4s came)
 MA_SYNC_STEPS = 256  # the short run whose host syncs are counted (32 vector steps)
 # tests/test_envs/test_probe_ma.py's settings (one discrete and one
 # continuous MADDPG probe, the discounting probe for MATD3) at 250 learns
@@ -5218,6 +5239,408 @@ def run_pettingzoo(torch, ops, report):
     return launches
 
 
+# ------------------------------- phase 4s ---------------------------------- #
+# Slice 6's resilience facade on the card.
+# (a) GRPO through finetune_llm_reasoning with resilience= at llama3-8b (the
+# public Llama-3-8B dims at full width and depth, bf16 blocks, f32 head, the
+# char vocab of 4c's arithmetic ReasoningGym recipe, LoRA rank 8 on wq/wv,
+# random weights from seed 1): population 2 sharing one base, data batch 2,
+# group 4, 16 new tokens, beta 0.04, evaluation_interval 2 with a tournament
+# and RL-HP mutation, a test split of 2 rows. Run A: 4 steps. Run B: the
+# same, with a real SIGTERM sent to this process during step 2
+# (handle_signals=True): it ends cleanly with one preempt snapshot at step
+# 2. Run C: a fresh population from the same seeds resumes it. C equals A:
+# completions token for token, losses, rewards and fitnesses, actor and
+# reference adapters and Adam moments bit for bit.
+RES_STEPS = 4
+RES_PREEMPT_STEP = 2
+RES_PROMPTS = 2
+RES_NEW_TOKENS = 16
+RES_EVAL_ROWS = 2
+# (b) train_off_policy DQN at dqn.yaml's widths (16 envs, batch 64, lr 1e-3,
+# learn_step 4, tau 0.01, double, a 20,000-row buffer, latent 32, hidden
+# [64]) on the device CartPole, population 2, evo_steps 512 and max_steps
+# 1,536 (cut from 10,000 / 200,000: 3 generations, a snapshot at each
+# boundary): the FaultInjector crashes the second snapshot's commit; the
+# resume comes from the first complete one
+RES_DQN_HP = {"POP_SIZE": 2, "BATCH_SIZE": 64, "LR": 1e-3, "GAMMA": 0.99, "LEARN_STEP": 4,
+              "TAU": 0.01, "DOUBLE": True, "NUM_ENVS": 16}
+RES_DQN_NET = {"latent_dim": 32, "encoder_config": {"hidden_size": (64,)}}
+RES_DQN_MEMORY = 20_000
+RES_DQN_EVO = 512
+RES_DQN_MAX = 1_536
+RES_DQN_EVAL = 200
+# (c) ScanRun(EvoPPO) at 4i's widths: a snapshot after 1 generation, resumed
+# into a run of another seed, 2 generations bit-equal. (d) MakeEvolvable of
+# a torch.nn MLP and CNN on the card against the module (f32, TF32 off)
+MAKE_EVOLVABLE_ATOL = 1e-5
+
+
+class RecordingGym:
+    """A ReasoningGym proxy that keeps every training step's and eval's
+    completion ids and rewards, and sends SIGTERM to this process after
+    its ``sigterm_after``-th training step (the owning env's state_dict is
+    what a snapshot captures: the proxy forwards every other attribute)."""
+
+    def __init__(self, env, sigterm_after=None):
+        self.env = env
+        self.sigterm_after = sigterm_after
+        self.steps = 0
+        self.completions = []
+        self.rewards = []
+        self.last_batch = None
+
+    def _keep(self, completion_ids, rewards):
+        import numpy as np
+
+        self.completions.append(np.array(completion_ids, copy=True))
+        self.rewards.append(np.array(rewards, copy=True))
+
+    def step(self, completion_ids, completion_mask):
+        import os
+        import signal
+
+        out = self.env.step(completion_ids, completion_mask)
+        self._keep(completion_ids, out[1])
+        self.steps += 1
+        if self.steps == self.sigterm_after:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    def step_eval(self, completion_ids, completion_mask):
+        out = self.env.step_eval(completion_ids, completion_mask)
+        self._keep(completion_ids, out[1])
+        return out
+
+    def assemble_learn_batch(self, completion_ids, completion_mask):
+        self.last_batch = self.env.assemble_learn_batch(completion_ids, completion_mask)
+        return self.last_batch
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+
+def leaves_equal(torch, a, b):
+    from agilerl_tpu_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y) for x, y in zip(la, lb))
+
+
+def max_abs_diff(torch, a, b):
+    from agilerl_tpu_torch.utils.tree import tree_leaves
+
+    return max((float((x.double() - y.double()).abs().max()) for x, y in
+                zip(tree_leaves(a), tree_leaves(b)) if isinstance(x, torch.Tensor)), default=0.0)
+
+
+def kernel_repeats(torch, tfa, tfl, cfg, base, ids, mask, loss_mask):
+    """Each learn kernel called twice on the same inputs at phase 4s's learn
+    shapes (the fused forward and dH on the batch's hidden states against
+    the head; the bf16 flash forward, dQ and dK/dV on seeded q/k/v in the
+    model's strided views under the batch's mask): True where the two
+    outputs are bit-identical."""
+    from agilerl_tpu_torch.llm import model as M
+
+    g = torch.Generator(device="cuda").manual_seed(43)
+    B, T = ids.shape
+    head = M._head(cfg, base).float().contiguous()
+    with torch.no_grad():
+        hidden, _ = M.forward(cfg, base, ids, attention_mask=mask, flash=True)
+    h = hidden[:, :-1].reshape(-1, hidden.shape[-1]).float().contiguous()
+    t = ids[:, 1:].reshape(-1)
+    _, lse = tfl.fused_logprob_fwd_cuda(h, head, t)
+    up = (torch.randn(B, 1, device="cuda", generator=g) * loss_mask).reshape(-1).contiguous()
+    q, k, v = flash_inputs(torch, B, cfg.n_head, cfg.kv_heads, T, cfg.head_dim, torch.bfloat16,
+                           True, g)
+    out, flse = tfa.flash_attention_fwd_cuda(q, k, v, mask, True)
+    dout = torch.randn(B, T, cfg.n_head, cfg.head_dim, device="cuda",
+                       generator=g).to(torch.bfloat16).transpose(1, 2)
+    dd = (dout.float() * out.float()).sum(-1).contiguous()
+    calls = {
+        "fused_logprob_fwd": lambda: tfl.fused_logprob_fwd_cuda(h, head, t),
+        "fused_logprob_dh": lambda: tfl.fused_logprob_dh_cuda(h, head, t, lse, up),
+        "flash_attention_fwd": lambda: tfa.flash_attention_fwd_cuda(q, k, v, mask, True),
+        "flash_attention_dq": lambda: tfa.flash_attention_dq_cuda(q, k, v, dout, flse, dd, mask,
+                                                                  True),
+        "flash_attention_dkv": lambda: tfa.flash_attention_dkv_cuda(q, k, v, dout, flse, dd,
+                                                                    mask, True),
+    }
+    return {name: leaves_equal(torch, fn(), fn()) for name, fn in calls.items()}
+
+
+def run_resilience(torch, ops, tfa, tfl, presets, report):
+    """Phase 4s (see the constants above). Returns the kernel launches of
+    (a), the GRPO runs A, B and C."""
+    import pickle
+    import random
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from agilerl_tpu_torch.components.replay_buffer import ReplayBuffer
+    from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
+    from agilerl_tpu_torch.llm import model as M
+    from agilerl_tpu_torch.observability.events import MemorySink
+    from agilerl_tpu_torch.observability.facade import RunTelemetry
+    from agilerl_tpu_torch.observability.registry import MetricsRegistry
+    from agilerl_tpu_torch.parallel import ScanRun
+    from agilerl_tpu_torch.resilience import (
+        FaultInjector,
+        InjectedCrash,
+        Resilience,
+        base_fingerprint,
+    )
+    from agilerl_tpu_torch.training.train_llm import finetune_llm_reasoning
+    from agilerl_tpu_torch.training.train_off_policy import train_off_policy
+    from agilerl_tpu_torch.utils.llm_utils import CharTokenizer, ReasoningGym
+    from agilerl_tpu_torch.utils.tree import tree_leaves
+    from agilerl_tpu_torch.utils.utils import create_population, make_vect_envs
+
+    out = {}
+    workdir = Path(tempfile.mkdtemp(prefix="phase4s_"))
+
+    # ---- (a) GRPO at llama3-8b, preempted by SIGTERM and resumed ----
+    tok = CharTokenizer()
+    cfg = presets.preset("llama3-8b", vocab_size=tok.vocab_size, max_seq_len=256)
+    torch.cuda.reset_peak_memory_stats()
+    base, t_init = host_s(torch, lambda: M.init_params(1, cfg))
+    base_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(base))
+    log(f"phase 4s: GRPO through finetune_llm_reasoning with resilience= at llama3-8b: "
+        f"{cfg.n_layer} layers, d_model {cfg.d_model}, char vocab {cfg.vocab_size}; "
+        f"{sum(t.numel() for t in tree_leaves(base)) / 1e9:.3f}B base parameters "
+        f"({base_bytes / 1e9:.2f} GB) in {t_init:.1f} s; population 2, data batch "
+        f"{RES_PROMPTS}, group {GROUP_SIZE}, {RES_NEW_TOKENS} new tokens, {RES_STEPS} steps, "
+        f"eval every 2, SIGTERM during step {RES_PREEMPT_STEP}")
+
+    def make():
+        np.random.seed(0)
+        random.seed(0)
+        env = ReasoningGym(arith_rows(64, 0), arith_rows(RES_EVAL_ROWS, 1), tok,
+                           reward_fn=arith_reward, data_batch_size=RES_PROMPTS, seed=3)
+        pop = create_population("GRPO", population_size=2, seed=0, config=cfg,
+                                base_params=base, pad_token_id=tok.pad_token_id,
+                                eos_token_id=tok.eos_token_id, group_size=GROUP_SIZE,
+                                batch_size=RES_PROMPTS * GROUP_SIZE,
+                                max_output_tokens=RES_NEW_TOKENS, lora_rank=LORA_RANK)
+        return env, pop
+
+    def go(env, pop, res, resume=False):
+        sink = MemorySink()
+        telem = RunTelemetry(registry=MetricsRegistry(sink=sink))
+        try:
+            (new_pop, fit), t = host_s(torch, lambda: finetune_llm_reasoning(
+                pop, env, max_steps=RES_STEPS, evaluation_interval=2, verbose=False,
+                tournament=TournamentSelection(2, True, 2, 1, rng=np.random.default_rng(0)),
+                mutation=Mutations(no_mutation=0.5, architecture=0.0, parameters=0.0,
+                                   activation=0.0, rl_hp=0.5, rand_seed=0),
+                telemetry=telem, resilience=res, resume=resume))
+        finally:
+            telem.close()
+        losses = [e["train/loss"] for e in sink.events if "train/loss" in e]
+        mfu = [e["mfu"] for e in sink.events if e["kind"] == "step" and "mfu" in e]
+        return new_pop, fit, losses, mfu, telem.registry, t
+
+    def state(pop):
+        return [(a.actor.params, a.reference.params, a.optimizer.opt_state,
+                 a._reference_epoch, a.index, a.mut, a.lr, a.beta, a.group_size) for a in pop]
+
+    ops.reset_kernel_counters()
+    env, pop = make()
+    env_a = RecordingGym(env)
+    pop_a, fit_a, loss_a, mfu_a, _, t_a = go(env_a, pop, Resilience(
+        workdir / "a", handle_signals=False))
+    log(f"  run A: {RES_STEPS} steps in {t_a:.1f} s; losses {loss_a}; fitnesses {fit_a}; "
+        f"MFU per step {mfu_a}")
+    check(len(mfu_a) > 0 and all(m > 0 for m in mfu_a), "run A's telemetry emitted no MFU")
+
+    env, pop = make()
+    env_b = RecordingGym(env, sigterm_after=2 * RES_PREEMPT_STEP)
+    res_b = Resilience(workdir / "b", handle_signals=True)
+    handler_before = signal.getsignal(signal.SIGTERM)
+    _, fit_b, loss_b, _, reg_b, t_b = go(env_b, pop, res_b)
+    snaps = res_b.manager.snapshots()
+    check([(s.kind, s.step) for s in snaps] == [("preempt", RES_PREEMPT_STEP)],
+          f"run B: snapshots {[(s.kind, s.step) for s in snaps]}, not one preempt at step "
+          f"{RES_PREEMPT_STEP}")
+    check(signal.getsignal(signal.SIGTERM) == handler_before,
+          "run B left its SIGTERM handler installed")
+    info = snaps[0]
+    save_s = reg_b.gauge("resilience/snapshot_time_s").value
+    with open(info.path / "population.pkl", "rb") as f:
+        saved = pickle.load(f)
+    no_base = all(b["ckpt"]["init_dict"]["base_params"] is None for b in saved) and all(
+        b["base_fingerprint"] == base_fingerprint(base) for b in saved)
+    # per agent: actor, reference and Adam's m and v, each an adapter's size
+    adapter_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(pop[0].actor.params))
+    expected = 2 * 4 * adapter_bytes
+    check(no_base and info.nbytes < expected + 2 ** 20,
+          f"the snapshot holds more than the adapters and moments ({info.nbytes} bytes on "
+          f"disk, {expected} expected)")
+    log(f"  run B: SIGTERM after training step {env_b.steps} of {2 * RES_STEPS}; stopped "
+        f"cleanly after {t_b:.1f} s with one preempt snapshot at step {info.step}: "
+        f"{info.nbytes / 1e6:.2f} MB on disk (adapters and moments {expected / 1e6:.2f} MB; "
+        f"the base alone {base_bytes / 1e9:.2f} GB), "
+        f"saved in {save_s:.3f} s; entries {sorted(info.manifest['entries'])}")
+
+    env, pop = make()
+    env_c = RecordingGym(env)
+    res_c = Resilience(workdir / "b", handle_signals=False)
+    resume_s = []
+    resume = res_c.resume
+
+    def timed_resume(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return resume(*a, **kw)
+        finally:
+            resume_s.append(time.perf_counter() - t0)
+
+    res_c.resume = timed_resume
+    pop_c, fit_c, loss_c, _, _, t_c = go(env_c, pop, res_c, resume=True)
+    launches = ops.kernel_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  run C: resumed in {resume_s[0]:.3f} s, {RES_STEPS - RES_PREEMPT_STEP} steps in "
+        f"{t_c:.1f} s; losses {loss_c}; fitnesses {fit_c}; launches over A, B, C {launches}; "
+        f"peak {peak_gb:.1f} GB")
+    comp_equal = (len(env_a.completions) == len(env_b.completions) + len(env_c.completions)
+                  and all(np.array_equal(x, y) for x, y in
+                          zip(env_a.completions, env_b.completions + env_c.completions)))
+    rew_equal = all(np.array_equal(x, y) for x, y in
+                    zip(env_a.rewards, env_b.rewards + env_c.rewards))
+    equal = dict(completions=comp_equal, rewards=rew_equal,
+                 losses=loss_a == loss_b + loss_c, fitnesses=fit_a == fit_c,
+                 adapters_and_moments=leaves_equal(torch, state(pop_a), state(pop_c)))
+    # each kernel against its plain version at this path's learn shapes (the
+    # last learn batch of run C), and twice on the same inputs
+    ids, mask, loss_mask = pop_c[0]._learn_masks(*env_c.last_batch, None)
+    worst = check_learn_kernels(torch, M, tfa, tfl, cfg, base, pop_c[0].actor.params,
+                                [("grpo", ids, mask, loss_mask)], "phase 4s")
+    repeats = kernel_repeats(torch, tfa, tfl, cfg, base, ids, mask, loss_mask)
+    diff = max_abs_diff(torch, state(pop_a), state(pop_c))
+    log(f"  run C against run A: {equal}; max |C - A| over adapters and moments {diff:.3g}; "
+        f"each learn kernel repeats bit for bit: {repeats}")
+    if not all(equal.values()):
+        check(not all(repeats.values()), f"run C is not run A ({equal}) and every kernel repeats "
+              "bit for bit: the fault is outside the kernels")
+        fail(f"run C is not run A ({equal}); kernels that do not repeat bit for bit: "
+             f"{[k for k, ok in repeats.items() if not ok]}")
+    check(all(launches[k] > 0 for k in launches if k != "fused_logprob_dw"),
+          f"phase 4s (a) missed a kernel: {launches}")
+    out["grpo"] = dict(layers=cfg.n_layer, vocab=cfg.vocab_size, base_gb=base_bytes / 1e9,
+                       init_s=t_init, run_a_s=t_a, run_b_s=t_b, run_c_s=t_c,
+                       snapshot_bytes=info.nbytes, adapter_moment_bytes=expected,
+                       snapshot_save_s=save_s,
+                       resume_s=resume_s[0], entries=sorted(info.manifest["entries"]),
+                       holds_no_base=no_base, equal=equal, max_abs_diff=diff,
+                       kernels_repeat=repeats, kernels_vs_plain=worst, losses=loss_a, fitnesses=fit_a, mfu=mfu_a,
+                       launches=dict(launches), peak_gb=peak_gb)
+    del base, pop_a, pop_c, pop
+    torch.cuda.empty_cache()
+
+    # ---- (b) train_off_policy DQN: a crash injected into a snapshot's commit ----
+    log(f"phase 4s: train_off_policy, DQN at dqn.yaml's widths on the device CartPole: "
+        f"{RES_DQN_HP['NUM_ENVS']} envs, population 2, evo_steps {RES_DQN_EVO}, max_steps "
+        f"{RES_DQN_MAX} (cut from 10,000 / 200,000); the second snapshot's commit crashed")
+    save_every = RES_DQN_HP["POP_SIZE"] * RES_DQN_EVO
+
+    def dqn(res, resume=False):
+        np.random.seed(0)
+        random.seed(0)
+        env = make_vect_envs("CartPole-v1", RES_DQN_HP["NUM_ENVS"], seed=0)
+        pop = create_population("DQN", env.single_observation_space, env.single_action_space,
+                                RES_DQN_NET, RES_DQN_HP, seed=0)
+        return host_s(torch, lambda: train_off_policy(
+            env, "CartPole-v1", "DQN", pop, ReplayBuffer(RES_DQN_MEMORY, seed=0),
+            INIT_HP=RES_DQN_HP, max_steps=RES_DQN_MAX, evo_steps=RES_DQN_EVO,
+            eval_steps=RES_DQN_EVAL,
+            tournament=TournamentSelection(2, True, 2, 1, rng=np.random.default_rng(0)),
+            mutation=Mutations(no_mutation=0.5, architecture=0.0, parameters=0.0,
+                               activation=0.0, rl_hp=0.5, rand_seed=0),
+            verbose=False, resilience=res, resume=resume))
+
+    (pop_a, fit_a), t_a = dqn(Resilience(workdir / "dqn_a", save_every=save_every,
+                                         handle_signals=False))
+    crashed = False
+    t0 = time.perf_counter()
+    with FaultInjector(kill_at_op=1, match=("commit",)):
+        try:
+            dqn(Resilience(workdir / "dqn_b", save_every=save_every, handle_signals=False))
+        except InjectedCrash:
+            crashed = True
+    t_b = time.perf_counter() - t0
+    res = Resilience(workdir / "dqn_b", save_every=save_every, handle_signals=False)
+    kept = [s.step for s in res.manager.snapshots()]
+    check(crashed and kept == [save_every], f"DQN: crash {crashed}, snapshots {kept}")
+    (pop_c, fit_c), t_c = dqn(res, resume=True)
+    dqn_state = [[a.actor.params, a.actor_target.params, a.optimizer.opt_state] for a in pop_a]
+    dqn_state_c = [[a.actor.params, a.actor_target.params, a.optimizer.opt_state]
+                   for a in pop_c]
+    dqn_equal = dict(fitnesses=fit_a == fit_c,
+                     weights_and_moments=leaves_equal(torch, dqn_state, dqn_state_c))
+    log(f"  uninterrupted {t_a:.1f} s, fitnesses {fit_a}; crashed run {t_b:.1f} s, kept "
+        f"snapshots at {kept}; resumed {t_c:.1f} s, fitnesses {fit_c}; equal {dqn_equal}")
+    check(all(dqn_equal.values()) and all(len(f) == 3 for f in fit_a),
+          f"DQN resume: {dqn_equal}")
+    out["dqn"] = dict(run_a_s=t_a, run_b_s=t_b, run_c_s=t_c, fitnesses=fit_a, equal=dqn_equal,
+                      snapshot_bytes=res.manager.snapshots()[0].nbytes)
+
+    # ---- (c) ScanRun(EvoPPO) at 4i's widths ----
+    engine = evo_ppo(torch, POP)
+    run = ScanRun(engine, POP["pop"], seed=0)
+    run.run(1)
+    res = Resilience(workdir / "scan", handle_signals=False)
+    res.attach(pop=[run])
+    path, t_save = host_s(torch, lambda: res.snapshot(step=1))
+    expected = run.run(2)
+    run2 = ScanRun(engine, POP["pop"], seed=1234)
+    res2 = Resilience(workdir / "scan", handle_signals=False)
+    res2.attach(pop=[run2])
+    _, t_resume = host_s(torch, res2.resume)
+    got = run2.run(2)
+    scan_equal = dict(fitness=bool(np.array_equal(got, expected)),
+                      population=leaves_equal(torch, run.pop, run2.pop),
+                      generation=run2.generation == run.generation == 3)
+    nbytes = res.manager.snapshots()[0].nbytes
+    log(f"phase 4s: ScanRun(EvoPPO) at population {POP['pop']} x {POP['num_envs']} envs x "
+        f"{POP['rollout_len']} steps: snapshot after 1 generation {nbytes / 1e6:.1f} MB in "
+        f"{t_save:.2f} s, resumed into seed 1234 in {t_resume:.2f} s; 2 generations {scan_equal}")
+    check(all(scan_equal.values()), f"ScanRun resume: {scan_equal}")
+    out["scan"] = dict(snapshot_bytes=nbytes, save_s=t_save, resume_s=t_resume,
+                       equal=scan_equal, fitness=got.tolist())
+    res.close()
+    res2.close()
+    del run, run2
+
+    # ---- (d) MakeEvolvable on the card ----
+    import torch.nn as nn
+
+    from agilerl_tpu_torch.wrappers import MakeEvolvable
+
+    torch.manual_seed(0)
+    mlp = nn.Sequential(nn.Linear(8, 64), nn.LayerNorm(64), nn.ReLU(), nn.Linear(64, 64),
+                        nn.LayerNorm(64), nn.ReLU(), nn.Linear(64, 4)).cuda()
+    cnn = nn.Sequential(nn.Conv2d(3, 16, 3, stride=2), nn.ReLU(), nn.Conv2d(16, 32, 3),
+                        nn.ReLU(), nn.Flatten(), nn.Linear(32 * 5 * 5, 6)).cuda()
+    errs = {}
+    for name, net, x in (("mlp", mlp, torch.randn(32, 8, device="cuda")),
+                         ("cnn", cnn, torch.randn(16, 3, 15, 15, device="cuda"))):
+        module = MakeEvolvable(network=net, input_tensor=x)
+        check(all(t.device.type == "cuda" for t in tree_leaves(module.params)),
+              f"MakeEvolvable {name} left the card")
+        xin = x if name == "mlp" else x.permute(0, 2, 3, 1).contiguous()
+        with torch.no_grad():
+            errs[name] = float((module(xin) - net(x)).abs().max())
+    log(f"phase 4s: MakeEvolvable of a torch.nn MLP and CNN on the card: max |clone - module| "
+        f"{errs} (atol {MAKE_EVOLVABLE_ATOL})")
+    check(all(e <= MAKE_EVOLVABLE_ATOL for e in errs.values()), f"MakeEvolvable: {errs}")
+    out["make_evolvable"] = errs
+    report["resilience"] = out
+    return dict(out["grpo"]["launches"])
+
+
 # ------------------------------- phase 5 ----------------------------------- #
 
 
@@ -5666,6 +6089,11 @@ def main() -> None:
     pz_launches = run_pettingzoo(torch, ops, report)
     report["phase_4r_s"] = time.perf_counter() - t0
     log(f"phase 4r: {report['phase_4r_s']:.1f} s")
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        resilience_launches = run_resilience(torch, ops, tfa, tfl, presets, report)
+    report["phase_4s_s"] = time.perf_counter() - t0
+    log(f"phase 4s: {report['phase_4s_s']:.1f} s")
     # each main path's counts were set to 0 just before it and read just after
     launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
                 for k in grpo_launches}
@@ -5692,11 +6120,14 @@ def main() -> None:
                                      "multi_agent_scan": ma_scan_launches[entry["name"]],
                                      "evolvable_gpt": gpt_launches[entry["name"]],
                                      "bandits": bandit_launches[entry["name"]],
-                                     "pettingzoo": pz_launches[entry["name"]]}
+                                     "pettingzoo": pz_launches[entry["name"]],
+                                     "resilience": resilience_launches[entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":
             check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
+            check(resilience_launches[entry["name"]] > 0,
+                  f"{entry['name']} was not launched on phase 4s's GRPO runs")
     report["wall_s"] = time.perf_counter() - t_start
     log(f"wall time {report['wall_s']:.1f} s")
     log("report: " + json.dumps(report))

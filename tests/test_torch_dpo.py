@@ -140,10 +140,11 @@ def test_dpo_non_finite_loss_raises():
     assert torch.equal(tagent.actor.params["blocks"]["0"]["wq"]["B"], before)
 
 
-def test_finetune_llm_preference_evolves_a_population():
+def test_finetune_llm_preference_evolves_a_population(tmp_path):
     """2 steps of a population of 2 (data batch 3 over 5 rows, so step 2
     starts a new epoch and refreshes the reference); the eval at step 2 runs
-    one tournament and one mutation round."""
+    one tournament and one mutation round. Then each hook of the loop runs
+    (telemetry=, resilience=, resume, save_elite) and wb=True raises."""
     env = PreferenceGym(_rows(5, 0), _rows(5, 1), TOK, data_batch_size=3)
     cfg = TM.GPTConfig(dtype=torch.float32, **dict(KW, n_layer=1, d_model=32, n_head=2))
     pop = create_population("DPO", population_size=2, seed=3, device="cpu", config=cfg,
@@ -167,6 +168,18 @@ def test_finetune_llm_preference_evolves_a_population():
     assert all(a._reference_epoch == env.num_epochs == 1 for a in pop)
     assert all(not torch.equal(a.actor.params["blocks"]["0"]["wq"]["B"], b)
                for a, b in zip(pop, before))
+    from agilerl_tpu_torch.observability import RunTelemetry
+    from agilerl_tpu_torch.resilience import Resilience
+
+    values = {"telemetry": RunTelemetry(),
+              "resilience": Resilience(tmp_path / "snap", save_every=1, handle_signals=False),
+              "wb": True, "resume": True, "save_elite": True}
     for hook in ("telemetry", "resilience", "wb", "resume", "save_elite"):
-        with pytest.raises(NotImplementedError, match=hook):
-            finetune_llm_preference(pop, env, max_steps=1, verbose=False, **{hook: True})
+        if hook == "wb":
+            with pytest.raises(NotImplementedError, match=hook):
+                finetune_llm_preference(pop, env, max_steps=1, verbose=False, **{hook: True})
+            continue
+        _, fit = finetune_llm_preference(pop, env, max_steps=1, verbose=False,
+                                         **{hook: values[hook]})
+        assert fit == [[], []]
+    assert [s.step for s in values["resilience"].manager.snapshots()] == [1]

@@ -478,8 +478,24 @@ def test_online_entry_point_raises_like_the_reference_and_on_unported_hooks(tmp_
     with pytest.raises(AssertionError):
         finetune_llm_reasoning_online(agent, make_env(), tmp_path, max_epochs=1,
                                       mutation=Mutations(architecture=0.5), verbose=False)
-    for hook in (dict(resilience=object()), dict(plan=object()), dict(mesh=object()),
-                 dict(wb=True)):
+    from agilerl_tpu_torch.resilience import Resilience
+
+    for hook in (dict(resilience=Resilience(tmp_path / "snap", save_every=1,
+                                            handle_signals=False)),
+                 dict(plan=object()), dict(mesh=object()), dict(wb=True)):
+        if "resilience" in hook:
+            # resilience= runs: a snapshot at the epoch-1 boundary, and a
+            # resume continues the epoch line from it
+            _, fit = finetune_llm_reasoning_online(agent, make_env(), tmp_path / "fly",
+                                                   max_epochs=1, evaluation_interval=1,
+                                                   verbose=False, **hook)
+            assert [s.step for s in hook["resilience"].manager.snapshots()] == [1]
+            _, fit2 = finetune_llm_reasoning_online(
+                make_agent(0), make_env(), tmp_path / "fly", max_epochs=2,
+                evaluation_interval=1, verbose=False, resume=True,
+                resilience=Resilience(tmp_path / "snap", handle_signals=False))
+            assert len(fit) == 1 and len(fit2) == 2 and fit2[0] == fit[0]
+            continue
         with pytest.raises(NotImplementedError, match="not ported yet"):
             finetune_llm_reasoning_online(agent, make_env(), tmp_path, max_epochs=1,
                                           verbose=False, **hook)

@@ -61,6 +61,12 @@ _CLASSIC_IMPORTS = (
     "import agilerl_tpu_torch.algorithms.neural_ts_bandit\n"
     "import agilerl_tpu_torch.training.train_bandits\n"
     "import agilerl_tpu_torch.vector.pz_async_vec_env\n"
+    # whole-run snapshots, preemption, retry and fault injection, then
+    # MakeEvolvable and the host helpers (slice 6's resilience facade and
+    # Queue 1's item 9)
+    "import agilerl_tpu_torch.resilience.retry, agilerl_tpu_torch.resilience.preemption\n"
+    "import agilerl_tpu_torch.resilience.faults, agilerl_tpu_torch.resilience.snapshot\n"
+    "import agilerl_tpu_torch.wrappers.make_evolvable, agilerl_tpu_torch.utils.algo_utils\n"
 )
 
 
@@ -188,6 +194,28 @@ def test_fleet_entry_points_default_to_the_card(tmp_path):
     assert {m.gen.dev for m in fleet._members.values()} == {torch.device("cpu")}
     fleet.scale_up()
     assert fleet._members[2].gen.dev == torch.device("cpu")
+
+
+def test_item_9_entry_points_default_to_the_card():
+    """MakeEvolvable (both modes) and chkpt_attribute_to_device take
+    device=None as the card and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    import warnings
+
+    from agilerl_tpu_torch.utils.algo_utils import chkpt_attribute_to_device
+    from agilerl_tpu_torch.wrappers import MakeEvolvable
+
+    net = torch.nn.Sequential(torch.nn.Linear(4, 8), torch.nn.ReLU(), torch.nn.Linear(8, 2))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for make in (lambda: MakeEvolvable(network=net, input_tensor=torch.zeros(1, 4)),
+                     lambda: MakeEvolvable(num_inputs=4, num_outputs=2),
+                     lambda: chkpt_attribute_to_device({"w": torch.zeros(2)})):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    cpu = MakeEvolvable(network=net, input_tensor=torch.zeros(1, 4), device="cpu")
+    assert cpu.device == torch.device("cpu")
 
 
 def test_kernel_build_raises_without_nvcc():

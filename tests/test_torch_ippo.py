@@ -318,11 +318,11 @@ def test_jax_rollout_buffer_drops_rows_past_its_capacity():
     np.testing.assert_array_equal(np.asarray(buf.state.data["reward"])[:, 0], [0, 1, 2, 3])
 
 
-def test_train_multi_agent_on_policy_returns_the_jax_loops_shapes():
+def test_train_multi_agent_on_policy_returns_the_jax_loops_shapes(tmp_path):
     """Population 2 of IPPO on SimpleSpread (2 agents, 4 envs, learn_step 8),
     one generation of 32 env steps, tournament and mutation: the port's loop
     returns what the JAX loop returns (population size, one finite fitness
-    per agent, steps); resilience= and wb= raise."""
+    per agent, steps); resilience= runs (a cadence snapshot) and wb= raises."""
     hp = {"POP_SIZE": 2, "BATCH_SIZE": 16, "LEARN_STEP": 8, "NUM_ENVS": 4, "AGENT_IDS": IDS}
     out = {}
     for pkg in ("jax", "torch"):
@@ -345,9 +345,17 @@ def test_train_multi_agent_on_policy_returns_the_jax_loops_shapes():
                         finite=bool(np.isfinite(np.asarray(fits)).all()),
                         steps=[a.steps for a in pop], algo=[type(a).__name__ for a in pop])
     assert out["torch"] == out["jax"] and out["torch"]["fits"] == [1, 1]
-    for hook in (dict(resilience=object()), dict(wb=True)):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            train_multi_agent_on_policy(env, "s", "IPPO", pop, max_steps=1, **hook)
+    from agilerl_tpu_torch.resilience import Resilience
+
+    for hook in (dict(resilience=Resilience(tmp_path, save_every=1, handle_signals=False)),
+                 dict(wb=True)):
+        if "wb" in hook:
+            with pytest.raises(NotImplementedError, match="slice 6"):
+                train_multi_agent_on_policy(env, "s", "IPPO", pop, max_steps=1, **hook)
+            continue
+        train_multi_agent_on_policy(env, "s", "IPPO", pop, max_steps=64, evo_steps=32,
+                                    eval_steps=5, verbose=False, **hook)
+        assert [s.kind for s in hook["resilience"].manager.snapshots()] == ["cadence"]
 
 
 @pytest.mark.parametrize("env_name", ["PolicyEnvMA", "FixedObsPolicyEnvMA"])

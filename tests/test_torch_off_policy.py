@@ -231,8 +231,8 @@ def test_checkpoint_save_resume_round_trip(algo, tmp_path):
 
 def test_save_elite_writes_a_file_and_unported_hooks_raise(tmp_path):
     """save_elite checkpoints the tournament's elite as {algo}_elite.ckpt;
-    resilience= and wb= still raise, naming slice 6, and a buffer that is not
-    one of the port's is refused."""
+    resilience= runs (a cadence snapshot), wb= still raises, naming slice 6,
+    and a buffer that is not one of the port's is refused."""
     env = make_vect_envs("CartPole-v1", 2, device="cpu")
     pop = create_population("DQN", env.single_observation_space, env.single_action_space,
                             NET, {"POP_SIZE": 2}, seed=0, device="cpu")
@@ -247,9 +247,17 @@ def test_save_elite_writes_a_file_and_unported_hooks_raise(tmp_path):
     for name in ("actor", "actor_target"):
         for p, x in _flat(getattr(pop[1], name).params).items():
             np.testing.assert_array_equal(_flat(getattr(elite, name).params)[p], x)
-    for hook in (dict(resilience=object()), dict(wb=True)):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            train_off_policy(env, "CartPole-v1", "DQN", pop, RB.ReplayBuffer(8, device="cpu"),
-                             max_steps=1, **hook)
+    from agilerl_tpu_torch.resilience import Resilience
+
+    for hook in (dict(resilience=Resilience(tmp_path / "snap", save_every=1,
+                                            handle_signals=False)), dict(wb=True)):
+        if "wb" in hook:
+            with pytest.raises(NotImplementedError, match="slice 6"):
+                train_off_policy(env, "CartPole-v1", "DQN", pop,
+                                 RB.ReplayBuffer(8, device="cpu"), max_steps=1, **hook)
+            continue
+        train_off_policy(env, "CartPole-v1", "DQN", pop, RB.ReplayBuffer(64, device="cpu"),
+                         max_steps=8, evo_steps=8, eval_steps=5, verbose=False, **hook)
+        assert [s.kind for s in hook["resilience"].manager.snapshots()] == ["cadence"]
     with pytest.raises(NotImplementedError, match="port's replay buffers"):
         train_off_policy(env, "CartPole-v1", "DQN", pop, object(), per=True, max_steps=1)

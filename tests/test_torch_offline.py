@@ -162,8 +162,8 @@ def test_train_offline_matches_the_jax_loop():
 def test_train_offline_checkpoints_resume_and_refusals(tmp_path):
     """Two generations with tournament + mutation and a checkpoint each
     generation, save_elite, then resume from the checkpoint (the buffer
-    keeps its rows: no second ingest); resilience= and wb= raise, naming
-    slice 6."""
+    keeps its rows: no second ingest); resilience= runs (a cadence snapshot
+    that holds the buffer) and wb= raises, naming slice 6."""
     ds = _dataset(steps=200)
     env = TorchVecEnv(CartPole(), num_envs=2, device="cpu")
     hp = {"POP_SIZE": 2, "BATCH_SIZE": 16, "LEARN_STEP": 1, "DOUBLE": True}
@@ -186,6 +186,16 @@ def test_train_offline_checkpoints_resume_and_refusals(tmp_path):
                              evo_steps=10, eval_steps=5, resume=True, checkpoint_path=ckpt,
                              verbose=False)
     assert len(memory) == 200 and fresh[0].steps[-1] >= 30
-    for hook in (dict(resilience=object()), dict(wb=True)):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            train_offline(env, "CartPole-v1", ds, "CQN", pop, memory, max_steps=1, **hook)
+    from agilerl_tpu_torch.resilience import Resilience
+
+    for hook in (dict(resilience=Resilience(tmp_path / "snap", save_every=1,
+                                            handle_signals=False)), dict(wb=True)):
+        if "wb" in hook:
+            with pytest.raises(NotImplementedError, match="slice 6"):
+                train_offline(env, "CartPole-v1", ds, "CQN", pop, memory, max_steps=1, **hook)
+            continue
+        train_offline(env, "CartPole-v1", ds, "CQN", pop, memory, max_steps=40, evo_steps=10,
+                      eval_steps=5, verbose=False, **hook)
+        snaps = hook["resilience"].manager.snapshots()
+        assert snaps and {s.kind for s in snaps} == {"cadence"}
+        assert hook["resilience"].manager.load()[1]["buffers"]["memory"]["size_host"] == 200

@@ -360,16 +360,29 @@ def test_collect_latches_an_action_mask_from_step_infos():
 
 
 def test_train_on_policy_refuses_unported_hooks(tmp_path):
-    """resilience= and wb= raise until slice 6; checkpoint=, resume and
-    save_elite are ported (Queue 1's item 2) and run."""
+    """wb= raises until slice 6; resilience= runs (a cadence snapshot);
+    checkpoint=, resume and save_elite are ported (Queue 1's item 2) and
+    run."""
     env = make_vect_envs("CartPole-v1", 2, device="cpu")
     pop = create_population("PPO", env.single_observation_space, env.single_action_space,
                             NET, {"POP_SIZE": 2, "LEARN_STEP": 8, "BATCH_SIZE": 16},
                             num_envs=2, device="cpu", seed=0)
-    for hook in (dict(resilience=object()), dict(wb=True)):
+    from agilerl_tpu_torch.resilience import Resilience
+
+    for hook in (dict(resilience=Resilience(tmp_path / "snap", save_every=1,
+                                            handle_signals=False)), dict(wb=True)):
         name = next(iter(hook))
-        with pytest.raises(NotImplementedError, match=name):
-            train_on_policy(env, "CartPole-v1", "PPO", pop, max_steps=1, **hook)
+        if name == "wb":
+            with pytest.raises(NotImplementedError, match=name):
+                train_on_policy(env, "CartPole-v1", "PPO", pop, max_steps=1, **hook)
+            continue
+        fresh = create_population("PPO", env.single_observation_space,
+                                  env.single_action_space, NET,
+                                  {"POP_SIZE": 2, "LEARN_STEP": 8, "BATCH_SIZE": 16},
+                                  num_envs=2, device="cpu", seed=1)
+        train_on_policy(env, "CartPole-v1", "PPO", fresh, max_steps=16, evo_steps=16,
+                        eval_steps=5, verbose=False, **hook)
+        assert [s.kind for s in hook[name].manager.snapshots()] == ["cadence"]
     path = tmp_path / "ppo.ckpt"
     pop, _ = train_on_policy(env, "CartPole-v1", "PPO", pop, max_steps=16, evo_steps=16,
                              eval_steps=5, checkpoint=16, checkpoint_path=str(path),
