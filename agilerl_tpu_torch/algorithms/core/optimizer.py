@@ -13,11 +13,16 @@ steps:
   before AdamW;
 - the warmup-cosine schedule starts from 0 (``optax.warmup_cosine_decay_schedule``
   with ``init_value=0``), so the first step has learning rate 0;
+- ``sgd`` and ``rmsprop`` are optax's at its defaults (``rmsprop``'s eps
+  inside the square root, as optax has it; ``torch.optim.RMSprop`` adds it
+  outside), momentum applied after the learning rate in ``rmsprop`` as in
+  optax;
 - without a schedule the learning rate lives in the state
   (``optax.inject_hyperparams``), so ``set_lr`` edits the state in place and
   rebuilds nothing.
 
-Updates are functional: new tensors, under ``torch.no_grad``. Adam, the
+Updates are functional: new tensors, under ``torch.no_grad``. Adam, SGD's
+momentum, RMSProp's moments, the
 learning-rate scale and the parameter update run as multi-tensor
 (``torch._foreach_*``) ops over all leaves, each step of the formula one
 launch, as optax runs them leaf by leaf.
@@ -53,6 +58,19 @@ class AdamState(NamedTuple):
 
 class ScheduleState(NamedTuple):
     count: int
+
+
+class TraceState(NamedTuple):
+    trace: Tree
+
+
+class RmsState(NamedTuple):
+    nu: Tree
+
+
+class StddevState(NamedTuple):
+    mu: Tree
+    nu: Tree
 
 
 class InjectState(NamedTuple):
@@ -139,6 +157,67 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Transform(init, update)
 
 
+def identity() -> Transform:
+    return Transform(_empty, lambda updates, state, params=None: (updates, state))
+
+
+def trace(decay: float, nesterov: bool = False) -> Transform:
+    """optax.trace: momentum ``t = g + decay * t``; the update is ``t``, or
+    ``g + decay * t`` with Nesterov."""
+
+    def init(params):
+        return TraceState(tree_map(torch.zeros_like, params))
+
+    def update(updates, state, params=None):
+        g = tree_leaves(updates)
+        new = torch._foreach_add(g, torch._foreach_mul(tree_leaves(state.trace), decay))
+        out = torch._foreach_add(g, torch._foreach_mul(new, decay)) if nesterov else new
+        return _like(updates, out), TraceState(_like(updates, new))
+
+    return Transform(init, update)
+
+
+def _moment(g, m, decay: float, order: int):
+    """optax's moment update ``(1 - decay) * g**order + decay * m``."""
+    gp = g if order == 1 else torch._foreach_mul(g, g)
+    return torch._foreach_add(torch._foreach_mul(gp, 1 - decay), torch._foreach_mul(m, decay))
+
+
+def scale_by_rms(decay: float = 0.9, eps: float = 1e-8,
+                 initial_scale: float = 0.0) -> Transform:
+    """optax.scale_by_rms (eps inside the square root, no bias correction)."""
+
+    def init(params):
+        return RmsState(tree_map(lambda p: torch.full_like(p, initial_scale), params))
+
+    def update(updates, state, params=None):
+        g = tree_leaves(updates)
+        nu = _moment(g, tree_leaves(state.nu), decay, 2)
+        out = torch._foreach_mul(g, torch._foreach_rsqrt(torch._foreach_add(nu, eps)))
+        return _like(updates, out), RmsState(_like(updates, nu))
+
+    return Transform(init, update)
+
+
+def scale_by_stddev(decay: float = 0.9, eps: float = 1e-8,
+                    initial_scale: float = 0.0) -> Transform:
+    """optax.scale_by_stddev: the centered form, ``g / sqrt(nu - mu**2 + eps)``."""
+
+    def init(params):
+        return StddevState(tree_map(torch.zeros_like, params),
+                           tree_map(lambda p: torch.full_like(p, initial_scale), params))
+
+    def update(updates, state, params=None):
+        g = tree_leaves(updates)
+        mu = _moment(g, tree_leaves(state.mu), decay, 1)
+        nu = _moment(g, tree_leaves(state.nu), decay, 2)
+        var = torch._foreach_add(torch._foreach_sub(nu, torch._foreach_mul(mu, mu)), eps)
+        out = torch._foreach_mul(g, torch._foreach_rsqrt(var))
+        return _like(updates, out), StddevState(_like(updates, mu), _like(updates, nu))
+
+    return Transform(init, update)
+
+
 def add_decayed_weights(weight_decay: float) -> Transform:
     def update(updates, state, params=None):
         return tree_map(lambda g, p: g + weight_decay * p, updates, params), state
@@ -169,6 +248,24 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           eps_root: float = 0.0, weight_decay: float = 1e-4) -> Transform:
     return chain(scale_by_adam(b1, b2, eps, eps_root), add_decayed_weights(weight_decay),
                  scale_by_learning_rate(learning_rate))
+
+
+def sgd(learning_rate, momentum: Optional[float] = None,
+        nesterov: bool = False) -> Transform:
+    """optax.sgd: optional (Nesterov) momentum, then ``* -lr``."""
+    return chain(trace(momentum, nesterov) if momentum is not None else identity(),
+                 scale_by_learning_rate(learning_rate))
+
+
+def rmsprop(learning_rate, decay: float = 0.9, eps: float = 1e-8, initial_scale: float = 0.0,
+            centered: bool = False, momentum: Optional[float] = None,
+            nesterov: bool = False) -> Transform:
+    """optax.rmsprop at its defaults (eps inside the square root, no bias
+    correction): scale by the RMS (or, centered, the standard deviation) of
+    the gradients, ``* -lr``, then optional momentum."""
+    scale = scale_by_stddev if centered else scale_by_rms
+    return chain(scale(decay, eps, initial_scale), scale_by_learning_rate(learning_rate),
+                 trace(momentum, nesterov) if momentum is not None else identity())
 
 
 def inject_hyperparams(factory: Callable[..., Transform]) -> Callable[..., Transform]:
@@ -246,6 +343,8 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 OPTIMIZERS: Dict[str, Callable[..., Transform]] = {
     "adam": adam,
     "adamw": adamw,
+    "sgd": sgd,
+    "rmsprop": rmsprop,
 }
 
 

@@ -3,9 +3,8 @@
 
 A loop builds ONE :class:`RunTelemetry` (or receives one via its
 ``telemetry=`` kwarg) and routes metrics through
-:meth:`RunTelemetry.log_step`; they reach the registry and the JSONL sink.
-``wb=True`` (wandb) raises ``NotImplementedError`` until the distribution
-slice, as the port's other loops do.
+:meth:`RunTelemetry.log_step`; they reach wandb (when ``wb=True`` and wandb
+imports: ``utils/utils.init_wandb``), the registry and the JSONL sink.
 
 ``get_registry`` / ``warn_once`` live in ``registry.py`` (their one home in
 the port) and are re-exported here.
@@ -67,9 +66,6 @@ class RunTelemetry:
         project: str = "agilerl-tpu",
         trace: Optional[float] = None,
     ):
-        if wb:
-            raise NotImplementedError(
-                "RunTelemetry wb=True (wandb) is not ported yet (distribution slice)")
         if step_event_every is None:
             step_event_every = int(os.environ.get(STEP_EVERY_ENV, "1") or 1)
         self.registry = registry or MetricsRegistry()
@@ -122,12 +118,19 @@ class RunTelemetry:
                                      pod=f"{name}-{os.getpid()}",
                                      metrics=self.registry)
                 self._prev_tracer = set_tracer(self.tracer)
+        self._wandb = None
+        if wb:
+            from agilerl_tpu_torch.utils.utils import init_wandb
+
+            self._wandb = init_wandb(project=project, config=config)
         if config:
             self.registry.emit("run_config", config=config)
 
     # -- the deduplicated per-loop logging surface -------------------------
     def log_step(self, metrics: Dict[str, Any], kind: str = "metrics") -> None:
-        """Route one metrics dict to the event sink."""
+        """Route one metrics dict to wandb (when enabled) and the event sink."""
+        if self._wandb is not None:
+            self._wandb.log(metrics)
         self.registry.emit(kind, **metrics)
 
     def step(self, **kwargs) -> Optional[Dict[str, Any]]:
@@ -197,7 +200,7 @@ def init_run_telemetry(
     **kwargs,
 ) -> RunTelemetry:
     """The loops' one-liner: reuse a caller-supplied RunTelemetry or build a
-    fresh one (JSONL when configured via arg/env)."""
+    fresh one (wandb when ``wb``, JSONL when configured via arg/env)."""
     if telemetry is not None:
         return telemetry
     return RunTelemetry(wb=wb, config=config, **kwargs)

@@ -4,9 +4,9 @@ deterministic fault-injection harness, and the crash-consistent stores of
 the serving fleet and the online flywheel. The port of
 ``agilerl_tpu/resilience/``'s ``atomic.py``, ``store.py``,
 ``membership.py``, ``retry.py``, ``preemption.py``, ``faults.py``,
-``snapshot.py`` and ``facade.py`` (each whole; ``snapshot.py`` with the
-torch rules in its docstring). Process supervision (``proc.py``) is not
-ported yet."""
+``snapshot.py``, ``facade.py`` and ``proc.py`` (each whole; ``snapshot.py``
+with the torch rules in its docstring, ``proc.py`` with children that install
+their guard before importing torch)."""
 
 from agilerl_tpu_torch.resilience.atomic import (
     CorruptSnapshotError,
@@ -31,6 +31,15 @@ from agilerl_tpu_torch.resilience.membership import (
     pid_alive,
 )
 from agilerl_tpu_torch.resilience.preemption import PreemptionGuard
+from agilerl_tpu_torch.resilience.proc import (
+    ProcessSupervisor,
+    RoleContext,
+    RoleSpec,
+    SupervisedProcess,
+    read_statuses,
+    resolve_target,
+    run_role,
+)
 from agilerl_tpu_torch.resilience.retry import (
     DEFAULT_ENV_POLICY,
     RetryingEnv,
@@ -63,6 +72,8 @@ __all__ = [
     "Resilience", "max_fitness",
     "AsyncPytree", "CheckpointManager", "SnapshotInfo", "base_fingerprint",
     "PreemptionGuard",
+    "RoleSpec", "RoleContext", "SupervisedProcess", "ProcessSupervisor",
+    "resolve_target", "read_statuses", "run_role",
     "RetryPolicy", "RetryingEnv", "call_with_retries", "with_retries",
     "DEFAULT_ENV_POLICY",
     "FaultInjector", "InjectedCrash", "ScheduledFailureEnv",

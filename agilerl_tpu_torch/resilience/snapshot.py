@@ -40,9 +40,9 @@ The torch rules, where the port differs from the JAX package:
   was taken at (``GRPO.checkpoint_dict``), so a run resumed mid-epoch keeps
   the reference of the epoch's start. The JAX snapshot leaves both out, and
   its resumed agent re-copies the restored actor into the reference.
-- **``AsyncPytree``** (orbax in the JAX package) is written with
-  ``torch.save`` of host tensors inside the staged directory; the sharded
-  ``torch.distributed.checkpoint`` form waits for ``utils/checkpoint.py``.
+- **``AsyncPytree``** (orbax in the JAX package) is written through
+  ``utils/checkpoint.save_pytree`` on ``torch.distributed.checkpoint``
+  inside the staged directory, with the tree's structure beside its shards.
 
 :class:`CheckpointManager` owns the on-disk layout, retention (last K plus
 the best-fitness snapshot) and the fallback scan: restore always lands on
@@ -78,7 +78,6 @@ from agilerl_tpu_torch.utils.rng import generator_from_host, generator_to_host
 MANIFEST = "manifest.json"
 SNAPSHOT_FORMAT = 1
 _STEP_PREFIX = "step_"
-_PYTREE_FILE = "tree.pt"
 
 
 def _name_seq(name: str) -> int:
@@ -410,33 +409,18 @@ def restore_buffers(blob: Optional[Dict[str, Any]], **buffers) -> None:
 
 
 class AsyncPytree:
-    """Wrap a snapshot entry value to write it with ``torch.save`` instead of
-    pickling it into the manifest-hashed entry (the JAX package routes it
-    through orbax): a tree of tensors, each written as a host tensor into a
+    """Wrap a snapshot entry value to write it through
+    ``utils/checkpoint.save_pytree`` (``torch.distributed.checkpoint``)
+    instead of pickling it into the manifest-hashed entry, as the JAX
+    package routes it through orbax: a tree of tensors written into a
     ``<name>.pytree/`` directory inside the staged snapshot, so it rides the
-    same atomic commit. Loads come back as CPU tensors. The sharded
-    ``torch.distributed.checkpoint`` form waits for ``utils/checkpoint.py``."""
+    same atomic commit. Loads come back as CPU tensors, with the tree's
+    structure and its non-tensor leaves."""
 
     __slots__ = ("tree",)
 
     def __init__(self, tree: Any):
         self.tree = tree
-
-
-def _save_pytree(directory: Path, tree: Any) -> None:
-    from agilerl_tpu_torch.resilience.atomic import fsync_dir, fsync_file
-    from agilerl_tpu_torch.utils.tree import tree_map
-
-    directory.mkdir(parents=True)
-    host = tree_map(lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x, tree)
-    path = directory / _PYTREE_FILE
-    torch.save(host, path)
-    fsync_file(path)
-    fsync_dir(directory)
-
-
-def _load_pytree(directory: Path) -> Any:
-    return torch.load(directory / _PYTREE_FILE, map_location="cpu", weights_only=False)
 
 
 class SnapshotInfo:
@@ -556,7 +540,7 @@ class CheckpointManager:
         ``TypeError`` before anything is written); each is written to
         ``<name>.pkl`` with its sha256 recorded in the manifest, which is
         written last. Wrap a value in :class:`AsyncPytree` to write it with
-        ``torch.save`` instead.
+        ``torch.distributed.checkpoint`` instead.
 
         ``member_fitness`` / ``member_ids`` record the population's
         per-member fitness at MANIFEST level (non-finite values stored as
@@ -609,10 +593,12 @@ class CheckpointManager:
         manifest_entries: Dict[str, Dict[str, Any]] = {}
         for name, obj in entries.items():
             if isinstance(obj, AsyncPytree):
-                # torch.save path: integrity is the directory's presence,
-                # not a content hash (as the JAX package's orbax entries)
+                # DCP path: integrity is DCP's own metadata, not a content
+                # hash (as the JAX package's orbax entries)
+                from agilerl_tpu_torch.utils.checkpoint import save_pytree
+
                 fname = f"{name}.pytree"
-                _save_pytree(tmp / fname, obj.tree)
+                save_pytree(tmp / fname, obj.tree)
                 manifest_entries[fname] = {"kind": "pytree"}
                 continue
             fname = name if name.endswith(".pkl") else f"{name}.pkl"
@@ -717,8 +703,10 @@ class CheckpointManager:
                 entries = {}
                 for fname, meta in cand.manifest.get("entries", {}).items():
                     if meta.get("kind") == "pytree":
+                        from agilerl_tpu_torch.utils.checkpoint import load_pytree
+
                         try:
-                            obj = _load_pytree(cand.path / fname)
+                            obj = load_pytree(cand.path / fname)
                         except Exception as e:
                             raise CorruptSnapshotError(
                                 f"pytree entry unreadable: {cand.path / fname}: {e}"

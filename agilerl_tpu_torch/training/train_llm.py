@@ -13,7 +13,7 @@ and, for the reasoning loop, the prompt batch carried to the next step),
 ``checkpoint_interval`` / ``checkpoint_path`` / ``overwrite_checkpoints``
 (self-contained population checkpoints that ``load`` rebuilds from, the
 frozen base inside them as host numpy) and ``save_elite`` / ``elite_path``.
-``wb=True`` raises until slice 6.
+``wb=True`` logs to wandb when it imports (``utils/utils.init_wandb``).
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import numpy as np
 
 from agilerl_tpu_torch.observability import init_run_telemetry
 from agilerl_tpu_torch.resilience.facade import max_fitness
-from agilerl_tpu_torch.training.train_on_policy import refuse_unported
 from agilerl_tpu_torch.utils.utils import (
     print_hyperparams,
     resume_population_from_checkpoint,
@@ -85,10 +84,9 @@ def finetune_llm_reasoning(
 ) -> Tuple[List, List[List[float]]]:
     """GRPO reasoning finetune. Returns (population, per-agent fitnesses)."""
     _assert_llm_mutations(mutation)
-    refuse_unported("finetune_llm_reasoning", wb=wb)
     if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
-    telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
+    telem = init_run_telemetry(wb=wb, config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
     if telem.timeline.model_config is None:
         # the population's transformer config lets the timeline emit MFU
@@ -184,10 +182,9 @@ def finetune_llm_preference(
 ) -> Tuple[List, List[List[float]]]:
     """DPO preference finetune. Returns (population, per-agent fitnesses)."""
     _assert_llm_mutations(mutation)
-    refuse_unported("finetune_llm_preference", wb=wb)
     if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
-    telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
+    telem = init_run_telemetry(wb=wb, config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
     if telem.timeline.model_config is None:
         telem.timeline.set_model_config(getattr(pop[0], "model_config", None))

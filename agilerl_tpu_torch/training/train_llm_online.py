@@ -13,9 +13,9 @@ lineage and eval events. ``resilience=`` snapshots the learner agent, its
 random streams, the env's data stream and the rollout pod's carried prompt
 batch at every evaluation boundary; ``resume`` continues the epoch line from
 the newest complete snapshot (post-snapshot weight epochs and trajectory
-leftovers are purged and the restored adapter re-published). Not ported
-yet, and raising ``NotImplementedError``: ``plan=`` / ``mesh=`` (a sharded
-learner) and ``wb=True``.
+leftovers are purged and the restored adapter re-published). ``wb=True``
+logs to wandb when it imports. Not ported yet, and raising
+``NotImplementedError``: ``plan=`` / ``mesh=`` (a sharded learner).
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from agilerl_tpu_torch.llm.flywheel import (
 from agilerl_tpu_torch.observability import init_run_telemetry
 from agilerl_tpu_torch.resilience.facade import max_fitness
 from agilerl_tpu_torch.training.train_llm import _assert_llm_mutations
-from agilerl_tpu_torch.training.train_on_policy import refuse_unported
 
 
 def finetune_llm_reasoning_online(
@@ -77,8 +76,10 @@ def finetune_llm_reasoning_online(
             "start at epoch 0 under a reused workdir's newer epochs and "
             "drop every batch as negative-lag)")
     _assert_llm_mutations(mutation)
-    refuse_unported("finetune_llm_reasoning_online", plan=plan, mesh=mesh, wb=wb)
-    telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
+    if plan is not None or mesh is not None:
+        raise NotImplementedError("finetune_llm_reasoning_online plan= / mesh= is not ported "
+                                  "yet (the sharding plans)")
+    telem = init_run_telemetry(wb=wb, config=INIT_HP, telemetry=telemetry)
     if telem.timeline.model_config is None:
         telem.timeline.set_model_config(getattr(agent, "model_config", None))
     workdir = Path(workdir)

@@ -13,7 +13,7 @@ package. ``resilience=``
 (``resilience/facade.Resilience``) takes whole-run snapshots at the
 generation boundaries and a final one on a preemption request; with
 ``resume`` the run continues from the newest complete snapshot, the same
-run bit for bit. ``wb=True`` raises until slice 6.
+run bit for bit. ``wb=True`` logs to wandb when it imports.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ import numpy as np
 
 from agilerl_tpu_torch.observability import init_run_telemetry
 from agilerl_tpu_torch.resilience.facade import max_fitness
-from agilerl_tpu_torch.training.train_on_policy import refuse_unported
 from agilerl_tpu_torch.utils.utils import (
     print_hyperparams,
     resume_population_from_checkpoint,
@@ -63,10 +62,9 @@ def train_multi_agent_on_policy(
     resilience=None,
 ) -> Tuple[List, List[List[float]]]:
     """Returns (population, per-agent fitness histories)."""
-    refuse_unported("train_multi_agent_on_policy", wb=wb)
     if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
-    telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
+    telem = init_run_telemetry(wb=wb, config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
     num_envs = getattr(env, "num_envs", 1)
     pop_fitnesses: List[List[float]] = [[] for _ in pop]

@@ -14,7 +14,8 @@ package, through the population checkpoints of ``utils/utils.py``.
 snapshots (population, the buffer, every random stream, counters) at the
 generation boundaries and a final one on a preemption request; with
 ``resume`` the run continues from the newest complete snapshot (a restored
-buffer skips the dataset's ingest). ``wb=True`` raises until slice 6.
+buffer skips the dataset's ingest). ``wb=True`` logs to wandb when it
+imports.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ import numpy as np
 
 from agilerl_tpu_torch.observability import init_run_telemetry
 from agilerl_tpu_torch.resilience.facade import max_fitness
-from agilerl_tpu_torch.training.train_on_policy import refuse_unported
 from agilerl_tpu_torch.utils.utils import (
     print_hyperparams,
     resume_population_from_checkpoint,
@@ -67,10 +67,9 @@ def train_offline(
 ) -> Tuple[List, List[List[float]]]:
     """``dataset``: observations / actions / rewards / next_observations /
     terminals arrays. Returns (population, per-agent fitness histories)."""
-    refuse_unported("train_offline", wb=wb)
     if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
-    telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
+    telem = init_run_telemetry(wb=wb, config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
 
     pop_fitnesses: List[List[float]] = [[] for _ in pop]

@@ -18,8 +18,8 @@ and ``save_elite`` work as in the JAX package
 (``resilience/facade.Resilience``) takes whole-run snapshots at the
 generation boundaries and a final one on a preemption request; with
 ``resume`` the run continues from the newest complete snapshot, the same run
-bit for bit. ``wb=True`` raises ``NotImplementedError`` until slice 6
-(distribution and infrastructure).
+bit for bit. ``wb=True`` logs every metrics dict to wandb as well when wandb
+imports (``utils/utils.init_wandb``), and runs without it otherwise.
 """
 
 from __future__ import annotations
@@ -38,14 +38,6 @@ from agilerl_tpu_torch.utils.utils import (
     save_population_checkpoint,
     tournament_selection_and_mutation,
 )
-
-
-def refuse_unported(loop: str, **hooks) -> None:
-    """Raise for the hooks that wait for slice 6 (``wb=``)."""
-    for name, value in hooks.items():
-        if value:
-            raise NotImplementedError(f"{loop} {name}= is not ported yet (slice 6: "
-                                      "distribution and infrastructure)")
 
 
 def train_on_policy(
@@ -77,10 +69,9 @@ def train_on_policy(
     resilience=None,
 ) -> Tuple[List, List[List[float]]]:
     """Returns (population, per-agent fitness histories)."""
-    refuse_unported("train_on_policy", wb=wb)
     if resume and resilience is None:
         resume_population_from_checkpoint(pop, checkpoint_path)
-    telem = init_run_telemetry(config=INIT_HP, telemetry=telemetry)
+    telem = init_run_telemetry(wb=wb, config=INIT_HP, telemetry=telemetry)
     telem.attach_evolution(tournament, mutation)
     num_envs = getattr(env, "num_envs", 1)
     pop_fitnesses: List[List[float]] = [[] for _ in pop]

@@ -1,7 +1,5 @@
 """Population factory, env maker, evolution glue and population
-checkpoints: the port of ``agilerl_tpu/utils/utils.py`` (all of it but
-``gather_across_hosts``, ``aggregate_metrics_across_hosts`` and
-``init_wandb``, which wait for slice 6) for GRPO, DPO, PPO,
+checkpoints: the port of ``agilerl_tpu/utils/utils.py`` (whole) for GRPO, DPO, PPO,
 DQN, RainbowDQN, CQN, DDPG, TD3, MADDPG, MATD3, IPPO, NeuralUCB and NeuralTS
 (``create_population``,
 ``make_vect_envs``, ``tournament_selection_and_mutation`` with
@@ -14,9 +12,12 @@ multi-agent info helpers (``get_env_defined_actions``,
 ``make_multi_agent_vect_envs`` (the PettingZoo vector envs) and the host
 helpers ``make_skill_vect_envs`` (gymnasium, imported at the call),
 ``observation_space_channels_to_first``, ``calculate_vectorized_scores``,
-``plot_population_score`` (matplotlib, imported at the call) and
-``default_progress_bar`` (tqdm, imported at the call). A device env gives
-``{}`` infos, for which the helpers do nothing."""
+``plot_population_score`` (matplotlib, imported at the call),
+``default_progress_bar`` (tqdm, imported at the call) and ``init_wandb``
+(wandb, imported at the call; ``None`` without it). A device env gives
+``{}`` infos, for which the helpers do nothing. ``gather_across_hosts`` and
+``aggregate_metrics_across_hosts`` return the value itself in one process
+and all-gather over ``torch.distributed`` when a process group is up."""
 
 from __future__ import annotations
 
@@ -265,6 +266,54 @@ def default_progress_bar(total: int, desc: str = ""):
         return trange(total, desc=desc)
     except ImportError:
         return range(total)
+
+
+def init_wandb(project: str = "agilerl-tpu", config: Optional[dict] = None, **kwargs):
+    """The ``wandb`` module after ``wandb.init``, or ``None`` when wandb does
+    not import (or its init fails): the loops then log to their event sink
+    only."""
+    try:
+        import wandb
+
+        wandb.init(project=project, config=config, **kwargs)
+        return wandb
+    except Exception:
+        return None
+
+
+def _process_group():
+    """The default process group's world size, or 1 without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def gather_across_hosts(value) -> np.ndarray:
+    """All-gather a host-local scalar or array across processes, stacked on
+    a leading process axis (``[1, ...]`` in one process).
+
+    Deliberately not retried: a per-process retry of a collective pairs the
+    retrying process with the wrong collective of its peers. Collectives fail
+    fast; snapshot-resume is the recovery path."""
+    arr = np.asarray(value)
+    world = _process_group()
+    if world == 1:
+        return arr[None]
+    import torch.distributed as dist
+
+    gathered = [None] * world
+    dist.all_gather_object(gathered, arr)
+    return np.stack([np.asarray(g) for g in gathered])
+
+
+def aggregate_metrics_across_hosts(value: float) -> float:
+    """The mean of a host scalar over processes (the value itself in one
+    process); not retried, as ``gather_across_hosts``."""
+    if _process_group() == 1:
+        return float(value)
+    return float(np.mean(gather_across_hosts(np.asarray([value], np.float64))))
 
 
 def consolidate_mutations(population: List) -> None:

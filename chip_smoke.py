@@ -63,8 +63,8 @@ of which ends the run with a non-zero exit on any failure:
    to 4f's single-generator rows by the near-tie rule; affinity, prefix hits
    per replica, TTFT, decode per replica step, tokens/s, free blocks,
    program count), the same batch with replica 1 killed after the first
-   chunk, and the disaggregated topology on 8 of the requests (every prompt
-   with two repeats; 1 prefill worker, KV through the transfer store:
+   chunk, and the disaggregated topology on 4 of the requests (every prompt
+   once; 1 prefill worker, KV through the transfer store:
    transfers, MB, export/import seconds, a warm repeat with no transfer),
    both held to the unified rows by the same rule; then
    ``finetune_llm_reasoning_online`` on the arithmetic recipe (16 rows, 64
@@ -121,7 +121,7 @@ of which ends the run with a non-zero exit on any failure:
 4k. slice 5c-i: ``train_off_policy`` on configs/training/dqn/dqn_rainbow.yaml
    (Rainbow: PER + 3-step + C51 + noisy nets; CartPole-v1 as a
    ``TorchVecEnv`` of 16 envs, population 4, buffers of 20,000 rows;
-   evo_steps cut from 10,000 to 1,536 and max_steps from 200,000 to 3,072
+   evo_steps cut from 10,000 to 768 and max_steps from 200,000 to 1,536
    = 2 generations): env-steps/s, per generation
    the seconds acting and stepping the env, dispatching the learn steps,
    waiting for the device, evaluating and evolving, fitnesses, peak memory;
@@ -212,7 +212,7 @@ of which ends the run with a non-zero exit on any failure:
    ``resilience=`` at llama3-8b (full width and depth, bf16 blocks, char
    vocab, LoRA rank 8; population 2 on one base, data batch 2, group 4, 16
    new tokens, eval every 2 steps with a tournament and RL-HP mutation):
-   run A takes 4 steps; run B is sent a real SIGTERM during step 2 and ends
+   run A takes 3 steps; run B is sent a real SIGTERM during step 2 and ends
    with one preempt snapshot (its bytes on disk, its save seconds, no base
    weights in it); run C, a fresh population from the same seeds, resumes
    it (resume seconds) and must equal run A: completions token for token,
@@ -226,6 +226,28 @@ of which ends the run with a non-zero exit on any failure:
    4i's widths snapshotted after 1 generation and resumed into another
    seed, 2 generations bit-equal; ``MakeEvolvable`` of a torch.nn MLP and
    CNN on the card against the module;
+4t. the stack as supervised OS processes (``training/launch.py``,
+   ``resilience/proc.py``): GRPO at llama3-8b as in 4s (full depth, char
+   vocab, data batch 2 x group 4, 16 new tokens; rollouts on the continuous
+   tier with captured logprobs), staleness 0, 4 epochs: (a) the in-process
+   ``OnlineGRPOFlywheel`` of two clones from one seed; (g) its learner's
+   adapters through ``save_llm_checkpoint`` / ``load_llm_checkpoint`` (DCP)
+   bit for bit, bytes and seconds; (b) ``launch_flywheel`` with learner and
+   rollout each an OS process on the card, its loss stream and final adapter
+   equal to (a) bit for bit, seconds per epoch, clean exits and no orphans;
+   (e) the learner process's kernel launches (#1, #3-#6) and both children's
+   peak memory, read back through the telemetry plane (the rollout launches
+   none); (c) ``kill -9`` of the learner once epoch 2 is published: respawned
+   as incarnation 1, restored from the store, the final stream equal to (a)
+   bit for bit, the seconds from the kill to its first published epoch; (d)
+   ``shutdown()`` mid-run: every role preempted or done, no process left, the
+   drain seconds; (h) ``grpo_hbm_budget`` at fsdp = tp = 1 and phase 4b's
+   shapes beside 4b's learn peak, its base term equal to the bytes the base
+   allocates and its KV term to the dense cache ``generate`` allocates; (f)
+   ``TrafficDriver`` over a 2-replica ``ServingFleet`` at llama3-8b on
+   ``scenario_suite``'s four shapes (5 virtual seconds at 4 requests/s),
+   then the flash crowd with replica 1 killed: every request completes, TTFT
+   p50 / p95;
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -234,6 +256,11 @@ of which ends the run with a non-zero exit on any failure:
    the flash forward and backward also on one unmasked causal row at
    T = 2048; SDPA (forward, or backward) on each of its backends that takes
    the inputs, in rounds with the SM clock read after each.
+
+Phases 4h-4r but 4q need nothing of the LLM phases: a second process runs
+them, in that order, alongside 4f-4t (it starts after 4d; its log is printed
+when it ends, before 4q and phase 5 run on their own), so their host times
+and those of 4f-4t are taken on a shared host.
 
 Prints a ``report: {...}`` line with every number the run took, then a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -244,7 +271,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -822,13 +852,37 @@ def small_model_check(torch, M, ops, report):
     report["small_model_err"] = err
 
 
+def recording_caches(torch, M, into, fn):
+    """``fn()`` with ``M.init_caches`` recording the KV cache it allocates:
+    k + v bytes, the mask's bytes, k's shape and the allocator's delta."""
+    init_caches = M.init_caches
+
+    def recording(*a, **kw):
+        before = torch.cuda.memory_allocated()
+        c = init_caches(*a, **kw)
+        into.update(kv_delta=torch.cuda.memory_allocated() - before,
+                    kv_bytes=c.k.numel() * c.k.element_size() + c.v.numel() * c.v.element_size(),
+                    mask_bytes=c.mask.numel() * c.mask.element_size(), kv_shape=list(c.k.shape))
+        return c
+
+    M.init_caches = recording
+    try:
+        return fn()
+    finally:
+        M.init_caches = init_caches
+
+
 def run_slice(torch, M, G, ops, presets, report):
     cfg = presets.preset("llama3-8b")
     log(f"phase 4: llama3-8b slice: {cfg.n_layer} layers, d_model {cfg.d_model}, "
         f"{cfg.n_head}/{cfg.kv_heads} heads, d_ff {cfg.ff_dim}, vocab {cfg.vocab_size}, "
         f"{cfg.dtype}")
     torch.cuda.reset_peak_memory_stats()
+    # what the base and generate's dense KV cache allocate, for phase 4t's budget
+    alloc = report["alloc"] = {}
+    before = torch.cuda.memory_allocated()
     params, t_init = host_s(torch, lambda: M.init_params(0, cfg))
+    alloc["base_bytes"] = torch.cuda.memory_allocated() - before
     actor = make_adapter(torch, M, cfg, 1)
     reference = make_adapter(torch, M, cfg, 2)
     n_params = sum(t.numel() for blk in params["blocks"].values() for t in blk.values()) + \
@@ -849,9 +903,9 @@ def run_slice(torch, M, G, ops, presets, report):
 
     ops.reset_kernel_counters()
     gen = torch.Generator(device="cuda").manual_seed(11)
-    (comp, comp_mask), t_gen = host_s(torch, lambda: G.generate(
-        cfg, params, prompt, prompt_mask, gen, max_new_tokens=MAX_NEW_TOKENS, lora=actor,
-        temperature=0.9))
+    (comp, comp_mask), t_gen = host_s(torch, lambda: recording_caches(torch, M, alloc, lambda: (
+        G.generate(cfg, params, prompt, prompt_mask, gen, max_new_tokens=MAX_NEW_TOKENS,
+                   lora=actor, temperature=0.9))))
     (greedy, greedy_mask), t_greedy = host_s(torch, lambda: G.generate(
         cfg, params, prompt, prompt_mask, None, max_new_tokens=MAX_NEW_TOKENS, lora=actor,
         temperature=0.0))
@@ -1643,9 +1697,10 @@ def run_fleet_and_flywheel(torch, M, G, ops, tfa, tfl, cfg, params, prompts, ser
         exports, import_s = [], []
         timed_method(torch, dis.store, "export", exports, ops=ops)
         timed_method(torch, dis.store, "load", import_s)
-        # half of the batch: every prompt with two of its repeats
-        rows, fr["disaggregated"] = fleet_run(torch, dis, seqs[::2], params, lora,
-                                              "disaggregated (1 prefill worker, 2 decode), 8 "
+        # a quarter of the batch: every prompt once (half of it, every
+        # prompt with two repeats, until phase 4t came)
+        rows, fr["disaggregated"] = fleet_run(torch, dis, seqs[::GROUP_SIZE], params, lora,
+                                              "disaggregated (1 prefill worker, 2 decode), 4 "
                                               "of the 16 requests")
         reg = dis.metrics
         transfers = reg.counter("fleet/kv_transfers_total").value
@@ -1666,8 +1721,8 @@ def run_fleet_and_flywheel(torch, M, G, ops, tfa, tfl, cfg, params, prompts, ser
     check(fr["disaggregated"]["compiled_programs"] <= 2 * grid + len(SERVE["prompt_buckets"]),
           "disaggregated fleet: program count")
     same, gap = greedy_divergence(torch, M, cfg, params, lora,
-                                  tuple(a[::2] for a in prompt_np), unified[::2], rows, spread,
-                                  "disaggregated vs the unified fleet")
+                                  tuple(a[::GROUP_SIZE] for a in prompt_np), unified[::GROUP_SIZE],
+                                  rows, spread, "disaggregated vs the unified fleet")
     fr["disaggregated"].update(rows_identical_to_unified=same, worst_gap=gap)
     del dis
     fleet_launches = ops.kernel_counters()
@@ -3204,12 +3259,13 @@ def run_encoders_and_recurrent(torch, ops, report):
 # as a TorchVecEnv of 16 envs, population 4, batch 64, lr 1e-3, gamma 0.99,
 # learn_step 4, tau 0.01, a PER buffer (alpha 0.6) and a paired 3-step buffer
 # of 20,000 rows each, 51 atoms on [0, 200], noisy nets, latent 32, hidden
-# [64]. Cuts, for time: evo_steps 10,000 -> 1,536 and max_steps 200,000 ->
-# 3,072 (2 generations of 96 vector steps per agent: the 4 agents' 12,288
-# env steps fill 61 % of the rings; 2,560 / 5,120, whose 20,480 steps
-# wrapped them, until phase 4s came; 3,200 / 6,400 until phases 4n and 4o
-# came). evo_steps is cut, not max_steps alone, to keep a second
-# generation: only there do the tournament's clones and mutated agents
+# [64]. Cuts, for time: evo_steps 10,000 -> 768 and max_steps 200,000 ->
+# 1,536 (2 generations of 48 vector steps per agent: the 4 agents' 6,144
+# env steps fill 31 % of the rings; 1,536 / 3,072 until phase 4t came;
+# 2,560 / 5,120, whose 20,480 steps wrapped them, until phase 4s came;
+# 3,200 / 6,400 until phases 4n and 4o came). evo_steps is cut, not
+# max_steps alone, to keep a second generation: only there do the
+# tournament's clones and mutated agents
 # learn from the buffer. At 10,000 / 20,000 the phase took 174.5 s, at
 # 4,000 / 8,000 92.8-110.4 s (its Rainbow loop 48.8-71.0 s) and at 3,200 /
 # 6,400 57.2-71.1 s on an H100 80GB HBM3 at 700 W.
@@ -3225,8 +3281,8 @@ OFF_MUTATION = dict(no_mutation=0.4, architecture=0.2, parameters=0.2, activatio
                     rl_hp=0.2, mutation_sd=0.1)
 OFF_MEMORY = 20_000
 OFF_ALPHA = 0.6
-OFF_EVO_STEPS = 1_536  # cut from 10,000
-OFF_LOOPS = (("rainbow", "RainbowDQN", RAINBOW_HP, 3_072),)  # cut from 200,000
+OFF_EVO_STEPS = 768  # cut from 10,000
+OFF_LOOPS = (("rainbow", "RainbowDQN", RAINBOW_HP, 1_536),)  # cut from 200,000
 OFF_SYNC_STEPS = 1_024  # the short run whose host syncs are counted (64 vector steps)
 # tests/test_algorithms/test_probe_grid.py:55-67 (DQN) and
 # test_learning_correctness.py:17-27 (Rainbow on ConstantReward)
@@ -5246,13 +5302,13 @@ def run_pettingzoo(torch, ops, report):
 # char vocab of 4c's arithmetic ReasoningGym recipe, LoRA rank 8 on wq/wv,
 # random weights from seed 1): population 2 sharing one base, data batch 2,
 # group 4, 16 new tokens, beta 0.04, evaluation_interval 2 with a tournament
-# and RL-HP mutation, a test split of 2 rows. Run A: 4 steps. Run B: the
+# and RL-HP mutation, a test split of 2 rows. Run A: 3 steps. Run B: the
 # same, with a real SIGTERM sent to this process during step 2
 # (handle_signals=True): it ends cleanly with one preempt snapshot at step
 # 2. Run C: a fresh population from the same seeds resumes it. C equals A:
 # completions token for token, losses, rewards and fitnesses, actor and
 # reference adapters and Adam moments bit for bit.
-RES_STEPS = 4
+RES_STEPS = 3  # 4 until phase 4t came
 RES_PREEMPT_STEP = 2
 RES_PROMPTS = 2
 RES_NEW_TOKENS = 16
@@ -5641,6 +5697,413 @@ def run_resilience(torch, ops, tfa, tfl, presets, report):
     return dict(out["grpo"]["launches"])
 
 
+# ------------------------------- phase 4t ---------------------------------- #
+# The stack as supervised OS processes (training/launch.py, resilience/proc.py):
+# GRPO at llama3-8b full depth with 4s's char vocab and arithmetic recipe (data
+# batch 2 x group 4, 16 new tokens), staleness 0, 4 epochs; rollouts decode
+# through the continuous tier with captured logprobs (as 4g's fleet)
+LAUNCH_EPOCHS = 4
+LAUNCH_KILL_EPOCH = 2
+LAUNCH_PROMPTS = 2
+LAUNCH_NEW_TOKENS = 16
+LAUNCH_LEASE_S = 10.0
+LAUNCH_GRACE_S = 60.0
+LAUNCH_TIMEOUT_S = 300.0
+#: the children import the factories below as chip_smoke:<fn>, from this
+#: checkout's root (which may be a copy of the tree)
+LAUNCH_PATH = str(Path(__file__).resolve().parent)
+LAUNCH_KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+                  "fused_logprob_fwd", "fused_logprob_dh")
+# (f) TrafficDriver over 4g's 2-replica fleet at llama3-8b (decode chunks of
+# 4 tokens): scenario_suite's four shapes at 5 virtual seconds of 4
+# requests/s, up to 16 new tokens, 1 fleet step per virtual second, then the
+# flash crowd again with replica 1 killed at its second 2
+TRAFFIC = dict(vocab=512, duration_s=5.0, base_rate_rps=4.0, max_prompt=28, max_new=16)
+TRAFFIC_STEPS_PER_S = 1.0
+TRAFFIC_DECODE_CHUNK = 4
+TRAFFIC_KILL = {2: 1}
+# (h) the budget at phase 4b's shapes (16 rows of 320 tokens, 64 new), against
+# what phase 4's base and its dense generate (the same shapes) allocated
+BUDGET_ROWS = GROUP_SIZE * len(PROMPT_LENS)
+BUDGET_PROMPT = max(PROMPT_LENS)
+
+
+def launch_agent(seed=0, device=None, **cfg_over):
+    """Phase 4t's role factory (``chip_smoke:launch_agent``): GRPO at
+    llama3-8b (full width and depth, char vocab, bf16 blocks), the base drawn
+    on the device from seed 1 as phase 4s draws it, continuous decode with
+    captured logprobs. Every process that calls it with one seed holds the
+    same agent."""
+    from agilerl_tpu_torch.algorithms.grpo import GRPO
+    from agilerl_tpu_torch.llm import model as M, presets
+    from agilerl_tpu_torch.utils.llm_utils import CharTokenizer
+
+    tok = CharTokenizer()
+    cfg = presets.preset("llama3-8b", **dict(dict(vocab_size=tok.vocab_size, max_seq_len=256),
+                                             **cfg_over))
+    return GRPO(config=cfg, base_params=M.init_params(1, cfg, device=device),
+                pad_token_id=tok.pad_token_id, eos_token_id=tok.eos_token_id, seed=seed,
+                group_size=GROUP_SIZE, batch_size=LAUNCH_PROMPTS * GROUP_SIZE,
+                max_output_tokens=LAUNCH_NEW_TOKENS, lora_rank=LORA_RANK,
+                continuous_decode=True, capture_logprobs=True, device=device)
+
+
+def launch_env():
+    """Phase 4t's env factory (``chip_smoke:launch_env``): phase 4s's
+    arithmetic ReasoningGym."""
+    from agilerl_tpu_torch.utils.llm_utils import CharTokenizer, ReasoningGym
+
+    return ReasoningGym(arith_rows(64, 0), arith_rows(RES_EVAL_ROWS, 1), CharTokenizer(),
+                        reward_fn=arith_reward, data_batch_size=LAUNCH_PROMPTS, seed=3)
+
+
+class CountedRole:
+    """A flywheel role that, at its drain, writes this process's kernel
+    launches and peak device memory into the role's registry as counters
+    (``launch/<role>/kernel/<name>``, ``launch/<role>/peak_bytes``): the
+    harness publishes them after the drain, so they reach the launcher
+    through the telemetry plane."""
+
+    def __init__(self, ctx, role):
+        self.ctx, self.role = ctx, role
+
+    def tick(self):
+        return self.role.tick()
+
+    def drain(self):
+        import torch
+
+        from agilerl_tpu_torch import ops
+
+        name = self.ctx.spec.name
+        for kernel, n in ops.kernel_counters().items():
+            self.ctx.metrics.counter(f"launch/{name}/kernel/{kernel}").inc(n)
+        if torch.cuda.is_available():
+            self.ctx.metrics.counter(f"launch/{name}/peak_bytes").inc(
+                torch.cuda.max_memory_allocated())
+
+
+def counted_learner_role(ctx):
+    from agilerl_tpu_torch.training.launch import learner_role
+
+    return CountedRole(ctx, learner_role(ctx))
+
+
+def counted_rollout_role(ctx):
+    from agilerl_tpu_torch.training.launch import rollout_role
+
+    return CountedRole(ctx, rollout_role(ctx))
+
+
+def launch_kwargs(**over):
+    """launch_flywheel's / flywheel_launcher's arguments in phase 4t."""
+    from agilerl_tpu_torch.observability import MetricsRegistry
+
+    return dict(dict(make_agent="chip_smoke:launch_agent", make_env="chip_smoke:launch_env",
+                     max_epochs=LAUNCH_EPOCHS,
+                     lease_timeout=LAUNCH_LEASE_S, grace_s=LAUNCH_GRACE_S,
+                     env={"PYTHONPATH": LAUNCH_PATH}, registry=MetricsRegistry()), **over)
+
+
+def np_leaves_equal(a, b):
+    import numpy as np
+
+    from agilerl_tpu_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(np.array_equal(np.asarray(x), np.asarray(y))
+                                      for x, y in zip(la, lb))
+
+
+def np_max_diff(a, b):
+    import numpy as np
+
+    from agilerl_tpu_torch.utils.tree import tree_leaves
+
+    return max((float(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).max())
+                for x, y in zip(tree_leaves(a), tree_leaves(b))), default=0.0)
+
+
+def wait_until(cond, what, launcher=None, timeout=LAUNCH_TIMEOUT_S):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"phase 4t: timed out waiting for {what}")
+        if launcher is not None:
+            launcher.poll()
+        time.sleep(0.05)
+
+
+def epoch_publish_times(root):
+    """{epoch: the commit time of its weight-store entry} (the directory's
+    mtime, set by the commit's rename)."""
+    from agilerl_tpu_torch.resilience.store import committed_entries
+
+    return {int(p.name.split("_")[1]): p.stat().st_mtime
+            for p in committed_entries(Path(root) / "weights", "epoch_")}
+
+
+def run_launcher(torch, ops, report):
+    """Phase 4t (see the constants above). Returns the kernel launches of the
+    learner process of (b), read back through the telemetry plane."""
+    import gc
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from agilerl_tpu_torch.benchmarking.traffic import (
+        TrafficDriver,
+        generate_trace,
+        scenario_suite,
+    )
+    from agilerl_tpu_torch.llm import model as M, presets
+    from agilerl_tpu_torch.llm.fleet import ServingFleet
+    from agilerl_tpu_torch.llm.flywheel import (
+        LearnerPod,
+        OnlineGRPOFlywheel,
+        RolloutPod,
+        TrajectoryStore,
+        WeightStore,
+    )
+    from agilerl_tpu_torch.observability import MetricsRegistry
+    from agilerl_tpu_torch.resilience.faults import FaultInjector
+    from agilerl_tpu_torch.resilience.membership import pid_alive
+    from agilerl_tpu_torch.training.launch import (
+        flywheel_launcher,
+        launch_flywheel,
+        read_loss_stream,
+    )
+    from agilerl_tpu_torch.utils.checkpoint import load_llm_checkpoint, save_llm_checkpoint
+    from agilerl_tpu_torch.utils.hbm_budget import (
+        device_memory_gib,
+        grpo_hbm_budget,
+        param_counts,
+        render_budget_md,
+    )
+    from agilerl_tpu_torch.utils.tree import tree_leaves
+
+    out = report["launcher"] = {}
+    workdir = Path(tempfile.mkdtemp(prefix="phase4t_"))
+
+    # ---- (a) the in-process reference: two clones from one seed ----
+    reg = MetricsRegistry()
+    ws = WeightStore(workdir / "ref" / "w", keep_last=LAUNCH_EPOCHS + 1, metrics=reg)
+    ts = TrajectoryStore(workdir / "ref" / "t", metrics=reg)
+    (learner_agent, rollout_agent), t_build = host_s(
+        torch, lambda: (launch_agent(0), launch_agent(0)))
+    cfg = learner_agent.model_config
+    learner = LearnerPod(learner_agent, ws, ts, max_staleness_epochs=0, metrics=reg,
+                         carry_state=True)
+    rollout = RolloutPod(rollout_agent, launch_env(), ws, ts, metrics=reg)
+    ops.reset_kernel_counters()
+    _, t_ref = host_s(torch, lambda: OnlineGRPOFlywheel(rollout, learner, metrics=reg).run(
+        LAUNCH_EPOCHS))
+    ref_launches = ops.kernel_counters()
+    ref_losses = list(learner.losses)
+    ref_epoch, ref_lora = ws.load_latest()
+    log(f"phase 4t: GRPO at llama3-8b ({cfg.n_layer} layers, char vocab {cfg.vocab_size}), "
+        f"{LAUNCH_PROMPTS} prompts x group {GROUP_SIZE}, {LAUNCH_NEW_TOKENS} new tokens, "
+        f"staleness 0, {LAUNCH_EPOCHS} epochs")
+    log(f"  (a) in process: 2 agents built in {t_build:.1f} s, {LAUNCH_EPOCHS} epochs in "
+        f"{t_ref:.1f} s; losses {ref_losses}; launches {ref_launches}")
+    check(ref_epoch == LAUNCH_EPOCHS and len(ref_losses) == LAUNCH_EPOCHS
+          and all(np.isfinite(ref_losses)), f"(a): epoch {ref_epoch}, losses {ref_losses}")
+    out["inprocess"] = dict(build_s=t_build, run_s=t_ref, losses=ref_losses,
+                            launches=ref_launches)
+
+    # ---- (g) an llama3-8b agent's adapters through DCP, no base ----
+    ckpt = workdir / "llm_ckpt"
+    learner_agent.fitness = [0.5]
+    # the first save pays for DCP's import and set-up; the second is timed
+    _, t_first = host_s(torch, lambda: save_llm_checkpoint(learner_agent, workdir / "first"))
+    _, t_save = host_s(torch, lambda: save_llm_checkpoint(learner_agent, ckpt))
+    nbytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    rollout_agent.fitness = []
+    _, t_load = host_s(torch, lambda: load_llm_checkpoint(rollout_agent, ckpt))
+    same = dict(actor=leaves_equal(torch, learner_agent.actor.params,
+                                   rollout_agent.actor.params),
+                reference=leaves_equal(torch, learner_agent.reference.params,
+                                       rollout_agent.reference.params),
+                fitness=rollout_agent.fitness == [0.5],
+                on_the_card=all(t.device.type == learner_agent.dev.type
+                                for t in tree_leaves(rollout_agent.actor.params)),
+                no_base=not (ckpt / "base_params").exists())
+    log(f"  (g) save_llm_checkpoint / load_llm_checkpoint (DCP, adapters only): "
+        f"{nbytes / 1e6:.2f} MB, save {t_save:.3f} s (the first {t_first:.3f} s), load "
+        f"{t_load:.3f} s; {same}")
+    check(all(same.values()), f"(g): the adapters did not round-trip: {same}")
+    out["checkpoint"] = dict(bytes=nbytes, save_s=t_save, first_save_s=t_first,
+                             load_s=t_load, equal=same)
+    del learner, rollout, learner_agent, rollout_agent
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  before the children: {free / 1e9:.1f} of {total / 1e9:.1f} GB free on the card")
+
+    # ---- (b) launch_flywheel: learner and rollout as OS processes ----
+    root = workdir / "launch"
+    started = time.time()
+    summary, t_launch = host_s(torch, lambda: launch_flywheel(root, **launch_kwargs(
+        timeout=LAUNCH_TIMEOUT_S, learner_target="chip_smoke:counted_learner_role",
+        rollout_target="chip_smoke:counted_rollout_role")))
+    times = epoch_publish_times(root)
+    got_epoch, got_lora = WeightStore(root / "weights", metrics=MetricsRegistry()).load_latest()
+    counters = summary["telemetry"]["counters"]
+    child = {role: {k: int(counters.get(f"launch/{role}/kernel/{k}", 0)) for k in ref_launches}
+             for role in ("learner", "rollout_0")}
+    peaks = {role: counters.get(f"launch/{role}/peak_bytes", 0) / 1e9
+             for role in ("learner", "rollout_0")}
+    per_epoch = (times[LAUNCH_EPOCHS] - times[0]) / LAUNCH_EPOCHS
+    equal = dict(losses=summary["losses"] == ref_losses,
+                 adapter=got_epoch == ref_epoch and np_leaves_equal(got_lora, ref_lora))
+    log(f"  (b) launch_flywheel: {t_launch:.1f} s (epoch 0 published after "
+        f"{times[0] - started:.1f} s, then {per_epoch:.2f} s per epoch); exits "
+        f"{summary['exits']}, orphans {summary['orphans']}; losses {summary['losses']}")
+    log(f"      against (a): {equal} (max |d| adapter {np_max_diff(got_lora, ref_lora):.3g}); "
+        f"child launches {child}; child peaks {peaks} GB")
+    check(summary["exits"] == {"learner": 0, "rollout_0": 0} and summary["orphans"] == [],
+          f"(b): exits {summary['exits']}, orphans {summary['orphans']}")
+    check(all(not s.get("jax_loaded") and s.get("loaded_at_guard") == []
+              for s in summary["statuses"].values()), f"(b): statuses {summary['statuses']}")
+    check(all(equal.values()), f"(b) is not (a) bit for bit: {equal}")
+    # (e) the kernels in the learner's process; the rollout decodes on
+    # captured logprobs and launches none
+    check(all(child["learner"][k] > 0 for k in LAUNCH_KERNELS),
+          f"(e): the learner process missed a kernel: {child['learner']}")
+    check(sum(child["rollout_0"].values()) == 0, f"(e): the rollout launched {child['rollout_0']}")
+    out["launch"] = dict(s=t_launch, per_epoch_s=per_epoch, exits=summary["exits"],
+                         losses=summary["losses"], equal=equal, child_launches=child,
+                         child_peak_gb=peaks)
+
+    # ---- (c) kill -9 the learner once epoch 2 is published ----
+    root = workdir / "kill"
+    launcher = flywheel_launcher(root, **launch_kwargs())
+    launcher.start(join_timeout=LAUNCH_TIMEOUT_S)
+    store = WeightStore(root / "weights", metrics=MetricsRegistry())
+    wait_until(lambda: (store.latest_epoch() or 0) >= LAUNCH_KILL_EPOCH, "epoch 2", launcher)
+    victim = launcher.supervisor.procs["learner"]
+    alive = victim.alive
+    os.kill(victim.pid, signal.SIGKILL)
+    victim.popen.wait(timeout=60)
+    t_kill = time.perf_counter()
+    killed_at = store.latest_epoch()
+    restarted = []
+    wait_until(lambda: restarted.extend(e for e in launcher.poll() if e["role"] == "learner"
+                                        and e["action"] == "restarted") or restarted,
+               "the learner's respawn")
+    wait_until(lambda: (store.latest_epoch() or 0) > killed_at, "the respawn's first epoch",
+               launcher)
+    warm_s = time.perf_counter() - t_kill
+    summary = launcher.run(timeout=LAUNCH_TIMEOUT_S)
+    got_epoch, got_lora = store.load_latest()
+    losses = read_loss_stream(root)
+    st = summary["statuses"]["learner"]
+    restores = launcher.aggregate_telemetry()["counters"].get("flywheel/learner_restores_total")
+    equal = dict(losses=losses == ref_losses,
+                 adapter=got_epoch == ref_epoch and np_leaves_equal(got_lora, ref_lora))
+    log(f"  (c) kill -9 of the learner at epoch {killed_at} (alive {alive}): respawned as "
+        f"incarnation {st['incarnation']}, {restores} restore; {warm_s:.1f} s from the kill to "
+        f"its first published epoch; final state {st['state']}, orphans {summary['orphans']}; "
+        f"against (a): {equal}")
+    check(alive and st["state"] == "done" and st["incarnation"] == 1 and restores == 1
+          and summary["orphans"] == [], f"(c): {st}, restores {restores}, {summary['orphans']}")
+    check(all(equal.values()), f"(c) is not (a) bit for bit: {equal}")
+    out["kill9"] = dict(killed_at_epoch=killed_at, warm_restart_s=warm_s, equal=equal,
+                        incarnation=st["incarnation"])
+
+    # ---- (d) drain: shutdown() mid-run ----
+    root = workdir / "drain"
+    launcher = flywheel_launcher(root, **launch_kwargs())
+    launcher.start(join_timeout=LAUNCH_TIMEOUT_S)
+    store = WeightStore(root / "weights", metrics=MetricsRegistry())
+    wait_until(lambda: (store.latest_epoch() or 0) >= 1, "epoch 1", launcher)
+    pids = [p.pid for p in launcher.supervisor.procs.values()]
+    summary, drain_s = host_s(torch, launcher.shutdown)
+    states = {n: s["state"] for n, s in summary["statuses"].items()}
+    left = [pid for pid in pids if pid_alive(pid)]
+    log(f"  (d) shutdown() at epoch {store.latest_epoch()}: drained in {drain_s:.2f} s; "
+        f"states {states}, exits {summary['exits']}, escalated {summary['escalated']}, "
+        f"orphans {summary['orphans']}, processes left {left}")
+    check(all(s in ("preempted", "done") for s in states.values()) and len(states) == 2
+          and summary["orphans"] == [] and summary["escalated"] == [] and left == [],
+          f"(d): {states}, {summary['orphans']}, {summary['escalated']}, {left}")
+    out["drain"] = dict(s=drain_s, states=states, exits=summary["exits"])
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- (h) the budget against phase 4's allocations and 4b's peak ----
+    full = presets.preset("llama3-8b")
+    budget = grpo_hbm_budget(full, fsdp=1, tp=1, batch_global=BUDGET_ROWS,
+                             seq_len=BUDGET_PROMPT + MAX_NEW_TOKENS,
+                             gen_batch_global=BUDGET_ROWS,
+                             gen_total_len=BUDGET_PROMPT + MAX_NEW_TOKENS)
+    alloc = report["alloc"]
+    learn_peak = max(it["peak_memory_gb"] for it in report["learn"]["iterations"])
+    check(math.isfinite(learn_peak) and learn_peak > 0, f"(h): phase 4b's learn peak {learn_peak}")
+    terms = {k: v / 1e9 for k, v in budget.items() if k not in ("meta", "total")}
+    eager = learn_peak - terms["base_weights"] - terms["lora_adapter_state"]
+    remat = terms["remat_checkpoints"] + terms["block_recompute_peak"] + \
+        terms["lm_head_loss_chunk"]
+    log(f"  (h) grpo_hbm_budget at fsdp = tp = 1, {BUDGET_ROWS} rows x "
+        f"{BUDGET_PROMPT + MAX_NEW_TOKENS} tokens ({MAX_NEW_TOKENS} new), GB: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in terms.items())
+        + f", total {budget['total'] / 1e9:.3f}; phase 4b's learn peak {learn_peak:.1f} GB: "
+        f"its activations {eager:.1f} GB against the remat terms' {remat:.2f} GB; card "
+        f"{device_memory_gib():.1f} GiB")
+    log(f"      phase 4's base allocated {alloc['base_bytes']} B (term "
+        f"{budget['base_weights']:.0f} B); its generate's dense KV cache {alloc['kv_bytes']} B "
+        f"(+ mask {alloc['mask_bytes']} B, allocated {alloc['kv_delta']} B, k "
+        f"{alloc['kv_shape']}; term {budget['kv_cache_generation']:.0f} B)")
+    check(alloc["base_bytes"] == budget["base_weights"] == param_counts(full)["base_bytes"],
+          f"(h): base allocated {alloc['base_bytes']} B, term {budget['base_weights']} B")
+    check(alloc["kv_bytes"] == budget["kv_cache_generation"]
+          and alloc["kv_delta"] == alloc["kv_bytes"] + alloc["mask_bytes"]
+          and alloc["kv_shape"] == [full.n_layer, BUDGET_ROWS, BUDGET_PROMPT + MAX_NEW_TOKENS,
+                                    full.kv_heads, full.head_dim],
+          f"(h): the KV cache {alloc} against {budget['kv_cache_generation']}")
+    out["budget"] = dict(terms_gb=terms, total_gb=budget["total"] / 1e9, learn_peak_gb=learn_peak,
+                         eager_activations_gb=eager, remat_terms_gb=remat, alloc=alloc,
+                         table=render_budget_md(budget))
+    torch.cuda.empty_cache()
+    params = M.init_params(0, full)
+
+    # ---- (f) TrafficDriver over the 2-replica fleet ----
+    fleet_kw = dict(SERVE, decode_chunk=TRAFFIC_DECODE_CHUNK, pad_id=0, eos_id=None,
+                    bucket_overrides={"serving/ttft_s": TTFT_FINE})
+    runs = [(s.name, s, None) for s in scenario_suite(**TRAFFIC)]
+    runs.append(("flash_crowd+kill", runs[2][1], TRAFFIC_KILL))
+    ops.reset_kernel_counters()
+    traffic = {}
+    for name, spec, kill in runs:
+        fleet = ServingFleet(full, 2, metrics=MetricsRegistry(), **fleet_kw)
+        trace = generate_trace(spec, seed=0)
+        driver = TrafficDriver(fleet, steps_per_s=TRAFFIC_STEPS_PER_S, seed=0,
+                               fault_injector=FaultInjector(kill_host_at=kill) if kill else None)
+        res = driver.run(trace, params, greedy=True)
+        h = fleet.merged_dump(counters=[], histograms=["serving/ttft_s"])["histograms"][
+            "serving/ttft_s"]
+        traffic[name] = dict(n=res.n_requests, submitted=res.submitted, shed=res.shed,
+                             completed=res.completed, steps=res.steps, wall_s=res.wall_s,
+                             tokens=res.delivered_tokens, kills=res.kills,
+                             ttft_p50_ms=1e3 * dump_percentile(h, 50),
+                             ttft_p95_ms=1e3 * dump_percentile(h, 95))
+        t = traffic[name]
+        log(f"  (f) {name}: {t['completed']} of {t['n']} completed ({t['shed']} shed), "
+            f"{t['steps']} steps in {t['wall_s']:.1f} s, {t['tokens']} tokens; TTFT p50 "
+            f"{t['ttft_p50_ms']:.1f} ms, p95 {t['ttft_p95_ms']:.1f} ms; kills {t['kills']}")
+        check(res.completed == res.submitted == res.n_requests and res.shed == 0,
+              f"(f) {name}: {t}")
+        del fleet
+    check(traffic["flash_crowd+kill"]["kills"] == [{"virtual_s": 2.0, "replica": 1}],
+          f"(f): the kill {traffic['flash_crowd+kill']['kills']}")
+    out["traffic"] = dict(runs=traffic, launches=ops.kernel_counters())
+    del params
+    torch.cuda.empty_cache()
+    return dict(child["learner"])
+
+
 # ------------------------------- phase 5 ----------------------------------- #
 
 
@@ -5959,6 +6422,107 @@ def time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report):
     return entries
 
 
+# ------------------------ phases 4h-4r alongside --------------------------- #
+# The RL phases (4h-4r but 4q) need nothing of the LLM phases and launch the
+# port's kernels, if at all, under their own counts: a second process runs
+# them (``--rl-phases``) while this one runs 4f-4t, so the run takes the
+# longer of the two rather than their sum. The host times of both are taken
+# alongside each other; 4q and phase 5 (kernel times) run after it ended.
+# (phase, function, the launches_by_path names of what it returns)
+RL_PHASES = (
+    ("4h", run_on_policy, ("on_policy",)),
+    ("4i", run_population, ("population",)),
+    ("4j", run_encoders_and_recurrent, ("encoders_recurrent",)),
+    ("4k", run_off_policy, ("off_policy",)),
+    ("4l", run_off_policy_continuous, ("off_policy_continuous", "offline")),
+    ("4m", run_off_policy_scan, ("off_policy_scan",)),
+    ("4n", run_multi_agent_off_policy, ("multi_agent_off_policy",)),
+    ("4o", run_multi_agent_on_policy, ("multi_agent_on_policy", "multi_agent_scan")),
+    ("4p", run_bandits, ("bandits",)),
+    ("4r", run_pettingzoo, ("pettingzoo",)),
+)
+RL_PHASES_BY_S = 1100.0  # the seconds since the start by which they must have ended
+
+
+def torch_settings(torch) -> None:
+    # f32 products in full f32 on the card, for the plain versions too
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+
+
+def timed_phase(name, fn, *args):
+    """``fn(*args)``, its seconds logged and kept as ``report["phase_<name>_s"]``
+    (the report is the last argument)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    args[-1][f"phase_{name}_s"] = seconds = time.perf_counter() - t0
+    log(f"phase {name}: {seconds:.1f} s")
+    return out
+
+
+def rl_phases(out_path: str) -> None:
+    """The second process (``chip_smoke.py --rl-phases T0 OUT``): RL_PHASES
+    in order, then their report entries and launch counts into OUT (JSON)."""
+    import torch
+
+    from agilerl_tpu_torch import ops
+
+    torch_settings(torch)
+    report, launches = {}, {}
+    for name, fn, paths in RL_PHASES:
+        got = timed_phase(name, fn, torch, ops, report)
+        launches.update(zip(paths, got if len(paths) > 1 else (got,)))
+    Path(out_path).write_text(json.dumps(dict(report=report, launches=launches)))
+
+
+def start_rl_phases():
+    """Start the second process in a session of its own (its workers go with
+    it), its output into a log that join_rl_phases prints."""
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_rl_"))
+    with open(work / "log", "w") as f:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rl-phases",
+                                 repr(_T0), str(work / "out.json")],
+                                stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+    log(f"phases 4h-4r (but 4q): started in a second process (pid {proc.pid})")
+    return proc, work
+
+
+def join_rl_phases(rl, report):
+    """Wait for the second process, print its log (each line timed from this
+    run's start), take its report entries; its launches by path."""
+    proc, work = rl
+    try:
+        proc.wait(timeout=max(RL_PHASES_BY_S - (time.perf_counter() - _T0), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    text = (work / "log").read_text()
+    print(text, end="" if text.endswith("\n") else "\n", flush=True)
+    check(proc.returncode is not None,
+          f"phases 4h-4r: the second process was still running at {RL_PHASES_BY_S:.0f} s")
+    failed = [line for line in text.splitlines() if "FAIL" in line or "Error" in line]
+    check(proc.returncode == 0,
+          f"phases 4h-4r: the second process exited {proc.returncode}: {failed[-3:]}")
+    got = json.loads((work / "out.json").read_text())
+    report.update(got["report"])
+    return got["launches"]
+
+
+def stop_rl_phases(rl) -> None:
+    """End whatever is left of the second process's session, and its files."""
+    import shutil
+
+    proc, work = rl
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -5976,10 +6540,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"run from the root of the repository ({e})")
 
-    # f32 products in full f32 on the card, for the plain versions too
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_grad_enabled(False)
+    torch_settings(torch)
     report = {}
 
     kind = torch.cuda.get_device_name(0)
@@ -6016,84 +6577,36 @@ def main() -> None:
     with torch.enable_grad():
         grpo_launches, grpo_grads = run_learn(torch, M, ops, cfg, params, prompts, report)
         dpo_launches, dpo_grads = run_dpo(torch, M, ops, tfa, tfl, cfg, params, report)
-    t0 = time.perf_counter()
-    serve_launches, served_greedy = run_serving(torch, M, G, ops, cfg, params, prompts,
-                                                dense_greedy, report)
-    report["phase_4f_s"] = time.perf_counter() - t0
-    log(f"phase 4f: {report['phase_4f_s']:.1f} s")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    with torch.enable_grad():
-        fly_launches = run_fleet_and_flywheel(torch, M, G, ops, tfa, tfl, cfg, params,
-                                              prompts, served_greedy, report)
-    report["phase_4g_s"] = time.perf_counter() - t0
-    log(f"phase 4g: {report['phase_4g_s']:.1f} s")
-    with torch.enable_grad():
-        # one f32 copy of the weights, made from (and replacing) the bf16
-        # blocks, serves both gradient checks
-        cfg32, params32 = f32_weights(torch, cfg, params)
-        del params
+    # phases 4h-4r but 4q in a second process, alongside 4f-4t (see RL_PHASES)
+    rl = start_rl_phases()
+    try:
+        serve_launches, served_greedy = timed_phase(
+            "4f", run_serving, torch, M, G, ops, cfg, params, prompts, dense_greedy, report)
         torch.cuda.empty_cache()
-        log("phases 4b and 4d: the adapter gradients against an f32 run")
-        report["learn"].update(f32_grad_agreement(torch, tree, grpo_grads, cfg32, params32))
-        report["dpo"].update(f32_grad_agreement(torch, tree, dpo_grads, cfg32, params32))
-        del params32, grpo_grads, dpo_grads
-        torch.cuda.empty_cache()
-        run_evolution(torch, M, ops, presets, report)
-        t0 = time.perf_counter()
-        run_preference_loop(torch, M, ops, presets, report)
-        run_offline_hf_moe(torch, M, report)
-        report["phase_4e_s"] = time.perf_counter() - t0
-    log(f"phase 4e: {report['phase_4e_s']:.1f} s")
-    t0 = time.perf_counter()
-    on_policy_launches = run_on_policy(torch, ops, report)
-    report["phase_4h_s"] = time.perf_counter() - t0
-    log(f"phase 4h: {report['phase_4h_s']:.1f} s")
-    t0 = time.perf_counter()
-    population_launches = run_population(torch, ops, report)
-    report["phase_4i_s"] = time.perf_counter() - t0
-    log(f"phase 4i: {report['phase_4i_s']:.1f} s")
-    t0 = time.perf_counter()
-    encoder_launches = run_encoders_and_recurrent(torch, ops, report)
-    report["phase_4j_s"] = time.perf_counter() - t0
-    log(f"phase 4j: {report['phase_4j_s']:.1f} s")
-    t0 = time.perf_counter()
-    off_policy_launches = run_off_policy(torch, ops, report)
-    report["phase_4k_s"] = time.perf_counter() - t0
-    log(f"phase 4k: {report['phase_4k_s']:.1f} s")
-    t0 = time.perf_counter()
-    continuous_launches, offline_launches = run_off_policy_continuous(torch, ops, report)
-    report["phase_4l_s"] = time.perf_counter() - t0
-    log(f"phase 4l: {report['phase_4l_s']:.1f} s")
-    t0 = time.perf_counter()
-    scan_launches = run_off_policy_scan(torch, ops, report)
-    report["phase_4m_s"] = time.perf_counter() - t0
-    log(f"phase 4m: {report['phase_4m_s']:.1f} s")
-    t0 = time.perf_counter()
-    ma_off_launches = run_multi_agent_off_policy(torch, ops, report)
-    report["phase_4n_s"] = time.perf_counter() - t0
-    log(f"phase 4n: {report['phase_4n_s']:.1f} s")
-    t0 = time.perf_counter()
-    ma_on_launches, ma_scan_launches = run_multi_agent_on_policy(torch, ops, report)
-    report["phase_4o_s"] = time.perf_counter() - t0
-    log(f"phase 4o: {report['phase_4o_s']:.1f} s")
-    t0 = time.perf_counter()
-    gpt_launches = run_transformers(torch, ops, presets, report)
-    report["phase_4q_s"] = time.perf_counter() - t0
-    log(f"phase 4q: {report['phase_4q_s']:.1f} s")
-    t0 = time.perf_counter()
-    bandit_launches = run_bandits(torch, ops, report)
-    report["phase_4p_s"] = time.perf_counter() - t0
-    log(f"phase 4p: {report['phase_4p_s']:.1f} s")
-    t0 = time.perf_counter()
-    pz_launches = run_pettingzoo(torch, ops, report)
-    report["phase_4r_s"] = time.perf_counter() - t0
-    log(f"phase 4r: {report['phase_4r_s']:.1f} s")
-    t0 = time.perf_counter()
-    with torch.enable_grad():
-        resilience_launches = run_resilience(torch, ops, tfa, tfl, presets, report)
-    report["phase_4s_s"] = time.perf_counter() - t0
-    log(f"phase 4s: {report['phase_4s_s']:.1f} s")
+        with torch.enable_grad():
+            fly_launches = timed_phase("4g", run_fleet_and_flywheel, torch, M, G, ops, tfa, tfl,
+                                       cfg, params, prompts, served_greedy, report)
+        with torch.enable_grad():
+            # one f32 copy of the weights, made from (and replacing) the bf16
+            # blocks, serves both gradient checks
+            cfg32, params32 = f32_weights(torch, cfg, params)
+            del params
+            torch.cuda.empty_cache()
+            log("phases 4b and 4d: the adapter gradients against an f32 run")
+            report["learn"].update(f32_grad_agreement(torch, tree, grpo_grads, cfg32, params32))
+            report["dpo"].update(f32_grad_agreement(torch, tree, dpo_grads, cfg32, params32))
+            del params32, grpo_grads, dpo_grads
+            torch.cuda.empty_cache()
+            run_evolution(torch, M, ops, presets, report)
+            timed_phase("4e", lambda r: (run_preference_loop(torch, M, ops, presets, r),
+                                         run_offline_hf_moe(torch, M, r)), report)
+            resilience_launches = timed_phase("4s", run_resilience, torch, ops, tfa, tfl,
+                                              presets, report)
+            launcher_launches = timed_phase("4t", run_launcher, torch, ops, report)
+        rl_launches = join_rl_phases(rl, report)
+    finally:
+        stop_rl_phases(rl)
+    gpt_launches = timed_phase("4q", run_transformers, torch, ops, presets, report)
     # each main path's counts were set to 0 just before it and read just after
     launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
                 for k in grpo_launches}
@@ -6108,26 +6621,19 @@ def main() -> None:
                                      "dpo_learn": dpo_launches[entry["name"]],
                                      "serving_capture": serve_launches[entry["name"]],
                                      "flywheel": fly_launches[entry["name"]],
-                                     "on_policy": on_policy_launches[entry["name"]],
-                                     "population": population_launches[entry["name"]],
-                                     "encoders_recurrent": encoder_launches[entry["name"]],
-                                     "off_policy": off_policy_launches[entry["name"]],
-                                     "off_policy_continuous": continuous_launches[entry["name"]],
-                                     "offline": offline_launches[entry["name"]],
-                                     "off_policy_scan": scan_launches[entry["name"]],
-                                     "multi_agent_off_policy": ma_off_launches[entry["name"]],
-                                     "multi_agent_on_policy": ma_on_launches[entry["name"]],
-                                     "multi_agent_scan": ma_scan_launches[entry["name"]],
+                                     **{path: n[entry["name"]]
+                                        for path, n in rl_launches.items()},
                                      "evolvable_gpt": gpt_launches[entry["name"]],
-                                     "bandits": bandit_launches[entry["name"]],
-                                     "pettingzoo": pz_launches[entry["name"]],
-                                     "resilience": resilience_launches[entry["name"]]}
+                                     "resilience": resilience_launches[entry["name"]],
+                                     "launcher": launcher_launches[entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":
             check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
             check(resilience_launches[entry["name"]] > 0,
                   f"{entry['name']} was not launched on phase 4s's GRPO runs")
+            check(launcher_launches[entry["name"]] > 0,
+                  f"{entry['name']} was not launched in phase 4t's learner process")
     report["wall_s"] = time.perf_counter() - t_start
     log(f"wall time {report['wall_s']:.1f} s")
     log("report: " + json.dumps(report))
@@ -6141,5 +6647,8 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--population-gate":
         population_gate_child(int(sys.argv[2]))
+    elif len(sys.argv) == 4 and sys.argv[1] == "--rl-phases":
+        _T0 = float(sys.argv[2])
+        rl_phases(sys.argv[3])
     else:
         main()

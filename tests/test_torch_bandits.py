@@ -222,15 +222,18 @@ def test_train_bandits_resume_round_trip(tmp_path):
                     tree_leaves(trained[0].actor.params) + tree_leaves(trained[0].U)):
         assert torch.equal(a, b)
     assert restored[0].steps == trained[0].steps
-    # resilience= runs (a cadence snapshot at the boundary); wb=True raises
+    # resilience= runs (a cadence snapshot at the boundary); wb=True runs
+    # (wandb does not import here: the loop logs to its sink only)
     from agilerl_tpu_torch.resilience import Resilience
 
     res = Resilience(tmp_path / "snap", save_every=30, handle_signals=False)
     train_bandits(env, "bandit", "NeuralUCB", make(), ReplayBuffer(max_size=512, device="cpu"),
                   max_steps=30, evo_steps=30, eval_steps=10, resilience=res, verbose=False)
     assert [(s.kind, s.step) for s in res.manager.snapshots()] == [("cadence", 30)]
-    with pytest.raises(NotImplementedError, match="wb"):
-        train_bandits(env, "bandit", "NeuralUCB", make(), None, wb=True)
+    _, fit = train_bandits(env, "bandit", "NeuralUCB", make(),
+                           ReplayBuffer(max_size=512, device="cpu"), max_steps=30, evo_steps=30,
+                           eval_steps=10, verbose=False, wb=True)
+    assert np.shape(fit) == (1, 1) and np.isfinite(fit).all()
 
 
 def test_train_bandits_evolves_a_population():

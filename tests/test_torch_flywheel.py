@@ -483,6 +483,14 @@ def test_online_entry_point_raises_like_the_reference_and_on_unported_hooks(tmp_
     for hook in (dict(resilience=Resilience(tmp_path / "snap", save_every=1,
                                             handle_signals=False)),
                  dict(plan=object()), dict(mesh=object()), dict(wb=True)):
+        if "wb" in hook:
+            # wb=True runs: wandb does not import here, so the loop logs to
+            # its sink only, as the JAX loop does
+            _, fit = finetune_llm_reasoning_online(make_agent(0), make_env(), tmp_path / "wb",
+                                                   max_epochs=1, evaluation_interval=1,
+                                                   verbose=False, **hook)
+            assert len(fit) == 1
+            continue
         if "resilience" in hook:
             # resilience= runs: a snapshot at the epoch-1 boundary, and a
             # resume continues the epoch line from it

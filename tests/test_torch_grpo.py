@@ -106,6 +106,37 @@ def test_optimizer_matches_optax_chain(schedule):
         assert tw.opt_state[1].hyperparams["learning_rate"] == 3e-3
 
 
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", {}), ("sgd", dict(momentum=0.9)), ("sgd", dict(momentum=0.9, nesterov=True)),
+    ("rmsprop", {}), ("rmsprop", dict(decay=0.8, eps=1e-6, initial_scale=0.1)),
+    ("rmsprop", dict(centered=True, momentum=0.5)),
+    ("rmsprop", dict(momentum=0.9, nesterov=True)),
+])
+def test_sgd_and_rmsprop_match_optax(name, kw):
+    """4 steps of clip-by-global-norm + sgd / rmsprop through
+    ``OptimizerWrapper`` (lr injected into the state) on identical gradients,
+    against the JAX wrapper's optax chain (the first step clips); then
+    ``reinit`` (an architecture mutation) restarts the moments as optax's
+    ``init`` does. Within 1e-6."""
+    jw = JO.OptimizerWrapper(name, lr=1e-2, max_grad_norm=1.0, **kw)
+    tw = TO.OptimizerWrapper(name, lr=1e-2, max_grad_norm=1.0, **kw)
+    params = _opt_tree(0)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    tp = _torch_tree(params)
+    jw.init(jp)
+    tw.init(tp)
+    for step, scale in enumerate((3.0, 0.1, 0.2, 0.05, 0.3)):
+        if step == 4:
+            jw.reinit(jp)
+            tw.reinit(tp)
+        grads = jax.tree_util.tree_map(lambda x: x * scale, _opt_tree(10 + step))
+        jp = jw.update(jax.tree_util.tree_map(jnp.asarray, grads), jp)
+        tp = tw.update(_torch_tree(grads), tp)
+        for jl, tl in zip(jax.tree_util.tree_leaves(jp), [tp["a"]["A"], tp["b"]]):
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6, atol=1e-6)
+    assert tw.opt_state[1].hyperparams["learning_rate"] == 1e-2
+
+
 VOCAB = 41
 
 

@@ -67,6 +67,12 @@ _CLASSIC_IMPORTS = (
     "import agilerl_tpu_torch.resilience.retry, agilerl_tpu_torch.resilience.preemption\n"
     "import agilerl_tpu_torch.resilience.faults, agilerl_tpu_torch.resilience.snapshot\n"
     "import agilerl_tpu_torch.wrappers.make_evolvable, agilerl_tpu_torch.utils.algo_utils\n"
+    # the process fabric, the traffic driver, DCP checkpoints and the memory
+    # budget (Queue 1's items 1-3)
+    "import agilerl_tpu_torch.resilience.proc, agilerl_tpu_torch.training.launch\n"
+    "import agilerl_tpu_torch.training, agilerl_tpu_torch.benchmarking\n"
+    "import agilerl_tpu_torch.benchmarking.traffic, agilerl_tpu_torch.utils.checkpoint\n"
+    "import agilerl_tpu_torch.utils.hbm_budget\n"
 )
 
 
@@ -103,6 +109,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import agilerl_tpu_torch.observability.export, agilerl_tpu_torch.observability.slo\n"
         "import agilerl_tpu_torch.utils.log_utils, agilerl_tpu_torch.utils.profiling\n"
         + _CLASSIC_IMPORTS +
+        # the launcher tests' role factories, which the children import
+        "import tests.torch_launch_roles\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'agilerl_tpu'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -216,6 +224,30 @@ def test_item_9_entry_points_default_to_the_card():
                 make()
     cpu = MakeEvolvable(network=net, input_tensor=torch.zeros(1, 4), device="cpu")
     assert cpu.device == torch.device("cpu")
+
+
+def test_items_1_to_3_entry_points_follow_the_device_rule(tmp_path):
+    """The card's memory size (and a budget rendered against it) takes
+    device=None as the card and raises without one; a DCP tree restores onto
+    the CPU without a template and onto its template's devices with one."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from agilerl_tpu_torch.llm.presets import preset
+    from agilerl_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+    from agilerl_tpu_torch.utils.hbm_budget import (
+        device_memory_gib,
+        grpo_hbm_budget,
+        render_budget_md,
+    )
+
+    budget = grpo_hbm_budget(preset("gpt2-small"), fsdp=1, tp=1, batch_global=2, seq_len=16)
+    for call in (device_memory_gib, lambda: render_budget_md(budget)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert "fits" in render_budget_md(budget, hbm_gib=80.0)
+    save_pytree(tmp_path / "t", {"w": torch.ones(2)})
+    assert load_pytree(tmp_path / "t")["w"].device == torch.device("cpu")
+    assert load_pytree(tmp_path / "t", like={"w": torch.zeros(2)})["w"].device.type == "cpu"
 
 
 def test_kernel_build_raises_without_nvcc():

@@ -6,6 +6,7 @@ alerts and grades. Timestamps and per-run ids are dropped before comparing.
 Each test imports the JAX module it mirrors inside the test."""
 
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -160,8 +161,56 @@ def test_facade_matches_jax_and_refuses_wandb(tmp_path):
     assert [e["kind"] for e in t][:2] == ["run_config", "generation"]
     assert TO.get_registry is TO.registry.get_registry and TO.warn_once is TO.registry.warn_once
     assert TO.facade.get_registry is TO.registry.get_registry
-    with pytest.raises(NotImplementedError, match="wandb"):
-        TO.RunTelemetry(wb=True)
+    # wb=True runs: without wandb both facades log to their sink only; with
+    # a wandb module that imports, both init it once and log the same dicts
+    for O in (TO, JO):
+        telem = O.RunTelemetry(wb=True, registry=O.MetricsRegistry(sink=O.MemorySink()))
+        assert telem._wandb is None
+        telem.log_step({"loss": 1.0})
+        assert telem.registry.sink.events[-1]["loss"] == 1.0
+    logged = {}
+    for name, O in (("torch", TO), ("jax", JO)):
+        fake = _FakeWandb()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setitem(sys.modules, "wandb", fake)
+            telem = O.RunTelemetry(wb=True, config={"LR": 1e-3},
+                                   registry=O.MetricsRegistry(sink=O.MemorySink()))
+            telem.log_step({"loss": 0.5, "step": 3})
+        logged[name] = fake.calls
+    assert logged["torch"] == logged["jax"] == [
+        ("init", {"project": "agilerl-tpu", "config": {"LR": 1e-3}}),
+        ("log", {"loss": 0.5, "step": 3})]
+
+
+def test_init_wandb_falls_back_like_jax():
+    """Without wandb both packages' init_wandb return None; with a wandb
+    that imports, both init it with the same arguments and return it."""
+    JU = pytest.importorskip("agilerl_tpu.utils.utils")
+    from agilerl_tpu_torch.utils.utils import init_wandb
+
+    assert init_wandb(config={"a": 1}) is None and JU.init_wandb(config={"a": 1}) is None
+    calls = {}
+    for name, fn in (("torch", init_wandb), ("jax", JU.init_wandb)):
+        fake = _FakeWandb()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setitem(sys.modules, "wandb", fake)
+            assert fn(project="p", config={"a": 1}, name="run") is fake
+        calls[name] = fake.calls
+    assert calls["torch"] == calls["jax"] == [
+        ("init", {"project": "p", "config": {"a": 1}, "name": "run"})]
+
+
+class _FakeWandb:
+    """A stand-in ``wandb`` module that records its calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def init(self, **kwargs):
+        self.calls.append(("init", kwargs))
+
+    def log(self, metrics):
+        self.calls.append(("log", dict(metrics)))
 
 
 def _fill(O, reg, scale, buckets=(0.1, 0.5, 1.0)):

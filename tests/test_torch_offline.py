@@ -163,7 +163,8 @@ def test_train_offline_checkpoints_resume_and_refusals(tmp_path):
     """Two generations with tournament + mutation and a checkpoint each
     generation, save_elite, then resume from the checkpoint (the buffer
     keeps its rows: no second ingest); resilience= runs (a cadence snapshot
-    that holds the buffer) and wb= raises, naming slice 6."""
+    that holds the buffer) and wb= runs (wandb does not import here: the
+    loop logs to its sink only, as the JAX loop does)."""
     ds = _dataset(steps=200)
     env = TorchVecEnv(CartPole(), num_envs=2, device="cpu")
     hp = {"POP_SIZE": 2, "BATCH_SIZE": 16, "LEARN_STEP": 1, "DOUBLE": True}
@@ -190,12 +191,11 @@ def test_train_offline_checkpoints_resume_and_refusals(tmp_path):
 
     for hook in (dict(resilience=Resilience(tmp_path / "snap", save_every=1,
                                             handle_signals=False)), dict(wb=True)):
+        _, fits = train_offline(env, "CartPole-v1", ds, "CQN", pop, memory, max_steps=40,
+                                evo_steps=10, eval_steps=5, verbose=False, **hook)
+        assert np.shape(fits)[0] == 2 and np.isfinite(np.asarray(fits)).all()
         if "wb" in hook:
-            with pytest.raises(NotImplementedError, match="slice 6"):
-                train_offline(env, "CartPole-v1", ds, "CQN", pop, memory, max_steps=1, **hook)
             continue
-        train_offline(env, "CartPole-v1", ds, "CQN", pop, memory, max_steps=40, evo_steps=10,
-                      eval_steps=5, verbose=False, **hook)
         snaps = hook["resilience"].manager.snapshots()
         assert snaps and {s.kind for s in snaps} == {"cadence"}
         assert hook["resilience"].manager.load()[1]["buffers"]["memory"]["size_host"] == 200

@@ -438,7 +438,8 @@ def test_llm_loops_run_every_hook(tmp_path):
     """telemetry= (step events carry MFU), checkpoint_interval /
     checkpoint_path (self-contained files that load rebuilds the agent
     from, the frozen base included), save_elite and resume from the
-    population checkpoints; wb=True still raises."""
+    population checkpoints; wb=True runs (wandb does not import here: the
+    loop logs to its sink only, as the JAX loop does)."""
     from agilerl_tpu_torch.observability import MetricsRegistry, RunTelemetry
     from agilerl_tpu_torch.observability.events import MemorySink
 
@@ -481,5 +482,5 @@ def test_llm_loops_run_every_hook(tmp_path):
         for x, y in zip(tree_leaves(a.actor.params) + tree_leaves(a.reference.params),
                         tree_leaves(b.actor.params) + tree_leaves(b.reference.params)):
             assert torch.equal(x, y)
-    with pytest.raises(NotImplementedError, match="wb"):
-        finetune_llm_reasoning(pop, env, max_steps=1, verbose=False, wb=True)
+    _, fit = finetune_llm_reasoning(pop, env, max_steps=1, verbose=False, wb=True)
+    assert fit == [[], []]
