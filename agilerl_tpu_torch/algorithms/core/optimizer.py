@@ -297,16 +297,33 @@ def _like(tree: Tree, leaves) -> Tree:
     return tree_map(lambda _: next(it), tree)
 
 
+def _as_param(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient with its parameter's placements (a partial sum is
+    reduced there)."""
+    placements = getattr(x, "placements", None)
+    if placements is not None and tuple(g.placements) != tuple(placements):
+        return g.redistribute(x.device_mesh, placements)
+    return g
+
+
 def grad_step(loss_of: Callable[[Tree], Tuple[torch.Tensor, Any]], params: Tree,
-              tx: Transform, opt_state: Any) -> Tuple[Tree, Any, torch.Tensor, Any]:
+              tx: Transform, opt_state: Any,
+              reduce_grads: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+              ) -> Tuple[Tree, Any, torch.Tensor, Any]:
     """Differentiate ``loss_of(params) -> (loss, aux)`` into every leaf of
     ``params`` (a leaf off the graph gets a zero gradient) and take one step
-    of ``tx``. Returns (params, opt_state, loss, aux), all off the graph."""
+    of ``tx``. Returns (params, opt_state, loss, aux), all off the graph.
+    ``reduce_grads`` maps each gradient, in leaf order, before the step (a
+    sum over the ranks of a sequence-parallel axis)."""
     p = tree_map(lambda t: t.detach().requires_grad_(True), params)
     loss, aux = loss_of(p)
     leaves = tree_leaves(p)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter([torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)])
+    grads = [torch.zeros_like(x) if g is None else _as_param(g, x)
+             for x, g in zip(leaves, grads)]
+    if reduce_grads is not None:
+        grads = [reduce_grads(g) for g in grads]
+    it = iter(grads)
     grads = tree_map(lambda _: next(it), p)
     with torch.no_grad():
         p = tree_map(torch.Tensor.detach, p)

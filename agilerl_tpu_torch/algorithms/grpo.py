@@ -22,9 +22,15 @@ through the dense ``generate`` when the batch does not fit the bucket grid
 ``attach_rollout_fleet`` routes continuous rollouts through a
 ``llm/fleet.ServingFleet`` (the online flywheel's rollout tier).
 
-Not ported yet: the sequence-parallel learn (``sequence_parallel_axis``)
-raises ``NotImplementedError``; ``to_mesh`` (sharding plans) comes with the
-distribution slice.
+``to_mesh(mesh=, plan=)`` places base, adapters, reference and optimizer
+state as DTensors by a ``parallel/plan.ShardingPlan``; ``learn`` then places
+each batch by the plan's data layout and runs on the placed tensors (the
+model gathers weights where it uses them; the flash and fused calls run
+through ``local_map``). With ``sequence_parallel_axis`` (and a mesh that
+carries the axis) every log-probability pass and the update run the
+sequence split over the axis's ranks through ring attention
+(``llm/long_context.py``); each rank's adapter gradient is summed over the
+axis, so adapters and Adam moments stay the same on every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from agilerl_tpu_torch.algorithms.core.base import EvolvableAlgorithm
 from agilerl_tpu_torch.algorithms.core.optimizer import (
@@ -52,6 +59,27 @@ from agilerl_tpu_torch.llm import model as M
 from agilerl_tpu_torch.llm.generate import generate
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
 from agilerl_tpu_torch.utils.tree import tree_copy, tree_from_numpy, tree_map, tree_to_numpy
+
+
+def _plain(x: Any) -> Any:
+    """A DTensor as its whole plain tensor; anything else as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _like_placed(new: Any, old: Any) -> Any:
+    """``new`` (plain leaves) placed as the matching leaves of ``old``."""
+    from torch.distributed.tensor import Replicate
+
+    from agilerl_tpu_torch.parallel.plan import place_tensor
+
+    def put(n, o):
+        if not isinstance(o, DTensor):
+            return n
+        if all(isinstance(pl, Replicate) for pl in o.placements):
+            return DTensor.from_local(n, o.device_mesh, o.placements, run_check=False)
+        return place_tensor(n, o.device_mesh, o.placements)
+
+    return tree_map(put, new, old)
 
 
 def _env_flag(name: str) -> bool:
@@ -130,7 +158,8 @@ def make_update_fn(config, tx: Transform, lora_scale: float, use_flash: bool = T
                 config, base, batch["tokens"], attention_mask=batch["mask"],
                 lora=lo, lora_scale=lora_scale, flash=use_flash, use_fused=use_fused_loss,
             )
-            return _grpo_loss_core(lp, batch, clip, beta)
+            loss, kl = _grpo_loss_core(lp, batch, clip, beta)
+            return _plain(loss), _plain(kl)
 
         return grad_step(loss_of, lora, tx, opt_state)
 
@@ -172,8 +201,6 @@ class GRPO(EvolvableAlgorithm):
         device: DeviceLike = None,
         **kwargs,
     ):
-        if sequence_parallel_axis:
-            raise NotImplementedError("GRPO sequence_parallel_axis is not ported yet")
         super().__init__(index=index, hp_config=hp_config or default_hp_config(),
                          device=device, **kwargs)
         self.dev = resolve_device(device)
@@ -196,6 +223,10 @@ class GRPO(EvolvableAlgorithm):
         self.lora_rank = int(lora_rank)
         self.lora_targets = tuple(lora_targets)
         self.lora_scale = float(lora_scale)
+        self.sequence_parallel_axis = sequence_parallel_axis
+        # set by to_mesh: the DeviceMesh and the ShardingPlan of the placement
+        self.mesh = None
+        self.sharding_plan = None
         # AGILERL_TPU_DISABLE_BUCKETED_DECODE turns BOTH serving routes off;
         # the two flags are otherwise independent (continuous-only is valid)
         serving_killed = _env_flag("AGILERL_TPU_DISABLE_BUCKETED_DECODE")
@@ -258,6 +289,7 @@ class GRPO(EvolvableAlgorithm):
             "lora_rank": self.lora_rank,
             "lora_targets": self.lora_targets,
             "lora_scale": self.lora_scale,
+            "sequence_parallel_axis": self.sequence_parallel_axis,
             "bucketed_decode": self.bucketed_decode,
             "continuous_decode": self.continuous_decode,
             "speculative_decode": self.speculative_decode,
@@ -432,13 +464,25 @@ class GRPO(EvolvableAlgorithm):
         std = rewards.std(dim=1, keepdim=True, correction=0)
         return ((rewards - mean) / (std + eps)).reshape(-1)
 
+    def _place_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """Under a mesh, every batch leaf as a DTensor with rows over the data
+        axes; else the batch as it is."""
+        if self.mesh is None:
+            return batch
+        from agilerl_tpu_torch.parallel.mesh import place_batch
+
+        return place_batch(batch, self.mesh)
+
     def _logprob_fn(self):
         config, base, scale = self.model_config, self.base_params, self.lora_scale
 
         @torch.no_grad()
         def logprobs(lora, tokens, mask):
-            return M.token_logprobs(config, base, tokens, attention_mask=mask, lora=lora,
-                                    lora_scale=scale, use_fused=True, flash=True)
+            b = self._place_batch({"tokens": tokens, "mask": mask})
+            lp = M.token_logprobs(config, base, b["tokens"], attention_mask=b["mask"],
+                                  lora=lora, lora_scale=scale, use_fused=True, flash=True)
+            # whole on every rank, plain: the epoch engine indexes it
+            return _plain(lp) if not isinstance(tokens, DTensor) else lp
 
         return logprobs
 
@@ -448,12 +492,100 @@ class GRPO(EvolvableAlgorithm):
                                 use_flash=True)
 
         def bound(lora, opt_state, batch, clip, beta):
-            return update(base, lora, opt_state, batch, clip, beta)
+            if self.mesh is None:
+                return update(base, lora, opt_state, batch, clip, beta)
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            with implicit_replication():
+                return update(base, lora, opt_state, self._place_batch(batch), clip, beta)
 
         return bound
 
-    def _learn_fns(self):
+    # -- sequence-parallel (long-context) variants ---------------------- #
+    def _require_sp_mesh(self):
+        axis = self.sequence_parallel_axis
+        names = tuple(self.mesh.mesh_dim_names or ()) if self.mesh is not None else None
+        if names is None or axis not in names:
+            raise RuntimeError(
+                f"sequence_parallel_axis={axis!r} requires to_mesh() with a mesh "
+                f"containing that axis (got {names})")
+        return self.mesh, axis
+
+    def _sp_logprob_fn(self):
+        from agilerl_tpu_torch.llm.long_context import make_sp_logprob_fn
+
+        mesh, axis = self._require_sp_mesh()
+        fn = make_sp_logprob_fn(self.model_config, mesh, axis_name=axis,
+                                lora_scale=self.lora_scale)
+        base = self.base_params
+
+        @torch.no_grad()
+        def logprobs(lora, tokens, mask):
+            # causal over the real + pad suffix: pads leave the loss through
+            # loss_mask (the right-padding contract, checked in learn)
+            return fn(base, lora, tokens)
+
+        return logprobs
+
+    def _sp_update_fn(self):
+        from agilerl_tpu_torch.llm.long_context import make_sp_logprob_fn
+        from agilerl_tpu_torch.parallel.comm import all_reduce_sum_
+
+        mesh, axis = self._require_sp_mesh()
+        sp_fn = make_sp_logprob_fn(self.model_config, mesh, axis_name=axis,
+                                   lora_scale=self.lora_scale)
+        group = mesh.get_group(axis)
+        base, tx = self.base_params, self.optimizer.tx
+
+        def update(lora, opt_state, batch, clip, beta):
+            def loss_of(lo):
+                lp = sp_fn(base, lo, batch["tokens"])
+                return _grpo_loss_core(lp, batch, clip, beta)
+
+            lo, st, loss, kl = grad_step(
+                loss_of, tree_map(_plain, lora), tx, tree_map(_plain, opt_state),
+                reduce_grads=lambda g: all_reduce_sum_(g, group))
+            return _like_placed(lo, lora), _like_placed(st, opt_state), loss, kl
+
+        return update
+
+    def _learn_fns(self, ids=None, mask=None):
+        """(logprobs, update) for the active mode; with a sequence-parallel
+        axis the batch is checked against its contract first."""
+        if self.sequence_parallel_axis is not None:
+            mesh, axis = self._require_sp_mesh()
+            sp_size = int(mesh.size(mesh.mesh_dim_names.index(axis)))
+            if ids is not None and ids.shape[1] % sp_size:
+                raise ValueError(f"sequence length {ids.shape[1]} not divisible by "
+                                 f"sp axis size {sp_size}")
+            # ring attention carries no key mask: right padding only
+            if mask is not None and bool((torch.diff(mask, dim=1) > 0).any()):
+                raise ValueError("sequence_parallel_axis requires right-padded sequences "
+                                 "(attention mask must be non-increasing per row)")
+            return (self.jit_fn("sp_logprobs", self._sp_logprob_fn),
+                    self.jit_fn("sp_update", self._sp_update_fn))
         return self.jit_fn("logprobs", self._logprob_fn), self.jit_fn("update", self._update_fn)
+
+    def to_mesh(self, mesh=None, plan=None) -> None:
+        """Place base, adapters, reference and optimizer state by a sharding
+        plan: ``plan`` (a ``ShardingPlan`` or a registered name; its mesh is
+        built when ``mesh`` is omitted) or, with ``mesh`` alone, the built-in
+        GRPO rules shaped to it. Axes the mesh does not carry, or carries at
+        size 1, replicate. Drops the cached learn functions."""
+        from agilerl_tpu_torch.parallel import plan as PL
+
+        if plan is None:
+            if mesh is None:
+                raise ValueError("to_mesh needs a mesh or a plan")
+            plan = PL.grpo_plan_for_mesh(mesh)
+        plan, mesh = PL.resolve_plan_and_mesh(plan, mesh, device=self.dev)
+        self._clear_jit_cache()
+        self.base_params = plan.place("params", self.base_params, mesh)
+        self.actor.params = plan.place("lora", self.actor.params, mesh)
+        self.reference.params = plan.place("lora", self.reference.params, mesh)
+        self.optimizer.opt_state = plan.place("optimizer", self.optimizer.opt_state, mesh)
+        self.mesh = mesh
+        self.sharding_plan = plan
 
     def learn(self, experiences: Tuple) -> Tuple[float, float]:
         """experiences = (ids, action_masks, rewards[, attention_mask]):
@@ -469,7 +601,7 @@ class GRPO(EvolvableAlgorithm):
             attn = None
         ids, mask, loss_mask = self._learn_masks(ids, action_masks, attn)
         advantage = self._calculate_advantage(self._as_tensor(rewards, torch.float32))
-        logprobs, update = self._learn_fns()
+        logprobs, update = self._learn_fns(ids, mask)
         old_lp = logprobs(self.actor.params, ids, mask) * loss_mask
         ref_lp = logprobs(self.reference.params, ids, mask) * loss_mask
         return self._run_update_epochs(update, ids, mask, loss_mask, old_lp, ref_lp, advantage)
@@ -524,7 +656,7 @@ class GRPO(EvolvableAlgorithm):
         """Per-token logprobs of ``ids`` under the current actor adapter,
         masked to completion predictions (the behavior-policy record)."""
         ids, mask, loss_mask = self._learn_masks(ids, action_masks, attention_mask)
-        logprobs, _ = self._learn_fns()
+        logprobs, _ = self._learn_fns(ids, mask)
         return (logprobs(self.actor.params, ids, mask) * loss_mask).cpu().numpy()
 
     def learn_from_trajectory(self, ids, action_masks, rewards, behavior_lp,
@@ -536,7 +668,7 @@ class GRPO(EvolvableAlgorithm):
         rho_clip)`` on the policy-gradient term."""
         ids, mask, loss_mask = self._learn_masks(ids, action_masks, attention_mask)
         advantage = self._calculate_advantage(self._as_tensor(rewards, torch.float32))
-        logprobs, update = self._learn_fns()
+        logprobs, update = self._learn_fns(ids, mask)
         old_lp = logprobs(self.actor.params, ids, mask) * loss_mask
         ref_lp = logprobs(self.reference.params, ids, mask) * loss_mask
         rho = None

@@ -9,8 +9,10 @@ applies it (or an analogous one) to every evolvable network, transactionally:
 a failure restores every network and optimizer state. Parameter noise draws
 from a ``torch.Generator`` (the JAX key's counterpart), so it matches by
 distribution only. The activation branch is a no-op for agents that do not
-support it (the policy-gradient ones). The sharding branch raises until
-the distribution slice.
+support it (the policy-gradient ones). The sharding branch (opt-in through
+``sharding > 0``) swaps an agent's layout among the registered plans that
+fill the live device count (``parallel/plan.py``) through
+``agent.to_mesh(plan=...)``: layout only, the step's maths is unchanged.
 
 One repair against the JAX package: a ``learn_step`` mutation resizes every
 rollout buffer of the agent, IPPO's per-group ``rollout_buffers`` too; the
@@ -62,6 +64,7 @@ class Mutations:
         #: optional lineage tracker (``record_mutation``)
         self.lineage = lineage
         self.sharding_mut = float(sharding)
+        self.sharding_plans = sharding_plans
 
     # ------------------------------------------------------------------ #
     def mutation(self, population: List, pre_training_mut: bool = False) -> List:
@@ -180,8 +183,52 @@ class Mutations:
         agent.mut = "act"
         return agent
 
+    def _resolve_sharding_plans(self):
+        """The valid swap set: ``sharding_plans`` entries (names or plans)
+        that fill the live device count; without a list, the registry's
+        plans for this count (seeded with the default GRPO layouts)."""
+        from agilerl_tpu_torch.parallel import plan as PL
+
+        n = PL.live_device_count()
+        if self.sharding_plans is None:
+            PL.register_default_plans(n)
+            return PL.plans_for_device_count(n)
+        plans = [PL.get_plan(p) if isinstance(p, str) else p for p in self.sharding_plans]
+        return [p for p in plans if p.device_count == n]
+
     def sharding_mutation(self, agent):
-        raise NotImplementedError("sharding mutation is not ported yet (the distribution slice)")
+        """Swap the agent's sharding plan for another valid one, drawn with
+        the engine's numpy generator, through ``agent.to_mesh(plan=...)``.
+        A failed placement restores the previous trees, mesh and plan."""
+        if not hasattr(agent, "to_mesh"):
+            agent.mut = "None"
+            return agent
+        plans = self._resolve_sharding_plans()
+        current = getattr(agent, "sharding_plan", None)
+        if current is not None:
+            plans = [p for p in plans if p.name != current.name]
+        if not plans:
+            agent.mut = "None"
+            return agent
+        plan = plans[int(self.rng.choice(len(plans)))]
+        # to_mesh replaces every tree: holding the old references is a full
+        # snapshot
+        snapshot = (agent.base_params, agent.actor.params, agent.reference.params,
+                    agent.optimizer.opt_state, getattr(agent, "mesh", None), current)
+        try:
+            agent.to_mesh(plan=plan)
+        except Exception as e:
+            (agent.base_params, agent.actor.params, agent.reference.params,
+             agent.optimizer.opt_state, agent.mesh, agent.sharding_plan) = snapshot
+            import warnings
+
+            warnings.warn(f"sharding mutation to plan {plan.name!r} rolled back (agent "
+                          f"restored to its previous layout): {e!r}", RuntimeWarning,
+                          stacklevel=2)
+            agent.mut = "None"
+            return agent
+        agent.mut = f"sharding:{plan.name}"
+        return agent
 
     # ------------------------------------------------------------------ #
     def rl_hyperparam_mutation(self, agent):

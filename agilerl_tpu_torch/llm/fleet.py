@@ -33,9 +33,12 @@ The fleet is host-side composition only: every device program belongs to a
 replica or worker, so the fleet's program set is bounded by (members x
 bucket grid), constant in request count and routing order.
 
-``sharding_plan=`` and ``scale_up(plan=...)`` raise ``NotImplementedError``
-until the distribution slice. ``device=None`` means the card and raises
-without one.
+``sharding_plan=`` is the layout every spawned member serves under (a
+``parallel/plan.ShardingPlan`` or a registered name; see
+``llm/serving.py``), and ``scale_up(plan=...)`` spawns one member under
+another plan, or with ``plan="auto"`` under the first registered plan that
+fills the live device count (``plans_for_device_count``).
+``device=None`` means the card and raises without one.
 """
 
 from __future__ import annotations
@@ -57,8 +60,9 @@ from agilerl_tpu_torch.llm.router import FleetRouter
 from agilerl_tpu_torch.llm.serving import (
     AdmissionPolicy,
     ContinuousGenerator,
-    _no_plan,
+    _PlanPlacement,
     _raw_key,
+    _resolve_serving_plan,
     _round_up,
     _sampling_knobs,
     chain_hashes,
@@ -78,7 +82,7 @@ SCALE_UP_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.0,
                     5.0, 10.0, 30.0, 60.0, 120.0, 300.0)
 
 
-class PrefillWorker:
+class PrefillWorker(_PlanPlacement):
     """Prefill-only worker for the disaggregated topology.
 
     Runs the SHARED ``prefill_head`` at B = 1 and the SAME dense cache
@@ -108,8 +112,8 @@ class PrefillWorker:
         mesh=None,
         device: DeviceLike = None,
     ):
-        _no_plan(sharding_plan, mesh)
         self.dev = resolve_device(device)
+        self.sharding_plan, self.mesh = _resolve_serving_plan(sharding_plan, mesh, self.dev)
         self.config = config
         self.metrics = metrics if metrics is not None else observability.get_registry()
         self.pad_id = int(pad_id)
@@ -131,7 +135,8 @@ class PrefillWorker:
         self._programs = set()
 
     @classmethod
-    def matching(cls, gen: ContinuousGenerator, metrics=None) -> "PrefillWorker":
+    def matching(cls, gen: ContinuousGenerator, metrics=None, sharding_plan=None,
+                 mesh=None) -> "PrefillWorker":
         """A worker whose bucket grid, decode sizing, sampling recipe and
         device match ``gen``: the only configuration under which its exports
         are admissible on that replica."""
@@ -141,7 +146,7 @@ class PrefillWorker:
             block_size=gen.block_size, decode_chunk=gen.decode_chunk,
             temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
             min_new_tokens=gen.min_new_tokens, lora_scale=gen.lora_scale,
-            metrics=metrics, device=gen.dev,
+            metrics=metrics, sharding_plan=sharding_plan, mesh=mesh, device=gen.dev,
         )
 
     def _knobs(self, greedy: bool, lora) -> Dict[str, Any]:
@@ -357,8 +362,8 @@ class ServingFleet:
                 "directory prefill->decode KV transfers commit through)")
         if n_replicas < 1:
             raise ValueError("a fleet needs at least one serving replica")
-        _no_plan(sharding_plan, None)
         self.dev = resolve_device(device)
+        self.sharding_plan = sharding_plan
         self.config = config
         self.topology = topology
         self.metrics = metrics if metrics is not None else observability.get_registry()
@@ -560,9 +565,10 @@ class ServingFleet:
     def scale_up(self, role: Optional[str] = None, plan=None) -> int:
         """Spawn a fresh member on the fleet's device and add it to the lease
         set; returns its replica id. It shares the weights every replica is
-        stepped with (nothing is copied). ``plan`` (a sharding plan, or
-        ``"auto"``) raises ``NotImplementedError`` until the distribution
-        slice. Parked requests (survivor-less failovers) are re-dispatched
+        stepped with (nothing is copied). ``plan`` (a sharding plan or a
+        registered name; ``"auto"`` picks the first registered plan for the
+        live device count) is the member's layout, the fleet's
+        ``sharding_plan`` by default. Parked requests (survivor-less failovers) are re-dispatched
         onto the new capacity."""
         role = role or (ROLE_DECODE if self.topology == "disaggregated"
                         else ROLE_UNIFIED)
@@ -634,18 +640,23 @@ class ServingFleet:
                             if name in bank_h else h)
 
     def _spawn(self, role: str, plan=None) -> _Member:
-        if plan is not None:
-            raise NotImplementedError(
-                "scale_up(plan=...) is not ported yet (distribution slice)")
+        if plan == "auto":
+            from agilerl_tpu_torch.parallel.plan import live_device_count, plans_for_device_count
+
+            candidates = plans_for_device_count(live_device_count())
+            plan = candidates[0] if candidates else None
+        if plan is None:
+            plan = self.sharding_plan
         rid = self._next_rid
         self._next_rid += 1
         metrics = MetricsRegistry(bucket_overrides=self._bucket_overrides)
         if role == ROLE_PREFILL:
-            gen = PrefillWorker.matching(self._grid_ref(), metrics=metrics)
+            gen = PrefillWorker.matching(self._grid_ref(), metrics=metrics,
+                                         sharding_plan=plan)
         else:
             gen = ContinuousGenerator(
                 self.config, metrics=metrics, tracer=self._tracer,
-                device=self.dev, **self._gen_kwargs)
+                sharding_plan=plan, device=self.dev, **self._gen_kwargs)
         m = _Member(rid=rid, role=role, gen=gen)
         self._members[rid] = m
         return m

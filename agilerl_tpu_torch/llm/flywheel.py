@@ -48,8 +48,9 @@ adopting a published epoch binds NEW adapter tensors, and every replica's
 ``_check_weight_epoch`` (keyed on object identity) flushes its prefix cache
 and drops queued stale prefill imports at its next step.
 
-``LearnerPod(plan=, mesh=)`` raises ``NotImplementedError`` until the
-distribution slice.
+``LearnerPod(plan=, mesh=)`` places the learner agent by a sharding plan
+(``agent.to_mesh``); adopted adapters (and a restored optimizer state and
+reference) are placed by the agent's plan again.
 """
 
 from __future__ import annotations
@@ -74,6 +75,15 @@ from agilerl_tpu_torch.utils.tree import tree_from_numpy, tree_to_numpy
 _EPOCH_PREFIX = "epoch_"
 _BATCH_PREFIX = "batch_"
 
+
+
+def _placed(agent, group: str, tree):
+    """``tree`` placed by the agent's sharding plan (as it is when the agent
+    is not placed): an adopted epoch keeps the learner's layout."""
+    plan, mesh = getattr(agent, "sharding_plan", None), getattr(agent, "mesh", None)
+    if plan is None or mesh is None:
+        return tree
+    return plan.place(group, tree, mesh)
 
 class WeightStore:
     """Versioned adapter epochs through the commit-dir protocol.
@@ -414,7 +424,8 @@ class RolloutPod:
                 "flywheel.adopt", parent=payload.get("trace"),
                 attributes={"actor": self.actor_id,
                             "weight_epoch": int(epoch)}).end()
-        self.agent.actor.params = lora_from_numpy(lora, device=self.agent.dev)
+        self.agent.actor.params = _placed(self.agent, "lora",
+                                          lora_from_numpy(lora, device=self.agent.dev))
         self.weight_epoch = int(epoch)
         self.metrics.gauge(
             "flywheel/actor_weight_epoch",
@@ -511,8 +522,8 @@ class LearnerPod:
     drop policy, runs the importance-corrected sharded update, and
     publishes a new adapter epoch per learn step.
 
-    ``plan``/``mesh`` (a sharded learner) raise ``NotImplementedError``
-    until the distribution slice. ``importance_correction=False`` disables
+    ``plan``/``mesh`` place the agent through the sharding engine
+    (``agent.to_mesh``). ``importance_correction=False`` disables
     the rho term (ablation knob); the staleness DROP policy still applies."""
 
     def __init__(
@@ -547,8 +558,7 @@ class LearnerPod:
         #: the process launcher's kill -9 recovery path
         self.carry_state = bool(carry_state)
         if plan is not None or mesh is not None:
-            raise NotImplementedError(
-                "LearnerPod plan= / mesh= is not ported yet (distribution slice)")
+            agent.to_mesh(mesh=mesh, plan=plan)
         self.epoch = 0
         self.losses: List[float] = []
         self.kls: List[float] = []
@@ -622,12 +632,14 @@ class LearnerPod:
         if payload is None:
             return False
         a = self.agent
-        a.actor.params = lora_from_numpy(payload["lora"], device=a.dev)
+        a.actor.params = _placed(a, "lora", lora_from_numpy(payload["lora"], device=a.dev))
         self.epoch = int(payload["epoch"])
         state = payload.get("learner_state")
         if state:
-            a.optimizer.opt_state = tree_from_numpy(state["opt_state"], a.dev)
-            a.reference.params = lora_from_numpy(state["reference"], device=a.dev)
+            a.optimizer.opt_state = _placed(a, "optimizer",
+                                            tree_from_numpy(state["opt_state"], a.dev))
+            a.reference.params = _placed(a, "lora",
+                                         lora_from_numpy(state["reference"], device=a.dev))
             a._reference_epoch = int(state["reference_epoch"])
             a.set_rng_state(state["rng"])
             a.steps = [int(s) for s in state["steps"]]

@@ -20,20 +20,34 @@ The paged KV cache (``PagedKVCache``, the ``paged_*`` helpers and
 shared by every in-flight sequence, written IN PLACE (the JAX version donates
 the pool and returns a new one).
 
+Under a mesh (``parallel/plan.py``) the parameters are DTensors. A block's
+weights are gathered where they are used, over every mesh axis but ``tp``
+(``_at_use``: fsdp's all-gather per layer), so the projections run column-
+and row-parallel over tp by DTensor's sharding propagation; activations are
+DTensors with rows over the data axes, and plain tensors beside them count
+as replicated (``implicit_replication``). The hand-written kernels cannot
+take a DTensor: the flash call and the fused log-probability call run
+through ``local_map``, on placements from ``flash_shard_axes`` ((batch
+axes, head axes)) and ``fused_loss_shard_axes`` (row axes), as the JAX
+package wraps them in ``shard_map``. A dimension that the axes do not tile
+stays whole. With plain activations (the serving tier) every DTensor weight
+is gathered whole where it is used.
+
 Not ported here: ``scan_layers``/``remat`` (XLA compile-time devices with no
-eager counterpart), the ``*_shard_axes`` fields (distribution slice) and the
-dense-attention kill switch of the paged forward
+eager counterpart) and the dense-attention kill switch of the paged forward
 (``AGILERL_TPU_DISABLE_CHUNKED_DECODE``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from agilerl_tpu_torch.llm.moe import moe_ffn
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
@@ -60,6 +74,15 @@ class GPTConfig:
     rms_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
     use_flash_attention: bool = False  # flash kernel on the non-cached path
+    # ((batch axes...), (head axes...)) mesh-axis names: under a mesh the
+    # flash call runs through local_map with q/k/v [B, H, T, d] sharded on
+    # dim 0 over the batch axes and dim 1 over the head axes. None = the
+    # data axes ("dp", "fsdp") and ("tp",).
+    flash_shard_axes: Any = None
+    # (row axes...) of the fused lm-head loss: under a mesh the rows shard
+    # over these axes inside local_map and the head stays whole per rank.
+    # None = the data axes.
+    fused_loss_shard_axes: Any = None
     n_experts: int = 0  # 0 = dense FFN everywhere
     expert_top_k: int = 2
     capacity_factor: float = 1.25
@@ -238,13 +261,17 @@ def paged_copy_block(cache: PagedKVCache, src, dst) -> PagedKVCache:
 # --------------------------------------------------------------------------- #
 
 
-def _generator(generator: GeneratorLike, device: torch.device) -> torch.Generator:
+def _generator(generator: GeneratorLike, device: torch.device) -> Optional[torch.Generator]:
     if isinstance(generator, torch.Generator):
         return generator
+    if device.type == "meta":  # shapes only: nothing is drawn
+        return None
     return torch.Generator(device=device).manual_seed(int(generator))
 
 
 def _normal(gen, shape, std, dtype, device):
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (x * std).to(dtype)
 
@@ -259,7 +286,8 @@ def init_params(generator: GeneratorLike, config: GPTConfig,
                 device: DeviceLike = None) -> Params:
     """Random weights as in the JAX ``init_params`` (normal 0.02, output
     projections 0.02 / sqrt(2 n_layer), norms 1, biases 0), drawn from
-    ``generator`` (a seed or a torch.Generator on ``device``)."""
+    ``generator`` (a seed or a torch.Generator on ``device``). On the
+    ``"meta"`` device the tree holds shapes only."""
     dev = resolve_device(device)
     gen = _generator(generator, dev)
     dt = config.dtype
@@ -368,6 +396,117 @@ def merge_lora(params: Params, lora: Params, scale: float = 2.0) -> Params:
 
 
 # --------------------------------------------------------------------------- #
+# Under a mesh
+# --------------------------------------------------------------------------- #
+
+_DATA_AXES = ("dp", "fsdp")
+
+
+def _at_use(w: Any, x: Any) -> Any:
+    """A weight where it is used with activations ``x``. A DTensor weight
+    beside DTensor activations is gathered over every mesh axis but ``tp``
+    (its tp placement stays, so the product is tp-parallel); beside plain
+    activations it is gathered whole. Anything else passes."""
+    if not isinstance(w, DTensor):
+        return w
+    if not isinstance(x, DTensor):
+        return w.full_tensor()
+    pl = tuple(p if n == "tp" else Replicate()
+               for n, p in zip(w.device_mesh.mesh_dim_names, w.placements))
+    return w if pl == tuple(w.placements) else w.redistribute(w.device_mesh, pl)
+
+
+def _whole(w: Any, x: Any) -> Any:
+    """A weight gathered whole where it is used (embedding table, head):
+    a replicated DTensor beside DTensor activations, else a plain tensor."""
+    if not isinstance(w, DTensor):
+        return w
+    if not isinstance(x, DTensor):
+        return w.full_tensor()
+    return w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+
+
+def _tree_at_use(tree: Any, x: Any) -> Any:
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_at_use(v, x) for k, v in tree.items()}
+    return _at_use(tree, x)
+
+
+def _under_mesh(x: Any):
+    """``implicit_replication`` while the activations are DTensors: the plain
+    tensors a forward makes (positions, masks, RoPE tables) count as
+    replicated."""
+    if isinstance(x, DTensor):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _axes_size(mesh, axes: Tuple[str, ...]) -> int:
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    n = 1
+    for ax in axes:
+        n *= int(sizes.get(ax, 1))
+    return n
+
+
+def _placements(mesh, dims: Dict[int, Tuple[str, ...]]) -> list:
+    """One placement per mesh dim: ``Shard(d)`` where ``dims[d]`` lists the
+    axis, else ``Replicate()``."""
+    out = []
+    for name in mesh.mesh_dim_names:
+        dim = next((d for d, axes in dims.items() if name in axes), None)
+        out.append(Shard(dim) if dim is not None else Replicate())
+    return out
+
+
+def _axes(value, default) -> Tuple[str, ...]:
+    if value is None:
+        return tuple(default)
+    return (value,) if isinstance(value, str) else tuple(value)
+
+
+def _flash_mapped(config: "GPTConfig", q, k, v, attention_mask):
+    """The flash call on DTensors [B, H, T, d] through ``local_map``: batch
+    over the first of ``flash_shard_axes``, heads over the second (q heads
+    and kv heads alike, so each rank keeps whole GQA groups)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    bax, hax = config.flash_shard_axes or (_DATA_AXES, ("tp",))
+    bax, hax = _axes(bax, _DATA_AXES), _axes(hax, ("tp",))
+    mesh = q.device_mesh
+    nh = _axes_size(mesh, hax)
+    dims = {0: bax if q.shape[0] % _axes_size(mesh, bax) == 0 else (),
+            1: hax if q.shape[1] % nh == 0 and k.shape[1] % nh == 0 else ()}
+    qpl = _placements(mesh, dims)
+    mpl = _placements(mesh, {0: dims[0]})
+    mapped = local_map(
+        lambda qq, kk, vv, mm: flash_attention_diff(qq, kk, vv, mm, True),
+        out_placements=qpl, in_placements=(qpl, qpl, qpl, mpl),
+        redistribute_inputs=True, device_mesh=mesh)
+    return mapped(q, k, v, attention_mask)
+
+
+def _fused_mapped(config: "GPTConfig", flat_h, head, flat_t, temperature: float):
+    """The fused log-probability call on DTensors through ``local_map``: rows
+    over ``fused_loss_shard_axes`` when they tile them, the head whole."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = flat_h.device_mesh
+    rax = _axes(config.fused_loss_shard_axes, _DATA_AXES)
+    rpl = _placements(mesh, {0: rax if flat_h.shape[0] % _axes_size(mesh, rax) == 0 else ()})
+    whole = [Replicate()] * mesh.ndim
+    mapped = local_map(
+        lambda hh, ww, tt: fused_token_logprob_diff(hh, ww, tt, temperature),
+        out_placements=rpl, in_placements=(rpl, whole, rpl),
+        redistribute_inputs=True, device_mesh=mesh)
+    return mapped(flat_h, head, flat_t)
+
+
+# --------------------------------------------------------------------------- #
 # Apply
 # --------------------------------------------------------------------------- #
 
@@ -464,7 +603,15 @@ def forward(
     ``flash`` routes the non-cached attention through the flash kernels
     (CUDA tensors; differentiable, with the backward kernels) or their plain
     versions (CPU tensors); the cached path always uses
-    ``chunked_cached_attention``."""
+    ``chunked_cached_attention``. DTensor tokens and parameters run under a
+    mesh (see the module's docstring)."""
+    with _under_mesh(tokens):
+        return _forward(config, params, tokens, attention_mask, positions, cache, lora,
+                        lora_scale, flash, return_aux)
+
+
+def _forward(config, params, tokens, attention_mask, positions, cache, lora, lora_scale,
+             flash, return_aux):
     B, T = tokens.shape
     dtype = config.dtype
     dev = tokens.device
@@ -473,7 +620,7 @@ def forward(
     if positions is None:
         positions = (attention_mask.cumsum(dim=-1) - 1).clamp_min(0)
     use_flash = config.use_flash_attention if flash is None else flash
-    h = F.embedding(tokens, params["tok_emb"]).to(dtype)
+    h = F.embedding(tokens, _whole(params["tok_emb"], tokens)).to(dtype)
 
     if cache is not None:
         start = cache.length
@@ -482,8 +629,8 @@ def forward(
     H, hd = config.n_head, config.head_dim
     aux_total = 0.0
     for i in range(config.n_layer):
-        blk = params["blocks"][str(i)]
-        lora_layer = lora["blocks"].get(str(i)) if lora is not None else None
+        blk = _tree_at_use(params["blocks"][str(i)], h)
+        lora_layer = _tree_at_use(lora["blocks"].get(str(i)), h) if lora is not None else None
         x = _rms(h, blk["ln1"], config.rms_eps)
         q, k, v = _qkv_rope(config, blk, x, positions, lora_layer, lora_scale)
         if cache is not None:
@@ -492,7 +639,10 @@ def forward(
             attn = chunked_cached_attention(q, cache.k[i], cache.v[i], cache.mask, start)
             attn = attn.reshape(B, T, H * hd)
         else:
-            if use_flash:
+            if use_flash and isinstance(q, DTensor):
+                attn = _flash_mapped(config, q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), attention_mask)
+            elif use_flash:
                 # the kernel reads KV head h // rep: no repeated copy of K/V
                 attn = flash_attention_diff(q.transpose(1, 2), k.transpose(1, 2),
                                             v.transpose(1, 2), attention_mask, True)
@@ -506,7 +656,7 @@ def forward(
     new_cache = None
     if cache is not None:
         new_cache = KVCache(cache.k, cache.v, start + T, cache.mask)
-    hidden = _rms(h, params["ln_f"], config.rms_eps).float()
+    hidden = _rms(h, _at_use(params["ln_f"], h), config.rms_eps).float()
     if return_aux:
         return hidden, new_cache, torch.as_tensor(aux_total, dtype=torch.float32, device=dev)
     return hidden, new_cache
@@ -560,11 +710,11 @@ def forward_paged(
     col = (wp % S).long()
     keep = (wp < S)[..., None, None]
     rows = torch.arange(B, device=dev)[:, None].expand(B, T)
-    h = F.embedding(tokens, params["tok_emb"]).to(dtype)
+    h = F.embedding(tokens, _whole(params["tok_emb"], tokens)).to(dtype)
     new_k, new_v = [], []
     for i in range(config.n_layer):
-        blk = params["blocks"][str(i)]
-        lora_layer = lora["blocks"].get(str(i)) if lora is not None else None
+        blk = _tree_at_use(params["blocks"][str(i)], h)
+        lora_layer = _tree_at_use(lora["blocks"].get(str(i)), h) if lora is not None else None
         x = _rms(h, blk["ln1"], config.rms_eps)
         q, k, v = _qkv_rope(config, blk, x, pos2d, lora_layer, lora_scale)
         k_slab, v_slab = paged_gather(cache.k[i], cache.v[i], block_tables)
@@ -576,18 +726,22 @@ def forward_paged(
         h, _ = _block_ffn(config, blk, h + attn, lora_layer, lora_scale)
         new_k.append(k if multi else k[:, 0])
         new_v.append(v if multi else v[:, 0])
-    hidden = _rms(h, params["ln_f"], config.rms_eps).float()
+    hidden = _rms(h, _at_use(params["ln_f"], h), config.rms_eps).float()
     return hidden, (torch.stack(new_k), torch.stack(new_v))
 
 
-def _head(config: GPTConfig, params: Params) -> torch.Tensor:
-    """[D, V] head, a view (transposed for tied embeddings)."""
-    return params["tok_emb"].t() if config.tie_embeddings else params["lm_head"]
+def _head(config: GPTConfig, params: Params, x: Any = None) -> torch.Tensor:
+    """[D, V] head, a view (transposed for tied embeddings); a DTensor head
+    is gathered whole for activations ``x``."""
+    head = params["tok_emb"] if config.tie_embeddings else params["lm_head"]
+    head = _whole(head, x)
+    return head.t() if config.tie_embeddings else head
 
 
 def logits_fn(config: GPTConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """hidden [B, T, D] -> logits [B, T, V] (float32, f32 head)."""
-    return hidden @ _head(config, params).float()
+    with _under_mesh(hidden):
+        return hidden @ _head(config, params, hidden).float()
 
 
 def apply(config: GPTConfig, params: Params, tokens: torch.Tensor, **kw):
@@ -624,14 +778,25 @@ def token_logprobs(
     fused kernels on CUDA tensors, forward and backward), else through row
     chunks of ``chunk_size`` whose [chunk, V] logits are materialised. Both
     kernel paths serve the no-grad passes and the differentiable GRPO loss."""
+    with _under_mesh(tokens):
+        return _token_logprobs(config, params, tokens, attention_mask, lora, lora_scale,
+                               temperature, chunk_size, use_fused, flash)
+
+
+def _token_logprobs(config, params, tokens, attention_mask, lora, lora_scale, temperature,
+                    chunk_size, use_fused, flash):
     hidden, _ = forward(config, params, tokens, attention_mask=attention_mask,
                         lora=lora, lora_scale=lora_scale, flash=flash)
     B, T, D = hidden.shape
     flat_h = hidden[:, :-1].reshape(-1, D)  # predict the next token
     flat_t = tokens[:, 1:].reshape(-1)
-    head = _head(config, params)
+    head = _head(config, params, hidden)
     if use_fused:
-        lp = fused_token_logprob_diff(flat_h, head.float().contiguous(), flat_t, temperature)
+        if isinstance(flat_h, DTensor):
+            lp = _fused_mapped(config, flat_h, head.float().contiguous(), flat_t, temperature)
+        else:
+            lp = fused_token_logprob_diff(flat_h, head.float().contiguous(), flat_t,
+                                          temperature)
         return lp.reshape(B, T - 1)
     head = head.float()
     out = []

@@ -16,8 +16,15 @@ logprobs).
 The JAX package counts programs in XLA's jit caches; the port runs eagerly,
 so ``compiled_programs`` counts the distinct ``(callable, input shapes,
 greedy, adapter present)`` signatures a generator has run: the set a CUDA
-graph per bucket would capture. ``compile_cache=`` and ``sharding_plan=`` /
-``mesh=`` raise ``NotImplementedError`` until the distribution slice.
+graph per bucket would capture. ``compile_cache=`` raises
+``NotImplementedError``: the port runs eagerly.
+
+``sharding_plan=`` / ``mesh=`` (``parallel/plan.py``): ``place_params``
+places weight trees by the plan's ``params`` / ``lora`` rules (DTensors,
+which the model gathers whole where it uses them: every decode step
+all-gathers each sharded weight). The KV caches stay whole on every rank and
+the plan's ``kv`` / ``kv_paged`` rules are not applied: the decode step runs
+on plain tensors.
 
 Host state: the scheduler keeps the per-slot state (block tables, slot mask,
 lengths, previous token, positions, step indices, done flags, keys) in numpy
@@ -95,13 +102,38 @@ def _sampling_knobs(gen, greedy: bool, lora) -> Dict[str, Any]:
     )
 
 
-def _no_plan(sharding_plan, mesh, compile_cache=None) -> None:
-    if sharding_plan is not None or mesh is not None:
-        raise NotImplementedError(
-            "sharding_plan= / mesh= serving is not ported yet (distribution slice)")
+def _no_compile_cache(compile_cache) -> None:
     if compile_cache is not None:
         raise NotImplementedError(
             "compile_cache= is not ported yet: the port runs eagerly")
+
+
+def _resolve_serving_plan(sharding_plan, mesh, device):
+    """The (plan, mesh) pair both generators accept: a plan name resolves
+    through the registry and a plan without a mesh builds its own. Neither
+    keeps the plan-free path."""
+    if sharding_plan is None:
+        return None, mesh
+    from agilerl_tpu_torch.parallel.plan import resolve_plan_and_mesh
+
+    return resolve_plan_and_mesh(sharding_plan, mesh, device=device)
+
+
+class _PlanPlacement:
+    """``place_params`` of a generator under a plan."""
+
+    sharding_plan = None
+    mesh = None
+
+    def place_params(self, params, lora=None):
+        """Place weight trees by the plan's ``params`` / ``lora`` rules (as
+        they are without a plan)."""
+        if self.sharding_plan is None:
+            return (params, lora) if lora is not None else params
+        params = self.sharding_plan.place("params", params, self.mesh)
+        if lora is not None:
+            return params, self.sharding_plan.place("lora", lora, self.mesh)
+        return params
 
 
 def _generator_for(key, device: torch.device, greedy: bool) -> Optional[torch.Generator]:
@@ -128,7 +160,7 @@ def _raw_key(key) -> np.ndarray:
     return request_key(int(arr))
 
 
-class BucketedGenerator:
+class BucketedGenerator(_PlanPlacement):
     """Bounded ragged serving over one (config, sampling recipe). Sampling
     knobs are fixed at construction; params/lora ride as call arguments, so
     training steps between calls change nothing here. ``device=None`` means
@@ -153,8 +185,8 @@ class BucketedGenerator:
         mesh=None,
         device: DeviceLike = None,
     ):
-        _no_plan(sharding_plan, mesh)
         self.dev = resolve_device(device)
+        self.sharding_plan, self.mesh = _resolve_serving_plan(sharding_plan, mesh, self.dev)
         self.config = config
         self.metrics = metrics if metrics is not None else observability.get_registry()
         self._pending_rows = 0
@@ -553,7 +585,7 @@ class _Request:
     span: Any = None
 
 
-class ContinuousGenerator:
+class ContinuousGenerator(_PlanPlacement):
     """Continuous-batching serving over one (config, sampling recipe).
 
     - **Slot pool**: ``slots`` decode lanes; ONE decode chunk over
@@ -606,8 +638,9 @@ class ContinuousGenerator:
         capture_logprobs: bool = False,
         device: DeviceLike = None,
     ):
-        _no_plan(sharding_plan, mesh, compile_cache)
+        _no_compile_cache(compile_cache)
         self.dev = resolve_device(device)
+        self.sharding_plan, self.mesh = _resolve_serving_plan(sharding_plan, mesh, self.dev)
         self.config = config
         self.metrics = metrics if metrics is not None else observability.get_registry()
         self._tracer = tracer

@@ -3,7 +3,9 @@
 ``population``) and the off-policy family (the stacked replay rings,
 ``ScanOffPolicy``, ``off_policy``: ``EvoDQN``, ``EvoRainbow``, ``EvoDDPG``,
 ``EvoTD3``) and the multi-agent population (``multi_agent``: ``EvoIPPO``).
-Pod sharding comes with slice 6; ``make_pod_generation`` raises until then."""
+``make_pod_generation`` shards a population's members over the ``pop``
+axis of a mesh. The sharding plans (``plan``, ``mesh``, ``tree_paths``) and
+the hand-run collectives (``comm``) live in their own modules."""
 
 from agilerl_tpu_torch.parallel.generation import (
     DeviceReplayRing,

@@ -1,0 +1,145 @@
+"""The collectives the port runs by hand over a mesh axis's process group:
+a ring shift (``lax.ppermute`` by one place, with its transpose as the
+backward), a tiled all-gather, and an in-place sum.
+
+A gloo group moves host tensors, so a card tensor on a gloo group is staged
+through a host buffer (two ranks on one card share it over gloo: NCCL takes
+one rank per card); an NCCL group moves card tensors. The group's backend
+decides, and ``staged_bytes`` counts what went through the host.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+#: bytes staged through host buffers by the helpers here (sent + received)
+staged_bytes = 0
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def group_rank(group) -> int:
+    return dist.get_rank(group) if dist.is_initialized() else 0
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    return t.device.type != "cpu" and dist.get_backend(group) == dist.Backend.GLOO
+
+
+def _to_wire(group, t: torch.Tensor) -> torch.Tensor:
+    t = t.detach().contiguous()
+    return t.cpu() if _staged(group, t) else t
+
+
+def shift(tensors: Sequence[torch.Tensor], group, offset: int = 1) -> List[torch.Tensor]:
+    """Send every tensor to rank ``(r + offset) % P`` of ``group`` and return
+    the ones received from ``(r - offset) % P``, in one
+    ``batch_isend_irecv`` (no pair of ranks waits on the other)."""
+    global staged_bytes
+    P = group_size(group)
+    if P == 1:
+        return [t for t in tensors]
+    r = group_rank(group)
+    dst = dist.get_global_rank(group, (r + offset) % P)
+    src = dist.get_global_rank(group, (r - offset) % P)
+    sends = [_to_wire(group, t) for t in tensors]
+    recvs = [torch.empty_like(s) for s in sends]
+    ops = [dist.P2POp(dist.isend, s, dst, group) for s in sends]
+    ops += [dist.P2POp(dist.irecv, b, src, group) for b in recvs]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    out = []
+    for t, b in zip(tensors, recvs):
+        if b.device != t.device:
+            staged_bytes += 2 * b.numel() * b.element_size()
+            b = b.to(t.device)
+        out.append(b)
+    return out
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's tensors concatenated along ``dim`` in rank order."""
+    global staged_bytes
+    P = group_size(group)
+    if P == 1:
+        return t
+    w = _to_wire(group, t)
+    parts = [torch.empty_like(w) for _ in range(P)]
+    dist.all_gather(parts, w, group=group)
+    out = torch.cat(parts, dim=dim)
+    if out.device != t.device:
+        staged_bytes += (P + 1) * w.numel() * w.element_size()
+        out = out.to(t.device)
+    return out
+
+
+def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over the group, in place; returns ``t``."""
+    global staged_bytes
+    if group_size(group) == 1:
+        return t
+    if _staged(group, t):
+        host = t.detach().cpu()
+        dist.all_reduce(host, group=group)
+        staged_bytes += 2 * host.numel() * host.element_size()
+        t.copy_(host)
+    else:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+class _Shift(torch.autograd.Function):
+    """``shift`` of one differentiable tensor plus riders without gradient;
+    the backward shifts the gradient back the other way."""
+
+    @staticmethod
+    def forward(ctx, x, group, offset, *riders):
+        ctx.group, ctx.offset = group, offset
+        out = shift((x,) + tuple(r for r in riders if r is not None), group, offset)
+        it = iter(out[1:])
+        riders_out = tuple(next(it) if r is not None else None for r in riders)
+        ctx.mark_non_differentiable(*(r for r in riders_out if r is not None))
+        return (out[0],) + riders_out
+
+    @staticmethod
+    def backward(ctx, g, *riders):
+        # grads are materialised (zeros for an unused output), so every rank
+        # sends and receives here
+        (back,) = shift((g,), ctx.group, -ctx.offset)
+        return (back, None, None) + (None,) * len(riders)
+
+
+def ring_shift(x: torch.Tensor, group, offset: int = 1,
+               riders: Sequence[Optional[torch.Tensor]] = ()):
+    """Differentiable ``shift``: ``(x', *riders')``. A caller that needs the
+    same backward on every rank keeps every shifted ``x'`` in its graph."""
+    return _Shift.apply(x, group, offset, *riders)
+
+
+class _GatherCat(torch.autograd.Function):
+    """All-gather along ``dim`` for a loss that every rank computes alike:
+    the backward keeps this rank's slice of the (identical) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = group_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n), None, None
+
+
+def gather_replicated_loss(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``all_gather_cat`` whose gradient is this rank's slice only: every
+    rank then holds its own part of the gradient, and the parameters'
+    gradients are summed over the group after the backward."""
+    if group_size(group) == 1:
+        return x
+    return _GatherCat.apply(x, group, dim)

@@ -21,8 +21,12 @@ member. Deviations from the JAX package: the ring cursors, the tick, the
 learn count and epsilon are host values (the same for every member), and
 the learn gate and the target / actor cadences are host decisions.
 
-``make_pod_generation`` and ``ScanRun(mesh=, plan=)`` (a population sharded
-over several cards) come with Queue 1's slice 6.
+``make_pod_generation`` shards the population's members over the ``pop``
+axis of a mesh, one block of members per rank: every rank draws the whole
+population's draws from the same generator and keeps its members' slice,
+runs its members, all-gathers the fitness and the subtree evolution needs,
+runs evolution the same on every rank and splices its own slice back.
+``ScanRun(mesh=, plan=)`` drives it.
 """
 
 from __future__ import annotations
@@ -45,7 +49,6 @@ from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-_POD = "{} (a population sharded over several cards) comes with Queue 1's slice 6"
 
 
 # --------------------------------------------------------------------------- #
@@ -144,8 +147,79 @@ def make_vmap_generation(member_iteration: Callable, evolve: Callable) -> Callab
     return generation
 
 
-def make_pod_generation(*args, **kwargs) -> Callable:
-    raise NotImplementedError(_POD.format("make_pod_generation"))
+def pop_axis_of(plan, mesh, pop_axis: str = "pop") -> str:
+    """The population axis: the plan's last axis on the mesh in canonical
+    order (``ShardingPlan.ordered_axes``), else ``pop_axis``."""
+    if plan is not None:
+        names = set(mesh.mesh_dim_names)
+        axes = [a for a, _ in plan.ordered_axes() if a in names]
+        if axes:
+            return axes[-1]
+    return pop_axis
+
+
+def member_slice(tree: PyTree, lo: int, hi: int, dim: int = 0) -> PyTree:
+    """Members ``[lo, hi)`` along ``dim`` of every tensor leaf; other leaves
+    are kept."""
+    return tree_map(lambda x: x.narrow(dim, lo, hi - lo) if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+def place_members(pop: PyTree, mesh, plan=None, pop_axis: str = "pop") -> PyTree:
+    """This rank's members of a whole population: the plan's ``member``
+    rules place it (``ShardingPlan.place``) and each leaf keeps its local
+    shard; without a plan, every tensor leaf's leading axis splits over
+    ``pop_axis``."""
+    from agilerl_tpu_torch.parallel.plan import make_population_plan
+
+    if plan is None or "member" not in plan.rules:
+        plan = make_population_plan(mesh.size(mesh.mesh_dim_names.index(pop_axis)),
+                                    axis=pop_axis)
+    placed = plan.place("member", pop, mesh)
+    return tree_map(lambda x: x.to_local() if hasattr(x, "to_local") else x, placed)
+
+
+def make_pod_generation(mesh, member_iteration: Callable, extract: Callable,
+                        evolve_extracted: Callable, insert: Callable, draw: Callable,
+                        plan=None, pop_axis: str = "pop", device: DeviceLike = None) -> Callable:
+    """Members sharded over the population axis of ``mesh`` (or of
+    ``plan``'s mesh), any number per rank: ``pop_local, fitness =
+    generation(pop_local, gen)``.
+
+    ``draw(pop_local, P, gen)`` makes the whole population's draws (leaves
+    ``[X, P, ...]``), the same on every rank since ``gen`` is; each rank
+    keeps its members' slice along dim 1 and runs
+    ``member_iteration(pop_local, draws, gen)``. The fitness and ONLY the
+    ``extract``-ed subtree are all-gathered (replay rings and env states
+    never cross ranks); ``evolve_extracted(gathered, fitness, gen)`` runs
+    the same on every rank and ``insert(pop_local, mine)`` splices this
+    rank's slice back. Returns the whole fitness [P]. A plan without a mesh
+    builds its own on ``device``."""
+    from agilerl_tpu_torch.parallel.comm import all_gather_cat, group_rank, group_size
+    from agilerl_tpu_torch.parallel.plan import resolve_plan_and_mesh
+
+    if plan is not None:
+        plan, mesh = resolve_plan_and_mesh(plan, mesh, device=device)
+        pop_axis = pop_axis_of(plan, mesh, pop_axis)
+    if mesh is None:
+        raise ValueError("make_pod_generation needs a mesh or a plan")
+    if pop_axis not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh {mesh.mesh_dim_names} has no population axis {pop_axis!r}")
+    group = mesh.get_group(pop_axis)
+
+    def generation(pop_local, gen: torch.Generator):
+        n_local = int(tree_leaves(extract(pop_local))[0].shape[0])
+        P, me = n_local * group_size(group), group_rank(group)
+        draws = member_slice(draw(pop_local, P, gen), me * n_local, (me + 1) * n_local, dim=1)
+        pop_local, fit_local = member_iteration(pop_local, draws, gen)
+        fitness = all_gather_cat(fit_local, group, 0)
+        gathered = tree_map(lambda x: all_gather_cat(x, group, 0)
+                            if isinstance(x, torch.Tensor) else x, extract(pop_local))
+        evolved = evolve_extracted(gathered, fitness, gen)
+        mine = member_slice(evolved, me * n_local, (me + 1) * n_local)
+        return insert(pop_local, mine), fitness
+
+    return generation
 
 
 # --------------------------------------------------------------------------- #
@@ -562,15 +636,7 @@ class ScanOffPolicy:
         learners (on the device, draws from ``gen``); rings and env states
         stay with their slot. ``ep_ret`` is zeroed: partial returns of the
         pre-evolution policy do not leak into the next fitness."""
-        winners, do_mut = tournament_select(fitness, gen, self.tournament_size, self.elitism,
-                                            self.mutation_prob)
-        gathered = gather_members(pop.learner, winners)
-        updates = {}
-        for f in self._mutate_fields:
-            tree = getattr(gathered, f)
-            updates[f] = gaussian_mutate(tree, mutation_noise(tree, gen), do_mut,
-                                         self.mutation_sd)
-        return pop._replace(learner=gathered._replace(**updates),
+        return pop._replace(learner=self._evolve_learner(pop.learner, fitness, gen),
                             ep_ret=torch.zeros_like(pop.ep_ret))
 
     # -- generation programs -------------------------------------------------- #
@@ -582,8 +648,31 @@ class ScanOffPolicy:
 
         return make_vmap_generation(iteration, self.evolve)
 
-    def make_pod_generation(self, *args, **kwargs) -> Callable:
-        return make_pod_generation(*args, **kwargs)
+    def _evolve_learner(self, learner, fitness: torch.Tensor, gen: torch.Generator):
+        winners, do_mut = tournament_select(fitness, gen, self.tournament_size, self.elitism,
+                                            self.mutation_prob)
+        gathered = gather_members(learner, winners)
+        updates = {}
+        for f in self._mutate_fields:
+            tree = getattr(gathered, f)
+            updates[f] = gaussian_mutate(tree, mutation_noise(tree, gen), do_mut,
+                                         self.mutation_sd)
+        return gathered._replace(**updates)
+
+    def make_pod_generation(self, mesh=None, plan=None) -> Callable:
+        """Members over the population axis (``generation.make_pod_generation``):
+        only the learners are gathered for evolution; rings stay with their
+        rank."""
+
+        def draw(pop, P, gen):
+            # the draws' sizes read the member count from ep_ret [P, N]
+            whole = pop._replace(ep_ret=pop.ep_ret.new_zeros((P,) + tuple(pop.ep_ret.shape[1:])))
+            return self.draw_iteration(whole, gen)
+
+        return make_pod_generation(
+            mesh, self.member_iteration, lambda pop: pop.learner, self._evolve_learner,
+            lambda pop, mine: pop._replace(learner=mine, ep_ret=torch.zeros_like(pop.ep_ret)),
+            draw, plan=plan, device=self.device)
 
     # -- snapshots ------------------------------------------------------------ #
     def state_dict(self, pop: ScanMemberState) -> Dict[str, Any]:
@@ -644,22 +733,30 @@ class ScanRun:
 
     def __init__(self, engine, pop_size: int, seed: int = 0, mesh=None, telemetry=None,
                  index: int = 0, plan=None):
-        if mesh is not None or plan is not None:
-            raise NotImplementedError(_POD.format("ScanRun(mesh=, plan=)"))
         self.engine = engine
         self.pop_size = int(pop_size)
+        if plan is not None:
+            from agilerl_tpu_torch.parallel.plan import resolve_plan_and_mesh
+
+            plan, mesh = resolve_plan_and_mesh(plan, mesh, device=engine.device)
+        self.mesh = mesh
+        self.plan = plan
         self.telemetry = telemetry
         self.index = index
         self._gen = torch.Generator(device=engine.device).manual_seed(int(seed))
         init = torch.Generator().manual_seed(int(seed))
         self.pop = engine.init_population(init, self.pop_size)
+        if mesh is not None:
+            # this rank's members (every rank draws the same whole population)
+            self.pop = place_members(self.pop, mesh, plan, pop_axis_of(plan, mesh))
         self.generation = 0
         self.fitness_history: list = []
         self._gen_fn: Optional[Callable] = None
 
     def _generation_fn(self) -> Callable:
         if self._gen_fn is None:
-            self._gen_fn = self.engine.make_vmap_generation()
+            self._gen_fn = (self.engine.make_pod_generation(self.mesh, plan=self.plan)
+                            if self.mesh is not None else self.engine.make_vmap_generation())
         return self._gen_fn
 
     def run(self, generations: int) -> np.ndarray:

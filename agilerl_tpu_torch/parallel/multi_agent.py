@@ -28,8 +28,8 @@ actor and zeroes the running returns (a generation boundary segments them).
 The reward carries the truncation bootstrap ``+ gamma * V(final_obs) *
 (truncated & ~terminated)``, where the JAX program uses ``truncated``
 (``SimpleSpreadTorch`` never terminates, so the numbers agree there).
-Pod-sharded generations (``make_pod_generation``) come with Queue 1's
-slice 6.
+``make_pod_generation`` shards the members over a mesh's population axis
+(``parallel/generation.py``).
 """
 
 from __future__ import annotations
@@ -359,8 +359,16 @@ class EvoIPPO:
 
         return make_vmap_generation(iteration, self.evolve)
 
-    def make_pod_generation(self, *args, **kwargs) -> Callable:
-        return make_pod_generation(*args, **kwargs)
+    def make_pod_generation(self, mesh=None, plan=None) -> Callable:
+        """Members over the population axis (``generation.make_pod_generation``):
+        only actor, critic and optimizer state are gathered for evolution;
+        the running returns restart at zero."""
+        return make_pod_generation(
+            mesh, self.member_iteration, lambda pop: (pop.actor, pop.critic, pop.opt_state),
+            self._evolve_extracted,
+            lambda pop, mine: pop._replace(actor=mine[0], critic=mine[1], opt_state=mine[2],
+                                           ep_ret=torch.zeros_like(pop.ep_ret)),
+            lambda pop, P, gen: self.draw_iteration(P, gen), plan=plan, device=self.device)
 
     # -- snapshots ---------------------------------------------------------- #
     def state_dict(self, pop: IPPOMemberState) -> Dict[str, Any]:

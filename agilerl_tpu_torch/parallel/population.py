@@ -19,8 +19,8 @@ so a member's slice of a batched generation equals the same member's
 iteration run alone on the same draws. Nothing here reads a tensor on the
 host: the caller's read of the fitness is a generation's one sync.
 
-Pod-sharded generations (``make_pod_generation``) come with Queue 1's
-slice 6.
+``make_pod_generation`` shards the members over a mesh's population axis
+(``parallel/generation.py``).
 """
 
 from __future__ import annotations
@@ -313,5 +313,11 @@ class EvoPPO:
 
         return make_vmap_generation(iteration, self.evolve)
 
-    def make_pod_generation(self, *args, **kwargs) -> Callable:
-        return make_pod_generation(*args, **kwargs)
+    def make_pod_generation(self, mesh=None, plan=None) -> Callable:
+        """Members over the population axis (``generation.make_pod_generation``):
+        only actor, critic and optimizer state are gathered for evolution."""
+        return make_pod_generation(
+            mesh, self.member_iteration, lambda pop: (pop.actor, pop.critic, pop.opt_state),
+            self._evolve_extracted,
+            lambda pop, mine: pop._replace(actor=mine[0], critic=mine[1], opt_state=mine[2]),
+            lambda pop, P, gen: self.draw_iteration(P, gen), plan=plan, device=self.device)

@@ -14,8 +14,8 @@ random streams, the env's data stream and the rollout pod's carried prompt
 batch at every evaluation boundary; ``resume`` continues the epoch line from
 the newest complete snapshot (post-snapshot weight epochs and trajectory
 leftovers are purged and the restored adapter re-published). ``wb=True``
-logs to wandb when it imports. Not ported yet, and raising
-``NotImplementedError``: ``plan=`` / ``mesh=`` (a sharded learner).
+logs to wandb when it imports. ``plan=`` / ``mesh=`` place the learner by a
+sharding plan (``LearnerPod(plan=, mesh=)``).
 """
 
 from __future__ import annotations
@@ -76,9 +76,6 @@ def finetune_llm_reasoning_online(
             "start at epoch 0 under a reused workdir's newer epochs and "
             "drop every batch as negative-lag)")
     _assert_llm_mutations(mutation)
-    if plan is not None or mesh is not None:
-        raise NotImplementedError("finetune_llm_reasoning_online plan= / mesh= is not ported "
-                                  "yet (the sharding plans)")
     telem = init_run_telemetry(wb=wb, config=INIT_HP, telemetry=telemetry)
     if telem.timeline.model_config is None:
         telem.timeline.set_model_config(getattr(agent, "model_config", None))
@@ -101,7 +98,7 @@ def finetune_llm_reasoning_online(
         agent, weight_store, traj_store,
         max_staleness_epochs=max_staleness_epochs, rho_clip=rho_clip,
         importance_correction=importance_correction, metrics=reg,
-        tracer=telem.tracer)
+        plan=plan, mesh=mesh, tracer=telem.tracer)
     rollout = RolloutPod(
         actor_agent if actor_agent is not None else agent, env,
         weight_store, traj_store, metrics=reg, fleet=fleet,

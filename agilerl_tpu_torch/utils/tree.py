@@ -36,9 +36,15 @@ def tree_copy(tree: Any) -> Any:
 
 def tree_to_numpy(tree: Any) -> Any:
     """Every tensor leaf as a host numpy array (``jax.device_get``); other
-    leaves are kept. A pickle of the result loads without a card."""
-    return tree_map(
-        lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x, tree)
+    leaves are kept (a DTensor as its whole value). A pickle of the result
+    loads without a card."""
+    return tree_map(lambda x: _whole(x).detach().cpu().numpy()
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (``full_tensor``); a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 def tree_from_numpy(tree: Any, device) -> Any:

@@ -6104,6 +6104,473 @@ def run_launcher(torch, ops, report):
     return dict(child["learner"])
 
 
+# ------------------------------- phase 4u ---------------------------------- #
+# Queue 1's items 4 and 6 on the card. (a) GRPO.to_mesh with the committed
+# 7B plan degraded onto the one-card mesh (every rule axis drops: DTensors
+# replicated on a 1-rank mesh; the flash and fused calls run through
+# local_map on flash_shard_axes / fused_loss_shard_axes): two learns at
+# llama3-8b on 4b's batch shape against two unplaced learns on the same
+# batch, bit for bit or within PLACED_ADAPTER_REL of the adapters' own
+# movement, with 4b's launches per learn. (b) GRPO(sequence_parallel_axis=
+# "sp") at world size 1 and full depth on 2 right-padded rows x 2,048 (f32
+# ring attention through the f32 flash kernels, dense f32 head): its
+# logprobs against the plain token_logprobs within E2E_MAX_FACTOR /
+# E2E_MEAN_FACTOR of the kernel path's own spread at the same inputs (phase
+# 4's rule), then one learn. (c) two ranks on the one card over gloo
+# (``chip_smoke.py --ring-rank``: two child processes; NCCL takes one rank
+# per card) on a 4-layer model at llama3-8b width with an f32 base (every
+# product in f32: the two sides differ only by f32 roundings), 2 rows x
+# 8,192 (2,048 of padding on the second), 4,096 tokens per rank, against the
+# same model at world size 1 in this process: the adapter gradient the
+# optimizer is handed (summed over the ranks, before clipping) within
+# RING_GRAD_REL in relative L2, the adapter update within RING_UPDATE_REL
+# (one Adam step is about lr * sign(gradient): entries near zero may flip),
+# the logprobs within the JAX long-context test's atol and the loss at the
+# JAX sp test's tolerance (in the first epoch the ratio is 1 and the KL 0,
+# so the loss is -mean(advantage) and shows only that the learn ran);
+# adapters and Adam moments bit-identical across the ranks, and each rank's
+# flash launches exact (rank r: r + 1 per layer per pass). (d) EvoPPO
+# through ScanRun on a one-rank population mesh at pop 8 against ScanRun
+# without one, bit for bit. (a) and (b) run on phase 4's weights after 4g;
+# (c) and (d) after 4t, when this process holds no 8B weights.
+SHARD_PLAN = "configs/sharding/grpo_7b_fsdp16xtp4.yaml"
+ONE_CARD_BACKEND = "nccl"  # a one-card mesh's group (gloo on a CPU rehearsal)
+SHARD_AXES = dict(flash_shard_axes=(("dp", "fsdp"), ("tp",)), fused_loss_shard_axes=("dp", "fsdp"))
+PLACED_ADAPTER_REL = 1e-2
+SP_ROWS, SP_T, SP_PAD = 2, 2_048, 256
+RING_LAYERS, RING_ROWS, RING_T, RING_PAD, RING_SEED = 4, 2, 8_192, 2_048, 17
+RING_LOSS_TOL = dict(rtol=2e-3, atol=2e-4)  # tests/test_parallel/test_mesh.py:97
+RING_LP_ATOL = 2e-4  # tests/test_llm/test_long_context.py:28
+RING_GRAD_REL = 1e-3
+RING_UPDATE_REL = 5e-2
+RING_TIMEOUT_S = 300.0
+POD = dict(pop=8, num_envs=16, rollout_len=32, latent=32, hidden=64, update_epochs=1,
+           num_minibatches=2, lr=3e-4, generations=2)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class one_rank_group:
+    """A world-size-1 process group in this process for the one-card meshes
+    (NCCL on the card); destroyed on exit, so later phases see none."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        dist.init_process_group(ONE_CARD_BACKEND,
+                                init_method=f"tcp://127.0.0.1:{free_port()}",
+                                rank=0, world_size=1)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        return False
+
+
+def flat_leaves(tree):
+    from agilerl_tpu_torch.utils.tree import tree_leaves
+
+    return [x for x in tree_leaves(tree) if hasattr(x, "shape")]
+
+
+def adapter_change(torch, new, old):
+    """max |new - old| over the adapter leaves (DTensors as whole values)."""
+    from agilerl_tpu_torch.utils.tree import tree_to_numpy
+
+    import numpy as np
+
+    a, b = flat_leaves(tree_to_numpy(new)), flat_leaves(tree_to_numpy(old))
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def placed_batch(np, cfg, prompts):
+    """4b's batch shape: phase 4's prompts x group 4 with seeded completions
+    (two end early), the action mask of their predictions, rewards."""
+    ptoks, pmask = prompts
+    n, P = ptoks.shape
+    rng = np.random.default_rng(21)
+    comp = rng.integers(1, cfg.vocab_size, (n * GROUP_SIZE, MAX_NEW_TOKENS))
+    cmask = np.ones(comp.shape, np.int32)
+    cmask[1, 40:] = cmask[6, 10:] = 0
+    comp = comp * cmask
+    ids = np.concatenate([np.repeat(ptoks, GROUP_SIZE, 0), comp], axis=1)
+    attn = np.concatenate([np.repeat(pmask, GROUP_SIZE, 0), cmask], axis=1)
+    action = np.zeros((ids.shape[0], ids.shape[1] - 1), np.float32)
+    action[:, P - 1:] = cmask
+    rewards = completion_reward(comp).reshape(n, GROUP_SIZE).astype(np.float32)
+    return ids, action, rewards, attn
+
+
+def run_sharding(torch, M, ops, cfg, params, prompts, report):
+    """Phase 4u (a) and (b) on phase 4's weights. Returns the launches of
+    their placed learns (the plan path) and of the sp learn."""
+    import dataclasses
+
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms import grpo as TG
+    from agilerl_tpu_torch.parallel.plan import ShardingPlan
+    from agilerl_tpu_torch.utils.tree import tree_copy, tree_to_numpy
+
+    out = report["sharding"] = {}
+    torch.cuda.empty_cache()
+    L = cfg.n_layer
+    want = {"flash_attention_fwd": 3 * L, "flash_attention_dq": L, "flash_attention_dkv": L,
+            "fused_logprob_fwd": 3, "fused_logprob_dh": 1, "fused_logprob_dw": 0}
+    batch = placed_batch(np, cfg, prompts)
+    scfg = dataclasses.replace(cfg, **SHARD_AXES)
+    kw = dict(config=scfg, base_params=params, pad_token_id=0, seed=0, batch_size=16,
+              update_epochs=1, group_size=GROUP_SIZE, max_output_tokens=MAX_NEW_TOKENS,
+              lora_rank=LORA_RANK, lora_targets=("wq", "wv"))
+    plan = ShardingPlan.from_yaml(SHARD_PLAN)
+    log(f"phase 4u (a): GRPO.to_mesh(plan={plan.name!r}) on the one-card mesh, two learns on "
+        f"{batch[0].shape[0]} rows x {batch[0].shape[1]} tokens at llama3-8b")
+    with one_rank_group():
+        placed = TG.GRPO(**kw)
+        start = tree_copy(placed.actor.params)
+        (_, t_place) = host_s(torch, lambda: placed.to_mesh(
+            mesh=ShardingPlan("one-card", {"fsdp": 1}).build_mesh(), plan=plan))
+        wq = placed.base_params["blocks"]["0"]["wq"]
+        check(type(wq).__name__ == "DTensor", "to_mesh left the base weights plain")
+        ops.reset_kernel_counters()
+        learns = []
+        for it in range(2):
+            before = ops.kernel_counters()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.enable_grad():
+                loss, t = host_s(torch, lambda: placed.learn(batch))
+            after = ops.kernel_counters()
+            counts = {k: after[k] - before[k] for k in after}
+            check(counts == want, f"4u (a) placed learn {it}: launches {counts} != {want}")
+            learns.append(dict(loss=loss, learn_s=t, launches=counts,
+                               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
+        plan_launches = ops.kernel_counters()
+        plain = TG.GRPO(**kw)
+        plain_learns = []
+        for it in range(2):
+            with torch.enable_grad():
+                loss, t = host_s(torch, lambda: plain.learn(batch))
+            plain_learns.append(dict(loss=loss, learn_s=t))
+        moved = adapter_change(torch, plain.actor.params, start)
+        diff = adapter_change(torch, placed.actor.params, plain.actor.params)
+        loss_d = max(abs(a["loss"][i] - b["loss"][i]) for a, b in zip(learns, plain_learns)
+                     for i in (0, 1))
+        log(f"  placed learns {[round(x['learn_s'], 3) for x in learns]} s (to_mesh "
+            f"{t_place:.2f} s), unplaced {[round(x['learn_s'], 3) for x in plain_learns]} s; "
+            f"losses {[x['loss'] for x in learns]} vs {[x['loss'] for x in plain_learns]}; "
+            f"max|d loss| {loss_d:.3e}, max|d adapter| {diff:.3e} (the adapters moved by "
+            f"{moved:.3e}); peak memory {learns[-1]['peak_memory_gb']:.1f} GB; launches per "
+            f"learn {learns[-1]['launches']}")
+        check(moved > 0, "4u (a): the adapters did not move")
+        check(diff <= PLACED_ADAPTER_REL * moved and loss_d <= 1e-6 + 1e-3 * abs(
+            plain_learns[0]["loss"][0]), "4u (a): the placed learn disagrees with the unplaced")
+        out["plan"] = dict(plan=plan.name, placed=learns, unplaced=plain_learns,
+                           to_mesh_s=t_place, bit_for_bit=diff == 0.0 and loss_d == 0.0,
+                           max_adapter_diff=diff, adapter_moved=moved, max_loss_diff=loss_d)
+        del placed, plain
+        torch.cuda.empty_cache()
+
+        # (b) the sp learn at world size 1, full depth
+        log(f"phase 4u (b): GRPO(sequence_parallel_axis='sp') on a 1-rank sp mesh, "
+            f"{SP_ROWS} rows x {SP_T} (the second right-padded by {SP_PAD}), {L} layers")
+        rng = np.random.default_rng(22)
+        ids = rng.integers(1, cfg.vocab_size, (SP_ROWS, SP_T)).astype(np.int64)
+        ids[1, SP_T - SP_PAD:] = 0
+        action = np.zeros((SP_ROWS, SP_T - 1), np.float32)
+        action[:, SP_T // 2:] = ids[:, SP_T // 2 + 1:] != 0
+        sp = TG.GRPO(config=dataclasses.replace(cfg, use_flash_attention=True),
+                     base_params=params, pad_token_id=0, seed=0, batch_size=SP_ROWS,
+                     update_epochs=1, group_size=2, lora_rank=LORA_RANK,
+                     lora_targets=("wq", "wv"), sequence_parallel_axis="sp")
+        lora0 = tree_copy(sp.actor.params)
+        sp.to_mesh(mesh=ShardingPlan("sp1", {"sp": 1}).build_mesh())
+        tokens, mask, _ = sp._learn_masks(ids, action, None)
+        lp_fn, _ = sp._learn_fns(tokens, mask)
+        ops.reset_kernel_counters()
+        lp, t_pass = host_s(torch, lambda: lp_fn(sp.actor.params, tokens, mask))
+        pass_counts = ops.kernel_counters()
+        check(pass_counts["flash_attention_fwd"] == L and pass_counts["fused_logprob_fwd"] == 0,
+              f"4u (b): one sp pass launched {pass_counts}")
+        real = (mask[:, 1:] > 0) & (mask[:, :-1] > 0)
+        plain = M.token_logprobs(cfg, params, tokens, mask, lora=lora0, flash=False,
+                                 use_fused=False)
+        kernels = M.token_logprobs(cfg, params, tokens, mask, lora=lora0, flash=True,
+                                   use_fused=True)
+        d_sp, d_k = (lp - plain)[real].abs(), (kernels - plain)[real].abs()
+        log(f"  sp logprobs vs plain token_logprobs: max|d| {d_sp.max().item():.3e} mean|d| "
+            f"{d_sp.mean().item():.3e}; the kernel path vs plain at the same inputs: max|d| "
+            f"{d_k.max().item():.3e} mean|d| {d_k.mean().item():.3e}; one sp pass "
+            f"{t_pass:.3f} s")
+        check(bool(torch.isfinite(lp[real]).all()), "4u (b): sp logprobs not finite")
+        check(d_sp.max().item() <= E2E_MAX_FACTOR * d_k.max().item() + E2E_FLOOR
+              and d_sp.mean().item() <= E2E_MEAN_FACTOR * d_k.mean().item() + E2E_FLOOR,
+              "4u (b): the sp logprobs are further from the plain path than the kernel path's")
+        del plain, kernels
+        ops.reset_kernel_counters()
+        torch.cuda.reset_peak_memory_stats()
+        rewards = np.array([[1.0, 0.0]], np.float32)
+        with torch.enable_grad():
+            (loss, kl), t_learn = host_s(torch, lambda: sp.learn((ids, action, rewards)))
+        sp_launches = ops.kernel_counters()
+        sp_peak = torch.cuda.max_memory_allocated() / 1e9
+        sp_want = {"flash_attention_fwd": 3 * L, "flash_attention_dq": L,
+                   "flash_attention_dkv": L}
+        check(all(sp_launches[k] == v for k, v in sp_want.items()),
+              f"4u (b): sp learn launches {sp_launches} != {sp_want}")
+        sp_moved = adapter_change(torch, sp.actor.params, lora0)
+        check(np.isfinite(loss) and sp_moved > 0, f"4u (b): loss {loss}, adapter moved {sp_moved}")
+        log(f"  sp learn {t_learn:.3f} s, loss {loss:.5f}, adapter moved {sp_moved:.3e}, peak "
+            f"memory {sp_peak:.1f} GB, launches {sp_launches}")
+        out["sp"] = dict(rows=SP_ROWS, T=SP_T, pad=SP_PAD, pass_s=t_pass, learn_s=t_learn,
+                         loss=loss, kl=kl, adapter_moved=sp_moved, peak_memory_gb=sp_peak,
+                         lp_vs_plain_max=d_sp.max().item(), lp_vs_plain_mean=d_sp.mean().item(),
+                         kernel_vs_plain_max=d_k.max().item(),
+                         kernel_vs_plain_mean=d_k.mean().item(), launches=sp_launches)
+        del sp, lp
+        torch.cuda.empty_cache()
+    return plan_launches, sp_launches
+
+
+def ring_batch(np, vocab):
+    """2 rows x RING_T, the second right-padded by RING_PAD; completion
+    predictions in the second half; one group of 2."""
+    rng = np.random.default_rng(RING_SEED)
+    ids = rng.integers(1, vocab, (RING_ROWS, RING_T)).astype(np.int64)
+    ids[1, RING_T - RING_PAD:] = 0
+    action = np.zeros((RING_ROWS, RING_T - 1), np.float32)
+    action[:, RING_T // 2:] = ids[:, RING_T // 2 + 1:] != 0
+    return ids, action, np.array([[1.0, 0.0]], np.float32)
+
+
+def capture_grads(tx, sink):
+    """``tx`` that also keeps each gradient tree it is handed, as numpy
+    leaves, in ``sink``."""
+    from agilerl_tpu_torch.algorithms.core.optimizer import Transform
+    from agilerl_tpu_torch.utils.tree import tree_to_numpy
+
+    def update(grads, state, params=None):
+        sink.append(flat_leaves(tree_to_numpy(grads)))
+        return tx.update(grads, state, params)
+
+    return Transform(tx.init, update)
+
+
+def ring_learn(torch, ops, world):
+    """(c)'s 4-layer sp learn on a mesh whose sp axis has ``world`` ranks
+    (this process's group): one no-grad logprob pass and one learn, each
+    with its launches and host-staged bytes, and the gradient the learn's
+    optimizer step was handed."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms.grpo import GRPO
+    from agilerl_tpu_torch.llm import model as M, presets
+    from agilerl_tpu_torch.parallel import comm
+    from agilerl_tpu_torch.parallel.plan import ShardingPlan
+    from agilerl_tpu_torch.utils.tree import tree_copy, tree_to_numpy
+
+    cfg = presets.preset("llama3-8b", n_layer=RING_LAYERS, max_seq_len=RING_T,
+                         dtype=torch.float32)
+    params = M.init_params(RING_SEED, cfg, device="cuda")
+    agent = GRPO(config=cfg, base_params=params, pad_token_id=0, seed=0, group_size=2,
+                 batch_size=RING_ROWS, update_epochs=1, lora_rank=LORA_RANK,
+                 lora_targets=("wq", "wv"), sequence_parallel_axis="sp")
+    start = tree_to_numpy(tree_copy(agent.actor.params))
+    agent.to_mesh(mesh=ShardingPlan("ring", {"sp": world}).build_mesh())
+    grads = []
+    agent.optimizer.tx = capture_grads(agent.optimizer.tx, grads)
+    ids, action, rewards = ring_batch(np, cfg.vocab_size)
+    tokens, mask, _ = agent._learn_masks(ids, action, None)
+    lp_fn, _ = agent._learn_fns(tokens, mask)
+    ops.reset_kernel_counters()
+    staged0 = comm.staged_bytes
+    lp, t_pass = host_s(torch, lambda: lp_fn(agent.actor.params, tokens, mask))
+    pass_launches = ops.kernel_counters()
+    staged1 = comm.staged_bytes
+    ops.reset_kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad():
+        (loss, kl), t_learn = host_s(torch, lambda: agent.learn((ids, action, rewards)))
+    return dict(lp=lp.cpu().numpy(), loss=loss, kl=kl, pass_s=t_pass, learn_s=t_learn,
+                pass_launches=pass_launches, learn_launches=ops.kernel_counters(),
+                pass_staged_bytes=staged1 - staged0,
+                learn_staged_bytes=comm.staged_bytes - staged1,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, start=start,
+                grad=grads[0], actor=tree_to_numpy(agent.actor.params),
+                adam=flat_leaves(tree_to_numpy(agent.optimizer.opt_state)))
+
+
+def ring_rank_child(rank: int, port: int, out_dir: str) -> None:
+    """One rank of (c) (``chip_smoke.py --ring-rank RANK PORT DIR``): both
+    ranks on card 0, over gloo; its numbers into DIR/rank<RANK>.pkl."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from agilerl_tpu_torch import ops
+
+    torch_settings(torch)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    try:
+        res = ring_learn(torch, ops, 2)
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(res))
+
+
+def update_rel(new, ref, start):
+    """|(new - start) - (ref - start)| / |ref - start| over the adapter."""
+    import numpy as np
+
+    a = np.concatenate([x.ravel() for x in flat_leaves(new)])
+    b = np.concatenate([x.ravel() for x in flat_leaves(ref)])
+    s = np.concatenate([x.ravel() for x in flat_leaves(start)])
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b - s), 1e-30))
+
+
+def grad_rel(got, want):
+    """|got - want| / |want| over the concatenated gradient leaves."""
+    import numpy as np
+
+    a = np.concatenate([x.ravel() for x in got])
+    b = np.concatenate([x.ravel() for x in want])
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def run_ring_and_pod(torch, ops, report):
+    """Phase 4u (c) and (d). Returns the launches of the two ranks' learns
+    (by rank) and of the pod generations."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from agilerl_tpu_torch.parallel.generation import ScanRun
+    from agilerl_tpu_torch.parallel.plan import make_population_plan
+
+    out = report.setdefault("sharding", {})
+    log(f"phase 4u (c): the sp learn on {RING_LAYERS} layers at llama3-8b width, "
+        f"{RING_ROWS} rows x {RING_T} (the second right-padded by {RING_PAD}): world size 1 "
+        "here, then two ranks on the card over gloo")
+    torch.cuda.empty_cache()
+    with one_rank_group():
+        one = ring_learn(torch, ops, 1)
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ring_"))
+    port = free_port()
+    procs = []
+    try:
+        for r in range(2):
+            with open(work / f"rank{r}.log", "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--ring-rank", str(r),
+                     str(port), str(work)], stdout=f, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        deadline = time.perf_counter() + RING_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                pass
+        for r in range(2):
+            text = (work / f"rank{r}.log").read_text()
+            if text.strip():
+                log(f"  rank {r} log:\n{text.rstrip()}")
+        check(all(p.returncode == 0 for p in procs),
+              f"4u (c): the ranks exited {[p.returncode for p in procs]}")
+        ranks = [pickle.loads((work / f"rank{r}.pkl").read_bytes()) for r in range(2)]
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    L = RING_LAYERS
+    for r, res in enumerate(ranks):
+        fwd = res["pass_launches"]["flash_attention_fwd"]
+        check(fwd == (r + 1) * L, f"4u (c): rank {r} launched {fwd} flash forwards in one pass, "
+              f"not {(r + 1) * L}")
+        ll = res["learn_launches"]
+        check(ll["flash_attention_fwd"] == 3 * (r + 1) * L
+              and ll["flash_attention_dq"] == (r + 1) * L
+              and ll["flash_attention_dkv"] == (r + 1) * L,
+              f"4u (c): rank {r}'s learn launched {ll}")
+    check(one["pass_launches"]["flash_attention_fwd"] == L, "4u (c): world size 1 launches")
+    for key in ("actor", "adam"):
+        a, b = flat_leaves(ranks[0][key]), flat_leaves(ranks[1][key])
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"4u (c): the ranks' {key} trees differ")
+    ids = ring_batch(np, 128_256)[0]
+    real = (ids[:, 1:] != 0) & (ids[:, :-1] != 0)
+    d_lp = np.abs(ranks[0]["lp"] - one["lp"])[real]
+    rel = update_rel(ranks[0]["actor"], one["actor"], one["start"])
+    g_rel = grad_rel(ranks[0]["grad"], one["grad"])
+    g_norm = float(np.sqrt(sum(float((x.astype(np.float64) ** 2).sum()) for x in one["grad"])))
+    loss2, loss1 = ranks[0]["loss"], one["loss"]
+    shifts = L * (3 + 1)  # one shift per layer per pass (P - 1 = 1), and the backward's
+    staged = ranks[0]["learn_staged_bytes"]
+    log(f"  2 ranks vs 1: logprobs max|d| {d_lp.max():.3e} mean|d| {d_lp.mean():.3e}; loss "
+        f"{loss2:.6f} vs {loss1:.6f}; adapter gradient relative L2 {g_rel:.3e} (|g| "
+        f"{g_norm:.4e} at 1 rank); adapter update relative L2 {rel:.3e}; learn "
+        f"{[round(r['learn_s'], 3) for r in ranks]} s at 2 ranks, {one['learn_s']:.3f} s at 1; "
+        f"one pass {[round(r['pass_s'], 3) for r in ranks]} s vs {one['pass_s']:.3f} s; "
+        f"host-staged bytes per ring step {staged / shifts:.4g} (learn {staged:.4g} over "
+        f"{shifts} shifts; one pass {ranks[0]['pass_staged_bytes']:.4g}); peak memory "
+        f"{[round(r['peak_memory_gb'], 1) for r in ranks]} GB per rank, "
+        f"{one['peak_memory_gb']:.1f} GB at 1")
+    check(abs(loss2 - loss1) <= RING_LOSS_TOL["atol"] + RING_LOSS_TOL["rtol"] * abs(loss1),
+          "4u (c): the 2-rank loss disagrees with world size 1")
+    check(d_lp.max() <= RING_LP_ATOL,
+          f"4u (c): the 2-rank logprobs are further than {RING_LP_ATOL} from world size 1")
+    check(g_norm > 0 and g_rel <= RING_GRAD_REL,
+          f"4u (c): the 2-rank adapter gradient is {g_rel:.3e} from world size 1 in relative "
+          f"L2 (bound {RING_GRAD_REL})")
+    check(rel <= RING_UPDATE_REL,
+          f"4u (c): the 2-rank adapter update is {rel:.3e} from world size 1 in relative L2 "
+          f"(bound {RING_UPDATE_REL})")
+    out["ring"] = dict(
+        layers=L, rows=RING_ROWS, T=RING_T, pad=RING_PAD, lp_max=float(d_lp.max()),
+        lp_mean=float(d_lp.mean()), loss=[loss2, loss1], grad_rel=g_rel, grad_norm=g_norm,
+        update_rel=rel,
+        learn_s=[r["learn_s"] for r in ranks], learn_s_one=one["learn_s"],
+        pass_s=[r["pass_s"] for r in ranks], pass_s_one=one["pass_s"],
+        staged_bytes_per_step=staged / shifts, peak_memory_gb=[r["peak_memory_gb"]
+                                                               for r in ranks],
+        peak_memory_gb_one=one["peak_memory_gb"],
+        launches=[r["learn_launches"] for r in ranks])
+
+    log(f"phase 4u (d): EvoPPO through ScanRun on a one-rank population mesh, pop "
+        f"{POD['pop']}, {POD['generations']} generations")
+    ops.reset_kernel_counters()
+    with one_rank_group():
+        pod = ScanRun(evo_ppo(torch, POD), POD["pop"], seed=0, plan=make_population_plan(1))
+        fit_pod, t_pod = host_s(torch, lambda: pod.run(POD["generations"]))
+    ref = ScanRun(evo_ppo(torch, POD), POD["pop"], seed=0)
+    fit_ref, t_ref = host_s(torch, lambda: ref.run(POD["generations"]))
+    same = np.array_equal(fit_pod, fit_ref) and all(
+        torch.equal(a, b) if hasattr(a, "shape") else a == b
+        for a, b in zip(flat_leaves(pod.pop), flat_leaves(ref.pop)))
+    log(f"  pod {t_pod:.2f} s vs vmapped {t_ref:.2f} s; fitness {fit_pod[-1].tolist()}; "
+        f"bit for bit: {same}")
+    check(same, "4u (d): the pod generation differs from ScanRun without a mesh")
+    out["pod"] = dict(pop=POD["pop"], generations=POD["generations"], pod_s=t_pod,
+                      vmap_s=t_ref, bit_for_bit=same)
+    return {r: ranks[r]["learn_launches"] for r in range(2)}
+
+
 # ------------------------------- phase 5 ----------------------------------- #
 
 
@@ -6586,6 +7053,8 @@ def main() -> None:
         with torch.enable_grad():
             fly_launches = timed_phase("4g", run_fleet_and_flywheel, torch, M, G, ops, tfa, tfl,
                                        cfg, params, prompts, served_greedy, report)
+        plan_launches, sp_launches = timed_phase("4u_ab", run_sharding, torch, M, ops, cfg,
+                                                 params, prompts, report)
         with torch.enable_grad():
             # one f32 copy of the weights, made from (and replacing) the bf16
             # blocks, serves both gradient checks
@@ -6603,13 +7072,14 @@ def main() -> None:
             resilience_launches = timed_phase("4s", run_resilience, torch, ops, tfa, tfl,
                                               presets, report)
             launcher_launches = timed_phase("4t", run_launcher, torch, ops, report)
+        ring_launches = timed_phase("4u_cd", run_ring_and_pod, torch, ops, report)
         rl_launches = join_rl_phases(rl, report)
     finally:
         stop_rl_phases(rl)
     gpt_launches = timed_phase("4q", run_transformers, torch, ops, presets, report)
     # each main path's counts were set to 0 just before it and read just after
     launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
-                for k in grpo_launches}
+                + plan_launches[k] + sp_launches[k] for k in grpo_launches}
 
     log("phase 5: kernel times at the main path's shapes")
     kernels = [time_flash(torch, F, tfa, cfg, full_mask, launches, report),
@@ -6625,7 +7095,11 @@ def main() -> None:
                                         for path, n in rl_launches.items()},
                                      "evolvable_gpt": gpt_launches[entry["name"]],
                                      "resilience": resilience_launches[entry["name"]],
-                                     "launcher": launcher_launches[entry["name"]]}
+                                     "launcher": launcher_launches[entry["name"]],
+                                     "plan_learn": plan_launches[entry["name"]],
+                                     "sp_learn": sp_launches[entry["name"]],
+                                     "ring_rank0": ring_launches[0][entry["name"]],
+                                     "ring_rank1": ring_launches[1][entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":
@@ -6634,6 +7108,11 @@ def main() -> None:
                   f"{entry['name']} was not launched on phase 4s's GRPO runs")
             check(launcher_launches[entry["name"]] > 0,
                   f"{entry['name']} was not launched in phase 4t's learner process")
+            check(plan_launches[entry["name"]] > 0,
+                  f"{entry['name']} was not launched on phase 4u's plan learns")
+        if entry["name"].startswith("flash"):
+            check(sp_launches[entry["name"]] > 0 and ring_launches[1][entry["name"]] > 0,
+                  f"{entry['name']} was not launched on phase 4u's ring")
     report["wall_s"] = time.perf_counter() - t_start
     log(f"wall time {report['wall_s']:.1f} s")
     log("report: " + json.dumps(report))
@@ -6647,6 +7126,8 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--population-gate":
         population_gate_child(int(sys.argv[2]))
+    elif len(sys.argv) == 5 and sys.argv[1] == "--ring-rank":
+        ring_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) == 4 and sys.argv[1] == "--rl-phases":
         _T0 = float(sys.argv[2])
         rl_phases(sys.argv[3])

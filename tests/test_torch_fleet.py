@@ -333,13 +333,30 @@ def test_fleet_sampled_stream_equals_one_generator(weights):
 
 
 def test_fleet_raises_on_unported_options(weights):
+    """``sharding_plan=`` and ``scale_up(plan=...)`` (they raised before the
+    sharding plans were ported) place each member under its plan, ``"auto"``
+    taking the first registered plan for the live device count; the
+    fleet's refusals stay."""
+    from agilerl_tpu_torch.parallel import plan as TPL
+    from tests.torch_dist_harness import single_rank
+
     pkg = _Pkg("torch", weights)
-    with pytest.raises(NotImplementedError, match="sharding_plan"):
-        TF.ServingFleet(TCFG, 1, sharding_plan=object(), device="cpu", **KW)
+    saved = dict(TPL._REGISTRY)
+    TPL.clear_registry()
+    try:
+        with single_rank():
+            plan = TPL.make_grpo_plan()
+            fl = TF.ServingFleet(TCFG, 1, sharding_plan=plan, device="cpu", **KW)
+            assert all(m.gen.sharding_plan is plan for m in fl._serving_members().values())
+            grown = pkg.fleet(n=1)
+            TPL.register_default_plans(1)
+            for p, name in (("auto", "grpo-dp1"), (plan, plan.name)):
+                rid = grown.scale_up(plan=p)
+                assert grown._members[rid].gen.sharding_plan.name == name
+    finally:
+        TPL.clear_registry()
+        TPL._REGISTRY.update(saved)
     fl = pkg.fleet(n=1)
-    for plan in ("auto", object()):
-        with pytest.raises(NotImplementedError, match="plan"):
-            fl.scale_up(plan=plan)
     with pytest.raises(ValueError, match="transfer_dir"):
         pkg.fleet(topology="disaggregated")
     with pytest.raises(ValueError, match="last serving replica"):

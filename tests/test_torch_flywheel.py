@@ -480,9 +480,12 @@ def test_online_entry_point_raises_like_the_reference_and_on_unported_hooks(tmp_
                                       mutation=Mutations(architecture=0.5), verbose=False)
     from agilerl_tpu_torch.resilience import Resilience
 
+    from agilerl_tpu_torch.parallel.plan import make_grpo_plan
+    from tests.torch_dist_harness import single_rank
+
     for hook in (dict(resilience=Resilience(tmp_path / "snap", save_every=1,
                                             handle_signals=False)),
-                 dict(plan=object()), dict(mesh=object()), dict(wb=True)):
+                 dict(plan=make_grpo_plan()), dict(mesh=None), dict(wb=True)):
         if "wb" in hook:
             # wb=True runs: wandb does not import here, so the loop logs to
             # its sink only, as the JAX loop does
@@ -504,10 +507,19 @@ def test_online_entry_point_raises_like_the_reference_and_on_unported_hooks(tmp_
                 resilience=Resilience(tmp_path / "snap", handle_signals=False))
             assert len(fit) == 1 and len(fit2) == 2 and fit2[0] == fit[0]
             continue
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            finetune_llm_reasoning_online(agent, make_env(), tmp_path, max_epochs=1,
-                                          verbose=False, **hook)
+        # plan= / mesh= (they raised before the sharding plans were ported)
+        # place the learner on a one-rank mesh and run
+        with single_rank():
+            if "mesh" in hook:
+                hook = dict(mesh=make_grpo_plan().build_mesh("cpu"))
+            placed = make_agent(0)
+            _, fit = finetune_llm_reasoning_online(placed, make_env(), tmp_path / "plan",
+                                                   max_epochs=1, evaluation_interval=1,
+                                                   verbose=False, **hook)
+            assert len(fit) == 1 and np.isfinite(fit).all() and placed.mesh is not None
     reg = MetricsRegistry()
-    with pytest.raises(NotImplementedError, match="plan= / mesh="):
-        LearnerPod(agent, WeightStore(tmp_path / "w", metrics=reg),
-                   TrajectoryStore(tmp_path / "t", metrics=reg), plan=object())
+    with single_rank():
+        learner = make_agent(0)
+        LearnerPod(learner, WeightStore(tmp_path / "w", metrics=reg),
+                   TrajectoryStore(tmp_path / "t", metrics=reg), plan=make_grpo_plan())
+        assert learner.sharding_plan.name == "grpo-dp1"

@@ -109,8 +109,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import agilerl_tpu_torch.observability.export, agilerl_tpu_torch.observability.slo\n"
         "import agilerl_tpu_torch.utils.log_utils, agilerl_tpu_torch.utils.profiling\n"
         + _CLASSIC_IMPORTS +
+        # the sharding plans and long context (Queue 1's items 4 and 6)
+        "import agilerl_tpu_torch.parallel.plan, agilerl_tpu_torch.parallel.mesh\n"
+        "import agilerl_tpu_torch.parallel.tree_paths, agilerl_tpu_torch.parallel.comm\n"
+        "import agilerl_tpu_torch.ops.ring_attention, agilerl_tpu_torch.llm.long_context\n"
         # the launcher tests' role factories, which the children import
         "import tests.torch_launch_roles\n"
+        # the multi-rank tests' harness and cases, which the gloo ranks import
+        "import tests.torch_dist_harness, tests.torch_dist_cases\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'agilerl_tpu'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -457,14 +463,20 @@ def _evo_ppo(env, device):
 
 def test_off_policy_scan_tier_still_raises():
     """The off-policy population as one program runs on one card (slice
-    5c-scan); its pod-sharded generation still raises, naming slice 6."""
+    5c-scan); its pod-sharded generation builds on a mesh's population axis
+    (it raised before the sharding plans were ported), and without a mesh
+    or a plan it still raises."""
     from agilerl_tpu_torch.envs.classic import CartPole
     from agilerl_tpu_torch.parallel import ScanOffPolicy
+    from agilerl_tpu_torch.parallel.plan import make_population_plan
+    from tests.torch_dist_harness import single_rank
 
     engine = ScanOffPolicy(CartPole(), None, num_envs=2, device="cpu")
     assert engine.env_steps_per_generation == 2 * 128
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(ValueError, match="needs a mesh or a plan"):
         engine.make_pod_generation()
+    with single_rank():
+        assert callable(engine.make_pod_generation(plan=make_population_plan(1)))
 
 
 def test_multi_agent_entry_points_default_to_the_card():

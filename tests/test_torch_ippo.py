@@ -531,7 +531,8 @@ def test_evoippo_member_slice_equals_the_member_alone(continuous):
 def test_evoippo_scan_run_snapshot_and_evolve():
     """ScanRun over two generations (finite [2, P] fitness), a bit-exact
     state_dict round trip and resume, evolve zeroing the running returns
-    and keeping shapes, and the pod generation raising for slice 6."""
+    and keeping shapes, and the pod generation on a one-rank mesh equal to
+    the vmapped one."""
     _, tevo = _evo_pair(rollout_len=16)
     assert tevo.env_steps_per_generation == 64
     run = ScanRun(tevo, pop_size=3, seed=0)
@@ -550,5 +551,10 @@ def test_evoippo_scan_run_snapshot_and_evolve():
     np.testing.assert_array_equal(run2.run(1), expected)
     with pytest.raises(ValueError, match="shape"):
         population_load_state_dict(tevo.init_population(0, 2), blob)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tevo.make_pod_generation()
+    # the pod generation over a one-rank population axis is the vmapped one
+    from agilerl_tpu_torch.parallel.plan import make_population_plan
+    from tests.torch_dist_harness import single_rank
+
+    with single_rank():
+        pod = ScanRun(tevo, pop_size=3, seed=9, plan=make_population_plan(1))
+        np.testing.assert_array_equal(pod.run(2), ScanRun(tevo, pop_size=3, seed=9).run(2))

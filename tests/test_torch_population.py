@@ -410,15 +410,22 @@ def test_two_generation_pop4_smoke_and_unported_tiers_raise():
     hist = run.run(2)
     assert hist.shape == (2, 4) and np.isfinite(hist).all() and (hist > 0).all()
     assert tevo.env_steps_per_generation == 128
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        make_pod_generation(None, None)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # the pod tier: without a mesh or a plan it raises; on a one-rank
+    # population axis it is the vmapped generation, bit for bit
+    from agilerl_tpu_torch.parallel.plan import make_population_plan
+    from tests.torch_dist_harness import single_rank
+
+    with pytest.raises(ValueError, match="needs a mesh or a plan"):
+        make_pod_generation(None, None, None, None, None, None)
+    with pytest.raises(ValueError, match="needs a mesh or a plan"):
         tevo.make_pod_generation()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ScanRun(tevo, pop_size=2, mesh=object())
-    # the off-policy tier (slice 5c-scan) runs on one card; its pod path waits too
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ScanOffPolicy(CartPole(), None, device="cpu").make_pod_generation()
+    with single_rank():
+        mesh = make_population_plan(1).build_mesh("cpu")
+        pod = ScanRun(tevo, pop_size=4, seed=3, mesh=mesh)
+        np.testing.assert_array_equal(pod.run(2), hist)
+        for a, b in zip(tree_leaves(pod.pop), tree_leaves(run.pop)):
+            assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        assert callable(ScanOffPolicy(CartPole(), None, device="cpu").make_pod_generation(mesh))
     assert isinstance(ScanRun(EvoDQN(CartPole(), _configs("torch")[0], num_envs=2,
                                      steps_per_iter=2, buffer_size=8, device="cpu"),
                               pop_size=2).pop.ring, DeviceReplayRing)

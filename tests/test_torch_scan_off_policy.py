@@ -416,7 +416,8 @@ def test_evolve_mutates_only_the_learners_fields():
 def test_scan_run_over_each_program(program, tmp_path):
     """ScanRun runs two generations of each program (population 2) with
     finite fitness, counts its env steps, and a snapshot restores the
-    population bit for bit; the pod generation raises, naming slice 6."""
+    population bit for bit; the pod generation on a one-rank population
+    mesh equals it."""
     if program == "dqn":
         evo = _dqn_engine(steps_per_iter=12, per=True, n_step=3, target_every=4)
     elif program == "rainbow":
@@ -436,5 +437,10 @@ def test_scan_run_over_each_program(program, tmp_path):
     again._restore(ckpt)
     for a, b in zip(tree_leaves(run.pop), tree_leaves(again.pop)):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        evo.make_pod_generation()
+    # the pod generation over a one-rank population axis is the vmapped one
+    from agilerl_tpu_torch.parallel.plan import make_population_plan
+    from tests.torch_dist_harness import single_rank
+
+    with single_rank():
+        pod = ScanRun(evo, pop_size=2, seed=0, plan=make_population_plan(1))
+        np.testing.assert_array_equal(pod.run(2), hist)

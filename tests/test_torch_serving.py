@@ -248,12 +248,28 @@ def test_latency_summary_has_the_same_keys(bucketed_runs, continuous_runs):
         assert t[k] == j[k], k
 
 
-def test_serving_raises_on_unported_options():
-    for kw in (dict(sharding_plan=object()), dict(mesh=object()), dict(compile_cache=object())):
-        with pytest.raises(NotImplementedError):
-            TS.ContinuousGenerator(TCFG, device="cpu", **CONT, **kw)
+def test_serving_raises_on_unported_options(weights):
+    """``compile_cache=`` still raises (the port runs eagerly); a sharding
+    plan or a mesh (they raised before the sharding plans were ported) now
+    serve: weights placed by the plan give the unplaced greedy tokens."""
+    from agilerl_tpu_torch.parallel.plan import make_grpo_plan
+    from tests.torch_dist_harness import single_rank
+
     with pytest.raises(NotImplementedError):
-        TS.BucketedGenerator(TCFG, device="cpu", mesh=object())
+        TS.ContinuousGenerator(TCFG, device="cpu", **CONT, compile_cache=object())
+    _, tparams = weights
+    seqs = _ragged(np.random.default_rng(4), 4, 4, 14)
+    want = TS.ContinuousGenerator(TCFG, device="cpu", **CONT).generate(seqs, 0, tparams,
+                                                                       greedy=True)[0]
+    with single_rank():
+        mesh = make_grpo_plan().build_mesh("cpu")
+        for kw in (dict(sharding_plan=make_grpo_plan()), dict(mesh=mesh)):
+            gen = TS.ContinuousGenerator(TCFG, device="cpu", **CONT, **kw)
+            placed = gen.place_params(tparams)
+            assert (gen.sharding_plan is None) == ("mesh" in kw)
+            np.testing.assert_array_equal(gen.generate(seqs, 0, placed, greedy=True)[0], want)
+        gen = TS.BucketedGenerator(TCFG, device="cpu", mesh=mesh)
+        assert gen.mesh is mesh and gen.place_params(tparams) is tparams
 
 
 # --------------------------------------------------------------------------- #
