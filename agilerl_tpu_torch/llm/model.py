@@ -581,6 +581,21 @@ def _dense_attention(config: GPTConfig, q, k, v, attention_mask):
     return torch.matmul(probs, vh)  # [B, H, T, d]
 
 
+def block_apply_dense(config: GPTConfig, blk: Params, h: torch.Tensor,
+                      attention_mask: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """One dense block with no cache, LoRA or MoE: the stage body of
+    ``parallel/pipeline.py``. Built from the pieces ``forward`` runs on its
+    non-cached dense path (``_qkv_rope``, ``_dense_attention``,
+    ``_block_ffn``), so the two give the same block. h: [B, T, d]."""
+    B, T = h.shape[:2]
+    x = _rms(h, blk["ln1"], config.rms_eps)
+    q, k, v = _qkv_rope(config, blk, x, positions, None, 0.0)
+    attn = _dense_attention(config, q, k, v, attention_mask)
+    attn = attn.transpose(1, 2).reshape(B, T, config.n_head * config.head_dim)
+    out, _ = _block_ffn(config, blk, h + attn @ blk["wo"].to(h.dtype), None, 0.0)
+    return out
+
+
 def forward(
     config: GPTConfig,
     params: Params,

@@ -1,6 +1,10 @@
 """The collectives the port runs by hand over a mesh axis's process group:
 a ring shift (``lax.ppermute`` by one place, with its transpose as the
-backward), a tiled all-gather, and an in-place sum.
+backward), a tiled all-gather, and an in-place sum; and the differentiable
+pairs a staged program needs where every rank computes the same loss
+(``sum_to_all``: sum forward, gradient as it is; ``sum_grads``: identity
+forward, summed gradient; ``gather_shards``: all-gather forward,
+reduce-scatter backward).
 
 A gloo group moves host tensors, so a card tensor on a gloo group is staged
 through a host buffer (two ranks on one card share it over gloo: NCCL takes
@@ -134,6 +138,70 @@ class _GatherCat(torch.autograd.Function):
     def backward(ctx, g):
         r = group_rank(ctx.group)
         return g.narrow(ctx.dim, r * ctx.n, ctx.n), None, None
+
+
+class _SumToAll(torch.autograd.Function):
+    """All-reduce sum whose every rank then computes the same loss from the
+    sum: the gradient of each rank's part is the gradient of the sum, so the
+    backward passes it through (summing it again would count the loss once
+    per rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum_(x.detach().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGrads(torch.autograd.Function):
+    """Identity for a replicated input of which each rank uses a part (or
+    none): the backward sums the ranks' gradients, so every rank holds the
+    whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum_(g.contiguous().clone(), ctx.group), None
+
+
+class _GatherShards(torch.autograd.Function):
+    """All-gather of a weight sharded along ``dim`` that ranks use on rows
+    of their own: the backward sums the ranks' gradients and keeps this
+    rank's slice (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        summed = all_reduce_sum_(g.contiguous().clone(), ctx.group)
+        r = group_rank(ctx.group)
+        return summed.narrow(ctx.dim, r * ctx.n, ctx.n), None, None
+
+
+def sum_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable all-reduce sum for a loss that every rank computes
+    alike from the result (backward: the gradient as it is)."""
+    return x if group_size(group) == 1 else _SumToAll.apply(x, group)
+
+
+def sum_grads(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity whose backward sums the gradient over the group."""
+    return x if group_size(group) == 1 else _SumGrads.apply(x, group)
+
+
+def gather_shards(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """All-gather along ``dim`` whose backward is a reduce-scatter: for a
+    sharded weight used on each rank's own rows."""
+    return x if group_size(group) == 1 else _GatherShards.apply(x, group, dim)
 
 
 def gather_replicated_loss(x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Training loops of the port, and the multi-process pod launcher
-(``launch.py``)."""
+"""Training loops of the port, the multi-process pod launcher
+(``launch.py``) and elastic PBT (``train_elastic.py``)."""
 
 from agilerl_tpu_torch.training.launch import (
     PodLauncher,
@@ -11,8 +11,9 @@ from agilerl_tpu_torch.training.launch import (
     read_loss_stream,
     rollout_role,
 )
+from agilerl_tpu_torch.training.train_elastic import train_elastic_pbt
 
 __all__ = [
     "PodLauncher", "launch_flywheel", "flywheel_launcher", "read_loss_stream",
-    "rollout_role", "learner_role", "driver_role", "idle_role",
+    "rollout_role", "learner_role", "driver_role", "idle_role", "train_elastic_pbt",
 ]

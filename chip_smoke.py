@@ -248,6 +248,18 @@ of which ends the run with a non-zero exit on any failure:
    ``scenario_suite``'s four shapes (5 virtual seconds at 4 requests/s),
    then the flash crowd with replica 1 killed: every request completes, TTFT
    p50 / p95;
+4u. sharding plans and long context (GRPO.to_mesh on the one-card mesh, the
+   sp learn, the ring on two ranks sharing the card, the pod generation on
+   a one-rank mesh; see the phase's comment);
+4v. several hosts: (a) the GPipe pipeline (``parallel/pipeline.py``) at
+   llama3-8b width, 8 layers, f32, on two ranks sharing the card over gloo,
+   its logits, loss and every gradient against the plain ``apply`` at
+   world size 1; (b) elastic EvoPPO (``parallel/elastic.py``) at 4i's
+   widths in one process, a host killed at a snapshot boundary and
+   recovered bit for bit; (c) one pod-mode controller per rank on two
+   ranks, the stream of (b), a SIGKILLed rank detected by the bounded
+   watchdog and the run resumed at world size 1 through
+   ``train_elastic_pbt(resume=True)`` bit for bit (no kernel is on 4v);
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -257,8 +269,8 @@ of which ends the run with a non-zero exit on any failure:
    T = 2048; SDPA (forward, or backward) on each of its backends that takes
    the inputs, in rounds with the SM clock read after each.
 
-Phases 4h-4r but 4q need nothing of the LLM phases: a second process runs
-them, in that order, alongside 4f-4t (it starts after 4d; its log is printed
+Phases 4h-4r but 4q, then 4v (b) and (c), need nothing of the LLM phases: a
+second process runs them, in that order, alongside 4f-4t (it starts after 4d; its log is printed
 when it ends, before 4q and phase 5 run on their own), so their host times
 and those of 4f-4t are taken on a shared host.
 
@@ -6571,6 +6583,458 @@ def run_ring_and_pod(torch, ops, report):
     return {r: ranks[r]["learn_launches"] for r in range(2)}
 
 
+# ------------------------------- phase 4v ---------------------------------- #
+# Queue 1's item 5 on the card. (a) the GPipe pipeline
+# (``parallel/pipeline.py``) at llama3-8b width, cut to PIPE_LAYERS layers,
+# in f32 with TF32 off (the pipelined and the plain model then differ only
+# by f32 roundings: GEMMs over microbatch row counts, gradients summed over
+# microbatches), dense attention (the pipeline's stage body never calls
+# flash): PIPE_ROWS rows x PIPE_T tokens (the last two right-padded by
+# PIPE_PADS), PIPE_MICRO microbatches, on two ranks sharing the card over
+# gloo (``chip_smoke.py --pipe-rank``; NCCL takes one rank per card).
+# Rank 0 first runs the unpipelined ``apply`` at world size 1 on the same
+# weights; then both ranks run the pipelined forward + backward. Held: the
+# logits (valid positions) and every gradient (each stacked block leaf, ln_f,
+# tok_emb, lm_head) in relative L2 within PIPE_REL, the loss within
+# PIPE_LOSS_RTOL, and the ranks' logits and replicated gradients bit-equal.
+# Reported: the seconds of forward + backward per rank, comm.staged_bytes,
+# the peak memory per rank. (b) elastic EvoPPO at 4i's widths (POP) in one
+# process: 2 emulated hosts x 4 slots; host 1 killed at boundary 2
+# (restore_from="latest"): the 4-generation stream equals the unkilled
+# run's bit for bit (fitness and members), the layout 4 slots x 16 members;
+# MTTR, the snapshot's bytes and save seconds. (c) two ranks on the card
+# over gloo (``chip_smoke.py --elastic-rank``), one pod-mode controller
+# each, pop 64, generation_timeout ELASTIC_TIMEOUT_S: ``broadcast_seed``
+# (rank 0 proposes ELASTIC_SEED, rank 1 999) gives rank 0's on both; their
+# 2-generation stream equals (b)'s unkilled rows bit for bit; the parent
+# SIGKILLs rank 1 once rank 0 committed the snapshot of generation 2, and
+# rank 0's next dispatch raises MembershipChange within ELASTIC_TIMEOUT_S +
+# ELASTIC_SLACK_S, counted under resilience/collective_timeouts_total; a
+# fresh process (``chip_smoke.py --elastic-resume``) then runs
+# train_elastic_pbt(resume=True) at world size 1 from that store and
+# continues (b)'s unkilled stream bit for bit. (a) runs after 4u (c), when
+# this process holds no 8B weights; (b) and (c) last on the 4h-4r side.
+PIPE_LAYERS, PIPE_ROWS, PIPE_T, PIPE_MICRO, PIPE_SEED = 8, 8, 512, 4, 23
+PIPE_PADS = (0, 0, 0, 0, 0, 0, 128, 200)
+PIPE_REL = 1e-4  # relative L2 of the logits and of each gradient leaf
+PIPE_LOSS_RTOL = 1e-5
+PIPE_TIMEOUT_S = 400.0
+ELASTIC_SEED = 11
+ELASTIC_HEARTBEAT_S = 2.0
+ELASTIC_TIMEOUT_S = 60.0  # the pod mode's generation_timeout
+ELASTIC_SLACK_S = 15.0  # detection bound past it: a generation of the survivor's members
+ELASTIC_CHILD_TIMEOUT_S = 300.0
+
+
+def pipe_batch(torch, vocab):
+    """PIPE_ROWS rows of seeded tokens, the last ones right-padded."""
+    g = torch.Generator().manual_seed(PIPE_SEED)
+    tokens = torch.randint(1, vocab, (PIPE_ROWS, PIPE_T), generator=g)
+    mask = torch.ones((PIPE_ROWS, PIPE_T), dtype=torch.int32)
+    for r, pad in enumerate(PIPE_PADS):
+        if pad:
+            mask[r, PIPE_T - pad:] = 0
+            tokens[r, PIPE_T - pad:] = 0
+    return tokens.cuda(), mask.cuda()
+
+
+def pipe_loss(torch, logits, tokens, mask):
+    """Mean next-token NLL over the pairs whose token and target are valid."""
+    lp = torch.log_softmax(logits[:, :-1], -1).gather(-1, tokens[:, 1:, None])[..., 0]
+    valid = (mask[:, 1:] * mask[:, :-1]).float()
+    return -(lp * valid).sum() / valid.sum()
+
+
+def digest(torch, t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def pipe_rank_child(rank: int, port: int, out_dir: str) -> None:
+    """One rank of 4v (a) (``chip_smoke.py --pipe-rank RANK PORT DIR``): both
+    ranks on card 0 over gloo. Rank 0 runs the plain model first and, after
+    the pipelined step, receives rank 1's block gradients and holds
+    everything; its numbers go to DIR/rank<RANK>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from agilerl_tpu_torch import ops
+    from agilerl_tpu_torch.llm import model as M, presets
+    from agilerl_tpu_torch.parallel import comm
+    from agilerl_tpu_torch.parallel.multihost import init_multihost
+    from agilerl_tpu_torch.parallel.pipeline import (
+        pipeline_apply,
+        shard_stacked_blocks,
+        stack_blocks,
+    )
+    from agilerl_tpu_torch.parallel.plan import ShardingPlan
+
+    torch_settings(torch)
+    torch.set_grad_enabled(True)
+    torch.cuda.set_device(0)
+    init_multihost(f"127.0.0.1:{port}", 2, rank)
+    cfg = presets.preset("llama3-8b", n_layer=PIPE_LAYERS, max_seq_len=PIPE_T,
+                         dtype=torch.float32, use_flash_attention=False)
+    tokens, mask = pipe_batch(torch, cfg.vocab_size)
+    valid = mask.bool()
+    L = cfg.n_layer
+    out = {}
+    if rank == 0:
+        params = M.init_params(PIPE_SEED, cfg, device="cuda")
+        leaves = [params[k] for k in params if k != "blocks"] + [
+            t for blk in params["blocks"].values() for t in blk.values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        ops.reset_kernel_counters()
+        torch.cuda.reset_peak_memory_stats()
+
+        def plain():
+            logits, _ = M.apply(cfg, params, tokens, attention_mask=mask)
+            loss = pipe_loss(torch, logits, tokens, mask)
+            return logits.detach(), loss.detach(), torch.autograd.grad(loss, leaves)
+
+        (logits, loss, grads), out["plain_s"] = host_s(torch, plain)
+        out["plain_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["plain_launches"] = ops.kernel_counters()
+        ref = {"logits": logits[valid].cpu(), "loss": float(loss)}
+        names = [k for k in params if k != "blocks"]
+        ref.update({k: g.cpu() for k, g in zip(names, grads[:len(names)])})
+        per = len(params["blocks"]["0"])
+        keys = list(params["blocks"]["0"])
+        block_grads = grads[len(names):]
+        ref["blocks"] = {k: torch.stack([block_grads[i * per + j] for i in range(L)]).cpu()
+                         for j, k in enumerate(keys)}
+        del params, leaves, logits, grads, block_grads
+        torch.cuda.empty_cache()
+    dist.barrier()
+    params = M.init_params(PIPE_SEED, cfg, device="cuda")
+    mesh = ShardingPlan("pipe", {"pp": 2}).build_mesh()
+    stacked = shard_stacked_blocks(stack_blocks(params, cfg), mesh, "pp")
+    rest = {k: v for k, v in params.items() if k != "blocks"}
+    del params
+    torch.cuda.empty_cache()
+    leaves = list(rest.values()) + list(stacked.values())
+    for t in leaves:
+        t.requires_grad_(True)
+    ops.reset_kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    staged0 = comm.staged_bytes
+    dist.barrier()
+
+    def piped():
+        logits = pipeline_apply(cfg, {**rest, "blocks": {}}, tokens, mesh, PIPE_MICRO,
+                                attention_mask=mask, stacked=stacked)
+        loss = pipe_loss(torch, logits, tokens, mask)
+        return logits.detach(), loss.detach(), torch.autograd.grad(loss, leaves)
+
+    (logits, loss, grads), out["pipe_s"] = host_s(torch, piped)
+    out.update(staged_bytes=comm.staged_bytes - staged0, launches=ops.kernel_counters(),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, loss=float(loss))
+    names = list(rest)
+    out["digests"] = {"logits": digest(torch, logits),
+                      **{k: digest(torch, g) for k, g in zip(names, grads)}}
+    block = dict(zip(stacked, grads[len(names):]))
+    if rank == 1:
+        for k in stacked:
+            dist.send(block[k].detach().cpu().contiguous(), dst=0)
+    else:
+        mine = {k: v.detach() for k, v in block.items()}
+        theirs = {}
+        for k, v in stacked.items():
+            buf = torch.empty(v.shape, dtype=v.dtype)
+            dist.recv(buf, src=1)
+            theirs[k] = buf.cuda()
+
+        def rel(got, want):
+            want = want.cuda()
+            return float(torch.linalg.vector_norm(got.float() - want.float())
+                         / torch.linalg.vector_norm(want.float()).clamp_min(1e-30))
+
+        rels = {"logits": rel(logits[valid], ref["logits"])}
+        rels.update({k: rel(g, ref[k]) for k, g in zip(names, grads)})
+        rels.update({f"blocks/{k}": rel(torch.cat([mine[k], theirs[k]]), ref["blocks"][k])
+                     for k in stacked})
+        out.update(rel=rels, plain_loss=ref["loss"],
+                   logits_max_abs=float((logits[valid] - ref["logits"].cuda()).abs().max()))
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_children(args_of, n, work, timeout, what):
+    """Start ``n`` copies of this script (``args_of(i)``), each in a session
+    of its own with its output into WORK/child<i>.log; wait up to
+    ``timeout`` s for all; print their logs; fail on a non-zero exit or a
+    timeout. The processes are always killed and reaped."""
+    procs = []
+    try:
+        for i in range(n):
+            with open(work / f"child{i}.log", "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), *args_of(i)], stdout=f,
+                    stderr=subprocess.STDOUT, start_new_session=True))
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                pass
+        for i in range(n):
+            text = (work / f"child{i}.log").read_text()
+            if text.strip():
+                log(f"  {what} {i} log:\n{text.rstrip()}")
+        check(all(p.returncode == 0 for p in procs),
+              f"{what}: the processes exited {[p.returncode for p in procs]}")
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+
+
+def run_pipeline(torch, ops, report):
+    """Phase 4v (a). Returns the two ranks' kernel launches."""
+    import shutil
+    import tempfile
+
+    log(f"phase 4v (a): GPipe pipeline, llama3-8b width, {PIPE_LAYERS} layers, f32, "
+        f"{PIPE_ROWS} rows x {PIPE_T} (pads {PIPE_PADS[-2:]}), {PIPE_MICRO} microbatches, "
+        "2 ranks on the card over gloo; the plain apply at world size 1 first")
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_pipe_"))
+    try:
+        port = free_port()
+        run_children(lambda r: ["--pipe-rank", str(r), str(port), str(work)], 2, work,
+                     PIPE_TIMEOUT_S, "pipe rank")
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r0, r1 = ranks
+    worst = max(r0["rel"].items(), key=lambda kv: kv[1])
+    log(f"  pipelined fwd+bwd {[round(r['pipe_s'], 3) for r in ranks]} s per rank; plain "
+        f"{r0['plain_s']:.3f} s; loss {r0['loss']:.7f} vs {r0['plain_loss']:.7f}; logits rel L2 "
+        f"{r0['rel']['logits']:.3e} (max |d| {r0['logits_max_abs']:.3e}); worst gradient "
+        f"{worst[0]} {worst[1]:.3e}; lm_head {r0['rel']['lm_head']:.3e}, tok_emb "
+        f"{r0['rel']['tok_emb']:.3e}, ln_f {r0['rel']['ln_f']:.3e}; staged "
+        f"{[r['staged_bytes'] for r in ranks]} B; peak {[round(r['peak_gb'], 2) for r in ranks]}"
+        f" GB per rank ({r0['plain_peak_gb']:.2f} GB plain)")
+    check(all(v <= PIPE_REL for v in r0["rel"].values()),
+          f"4v (a): pipelined vs plain relative L2 past {PIPE_REL}: {worst}")
+    check(abs(r0["loss"] - r0["plain_loss"]) <= PIPE_LOSS_RTOL * abs(r0["plain_loss"]),
+          "4v (a): the pipelined loss disagrees with the plain model's")
+    check(r0["digests"] == r1["digests"] and r0["loss"] == r1["loss"],
+          "4v (a): the ranks' logits, loss or replicated gradients differ")
+    report["pipeline"] = dict(
+        layers=PIPE_LAYERS, rows=PIPE_ROWS, T=PIPE_T, micro=PIPE_MICRO, rel=r0["rel"],
+        logits_max_abs=r0["logits_max_abs"], loss=[r0["loss"], r0["plain_loss"]],
+        pipe_s=[r["pipe_s"] for r in ranks], plain_s=r0["plain_s"],
+        staged_bytes=[r["staged_bytes"] for r in ranks], peak_gb=[r["peak_gb"] for r in ranks],
+        plain_peak_gb=r0["plain_peak_gb"], launches=[r["launches"] for r in ranks])
+    return [r["launches"] for r in ranks]
+
+
+def elastic_engine(torch):
+    return evo_ppo(torch, POP)
+
+
+def elastic_rank_child(rank: int, port: int, work: str) -> None:
+    """One rank of 4v (c) (``chip_smoke.py --elastic-rank RANK PORT DIR``):
+    agree on the seed, run 2 generations in pod mode, write DIR/rank<R>.json
+    and DIR/ready<R>; rank 1 then waits to be killed, rank 0 waits for
+    DIR/go and runs one more generation, which must raise MembershipChange."""
+    import torch
+
+    from agilerl_tpu_torch.observability import get_registry
+    from agilerl_tpu_torch.parallel.elastic import ElasticPBTController, EmulatedHost, device_slots
+    from agilerl_tpu_torch.parallel.multihost import broadcast_seed, init_multihost
+    from agilerl_tpu_torch.resilience.membership import MembershipChange
+
+    torch_settings(torch)
+    torch.cuda.set_device(0)
+    init_multihost(f"127.0.0.1:{port}", 2, rank)
+    seed = broadcast_seed(ELASTIC_SEED if rank == 0 else 999)
+    ctl = ElasticPBTController(elastic_engine(torch), POP["pop"], Path(work, "store"), seed=seed,
+                               hosts=[EmulatedHost(rank, device_slots(1))],
+                               heartbeat_timeout=ELASTIC_HEARTBEAT_S,
+                               generation_timeout=ELASTIC_TIMEOUT_S)
+    t0 = time.perf_counter()
+    hist = ctl.run(2)
+    out = dict(seed=seed, hist=hist, layout=ctl.layout(), run_s=time.perf_counter() - t0,
+               snapshots=[s.step for s in ctl.manager.snapshots()])
+    Path(work, f"rank{rank}.json").write_text(json.dumps(out))
+    Path(work, f"ready{rank}").write_text("")
+    if rank == 1:
+        time.sleep(ELASTIC_CHILD_TIMEOUT_S)  # killed before this ends
+        os._exit(3)
+    while not Path(work, "go").exists():
+        time.sleep(0.05)
+    reg = get_registry()
+    before = reg.counter("resilience/collective_timeouts_total").value
+    t0 = time.perf_counter()
+    try:
+        ctl.step_generation()
+        raised = None
+    except MembershipChange as e:
+        raised = str(e)
+    out.update(raised=raised, detect_s=time.perf_counter() - t0,
+               timeouts=reg.counter("resilience/collective_timeouts_total").value - before)
+    Path(work, "rank0.json").write_text(json.dumps(out))
+    # the group is broken: leave without tearing it down
+    os._exit(0)
+
+
+def elastic_resume_child(work: str) -> None:
+    """4v (c)'s fresh process (``chip_smoke.py --elastic-resume DIR``): world
+    size 1, ``train_elastic_pbt(resume=True)`` for 2 generations from the
+    store; its fitness history into DIR/resumed.json."""
+    import torch
+
+    from agilerl_tpu_torch.parallel.elastic import device_slots, make_emulated_hosts
+    from agilerl_tpu_torch.training import train_elastic_pbt
+
+    torch_settings(torch)
+    t0 = time.perf_counter()
+    ctl = train_elastic_pbt(elastic_engine(torch), POP["pop"], 2, Path(work, "store"),
+                            seed=0, hosts=make_emulated_hosts(1, device_slots(1)),
+                            heartbeat_timeout=ELASTIC_HEARTBEAT_S, resume=True)
+    Path(work, "resumed.json").write_text(json.dumps(dict(
+        hist=ctl.fitness_history, generation=ctl.generation, layout=ctl.layout(),
+        s=time.perf_counter() - t0)))
+
+
+def run_elastic(torch, ops, report):
+    """Phase 4v (b) and (c), on the 4h-4r side. Returns the launches of the
+    one-process runs (the engine launches none of the seven kernels)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from agilerl_tpu_torch.observability.registry import MetricsRegistry
+    from agilerl_tpu_torch.parallel.elastic import (
+        ElasticPBTController,
+        device_slots,
+        make_emulated_hosts,
+    )
+    from agilerl_tpu_torch.parallel.generation import population_state_dict
+    from agilerl_tpu_torch.resilience import FaultInjector
+
+    out = report.setdefault("elastic", {})
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    try:
+        log(f"phase 4v (b): elastic EvoPPO, pop {POP['pop']} x {POP['num_envs']} envs x "
+            f"{POP['rollout_len']} steps, 2 emulated hosts x 4 slots, host 1 killed at "
+            "boundary 2 (restore from the latest snapshot), beside the unkilled run")
+
+        def controller(store, **kw):
+            return ElasticPBTController(
+                elastic_engine(torch), POP["pop"], work / store, seed=ELASTIC_SEED,
+                hosts=make_emulated_hosts(2, device_slots(8)),
+                heartbeat_timeout=ELASTIC_HEARTBEAT_S, **kw)
+
+        ops.reset_kernel_counters()
+        ref = controller("ref")
+        want, t_ref = host_s(torch, lambda: ref.run(4))
+        reg = MetricsRegistry()
+        inj = FaultInjector(kill_host_at={2: 1})
+        kill = controller("kill", fault_injector=inj, restore_from="latest", registry=reg)
+        got, t_kill = host_s(torch, lambda: kill.run(4))
+        launches = ops.kernel_counters()
+        same = got == want and all(np.array_equal(a, b) for a, b in zip(
+            population_state_dict(kill.pop)["leaves"], population_state_dict(ref.pop)["leaves"]))
+        snap = kill.manager.latest()
+        mttr = reg.gauge("elastic/mttr_s").value
+        save_s = reg.gauge("resilience/snapshot_time_s").value
+        log(f"  unkilled {t_ref:.2f} s, killed {t_kill:.2f} s for 4 generations; bit for bit: "
+            f"{same}; layout {kill.layout()}; MTTR {mttr:.3f} s (lease {ELASTIC_HEARTBEAT_S} s); "
+            f"snapshot {snap.nbytes / 1e6:.2f} MB saved in {save_s:.3f} s; restored "
+            f"{reg.counter('elastic/members_restored_total').value:.0f}; best fitness "
+            f"{max(want[-1]):.2f}")
+        check(inj.hosts_killed == [(2, 1)], "4v (b): the scripted kill did not happen")
+        check(same, "4v (b): the killed run's stream or members differ from the unkilled run")
+        check(kill.layout() == {"devices": 4, "pop": POP["pop"],
+                                "members_per_device": POP["pop"] // 4},
+              f"4v (b): layout {kill.layout()}")
+        check(reg.counter("resilience/collective_timeouts_total").value >= 1
+              and reg.counter("elastic/members_restored_total").value == POP["pop"] // 2,
+              "4v (b): the loss was not detected or the members not restored")
+        check(all(np.isfinite(f) for row in want for f in row), "4v (b): fitness not finite")
+        out["emulated"] = dict(bit_for_bit=same, unkilled_s=t_ref, killed_s=t_kill, mttr_s=mttr,
+                               snapshot_bytes=snap.nbytes, snapshot_save_s=save_s,
+                               layout=kill.layout(), fitness_best=max(want[-1]))
+
+        log(f"phase 4v (c): 2 ranks on the card over gloo, one pod-mode controller each, pop "
+            f"{POP['pop']}, generation_timeout {ELASTIC_TIMEOUT_S} s; rank 1 SIGKILLed at the "
+            "generation-2 snapshot; then a fresh process resumes at world size 1")
+        port = free_port()
+        procs = []
+        try:
+            for r in range(2):
+                with open(work / f"rank{r}.log", "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()), "--elastic-rank", str(r),
+                         str(port), str(work)], stdout=f, stderr=subprocess.STDOUT,
+                        start_new_session=True))
+            deadline = time.perf_counter() + ELASTIC_CHILD_TIMEOUT_S
+            while not all((work / f"ready{r}").exists() for r in range(2)):
+                check(all(p.poll() is None for p in procs) and time.perf_counter() < deadline,
+                      f"4v (c): a rank ended or stalled before generation 2: "
+                      f"{[p.poll() for p in procs]}\n"
+                      + "\n".join((work / f"rank{r}.log").read_text() for r in range(2)))
+                time.sleep(0.05)
+            os.killpg(procs[1].pid, signal.SIGKILL)
+            procs[1].wait()
+            (work / "go").write_text("")
+            try:
+                procs[0].wait(timeout=ELASTIC_TIMEOUT_S + ELASTIC_SLACK_S + 30.0)
+            except subprocess.TimeoutExpired:
+                pass
+            for r in range(2):
+                text = (work / f"rank{r}.log").read_text()
+                if text.strip():
+                    log(f"  elastic rank {r} log:\n{text.rstrip()}")
+            check(procs[0].returncode == 0, f"4v (c): rank 0 exited {procs[0].returncode}")
+        finally:
+            for p in procs:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                p.wait()
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+        r0 = ranks[0]
+        run_children(lambda _: ["--elastic-resume", str(work)], 1, work,
+                     ELASTIC_CHILD_TIMEOUT_S, "elastic resume")
+        resumed = json.loads((work / "resumed.json").read_text())
+        log(f"  seeds {[r['seed'] for r in ranks]}; pod stream == (b)'s unkilled rows: "
+            f"{[r['hist'] == want[:2] for r in ranks]}; layout {r0['layout']}; 2 generations "
+            f"{[round(r['run_s'], 2) for r in ranks]} s per rank; snapshots {r0['snapshots']}; "
+            f"after the kill rank 0 raised in {r0['detect_s']:.3f} s (timeouts counted "
+            f"{r0['timeouts']:.0f}): {str(r0['raised'])[:120]}; resumed at world size 1 in "
+            f"{resumed['s']:.2f} s: rows 3-4 == unkilled: {resumed['hist'][2:] == want[2:]}")
+        check([r["seed"] for r in ranks] == [ELASTIC_SEED] * 2, "4v (c): broadcast_seed")
+        check(all(r["hist"] == want[:2] for r in ranks),
+              "4v (c): the pod stream differs from (b)'s unkilled stream")
+        check(r0["layout"] == {"devices": 2, "pop": POP["pop"],
+                               "members_per_device": POP["pop"] // 2},
+              f"4v (c): layout {r0['layout']}")
+        check(r0["raised"] is not None and r0["timeouts"] >= 1
+              and r0["detect_s"] <= ELASTIC_TIMEOUT_S + ELASTIC_SLACK_S,
+              "4v (c): the lost rank was not detected as a MembershipChange in time")
+        check(resumed["generation"] == 4 and resumed["hist"] == want,
+              "4v (c): the resumed run does not continue the unkilled stream")
+        out["pod"] = dict(seeds=[r["seed"] for r in ranks], bit_for_bit=True,
+                          run_s=[r["run_s"] for r in ranks], detect_s=r0["detect_s"],
+                          raised=r0["raised"], timeouts=r0["timeouts"],
+                          resumed_s=resumed["s"], resumed_layout=resumed["layout"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 # ------------------------------- phase 5 ----------------------------------- #
 
 
@@ -6907,6 +7371,7 @@ RL_PHASES = (
     ("4o", run_multi_agent_on_policy, ("multi_agent_on_policy", "multi_agent_scan")),
     ("4p", run_bandits, ("bandits",)),
     ("4r", run_pettingzoo, ("pettingzoo",)),
+    ("4v_bc", run_elastic, ("elastic",)),
 )
 RL_PHASES_BY_S = 1100.0  # the seconds since the start by which they must have ended
 
@@ -7073,6 +7538,8 @@ def main() -> None:
                                               presets, report)
             launcher_launches = timed_phase("4t", run_launcher, torch, ops, report)
         ring_launches = timed_phase("4u_cd", run_ring_and_pod, torch, ops, report)
+        with torch.enable_grad():
+            pipe_launches = timed_phase("4v_a", run_pipeline, torch, ops, report)
         rl_launches = join_rl_phases(rl, report)
     finally:
         stop_rl_phases(rl)
@@ -7099,7 +7566,9 @@ def main() -> None:
                                      "plan_learn": plan_launches[entry["name"]],
                                      "sp_learn": sp_launches[entry["name"]],
                                      "ring_rank0": ring_launches[0][entry["name"]],
-                                     "ring_rank1": ring_launches[1][entry["name"]]}
+                                     "ring_rank1": ring_launches[1][entry["name"]],
+                                     "pipeline_rank0": pipe_launches[0][entry["name"]],
+                                     "pipeline_rank1": pipe_launches[1][entry["name"]]}
         # the LoRA learn steps freeze the head, so dW is not on the paths
         # (phase 3 and the timing above launch it)
         if entry["name"] != "fused_logprob_dw":
@@ -7128,6 +7597,12 @@ if __name__ == "__main__":
         population_gate_child(int(sys.argv[2]))
     elif len(sys.argv) == 5 and sys.argv[1] == "--ring-rank":
         ring_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) == 5 and sys.argv[1] == "--pipe-rank":
+        pipe_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) == 5 and sys.argv[1] == "--elastic-rank":
+        elastic_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--elastic-resume":
+        elastic_resume_child(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "--rl-phases":
         _T0 = float(sys.argv[2])
         rl_phases(sys.argv[3])

@@ -113,6 +113,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import agilerl_tpu_torch.parallel.plan, agilerl_tpu_torch.parallel.mesh\n"
         "import agilerl_tpu_torch.parallel.tree_paths, agilerl_tpu_torch.parallel.comm\n"
         "import agilerl_tpu_torch.ops.ring_attention, agilerl_tpu_torch.llm.long_context\n"
+        # several hosts: multihost, the pipeline, elastic PBT (Queue 1's item 5)
+        "import agilerl_tpu_torch.parallel.multihost, agilerl_tpu_torch.parallel.pipeline\n"
+        "import agilerl_tpu_torch.parallel.elastic, agilerl_tpu_torch.training.train_elastic\n"
+        "from agilerl_tpu_torch.llm.model import block_apply_dense\n"
         # the launcher tests' role factories, which the children import
         "import tests.torch_launch_roles\n"
         # the multi-rank tests' harness and cases, which the gloo ranks import
@@ -254,6 +258,19 @@ def test_items_1_to_3_entry_points_follow_the_device_rule(tmp_path):
     save_pytree(tmp_path / "t", {"w": torch.ones(2)})
     assert load_pytree(tmp_path / "t")["w"].device == torch.device("cpu")
     assert load_pytree(tmp_path / "t", like={"w": torch.zeros(2)})["w"].device.type == "cpu"
+
+
+def test_item_5_entry_points_default_to_the_card():
+    """The emulated hosts' slots (and the hosts a controller splits them
+    into) take device=None as the card and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from agilerl_tpu_torch.parallel.elastic import device_slots, make_emulated_hosts
+
+    for call in (lambda: device_slots(2), lambda: make_emulated_hosts(2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert [s.device for s in device_slots(2, "cpu")] == ["cpu", "cpu"]
 
 
 def test_kernel_build_raises_without_nvcc():

@@ -259,3 +259,171 @@ def grpo_sp_learn(cfg_kw, base, actor, reference, batch, kw, sp, flash):
         return {"refused": str(e)}
     return {"loss": loss, "kl": kl, "actor": tree_to_numpy(agent.actor.params),
             "adam": tree_to_numpy(agent.optimizer.opt_state), "grad": grads[0]}
+
+
+# --------------------------------------------------------------------------- #
+# Several hosts: the pipeline, the timed barrier, elastic PBT over ranks
+# --------------------------------------------------------------------------- #
+
+
+def pp_mesh(pp: int, fsdp: int = 1):
+    """A mesh whose "pp" axis has ``pp`` ranks: ("pp", "fsdp") when ``fsdp``
+    > 1 (their product the world), else ("dp", "pp") with the rest on dp."""
+    world = dist.get_world_size()
+    if fsdp > 1:
+        return init_device_mesh("cpu", (pp, fsdp), mesh_dim_names=("pp", "fsdp"))
+    if pp == world:
+        return init_device_mesh("cpu", (pp,), mesh_dim_names=("pp",))
+    return init_device_mesh("cpu", (world // pp, pp), mesh_dim_names=("dp", "pp"))
+
+
+def _pipeline_loss(cfg, rest, stacked, tokens, mesh, micro, fsdp, mask=None):
+    from agilerl_tpu_torch.parallel.pipeline import pipeline_apply
+
+    tokens = torch.as_tensor(tokens)
+    logits = pipeline_apply(cfg, {**rest, "blocks": {}}, tokens, mesh, micro,
+                            attention_mask=None if mask is None else torch.as_tensor(mask),
+                            stacked=stacked, fsdp_axis="fsdp" if fsdp > 1 else None)
+    targets = torch.roll(tokens, -1, dims=1)
+    lp = torch.log_softmax(logits, -1)
+    return logits, -lp.gather(-1, targets[..., None]).mean()
+
+
+def _pipeline_params(cfg_kw, params, pp, fsdp):
+    from agilerl_tpu_torch.parallel.pipeline import shard_stacked_blocks, stack_blocks
+
+    cfg = _cfg(cfg_kw)
+    p = params_from_numpy(params, cfg, device="cpu")
+    mesh = pp_mesh(pp, fsdp)
+    stacked = shard_stacked_blocks(stack_blocks(p, cfg), mesh, "pp",
+                                   "fsdp" if fsdp > 1 else None)
+    rest = {k: v for k, v in p.items() if k != "blocks"}
+    return cfg, mesh, rest, stacked
+
+
+def pipeline_run(cfg_kw, params, tokens, pp: int, micro: int, fsdp: int = 1, mask=None,
+                 grads: bool = False):
+    """``pipeline_apply`` on this rank: logits, the loss of the next-token
+    targets and, with ``grads``, the gradient of every leaf this rank holds
+    (its stage's, and fsdp shard's, block slices) with its mesh coordinates."""
+    cfg, mesh, rest, stacked = _pipeline_params(cfg_kw, params, pp, fsdp)
+    leaves = list(rest.values()) + list(stacked.values())
+    for t in leaves:
+        t.requires_grad_(grads)
+    with torch.set_grad_enabled(grads):
+        logits, loss = _pipeline_loss(cfg, rest, stacked, tokens, mesh, micro, fsdp, mask)
+    out = {"logits": logits.detach().numpy(), "loss": loss.item(),
+           "stage": mesh.get_local_rank("pp"),
+           "shard": mesh.get_local_rank("fsdp") if fsdp > 1 else 0}
+    if grads:
+        g = torch.autograd.grad(loss, leaves)
+        names = list(rest) + list(stacked)
+        out["grads"] = {n: x.numpy() for n, x in zip(names, g)}
+    return out
+
+
+def pipeline_train(cfg_kw, params, tokens, pp: int, micro: int, steps: int = 2,
+                   lr: float = 1e-2):
+    """SGD steps on the sharded stack (and the replicated rest): the losses."""
+    cfg, mesh, rest, stacked = _pipeline_params(cfg_kw, params, pp, 1)
+    leaves = list(rest.values()) + list(stacked.values())
+    losses = []
+    for _ in range(steps):
+        for t in leaves:
+            t.requires_grad_(True)
+        with torch.enable_grad():
+            _, loss = _pipeline_loss(cfg, rest, stacked, tokens, mesh, micro, 1)
+            g = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for t, gt in zip(leaves, g):
+                t.sub_(lr * gt)
+        losses.append(loss.item())
+    return losses
+
+
+def late_barrier(wait_s: float, late_s: float):
+    """Rank 0 crosses a barrier with a ``wait_s`` timeout; the others enter it
+    ``late_s`` seconds later. Rank 0 returns what the barrier raised and the
+    timeout counter; every rank then crosses a plain barrier (the abandoned
+    one completes when the late ranks enter) and an all-reduce."""
+    import time
+
+    from agilerl_tpu_torch.observability.registry import MetricsRegistry
+    from agilerl_tpu_torch.parallel import multihost
+    from agilerl_tpu_torch.resilience.membership import MembershipChange
+
+    out = {}
+    if dist.get_rank() == 0:
+        reg = MetricsRegistry()
+        t0 = time.perf_counter()
+        try:
+            multihost.call_with_collective_timeout(dist.barrier, wait_s, name="barrier:late",
+                                                   registry=reg)
+            out["raised"] = None
+        except MembershipChange as e:
+            out["raised"] = str(e)
+        out["after_s"] = time.perf_counter() - t0
+        out["timeouts"] = reg.counter("resilience/collective_timeouts_total").value
+    else:
+        time.sleep(late_s)
+        dist.barrier()
+    dist.barrier()
+    t = torch.ones(1)
+    dist.all_reduce(t)
+    out["sum"] = float(t)
+    return out
+
+
+def elastic_pod(pop: int, generations: int, store: str, seed: int = 0,
+                wait_s: float = 120.0):
+    """An ``ElasticPBTController`` per rank (pod mode: one slot a rank) over
+    the EvoPPO engine above, sharing ``store``: its fitness rows, layout and
+    the snapshots rank 0 committed."""
+    from agilerl_tpu_torch.parallel.elastic import ElasticPBTController, EmulatedHost, device_slots
+
+    ctl = ElasticPBTController(evoppo(), pop, store, seed=seed,
+                               hosts=[EmulatedHost(dist.get_rank(), device_slots(1, "cpu"))],
+                               generation_timeout=wait_s, heartbeat_timeout=30.0)
+    hist = ctl.run(generations)
+    return {"hist": hist, "layout": ctl.layout(), "ids": ctl.member_ids,
+            "snapshots": [s.step for s in ctl.manager.snapshots()]}
+
+
+def multihost_worker(pid: int, nproc: int, port: int, conn) -> None:
+    """One process of the two-process ``init_multihost`` test (the port of
+    ``tests/test_parallel/_multihost_worker.py``): join over localhost,
+    agree on a seed (rank 0 proposes 1234, rank 1 999), cross barriers, run
+    a tournament on a replicated population with replicated fitness and a
+    metric mean over hosts; the decisions go back through ``conn``."""
+    import traceback
+
+    torch.set_num_threads(1)
+    try:
+        from agilerl_tpu_torch.hpo.tournament import TournamentSelection
+        from agilerl_tpu_torch.parallel.multihost import barrier, broadcast_seed, init_multihost
+        from agilerl_tpu_torch.utils.spaces import Box, Discrete
+        from agilerl_tpu_torch.utils.utils import aggregate_metrics_across_hosts, create_population
+
+        init_multihost(f"127.0.0.1:{port}", nproc, pid, timeout=60.0)
+        out = {"world": dist.get_world_size()}
+        seed = broadcast_seed(1234 if pid == 0 else 999)
+        out["seed"] = seed
+        barrier("after-seed", timeout=60.0)
+        pop = create_population("DQN", Box(low=-1, high=1, shape=(4,)), Discrete(2),
+                                {"latent_dim": 8, "encoder_config": {"hidden_size": (16,)}},
+                                population_size=4, seed=seed, device="cpu")
+        for agent, f in zip(pop, [3.0, 1.0, 4.0, 1.5]):  # replicated, as all-gathered scores
+            agent.fitness = [f]
+        tournament = TournamentSelection(tournament_size=2, elitism=True, population_size=4,
+                                         eval_loop=1, rng=np.random.default_rng(seed))
+        elite, new_pop = tournament.select(pop)
+        out["elite"] = elite.index
+        out["pop"] = [a.index for a in new_pop]
+        out["agg"] = aggregate_metrics_across_hosts(1.0 + 2.0 * pid)
+        barrier("done", timeout=60.0)
+        conn.send(("ok", out))
+    except Exception:  # noqa: BLE001 - the traceback goes to the test
+        conn.send(("err", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
