@@ -165,8 +165,8 @@ class HeartbeatStore:
         # path would skew FaultInjector op indices and add an fsync per
         # heartbeat; a torn lease reads as a missed beat, which is the
         # correct failure semantics here
-        tmp.write_bytes(json.dumps(payload).encode())
-        os.replace(tmp, path)
+        tmp.write_bytes(json.dumps(payload).encode())  # graftcheck: disable=GX004
+        os.replace(tmp, path)  # graftcheck: disable=GX004 — see above
 
     def beat(
         self,

@@ -38,6 +38,7 @@ from agilerl_tpu_torch.resilience.atomic import (
     CorruptSnapshotError,
     commit_dir,
     load_validated_pickle,
+    read_validated,
     staged_pickle,
     staged_write_bytes,
 )
@@ -61,11 +62,15 @@ def publish_entry(
     payload_name: str = "payload.pkl",
     sha_key: str = "payload_sha",
     manifest_extra: Optional[Dict[str, Any]] = None,
+    files: Optional[Dict[str, bytes]] = None,
 ) -> Path:
     """Atomically publish one named entry under ``directory`` and return the
     committed path. The manifest records the payload pickle's sha256 (under
     ``sha_key``) and byte size plus ``manifest_extra`` verbatim, so readers
-    can inspect provenance without unpickling."""
+    can inspect provenance without unpickling. ``files`` are raw files
+    published beside the payload in the same commit (a kernel library that
+    must be loaded from a path); the manifest records each one's sha256 and
+    size under ``"files"``, and :func:`read_entry` checks them too."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / name
@@ -80,6 +85,10 @@ def publish_entry(
     tmp.mkdir(parents=True)
     sha, size = staged_pickle(tmp / payload_name, payload)
     manifest: Dict[str, Any] = {sha_key: sha, "bytes": size}
+    if files:
+        manifest["files"] = {
+            fname: {"sha256": staged_write_bytes(tmp / fname, data), "bytes": len(data)}
+            for fname, data in files.items()}
     manifest.update(manifest_extra or {})
     staged_write_bytes(
         tmp / "manifest.json", json.dumps(manifest, indent=2).encode()
@@ -120,7 +129,12 @@ def read_entry(
         raise CorruptSnapshotError(
             f"entry manifest at {path} carries no {sha_key!r} hash"
         )
-    return load_validated_pickle(path / payload_name, sha)
+    payload = load_validated_pickle(path / payload_name, sha)
+    for fname, meta in (manifest.get("files") or {}).items():
+        # a raw file published beside the payload: whole and unchanged, or
+        # the entry is torn
+        read_validated(path / fname, meta["sha256"])
+    return payload
 
 
 def committed_entries(
@@ -213,11 +227,12 @@ class CommitDirStore:
         return get_tracer()
 
     def publish(self, name: str, payload: Any,
-                manifest_extra: Optional[Dict[str, Any]] = None) -> Path:
+                manifest_extra: Optional[Dict[str, Any]] = None,
+                files: Optional[Dict[str, bytes]] = None) -> Path:
         path = publish_entry(
             self.directory, name, payload,
             payload_name=self.payload_name, sha_key=self.sha_key,
-            manifest_extra=manifest_extra,
+            manifest_extra=manifest_extra, files=files,
         )
         gc_entries(self.directory, self.prefix, self.keep_last)
         return path

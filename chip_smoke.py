@@ -9,7 +9,9 @@ of which ends the run with a non-zero exit on any failure:
 
 1. the device, and the card's name and power limit from nvidia-smi;
 2. build every kernel of the port from agilerl_tpu_torch/csrc (one nvcc per
-   source, all started together), with each kernel's registers, shared
+   source, all started together) through the compile cache
+   (``parallel/compile_cache.py``) into a fresh store that every child
+   process of the run then loads from, with each kernel's registers, shared
    memory and spills, and the count of wgmma (HGMMA), mma.sync (HMMA) and
    f32 FMA (FFMA) instructions in each of the four libraries where cuobjdump
    is present (the bf16 flash forward must show HGMMA and no HMMA);
@@ -260,6 +262,19 @@ of which ends the run with a non-zero exit on any failure:
    ranks, the stream of (b), a SIGKILLed rank detected by the bounded
    watchdog and the run resumed at world size 1 through
    ``train_elastic_pbt(resume=True)`` bit for bit (no kernel is on 4v);
+4w. the port's tooling (``analysis/``, ``parallel/compile_cache.py``,
+   ``parallel/layout_search.py``): (a) a child process loads the four
+   libraries from phase 2's store with no nvcc build (``CompileGuard()``),
+   launches #1 and #5 once against their plain versions, and skips a planted
+   torn entry and a planted sha mismatch in a copy of the store; (b) at
+   llama3-8b, ``SyncGuard`` on a GRPO learn against the script's former
+   counter, ``CompileGuard(gen)`` over a ragged bucket stream through
+   ``BucketedGenerator`` (a planted new bucket raises) and ``CompileGuard()``
+   over a learn (no build), and in 4k ``SyncGuard(max_syncs=0)`` on the fused
+   ``learn_from_buffer``; (c) ``search_layouts`` over the default one-device
+   plan and 4u (a)'s plan on 4u (a)'s agent; (d) ``python -m
+   agilerl_tpu_torch.analysis`` exits 0 against the committed baseline (see
+   the phase's comment);
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -2530,9 +2545,11 @@ def preserved_ok(torch, before, after):
     return True
 
 
-def count_syncs(torch, fn):
+def count_syncs_reference(torch, fn):
     """(result, host syncs, {"file:line": count} of where they happened) of
-    ``fn`` under torch.cuda.set_sync_debug_mode."""
+    ``fn`` under torch.cuda.set_sync_debug_mode: the script's own counter
+    from before ``agilerl_tpu_torch.analysis.SyncGuard``, which every phase
+    now counts with. Kept only so that phase 4w (b) holds the guard to it."""
     import collections
     import traceback
     import warnings
@@ -2741,6 +2758,7 @@ def run_on_policy(torch, ops, report):
     import numpy as np
 
     from agilerl_tpu_torch.algorithms.ppo import PPO
+    from agilerl_tpu_torch.analysis import SyncGuard
     from agilerl_tpu_torch.envs.probe import (
         FixedObsPolicyEnv,
         PolicyEnv,
@@ -2813,8 +2831,12 @@ def run_on_policy(torch, ops, report):
 
     # host syncs of one collect_rollouts and one learn (design target: O(1))
     elite._last_obs = None
-    reward, syncs, sites = count_syncs(torch, lambda: collect_rollouts(elite, env))
-    _, learn_syncs, learn_sites = count_syncs(torch, elite.learn)
+    with SyncGuard(device="cuda", label="4h collect") as g:
+        reward = collect_rollouts(elite, env)
+    syncs, sites = g.syncs, g.sites
+    with SyncGuard(device="cuda", label="4h learn") as g:
+        elite.learn()
+    learn_syncs, learn_sites = g.syncs, g.sites
     out.update(collect_syncs=syncs, collect_sync_sites=sites, collect_steps=elite.learn_step,
                learn_syncs=learn_syncs, learn_sync_sites=learn_sites)
     log(f"  host syncs: {syncs} in one collect_rollouts of {elite.learn_step} steps {sites}, "
@@ -2981,6 +3003,7 @@ def run_population(torch, ops, report):
     and the device's busy share of one generation; a member's slice against
     the member alone; one update card vs CPU; the JAX package's learning
     gate on seeds 0, 1, 2 in three processes side by side."""
+    from agilerl_tpu_torch.analysis import SyncGuard
     from agilerl_tpu_torch.parallel import ScanRun
     from agilerl_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -3013,10 +3036,14 @@ def run_population(torch, ops, report):
         f"{1e3 * timed_s / POP['timed']:.1f} ms per generation (warm-up {warm_s:.2f} s); "
         f"peak {peak_gb:.3f} GB; fitness best/mean {first.max():.1f}/{first.mean():.1f} -> "
         f"{hist[-1].max():.1f}/{hist[-1].mean():.1f}; {out['smi']}")
-    # a site that count_syncs also reports around a call that does nothing is
+    # a site that SyncGuard also reports around a region that does nothing is
     # the instrument's own (torch/cuda's set_sync_debug_mode), not the run's
-    _, _, base_sites = count_syncs(torch, lambda: None)
-    _, _, sites = count_syncs(torch, lambda: run.run(1))
+    with SyncGuard(device="cuda") as g:
+        pass
+    base_sites = g.sites
+    with SyncGuard(device="cuda", label="4i generation") as g:
+        run.run(1)
+    sites = g.sites
     syncs = sum(n for site, n in sites.items() if site not in base_sites)
     out.update(syncs_per_generation=syncs, sync_sites=sites, instrument_sites=base_sites)
     check(syncs <= 1, f"{syncs} host syncs in one generation {sites} (the instrument alone: "
@@ -3405,6 +3432,7 @@ def run_off_policy(torch, ops, report):
 
     from agilerl_tpu_torch.algorithms.dqn import DQN
     from agilerl_tpu_torch.algorithms.dqn_rainbow import RainbowDQN
+    from agilerl_tpu_torch.analysis import SyncGuard
     from agilerl_tpu_torch.components.replay_buffer import (
         MultiStepReplayBuffer,
         PrioritizedReplayBuffer,
@@ -3493,10 +3521,14 @@ def run_off_policy(torch, ops, report):
     # one learn_from_buffer on the Rainbow run's buffers: host syncs, ms, launches
     agent = rainbow_pop[0]
     learn = lambda: agent.learn_from_buffer(rainbow_mem, rainbow_nmem)  # noqa: E731
-    _, _, base_sites = count_syncs(torch, lambda: None)
-    _, _, sites = count_syncs(torch, learn)
-    learn_syncs = sum(n for site, n in sites.items() if site not in base_sites)
-    check(learn_syncs == 0, f"{learn_syncs} host syncs in one learn_from_buffer {sites}")
+    with SyncGuard(device="cuda") as g:
+        pass
+    base_sites = g.sites
+    # the fused learn holds a budget of no host sync at all (the guard raises
+    # past it)
+    with SyncGuard(device="cuda", max_syncs=0, label="4k fused learn_from_buffer") as g:
+        learn()
+    sites, learn_syncs = g.sites, g.syncs
     for _ in range(5):
         learn()
     torch.cuda.synchronize()
@@ -3516,10 +3548,12 @@ def run_off_policy(torch, ops, report):
     # and a one-step evaluation, included)
     probe_agent = agent.clone(index=50)
     probe_agent.steps = [0]
-    _, _, sites = count_syncs(torch, lambda: train_off_policy(
-        env, OFF_ENV, "RainbowDQN", [probe_agent], rainbow_mem, max_steps=OFF_SYNC_STEPS,
-        evo_steps=OFF_SYNC_STEPS, eval_steps=1, n_step=True, per=True,
-        n_step_memory=rainbow_nmem, verbose=False))
+    with SyncGuard(device="cuda", label="4k loop") as g:
+        train_off_policy(
+            env, OFF_ENV, "RainbowDQN", [probe_agent], rainbow_mem, max_steps=OFF_SYNC_STEPS,
+            evo_steps=OFF_SYNC_STEPS, eval_steps=1, n_step=True, per=True,
+            n_step_memory=rainbow_nmem, verbose=False)
+    sites = g.sites
     step_syncs = sum(n for site, n in sites.items() if site not in base_sites)
     vec_steps = OFF_SYNC_STEPS // 16
     out.update(loop_syncs=step_syncs, loop_sync_sites=sites,
@@ -3687,6 +3721,7 @@ def run_off_policy_continuous(torch, ops, report):
     from agilerl_tpu_torch.algorithms.cqn import CQN
     from agilerl_tpu_torch.algorithms.ddpg import DDPG
     from agilerl_tpu_torch.algorithms.td3 import TD3
+    from agilerl_tpu_torch.analysis import SyncGuard
     from agilerl_tpu_torch.components.replay_buffer import PrioritizedReplayBuffer, ReplayBuffer
     from agilerl_tpu_torch.envs.probe import (
         FixedObsPolicyEnv,
@@ -3761,8 +3796,12 @@ def run_off_policy_continuous(torch, ops, report):
     # one DDPG learn_from_buffer on the DDPG run's buffer: host syncs, ms, launches
     agent = ddpg_pop[0]
     learn = lambda: agent.learn_from_buffer(ddpg_mem)  # noqa: E731
-    _, _, base_sites = count_syncs(torch, lambda: None)
-    _, _, sites = count_syncs(torch, learn)
+    with SyncGuard(device="cuda") as g:
+        pass
+    base_sites = g.sites
+    with SyncGuard(device="cuda", label="4l learn_from_buffer") as g:
+        learn()
+    sites = g.sites
     learn_syncs = sum(n for site, n in sites.items() if site not in base_sites)
     check(learn_syncs == 0, f"{learn_syncs} host syncs in one learn_from_buffer {sites}")
     for _ in range(5):
@@ -3782,9 +3821,11 @@ def run_off_policy_continuous(torch, ops, report):
     # host syncs per env step: the same loop, one agent, CONT_SYNC_STEPS env steps
     probe_agent = agent.clone(index=50)
     probe_agent.steps = [0]
-    _, _, sites = count_syncs(torch, lambda: train_off_policy(
-        env, CONT_ENV, "DDPG", [probe_agent], ddpg_mem, max_steps=CONT_SYNC_STEPS,
-        evo_steps=CONT_SYNC_STEPS, eval_steps=1, verbose=False))
+    with SyncGuard(device="cuda", label="4l loop") as g:
+        train_off_policy(
+            env, CONT_ENV, "DDPG", [probe_agent], ddpg_mem, max_steps=CONT_SYNC_STEPS,
+            evo_steps=CONT_SYNC_STEPS, eval_steps=1, verbose=False)
+    sites = g.sites
     step_syncs = sum(n for site, n in sites.items() if site not in base_sites)
     vec_steps = CONT_SYNC_STEPS // 16
     out.update(loop_syncs=step_syncs, loop_sync_sites=sites,
@@ -4086,6 +4127,7 @@ def run_off_policy_scan(torch, ops, report):
     syncs (<= 1), launches and busy share of one generation; a member alone
     against its batched slice; the cross-tier loss gate for DQN and DDPG;
     one EvoDDPG generation card vs CPU. Returns the kernel launches."""
+    from agilerl_tpu_torch.analysis import SyncGuard
     from agilerl_tpu_torch.envs.classic import CartPole, Pendulum
     from agilerl_tpu_torch.networks.q_networks import RainbowQNetwork
     from agilerl_tpu_torch.parallel import EvoDQN, EvoRainbow, EvoTD3, ScanRun
@@ -4109,12 +4151,16 @@ def run_off_policy_scan(torch, ops, report):
 
     dqn, ddpg = scan_engines(ANAKIN)
     check(dqn.device.type == "cuda" and ddpg.device.type == "cuda", "a scan engine left the card")
-    _, _, base_sites = count_syncs(torch, lambda: None)
+    with SyncGuard(device="cuda") as g:
+        pass
+    base_sites = g.sites
     for name, evo in (("dqn", dqn), ("ddpg", ddpg)):
         log(f"phase 4m: {type(evo).__name__} through ScanRun at bench_anakin's defaults: "
             f"{ANAKIN['num_envs']} envs x {ANAKIN['steps_per_iter']} steps, population 1")
         run, res = count(lambda: timed_scan(torch, evo, 1, ANAKIN["warmup"], ANAKIN["timed"]))
-        _, _, sites = count(lambda: count_syncs(torch, lambda: run.run(1)))
+        with SyncGuard(device="cuda", label=f"4m {name} generation") as g:
+            count(lambda: run.run(1))
+        sites = g.sites
         syncs = sum(n for site, n in sites.items() if site not in base_sites)
         check(syncs <= 1, f"{name}: {syncs} host syncs in one generation {sites}")
         # one generation under torch.profiler, of the same program at 64
@@ -4144,7 +4190,9 @@ def run_off_policy_scan(torch, ops, report):
     dist = EvoDQN(cart, scan_net(cart, 2, 32, 64),
                   **{k: v for k, v in SCAN_DIST.items() if k != "pop"})
     run, res = count(lambda: timed_scan(torch, dist, SCAN_DIST["pop"], 1, ANAKIN["timed"]))
-    _, _, sites = count(lambda: count_syncs(torch, lambda: run.run(1)))
+    with SyncGuard(device="cuda", label="4m distributed generation") as g:
+        count(lambda: run.run(1))
+    sites = g.sites
     syncs = sum(n for site, n in sites.items() if site not in base_sites)
     check(syncs <= 1, f"distributed: {syncs} host syncs in one generation {sites}")
     res.update(syncs_per_generation=syncs)
@@ -4328,6 +4376,7 @@ def run_multi_agent_off_policy(torch, ops, report):
 
     from agilerl_tpu_torch.algorithms.maddpg import MADDPG
     from agilerl_tpu_torch.algorithms.matd3 import MATD3
+    from agilerl_tpu_torch.analysis import SyncGuard
     from agilerl_tpu_torch.components.multi_agent_replay_buffer import MultiAgentReplayBuffer
     from agilerl_tpu_torch.envs import probe_ma as PM
     from agilerl_tpu_torch.envs.multi_agent import MultiAgentTorchVecEnv, SimpleSpreadTorch
@@ -4390,11 +4439,15 @@ def run_multi_agent_off_policy(torch, ops, report):
         runs[name] = (pop, memory)
 
     # one learn of each on its run's buffer: host syncs, ms, launches
-    _, _, base_sites = count_syncs(torch, lambda: None)
+    with SyncGuard(device="cuda") as g:
+        pass
+    base_sites = g.sites
     for name, (pop, memory) in runs.items():
         agent = pop[0]
         learn = lambda: agent.learn(memory.sample(agent.batch_size))  # noqa: E731
-        _, _, sites = count_syncs(torch, learn)
+        with SyncGuard(device="cuda", label=f"4n {name} learn") as g:
+            learn()
+        sites = g.sites
         syncs = sum(n for site, n in sites.items() if site not in base_sites)
         check(syncs <= 1, f"{name}: {syncs} host syncs in one learn {sites}")
         for _ in range(3):
@@ -4416,10 +4469,12 @@ def run_multi_agent_off_policy(torch, ops, report):
     # (learning_delay past the run), one evaluation step
     probe_agent = runs["MADDPG"][0][0].clone(index=50)
     probe_agent.steps = [0]
-    _, _, sites = count_syncs(torch, lambda: train_multi_agent_off_policy(
-        env, "simple_spread", "MADDPG", [probe_agent], runs["MADDPG"][1],
-        max_steps=MA_SYNC_STEPS, evo_steps=MA_SYNC_STEPS, eval_steps=1,
-        learning_delay=10 ** 9, verbose=False))
+    with SyncGuard(device="cuda", label="4n loop") as g:
+        train_multi_agent_off_policy(
+            env, "simple_spread", "MADDPG", [probe_agent], runs["MADDPG"][1],
+            max_steps=MA_SYNC_STEPS, evo_steps=MA_SYNC_STEPS, eval_steps=1,
+            learning_delay=10 ** 9, verbose=False)
+    sites = g.sites
     loop_syncs = sum(n for site, n in sites.items() if site not in base_sites)
     vec_steps = MA_SYNC_STEPS // MADDPG_HP["NUM_ENVS"]
     out.update(loop_syncs=loop_syncs, loop_sync_sites=sites,
@@ -4549,6 +4604,7 @@ def run_multi_agent_on_policy(torch, ops, report):
     import numpy as np
 
     from agilerl_tpu_torch.algorithms.ippo import IPPO
+    from agilerl_tpu_torch.analysis import SyncGuard
     from agilerl_tpu_torch.envs import probe_ma as PM
     from agilerl_tpu_torch.envs.multi_agent import MultiAgentTorchVecEnv, SimpleSpreadTorch
     from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
@@ -4600,9 +4656,15 @@ def run_multi_agent_on_policy(torch, ops, report):
 
     agent = pop[0]
     agent._last_obs = None
-    _, _, base_sites = count_syncs(torch, lambda: None)
-    _, _, sites_c = count_syncs(torch, lambda: agent.collect_rollouts(env))
-    loss, _, sites_l = count_syncs(torch, agent.learn)
+    with SyncGuard(device="cuda") as g:
+        pass
+    base_sites = g.sites
+    with SyncGuard(device="cuda", label="4o collect") as g:
+        agent.collect_rollouts(env)
+    sites_c = g.sites
+    with SyncGuard(device="cuda", label="4o learn") as g:
+        loss = agent.learn()
+    sites_l = g.sites
     _, t_collect = host_s(torch, lambda: agent.collect_rollouts(env))
     _, t_learn = host_s(torch, agent.learn)
     syncs_c = sum(n for s, n in sites_c.items() if s not in base_sites)
@@ -4657,7 +4719,9 @@ def run_multi_agent_on_policy(torch, ops, report):
     steps = P * evo.env_steps_per_generation * EVO_IPPO["timed"]
     check(hist.shape == (EVO_IPPO["timed"], P) and bool(np.isfinite(hist).all()),
           f"EvoIPPO fitness history {hist}")
-    _, _, sites = count_syncs(torch, lambda: run.run(1))
+    with SyncGuard(device="cuda", label="4o EvoIPPO generation") as g:
+        run.run(1)
+    sites = g.sites
     syncs = sum(n for site, n in sites.items() if site not in base_sites)
     check(syncs <= 1, f"EvoIPPO: {syncs} host syncs in one generation {sites}")
     prof = profile_generation(torch, lambda: run.run(1))
@@ -5051,6 +5115,7 @@ def run_bandits(torch, ops, report):
     learn; card vs CPU. Returns the kernel launches of the loops."""
     import numpy as np
 
+    from agilerl_tpu_torch.analysis import SyncGuard
     from agilerl_tpu_torch.components.replay_buffer import ReplayBuffer
     from agilerl_tpu_torch.hpo import Mutations, TournamentSelection
     from agilerl_tpu_torch.observability.events import MemorySink
@@ -5065,7 +5130,9 @@ def run_bandits(torch, ops, report):
     env = BanditEnv(data[:, :4], data[:, 4].astype(np.int64))
     out = {"env": dict(samples=env.num_samples, arms=env.arms, context_dim=env.context_dim)}
     launches = {k: 0 for k in ops.kernel_counters()}
-    _, _, base_sites = count_syncs(torch, lambda: None)
+    with SyncGuard(device="cuda") as g:
+        pass
+    base_sites = g.sites
     for algo in ("NeuralUCB", "NeuralTS"):
         log(f"phase 4p: train_bandits, {algo} on iris ({env.num_samples} x {env.dim}, "
             f"{env.arms} arms): population {BANDIT_HP['POP_SIZE']}, batch "
@@ -5115,7 +5182,9 @@ def run_bandits(torch, ops, report):
             ctx = nxt
         learn = lambda: agent.learn(memory.sample(agent.batch_size))  # noqa: E731
         for what, fn in (("pull", lambda: agent.get_action(ctx)), ("learn", learn)):
-            _, _, sites = count_syncs(torch, fn)
+            with SyncGuard(device="cuda", label=f"4p {what}") as g:
+                fn()
+            sites = g.sites
             syncs = sum(n for site, n in sites.items() if site not in base_sites)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5207,6 +5276,7 @@ def run_pettingzoo(torch, ops, report):
     RSNorm over a dying agent. Returns the kernel launches of the loops."""
     import numpy as np
 
+    from agilerl_tpu_torch.analysis import SyncGuard
     from agilerl_tpu_torch.components.multi_agent_replay_buffer import MultiAgentReplayBuffer
     from agilerl_tpu_torch.observability.events import MemorySink
     from agilerl_tpu_torch.observability.facade import RunTelemetry
@@ -5220,7 +5290,9 @@ def run_pettingzoo(torch, ops, report):
 
     out = {}
     launches = {k: 0 for k in ops.kernel_counters()}
-    _, _, base_sites = count_syncs(torch, lambda: None)
+    with SyncGuard(device="cuda") as g:
+        pass
+    base_sites = g.sites
     for mode in (False, True):
         name = "async" if mode else "sync"
         t0 = time.perf_counter()
@@ -5262,7 +5334,9 @@ def run_pettingzoo(torch, ops, report):
                 acts = agent.get_action(obs)
                 return env.step({a: v.cpu().numpy() for a, v in acts.items()})
 
-            _, _, sites = count_syncs(torch, vector_step)
+            with SyncGuard(device="cuda", label=f"4r {name} vector step") as g:
+                vector_step()
+            sites = g.sites
             syncs = sum(n for site, n in sites.items() if site not in base_sites)
             out[name] = dict(start_s=start_s, loop_s=t_loop, env_steps=env_steps,
                              env_steps_per_s=env_steps / t_loop, syncs_per_vector_step=syncs,
@@ -6222,8 +6296,9 @@ def placed_batch(np, cfg, prompts):
 
 
 def run_sharding(torch, M, ops, cfg, params, prompts, report):
-    """Phase 4u (a) and (b) on phase 4's weights. Returns the launches of
-    their placed learns (the plan path) and of the sp learn."""
+    """Phase 4u (a) and (b) on phase 4's weights, with phase 4w (b) and (c)
+    between them. Returns the launches of 4u (a)'s placed learns (the plan
+    path), of the sp learn and of 4w (c)'s layout search."""
     import dataclasses
 
     import numpy as np
@@ -6287,6 +6362,14 @@ def run_sharding(torch, M, ops, cfg, params, prompts, report):
         out["plan"] = dict(plan=plan.name, placed=learns, unplaced=plain_learns,
                            to_mesh_s=t_place, bit_for_bit=diff == 0.0 and loss_d == 0.0,
                            max_adapter_diff=diff, adapter_moved=moved, max_loss_diff=loss_d)
+
+        # phase 4w (b) and (c) on this agent pair, its batch and the weights
+        t_4w = time.perf_counter()
+        run_guards(torch, cfg, params, plain, batch, report)
+        layout_launches = run_layout_search(torch, ops, cfg, placed, batch, plan, learns,
+                                            plain_learns, report)
+        report["phase_4w_bc_s"] = time.perf_counter() - t_4w
+        log(f"phase 4w (b), (c): {report['phase_4w_bc_s']:.1f} s")
         del placed, plain
         torch.cuda.empty_cache()
 
@@ -6348,7 +6431,7 @@ def run_sharding(torch, M, ops, cfg, params, prompts, report):
                          kernel_vs_plain_mean=d_k.mean().item(), launches=sp_launches)
         del sp, lp
         torch.cuda.empty_cache()
-    return plan_launches, sp_launches
+    return plan_launches, sp_launches, layout_launches
 
 
 def ring_batch(np, vocab):
@@ -7035,6 +7118,361 @@ def run_elastic(torch, ops, report):
     return launches
 
 
+# ------------------------------- phase 4w ---------------------------------- #
+# The port's tooling over the main path. (a) The compile cache: phase 2
+# builds the four libraries into a fresh store (AGILERL_TPU_COMPILE_CACHE,
+# which every child process inherits), then a child process
+# (``chip_smoke.py --warm-child STORE OUT``, alongside phase 3) loads all
+# four from it with no nvcc build under CompileGuard(), launches #1 and #5
+# once each against their plain versions, and in a copy of the store skips
+# a planted torn entry (a newer, truncated library: the walk falls back to
+# the good one) and a planted sha mismatch (a library's bytes changed under
+# its manifest: a probe misses and loads nothing), both counted. (b) The
+# guards at llama3-8b on 4u (a)'s unplaced agent and batch: SyncGuard on a
+# GRPO learn against the former counter on the same learn, CompileGuard(gen)
+# over a ragged bucket stream through BucketedGenerator (0 after warm-up; a
+# planted new bucket raises), CompileGuard() over a second learn (0 builds);
+# the fused learn_from_buffer's SyncGuard(max_syncs=0) runs in 4k. (c)
+# search_layouts over the default one-device plan and 4u (a)'s plan on 4u
+# (a)'s agent and the one-card mesh. (d) ``python -m
+# agilerl_tpu_torch.analysis`` in a process of its own (no jax on the
+# card's machine), exit 0 against analysis_baseline_torch.json.
+KERNEL_SOURCES = ("flash_attention_fwd", "fused_logprob_fwd", "flash_attention_bwd",
+                  "fused_logprob_bwd")
+WARM_CHILD_TIMEOUT_S = 300.0
+LINT_TIMEOUT_S = 300.0
+GUARD_NEW_TOKENS = 8
+GUARD_BUCKETS = dict(prompt_buckets=(64, 128, 256), row_buckets=(4, 8, 16), decode_chunk=4)
+# (rows, shortest, longest prompt): the warm-up covers buckets 64 x 4 and
+# 128 x 8, the steady stream stays inside them, the planted batch needs 256
+GUARD_WARM = ((4, 40, 60), (8, 100, 120))
+GUARD_STEADY = ((3, 30, 60), (6, 70, 128), (2, 10, 50), (7, 65, 110))
+GUARD_PLANTED = (4, 150, 200)
+LAYOUT_WARMUP, LAYOUT_STEPS = 1, 2
+
+
+def build_through_store(torch, report):
+    """Phase 2: the four libraries through the compile cache into a fresh
+    store (the cold path: a miss and an nvcc build each, all started
+    together); returns nvcc's logs and the store directory."""
+    import tempfile
+
+    from agilerl_tpu_torch.ops import _build
+    from agilerl_tpu_torch.parallel import compile_cache as CC
+
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    os.environ[CC.CACHE_ENV] = store_dir  # children inherit the store
+    store = CC.default_store()
+    t0 = time.perf_counter()
+    got = CC.load_or_compile_all(KERNEL_SOURCES, store=store)
+    report["build_s"] = time.perf_counter() - t0
+    for name, (lib, _) in got.items():
+        _build._LIBS[name] = lib
+    misses = store.metrics.counter("compile_cache/misses_total").value
+    report["compile_cache_cold"] = dict(
+        store=store_dir, misses=misses, builds=CC.build_count(),
+        compile_s={n: info["compile_s"] for n, (_, info) in got.items()},
+        published={n: bool(info.get("published")) for n, (_, info) in got.items()})
+    log(f"phase 2: built {list(KERNEL_SOURCES)} in {report['build_s']:.1f} s through the "
+        f"compile cache at {store_dir}: {misses:.0f} misses, {CC.build_count()} nvcc builds, "
+        f"compile_s {report['compile_cache_cold']['compile_s']}")
+    check(misses == len(KERNEL_SOURCES) and CC.build_count() == len(KERNEL_SOURCES)
+          and all(report["compile_cache_cold"]["published"].values()),
+          f"phase 2: the cold build through the store: {report['compile_cache_cold']}")
+    return {n: info.get("nvcc_log", "") for n, (_, info) in got.items()}, store_dir
+
+
+def plant_torn(src, how):
+    """A damaged copy of the newest entry of one fingerprint directory:
+    ``newer`` adds a NEWER entry whose library is truncated (a kill mid-
+    write); ``sha`` flips the last byte of the only entry's library under
+    its manifest (bit rot, same size)."""
+    import shutil
+
+    entries = sorted(d for d in src.iterdir() if d.is_dir() and d.name.startswith("lib_"))
+    good = entries[-1]
+    lib = good / "library.so"
+    if how == "newer":
+        bad = good.with_name(good.name[:-8] + f"{int(good.name[-8:]) + 1:08d}")
+        shutil.copytree(good, bad)
+        (bad / "library.so").write_bytes(lib.read_bytes()[:4096])
+        return good, bad
+    data = bytearray(lib.read_bytes())
+    data[-1] ^= 0xFF
+    lib.write_bytes(bytes(data))
+    return good, good
+
+
+def warm_child(store_dir: str, out_path: str) -> None:
+    """Phase 4w (a), in a process of its own: the four libraries from the
+    store with no nvcc build, #1 and #5 once each against their plain
+    versions, then the torn and corrupt entries in a copy of the store."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from agilerl_tpu_torch import ops
+    from agilerl_tpu_torch.analysis import CompileGuard
+    from agilerl_tpu_torch.observability import MetricsRegistry
+    from agilerl_tpu_torch.ops import _build
+    from agilerl_tpu_torch.ops import flash_attention_vjp as tfa
+    from agilerl_tpu_torch.ops import fused_loss as tfl
+    from agilerl_tpu_torch.parallel import compile_cache as CC
+
+    torch_settings(torch)
+    out = {}
+    t0 = time.perf_counter()
+    store = CC.ExecutableStore(store_dir, metrics=MetricsRegistry())
+    with CompileGuard(label="4w (a) warm child") as guard:
+        got = CC.load_or_compile_all(KERNEL_SOURCES, store=store)
+    out["load_all_s"] = time.perf_counter() - t0
+    for name, (lib, _) in got.items():
+        _build._LIBS[name] = lib
+    out.update(builds=guard.new_compilations, nvcc_builds=CC.build_count(),
+               hits=store.metrics.counter("compile_cache/hits_total").value,
+               misses=store.metrics.counter("compile_cache/misses_total").value,
+               load_s={n: info["load_s"] for n, (_, info) in got.items()})
+    check(out["builds"] == 0 and out["nvcc_builds"] == 0 and out["hits"] == 4
+          and out["misses"] == 0, f"4w (a): the warm child did not load all four: {out}")
+
+    # #1 and #5 once each, on the card, against their plain versions
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn(2, 4, 128, 128, device="cuda", generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(2, 2, 128, 128, device="cuda", generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    h = torch.randn(256, 512, device="cuda", generator=g)
+    w = 0.02 * torch.randn(512, 1000, device="cuda", generator=g)
+    t = torch.randint(0, 1000, (256,), device="cuda", generator=g)
+    ops.reset_kernel_counters()
+    o, lse = tfa.flash_attention_fwd_cuda(q, k, v, None, True)
+    lp, lp_lse = tfl.fused_logprob_fwd_cuda(h, w, t, 1.0)
+    launched = ops.kernel_counters()
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, None, True)
+    want, want_lse = tfl._plain_fwd(h, w, t, 1.0)
+    torch.cuda.synchronize()
+    out.update(launches=launched,
+               flash_err=(o.float() - ref.float()).abs().max().item(),
+               flash_lse_err=(lse - ref_lse).abs().max().item(),
+               fused_err=(lp - want).abs().max().item(),
+               fused_lse_err=(lp_lse - want_lse).abs().max().item())
+    check(launched["flash_attention_fwd"] == 1 and launched["fused_logprob_fwd"] == 1,
+          f"4w (a): launches from the loaded libraries {launched}")
+    check(out["flash_err"] <= 2e-2 and out["flash_lse_err"] <= 1e-4
+          and out["fused_err"] <= 1e-4 and out["fused_lse_err"] <= 1e-4,
+          f"4w (a): the loaded kernels disagree with their plain versions {out}")
+
+    # a torn entry and a sha mismatch, in a copy of the store
+    copy = Path(tempfile.mkdtemp(prefix="chip_smoke_torn_")) / "store"
+    try:
+        shutil.copytree(store_dir, copy)
+        digests = {n: info["fingerprint"] for n, (_, info) in got.items()}
+        fwd_good, fwd_bad = plant_torn(copy / f"fp_{digests['flash_attention_fwd']}", "newer")
+        plant_torn(copy / f"fp_{digests['fused_logprob_fwd']}", "sha")
+        torn = CC.ExecutableStore(copy, metrics=MetricsRegistry())
+        with CompileGuard(label="4w (a) torn store") as guard:
+            _, fwd_info = CC.load_or_compile("flash_attention_fwd", store=torn)
+            fused_entry = torn.get_entry(digests["fused_logprob_fwd"])
+        out["torn"] = dict(
+            torn_total=torn.metrics.counter("compile_cache/torn_entries_total").value,
+            builds=guard.new_compilations, fwd_loaded=fwd_info.get("path"),
+            fwd_fell_back_to=str(fwd_good / "library.so"), planted_newer=str(fwd_bad),
+            fused_entry=None if fused_entry is None else str(fused_entry[0]))
+        check(out["torn"]["torn_total"] == 2 and guard.new_compilations == 0
+              and fwd_info["hit"] and fwd_info["path"] == str(fwd_good / "library.so")
+              and fused_entry is None,
+              f"4w (a): the torn and corrupt entries: {out['torn']}")
+    finally:
+        shutil.rmtree(copy.parent, ignore_errors=True)
+    Path(out_path).write_text(json.dumps(out, default=str))
+
+
+def start_side_processes(store_dir):
+    """Phase 4w (a)'s warm child and (d)'s linter, both started after phase
+    2, each logging into a file of its own; joined by join_side_processes."""
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_4w_"))
+    procs = {}
+    with open(work / "child.log", "w") as f:
+        procs["child"] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--warm-child", store_dir,
+             str(work / "child.json")], stdout=f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+    with open(work / "lint.log", "w") as f:
+        procs["lint"] = subprocess.Popen(
+            [sys.executable, "-m", "agilerl_tpu_torch.analysis"], stdout=f,
+            stderr=subprocess.STDOUT, cwd=str(Path(__file__).resolve().parent),
+            start_new_session=True)
+    log(f"phase 4w (a), (d): the warm child (pid {procs['child'].pid}) and the linter "
+        f"(pid {procs['lint'].pid}) started")
+    return procs, work, time.perf_counter()
+
+
+def join_side_process(side, which, timeout, report):
+    """Wait for one side process, print its log; fail on a non-zero exit."""
+    procs, work, t0 = side
+    proc = procs[which]
+    try:
+        proc.wait(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    text = (work / f"{which}.log").read_text()
+    for line in text.splitlines()[-40:]:
+        log(f"  [{which}] {line}")
+    check(proc.returncode == 0, f"phase 4w: the {which} process exited {proc.returncode}")
+    report.setdefault("tooling", {})[f"{which}_s"] = time.perf_counter() - t0
+    return text
+
+
+def stop_side_processes(side) -> None:
+    import shutil
+
+    procs, work, _ = side
+    for proc in procs.values():
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def join_warm_child(side, report):
+    procs, work, t0 = side
+    join_side_process(side, "child", WARM_CHILD_TIMEOUT_S, report)
+    got = json.loads((work / "child.json").read_text())
+    report.setdefault("tooling", {})["warm_child"] = got
+    log(f"phase 4w (a): the warm child loaded {got['hits']:.0f} libraries with "
+        f"{got['nvcc_builds']} nvcc builds in {got['load_all_s']:.3f} s (load_s {got['load_s']}); "
+        f"#1 / #5 from them: max|d| {got['flash_err']:.3e} / {got['fused_err']:.3e}; the torn "
+        f"copy: {got['torn']['torn_total']:.0f} entries skipped, {got['torn']['builds']} builds, "
+        f"flash fell back to the good entry, the corrupt fused entry loaded nothing")
+
+
+def join_linter(side, report):
+    text = join_side_process(side, "lint", LINT_TIMEOUT_S, report)
+    summary = [line for line in text.splitlines() if line.startswith("graftcheck:")]
+    report["tooling"]["lint"] = summary[-1] if summary else text[-500:]
+    log(f"phase 4w (d): python -m agilerl_tpu_torch.analysis exited 0: {report['tooling']['lint']}")
+    check(bool(summary) and " 0 finding(s)" in summary[-1], f"4w (d): linter said {text[-500:]}")
+
+
+def ragged_batch(np, rng, vocab, rows, lo, hi):
+    return [rng.integers(1, vocab, size=int(rng.integers(lo, hi + 1))).astype(np.int32)
+            for _ in range(rows)]
+
+
+def run_guards(torch, cfg, params, plain, batch, report):
+    """Phase 4w (b) at llama3-8b on 4u (a)'s unplaced agent and batch."""
+    import numpy as np
+
+    from agilerl_tpu_torch.analysis import CompileGuard, CompileGuardError, SyncGuard
+    from agilerl_tpu_torch.llm import serving as S
+    from agilerl_tpu_torch.observability import MetricsRegistry
+
+    out = report.setdefault("tooling", {})["guards"] = {}
+    # SyncGuard against the former counter: the same learn, on the same
+    # agent and batch, once under each (both own the warnings hook, so
+    # they cannot share one call); each first around nothing
+    _, _, ref_base = count_syncs_reference(torch, lambda: None)
+    with SyncGuard(device="cuda") as g:
+        pass
+    base = g.sites
+    with torch.enable_grad():
+        _, ref_n, ref_sites = count_syncs_reference(torch, lambda: plain.learn(batch))
+        with SyncGuard(device="cuda", label="4w (b) GRPO learn") as g:
+            plain.learn(batch)
+    out["learn_syncs"] = dict(guard=g.syncs, guard_sites=g.sites, conversions=g.by_kind,
+                              reference=ref_n, reference_sites=ref_sites,
+                              instrument=dict(guard=base, reference=ref_base))
+    log(f"phase 4w (b): SyncGuard on a GRPO learn ({batch[0].shape[0]} x {batch[0].shape[1]}): "
+        f"{g.syncs} syncs {g.sites} (conversions {g.by_kind}); the former counter on the same "
+        f"learn: {ref_n} {ref_sites}")
+    check(g.syncs == ref_n and g.sites == ref_sites,
+          f"4w (b): SyncGuard {g.syncs} {g.sites} != the former counter {ref_n} {ref_sites}")
+    with torch.enable_grad(), CompileGuard(label="4w (b) learn builds") as cg:
+        plain.learn(batch)
+    out["learn_builds"] = cg.new_compilations
+    check(cg.new_compilations == 0 and cg.global_mode, "4w (b): a learn built a library")
+
+    gen = S.BucketedGenerator(cfg, max_new_tokens=GUARD_NEW_TOKENS, pad_id=0, temperature=0.0,
+                              metrics=MetricsRegistry(), **GUARD_BUCKETS)
+    rng = np.random.default_rng(31)
+    reads = []
+    t0 = time.perf_counter()
+    for spec in GUARD_WARM:
+        gen.generate(ragged_batch(np, rng, cfg.vocab_size, *spec), None, params, greedy=True)
+    warm_programs = gen.compiled_programs
+    for spec in GUARD_STEADY:
+        with CompileGuard(gen, label="4w (b) steady bucket stream") as cg:
+            gen.generate(ragged_batch(np, rng, cfg.vocab_size, *spec), None, params,
+                         greedy=True)
+        reads.append(cg.new_compilations)
+    raised = None
+    try:
+        with CompileGuard(gen, label="4w (b) planted bucket") as planted:
+            gen.generate(ragged_batch(np, rng, cfg.vocab_size, *GUARD_PLANTED), None, params,
+                         greedy=True)
+    except CompileGuardError as e:
+        raised = str(e)
+    out["bucket_stream"] = dict(warm_programs=warm_programs, steady=reads,
+                                planted=planted.new_compilations, raised=raised,
+                                programs=gen.compiled_programs, s=time.perf_counter() - t0)
+    log(f"  CompileGuard(gen) over the bucket stream at llama3-8b: warm-up made "
+        f"{warm_programs} programs, the steady batches read {reads}, the planted bucket "
+        f"read {planted.new_compilations} and raised: {raised is not None} "
+        f"({out['bucket_stream']['s']:.1f} s)")
+    check(reads == [0] * len(GUARD_STEADY) and planted.new_compilations == 2
+          and raised is not None, f"4w (b): the bucket stream {out['bucket_stream']}")
+    del gen
+
+
+def run_layout_search(torch, ops, cfg, placed, batch, plan, learns, plain_learns, report):
+    """Phase 4w (c): search_layouts over the default one-device plan and
+    4u (a)'s plan on 4u (a)'s agent and the one-card mesh, LAYOUT_WARMUP
+    untimed and LAYOUT_STEPS timed learns each. Returns their launches."""
+    from agilerl_tpu_torch.observability import MetricsRegistry
+    from agilerl_tpu_torch.parallel import plan as PL
+    from agilerl_tpu_torch.parallel.layout_search import search_layouts
+
+    candidates = [PL.get_plan(n) for n in PL.register_default_plans(1)] + [plan]
+    mesh = PL.ShardingPlan("one-card", {"fsdp": 1}).build_mesh()
+
+    def args_for(p, m):
+        placed.to_mesh(mesh=m, plan=p)
+        return (batch,)
+
+    reg = MetricsRegistry()
+    ops.reset_kernel_counters()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        result = search_layouts(placed.learn, (None,), args_for, plans=candidates, mesh=mesh,
+                                warmup=LAYOUT_WARMUP, steps=LAYOUT_STEPS, registry=reg)
+    launches = ops.kernel_counters()
+    seconds = time.perf_counter() - t0
+    report.setdefault("tooling", {})["layout_search"] = dict(
+        result.to_dict(), s=seconds, launches=launches,
+        best_gauge=reg.gauge("layout_search/best_step_time_s").value,
+        placed_learn_s=[x["learn_s"] for x in learns],
+        unplaced_learn_s=[x["learn_s"] for x in plain_learns])
+    ranked = [(c.plan.name, round(c.step_time_s, 3), [round(t, 3) for t in c.step_times_s])
+              for c in result.ranked]
+    log(f"phase 4w (c): layout search over {[c.name for c in candidates]} on the one-card "
+        f"mesh, {LAYOUT_WARMUP} + {LAYOUT_STEPS} learns each, in {seconds:.1f} s: ranked "
+        f"{ranked}; 4u (a)'s placed learns {[round(x['learn_s'], 3) for x in learns]} s, "
+        f"unplaced {[round(x['learn_s'], 3) for x in plain_learns]} s; launches {launches}")
+    check(all(c.ok for c in result.candidates),
+          f"4w (c): a candidate failed: {[c.error for c in result.candidates]}")
+    n = len(candidates) * (LAYOUT_WARMUP + LAYOUT_STEPS)
+    L = cfg.n_layer
+    want = {"flash_attention_fwd": 3 * L * n, "flash_attention_dq": L * n,
+            "flash_attention_dkv": L * n, "fused_logprob_fwd": 3 * n, "fused_logprob_dh": n,
+            "fused_logprob_dw": 0}
+    check(launches == want, f"4w (c): launches {launches} != {want}")
+    return launches
+
+
 # ------------------------------- phase 5 ----------------------------------- #
 
 
@@ -7482,114 +7920,124 @@ def main() -> None:
     log(f"nvidia-smi: {smi}")
     report["device"] = dict(kind=kind, count=count, nvidia_smi=smi)
 
-    names = ["flash_attention_fwd", "fused_logprob_fwd", "flash_attention_bwd",
-             "fused_logprob_bwd"]
-    t0 = time.perf_counter()
-    logs = _build.build_all(names)
-    report["build_s"] = time.perf_counter() - t0
-    log(f"phase 2: built {names} in {report['build_s']:.1f} s")
-    for n, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"  {n}: {line.strip()}")
-    report["sass"] = sass_counts(_build, names)
-
-    log("phase 3: kernels vs their plain versions on the card")
-    check_split(torch, tfl, report)
-    check_flash(torch, tfa, report)
-    check_flash_bf16_cases(torch, tfa, report)
-    n_rows = GROUP_SIZE * len(PROMPT_LENS) * (max(PROMPT_LENS) + MAX_NEW_TOKENS - 1)
-    check_fused(torch, tfl, report, n_rows, 4096)
-    check_flash_bwd(torch, tfa, report)
-    check_flash_head_dims(torch, tfa, report)
-    check_fused_bwd(torch, tfl, report, n_rows, 4096)
-    small_model_check(torch, M, ops, report)
-
-    cfg, params, prompts, full_mask, dense_greedy = run_slice(torch, M, G, ops, presets, report)
-    with torch.enable_grad():
-        grpo_launches, grpo_grads = run_learn(torch, M, ops, cfg, params, prompts, report)
-        dpo_launches, dpo_grads = run_dpo(torch, M, ops, tfa, tfl, cfg, params, report)
-    # phases 4h-4r but 4q in a second process, alongside 4f-4t (see RL_PHASES)
-    rl = start_rl_phases()
+    names = list(KERNEL_SOURCES)
+    logs, store_dir = build_through_store(torch, report)
+    side = None
     try:
-        serve_launches, served_greedy = timed_phase(
-            "4f", run_serving, torch, M, G, ops, cfg, params, prompts, dense_greedy, report)
-        torch.cuda.empty_cache()
+        for n, text in logs.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"  {n}: {line.strip()}")
+        report["sass"] = sass_counts(_build, names)
+        side = start_side_processes(store_dir)
+        log("phase 3: kernels vs their plain versions on the card")
+        check_split(torch, tfl, report)
+        check_flash(torch, tfa, report)
+        check_flash_bf16_cases(torch, tfa, report)
+        n_rows = GROUP_SIZE * len(PROMPT_LENS) * (max(PROMPT_LENS) + MAX_NEW_TOKENS - 1)
+        check_fused(torch, tfl, report, n_rows, 4096)
+        check_flash_bwd(torch, tfa, report)
+        check_flash_head_dims(torch, tfa, report)
+        check_fused_bwd(torch, tfl, report, n_rows, 4096)
+        small_model_check(torch, M, ops, report)
+        join_warm_child(side, report)
+
+        cfg, params, prompts, full_mask, dense_greedy = run_slice(torch, M, G, ops, presets, report)
         with torch.enable_grad():
-            fly_launches = timed_phase("4g", run_fleet_and_flywheel, torch, M, G, ops, tfa, tfl,
-                                       cfg, params, prompts, served_greedy, report)
-        plan_launches, sp_launches = timed_phase("4u_ab", run_sharding, torch, M, ops, cfg,
-                                                 params, prompts, report)
-        with torch.enable_grad():
-            # one f32 copy of the weights, made from (and replacing) the bf16
-            # blocks, serves both gradient checks
-            cfg32, params32 = f32_weights(torch, cfg, params)
-            del params
+            grpo_launches, grpo_grads = run_learn(torch, M, ops, cfg, params, prompts, report)
+            dpo_launches, dpo_grads = run_dpo(torch, M, ops, tfa, tfl, cfg, params, report)
+        # phases 4h-4r but 4q in a second process, alongside 4f-4t (see RL_PHASES)
+        rl = start_rl_phases()
+        try:
+            serve_launches, served_greedy = timed_phase(
+                "4f", run_serving, torch, M, G, ops, cfg, params, prompts, dense_greedy, report)
             torch.cuda.empty_cache()
-            log("phases 4b and 4d: the adapter gradients against an f32 run")
-            report["learn"].update(f32_grad_agreement(torch, tree, grpo_grads, cfg32, params32))
-            report["dpo"].update(f32_grad_agreement(torch, tree, dpo_grads, cfg32, params32))
-            del params32, grpo_grads, dpo_grads
-            torch.cuda.empty_cache()
-            run_evolution(torch, M, ops, presets, report)
-            timed_phase("4e", lambda r: (run_preference_loop(torch, M, ops, presets, r),
-                                         run_offline_hf_moe(torch, M, r)), report)
-            resilience_launches = timed_phase("4s", run_resilience, torch, ops, tfa, tfl,
-                                              presets, report)
-            launcher_launches = timed_phase("4t", run_launcher, torch, ops, report)
-        ring_launches = timed_phase("4u_cd", run_ring_and_pod, torch, ops, report)
-        with torch.enable_grad():
-            pipe_launches = timed_phase("4v_a", run_pipeline, torch, ops, report)
-        rl_launches = join_rl_phases(rl, report)
+            with torch.enable_grad():
+                fly_launches = timed_phase("4g", run_fleet_and_flywheel, torch, M, G, ops, tfa, tfl,
+                                           cfg, params, prompts, served_greedy, report)
+            plan_launches, sp_launches, layout_launches = timed_phase(
+                "4u_ab", run_sharding, torch, M, ops, cfg, params, prompts, report)
+            join_linter(side, report)
+            with torch.enable_grad():
+                # one f32 copy of the weights, made from (and replacing) the bf16
+                # blocks, serves both gradient checks
+                cfg32, params32 = f32_weights(torch, cfg, params)
+                del params
+                torch.cuda.empty_cache()
+                log("phases 4b and 4d: the adapter gradients against an f32 run")
+                report["learn"].update(f32_grad_agreement(torch, tree, grpo_grads, cfg32, params32))
+                report["dpo"].update(f32_grad_agreement(torch, tree, dpo_grads, cfg32, params32))
+                del params32, grpo_grads, dpo_grads
+                torch.cuda.empty_cache()
+                run_evolution(torch, M, ops, presets, report)
+                timed_phase("4e", lambda r: (run_preference_loop(torch, M, ops, presets, r),
+                                             run_offline_hf_moe(torch, M, r)), report)
+                resilience_launches = timed_phase("4s", run_resilience, torch, ops, tfa, tfl,
+                                                  presets, report)
+                launcher_launches = timed_phase("4t", run_launcher, torch, ops, report)
+            ring_launches = timed_phase("4u_cd", run_ring_and_pod, torch, ops, report)
+            with torch.enable_grad():
+                pipe_launches = timed_phase("4v_a", run_pipeline, torch, ops, report)
+            rl_launches = join_rl_phases(rl, report)
+        finally:
+            stop_rl_phases(rl)
+        gpt_launches = timed_phase("4q", run_transformers, torch, ops, presets, report)
+        # each main path's counts were set to 0 just before it and read just after
+        launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
+                    + plan_launches[k] + sp_launches[k] + layout_launches[k]
+                    for k in grpo_launches}
+
+        log("phase 5: kernel times at the main path's shapes")
+        kernels = [time_flash(torch, F, tfa, cfg, full_mask, launches, report),
+                   *time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report),
+                   time_fused(torch, F, tfl, cfg, n_rows, launches, report),
+                   *time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report)]
+        for entry in kernels:
+            entry["launches_by_path"] = {"grpo_learn": grpo_launches[entry["name"]],
+                                         "dpo_learn": dpo_launches[entry["name"]],
+                                         "serving_capture": serve_launches[entry["name"]],
+                                         "flywheel": fly_launches[entry["name"]],
+                                         **{path: n[entry["name"]]
+                                            for path, n in rl_launches.items()},
+                                         "evolvable_gpt": gpt_launches[entry["name"]],
+                                         "resilience": resilience_launches[entry["name"]],
+                                         "launcher": launcher_launches[entry["name"]],
+                                         "plan_learn": plan_launches[entry["name"]],
+                                         "layout_search": layout_launches[entry["name"]],
+                                         "sp_learn": sp_launches[entry["name"]],
+                                         "ring_rank0": ring_launches[0][entry["name"]],
+                                         "ring_rank1": ring_launches[1][entry["name"]],
+                                         "pipeline_rank0": pipe_launches[0][entry["name"]],
+                                         "pipeline_rank1": pipe_launches[1][entry["name"]]}
+            # the LoRA learn steps freeze the head, so dW is not on the paths
+            # (phase 3 and the timing above launch it)
+            if entry["name"] != "fused_logprob_dw":
+                check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
+                check(resilience_launches[entry["name"]] > 0,
+                      f"{entry['name']} was not launched on phase 4s's GRPO runs")
+                check(launcher_launches[entry["name"]] > 0,
+                      f"{entry['name']} was not launched in phase 4t's learner process")
+                check(plan_launches[entry["name"]] > 0,
+                      f"{entry['name']} was not launched on phase 4u's plan learns")
+                check(layout_launches[entry["name"]] > 0,
+                      f"{entry['name']} was not launched on phase 4w's layout search")
+            if entry["name"].startswith("flash"):
+                check(sp_launches[entry["name"]] > 0 and ring_launches[1][entry["name"]] > 0,
+                      f"{entry['name']} was not launched on phase 4u's ring")
+        report["wall_s"] = time.perf_counter() - t_start
+        log(f"wall time {report['wall_s']:.1f} s")
+        log("report: " + json.dumps(report))
+
+        print(json.dumps({"kernels": kernels}))
+        print(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
+              flush=True)
     finally:
-        stop_rl_phases(rl)
-    gpt_launches = timed_phase("4q", run_transformers, torch, ops, presets, report)
-    # each main path's counts were set to 0 just before it and read just after
-    launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
-                + plan_launches[k] + sp_launches[k] for k in grpo_launches}
+        import shutil
 
-    log("phase 5: kernel times at the main path's shapes")
-    kernels = [time_flash(torch, F, tfa, cfg, full_mask, launches, report),
-               *time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report),
-               time_fused(torch, F, tfl, cfg, n_rows, launches, report),
-               *time_fused_bwd(torch, F, tfl, cfg, n_rows, launches, report)]
-    for entry in kernels:
-        entry["launches_by_path"] = {"grpo_learn": grpo_launches[entry["name"]],
-                                     "dpo_learn": dpo_launches[entry["name"]],
-                                     "serving_capture": serve_launches[entry["name"]],
-                                     "flywheel": fly_launches[entry["name"]],
-                                     **{path: n[entry["name"]]
-                                        for path, n in rl_launches.items()},
-                                     "evolvable_gpt": gpt_launches[entry["name"]],
-                                     "resilience": resilience_launches[entry["name"]],
-                                     "launcher": launcher_launches[entry["name"]],
-                                     "plan_learn": plan_launches[entry["name"]],
-                                     "sp_learn": sp_launches[entry["name"]],
-                                     "ring_rank0": ring_launches[0][entry["name"]],
-                                     "ring_rank1": ring_launches[1][entry["name"]],
-                                     "pipeline_rank0": pipe_launches[0][entry["name"]],
-                                     "pipeline_rank1": pipe_launches[1][entry["name"]]}
-        # the LoRA learn steps freeze the head, so dW is not on the paths
-        # (phase 3 and the timing above launch it)
-        if entry["name"] != "fused_logprob_dw":
-            check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
-            check(resilience_launches[entry["name"]] > 0,
-                  f"{entry['name']} was not launched on phase 4s's GRPO runs")
-            check(launcher_launches[entry["name"]] > 0,
-                  f"{entry['name']} was not launched in phase 4t's learner process")
-            check(plan_launches[entry["name"]] > 0,
-                  f"{entry['name']} was not launched on phase 4u's plan learns")
-        if entry["name"].startswith("flash"):
-            check(sp_launches[entry["name"]] > 0 and ring_launches[1][entry["name"]] > 0,
-                  f"{entry['name']} was not launched on phase 4u's ring")
-    report["wall_s"] = time.perf_counter() - t_start
-    log(f"wall time {report['wall_s']:.1f} s")
-    log("report: " + json.dumps(report))
-
-    print(json.dumps({"kernels": kernels}))
-    print(nvidia_smi_line())
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
-          flush=True)
+        if side is not None:
+            stop_side_processes(side)
+        shutil.rmtree(store_dir, ignore_errors=True)
 
 
 if __name__ == "__main__":
@@ -7601,6 +8049,8 @@ if __name__ == "__main__":
         pipe_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) == 5 and sys.argv[1] == "--elastic-rank":
         elastic_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) == 4 and sys.argv[1] == "--warm-child":
+        warm_child(sys.argv[2], sys.argv[3])
     elif len(sys.argv) == 3 and sys.argv[1] == "--elastic-resume":
         elastic_resume_child(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "--rl-phases":

@@ -117,6 +117,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import agilerl_tpu_torch.parallel.multihost, agilerl_tpu_torch.parallel.pipeline\n"
         "import agilerl_tpu_torch.parallel.elastic, agilerl_tpu_torch.training.train_elastic\n"
         "from agilerl_tpu_torch.llm.model import block_apply_dense\n"
+        # graftcheck, the compile cache and layout search (Queue 1's final slice)
+        "import agilerl_tpu_torch.analysis, agilerl_tpu_torch.analysis.runtime\n"
+        "import agilerl_tpu_torch.analysis.__main__, agilerl_tpu_torch.analysis.rules\n"
+        "import agilerl_tpu_torch.parallel.compile_cache\n"
+        "import agilerl_tpu_torch.parallel.layout_search, tests.torch_fake_nvcc\n"
         # the launcher tests' role factories, which the children import
         "import tests.torch_launch_roles\n"
         # the multi-rank tests' harness and cases, which the gloo ranks import

@@ -266,3 +266,32 @@ def test_bucketed_generator_with_plan_matches_unsharded(pool):
         np.testing.assert_array_equal(r["mask"], np.asarray(tmask))
         assert r["wq"] == "(Shard(dim=0), Shard(dim=1))"
         assert r["kv_k"] == (None, ("fsdp",), None, "tp", None)
+
+
+def test_layout_search_ranks_the_default_plans_on_four_ranks(pool):
+    """``search_layouts`` over the default GRPO plans for 4 devices (the
+    sharding mutation's swap set: fsdp4, fsdp2 x tp2, tp4). Each call is a
+    fresh agent (``donate``) whose learn equals the unplaced learn at the
+    bounds above. tp4 cannot split this model's 2 KV heads (a DTensor view of
+    an unevenly sharded dim raises, where GSPMD would pad): it is recorded
+    with its error and left out of the ranking. The ranking, events and
+    gauge agree on every rank."""
+    _, base, actor, reference = _jax_agent()
+    batch = _learn_batch()
+    want = _port_agent(base, actor, reference).learn(batch)
+    res = pool.run("layout_search", cfg_kw=CFG_KW, base=base, actor=actor,
+                   reference=reference, batch=batch, kw=KW)
+    plans = [p.name for p in TPL.default_grpo_plans(4)]
+    assert plans == ["grpo-fsdp4", "grpo-fsdp2xtp2", "grpo-tp4"]
+    for r in res:
+        assert sorted(r["ranked"]) == sorted(plans[:2]) and r["events"] == plans
+        assert r["summary"]["best_plan"] == r["ranked"][0]
+        assert r["best_gauge"] == r["summary"]["candidates"][0]["step_time_s"] > 0
+        ok, failed = r["summary"]["candidates"][:2], r["summary"]["candidates"][2]
+        assert all(c["error"] is None and len(c["step_times_s"]) == 1
+                   and c["cache_hit"] is None for c in ok)
+        assert failed["plan"] == "grpo-tp4" and "unevenly sharded" in failed["error"]
+        assert failed["step_time_s"] is None
+        for name in plans[:2]:
+            np.testing.assert_allclose(np.asarray(r["losses"][name]), np.asarray([want]),
+                                       rtol=1e-5, atol=1e-8)

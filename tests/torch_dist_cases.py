@@ -427,3 +427,44 @@ def multihost_worker(pid: int, nproc: int, port: int, conn) -> None:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------- #
+# Layout search
+# --------------------------------------------------------------------------- #
+
+
+def layout_search(cfg_kw, base, actor, reference, batch, kw, warmup: int = 0, steps: int = 1):
+    """``search_layouts`` over the default GRPO plans for the world size:
+    each call places a fresh agent by the candidate's plan (``donate``: args
+    rebuilt per call) and learns once on ``batch``. The plan registry is
+    restored after."""
+    from agilerl_tpu_torch.observability import MemorySink, MetricsRegistry
+    from agilerl_tpu_torch.parallel.layout_search import search_layouts
+
+    saved = dict(PL._REGISTRY)
+    PL.clear_registry()
+    losses: Dict[str, list] = {}
+
+    def args_for(plan, mesh):
+        agent = _agent(cfg_kw, base, actor, reference, kw)
+        agent.to_mesh(mesh=mesh, plan=plan)
+        return (agent,)
+
+    def learn(agent):
+        out = agent.learn(batch)
+        losses.setdefault(agent.sharding_plan.name, []).append(out)
+        return out
+
+    sink = MemorySink()
+    reg = MetricsRegistry(sink=sink)
+    try:
+        result = search_layouts(learn, (None,), args_for, device="cpu", warmup=warmup,
+                                steps=steps, donate=True, registry=reg)
+    finally:
+        PL._REGISTRY.clear()
+        PL._REGISTRY.update(saved)
+    return {"ranked": [c.plan.name for c in result.ranked],
+            "summary": result.to_dict(), "losses": losses,
+            "events": [e["plan"] for e in sink.events if e["kind"] == "layout_search"],
+            "best_gauge": reg.gauge("layout_search/best_step_time_s").value}
