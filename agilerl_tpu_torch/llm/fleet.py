@@ -156,7 +156,8 @@ class PrefillWorker(_PlanPlacement):
     def _prefill_impl(self, params, lora, prompt, prompt_mask, key, greedy):
         Pb = prompt.shape[1]
         self._programs.add(("prefill", Pb, bool(greedy), lora is None))
-        dense = M.init_caches(self.config, 1, Pb + self._decode_extent, device=self.dev)
+        dense = self._kv("kv", lambda d: M.init_caches(
+            self.config, 1, Pb + self._decode_extent, device=d))
         carry, _, last_logits = prefill_head(
             self.config, params, prompt, prompt_mask, dense, key[None],
             return_logits=True, **self._knobs(greedy, lora))
@@ -165,14 +166,19 @@ class PrefillWorker(_PlanPlacement):
         # prompt KV) so a capture_logprobs replica's imported stream stays
         # aligned (ContinuousGenerator._record_lp0)
         lp0 = torch.log_softmax(last_logits, dim=-1)[0, tok0[0].long()]
-        return (filled.k[:, 0, :Pb], filled.v[:, 0, :Pb], tok0[0], done0[0],
-                key_next[0], lp0)
+        # under a plan each rank exports its own KV heads (the row is whole
+        # on every rank: one row does not tile the data axes)
+        k, v = (M.local_shard(t)[:, 0, :Pb] for t in (filled.k, filled.v))
+        return k, v, tok0[0], done0[0], key_next[0], lp0, M.kv_head_range(filled.k)
 
     def prefill(self, tokens, key, params, lora=None, greedy: bool = False,
                 hashes: Optional[List[bytes]] = None) -> Dict[str, Any]:
         """Prefill one prompt; returns the transfer payload (prompt KV
-        ``[L, Pb, KV, hd]`` in ``tensor_to_host`` form, first token, EOS
-        state, advanced counter key, lp0 and the block-hash chain) as host
+        ``[L, Pb, KV, hd]`` in ``tensor_to_host`` form, the KV heads
+        ``kv_heads`` = ``[lo, hi)`` it holds (under a plan, this rank's shard
+        of them: a handoff between ranks of the same plan moves each rank's
+        shard), first token, EOS state, advanced counter key, lp0 and the
+        block-hash chain) as host
         values ready for :meth:`KVTransferStore.export`. ``key`` is the request's raw counter
         key. ``hashes`` skips the re-hash when the router already chained
         this prompt at the same layout."""
@@ -184,7 +190,7 @@ class PrefillWorker(_PlanPlacement):
         Pb = _round_up(tokens.size, self.prompt_buckets)
         toks_row, mask_row = left_pad([tokens], self.pad_id, Pb)
         t0 = time.perf_counter()
-        k, v, tok0, done0, key_next, lp0 = self._prefill_impl(
+        k, v, tok0, done0, key_next, lp0, kv_heads = self._prefill_impl(
             params, lora, torch.tensor(toks_row, device=self.dev),
             torch.tensor(mask_row, device=self.dev),
             torch.tensor(np.asarray(key, np.int64).reshape(2), device=self.dev), greedy)
@@ -194,6 +200,7 @@ class PrefillWorker(_PlanPlacement):
             tok0=int(tok0), done0=bool(done0),
             key_next=key_next.cpu().numpy().astype(np.int64),
             lp0=float(lp0),
+            kv_heads=kv_heads,
             hashes=(list(hashes) if hashes is not None else
                     chain_hashes(toks_row[0], mask_row[0], self.block_size)),
         )
@@ -1016,7 +1023,8 @@ class ServingFleet:
                     done0=payload["done0"], key_next=payload["key_next"],
                     lp0=payload.get("lp0"),
                     key=fr.key, max_new=fr.max_new, arrival_s=fr.arrival_s,
-                    no_shed=True, hashes=fr.hashes, trace_ctx=ctx)
+                    no_shed=True, hashes=fr.hashes, trace_ctx=ctx,
+                    kv_heads=payload.get("kv_heads"))
 
             # affinity here means two identical cold prompts raced through
             # prefill and the second import lands where the first

@@ -165,7 +165,7 @@ def prefill_head(config, params, prompt, prompt_mask, caches, generator, *,
         config, params, prompt, attention_mask=prompt_mask,
         positions=positions, cache=caches, lora=lora, lora_scale=lora_scale,
     )
-    last_logits = M.logits_fn(config, params, hidden[:, -1:, :])[:, 0, :]
+    last_logits = M.serving_logits(config, params, hidden[:, -1:, :])[:, 0, :]
     pos = prompt_mask.sum(dim=-1)
     logits0 = _suppress_eos(last_logits, 0, eos_id, min_new_tokens)
     if isinstance(generator, torch.Tensor):
@@ -195,7 +195,7 @@ def decode_step(config, params, carry, i, *, lora, lora_scale, temperature,
         attention_mask=prev_valid.to(torch.int32)[:, None],
         positions=pos[:, None], cache=caches, lora=lora, lora_scale=lora_scale,
     )
-    logits = M.logits_fn(config, params, hidden[:, -1:, :])[:, 0, :]
+    logits = M.serving_logits(config, params, hidden[:, -1:, :])[:, 0, :]
     pos = pos + prev_valid.to(pos.dtype)
     tok = _sample_token(_suppress_eos(logits, i, eos_id, min_new_tokens),
                         generator, temperature, top_k, top_p)
@@ -288,7 +288,7 @@ def paged_decode_step(config, params, carry, *, lora, lora_scale, temperature,
         slot_mask, lora=lora, lora_scale=lora_scale, live=live,
     )
     cache = M.paged_scatter_tokens(cache, block_tables, lengths, new_k, new_v)
-    logits = M.logits_fn(config, params, hidden)[:, 0, :]
+    logits = M.serving_logits(config, params, hidden)[:, 0, :]
     pos = pos + prev_ok.to(pos.dtype)
     keys, k_s = _split_keys(keys)
     tok = _sample_token_per_row(_suppress_eos(logits, step_idx, eos_id, min_new_tokens),

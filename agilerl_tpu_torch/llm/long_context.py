@@ -12,6 +12,9 @@ all blocks, so a loss on them is the same on every rank; each rank's
 gradient covers its own block (``parallel/comm.gather_replicated_loss``),
 and the caller sums the parameters' gradients over the axis.
 
+``config.remat`` checkpoints each block of a learn, as ``llm/model.forward``
+does (the JAX function does not remat; the result is the same function).
+
 Constraints: right-padded batches (global positions = block offset + local
 index; no key mask), T divisible by the axis size.
 """
@@ -23,6 +26,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import checkpoint
 
 from agilerl_tpu_torch.llm.model import GPTConfig, _maybe_lora, _rms, _rope
 from agilerl_tpu_torch.ops.ring_attention import ring_attention
@@ -66,18 +70,35 @@ def _block_sp(config: GPTConfig, blk, lora_layer, h, positions, group, lora_scal
                            lora_scale, dtype)
 
 
+def _block_sp_at_use(config: GPTConfig, blk, layer, h, positions, group, lora_scale):
+    """``_block_sp`` with the block's weights and adapter taken whole in
+    here: under ``remat`` the gathered weights are freed after the forward
+    and gathered again in the recompute."""
+    blk = {k: _local(w) for k, w in blk.items()}
+    if layer is not None:
+        layer = {t: {k: _local(w) for k, w in ab.items()} for t, ab in layer.items()}
+    return _block_sp(config, blk, layer, h, positions, group, lora_scale)
+
+
 def _forward_local(config: GPTConfig, params, tokens, lora, lora_scale, group):
-    """This rank's forward over its block of the sequence ([B, T_local])."""
+    """This rank's forward over its block of the sequence ([B, T_local]).
+    ``config.remat`` checkpoints each block while grad is enabled: the
+    recompute in the backward sends the ring's shifts again, and every rank
+    recomputes its blocks in the same order (the backward's)."""
     B, T = tokens.shape
     start = group_rank(group) * T
     positions = (start + torch.arange(T, device=tokens.device))[None, :].expand(B, T)
     h = F.embedding(tokens, _local(params["tok_emb"])).to(config.dtype)
+    remat = config.remat and torch.is_grad_enabled()
     for i in range(config.n_layer):
-        blk = {k: _local(w) for k, w in params["blocks"][str(i)].items()}
-        layer = lora["blocks"].get(str(i)) if lora is not None else None
-        if layer is not None:
-            layer = {t: {k: _local(w) for k, w in ab.items()} for t, ab in layer.items()}
-        h = _block_sp(config, blk, layer, h, positions, group, lora_scale)
+        args = (config, params["blocks"][str(i)],
+                lora["blocks"].get(str(i)) if lora is not None else None,
+                h, positions, group, lora_scale)
+        if remat:
+            h = checkpoint(_block_sp_at_use, *args, use_reentrant=False,
+                           preserve_rng_state=False)  # a block draws nothing
+        else:
+            h = _block_sp_at_use(*args)
     return _rms(h, _local(params["ln_f"]), config.rms_eps).float()
 
 

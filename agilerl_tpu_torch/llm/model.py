@@ -30,11 +30,30 @@ take a DTensor: the flash call and the fused log-probability call run
 through ``local_map``, on placements from ``flash_shard_axes`` ((batch
 axes, head axes)) and ``fused_loss_shard_axes`` (row axes), as the JAX
 package wraps them in ``shard_map``. A dimension that the axes do not tile
-stays whole. With plain activations (the serving tier) every DTensor weight
+stays whole. With plain activations and plain caches every DTensor weight
 is gathered whole where it is used.
 
-Not ported here: ``scan_layers``/``remat`` (XLA compile-time devices with no
-eager counterpart) and the dense-attention kill switch of the paged forward
+KV caches placed on a mesh (DTensor ``k`` / ``v`` / ``mask``, as the serving
+tier allocates them by the plan's ``kv`` / ``kv_paged`` rules) make the
+cached forwards run as the learn runs: the tokens become DTensors with
+rows over the cache's data axes, the projections stay tp-parallel, the
+embedding is a vocab-parallel lookup, and the cache write, the paged
+gather and ``chunked_cached_attention`` run on each rank's own rows and KV
+heads through ``local_map``. Writes go to the local shards in place.
+``serving_logits`` keeps the head's tp placement and brings the logits
+back whole (``parallel/comm.all_gather_cat``), so every rank samples every
+row at its global index.
+
+``GPTConfig.remat`` is the JAX package's per-block rematerialisation:
+``torch.utils.checkpoint`` (non-reentrant) around each block of the
+non-cached forward while grad is enabled. The block takes its weights where
+it uses them inside the checkpoint, so under fsdp a gathered weight is freed
+after the block's forward and gathered again in the recompute; the flash
+forward runs again in each block's backward. The cached and no-grad forwards
+never checkpoint (``jax.checkpoint`` outside differentiation is nothing).
+
+Not ported here: ``scan_layers`` (an XLA compile-time device with no eager
+counterpart) and the dense-attention kill switch of the paged forward
 (``AGILERL_TPU_DISABLE_CHUNKED_DECODE``).
 """
 
@@ -48,6 +67,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.utils.checkpoint import checkpoint
 
 from agilerl_tpu_torch.llm.moe import moe_ffn
 from agilerl_tpu_torch.ops import DeviceLike, resolve_device
@@ -73,6 +93,7 @@ class GPTConfig:
     qkv_bias: bool = False  # Qwen2-style attention biases
     rms_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = False  # checkpoint each block of the learn (memory <-> FLOPs)
     use_flash_attention: bool = False  # flash kernel on the non-cached path
     # ((batch axes...), (head axes...)) mesh-axis names: under a mesh the
     # flash call runs through local_map with q/k/v [B, H, T, d] sharded on
@@ -203,11 +224,13 @@ def paged_scatter_tokens(cache: PagedKVCache, block_tables: torch.Tensor,
                          write_pos: torch.Tensor, new_k: torch.Tensor,
                          new_v: torch.Tensor) -> PagedKVCache:
     """ONE bulk write of the step's new tokens into the pool across all
-    layers, in place. new_k/new_v: [L, B, KV, hd]; write_pos: [B]."""
-    L, nb, bs, KV, hd = cache.k.shape
+    layers, in place. new_k/new_v: [L, B, KV, hd]; write_pos: [B]. A placed
+    pool takes every row's new tokens at its own KV heads."""
+    pk, pv = local_shard(cache.k), local_shard(cache.v)
+    L, nb, bs, KV, hd = pk.shape
     idx = paged_write_index(block_tables, write_pos, bs)
-    cache.k.view(L, nb * bs, KV, hd)[:, idx] = new_k
-    cache.v.view(L, nb * bs, KV, hd)[:, idx] = new_v
+    pk.view(L, nb * bs, KV, hd)[:, idx] = _as_pool_local(cache.k, new_k, 2)
+    pv.view(L, nb * bs, KV, hd)[:, idx] = _as_pool_local(cache.v, new_v, 2)
     return cache
 
 
@@ -223,27 +246,37 @@ def paged_scatter_multi(cache: PagedKVCache, block_tables: torch.Tensor,
     Rejected-draft positions inside the extent are written as-is: they sit
     past the slot's accepted length, are invisible to every mask, and are
     rewritten before the sequence reaches them."""
-    L, nb, bs, KV, hd = cache.k.shape
+    pk, pv = local_shard(cache.k), local_shard(cache.v)
+    L, nb, bs, KV, hd = pk.shape
     B, T = write_pos.shape
     mb = block_tables.shape[1]
     bidx = (write_pos // bs).clamp_max(mb - 1).long()
     phys = block_tables.gather(1, bidx).long()
     phys = torch.where(write_pos < mb * bs, phys, 0)
     idx = (phys * bs + (write_pos % bs).long()).reshape(-1)
-    cache.k.view(L, nb * bs, KV, hd)[:, idx] = new_k.reshape(L, B * T, KV, hd)
-    cache.v.view(L, nb * bs, KV, hd)[:, idx] = new_v.reshape(L, B * T, KV, hd)
+    pk.view(L, nb * bs, KV, hd)[:, idx] = _as_pool_local(cache.k, new_k, 3).reshape(
+        L, B * T, KV, hd)
+    pv.view(L, nb * bs, KV, hd)[:, idx] = _as_pool_local(cache.v, new_v, 3).reshape(
+        L, B * T, KV, hd)
     return cache
 
 
 def paged_scatter_prompt(cache: PagedKVCache, block_ids: torch.Tensor,
-                         k_prompt: torch.Tensor, v_prompt: torch.Tensor) -> PagedKVCache:
+                         k_prompt: torch.Tensor, v_prompt: torch.Tensor,
+                         local: bool = False) -> PagedKVCache:
     """Write one request's prefilled prompt KV ([L, Pb, KV, hd], Pb a whole
-    number of blocks) into its physical blocks ([Pb // bs]), in place."""
-    L, _, bs, KV, hd = cache.k.shape
+    number of blocks) into its physical blocks ([Pb // bs]), in place. A
+    placed pool takes its own KV heads of a whole (or DTensor) prompt KV;
+    ``local=True`` says the prompt KV already holds exactly those heads."""
+    pk, pv = local_shard(cache.k), local_shard(cache.v)
+    L, _, bs, KV, hd = pk.shape
     nb_p = k_prompt.shape[1] // bs
     ids = block_ids.long()
-    cache.k[:, ids] = k_prompt.reshape(L, nb_p, bs, KV, hd).to(cache.k.dtype)
-    cache.v[:, ids] = v_prompt.reshape(L, nb_p, bs, KV, hd).to(cache.v.dtype)
+    if not local:
+        k_prompt = _as_pool_local(cache.k, k_prompt, 2)
+        v_prompt = _as_pool_local(cache.v, v_prompt, 2)
+    pk[:, ids] = k_prompt.reshape(L, nb_p, bs, KV, hd).to(pk.dtype)
+    pv[:, ids] = v_prompt.reshape(L, nb_p, bs, KV, hd).to(pv.dtype)
     return cache
 
 
@@ -251,9 +284,29 @@ def paged_copy_block(cache: PagedKVCache, src, dst) -> PagedKVCache:
     """Copy one physical block, in place (prefix-cache hit: the last prompt
     block is duplicated into a private block so the first decode write
     cannot touch the shared original)."""
-    cache.k[:, dst] = cache.k[:, src]
-    cache.v[:, dst] = cache.v[:, src]
+    for pool in (local_shard(cache.k), local_shard(cache.v)):
+        pool[:, dst] = pool[:, src]
     return cache
+
+
+def cache_bytes(cache: Union[KVCache, PagedKVCache]) -> int:
+    """Bytes of this rank's ``k`` and ``v`` (its shards of a placed cache)."""
+    return sum(t.numel() * t.element_size() for t in map(local_shard, (cache.k, cache.v)))
+
+
+def kv_head_range(pool: torch.Tensor) -> Tuple[int, int]:
+    """The global KV heads ``[lo, hi)`` that this rank's shard of a dense
+    cache or paged pool (``[L, *, *, KV, hd]``) holds: all of them unplaced."""
+    n = pool.shape[_KV_DIM]
+    if not isinstance(pool, DTensor):
+        return 0, n
+    lo, size = 0, n
+    mesh = pool.device_mesh
+    for md, p in enumerate(pool.placements):
+        if isinstance(p, Shard) and p.dim == _KV_DIM:
+            size //= mesh.size(md)
+            lo += mesh.get_local_rank(md) * size
+    return lo, lo + size
 
 
 # --------------------------------------------------------------------------- #
@@ -506,6 +559,77 @@ def _fused_mapped(config: "GPTConfig", flat_h, head, flat_t, temperature: float)
     return mapped(flat_h, head, flat_t)
 
 
+#: the KV-head dim of a dense cache [L, B, S, KV, hd] and of a paged pool
+#: [L, n_blocks, block_size, KV, hd]
+_KV_DIM = 3
+
+
+def local_shard(x: Any) -> Any:
+    """A DTensor's local shard (a view: writes to it reach the DTensor),
+    anything else as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _like(pool: DTensor, dims: Dict[int, int]) -> list:
+    """Placements on ``pool``'s mesh for another tensor: ``Shard(dims[d])``
+    where the pool shards its dim ``d``, else ``Replicate()``."""
+    return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in pool.placements]
+
+
+def _as_pool_local(pool: Any, x: Any, kv_dim: int) -> Any:
+    """``x``, whole over its rows, at the KV heads (its dim ``kv_dim``) that
+    this rank's shard of ``pool`` holds, as a plain tensor: a DTensor is
+    redistributed, a plain tensor sliced. Unplaced, ``x`` as it is."""
+    if not isinstance(pool, DTensor):
+        return x
+    from torch.distributed.tensor import distribute_tensor
+
+    pl = _like(pool, {_KV_DIM: kv_dim})
+    if isinstance(x, DTensor):
+        return x.redistribute(pool.device_mesh, pl).to_local()
+    return distribute_tensor(x, pool.device_mesh, pl, src_data_rank=None).to_local()
+
+
+def _row_placements(mesh, rows: int) -> list:
+    """Rows over the mesh's data axes when they tile ``rows``, else whole."""
+    axes = tuple(a for a in _DATA_AXES if a in mesh.mesh_dim_names)
+    return _placements(mesh, {0: axes if rows % _axes_size(mesh, axes) == 0 else ()})
+
+
+def _onto(mesh, placements, *tensors):
+    """Plain tensors that every rank holds whole as DTensors with
+    ``placements``: each rank keeps its own slice, nothing is sent."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return tuple(t if t is None or isinstance(t, DTensor)
+                 else distribute_tensor(t, mesh, placements, src_data_rank=None)
+                 for t in tensors)
+
+
+def _reduced(x: Any) -> Any:
+    """A DTensor with its pending sums done (``Partial`` -> ``Replicate``)."""
+    if not isinstance(x, DTensor) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh,
+                          [Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def _mapped(fn, pool: DTensor, rows: list, heads: Dict[int, int], args, kinds):
+    """``fn`` on each rank's own rows and KV heads through ``local_map``.
+    ``kinds`` names each argument's layout: ``"qkv"`` ([B, T, H|KV, hd]:
+    rows on dim 0, heads on dim 2), ``"pool"`` (the pool's own placements)
+    or ``"rows"`` (rows on dim 0). The output is laid out as ``"qkv"``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    row_dims = {m: p for m, p in enumerate(rows) if isinstance(p, Shard)}
+    qkv = [row_dims.get(m, p) for m, p in enumerate(_like(pool, heads))]
+    layouts = {"qkv": qkv, "pool": list(pool.placements), "rows": rows}
+    mapped = local_map(fn, out_placements=qkv, in_placements=tuple(layouts[k] for k in kinds),
+                       redistribute_inputs=True, device_mesh=pool.device_mesh)
+    return mapped(*args)
+
+
 # --------------------------------------------------------------------------- #
 # Apply
 # --------------------------------------------------------------------------- #
@@ -581,19 +705,118 @@ def _dense_attention(config: GPTConfig, q, k, v, attention_mask):
     return torch.matmul(probs, vh)  # [B, H, T, d]
 
 
+def _attention(config: GPTConfig, q, k, v, attention_mask, use_flash: bool):
+    """Non-cached attention of q/k/v [B, T, H|KV, hd] -> [B, H, T, hd]."""
+    if use_flash and isinstance(q, DTensor):
+        return _flash_mapped(config, q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), attention_mask)
+    if use_flash:
+        # the kernel reads KV head h // rep: no repeated copy of K/V
+        return flash_attention_diff(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), attention_mask, True)
+    return _dense_attention(config, q, k, v, attention_mask)
+
+
+def _block(config: GPTConfig, blk: Params, lora_layer: Optional[Params], h, attention_mask,
+           positions, use_flash: bool, lora_scale: float):
+    """One block of the non-cached forward: (h_out, MoE aux). The weights
+    and the adapter are taken where they are used in here, so that under
+    ``remat`` an fsdp gather is freed after the forward and repeated in the
+    recompute (which runs outside ``forward``'s mesh context: hence the
+    block's own)."""
+    with _under_mesh(h):
+        blk = _tree_at_use(blk, h)
+        lora_layer = _tree_at_use(lora_layer, h)
+        B, T = h.shape[:2]
+        x = _rms(h, blk["ln1"], config.rms_eps)
+        q, k, v = _qkv_rope(config, blk, x, positions, lora_layer, lora_scale)
+        attn = _attention(config, q, k, v, attention_mask, use_flash)
+        attn = attn.transpose(1, 2).reshape(B, T, config.n_head * config.head_dim)
+        attn = _maybe_lora(attn, blk["wo"], lora_layer, "wo", lora_scale, config.dtype)
+        return _block_ffn(config, blk, h + attn, lora_layer, lora_scale)
+
+
 def block_apply_dense(config: GPTConfig, blk: Params, h: torch.Tensor,
                       attention_mask: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """One dense block with no cache, LoRA or MoE: the stage body of
-    ``parallel/pipeline.py``. Built from the pieces ``forward`` runs on its
-    non-cached dense path (``_qkv_rope``, ``_dense_attention``,
-    ``_block_ffn``), so the two give the same block. h: [B, T, d]."""
+    ``parallel/pipeline.py``, the block ``forward`` runs on its non-cached
+    dense path. h: [B, T, d]."""
+    return _block(config, blk, None, h, attention_mask, positions, False, 0.0)[0]
+
+
+def _cached_attention(q, k, v, cache: KVCache, i: int, start: int):
+    """Write layer ``i``'s new k/v at ``[start, start + T)`` of the dense
+    cache (in place) and attend over it: [B, T, H, hd]. A placed cache runs
+    this on each rank's rows and KV heads."""
+    T = q.shape[1]
+
+    def attend(q, k, v, ck, cv, cmask):
+        ck[i, :, start:start + T] = k
+        cv[i, :, start:start + T] = v
+        return chunked_cached_attention(q, ck[i], cv[i], cmask, start)
+
+    if not isinstance(cache.k, DTensor):
+        return attend(q, k, v, cache.k, cache.v, cache.mask)
+    return _mapped(attend, cache.k, _like(cache.k, {1: 0}), {_KV_DIM: 2},
+                   (q, k, v, cache.k, cache.v, cache.mask),
+                   ("qkv", "qkv", "qkv", "pool", "pool", "rows"))
+
+
+def _paged_attention(q, k, v, cache: PagedKVCache, i: int, block_tables, slot_mask, wp,
+                     rows: Optional[list], live: Optional[int]):
+    """Layer ``i``'s attention over each slot's gathered slab with this
+    step's k/v inserted (the pool is only read): [B, T, H, hd]. A placed
+    pool runs this on each rank's rows and KV heads (``rows``: the rows'
+    placements)."""
+
+    def attend(q, k, v, pool_k, pool_v, block_tables, slot_mask, wp):
+        B, T = q.shape[:2]
+        S = block_tables.shape[1] * pool_k.shape[2]
+        # the slab insert drops positions past the extent S (a released
+        # slot whose lengths ran on), as the JAX scatter does out of
+        # bounds: a row's T positions are consecutive and T <= S, so their
+        # residues mod S are distinct; a dropped position rewrites its
+        # residue's own old value
+        col = (wp % S).long()
+        keep = (wp < S)[..., None, None]
+        r = torch.arange(B, device=q.device)[:, None].expand(B, T)
+        k_slab, v_slab = paged_gather(pool_k[i], pool_v[i], block_tables)
+        k_slab[r, col] = torch.where(keep, k, k_slab[r, col])
+        v_slab[r, col] = torch.where(keep, v, v_slab[r, col])
+        return chunked_cached_attention(q, k_slab, v_slab, slot_mask, wp[:, 0], live=live)
+
+    args = (q, k, v, cache.k, cache.v, block_tables, slot_mask, wp)
+    if not isinstance(cache.k, DTensor):
+        return attend(*args)
+    return _mapped(attend, cache.k, rows, {_KV_DIM: 2}, args,
+                   ("qkv", "qkv", "qkv", "pool", "pool", "rows", "rows", "rows"))
+
+
+def _serving_block(config: GPTConfig, blk: Params, lora_layer: Optional[Params], h, positions,
+                   lora_scale: float, attend):
+    """One block of a cached forward: ``attend(q, k, v)`` is the cache's
+    attention. Returns (h_out, MoE aux, k, v). Under a mesh the two
+    row-parallel outputs (``wo``, ``w_down``) are summed where they join the
+    residual stream (one all-reduce each over tp), so the stream stays
+    replicated over tp and every projection reads it as it is."""
+    blk = _tree_at_use(blk, h)
+    lora_layer = _tree_at_use(lora_layer, h)
     B, T = h.shape[:2]
     x = _rms(h, blk["ln1"], config.rms_eps)
-    q, k, v = _qkv_rope(config, blk, x, positions, None, 0.0)
-    attn = _dense_attention(config, q, k, v, attention_mask)
-    attn = attn.transpose(1, 2).reshape(B, T, config.n_head * config.head_dim)
-    out, _ = _block_ffn(config, blk, h + attn @ blk["wo"].to(h.dtype), None, 0.0)
-    return out
+    q, k, v = _qkv_rope(config, blk, x, positions, lora_layer, lora_scale)
+    attn = attend(q, k, v).reshape(B, T, config.n_head * config.head_dim)
+    attn = _maybe_lora(attn, blk["wo"], lora_layer, "wo", lora_scale, config.dtype)
+    h, aux = _block_ffn(config, blk, h + _reduced(attn), lora_layer, lora_scale)
+    return _reduced(h), aux, k, v
+
+
+def _embed(config: GPTConfig, params: Params, tokens, placed: bool):
+    """Token embeddings in ``config.dtype``. Under a placed cache the lookup
+    is vocab-parallel (the table keeps its tp shard; the partial rows are
+    summed at once), else the table is gathered whole where it is used."""
+    if placed:
+        return _reduced(F.embedding(tokens, _at_use(params["tok_emb"], tokens))).to(config.dtype)
+    return F.embedding(tokens, _whole(params["tok_emb"], tokens)).to(config.dtype)
 
 
 def forward(
@@ -618,8 +841,18 @@ def forward(
     ``flash`` routes the non-cached attention through the flash kernels
     (CUDA tensors; differentiable, with the backward kernels) or their plain
     versions (CPU tensors); the cached path always uses
-    ``chunked_cached_attention``. DTensor tokens and parameters run under a
-    mesh (see the module's docstring)."""
+    ``chunked_cached_attention``. DTensor tokens and parameters, or a placed
+    cache, run under a mesh (see the module's docstring); the hidden then
+    is a DTensor with rows over the data axes. ``config.remat`` checkpoints
+    each block of the non-cached forward while grad is enabled."""
+    B, T = tokens.shape
+    if attention_mask is None:
+        attention_mask = torch.ones((B, T), dtype=torch.int32, device=tokens.device)
+    if positions is None:
+        positions = (attention_mask.cumsum(dim=-1) - 1).clamp_min(0)
+    if cache is not None and isinstance(cache.k, DTensor):
+        tokens, attention_mask, positions = _onto(
+            cache.k.device_mesh, _like(cache.k, {1: 0}), tokens, attention_mask, positions)
     with _under_mesh(tokens):
         return _forward(config, params, tokens, attention_mask, positions, cache, lora,
                         lora_scale, flash, return_aux)
@@ -628,44 +861,30 @@ def forward(
 def _forward(config, params, tokens, attention_mask, positions, cache, lora, lora_scale,
              flash, return_aux):
     B, T = tokens.shape
-    dtype = config.dtype
-    dev = tokens.device
-    if attention_mask is None:
-        attention_mask = torch.ones((B, T), dtype=torch.int32, device=dev)
-    if positions is None:
-        positions = (attention_mask.cumsum(dim=-1) - 1).clamp_min(0)
     use_flash = config.use_flash_attention if flash is None else flash
-    h = F.embedding(tokens, _whole(params["tok_emb"], tokens)).to(dtype)
+    placed = cache is not None and isinstance(cache.k, DTensor)
+    h = _embed(config, params, tokens, placed)
+    remat = config.remat and cache is None and torch.is_grad_enabled()
 
     if cache is not None:
         start = cache.length
-        cache.mask[:, start:start + T] = attention_mask.to(torch.int32)
+        local_shard(cache.mask)[:, start:start + T] = local_shard(attention_mask).to(torch.int32)
 
-    H, hd = config.n_head, config.head_dim
     aux_total = 0.0
     for i in range(config.n_layer):
-        blk = _tree_at_use(params["blocks"][str(i)], h)
-        lora_layer = _tree_at_use(lora["blocks"].get(str(i)), h) if lora is not None else None
-        x = _rms(h, blk["ln1"], config.rms_eps)
-        q, k, v = _qkv_rope(config, blk, x, positions, lora_layer, lora_scale)
+        blk = params["blocks"][str(i)]
+        layer = lora["blocks"].get(str(i)) if lora is not None else None
         if cache is not None:
-            cache.k[i, :, start:start + T] = k
-            cache.v[i, :, start:start + T] = v
-            attn = chunked_cached_attention(q, cache.k[i], cache.v[i], cache.mask, start)
-            attn = attn.reshape(B, T, H * hd)
+            h, aux, _, _ = _serving_block(
+                config, blk, layer, h, positions, lora_scale,
+                lambda q, k, v, i=i: _cached_attention(q, k, v, cache, i, start))
+        elif remat:
+            h, aux = checkpoint(_block, config, blk, layer, h, attention_mask, positions,
+                                use_flash, lora_scale, use_reentrant=False,
+                                preserve_rng_state=False)  # a block draws nothing
         else:
-            if use_flash and isinstance(q, DTensor):
-                attn = _flash_mapped(config, q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), attention_mask)
-            elif use_flash:
-                # the kernel reads KV head h // rep: no repeated copy of K/V
-                attn = flash_attention_diff(q.transpose(1, 2), k.transpose(1, 2),
-                                            v.transpose(1, 2), attention_mask, True)
-            else:
-                attn = _dense_attention(config, q, k, v, attention_mask)
-            attn = attn.transpose(1, 2).reshape(B, T, H * hd)
-        attn = _maybe_lora(attn, blk["wo"], lora_layer, "wo", lora_scale, dtype)
-        h, aux = _block_ffn(config, blk, h + attn, lora_layer, lora_scale)
+            h, aux = _block(config, blk, layer, h, attention_mask, positions, use_flash,
+                            lora_scale)
         aux_total = aux_total + aux
 
     new_cache = None
@@ -673,7 +892,8 @@ def _forward(config, params, tokens, attention_mask, positions, cache, lora, lor
         new_cache = KVCache(cache.k, cache.v, start + T, cache.mask)
     hidden = _rms(h, _at_use(params["ln_f"], h), config.rms_eps).float()
     if return_aux:
-        return hidden, new_cache, torch.as_tensor(aux_total, dtype=torch.float32, device=dev)
+        return hidden, new_cache, torch.as_tensor(aux_total, dtype=torch.float32,
+                                                  device=tokens.device)
     return hidden, new_cache
 
 
@@ -709,40 +929,34 @@ def forward_paged(
     [L, B, T, KV, hd]): query t attends to logical slots <= write_pos[:, 0]
     + t that slot_mask marks valid. ``live``: a host upper bound of
     max(write_pos[:, 0]) + T, which spares chunked attention its read of the
-    maximum."""
+    maximum.
+
+    A placed pool (DTensors by the plan's ``kv_paged`` rules: KV heads over
+    tp, the block axis whole) runs the slots' rows over the mesh's data
+    axes when they tile them; hidden and the new KV are then DTensors."""
     B, T = tokens.shape
-    dtype = config.dtype
-    dev = tokens.device
-    H, hd = config.n_head, config.head_dim
     multi = write_pos.dim() == 2
     pos2d = positions if positions.dim() == 2 else positions[:, None]
     wp = write_pos if multi else write_pos[:, None]  # [B, T]
-    S = block_tables.shape[1] * cache.block_size
-    # the slab insert drops positions past the extent S (a released slot
-    # whose lengths ran on), as the JAX scatter does out of bounds: a row's T
-    # positions are consecutive and T <= S, so their residues mod S are
-    # distinct; a dropped position rewrites its residue's own old value
-    col = (wp % S).long()
-    keep = (wp < S)[..., None, None]
-    rows = torch.arange(B, device=dev)[:, None].expand(B, T)
-    h = F.embedding(tokens, _whole(params["tok_emb"], tokens)).to(dtype)
-    new_k, new_v = [], []
-    for i in range(config.n_layer):
-        blk = _tree_at_use(params["blocks"][str(i)], h)
-        lora_layer = _tree_at_use(lora["blocks"].get(str(i)), h) if lora is not None else None
-        x = _rms(h, blk["ln1"], config.rms_eps)
-        q, k, v = _qkv_rope(config, blk, x, pos2d, lora_layer, lora_scale)
-        k_slab, v_slab = paged_gather(cache.k[i], cache.v[i], block_tables)
-        k_slab[rows, col] = torch.where(keep, k, k_slab[rows, col])
-        v_slab[rows, col] = torch.where(keep, v, v_slab[rows, col])
-        attn = chunked_cached_attention(q, k_slab, v_slab, slot_mask, wp[:, 0], live=live)
-        attn = _maybe_lora(attn.reshape(B, T, H * hd), blk["wo"], lora_layer, "wo",
-                           lora_scale, dtype)
-        h, _ = _block_ffn(config, blk, h + attn, lora_layer, lora_scale)
-        new_k.append(k if multi else k[:, 0])
-        new_v.append(v if multi else v[:, 0])
-    hidden = _rms(h, _at_use(params["ln_f"], h), config.rms_eps).float()
-    return hidden, (torch.stack(new_k), torch.stack(new_v))
+    rows = None
+    placed = isinstance(cache.k, DTensor)
+    if placed:
+        rows = _row_placements(cache.k.device_mesh, B)
+        tokens, pos2d, wp, block_tables, slot_mask = _onto(
+            cache.k.device_mesh, rows, tokens, pos2d, wp, block_tables, slot_mask)
+    with _under_mesh(tokens):
+        h = _embed(config, params, tokens, placed)
+        new_k, new_v = [], []
+        for i in range(config.n_layer):
+            layer = lora["blocks"].get(str(i)) if lora is not None else None
+            h, _, k, v = _serving_block(
+                config, params["blocks"][str(i)], layer, h, pos2d, lora_scale,
+                lambda q, k, v, i=i: _paged_attention(q, k, v, cache, i, block_tables,
+                                                      slot_mask, wp, rows, live))
+            new_k.append(k if multi else k[:, 0])
+            new_v.append(v if multi else v[:, 0])
+        hidden = _rms(h, _at_use(params["ln_f"], h), config.rms_eps).float()
+        return hidden, (torch.stack(new_k), torch.stack(new_v))
 
 
 def _head(config: GPTConfig, params: Params, x: Any = None) -> torch.Tensor:
@@ -757,6 +971,35 @@ def logits_fn(config: GPTConfig, params: Params, hidden: torch.Tensor) -> torch.
     """hidden [B, T, D] -> logits [B, T, V] (float32, f32 head)."""
     with _under_mesh(hidden):
         return hidden @ _head(config, params, hidden).float()
+
+
+def serving_logits(config: GPTConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """``logits_fn`` for generation, as a plain tensor on every rank. A
+    DTensor hidden (a placed cache's forward) meets the head at its tp
+    placement (a vocab-parallel product: the head is not gathered), and the
+    logits come back whole, so every rank samples every row at its global
+    index as the unplaced generator does."""
+    if not isinstance(hidden, DTensor):
+        return logits_fn(config, params, hidden)
+    with _under_mesh(hidden):
+        head = _at_use(params["tok_emb"] if config.tie_embeddings else params["lm_head"], hidden)
+        logits = _reduced(hidden @ (head.t() if config.tie_embeddings else head).float())
+    return _gathered(logits)
+
+
+def _gathered(x: DTensor) -> torch.Tensor:
+    """A DTensor without pending sums as this rank's whole plain tensor,
+    gathered over each sharding mesh dim's group, innermost first
+    (``parallel/comm.all_gather_cat``, which stages card tensors through
+    host buffers on a gloo group)."""
+    from agilerl_tpu_torch.parallel.comm import all_gather_cat
+
+    mesh, t = x.device_mesh, x.to_local()
+    for md in reversed(range(mesh.ndim)):
+        p = x.placements[md]
+        if isinstance(p, Shard):
+            t = all_gather_cat(t, mesh.get_group(md), p.dim)
+    return t
 
 
 def apply(config: GPTConfig, params: Params, tokens: torch.Tensor, **kw):

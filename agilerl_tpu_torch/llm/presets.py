@@ -1,8 +1,9 @@
 """Named model presets: the port of ``agilerl_tpu/llm/presets.py``.
 
-Dims match the public architectures exactly. The JAX presets default to
-bf16 + remat + flash attention (its TPU training recipe); here they default
-to bf16 + flash attention (``remat`` has no counterpart in the port yet).
+Dims match the public architectures exactly. The presets default to bf16 +
+per-block remat + flash attention, the JAX package's training recipe
+(``remat`` checkpoints each block of a learn; generation and the no-grad
+passes never checkpoint).
 """
 
 from __future__ import annotations
@@ -41,11 +42,14 @@ def preset_names():
 
 
 def preset(name: str, **overrides: Any) -> GPTConfig:
-    """A GPTConfig for a named architecture; overrides win."""
+    """A GPTConfig for a named architecture; overrides win, e.g.
+    ``preset("llama3-8b", max_seq_len=1024, remat=True)`` for a training
+    config with a shorter context and per-block rematerialisation."""
     if name not in _PRESETS:
         raise KeyError(f"unknown preset {name!r}; available: {preset_names()}")
     kw: Dict[str, Any] = dict(_PRESETS[name])
     kw.setdefault("dtype", torch.bfloat16)
+    kw.setdefault("remat", True)
     kw.setdefault("use_flash_attention", True)
     kw.update(overrides)
     return GPTConfig(**kw)

@@ -20,11 +20,18 @@ graph per bucket would capture. ``compile_cache=`` raises
 ``NotImplementedError``: the port runs eagerly.
 
 ``sharding_plan=`` / ``mesh=`` (``parallel/plan.py``): ``place_params``
-places weight trees by the plan's ``params`` / ``lora`` rules (DTensors,
-which the model gathers whole where it uses them: every decode step
-all-gathers each sharded weight). The KV caches stay whole on every rank and
-the plan's ``kv`` / ``kv_paged`` rules are not applied: the decode step runs
-on plain tensors.
+places weight trees by the plan's ``params`` / ``lora`` rules, and every
+KV cache is allocated by the plan: the dense caches (``BucketedGenerator``'s,
+``ContinuousGenerator``'s one-row prefill extent) by the ``kv`` rules (rows
+over (dp, fsdp), KV heads over tp), the paged pool by ``kv_paged`` (KV heads
+over tp, the global block axis whole). Each rank allocates only its shard
+(``ShardingPlan.zeros``; an axis that does not divide its dim leaves it
+whole). The model then decodes as it learns: projections tp-parallel on
+DTensor activations with rows over the data axes, the cache write and
+attention on each rank's own rows and heads (``llm/model.py``), and the
+logits come back whole, so every rank samples every row at its global
+index and the host scheduler stays the same on every rank. ``tp`` must
+divide the KV heads. ``pool_bytes`` is this rank's share.
 
 Host state: the scheduler keeps the per-slot state (block tables, slot mask,
 lengths, previous token, positions, step indices, done flags, keys) in numpy
@@ -120,10 +127,19 @@ def _resolve_serving_plan(sharding_plan, mesh, device):
 
 
 class _PlanPlacement:
-    """``place_params`` of a generator under a plan."""
+    """``place_params`` and the KV allocation of a generator under a plan."""
 
     sharding_plan = None
     mesh = None
+    dev: torch.device
+
+    def _kv(self, group: str, make):
+        """``make(device)``'s cache tree on this generator's device, or, under
+        a plan, as DTensors of zeros by the plan's ``group`` rules (each rank
+        allocates its own shard only)."""
+        if self.sharding_plan is None:
+            return make(self.dev)
+        return self.sharding_plan.zeros(group, make("meta"), self.mesh, device=self.dev)
 
     def place_params(self, params, lora=None):
         """Place weight trees by the plan's ``params`` / ``lora`` rules (as
@@ -214,8 +230,8 @@ class BucketedGenerator(_PlanPlacement):
     def _prefill(self, params, lora, prompt, prompt_mask, row_valid, generator, greedy):
         B, P = prompt.shape
         self._programs.add(("prefill", B, P, bool(greedy), lora is None))
-        caches = M.init_caches(self.config, B, P + self.n_chunks * self.decode_chunk,
-                               device=self.dev)
+        caches = self._kv("kv", lambda d: M.init_caches(
+            self.config, B, P + self.n_chunks * self.decode_chunk, device=d))
         return prefill_head(self.config, params, prompt, prompt_mask, caches, generator,
                             row_valid=row_valid, **self._knobs(greedy, lora))
 
@@ -745,7 +761,8 @@ class ContinuousGenerator(_PlanPlacement):
         lp0 or None): nothing here waits for the device."""
         Pb = prompt.shape[1]
         self._programs.add(("prefill", Pb, bool(greedy), lora is None))
-        dense = M.init_caches(self.config, 1, Pb + self._decode_extent, device=self.dev)
+        dense = self._kv("kv", lambda d: M.init_caches(
+            self.config, 1, Pb + self._decode_extent, device=d))
         carry, _, last_logits = prefill_head(
             self.config, params, prompt, prompt_mask, dense, key[None],
             return_logits=True, **self._knobs(greedy, lora))
@@ -782,13 +799,24 @@ class ContinuousGenerator(_PlanPlacement):
         self._programs.add(("copy_block",))
         M.paged_copy_block(self._pool, src, dst)
 
-    def _scatter_import(self, block_ids: np.ndarray, k: np.ndarray, v: np.ndarray) -> None:
+    def _scatter_import(self, block_ids: np.ndarray, k: np.ndarray, v: np.ndarray,
+                        kv_heads: Optional[Tuple[int, int]] = None) -> None:
+        """Write an imported prompt KV that holds the KV heads ``kv_heads``
+        (``[lo, hi)``; None: all of them) into the pool: this rank's heads,
+        which the import must cover."""
         self._programs.add(("scatter_import", k.shape[1]))
+        lo, hi = M.kv_head_range(self._pool.k)
+        plo, phi = kv_heads if kv_heads is not None else (0, self.config.kv_heads)
+        if not plo <= lo < hi <= phi:
+            raise ValueError(
+                f"the imported prompt KV holds KV heads [{plo}, {phi}) but this rank's "
+                f"pool holds [{lo}, {hi}): prefill under the replica's plan")
+        k, v = k[:, :, lo - plo:hi - plo], v[:, :, lo - plo:hi - plo]
         # a bf16 pool's KV travels as its uint16 bit pattern (numpy has no bf16)
         dtype = "bfloat16" if self.config.dtype == torch.bfloat16 else None
         M.paged_scatter_prompt(self._pool, self._t(block_ids),
                                tensor_from_host(k, dtype, self.dev),
-                               tensor_from_host(v, dtype, self.dev))
+                               tensor_from_host(v, dtype, self.dev), local=True)
 
     def _device_carry(self):
         return (self._pool, self._t(self._tables), self._t(self._mask),
@@ -913,6 +941,7 @@ class ContinuousGenerator(_PlanPlacement):
         hashes: Optional[List[bytes]] = None,
         trace_ctx: Optional[Any] = None,
         speculate: bool = True,
+        kv_heads: Optional[Tuple[int, int]] = None,
     ) -> Optional[int]:
         """Enqueue a request whose prompt KV a prefill worker already
         computed (the disaggregated topology's decode-side entry).
@@ -923,7 +952,9 @@ class ContinuousGenerator(_PlanPlacement):
         its EOS state and the advanced counter key; admission seeds the slot
         with them as the local miss path would. ``key`` is
         the RAW request key, kept so a prefix-cache HIT resumes the same
-        stream without the import."""
+        stream without the import. ``kv_heads``: the KV heads ``[lo, hi)``
+        the prompt KV holds (a worker under a plan exports its rank's
+        shard); None means all of them. They must cover this rank's."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         if key is None:
             raise ValueError(
@@ -946,6 +977,7 @@ class ContinuousGenerator(_PlanPlacement):
                 tok0=int(tok0), done0=bool(done0),
                 key_next=np.asarray(key_next, np.int64).reshape(2),
                 lp0=(float(lp0) if lp0 is not None else None),
+                kv_heads=kv_heads,
             ))
 
     def _shed_reason(self) -> Optional[str]:
@@ -976,15 +1008,18 @@ class ContinuousGenerator(_PlanPlacement):
 
     def _ensure_pool(self) -> None:
         if self._pool is None:
-            self._pool = M.init_paged_cache(self.config, self.n_blocks, self.block_size,
-                                            device=self.dev)
+            # kv_paged, not kv: the pool's axis 1 holds global block ids, which
+            # the dense rules' (dp, fsdp) row entry must never split
+            self._pool = self._kv("kv_paged", lambda d: M.init_paged_cache(
+                self.config, self.n_blocks, self.block_size, device=d))
 
     @property
     def pool_bytes(self) -> int:
-        """Bytes of the paged KV pool (0 before the first admission)."""
+        """Bytes of this rank's paged KV pool (its shard under a plan; 0
+        before the first admission)."""
         if self._pool is None:
             return 0
-        return 2 * self._pool.k.numel() * self._pool.k.element_size()
+        return M.cache_bytes(self._pool)
 
     def warm_start(self, params=None, lora=None, greedy: Optional[bool] = None,
                    only_cached: bool = False) -> List[Dict[str, Any]]:
@@ -1149,7 +1184,8 @@ class ContinuousGenerator(_PlanPlacement):
         path does after its local prefill."""
         pf = req.prefilled
         prompt_blocks, dec_blocks = private[:nb_p], private[nb_p:]
-        self._scatter_import(np.asarray(prompt_blocks, np.int32), pf["k"], pf["v"])
+        self._scatter_import(np.asarray(prompt_blocks, np.int32), pf["k"], pf["v"],
+                             pf.get("kv_heads"))
         self.metrics.counter(
             "serving/prefilled_imports_total",
             help="admissions whose prompt KV was imported from a prefill worker").inc()

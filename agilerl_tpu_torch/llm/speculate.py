@@ -216,7 +216,7 @@ def paged_verify_step(config, params, carry, drafts, draft_len, *, lora,
         vm, lora=lora, lora_scale=lora_scale, live=live,
     )
     cache = M.paged_scatter_multi(cache, block_tables, write_pos, new_k, new_v)
-    logits = M.logits_fn(config, params, hidden)  # [B, T, V] f32
+    logits = M.serving_logits(config, params, hidden)  # [B, T, V] f32
     steps = step_idx[:, None] + j[None, :]
     logits_s = _suppress_eos(logits, steps, eos_id, min_new_tokens)
 

@@ -4,7 +4,7 @@ backward), a tiled all-gather, and an in-place sum; and the differentiable
 pairs a staged program needs where every rank computes the same loss
 (``sum_to_all``: sum forward, gradient as it is; ``sum_grads``: identity
 forward, summed gradient; ``gather_shards``: all-gather forward,
-reduce-scatter backward).
+reduce-scatter backward). ``collective_log`` records what a region sends.
 
 A gloo group moves host tensors, so a card tensor on a gloo group is staged
 through a host buffer (two ranks on one card share it over gloo: NCCL takes
@@ -21,6 +21,8 @@ import torch.distributed as dist
 
 #: bytes staged through host buffers by the helpers here (sent + received)
 staged_bytes = 0
+#: where ``all_gather_cat`` records its calls inside a ``collective_log``
+_gather_log: Optional[list] = None
 
 
 def group_size(group) -> int:
@@ -72,6 +74,8 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     P = group_size(group)
     if P == 1:
         return t
+    if _gather_log is not None:
+        _gather_log.append(("comm.all_gather_cat", tuple(t.shape)))
     w = _to_wire(group, t)
     parts = [torch.empty_like(w) for _ in range(P)]
     dist.all_gather(parts, w, group=group)
@@ -80,6 +84,37 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         staged_bytes += (P + 1) * w.numel() * w.element_size()
         out = out.to(t.device)
     return out
+
+
+class collective_log:
+    """``with collective_log() as log``: ``log`` lists ``(op, input shape)``
+    for every collective run inside the block, DTensor's functional
+    collectives (seen by a ``TorchDispatchMode``) and ``all_gather_cat``:
+    what a path sends, e.g. that a decode step gathers no weight."""
+
+    def __enter__(self) -> list:
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        global _gather_log
+        log: list = []
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace in ("_c10d_functional", "c10d") and args \
+                        and isinstance(args[0], torch.Tensor):
+                    log.append((str(func), tuple(args[0].shape)))
+                return func(*args, **(kwargs or {}))
+
+        self._outer, _gather_log = _gather_log, log
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return log
+
+    def __exit__(self, *exc) -> bool:
+        global _gather_log
+        self._mode.__exit__(*exc)
+        _gather_log = self._outer
+        return False
 
 
 def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:

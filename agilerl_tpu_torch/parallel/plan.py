@@ -16,6 +16,10 @@
   :func:`spec_to_placements`. Axes that the mesh does not carry, or carries
   at size 1, drop out (:func:`parallel.mesh.filter_spec`), so one plan file
   serves every mesh down to one card.
+- :meth:`ShardingPlan.zeros` allocates a tree (the serving tier's KV caches
+  by the ``kv`` / ``kv_paged`` groups) as DTensors of zeros, each rank only
+  its own shard (:func:`local_shape`), with a dim that its axes do not
+  divide left whole (:func:`tiling_placements`).
 - :func:`compile_step_with_plan` returns a :class:`PlanCompiledStep` that
   places each argument by its group (``redistribute`` of a DTensor) and runs
   the step eagerly. ``.lower`` and ``cache=`` raise ``NotImplementedError``:
@@ -27,6 +31,7 @@ register in a process-wide registry that the sharding mutation draws from.
 
 from __future__ import annotations
 
+import math
 import re
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -158,6 +163,28 @@ def spec_to_placements(spec: PartitionSpec, mesh) -> Tuple[Any, ...]:
                  for a in mesh.mesh_dim_names)
 
 
+def tiling_placements(spec: PartitionSpec, shape: Sequence[int], mesh) -> Tuple[Any, ...]:
+    """``spec_to_placements`` with every dim whose axes do not divide its
+    size left whole (GSPMD would pad it): a one-row prefill cache keeps its
+    row on every data rank, and no local shard is ever ragged."""
+    sizes = mesh_axis_sizes(mesh)
+    entries = []
+    for d, e in enumerate(spec):
+        n = math.prod(sizes.get(a, 1) for a in ((e,) if isinstance(e, str) else (e or ())))
+        entries.append(e if d < len(shape) and shape[d] % n == 0 else None)
+    return spec_to_placements(P(*entries), mesh)
+
+
+def local_shape(shape: Sequence[int], placements, mesh) -> Tuple[int, ...]:
+    """This rank's shard shape of a tensor of ``shape`` whose dims the
+    ``placements`` (one per mesh dim) tile evenly."""
+    out = list(shape)
+    for md, p in enumerate(placements):
+        if p.is_shard():
+            out[p.dim] //= mesh.shape[md]
+    return tuple(out)
+
+
 def place_tensor(x: torch.Tensor, mesh, placements) -> Any:
     """``device_put``: ``x`` as a DTensor on ``mesh`` with ``placements``. A
     DTensor on the same mesh is redistributed; a plain tensor is taken as
@@ -284,6 +311,29 @@ class ShardingPlan:
             if not isinstance(leaf, torch.Tensor):
                 return leaf
             return place_tensor(leaf, mesh, spec_to_placements(spec, mesh))
+
+        return named_tree_map(put, tree, specs)
+
+    def zeros(self, group: str, tree: PyTree, mesh, device: Any = None) -> PyTree:
+        """``tree``'s tensor leaves (their shapes and dtypes: the ``"meta"``
+        device will do) as DTensors of zeros on ``mesh``, by ``group``'s rules
+        where the axes tile the dim (:func:`tiling_placements`). Each rank
+        allocates only its own shard; other leaves are kept. The serving
+        tier's KV caches and pools (the ``kv`` / ``kv_paged`` groups)."""
+        from torch.distributed.tensor import DTensor
+
+        from agilerl_tpu_torch.ops import resolve_device
+
+        dev = resolve_device(device)
+        specs = self.resolve(group, tree, mesh)
+
+        def put(_name, leaf, spec):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            pl = tiling_placements(spec, leaf.shape, mesh)
+            local = torch.zeros(local_shape(leaf.shape, pl, mesh), dtype=leaf.dtype, device=dev)
+            return DTensor.from_local(local, mesh, pl, run_check=False, shape=leaf.shape,
+                                      stride=torch.empty(leaf.shape, device="meta").stride())
 
         return named_tree_map(put, tree, specs)
 

@@ -11,10 +11,20 @@ budget cannot drift from the model code. The port stores the blocks in
 ``base_bytes`` are those storage bytes (the JAX package's ``eval_shape``
 counts its f32 storage).
 
-The port runs eager ``learn`` without remat (``remat`` is not ported), so
-on the card the activation terms are a floor, not the peak; the base-weight
-and KV-cache terms are exact. The one device size the module knows is the
-card's: :func:`device_memory_gib` reads ``torch.cuda.mem_get_info()``.
+What is exact and what is an estimate, for the port's learn:
+
+- exact: the base weights, the LoRA state and the KV cache (storage bytes
+  of the real initialisers), and, with ``GPTConfig.remat=True`` (the
+  presets' default), the activation checkpoints: the learn keeps the L
+  block inputs ``[B_local, T, d]`` between forward and backward;
+- estimates: the within-block recompute peak and the lm-head chunk, which
+  model XLA's working set; the port's peak also holds the fused loss's
+  ``[rows, d]`` hidden and its gradient, the allocator's slack and, with
+  ``remat=False``, every block's saved activations (then the activation
+  terms are a floor, not the peak).
+
+The one device size the module knows is the card's:
+:func:`device_memory_gib` reads ``torch.cuda.mem_get_info()``.
 """
 
 from __future__ import annotations

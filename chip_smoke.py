@@ -275,6 +275,23 @@ of which ends the run with a non-zero exit on any failure:
    plan and 4u (a)'s plan on 4u (a)'s agent; (d) ``python -m
    agilerl_tpu_torch.analysis`` exits 0 against the committed baseline (see
    the phase's comment);
+4x. per-block remat and KV caches placed by a plan: (a) on 4b's model and
+   last batch, two GRPO learns with ``remat=False`` and two with
+   ``remat=True`` from the same fresh adapters: losses and adapters
+   within 4u (a)'s bound (and whether bit for bit), launches (#1 4 x 32
+   with remat, 3 x 32 without), host syncs (equal), peaks and times; (b) one
+   remat learn at 16 rows x 1,024 tokens (a built batch): its peak under
+   the card's memory, beside ``grpo_hbm_budget`` and the eager peak that
+   (a)'s bytes per token predict (4t (h) reads (a)'s remat peak); (c)
+   ``BucketedGenerator`` and ``ContinuousGenerator`` under
+   ``make_grpo_plan(tp=2)`` on two ranks sharing the card over gloo
+   (``chip_smoke.py --serve-rank``), llama3-8b widths cut to 4 layers, f32:
+   greedy tokens equal to one rank's unplaced run, each rank's dense cache
+   and pool half of the whole, no all-gather of a tp-sharded weight; (a)
+   and (b) run after 4d (beside the second process's phases), (c) after
+   4v (a). The earlier phases pass
+   ``remat=False`` to the presets (which now default to remat), so their
+   numbers stay comparable;
 5. each kernel's time at the main path's shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound (for
    the fused forward, dH and dW: the 3xTF32 tensor-core bound and the f32
@@ -900,7 +917,8 @@ def recording_caches(torch, M, into, fn):
 
 
 def run_slice(torch, M, G, ops, presets, report):
-    cfg = presets.preset("llama3-8b")
+    # remat off: the earlier phases' numbers stay comparable (4x runs remat)
+    cfg = presets.preset("llama3-8b", remat=False)
     log(f"phase 4: llama3-8b slice: {cfg.n_layer} layers, d_model {cfg.d_model}, "
         f"{cfg.n_head}/{cfg.kv_heads} heads, d_ff {cfg.ff_dim}, vocab {cfg.vocab_size}, "
         f"{cfg.dtype}")
@@ -1208,7 +1226,134 @@ def run_learn(torch, M, ops, cfg, params, prompts, report):
         lambda c, p, flash, fused: grpo_loss_of(M, TG, c, p, batch, knobs, flash, fused),
         cfg, params, "GRPO, one update on 4 rows (one per prompt)")
     report["learn"] = dict(iterations=learns, lora_b_moved=moved, launches=launches)
-    return launches, grads
+    return launches, grads, (ids, action, rewards, attn)
+
+
+# ------------------------------- phase 4x ---------------------------------- #
+
+# (b): the JAX docstring's recipe, preset("llama3-8b", max_seq_len=1024,
+# remat=True): 16 rows of a 512-token prompt and 512 completion tokens
+REMAT_ROWS, REMAT_PROMPT, REMAT_NEW = 16, 512, 512
+
+
+def grpo_agent(TG, cfg, params):
+    """Phase 4b's GRPO recipe on ``cfg`` (fresh adapters from seed 0)."""
+    return TG.GRPO(config=cfg, base_params=params, pad_token_id=0, seed=0, batch_size=16,
+                   update_epochs=1, group_size=GROUP_SIZE, max_output_tokens=MAX_NEW_TOKENS,
+                   lora_rank=LORA_RANK, lora_targets=("wq", "wv"))
+
+
+def measured_learn(torch, ops, agent, batch):
+    """One learn: (loss, kl), seconds, peak memory (GB), launches, syncs."""
+    from agilerl_tpu_torch.analysis import SyncGuard
+
+    before = ops.kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with SyncGuard(device="cuda") as g:
+        out = agent.learn(batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    after = ops.kernel_counters()
+    return out, t, peak, {k: after[k] - before[k] for k in after}, g.syncs
+
+
+def run_remat(torch, M, ops, cfg, params, batch, report):
+    """Phase 4x (a) and (b) on phase 4b's model: the learn with and without
+    per-block remat on 4b's last batch, and one remat learn at 16 x 1,024.
+    Returns the launches of (a)'s two remat learns."""
+    import numpy as np
+
+    from agilerl_tpu_torch.algorithms import grpo as TG
+    from agilerl_tpu_torch.utils.hbm_budget import device_memory_gib, grpo_hbm_budget
+    from agilerl_tpu_torch.utils.tree import tree_copy
+
+    out = report["remat"] = {}
+    L = cfg.n_layer
+    want = {"flash_attention_fwd": 3 * L, "flash_attention_dq": L, "flash_attention_dkv": L,
+            "fused_logprob_fwd": 3, "fused_logprob_dh": 1, "fused_logprob_dw": 0}
+    want_remat = dict(want, flash_attention_fwd=4 * L)
+    rows, T = batch[0].shape
+    log(f"phase 4x (a): two GRPO learns with remat=False and two with remat=True on phase 4b's "
+        f"last batch ({rows} rows x {T} tokens), fresh adapters from one seed")
+    runs = {}
+    for remat in (False, True):
+        agent = grpo_agent(TG, dataclasses.replace(cfg, remat=remat), params)
+        start = tree_copy(agent.actor.params)
+        learns = [measured_learn(torch, ops, agent, batch) for _ in range(2)]
+        for (loss, kl), _, _, counts, _ in learns:
+            check(np.isfinite(loss) and np.isfinite(kl),
+                  f"4x (a) remat={remat}: loss {loss}, kl {kl}")
+            check(counts == (want_remat if remat else want),
+                  f"4x (a) remat={remat}: launches {counts}")
+        runs[remat] = dict(loss=[x[0][0] for x in learns], kl=[x[0][1] for x in learns],
+                           learn_s=[x[1] for x in learns],
+                           peak_memory_gb=max(x[2] for x in learns), launches=learns[-1][3],
+                           syncs=[x[4] for x in learns],
+                           moved=adapter_change(torch, agent.actor.params, start),
+                           actor=agent.actor.params,
+                           path_launches={k: sum(x[3][k] for x in learns) for k in want})
+        del agent
+        torch.cuda.empty_cache()
+    eager, remat = runs[False], runs[True]
+    diff = adapter_change(torch, remat.pop("actor"), eager.pop("actor"))
+    loss_d = max(abs(a - b) for a, b in zip(remat["loss"], eager["loss"]))
+    out["a"] = dict(eager=eager, remat=remat, max_adapter_diff=diff, loss_diff=loss_d,
+                    bit_for_bit=diff == 0.0 and remat["loss"] == eager["loss"]
+                    and remat["kl"] == eager["kl"])
+    log(f"  eager: learns {[round(t, 3) for t in eager['learn_s']]} s, peak "
+        f"{eager['peak_memory_gb']:.2f} GB, syncs {eager['syncs']}; remat: learns "
+        f"{[round(t, 3) for t in remat['learn_s']]} s (the first also imports what "
+        f"torch.utils.checkpoint needs), peak {remat['peak_memory_gb']:.2f} GB, syncs "
+        f"{remat['syncs']}; losses {eager['loss']} vs {remat['loss']}; max|d adapter| "
+        f"{diff:.3e} (moved {eager['moved']:.3e}), max|d loss| {loss_d:.3e}, bit for bit "
+        f"{out['a']['bit_for_bit']}; launches per remat learn {remat['launches']}")
+    # the two learns differ in when the blocks run, not in what they compute:
+    # held as 4u (a) holds the placed learn to the unplaced one
+    check(eager["moved"] > 0 and diff <= PLACED_ADAPTER_REL * eager["moved"]
+          and loss_d <= 1e-6 + 1e-3 * max(abs(x) for x in eager["loss"]),
+          "4x (a): the remat learn disagrees with the eager learn")
+    check(remat["syncs"] == eager["syncs"],
+          f"4x (a): the recompute added host syncs: {remat['syncs']} vs {eager['syncs']}")
+
+    # (b) 16 x 1,024 with remat: a built batch, no generation
+    rng = np.random.default_rng(23)
+    T_b = REMAT_PROMPT + REMAT_NEW
+    ids = rng.integers(1, cfg.vocab_size, (REMAT_ROWS, T_b)).astype(np.int64)
+    ids[3, T_b - 100:] = 0  # two completions end early
+    ids[9, T_b - 300:] = 0
+    action = np.zeros((REMAT_ROWS, T_b - 1), np.float32)
+    action[:, REMAT_PROMPT - 1:] = ids[:, REMAT_PROMPT:] != 0
+    rewards = rng.normal(size=(REMAT_ROWS // GROUP_SIZE, GROUP_SIZE)).astype(np.float32)
+    bcfg = dataclasses.replace(cfg, remat=True, max_seq_len=T_b)
+    log(f"phase 4x (b): one remat GRPO learn at {REMAT_ROWS} rows x {T_b} tokens "
+        f"(prompt {REMAT_PROMPT} + {REMAT_NEW} completion)")
+    agent = grpo_agent(TG, bcfg, params)
+    (loss_b, kl_b), t_b, peak_b, counts_b, syncs_b = measured_learn(
+        torch, ops, agent, (ids, action, rewards))
+    del agent
+    torch.cuda.empty_cache()
+    base_gb = report["alloc"]["base_bytes"] / 1e9
+    per_token = (eager["peak_memory_gb"] - base_gb) / (rows * T)
+    predicted_eager = base_gb + per_token * REMAT_ROWS * T_b
+    budget = grpo_hbm_budget(bcfg, fsdp=1, tp=1, batch_global=REMAT_ROWS, seq_len=T_b)
+    card_gb = device_memory_gib() * 1024 ** 3 / 1e9
+    out["b"] = dict(rows=REMAT_ROWS, T=T_b, loss=loss_b, kl=kl_b, learn_s=t_b,
+                    peak_memory_gb=peak_b, launches=counts_b, syncs=syncs_b,
+                    budget_total_gb=budget["total"] / 1e9,
+                    budget_terms_gb={k: v / 1e9 for k, v in budget.items()
+                                     if k not in ("meta", "total")},
+                    predicted_eager_peak_gb=predicted_eager, card_gb=card_gb)
+    log(f"  learn {t_b:.3f} s, peak {peak_b:.2f} GB of the card's {card_gb:.1f} GB; "
+        f"grpo_hbm_budget at these shapes {budget['total'] / 1e9:.2f} GB; the eager peak (a)'s "
+        f"bytes per token predict: {predicted_eager:.1f} GB; loss {loss_b:.5f}, {syncs_b} syncs, "
+        f"launches {counts_b}")
+    check(np.isfinite(loss_b) and np.isfinite(kl_b), f"4x (b): loss {loss_b}, kl {kl_b}")
+    check(peak_b < card_gb, f"4x (b): peak {peak_b:.1f} GB over the card's {card_gb:.1f} GB")
+    check(counts_b == want_remat, f"4x (b): launches {counts_b}")
+    return remat["path_launches"]
 
 
 # ------------------------------- phase 4f ---------------------------------- #
@@ -2076,7 +2221,7 @@ def run_evolution(torch, M, ops, presets, report):
 
     tok = CharTokenizer()
     cfg = presets.preset("llama3-8b", n_layer=EVO_LAYERS, vocab_size=tok.vocab_size,
-                         max_seq_len=256)
+                         max_seq_len=256, remat=False)
     log(f"phase 4c: evolution loop: population 2, llama3-8b widths, {cfg.n_layer} layers, "
         f"char vocab {cfg.vocab_size}")
     env = ReasoningGym(arith_rows(64, 0), arith_rows(8, 1), tok, reward_fn=arith_reward,
@@ -2344,7 +2489,7 @@ def run_preference_loop(torch, M, ops, presets, report):
                                  INIT_HP={"LR": lr})
 
     cfg = presets.preset("llama3-8b", n_layer=EVO_LAYERS, vocab_size=tok.vocab_size,
-                         max_seq_len=256)
+                         max_seq_len=256, remat=False)
     log(f"phase 4e: preference loop: population 2, llama3-8b widths, {cfg.n_layer} layers, "
         f"char vocab {cfg.vocab_size}")
     pop = population(cfg, "cuda", M.init_params(1, cfg), 5e-6)
@@ -4909,7 +5054,7 @@ def run_transformers(torch, ops, presets, report):
 
     out = {}
     launches = {k: 0 for k in ops.kernel_counters()}
-    cfg = presets.preset("gpt2-small")
+    cfg = presets.preset("gpt2-small", remat=False)
     check(cfg.use_flash_attention and cfg.dtype == torch.bfloat16, f"gpt2-small preset: {cfg}")
     gpt = EvolvableGPT(config=cfg, max_layers=13, key=torch.Generator().manual_seed(0))
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -5546,7 +5691,7 @@ def run_resilience(torch, ops, tfa, tfl, presets, report):
 
     # ---- (a) GRPO at llama3-8b, preempted by SIGTERM and resumed ----
     tok = CharTokenizer()
-    cfg = presets.preset("llama3-8b", vocab_size=tok.vocab_size, max_seq_len=256)
+    cfg = presets.preset("llama3-8b", vocab_size=tok.vocab_size, max_seq_len=256, remat=False)
     torch.cuda.reset_peak_memory_stats()
     base, t_init = host_s(torch, lambda: M.init_params(1, cfg))
     base_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(base))
@@ -5825,8 +5970,8 @@ def launch_agent(seed=0, device=None, **cfg_over):
     from agilerl_tpu_torch.utils.llm_utils import CharTokenizer
 
     tok = CharTokenizer()
-    cfg = presets.preset("llama3-8b", **dict(dict(vocab_size=tok.vocab_size, max_seq_len=256),
-                                             **cfg_over))
+    cfg = presets.preset("llama3-8b", **dict(dict(vocab_size=tok.vocab_size, max_seq_len=256,
+                                                  remat=False), **cfg_over))
     return GRPO(config=cfg, base_params=M.init_params(1, cfg, device=device),
                 pad_token_id=tok.pad_token_id, eos_token_id=tok.eos_token_id, seed=seed,
                 group_size=GROUP_SIZE, batch_size=LAUNCH_PROMPTS * GROUP_SIZE,
@@ -6126,8 +6271,9 @@ def run_launcher(torch, ops, report):
                              gen_batch_global=BUDGET_ROWS,
                              gen_total_len=BUDGET_PROMPT + MAX_NEW_TOKENS)
     alloc = report["alloc"]
-    learn_peak = max(it["peak_memory_gb"] for it in report["learn"]["iterations"])
-    check(math.isfinite(learn_peak) and learn_peak > 0, f"(h): phase 4b's learn peak {learn_peak}")
+    # the learn at these shapes with remat (phase 4x (a)), as the budget assumes
+    learn_peak = report["remat"]["a"]["remat"]["peak_memory_gb"]
+    check(math.isfinite(learn_peak) and learn_peak > 0, f"(h): phase 4x's remat peak {learn_peak}")
     terms = {k: v / 1e9 for k, v in budget.items() if k not in ("meta", "total")}
     eager = learn_peak - terms["base_weights"] - terms["lora_adapter_state"]
     remat = terms["remat_checkpoints"] + terms["block_recompute_peak"] + \
@@ -6135,8 +6281,9 @@ def run_launcher(torch, ops, report):
     log(f"  (h) grpo_hbm_budget at fsdp = tp = 1, {BUDGET_ROWS} rows x "
         f"{BUDGET_PROMPT + MAX_NEW_TOKENS} tokens ({MAX_NEW_TOKENS} new), GB: "
         + ", ".join(f"{k} {v:.3f}" for k, v in terms.items())
-        + f", total {budget['total'] / 1e9:.3f}; phase 4b's learn peak {learn_peak:.1f} GB: "
-        f"its activations {eager:.1f} GB against the remat terms' {remat:.2f} GB; card "
+        + f", total {budget['total'] / 1e9:.3f}; phase 4x (a)'s remat learn peak "
+        f"{learn_peak:.1f} GB: its activations {eager:.1f} GB against the remat terms' "
+        f"{remat:.2f} GB; card "
         f"{device_memory_gib():.1f} GiB")
     log(f"      phase 4's base allocated {alloc['base_bytes']} B (term "
         f"{budget['base_weights']:.0f} B); its generate's dense KV cache {alloc['kv_bytes']} B "
@@ -6472,7 +6619,7 @@ def ring_learn(torch, ops, world):
     from agilerl_tpu_torch.utils.tree import tree_copy, tree_to_numpy
 
     cfg = presets.preset("llama3-8b", n_layer=RING_LAYERS, max_seq_len=RING_T,
-                         dtype=torch.float32)
+                         dtype=torch.float32, remat=False)
     params = M.init_params(RING_SEED, cfg, device="cuda")
     agent = GRPO(config=cfg, base_params=params, pad_token_id=0, seed=0, group_size=2,
                  batch_size=RING_ROWS, update_epochs=1, lora_rank=LORA_RANK,
@@ -6758,7 +6905,7 @@ def pipe_rank_child(rank: int, port: int, out_dir: str) -> None:
     torch.cuda.set_device(0)
     init_multihost(f"127.0.0.1:{port}", 2, rank)
     cfg = presets.preset("llama3-8b", n_layer=PIPE_LAYERS, max_seq_len=PIPE_T,
-                         dtype=torch.float32, use_flash_attention=False)
+                         dtype=torch.float32, use_flash_attention=False, remat=False)
     tokens, mask = pipe_batch(torch, cfg.vocab_size)
     valid = mask.bool()
     L = cfg.n_layer
@@ -6917,6 +7064,137 @@ def run_pipeline(torch, ops, report):
         staged_bytes=[r["staged_bytes"] for r in ranks], peak_gb=[r["peak_gb"] for r in ranks],
         plain_peak_gb=r0["plain_peak_gb"], launches=[r["launches"] for r in ranks])
     return [r["launches"] for r in ranks]
+
+
+# 4x (c): the serving tier under make_grpo_plan(tp=2) on two ranks sharing the
+# card over gloo (``chip_smoke.py --serve-rank``; NCCL takes one rank per
+# card), llama3-8b widths cut to 4 layers, an f32 base (the placed and the
+# unplaced decode differ only by f32 roundings): both generators' greedy
+# tokens equal to rank 0's unplaced run token for token, each rank's dense
+# caches and paged pool half of the whole, and no all-gather of a
+# tp-sharded weight (the decode's only gathers are the logits' vocab halves)
+SERVE_TP_LAYERS, SERVE_TP_ROWS, SERVE_TP_SEED = 4, 8, 31
+SERVE_TP = dict(max_new_tokens=16, pad_id=0, eos_id=None, prompt_buckets=(128,),
+                decode_chunk=8, temperature=0.0)
+SERVE_TP_TIMEOUT_S = 400.0
+
+
+def serve_rank_child(rank: int, port: int, out_dir: str) -> None:
+    """One rank of 4x (c) (``chip_smoke.py --serve-rank RANK PORT DIR``): rank
+    0 serves unplaced first; both then serve under the plan. Its numbers go
+    to DIR/rank<RANK>.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from agilerl_tpu_torch.llm import model as M, presets
+    from agilerl_tpu_torch.llm.serving import BucketedGenerator, ContinuousGenerator
+    from agilerl_tpu_torch.parallel.comm import collective_log
+    from agilerl_tpu_torch.parallel.multihost import init_multihost
+    from agilerl_tpu_torch.parallel.plan import make_grpo_plan
+
+    torch_settings(torch)
+    torch.cuda.set_device(0)
+    init_multihost(f"127.0.0.1:{port}", 2, rank)
+    cfg = presets.preset("llama3-8b", n_layer=SERVE_TP_LAYERS, max_seq_len=256,
+                         dtype=torch.float32)
+    rng = np.random.default_rng(SERVE_TP_SEED)
+    seqs = [rng.integers(1, cfg.vocab_size, int(n)) for n in rng.integers(20, 120, SERVE_TP_ROWS)]
+    out = {}
+
+    def serve(params, plan):
+        """Both generators' greedy tokens, seconds and the caches they
+        allocated; the collectives they ran."""
+        bg = BucketedGenerator(cfg, row_buckets=(SERVE_TP_ROWS,), sharding_plan=plan,
+                               device="cuda", **SERVE_TP)
+        cg = ContinuousGenerator(cfg, slots=SERVE_TP_ROWS, block_size=32, sharding_plan=plan,
+                                 device="cuda", **SERVE_TP)
+        caches, real = [], bg._kv
+        bg._kv = lambda group, make: caches.append(real(group, make)) or caches[-1]
+        placed = bg.place_params(params)
+        res = {}
+        with collective_log() as log:
+            (toks, _, _), res["bucketed_s"] = host_s(torch, lambda: bg.generate(
+                seqs, None, placed, greedy=True))
+            (ctoks, _, _), res["continuous_s"] = host_s(torch, lambda: cg.generate(
+                seqs, 0, placed, greedy=True))
+        res.update(bucketed=toks.tolist(), continuous=ctoks.tolist(),
+                   dense_bytes=M.cache_bytes(caches[0]), pool_bytes=cg.pool_bytes,
+                   gathers=sorted({shape for op, shape in log if "gather" in op}),
+                   collectives=sorted({op for op, _ in log}))
+        if plan is not None:
+            res["tp_weights"] = sorted({tuple(w.to_local().shape)
+                                        for blk in placed["blocks"].values()
+                                        for w in blk.values()
+                                        if any(pl.is_shard() for pl in w.placements)}
+                                       | {tuple(placed[k].to_local().shape)
+                                          for k in ("tok_emb", "lm_head")})
+            res["dense_placements"] = str(tuple(caches[0].k.placements))
+            res["pool_placements"] = str(tuple(cg._pool.k.placements))
+        return res
+
+    params = M.init_params(SERVE_TP_SEED, cfg, device="cuda")
+    if rank == 0:
+        out["unplaced"] = serve(params, None)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    out["placed"] = serve(params, make_grpo_plan(tp=2))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_serving_tp(torch, report):
+    """Phase 4x (c) in two child processes."""
+    import shutil
+    import tempfile
+
+    log(f"phase 4x (c): BucketedGenerator and ContinuousGenerator under make_grpo_plan(tp=2), "
+        f"llama3-8b width, {SERVE_TP_LAYERS} layers, f32, {SERVE_TP_ROWS} prompts, "
+        f"{SERVE_TP['max_new_tokens']} new tokens, 2 ranks on the card over gloo; rank 0 "
+        f"serves unplaced first")
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_tp_"))
+    try:
+        port = free_port()
+        run_children(lambda r: ["--serve-rank", str(r), str(port), str(work)], 2, work,
+                     SERVE_TP_TIMEOUT_S, "serve rank")
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    from agilerl_tpu_torch.llm import presets
+
+    ref = ranks[0]["unplaced"]
+    placed = [r["placed"] for r in ranks]
+    vocab_half = presets.preset("llama3-8b").vocab_size // 2
+    for r, got in enumerate(placed):
+        for name in ("bucketed", "continuous"):
+            check(got[name] == ref[name], f"4x (c) rank {r}: {name} tokens differ from unplaced")
+        check(2 * got["dense_bytes"] == ref["dense_bytes"] and
+              2 * got["pool_bytes"] == ref["pool_bytes"],
+              f"4x (c) rank {r}: cache {got['dense_bytes']} / pool {got['pool_bytes']} B of "
+              f"{ref['dense_bytes']} / {ref['pool_bytes']} B")
+        shapes = {tuple(x) for x in got["gathers"]}
+        tp_weights = {tuple(x) for x in got["tp_weights"]}
+        check(not shapes & tp_weights and all(x[-1] == vocab_half for x in shapes),
+              f"4x (c) rank {r}: gathers {sorted(shapes)} (tp-sharded weights "
+              f"{sorted(tp_weights)})")
+    log(f"  tokens equal to unplaced on both ranks; dense cache {placed[0]['dense_bytes']} B "
+        f"and pool {placed[0]['pool_bytes']} B per rank of {ref['dense_bytes']} / "
+        f"{ref['pool_bytes']} B ({placed[0]['dense_placements']} / "
+        f"{placed[0]['pool_placements']}); gathers {placed[0]['gathers']}; collectives "
+        f"{placed[0]['collectives']}; bucketed {[round(p['bucketed_s'], 2) for p in placed]} s "
+        f"placed vs {ref['bucketed_s']:.2f} s unplaced, continuous "
+        f"{[round(p['continuous_s'], 2) for p in placed]} s vs {ref['continuous_s']:.2f} s; peak "
+        f"{[round(r['peak_gb'], 2) for r in ranks]} GB per rank")
+    report["serving_tp"] = dict(
+        layers=SERVE_TP_LAYERS, rows=SERVE_TP_ROWS, new_tokens=SERVE_TP["max_new_tokens"],
+        dense_bytes=[p["dense_bytes"] for p in placed], pool_bytes=[p["pool_bytes"] for p in placed],
+        whole_dense_bytes=ref["dense_bytes"], whole_pool_bytes=ref["pool_bytes"],
+        gathers=placed[0]["gathers"], collectives=placed[0]["collectives"],
+        bucketed_s=[p["bucketed_s"] for p in placed], continuous_s=[p["continuous_s"] for p in placed],
+        unplaced_s=[ref["bucketed_s"], ref["continuous_s"]], peak_gb=[r["peak_gb"] for r in ranks])
 
 
 def elastic_engine(torch):
@@ -7944,11 +8222,16 @@ def main() -> None:
 
         cfg, params, prompts, full_mask, dense_greedy = run_slice(torch, M, G, ops, presets, report)
         with torch.enable_grad():
-            grpo_launches, grpo_grads = run_learn(torch, M, ops, cfg, params, prompts, report)
+            grpo_launches, grpo_grads, last_batch = run_learn(torch, M, ops, cfg, params,
+                                                               prompts, report)
             dpo_launches, dpo_grads = run_dpo(torch, M, ops, tfa, tfl, cfg, params, report)
         # phases 4h-4r but 4q in a second process, alongside 4f-4t (see RL_PHASES)
         rl = start_rl_phases()
         try:
+            with torch.enable_grad():
+                remat_launches = timed_phase("4x_ab", run_remat, torch, M, ops, cfg, params,
+                                             last_batch, report)
+            del last_batch
             serve_launches, served_greedy = timed_phase(
                 "4f", run_serving, torch, M, G, ops, cfg, params, prompts, dense_greedy, report)
             torch.cuda.empty_cache()
@@ -7978,6 +8261,7 @@ def main() -> None:
             ring_launches = timed_phase("4u_cd", run_ring_and_pod, torch, ops, report)
             with torch.enable_grad():
                 pipe_launches = timed_phase("4v_a", run_pipeline, torch, ops, report)
+            timed_phase("4x_c", run_serving_tp, torch, report)
             rl_launches = join_rl_phases(rl, report)
         finally:
             stop_rl_phases(rl)
@@ -7985,7 +8269,7 @@ def main() -> None:
         # each main path's counts were set to 0 just before it and read just after
         launches = {k: grpo_launches[k] + dpo_launches[k] + serve_launches[k] + fly_launches[k]
                     + plan_launches[k] + sp_launches[k] + layout_launches[k]
-                    for k in grpo_launches}
+                    + remat_launches[k] for k in grpo_launches}
 
         log("phase 5: kernel times at the main path's shapes")
         kernels = [time_flash(torch, F, tfa, cfg, full_mask, launches, report),
@@ -8005,6 +8289,7 @@ def main() -> None:
                                          "plan_learn": plan_launches[entry["name"]],
                                          "layout_search": layout_launches[entry["name"]],
                                          "sp_learn": sp_launches[entry["name"]],
+                                         "remat_learn": remat_launches[entry["name"]],
                                          "ring_rank0": ring_launches[0][entry["name"]],
                                          "ring_rank1": ring_launches[1][entry["name"]],
                                          "pipeline_rank0": pipe_launches[0][entry["name"]],
@@ -8021,6 +8306,8 @@ def main() -> None:
                       f"{entry['name']} was not launched on phase 4u's plan learns")
                 check(layout_launches[entry["name"]] > 0,
                       f"{entry['name']} was not launched on phase 4w's layout search")
+                check(remat_launches[entry["name"]] > 0,
+                      f"{entry['name']} was not launched on phase 4x's remat learn")
             if entry["name"].startswith("flash"):
                 check(sp_launches[entry["name"]] > 0 and ring_launches[1][entry["name"]] > 0,
                       f"{entry['name']} was not launched on phase 4u's ring")
@@ -8047,6 +8334,8 @@ if __name__ == "__main__":
         ring_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) == 5 and sys.argv[1] == "--pipe-rank":
         pipe_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) == 5 and sys.argv[1] == "--serve-rank":
+        serve_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) == 5 and sys.argv[1] == "--elastic-rank":
         elastic_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) == 4 and sys.argv[1] == "--warm-child":

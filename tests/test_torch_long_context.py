@@ -191,6 +191,38 @@ def test_grpo_sequence_parallel_learn_matches_jax_sp_learn(pool, sp):
         assert all(why in r["refused"] for r in out)
 
 
+def test_grpo_sequence_parallel_learn_with_remat(pool):
+    """The sp learn of the test above (2-rank ring, flash engine) with
+    ``remat``: the loss and the gradient its optimizer step took bit for bit
+    those without remat on every rank (the recompute sends the ring's
+    shifts again, in the backward's order on every rank); each rank's
+    flash forwards grow by its ring's forward calls of one learn (the
+    recompute), its backwards stay as they are."""
+    cfg_kw = dict(vocab_size=128, n_layer=2, n_head=4, n_kv_head=2, d_model=32, max_seq_len=64)
+    kw = dict(pad_token_id=0, eos_token_id=1, group_size=2, batch_size=4)
+    jcfg = JM.GPTConfig(dtype=jnp.float32, **cfg_kw)
+    jagent = JG.GRPO(config=jcfg, seed=0, **kw)
+    base, actor, ref = (_np_tree(t) for t in (jagent.base_params, jagent.actor.params,
+                                              jagent.reference.params))
+    rng = np.random.default_rng(5)
+    ids = rng.integers(2, 127, size=(4, 32)).astype(np.int64)
+    loss_mask = np.zeros((4, 31), np.float32)
+    loss_mask[:, 16:] = 1.0
+    rewards = rng.normal(size=(2, 2)).astype(np.float32)
+    res = pool.run("grpo_sp_remat", cfg_kw=cfg_kw, base=base, actor=actor, reference=ref,
+                   batch=(ids, loss_mask, rewards), kw=kw, sp=2)
+    for r in res:
+        off, on = r[False], r[True]
+        assert off["loss"] == on["loss"] and np.isfinite(on["loss"])
+        for a, b in zip(jax.tree_util.tree_leaves(off["grad"]),
+                        jax.tree_util.tree_leaves(on["grad"])):
+            np.testing.assert_array_equal(a, b)
+        assert on["calls"]["bwd"] == off["calls"]["bwd"] > 0
+        # 3 forward passes of the model (old, reference, learn): the
+        # recompute repeats the learn's
+        assert on["calls"]["fwd"] == off["calls"]["fwd"] + off["calls"]["fwd"] // 3
+
+
 def test_sp_refusals_single_process():
     """Without a mesh carrying the axis, the sp learn raises; the flash
     engine's dense reference is itself the JAX reference attention."""

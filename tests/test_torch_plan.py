@@ -5,6 +5,7 @@ the CPU. Each test names its JAX counterpart in
 are built on the meta device (shapes only): a llama3-8b tree costs nothing.
 Multi-rank placement runs in ``test_torch_sharded.py``."""
 
+import math
 import os
 
 import pytest
@@ -312,6 +313,55 @@ def test_kv_rules_on_dense_and_paged_caches():
     jcfg = JM.GPTConfig(dtype=jnp.float32, **KW)
     assert tuple(jplan.resolve("kv", JM.init_caches(jcfg, batch=8, max_len=32)).k) == \
         tuple(specs.k)
+
+
+def _gspmd_padded(shape, sharding):
+    """``shape`` with each dim rounded up to its tiling factor under the JAX
+    ``NamedSharding``, as GSPMD pads an uneven dim."""
+    sizes = dict(sharding.mesh.shape)
+    out = []
+    for d, e in enumerate(shape):
+        entry = sharding.spec[d] if d < len(sharding.spec) else None
+        n = math.prod(sizes[a] for a in ((entry,) if isinstance(entry, str)
+                                         else (entry or ())))
+        out.append(-(-e // n) * n)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("batch, n_blocks", [(8, 9), (1, 13)])
+def test_kv_placements_give_the_jax_shard_shapes(batch, n_blocks):
+    """The serving caches' placements on fsdp4 x tp2 (``resolve`` then
+    ``tiling_placements``) and this rank's shapes (``local_shape``) against
+    the JAX plan's shardings on 8 devices: a dense cache [L, B, S, KV, hd]
+    with rows over fsdp and KV heads over tp; a one-row prefill cache, whose
+    row 4 ranks cannot split, keeps it whole on every rank (the JAX
+    package pads it to the same shard shape); the paged pool keeps its
+    block axis whole at a count fsdp does not divide (``test_plan.py:563``)
+    and shards only KV heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = FakeMesh(fsdp=4, tp=2)
+    tcfg = TM.GPTConfig(dtype=torch.float32, **KW)
+    jcfg = JM.GPTConfig(dtype=jnp.float32, **KW)
+    plan, jplan = TPL.make_grpo_plan(fsdp=4, tp=2), JPL.make_grpo_plan(fsdp=4, tp=2)
+    jmesh = jplan.build_mesh()
+    cases = [("kv", TM.init_caches(tcfg, batch, 24, device="meta"),
+              JM.init_caches(jcfg, batch=batch, max_len=24)),
+             ("kv_paged", TM.init_paged_cache(tcfg, n_blocks, 8, device="meta"),
+              JM.init_paged_cache(jcfg, n_blocks=n_blocks, block_size=8))]
+    for group, tree, jtree in cases:
+        specs = plan.resolve(group, tree, mesh)
+        jshard = jplan.shardings(group, jtree, jmesh)
+        for name in ("k", "v") + (("mask",) if group == "kv" else ()):
+            leaf, spec = getattr(tree, name), getattr(specs, name)
+            pl = TPL.tiling_placements(spec, leaf.shape, mesh)
+            want = getattr(jshard, name).shard_shape(_gspmd_padded(
+                getattr(jtree, name).shape, getattr(jshard, name)))
+            assert TPL.local_shape(leaf.shape, pl, mesh) == tuple(want), (group, name)
+            if name != "mask":
+                rows = Shard(1) if group == "kv" and batch % 4 == 0 else Replicate()
+                assert pl == (rows, Shard(3))
+    assert TPL.tiling_placements(TPL.P(None, "tp"), (3, 3), mesh) == (Replicate(), Replicate())
 
 
 def test_pop_axis_follows_build_mesh_order():

@@ -4,9 +4,13 @@ placed GRPO learn against the port's unplaced learn and the JAX package's
 sharded learn (``tests/test_parallel/test_mesh.py:27``,
 ``test_plan.py:268``), the plan-compiled flywheel step (``:303``), the
 sharding mutation (``:435``), pod generation against the port's vmapped
-generation and the JAX member layout (``:499``), and a plan-placed
-``BucketedGenerator`` (``:593``). On CPU tensors the flash and fused calls
-inside ``local_map`` run their plain versions."""
+generation and the JAX member layout (``:499``), and the serving tier with
+its KV caches placed by the plan's ``kv`` / ``kv_paged`` rules
+(``:548-615``), on all 4 ranks and on 2-rank tp meshes of them. On CPU
+tensors the flash and fused calls inside ``local_map`` run their plain
+versions."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -128,6 +132,30 @@ def test_to_mesh_learn_matches_unplaced_and_jax_sharded_learn(pool, layout):
         assert pl == "(Shard(dim=0),)" and bpl == "(Shard(dim=0),)"
 
 
+def test_placed_learn_with_remat_gathers_the_weights_again(pool):
+    """fsdp2 x tp2 with ``remat``: the placed learn equals the placed learn
+    without it, loss and adapter bit for bit, and runs more all-gathers: each
+    block takes its fsdp-sharded weights inside its checkpoint, so the
+    recompute gathers them again rather than autograd keeping every gathered
+    layer alive until the backward."""
+    cfg = TM.GPTConfig(dtype=torch.float32, **CFG_KW)
+    base = TG.tree_to_numpy(TM.init_params(0, cfg, device="cpu"))
+    lora = TG.tree_to_numpy(TM.init_lora(1, cfg, rank=4, device="cpu"))
+    rng = np.random.default_rng(1)
+    for layer in lora["blocks"].values():
+        for ab in layer.values():
+            ab["B"] = rng.normal(0, 0.05, ab["B"].shape).astype(np.float32)
+    res = pool.run("grpo_remat_learn", cfg_kw=CFG_KW, base=base, actor=lora, reference=lora,
+                   batch=_learn_batch(), kw=KW, axes=dict(fsdp=2, tp=2))
+    for r in res:
+        off, on = r[False], r[True]
+        assert off["loss"] == on["loss"]
+        for a, b in zip(jax.tree_util.tree_leaves(off["actor"]),
+                        jax.tree_util.tree_leaves(on["actor"])):
+            np.testing.assert_array_equal(a, b)
+        assert on["gathers"] > off["gathers"] > 0
+
+
 def test_plan_step_matches_jax_update(pool):
     """``compile_step_with_plan`` (eager, placing each argument by its group)
     on a fixed batch against the JAX ``make_update_fn`` on the same
@@ -236,38 +264,6 @@ def test_pod_generation_matches_vmap_generation_and_jax_layout(pool):
     assert tuple(tspecs["actor"]["w"]) == tuple(jspecs["actor"]["w"]) == ("pop",)
 
 
-def test_bucketed_generator_with_plan_matches_unsharded(pool):
-    """Weights placed by the plan's ``params`` rules (gathered whole where
-    the decode uses them) give the greedy tokens of the unsharded port
-    generator and of the JAX one; the plan's ``kv`` rules resolve the JAX
-    layout of the generator's cache."""
-    from agilerl_tpu.llm.serving import BucketedGenerator as JBG
-    from agilerl_tpu_torch.llm.serving import BucketedGenerator
-
-    kw = dict(CFG_KW, d_model=64, max_seq_len=128)
-    jcfg = JM.GPTConfig(dtype=jnp.float32, **kw)
-    params = _np_tree(JM.init_params(jax.random.PRNGKey(0), jcfg))
-    rng = np.random.default_rng(0)
-    seqs = [rng.integers(2, 127, size=rng.integers(4, 16)).astype(np.int64) for _ in range(5)]
-    gkw = dict(max_new_tokens=8, pad_id=0, eos_id=None, prompt_buckets=(16,), row_buckets=(8,),
-               decode_chunk=8)
-    jout, jmask, _ = JBG(jcfg, **gkw).generate([s.astype(np.int32) for s in seqs],
-                                               jax.random.PRNGKey(1),
-                                               jax.tree_util.tree_map(jnp.asarray, params),
-                                               greedy=True)
-    tcfg = TM.GPTConfig(dtype=torch.float32, **kw)
-    tout, tmask, _ = BucketedGenerator(tcfg, device="cpu", **gkw).generate(
-        seqs, 1, params_from_numpy(params, tcfg, device="cpu"), greedy=True)
-    np.testing.assert_array_equal(np.asarray(tout), np.asarray(jout))
-    res = pool.run("bucketed_generate", cfg_kw=kw, params=params, seqs=seqs,
-                   axes=dict(fsdp=2, tp=2))
-    for r in res:
-        np.testing.assert_array_equal(r["out"], np.asarray(tout))
-        np.testing.assert_array_equal(r["mask"], np.asarray(tmask))
-        assert r["wq"] == "(Shard(dim=0), Shard(dim=1))"
-        assert r["kv_k"] == (None, ("fsdp",), None, "tp", None)
-
-
 def test_layout_search_ranks_the_default_plans_on_four_ranks(pool):
     """``search_layouts`` over the default GRPO plans for 4 devices (the
     sharding mutation's swap set: fsdp4, fsdp2 x tp2, tp4). Each call is a
@@ -295,3 +291,104 @@ def test_layout_search_ranks_the_default_plans_on_four_ranks(pool):
         for name in plans[:2]:
             np.testing.assert_allclose(np.asarray(r["losses"][name]), np.asarray([want]),
                                        rtol=1e-5, atol=1e-8)
+
+
+SERVE_KW = dict(CFG_KW, d_model=64, max_seq_len=128)
+
+
+@functools.lru_cache(maxsize=None)
+def _serving():
+    """tests/test_parallel/test_plan.py:593's model (f32), 5 ragged prompts,
+    the greedy tokens of the JAX ``BucketedGenerator`` placed by
+    ``make_grpo_plan(fsdp=4, tp=2)`` on 8 devices, and the port's unplaced
+    serving (``planned_serving`` without a plan)."""
+    from agilerl_tpu.llm.serving import BucketedGenerator as JBG
+    from tests.torch_dist_cases import planned_serving
+
+    jcfg = JM.GPTConfig(dtype=jnp.float32, **SERVE_KW)
+    params = _np_tree(JM.init_params(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(0)
+    seqs = [rng.integers(2, 127, size=rng.integers(4, 16)).astype(np.int64) for _ in range(5)]
+    gen = JBG(jcfg, max_new_tokens=8, pad_id=0, eos_id=None, prompt_buckets=(16,),
+              row_buckets=(8,), decode_chunk=4, sharding_plan=JPL.make_grpo_plan(fsdp=4, tp=2))
+    jax_tokens = np.asarray(gen.generate(
+        [x.astype(np.int32) for x in seqs], jax.random.PRNGKey(1),
+        gen.place_params(jax.tree_util.tree_map(jnp.asarray, params)), greedy=True)[0])
+    return params, seqs, jax_tokens, planned_serving(SERVE_KW, params, seqs)
+
+
+def _same_tokens(r, ref, jax_tokens=None):
+    for name in ("bucketed", "continuous"):
+        for got, want in zip(r[name], ref[name]):
+            np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(r["handoff"], ref["handoff"])
+    if jax_tokens is not None:
+        for got in (r["bucketed"][0], r["continuous"][0], r["handoff"]):
+            np.testing.assert_array_equal(got, jax_tokens)
+
+
+def test_kv_placed_serving_on_two_ranks_gathers_no_tp_weight(pool):
+    """tp2 on 2 ranks (each pair of the 4 serves on its own 2-rank tp
+    mesh): a ``BucketedGenerator``, a ``ContinuousGenerator`` and a
+    ``PrefillWorker`` handoff with their caches placed by ``kv`` /
+    ``kv_paged`` (KV heads over tp) give the unplaced port's greedy tokens
+    and the JAX plan-placed generator's. Each rank holds half of every
+    cache and pool; each handoff moves the rank's own KV head; no all-gather
+    takes a tp-sharded weight: the only gathers are the logits' vocab
+    halves ([rows, 1, V / 2])."""
+    params, seqs, jax_tokens, ref = _serving()
+    res = pool.run("planned_serving", cfg_kw=SERVE_KW, params=params, seqs=seqs,
+                   tp_pairs=True)
+    for rank, r in enumerate(res):
+        _same_tokens(r, ref, jax_tokens)
+        assert r["dense_placements"] == r["pool_placements"] == "(Shard(dim=3),)"
+        assert r["dense_rank_bytes"] * 2 == r["dense_whole_bytes"]
+        assert r["pool_rank_bytes"] * 2 == r["pool_whole_bytes"] == ref["pool_rank_bytes"]
+        tp = rank % 2
+        assert r["kv_heads"] == [(tp, tp + 1)] * len(seqs) and r["payload_heads"] == 1
+        assert r["gathers"] == [(1, 1, 64), (4, 1, 64), (8, 1, 64)]
+        assert not set(r["gathers"]) & set(r["tp_weights"])
+
+
+def test_bucketed_generator_with_plan_matches_unsharded(pool):
+    """fsdp2 x tp2 on 4 ranks: weights placed by the plan's ``params`` rules
+    and the caches by its ``kv`` rules (rows over fsdp as well: a quarter of
+    a dense cache per rank) and ``kv_paged`` (KV heads over tp, the pool's
+    13 blocks whole): the ``BucketedGenerator``, the
+    ``ContinuousGenerator`` and the ``PrefillWorker`` handoff give the
+    greedy tokens of the unsharded port generators and of the JAX
+    plan-placed one; the plan's ``kv`` rules resolve the JAX layout of the
+    generator's cache. A continuous step's admission converts nothing to
+    the host under the plan, for 1 request as for 4 (one copy per
+    field a pass)."""
+    params, seqs, jax_tokens, ref = _serving()
+    res = pool.run("planned_serving", cfg_kw=SERVE_KW, params=params, seqs=seqs,
+                   axes=dict(fsdp=2, tp=2), admission=True)
+    for rank, r in enumerate(res):
+        _same_tokens(r, ref, jax_tokens)
+        assert r["wq"] == "(Shard(dim=0), Shard(dim=1))"
+        assert r["kv_k"] == (None, ("fsdp",), None, "tp", None)
+        assert r["admission_syncs"] == {1: 0, 4: 0}
+        assert r["dense_placements"] == "(Shard(dim=1), Shard(dim=3))"
+        assert r["pool_placements"] == "(Replicate(), Shard(dim=3))"
+        assert r["dense_rank_bytes"] * 4 == r["dense_whole_bytes"]
+        assert r["pool_rank_bytes"] * 2 == r["pool_whole_bytes"]
+        assert r["kv_heads"] == [(rank % 2, rank % 2 + 1)] * len(seqs)
+
+
+def test_kv_placed_sampling_keeps_each_rows_stream_on_four_ranks(pool):
+    """dp2 x tp2, sampled (temperature 1): rows 4-7 of the row bucket decode
+    on the second dp rank and still draw what they draw unplaced, in the
+    bucketed generator's batch stream and in the per-request counter
+    streams of the continuous generator and the handoff."""
+    from tests.torch_dist_cases import planned_serving
+
+    params, seqs, _, _ = _serving()
+    seqs = seqs + seqs[:3]  # 8 rows: every row-bucket row is a real request
+    ref = planned_serving(SERVE_KW, params, seqs, greedy=False, key=7)
+    res = pool.run("planned_serving", cfg_kw=SERVE_KW, params=params, seqs=seqs,
+                   axes=dict(dp=2, tp=2), greedy=False, key=7)
+    assert len({tuple(row) for row in ref["continuous"][0]}) > 1
+    for r in res:
+        assert r["dense_placements"] == "(Shard(dim=1), Shard(dim=3))"
+        _same_tokens(r, ref)

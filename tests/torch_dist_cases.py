@@ -88,6 +88,22 @@ def grpo_learn(cfg_kw, base, actor, reference, batch, kw, axes, learns: int = 1)
             "base_placements": _placements(agent.base_params)}
 
 
+def grpo_remat_learn(cfg_kw, base, actor, reference, batch, kw, axes):
+    """One placed learn with ``remat`` off and on: each one's loss, adapter
+    and the count of its all-gathers (the fsdp gathers of the weights)."""
+    from agilerl_tpu_torch.parallel.comm import collective_log
+
+    out = {}
+    for remat in (False, True):
+        agent = _agent(dict(cfg_kw, remat=remat), base, actor, reference, kw)
+        agent.to_mesh(plan=PL.make_grpo_plan(**axes))
+        with collective_log() as log:
+            loss = agent.learn(batch)
+        out[remat] = {"loss": loss, "actor": tree_to_numpy(agent.actor.params),
+                      "gathers": sum("all_gather" in op for op, _ in log)}
+    return out
+
+
 def plan_step(cfg_kw, base, lora, batch, axes):
     """One update through ``compile_step_with_plan`` (eager) on a fixed batch."""
     from agilerl_tpu_torch.algorithms.core.optimizer import OptimizerWrapper
@@ -166,19 +182,79 @@ def sharding_mutation(cfg_kw, base, actor, reference, batch, kw, plans):
         PL.clear_registry()
 
 
-def bucketed_generate(cfg_kw, params, seqs, axes):
-    """Greedy tokens of a plan-placed ``BucketedGenerator``."""
-    from agilerl_tpu_torch.llm.serving import BucketedGenerator
+def planned_serving(cfg_kw, params, seqs, axes=None, greedy: bool = True, key: int = 1,
+                    max_new: int = 8, tp_pairs: bool = False, admission: bool = False):
+    """A ``BucketedGenerator``, a ``ContinuousGenerator`` and a
+    ``PrefillWorker`` -> ``ContinuousGenerator`` handoff under
+    ``make_grpo_plan(**axes)`` (``axes=None``: no plan, in any process;
+    ``tp_pairs``: ``make_grpo_plan(tp=2)`` on the "tp" rows of a (world / 2,
+    2) mesh, so each pair of ranks serves on its own): their tokens, this
+    rank's dense-cache and pool bytes beside the whole, the placements the
+    plan gave them, the KV heads each handoff moved, the input shapes of
+    every all-gather the two generators ran and the local shapes of the
+    tp-sharded weights; with ``admission``, the host conversions
+    (``SyncGuard``) of one continuous step that admits 1 and 4 requests."""
+    from agilerl_tpu_torch.llm.fleet import PrefillWorker
+    from agilerl_tpu_torch.llm.serving import BucketedGenerator, ContinuousGenerator
+    from agilerl_tpu_torch.parallel.comm import collective_log
 
     cfg = _cfg(cfg_kw)
-    plan = PL.make_grpo_plan(**axes)
-    gen = BucketedGenerator(cfg, max_new_tokens=8, pad_id=0, eos_id=None, prompt_buckets=(16,),
-                            row_buckets=(8,), decode_chunk=8, sharding_plan=plan, device="cpu")
-    placed = gen.place_params(params_from_numpy(params, cfg, device="cpu"))
-    out, mask, _ = gen.generate([np.asarray(s) for s in seqs], 1, placed, greedy=True)
-    kv = plan.resolve("kv", M.init_caches(cfg, 8, 32, device="cpu"), gen.mesh)
-    return {"out": np.asarray(out), "mask": np.asarray(mask),
-            "wq": str(tuple(placed["blocks"]["0"]["wq"].placements)), "kv_k": tuple(kv.k)}
+    plan = PL.make_grpo_plan(**axes) if axes is not None else None
+    mesh = None
+    if tp_pairs:
+        plan = PL.make_grpo_plan(tp=2)
+        mesh = init_device_mesh("cpu", (dist.get_world_size() // 2, 2),
+                                mesh_dim_names=("dp", "tp"))["tp"]
+    seqs = [np.asarray(s) for s in seqs]
+    gkw = dict(max_new_tokens=max_new, pad_id=0, eos_id=None, prompt_buckets=(16,),
+               decode_chunk=4, sharding_plan=plan, mesh=mesh, device="cpu")
+    bg = BucketedGenerator(cfg, row_buckets=(8,), **gkw)
+    placed = bg.place_params(params_from_numpy(params, cfg, device="cpu"))
+    cg = ContinuousGenerator(cfg, slots=4, block_size=8, **gkw)
+    out = {}
+    with collective_log() as log:
+        out["bucketed"] = bg.generate(seqs, key, placed, greedy=greedy)[:2]
+        out["continuous"] = cg.generate(seqs, key, placed, greedy=greedy)[:2]
+    out["gathers"] = sorted({shape for op, shape in log if "gather" in op})
+    dense = M.init_caches(cfg, 8, 16 + max_new, device="meta")
+    out["dense_whole_bytes"] = M.cache_bytes(dense)
+    out["pool_whole_bytes"] = 2 * cg._pool.k.numel() * cg._pool.k.element_size()
+    out["pool_rank_bytes"] = cg.pool_bytes
+    if plan is not None:
+        rank_dense = plan.zeros("kv", dense, bg.mesh, device="cpu")
+        out["dense_rank_bytes"] = M.cache_bytes(rank_dense)
+        out["dense_placements"] = str(tuple(rank_dense.k.placements))
+        out["pool_placements"] = str(tuple(cg._pool.k.placements))
+        out["wq"] = str(tuple(placed["blocks"]["0"]["wq"].placements))
+        out["kv_k"] = tuple(plan.resolve("kv", dense, bg.mesh).k)
+        out["tp_weights"] = sorted({tuple(w.to_local().shape)
+                                    for blk in placed["blocks"].values() for w in blk.values()
+                                    if any(p.is_shard() for p in w.placements)})
+    worker = PrefillWorker.matching(cg, sharding_plan=plan, mesh=mesh)
+    replica = ContinuousGenerator(cfg, slots=4, block_size=8, **gkw)
+    tickets, out["kv_heads"] = [], []
+    for i, s in enumerate(seqs):
+        payload = worker.prefill(s, (key, i), placed, greedy=greedy)
+        out["kv_heads"].append(payload["kv_heads"])
+        out["payload_heads"] = payload["k"].shape[2]
+        tickets.append(replica.submit_prefilled(
+            payload["tokens"], k_prompt=payload["k"], v_prompt=payload["v"],
+            tok0=payload["tok0"], done0=payload["done0"], key_next=payload["key_next"],
+            key=(key, i), kv_heads=payload["kv_heads"]))
+    replica.run_until_drained(placed, greedy=greedy)
+    out["handoff"] = np.stack([replica.result(t)[0] for t in tickets])
+    if admission:
+        from agilerl_tpu_torch.analysis import SyncGuard
+
+        out["admission_syncs"] = {}
+        for k in (1, 4):
+            gen = ContinuousGenerator(cfg, slots=4, block_size=8, **gkw)
+            for x in seqs[:k]:
+                gen.submit(x)
+            with SyncGuard(device="cpu") as guard:
+                gen.step(placed, greedy=greedy)
+            out["admission_syncs"][k] = guard.syncs
+    return out
 
 
 def evoppo(device="cpu"):
@@ -259,6 +335,36 @@ def grpo_sp_learn(cfg_kw, base, actor, reference, batch, kw, sp, flash):
         return {"refused": str(e)}
     return {"loss": loss, "kl": kl, "actor": tree_to_numpy(agent.actor.params),
             "adam": tree_to_numpy(agent.optimizer.opt_state), "grad": grads[0]}
+
+
+def grpo_sp_remat(cfg_kw, base, actor, reference, batch, kw, sp):
+    """One sp learn (flash engine) with ``remat`` off and on: each one's
+    loss, the gradient its optimizer step took, and the flash forwards and
+    backwards it ran on this rank."""
+    from agilerl_tpu_torch.ops import flash_attention_vjp as fa
+
+    out = {}
+    for remat in (False, True):
+        agent = _agent(dict(cfg_kw, use_flash_attention=True, remat=remat), base, actor,
+                       reference, dict(kw, sequence_parallel_axis="sp"))
+        agent.to_mesh(mesh=sp_mesh(sp))
+        grads = capture_grads(agent)
+        calls = {"fwd": 0, "bwd": 0}
+        real = {"fwd": fa._fwd, "bwd": fa._bwd}
+
+        def counted(name):
+            def call(*a):
+                calls[name] += 1
+                return real[name](*a)
+            return call
+
+        fa._fwd, fa._bwd = counted("fwd"), counted("bwd")
+        try:
+            loss, _ = agent.learn(batch)
+        finally:
+            fa._fwd, fa._bwd = real["fwd"], real["bwd"]
+        out[remat] = {"loss": loss, "grad": grads[0], "calls": calls}
+    return out
 
 
 # --------------------------------------------------------------------------- #
