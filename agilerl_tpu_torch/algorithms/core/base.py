@@ -145,6 +145,20 @@ class EvolvableAlgorithm:
     def _clear_jit_cache(self) -> None:
         self._jit_cache = {}
 
+    # -- distributed shims ------------------------------------------------ #
+    def wrap_models(self) -> None:
+        """Nothing to wrap: a sharding plan (``GRPO.to_mesh``) places the
+        weights, as GSPMD does in the JAX package (Accelerate's DDP
+        wrapping in the original)."""
+
+    def unwrap_models(self) -> None:
+        """Nothing to unwrap (see ``wrap_models``)."""
+
+    def recompile(self) -> None:
+        """Drop the cached learn and act callables; they are built again at
+        their next use (the JAX package drops its jit caches)."""
+        self._clear_jit_cache()
+
     # -- mutation plumbing ---------------------------------------------- #
     def reinit_optimizers(self) -> None:
         """Re-init all optimizer states for the current parameter shapes."""

@@ -430,6 +430,13 @@ class OptimizerWrapper:
         self.tx = self._build()
 
     @torch.no_grad()
+    def state_dict(self) -> Any:
+        """The optimizer state tree (what the checkpoints carry)."""
+        return self.opt_state
+
+    def load_state_dict(self, state: Any) -> None:
+        self.opt_state = state
+
     def update(self, grads: Tree, params: Tree) -> Tree:
         updates, self.opt_state = self.tx.update(grads, self.opt_state, params)
         return apply_updates(params, updates)

@@ -62,8 +62,14 @@ from agilerl_tpu_torch.utils.tree import tree_copy, tree_from_numpy, tree_map, t
 
 
 def _plain(x: Any) -> Any:
-    """A DTensor as its whole plain tensor; anything else as it is."""
-    return x.full_tensor() if isinstance(x, DTensor) else x
+    """A DTensor as its whole plain tensor (its pending sums all-reduced,
+    its shards gathered through ``parallel/comm``, never DTensor's own
+    all-gather); anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    from agilerl_tpu_torch.parallel.comm import gather_dtensor
+
+    return gather_dtensor(x).to_local()
 
 
 def _like_placed(new: Any, old: Any) -> Any:
@@ -580,12 +586,22 @@ class GRPO(EvolvableAlgorithm):
             plan = PL.grpo_plan_for_mesh(mesh)
         plan, mesh = PL.resolve_plan_and_mesh(plan, mesh, device=self.dev)
         self._clear_jit_cache()
-        self.base_params = plan.place("params", self.base_params, mesh)
-        self.actor.params = plan.place("lora", self.actor.params, mesh)
-        self.reference.params = plan.place("lora", self.reference.params, mesh)
-        self.optimizer.opt_state = plan.place("optimizer", self.optimizer.opt_state, mesh)
+        heads = (self.model_config.n_head, self.model_config.kv_heads)  # whole heads
+        self.base_params = plan.place("params", self.base_params, mesh, heads=heads)
+        self.actor.params = plan.place("lora", self.actor.params, mesh, heads=heads)
+        self.reference.params = plan.place("lora", self.reference.params, mesh, heads=heads)
+        self.optimizer.opt_state = plan.place("optimizer", self.optimizer.opt_state, mesh,
+                                              heads=heads)
         self.mesh = mesh
         self.sharding_plan = plan
+
+    def clean_up(self) -> None:
+        """Drop the cached callables and the generators built for rollouts;
+        the weights free with the agent (the DeepSpeed teardown of the
+        original has no counterpart)."""
+        self._clear_jit_cache()
+        self._bucketed_gen = self._bucketed_gen_knobs = None
+        self._continuous_gen = self._continuous_gen_knobs = None
 
     def learn(self, experiences: Tuple) -> Tuple[float, float]:
         """experiences = (ids, action_masks, rewards[, attention_mask]):

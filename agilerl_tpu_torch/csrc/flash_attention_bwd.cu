@@ -65,6 +65,14 @@
 // 256 a bf16 block owns half of the output columns (two blocks per tile,
 // each recomputing the scores over the whole of d), so that dQ, or dK and
 // dV, keep the 64 accumulator registers a thread they take at d = 128.
+// Past 256 (any multiple of 64, no upper limit) the wide kernels extend that
+// mechanism: ceil(d / 128) column-group blocks a tile, each recomputing S
+// and dP over 64-column chunks of its operands streamed through a ring of
+// 32 KB units (the tiles of d = 256's kernels no longer fit beside the
+// ring), then taking the group's columns of the output products' B
+// operands as a unit of their own. dK/dV runs each q tile's two 32-query
+// halves as two passes over the chunks (the registers of both halves' S
+// and dP beside dK and dV would not fit).
 //
 // What bounds it on the H100. At the GRPO learn shapes ([16, 32/8, 320, 128]
 // bf16) the bytes (q, k, v, dO, lse, D read once; dQ or dK/dV written once)
@@ -704,6 +712,637 @@ __global__ void __launch_bounds__(NT) flash_dkv_f32_kernel(const Params p) {
   }
 }
 
+// --------------------- wide head dims (d > 256): both types ----------------- //
+//
+// As at d = 256, a block owns one column group of its output (OD = 128
+// columns of dQ, or of dK and dV), so the accumulators keep the registers
+// they take at d = 128, and recomputes the score-sized products (S and dP)
+// over the whole of d. Past 256 the operand tiles no longer fit in shared
+// memory beside the ring, so those products are accumulated over 64-column
+// chunks of their operands streamed through it, and the group's columns of
+// the output products' B operands come as a unit of their own.
+
+constexpr int WIDE_OD = 128;  // output columns a backward block owns
+
+// bf16 dQ: per kv tile, units of (Q, dO, K, V) chunk c, then the group's
+// columns of K (nb boxes; past d none is loaded, and the accumulator columns
+// they would feed are never stored).
+__global__ void __launch_bounds__(WG_NT, 1)
+    flash_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap to, const Params p, int d) {
+  constexpr int OD = WIDE_OD;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int nc = d / 64;
+  const int ng = (d + OD - 1) / OD;
+  const int nt = (p.T + BQ - 1) / BQ;
+  const int cg = blockIdx.x % ng;
+  const int blk = blockIdx.x / ng;
+  const int slot = blk / (p.B * p.H);
+  const int qt = p.causal ? nt - 1 - slot : slot;
+  const int b = blk / p.H % p.B;
+  const int h = blk % p.H;
+  const int q0 = qt * BQ;
+  const int hk = h / (p.H / p.Hkv);
+  const int limit = p.causal ? min(q0 + BQ - 1, p.T - 1) : p.T - 1;
+  const int kt_end = p.causal ? qt + 1 : nt;
+  const int nb = min(OD / 64, nc - cg * (OD / 64));
+  const Ring ring = ring_setup(smem_raw, p.mask, p.T, b, 0, kt_end);
+  const int* first = ring.first;
+
+  if (threadIdx.x >= NCONS) {  // producer warp: one thread issues every load
+    if (threadIdx.x == NCONS) {
+      WPipe pipe;
+      for (int kt = 0; kt < kt_end; ++kt) {
+        if (first[kt] > limit) continue;
+        for (int c = 0; c < nc; ++c) {
+          const BoxLoad l4[4] = {{&tq, c * 64, q0, h}, {&to, c * 64, q0, h},
+                                 {&tk, c * 64, kt * BK, hk}, {&tv, c * 64, kt * BK, hk}};
+          feed(ring, pipe, l4, 4, b);
+        }
+        BoxLoad kl[OD / 64];
+#pragma unroll
+        for (int i = 0; i < OD / 64; ++i)
+          kl[i] = BoxLoad{&tk, (cg * (OD / 64) + i) * 64, kt * BK, hk};
+        feed(ring, pipe, kl, nb, b);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int c0 = (lane & 3) * 2;
+  const long long bh = (long long)b * p.H + h;
+  int qrow[2];
+  float lse_r[2], dd_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qrow[i] = q0 + r0 + 8 * i;
+    const bool real = qrow[i] < p.T;
+    lse_r[i] = real ? p.lse[bh * p.T + qrow[i]] : 0.f;
+    dd_r[i] = real ? p.dd[bh * p.T + qrow[i]] : 0.f;
+  }
+  float acc[OD / 2];
+#pragma unroll
+  for (int j = 0; j < OD / 2; ++j) acc[j] = 0.f;
+
+  WPipe pipe;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (first[kt] > limit) continue;
+    const int k0 = kt * BK;
+    unsigned vis = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      vis |= (unsigned)key_visible(p.mask, p.T, b, k0 + (i >> 1) * 8 + c0 + (i & 1)) << i;
+
+    // S = Q K^T and dP = dO V^T over the chunks of d
+    float s[32], dp[32];
+    for (int c = 0; c < nc; ++c) {
+      mbar_wait(ring.full(pipe.stage), pipe.phase);
+      const uint32_t u = ring.unit(pipe.stage);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss(s, desc_sw128(u + kk * 32), desc_sw128(u + 2 * BOX + kk * 32), c > 0 || kk > 0);
+        wgmma_ss(dp, desc_sw128(u + BOX + kk * 32), desc_sw128(u + 3 * BOX + kk * 32),
+                 c > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      mbar_arrive(ring.empty(pipe.stage));
+      pipe.advance();
+    }
+
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int i = (j >> 1) & 1;
+      const int col = (j >> 2) * 8 + c0 + (j & 1);
+      const bool ok =
+          ((vis >> (2 * (j >> 2) + (j & 1))) & 1u) && (!p.causal || k0 + col <= qrow[i]);
+      const float pr = ok ? expf(s[j] * p.scale - lse_r[i]) : 0.f;
+      s[j] = pr * (dp[j] - dd_r[i]);
+    }
+
+    // dQ += round(dS) K over the group's columns (K read as stored)
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], s, kk);
+    mbar_wait(ring.full(pipe.stage), pipe.phase);
+    const uint32_t ks = ring.unit(pipe.stage);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], desc_sw128_mn(ks + kk * 2048, BOX), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_a(a);
+    mbar_arrive(ring.empty(pipe.stage));
+    pipe.advance();
+  }
+
+  bf16* dq = static_cast<bf16*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qrow[i] < p.T) {
+      const long long at = (bh * p.T + qrow[i]) * d;
+#pragma unroll
+      for (int n = 0; n < OD / 8; ++n) {
+        const int col = cg * OD + n * 8 + c0;
+        if (col < d)
+          *reinterpret_cast<uint32_t*>(&dq[at + col]) =
+              pack_bf16(acc[4 * n + 2 * i] * p.scale, acc[4 * n + 2 * i + 1] * p.scale);
+      }
+    }
+  }
+}
+
+// bf16 dK/dV: per (query head of the group, q tile, half of 32 queries),
+// units of (K, V, Q, dO) chunk c, then the group's columns of Q and dO (Q at
+// boxes 0-1, dO at 2-3 of the unit).
+__global__ void __launch_bounds__(WG_NT, 1)
+    flash_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap to, const Params p, int d) {
+  constexpr int OD = WIDE_OD;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int nc = d / 64;
+  const int ng = (d + OD - 1) / OD;
+  const int nt = (p.T + BK - 1) / BK;
+  const int cg = blockIdx.x % ng;
+  const int blk = blockIdx.x / ng;
+  const int kt = blk / (p.B * p.Hkv);
+  const int b = blk / p.Hkv % p.B;
+  const int hk = blk % p.Hkv;
+  const int k0 = kt * BK;
+  const int rep = p.H / p.Hkv;
+  const long long bk = (long long)b * p.Hkv + hk;
+  const int nb = min(OD / 64, nc - cg * (OD / 64));
+  const int cols = nb * 64;  // the group's columns below d
+  const Ring ring = ring_setup(smem_raw, p.mask, p.T, b, kt, kt + 1);
+  const int f = ring.first[kt];
+
+  if (f >= p.T) {  // no visible key in this kv tile: dK = dV = 0
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    const int rows = min(BK, p.T - k0);
+    for (int e = threadIdx.x; e < rows * (cols / 8); e += WG_NT) {
+      const long long at = (bk * p.T + k0 + e / (cols / 8)) * d + cg * OD + (e % (cols / 8)) * 8;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(p.dk) + at) = zero;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(p.dv) + at) = zero;
+    }
+    return;
+  }
+  const int qt0 = p.causal ? f / BQ : 0;
+
+  if (threadIdx.x >= NCONS) {  // producer warp: one thread issues every load
+    if (threadIdx.x == NCONS) {
+      WPipe pipe;
+      for (int h = hk * rep; h < (hk + 1) * rep; ++h) {
+        for (int qt = qt0; qt < nt; ++qt) {
+          for (int half = 0; half < 2; ++half) {
+            for (int c = 0; c < nc; ++c) {
+              const BoxLoad l4[4] = {{&tk, c * 64, k0, hk}, {&tv, c * 64, k0, hk},
+                                     {&tq, c * 64, qt * BQ, h}, {&to, c * 64, qt * BQ, h}};
+              feed(ring, pipe, l4, 4, b);
+            }
+            BoxLoad ql[2 * (OD / 64)];
+#pragma unroll
+            for (int i = 0; i < OD / 64; ++i) {
+              const int col = (cg * (OD / 64) + i) * 64;
+              ql[i] = BoxLoad{&tq, col, qt * BQ, h};
+              ql[OD / 64 + i] = BoxLoad{&to, col, qt * BQ, h};
+            }
+            if (nb < OD / 64) ql[nb] = ql[OD / 64];  // one box each: dO follows Q's
+            feed(ring, pipe, ql, 2 * nb, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int c0 = (lane & 3) * 2;
+  int key[2], kvis[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + r0 + 8 * i;
+    kvis[i] = key_visible(p.mask, p.T, b, key[i]);
+  }
+  float dk[OD / 2], dv[OD / 2];
+#pragma unroll
+  for (int j = 0; j < OD / 2; ++j) dk[j] = dv[j] = 0.f;
+  // where the group's dO columns start in its unit (right after Q's)
+  const uint32_t o_at = nb * BOX;
+
+  WPipe pipe;
+  for (int h = hk * rep; h < (hk + 1) * rep; ++h) {
+    const float* lse = p.lse + ((long long)b * p.H + h) * p.T;
+    const float* ddh = p.dd + ((long long)b * p.H + h) * p.T;
+    for (int qt = qt0; qt < nt; ++qt) {
+      const int q0 = qt * BQ;
+      for (int half = 0; half < 2; ++half) {
+        float lq[8], dq_[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int q = q0 + half * 32 + (i >> 1) * 8 + c0 + (i & 1);
+          lq[i] = q < p.T ? lse[q] : 0.f;
+          dq_[i] = q < p.T ? ddh[q] : 0.f;
+        }
+        // S^T = K Q^T and dP^T = V dO^T over the chunks of d: 64 keys x 32 queries
+        float s[16], dp[16];
+        for (int c = 0; c < nc; ++c) {
+          mbar_wait(ring.full(pipe.stage), pipe.phase);
+          const uint32_t u = ring.unit(pipe.stage);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_ss(s, desc_sw128(u + kk * 32),
+                     desc_sw128(u + 2 * BOX + half * 32 * 128 + kk * 32), c > 0 || kk > 0);
+            wgmma_ss(dp, desc_sw128(u + BOX + kk * 32),
+                     desc_sw128(u + 3 * BOX + half * 32 * 128 + kk * 32), c > 0 || kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(s);
+          fence_acc(dp);
+          mbar_arrive(ring.empty(pipe.stage));
+          pipe.advance();
+        }
+
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int i = (j >> 1) & 1;
+          const int col = 2 * (j >> 2) + (j & 1);
+          const int q = q0 + half * 32 + (j >> 2) * 8 + c0 + (j & 1);
+          const bool ok = kvis[i] && q < p.T && (!p.causal || key[i] <= q);
+          const float pr = ok ? expf(s[j] * p.scale - lq[col]) : 0.f;
+          s[j] = pr;
+          dp[j] = pr * (dp[j] - dq_[col]);
+        }
+
+        // dV += round(P^T) dO and dK += round(dS^T) Q over the group's columns
+        uint32_t pa[2][4], da[2][4];
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq) {
+          acc_to_a(pa[kq], s, kq);
+          acc_to_a(da[kq], dp, kq);
+        }
+        mbar_wait(ring.full(pipe.stage), pipe.phase);
+        const uint32_t u = ring.unit(pipe.stage);
+        fence_acc(dv);
+        fence_acc(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq) {
+          const uint32_t off = (half * 32 + kq * 16) * 128;
+          wgmma_rs(dv, pa[kq], desc_sw128_mn(u + o_at + off, BOX), 1);
+          wgmma_rs(dk, da[kq], desc_sw128_mn(u + off, BOX), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dv);
+        fence_acc(dk);
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kq][i]), "+r"(da[kq][i])::"memory");
+        mbar_arrive(ring.empty(pipe.stage));
+        pipe.advance();
+      }
+    }
+  }
+
+  bf16* dkg = static_cast<bf16*>(p.dk);
+  bf16* dvg = static_cast<bf16*>(p.dv);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] < p.T) {
+      const long long at = (bk * p.T + key[i]) * d;
+#pragma unroll
+      for (int n = 0; n < OD / 8; ++n) {
+        const int col = cg * OD + n * 8 + c0;
+        if (col < d) {
+          const int j = 4 * n + 2 * i;
+          *reinterpret_cast<uint32_t*>(&dkg[at + col]) =
+              pack_bf16(dk[j] * p.scale, dk[j + 1] * p.scale);
+          *reinterpret_cast<uint32_t*>(&dvg[at + col]) = pack_bf16(dv[j], dv[j + 1]);
+        }
+      }
+    }
+  }
+}
+
+// f32: FMAs as the built head dims' kernels, R = 64 rows a tile; the
+// score-sized products over 64-column chunks staged transposed ([C][R + 1]),
+// the output products' B operands over the group's columns ([OD][R + 1]).
+constexpr int WIDE_C = 64;
+
+// rows [r0, r0 + R) x columns [c0, c0 + C) of a [T, d] slice (row stride
+// st) into dst[C][R + 1], transposed; rows at or past T and columns at or
+// past d read as 0
+template <int R, int C>
+__device__ __forceinline__ void load_cols_t(float* dst, const float* src, long long st, int r0,
+                                            int seq, int c0, int d) {
+  constexpr int LD = R + 1;
+  for (int e = threadIdx.x; e < R * C; e += NT) {
+    const int r = e / C, c = e - (e / C) * C;
+    const int row = r0 + r, col = c0 + c;
+    dst[c * LD + r] = row < seq && col < d ? src[row * st + col] : 0.f;
+  }
+}
+
+constexpr int dq_wide_smem_bytes() {
+  // Qc, dOc, Kc, Vc [C][LD]; Ks [OD][LD]; dS [R][LD]; lse, D, visibility [R]
+  constexpr int R = 64, LD = R + 1;
+  return (4 * WIDE_C * LD + WIDE_OD * LD + R * LD + 2 * R) * 4 + R * 4;
+}
+
+constexpr int dkv_wide_smem_bytes() {
+  // Kc, Vc, Qc, dOc [C][LD]; Qs, dOs [OD][LD]; P^T, dS^T [R][LD]; lse, D,
+  // visibility [R]
+  constexpr int R = 64, LD = R + 1;
+  return (4 * WIDE_C * LD + 2 * WIDE_OD * LD + 2 * R * LD + 2 * R) * 4 + R * 4;
+}
+
+__global__ void __launch_bounds__(NT) flash_dq_f32_wide_kernel(const Params p, int d) {
+  constexpr int R = 64, LD = R + 1, C = WIDE_C, OD = WIDE_OD;
+  constexpr int RI = R / 16, CJ = R / 16, OJ = OD / 16;
+  extern __shared__ float smem[];
+  float* Qc = smem;
+  float* Oc = Qc + C * LD;
+  float* Kc = Oc + C * LD;
+  float* Vc = Kc + C * LD;
+  float* Ks = Vc + C * LD;  // [OD][LD]: the group's columns of K, transposed
+  float* Ss = Ks + OD * LD;
+  float* row_lse = Ss + R * LD;
+  float* row_dd = row_lse + R;
+  int* pm = reinterpret_cast<int*>(row_dd + R);
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const int ng = (d + OD - 1) / OD;
+  const int cg = blockIdx.x % ng;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = (blockIdx.x / ng) * R;
+  const int seq = p.T;
+
+  const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* og = static_cast<const float*>(p.dout) + b * p.sob + h * p.soh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.skb + hk * p.skh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.svb + hk * p.svh;
+  if (tid < R) {
+    const int row = q0 + tid;
+    const long long at = (long long)bh * seq + row;
+    row_lse[tid] = row < seq ? p.lse[at] : 0.f;
+    row_dd[tid] = row < seq ? p.dd[at] : 0.f;
+  }
+
+  float acc[RI][OJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < OJ; ++j) acc[i][j] = 0.f;
+
+  const int kv_end = p.causal ? min(seq, q0 + R) : seq;
+  for (int k0 = 0; k0 < kv_end; k0 += R) {
+    float s[RI][CJ], dp[RI][CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int cc = 0; cc < d; cc += C) {
+      __syncthreads();  // the previous chunk's (or tile's) readers are done
+      load_cols_t<R, C>(Qc, qg, p.sqt, q0, seq, cc, d);
+      load_cols_t<R, C>(Oc, og, p.sot, q0, seq, cc, d);
+      load_cols_t<R, C>(Kc, kg, p.skt, k0, seq, cc, d);
+      load_cols_t<R, C>(Vc, vg, p.svt, k0, seq, cc, d);
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < C; ++kk) {
+        float qv[RI], ov[RI], kv[CJ], vv[CJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          qv[i] = Qc[kk * LD + ty + 16 * i];
+          ov[i] = Oc[kk * LD + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          kv[j] = Kc[kk * LD + tx + 16 * j];
+          vv[j] = Vc[kk * LD + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+          }
+      }
+    }
+    load_cols_t<R, OD>(Ks, kg, p.skt, k0, seq, cg * OD, d);
+    if (tid < R) pm[tid] = key_visible(p.mask, p.T, b, k0 + tid);
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty + 16 * i;
+      const int qrow = q0 + r;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int col = tx + 16 * j;
+        const bool ok = pm[col] && (!p.causal || k0 + col <= qrow);
+        const float pr = ok ? expf(s[i][j] * p.scale - row_lse[r]) : 0.f;
+        Ss[r * LD + col] = pr * (dp[i][j] - row_dd[r]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < R; ++kk) {
+      float sv[RI], kv[OJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) sv[i] = Ss[(ty + 16 * i) * LD + kk];
+#pragma unroll
+      for (int j = 0; j < OJ; ++j) kv[j] = Ks[(tx + 16 * j) * LD + kk];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < OJ; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
+    }
+  }
+
+  float* dq = static_cast<float*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row < seq) {
+      const long long base = ((long long)bh * seq + row) * d;
+#pragma unroll
+      for (int j = 0; j < OJ; ++j) {
+        const int col = cg * OD + tx + 16 * j;
+        if (col < d) dq[base + col] = acc[i][j] * p.scale;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT) flash_dkv_f32_wide_kernel(const Params p, int d) {
+  constexpr int R = 64, LD = R + 1, C = WIDE_C, OD = WIDE_OD;
+  constexpr int RI = R / 16, CJ = R / 16, OJ = OD / 16;
+  extern __shared__ float smem[];
+  float* Kc = smem;
+  float* Vc = Kc + C * LD;
+  float* Qc = Vc + C * LD;
+  float* Oc = Qc + C * LD;
+  float* Qs = Oc + C * LD;  // [OD][LD]: the group's columns of Q, transposed
+  float* Os = Qs + OD * LD;  // and of dO
+  float* Ps = Os + OD * LD;  // P^T  [key][query]
+  float* Ss = Ps + R * LD;   // dS^T [key][query]
+  float* row_lse = Ss + R * LD;
+  float* row_dd = row_lse + R;
+  int* pm = reinterpret_cast<int*>(row_dd + R);
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const int ng = (d + OD - 1) / OD;
+  const int cg = blockIdx.x % ng;
+  const int bk = blockIdx.y;
+  const int b = bk / p.Hkv;
+  const int hk = bk - b * p.Hkv;
+  const int rep = p.H / p.Hkv;
+  const int k0 = (blockIdx.x / ng) * R;
+  const int seq = p.T;
+
+  const float* kg = static_cast<const float*>(p.k) + b * p.skb + hk * p.skh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.svb + hk * p.svh;
+  if (tid < R) pm[tid] = key_visible(p.mask, p.T, b, k0 + tid);
+
+  float dk[RI][OJ], dv[RI][OJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < OJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  const int q_start = p.causal ? (k0 / R) * R : 0;
+  for (int h = hk * rep; h < (hk + 1) * rep; ++h) {
+    const int bh = b * p.H + h;
+    const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+    const float* og = static_cast<const float*>(p.dout) + b * p.sob + h * p.soh;
+    for (int q0 = q_start; q0 < seq; q0 += R) {
+      float s[RI][CJ], dp[RI][CJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int cc = 0; cc < d; cc += C) {
+        __syncthreads();  // the previous chunk's (or tile's) readers are done
+        load_cols_t<R, C>(Kc, kg, p.skt, k0, seq, cc, d);
+        load_cols_t<R, C>(Vc, vg, p.svt, k0, seq, cc, d);
+        load_cols_t<R, C>(Qc, qg, p.sqt, q0, seq, cc, d);
+        load_cols_t<R, C>(Oc, og, p.sot, q0, seq, cc, d);
+        __syncthreads();
+#pragma unroll 4
+        for (int kk = 0; kk < C; ++kk) {
+          float kv[RI], vv[RI], qv[CJ], ov[CJ];
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+            kv[i] = Kc[kk * LD + ty + 16 * i];
+            vv[i] = Vc[kk * LD + ty + 16 * i];
+          }
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) {
+            qv[j] = Qc[kk * LD + tx + 16 * j];
+            ov[j] = Oc[kk * LD + tx + 16 * j];
+          }
+#pragma unroll
+          for (int i = 0; i < RI; ++i)
+#pragma unroll
+            for (int j = 0; j < CJ; ++j) {
+              s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+              dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+            }
+        }
+      }
+      load_cols_t<R, OD>(Qs, qg, p.sqt, q0, seq, cg * OD, d);
+      load_cols_t<R, OD>(Os, og, p.sot, q0, seq, cg * OD, d);
+      if (tid < R) {
+        const int row = q0 + tid;
+        const long long at = (long long)bh * seq + row;
+        row_lse[tid] = row < seq ? p.lse[at] : 0.f;
+        row_dd[tid] = row < seq ? p.dd[at] : 0.f;
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int key = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          const int qi = tx + 16 * j;
+          const int qrow = q0 + qi;
+          const bool ok = pm[key] && qrow < seq && (!p.causal || k0 + key <= qrow);
+          const float pr = ok ? expf(s[i][j] * p.scale - row_lse[qi]) : 0.f;
+          Ps[key * LD + qi] = pr;
+          Ss[key * LD + qi] = pr * (dp[i][j] - row_dd[qi]);
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int kk = 0; kk < R; ++kk) {
+        float pv[RI], sv[RI], ov[OJ], qv[OJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          pv[i] = Ps[(ty + 16 * i) * LD + kk];
+          sv[i] = Ss[(ty + 16 * i) * LD + kk];
+        }
+#pragma unroll
+        for (int j = 0; j < OJ; ++j) {
+          ov[j] = Os[(tx + 16 * j) * LD + kk];
+          qv[j] = Qs[(tx + 16 * j) * LD + kk];
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < OJ; ++j) {
+            dv[i][j] = fmaf(pv[i], ov[j], dv[i][j]);
+            dk[i][j] = fmaf(sv[i], qv[j], dk[i][j]);
+          }
+      }
+    }
+  }
+
+  float* dkg = static_cast<float*>(p.dk);
+  float* dvg = static_cast<float*>(p.dv);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key < seq) {
+      const long long base = ((long long)bk * seq + key) * d;
+#pragma unroll
+      for (int j = 0; j < OJ; ++j) {
+        const int col = cg * OD + tx + 16 * j;
+        if (col < d) {
+          dkg[base + col] = dk[i][j] * p.scale;
+          dvg[base + col] = dv[i][j];
+        }
+      }
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int bytes, dim3 grid, const Params& p,
                    cudaStream_t stream) {
@@ -735,6 +1374,36 @@ cudaError_t launch_wgmma(Kernel kernel, int heads, const Params& p, cudaStream_t
   return cudaGetLastError();
 }
 
+// The wide kernels (d > 256, a multiple of 64): bf16 through tensor maps of
+// q, k, v and dO, one block per (column group, tile, b, head); f32 on a grid
+// of (tiles x column groups, b x heads).
+template <typename Wide, typename WideF32>
+cudaError_t launch_wide(Wide kernel, WideF32 kernel_f32, int f32_bytes, int heads,
+                        const Params& p, int d, int is_bf16, cudaStream_t stream) {
+  const int nt = (p.T + BK - 1) / BK;
+  const int ng = (d + WIDE_OD - 1) / WIDE_OD;
+  if (!is_bf16) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, f32_bytes);
+    if (e != cudaSuccess) return e;
+    kernel_f32<<<dim3(nt * ng, p.B * heads), NT, f32_bytes, stream>>>(p, d);
+    return cudaGetLastError();
+  }
+  const int bytes = wide_smem_bytes(nt);
+  CUtensorMap tq, tk, tv, to;
+  int err = make_map_bf16_4d(&tq, p.q, p.B, p.H, p.T, d, p.sqb, p.sqh, p.sqt, BQ);
+  if (!err) err = make_map_bf16_4d(&tk, p.k, p.B, p.Hkv, p.T, d, p.skb, p.skh, p.skt, BK);
+  if (!err) err = make_map_bf16_4d(&tv, p.v, p.B, p.Hkv, p.T, d, p.svb, p.svh, p.svt, BK);
+  if (!err) err = make_map_bf16_4d(&to, p.dout, p.B, p.H, p.T, d, p.sob, p.soh, p.sot, BQ);
+  if (err) return static_cast<cudaError_t>(err);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)p.B * nt * heads * ng;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, WG_NT, bytes, stream>>>(tq, tk, tv, to, p, d);
+  return cudaGetLastError();
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* dd, const int* mask, void* dq, void* dk,
                    void* dv, int B, int H, int Hkv, int T, const long long* s, int causal,
@@ -756,6 +1425,9 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v, c
   const Params p = make_params(q, k, v, dout, lse, dd, mask, dq, nullptr, nullptr, B, H, Hkv, T,
                                strides, causal, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d > 256 && d % 64 == 0)
+    return launch_wide(flash_dq_wide_kernel, flash_dq_f32_wide_kernel, dq_wide_smem_bytes(), H,
+                       p, d, is_bf16, st);
   if (is_bf16) {
     if (d == 128) return launch_wgmma<128>(flash_dq_wgmma_kernel<128>, H, p, st);
     if (d == 64) return launch_wgmma<64>(flash_dq_wgmma_kernel<64>, H, p, st);
@@ -779,6 +1451,9 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, 
   const Params p = make_params(q, k, v, dout, lse, dd, mask, nullptr, dk, dv, B, H, Hkv, T,
                                strides, causal, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d > 256 && d % 64 == 0)
+    return launch_wide(flash_dkv_wide_kernel, flash_dkv_f32_wide_kernel, dkv_wide_smem_bytes(),
+                       Hkv, p, d, is_bf16, st);
   if (is_bf16) {
     if (d == 128) return launch_wgmma<128>(flash_dkv_wgmma_kernel<128>, Hkv, p, st);
     if (d == 64) return launch_wgmma<64>(flash_dkv_wgmma_kernel<64>, Hkv, p, st);

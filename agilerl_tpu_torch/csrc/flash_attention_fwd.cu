@@ -58,6 +58,20 @@
 // takes 211 KB of shared memory.
 //   It visits every kv tile up to the causal bound; a row with no visible key
 //   holds the mean of v over the masked keys it met (finite).
+// Past 256 (any multiple of 64; the wrapper pads other d up to one) the wide
+// kernels run, with no upper limit on d. A row's f32 accumulator no longer
+// fits a warpgroup's registers (64 x 512 x 4 B is 128 KB at d = 512, every
+// register of the warpgroup), nor do Q and the K / V ring fit shared memory
+// at d = 1024 (128 KB a 64-row tile). So a block owns a column group of out
+// (WIDE_OD = 256 columns, the accumulator of d = 256) and recomputes the
+// scores over the whole of d: the producer streams 64-column chunks of Q and
+// K through a ring of four 32 KB units (flash_wgmma.cuh's Ring), then the
+// group's columns of V, and the consumer waits for each product before the
+// next (no overlap: a simple kernel first). Every group runs the same score
+// products in the same order, so m, l and the lse group 0 writes agree. The
+// f32 wide kernel does the same with FMAs over 64-column chunks staged
+// transposed. The cost over d = 256's kernels: the scores are computed
+// ceil(d / 256) times.
 //
 // What bounds it on the H100. The work is 4*T^2*d multiply-adds per (b, h),
 // halved by the causal skip; the bytes are q, k, v, out once. At the GRPO
@@ -429,6 +443,319 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(const Params p) {
   }
 }
 
+// --------------------- wide head dims (d > 256): both types ----------------- //
+//
+// A block owns one (b, head, 64-row q tile) and one column group of out: OD
+// columns. The f32 accumulator of a whole row would take the register file
+// (64 x 512 x 4 B = 128 KB at d = 512), so each group's block recomputes the
+// scores over the whole of d, accumulated over 64-column chunks of Q and K
+// streamed through shared memory, and keeps only its own columns of out.
+// Every group computes the same scores in the same order, so m and l, and
+// the lse that group 0 writes, are one value for all of them.
+
+constexpr int WIDE_OD = 256;  // output columns a forward block owns
+
+// bf16: the chunk unit holds Q's and K's boxes c; the V unit the group's
+// columns of V (nb boxes; in a last group narrower than OD the boxes past d
+// are not loaded, and the accumulator columns they feed are never stored:
+// the columns of P V are independent). Each product waits for the one before.
+__global__ void __launch_bounds__(WG_NT, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Params p, int d) {
+  constexpr int OD = WIDE_OD;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int nc = d / 64;
+  const int ng = (d + OD - 1) / OD;
+  const int nt = (p.T + BK - 1) / BK;
+  const int cg = blockIdx.x % ng;
+  const int blk = blockIdx.x / ng;
+  const int slot = blk / (p.B * p.H);
+  const int qt = p.causal ? nt - 1 - slot : slot;
+  const int b = blk / p.H % p.B;
+  const int h = blk % p.H;
+  const int q0 = qt * BQ;
+  const int hk = h / (p.H / p.Hkv);
+  const int limit = p.causal ? min(q0 + BQ - 1, p.T - 1) : p.T - 1;
+  const int kt_end = p.causal ? qt + 1 : nt;
+  const int nb = min(OD / 64, nc - cg * (OD / 64));
+  const Ring ring = ring_setup(smem_raw, p.mask, p.T, b, 0, kt_end);
+  const int* first = ring.first;
+
+  if (threadIdx.x >= NCONS) {  // producer warp: one thread issues every load
+    if (threadIdx.x == NCONS) {
+      WPipe pipe;
+      for (int kt = 0; kt < kt_end; ++kt) {
+        if (first[kt] > limit) continue;
+        for (int c = 0; c < nc; ++c) {
+          const BoxLoad qk[2] = {{&tq, c * 64, q0, h}, {&tk, c * 64, kt * BK, hk}};
+          feed(ring, pipe, qk, 2, b);
+        }
+        BoxLoad vl[OD / 64];
+#pragma unroll
+        for (int i = 0; i < OD / 64; ++i) vl[i] = BoxLoad{&tv, (cg * (OD / 64) + i) * 64, kt * BK, hk};
+        feed(ring, pipe, vl, nb, b);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int c0 = (lane & 3) * 2;
+  const long long bh = (long long)b * p.H + h;
+  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
+  const float scale2 = p.scale * 1.4426950408889634f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float o[OD / 2];
+#pragma unroll
+  for (int j = 0; j < OD / 2; ++j) o[j] = 0.f;
+
+  WPipe pipe;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (first[kt] > limit) continue;
+    const int k0 = kt * BK;
+    unsigned vis = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      vis |= (unsigned)key_visible(p.mask, p.T, b, k0 + (i >> 1) * 8 + c0 + (i & 1)) << i;
+
+    // S = Q K^T over the chunks of d
+    float s[32];
+    for (int c = 0; c < nc; ++c) {
+      mbar_wait(ring.full(pipe.stage), pipe.phase);
+      const uint32_t u = ring.unit(pipe.stage);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(s, desc_sw128(u + kk * 32), desc_sw128(u + BOX + kk * 32), c > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      mbar_arrive(ring.empty(pipe.stage));
+      pipe.advance();
+    }
+
+    // mask and online softmax, as the kernels of the built head dims
+    unsigned ok = 0;
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int i = (j >> 1) & 1;
+      const int col = (j >> 2) * 8 + c0 + (j & 1);
+      const bool seen =
+          ((vis >> (2 * (j >> 2) + (j & 1))) & 1u) && (!p.causal || k0 + col <= qrow[i]);
+      ok |= (unsigned)seen << j;
+      s[j] = seen ? s[j] * scale2 : NEG;
+      mx[i] = fmaxf(mx[i], s[j]);
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int i = (j >> 1) & 1;
+      s[j] = ((ok >> j) & 1u) ? exp2f(s[j] - m[i]) : 0.f;
+      sum[i] += s[j];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+    }
+#pragma unroll
+    for (int j = 0; j < OD / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+
+    // O += round(P) V over the group's columns (V read as stored: MN-major)
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], s, kk);
+    mbar_wait(ring.full(pipe.stage), pipe.phase);
+    const uint32_t vs = ring.unit(pipe.stage);
+    fence_acc(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_wide<OD>(o, a[kk], vs + kk * 2048, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_a(a);
+    mbar_arrive(ring.empty(pipe.stage));
+    pipe.advance();
+  }
+
+  bf16* og = static_cast<bf16*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qrow[i] < p.T) {
+      const float lc = fmaxf(l[i], 1e-30f);
+      const long long row = bh * p.T + qrow[i];
+#pragma unroll
+      for (int n = 0; n < OD / 8; ++n) {
+        const int col = cg * OD + n * 8 + c0;
+        if (col < d)
+          *reinterpret_cast<uint32_t*>(&og[row * d + col]) =
+              pack_bf16(o[4 * n + 2 * i] / lc, o[4 * n + 2 * i + 1] / lc);
+      }
+      if (cg == 0 && (lane & 3) == 0)
+        p.lse[row] = (m[i] == NEG ? NEG : m[i] * 0.6931471805599453f) + logf(lc);
+    }
+  }
+}
+
+// f32: FMAs as the built head dims' kernel, with Q and K staged transposed
+// one 64-column chunk at a time and V staged over the group's columns.
+constexpr int WIDE_C = 64;  // columns of a staged chunk
+
+constexpr int f32_wide_smem_bytes() {
+  // Qt, Kt [C][BQ + 1]; Vs [BK][OD]; Ps [BQ][BK + 1]; key visible [BK]
+  return (2 * WIDE_C * (BQ + 1) + BK * WIDE_OD + BQ * (BK + 1)) * 4 + BK * 4;
+}
+
+__global__ void __launch_bounds__(NT) flash_fwd_f32_wide_kernel(const Params p, int d) {
+  constexpr int OD = WIDE_OD, C = WIDE_C;
+  constexpr int RI = BQ / 16, CJ = BK / 16, OJ = OD / 16;
+  extern __shared__ float smem[];
+  float* Qt = smem;                // [C][BQ + 1]
+  float* Kt = Qt + C * (BQ + 1);   // [C][BK + 1]
+  float* Vs = Kt + C * (BK + 1);   // [BK][OD]
+  float* Ps = Vs + BK * OD;        // [BQ][BK + 1]
+  int* pm = reinterpret_cast<int*>(Ps + BQ * (BK + 1));
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const int ng = (d + OD - 1) / OD;
+  const int cg = blockIdx.x % ng;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = (blockIdx.x / ng) * BQ;
+  const int seq = p.T;
+
+  const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.skb + hk * p.skh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.svb + hk * p.svh;
+
+  float m[RI], l[RI], o[RI][OJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < OJ; ++j) o[i][j] = 0.f;
+  }
+
+  const int kv_end = p.causal ? min(seq, q0 + BQ) : seq;
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    float s[RI][CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+    for (int cc = 0; cc < d; cc += C) {
+      __syncthreads();  // the previous chunk's (or tile's) readers are done
+      for (int e = tid; e < BQ * C; e += NT) {
+        const int r = e / C, c = e - (e / C) * C;
+        const int row = q0 + r;
+        Qt[c * (BQ + 1) + r] = row < seq && cc + c < d ? qg[row * p.sqt + cc + c] : 0.f;
+      }
+      for (int e = tid; e < BK * C; e += NT) {
+        const int r = e / C, c = e - (e / C) * C;
+        const int key = k0 + r;
+        Kt[c * (BK + 1) + r] = key < seq && cc + c < d ? kg[key * p.skt + cc + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < C; ++kk) {
+        float qv[RI], kv[CJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) qv[i] = Qt[kk * (BQ + 1) + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) kv[j] = Kt[kk * (BK + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+    for (int e = tid; e < BK * OD; e += NT) {
+      const int r = e / OD, c = e - (e / OD) * OD;
+      const int key = k0 + r, col = cg * OD + c;
+      Vs[r * OD + c] = key < seq && col < d ? vg[key * p.svt + col] : 0.f;
+    }
+    if (tid < BK) {
+      const int key = k0 + tid;
+      pm[tid] = key < seq && (p.mask == nullptr || p.mask[(long long)b * seq + key] > 0);
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qrow = q0 + ty + 16 * i;
+      float mx = NEG;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int col = tx + 16 * j;
+        const bool ok = pm[col] && (!p.causal || k0 + col <= qrow);
+        s[i][j] = ok ? s[i][j] * p.scale : NEG;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], max16(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const float pr = expf(s[i][j] - m_new);
+        sum += pr;
+        Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = pr;
+      }
+      l[i] = l[i] * alpha + sum16(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < OJ; ++j) o[i][j] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[RI], vv[OJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) pv[i] = Ps[(ty + 16 * i) * (BK + 1) + kk];
+#pragma unroll
+      for (int j = 0; j < OJ; ++j) vv[j] = Vs[kk * OD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < OJ; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
+    }
+  }
+
+  float* og = static_cast<float*>(p.out);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row < seq) {
+      const float lc = fmaxf(l[i], 1e-30f);
+      const long long base = ((long long)bh * seq + row);
+#pragma unroll
+      for (int j = 0; j < OJ; ++j) {
+        const int col = cg * OD + tx + 16 * j;
+        if (col < d) og[base * d + col] = o[i][j] / lc;
+      }
+      if (cg == 0 && tx == 0) p.lse[base] = m[i] + logf(lc);
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int bytes, const Params& p, cudaStream_t stream) {
   cudaError_t err =
@@ -459,6 +786,34 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The wide kernels (d > 256, a multiple of 64): one block per (column
+// group, q tile, b, head).
+cudaError_t launch_wide(const Params& p, int d, int is_bf16, cudaStream_t stream) {
+  const int nt = (p.T + BK - 1) / BK;
+  const int ng = (d + WIDE_OD - 1) / WIDE_OD;
+  if (!is_bf16) {
+    const int bytes = f32_wide_smem_bytes();
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    flash_fwd_f32_wide_kernel<<<dim3(nt * ng, p.B * p.H), NT, bytes, stream>>>(p, d);
+    return cudaGetLastError();
+  }
+  const int bytes = wide_smem_bytes(nt);
+  CUtensorMap tq, tk, tv;
+  int err = make_map_bf16_4d(&tq, p.q, p.B, p.H, p.T, d, p.sqb, p.sqh, p.sqt, BQ);
+  if (!err) err = make_map_bf16_4d(&tk, p.k, p.B, p.Hkv, p.T, d, p.skb, p.skh, p.skt, BK);
+  if (!err) err = make_map_bf16_4d(&tv, p.v, p.B, p.Hkv, p.T, d, p.svb, p.svh, p.svt, BK);
+  if (err) return static_cast<cudaError_t>(err);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wide_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)p.B * p.H * nt * ng;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  flash_fwd_wide_kernel<<<(unsigned)blocks, WG_NT, bytes, stream>>>(tq, tk, tv, p, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns a cudaError_t: 0 when the launch was accepted.
@@ -471,6 +826,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const Params p{q,   k,   v,   mask, out, lse, B,   H,   Hkv,    T,    sqb,
                  sqh, sqt, skb, skh,  skt, svb, svh, svt, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d > 256 && d % 64 == 0) return launch_wide(p, d, is_bf16, st);
   if (is_bf16) {
     if (d == 128) return launch_wgmma<128>(p, st);
     if (d == 64) return launch_wgmma<64>(p, st);

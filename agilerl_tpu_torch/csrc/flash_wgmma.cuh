@@ -13,7 +13,9 @@
 //   mask; tests/test_torch_flash_plan.py holds its plain version);
 // - bf16 wgmma with both operands in shared memory (K-major), and with A
 //   from registers (the accumulator of an earlier product, packed to bf16)
-//   and B MN-major through the transpose bit.
+//   and B MN-major through the transpose bit;
+// - for head dims past 256, the wide kernels' ring of 32 KB units (Ring,
+//   WPipe, feed): any sequence of box loads that both sides walk alike.
 
 #pragma once
 
@@ -207,6 +209,80 @@ struct Pipe {
     }
   }
 };
+
+// Wide head dims (d > 256, any multiple of 64): a block owns a column group
+// of its output and recomputes the scores over the whole of d, streamed in
+// 64-column chunks. Its shared memory is a ring of WSTAGES units of WUNIT
+// boxes (Q and K chunks, or the group's columns of an output operand), a
+// full and an empty mbarrier a unit, then the first visible key of each kv
+// tile. The producer and the consumers walk the same sequence of units.
+constexpr int WSTAGES = 4;
+constexpr int WUNIT = 4;  // boxes a unit: 32 KB
+
+constexpr int wide_smem_bytes(int nt) {
+  return 1024 + WSTAGES * WUNIT * BOX + 2 * WSTAGES * 8 + 4 * nt;
+}
+
+struct Ring {
+  uint32_t base;
+  int* first;
+  __device__ __forceinline__ uint32_t unit(int s) const { return base + s * WUNIT * BOX; }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return base + WSTAGES * WUNIT * BOX + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const { return full(WSTAGES + s); }
+};
+
+// Ring position over WSTAGES units, the same sequence on both sides.
+struct WPipe {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == WSTAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// Aligns the shared memory, initialises the ring's barriers, fills first[kt]
+// for the kv tiles kt0 .. kt1 - 1 (one warp a tile) and syncs the block.
+__device__ __forceinline__ Ring ring_setup(unsigned char* raw, const int* mask, int T, int b,
+                                           int kt0, int kt1) {
+  const uint32_t base = (smem_u32(raw) + 1023u) & ~1023u;
+  Ring r{base, nullptr};
+  r.first = reinterpret_cast<int*>(raw + (r.full(2 * WSTAGES) - smem_u32(raw)));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(r.full(s), 1);
+      mbar_init(r.empty(s), NCONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int kt = kt0 + (int)(threadIdx.x >> 5); kt < kt1; kt += WG_NT / 32)
+    r.first[kt] = first_visible_key(mask, T, b, kt * BK);
+  __syncthreads();
+  return r;
+}
+
+// Producer: the next unit of the ring, filled with n boxes; loads[i] = (map,
+// column, row, head) of box i. Waits until the consumers freed the unit.
+struct BoxLoad {
+  const CUtensorMap* map;
+  int col, row, h;
+};
+
+template <int N>
+__device__ __forceinline__ void feed(const Ring& ring, WPipe& pipe, const BoxLoad (&loads)[N],
+                                     int n, int b) {
+  const uint32_t u = ring.unit(pipe.stage), full = ring.full(pipe.stage);
+  mbar_wait(ring.empty(pipe.stage), pipe.phase ^ 1u);
+  mbar_expect_tx(full, n * BOX);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i < n) tma_load_4d(u + i * BOX, loads[i].map, full, loads[i].col, loads[i].row, loads[i].h, b);
+  pipe.advance();
+}
 
 // Producer: the 64-row tile at row r0 of head h, batch b, as HD / 64 boxes
 template <int HD>

@@ -32,6 +32,11 @@ from agilerl_tpu_torch.utils.rng import derive_key, derive_rng
 from agilerl_tpu_torch.utils.tree import tree_copy, tree_map
 
 
+class MutationError(RuntimeError):
+    """An architecture mutation could not be applied coherently across the
+    agent's networks (the JAX package's name; it raises it nowhere either)."""
+
+
 class Mutations:
     def __init__(
         self,

@@ -61,8 +61,13 @@ def f32_tree_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
 
 def tensor_to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """(host numpy array, dtype name) for ``t``; a bf16 tensor becomes its
-    ``uint16`` bit pattern; a DTensor gives its whole value."""
-    t = (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+    ``uint16`` bit pattern; a DTensor gives its whole value (gathered
+    through ``parallel/comm.gather_dtensor``)."""
+    if hasattr(t, "full_tensor"):
+        from agilerl_tpu_torch.parallel.comm import gather_dtensor
+
+        t = gather_dtensor(t).to_local()
+    t = t.detach()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.uint16), "bfloat16"
     return t.cpu().numpy(), str(t.dtype).replace("torch.", "")

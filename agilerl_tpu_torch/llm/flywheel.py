@@ -83,7 +83,8 @@ def _placed(agent, group: str, tree):
     plan, mesh = getattr(agent, "sharding_plan", None), getattr(agent, "mesh", None)
     if plan is None or mesh is None:
         return tree
-    return plan.place(group, tree, mesh)
+    cfg = agent.model_config
+    return plan.place(group, tree, mesh, heads=(cfg.n_head, cfg.kv_heads))
 
 class WeightStore:
     """Versioned adapter epochs through the commit-dir protocol.

@@ -22,8 +22,11 @@ the pool and returns a new one).
 
 Under a mesh (``parallel/plan.py``) the parameters are DTensors. A block's
 weights are gathered where they are used, over every mesh axis but ``tp``
-(``_at_use``: fsdp's all-gather per layer), so the projections run column-
-and row-parallel over tp by DTensor's sharding propagation; activations are
+(``_at_use``: fsdp's all-gather per layer, through ``parallel/comm``'s plain
+c10d gathers, never DTensor's own), so the projections run column- and
+row-parallel over tp by DTensor's sharding propagation; a tp that does not
+divide the head counts leaves the attention weights whole over tp (the
+plan's ``heads``), and attention then runs replicated over tp; activations are
 DTensors with rows over the data axes, and plain tensors beside them count
 as replicated (``implicit_replication``). The hand-written kernels cannot
 take a DTensor: the flash call and the fused log-probability call run
@@ -455,6 +458,14 @@ def merge_lora(params: Params, lora: Params, scale: float = 2.0) -> Params:
 _DATA_AXES = ("dp", "fsdp")
 
 
+def _gather(w: DTensor, keep: Tuple[str, ...] = ()) -> DTensor:
+    """``w`` whole over every mesh dim but ``keep`` (``comm.gather_dtensor``:
+    never DTensor's own all-gather)."""
+    from agilerl_tpu_torch.parallel.comm import gather_dtensor
+
+    return gather_dtensor(w, keep)
+
+
 def _at_use(w: Any, x: Any) -> Any:
     """A weight where it is used with activations ``x``. A DTensor weight
     beside DTensor activations is gathered over every mesh axis but ``tp``
@@ -463,10 +474,8 @@ def _at_use(w: Any, x: Any) -> Any:
     if not isinstance(w, DTensor):
         return w
     if not isinstance(x, DTensor):
-        return w.full_tensor()
-    pl = tuple(p if n == "tp" else Replicate()
-               for n, p in zip(w.device_mesh.mesh_dim_names, w.placements))
-    return w if pl == tuple(w.placements) else w.redistribute(w.device_mesh, pl)
+        return _gather(w).to_local()
+    return _gather(w, keep=("tp",))
 
 
 def _whole(w: Any, x: Any) -> Any:
@@ -474,9 +483,7 @@ def _whole(w: Any, x: Any) -> Any:
     a replicated DTensor beside DTensor activations, else a plain tensor."""
     if not isinstance(w, DTensor):
         return w
-    if not isinstance(x, DTensor):
-        return w.full_tensor()
-    return w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+    return _gather(w) if isinstance(x, DTensor) else _gather(w).to_local()
 
 
 def _tree_at_use(tree: Any, x: Any) -> Any:
@@ -587,7 +594,11 @@ def _as_pool_local(pool: Any, x: Any, kv_dim: int) -> Any:
 
     pl = _like(pool, {_KV_DIM: kv_dim})
     if isinstance(x, DTensor):
-        return x.redistribute(pool.device_mesh, pl).to_local()
+        # rows gathered through comm (_gather); what is left of the move is
+        # a local slice
+        keep = tuple(n for n, a, b in zip(x.device_mesh.mesh_dim_names, x.placements, pl)
+                     if a == b)
+        return _gather(x, keep).redistribute(pool.device_mesh, pl).to_local()
     return distribute_tensor(x, pool.device_mesh, pl, src_data_rank=None).to_local()
 
 

@@ -132,6 +132,7 @@ class _PlanPlacement:
     sharding_plan = None
     mesh = None
     dev: torch.device
+    config: M.GPTConfig
 
     def _kv(self, group: str, make):
         """``make(device)``'s cache tree on this generator's device, or, under
@@ -143,12 +144,13 @@ class _PlanPlacement:
 
     def place_params(self, params, lora=None):
         """Place weight trees by the plan's ``params`` / ``lora`` rules (as
-        they are without a plan)."""
+        they are without a plan), attention by whole heads."""
         if self.sharding_plan is None:
             return (params, lora) if lora is not None else params
-        params = self.sharding_plan.place("params", params, self.mesh)
+        heads = (self.config.n_head, self.config.kv_heads)
+        params = self.sharding_plan.place("params", params, self.mesh, heads=heads)
         if lora is not None:
-            return params, self.sharding_plan.place("lora", lora, self.mesh)
+            return params, self.sharding_plan.place("lora", lora, self.mesh, heads=heads)
         return params
 
 
@@ -990,6 +992,40 @@ class ContinuousGenerator(_PlanPlacement):
     def admission_reason(self) -> Optional[str]:
         """Why a request arriving NOW would be shed, or None (pure probe)."""
         return self._shed_reason()
+
+    # the admission knobs, read and set through the policy (as the JAX
+    # generator's properties)
+    @property
+    def max_queue(self) -> int:
+        return self.admission.max_queue
+
+    @max_queue.setter
+    def max_queue(self, v: int) -> None:
+        self.admission.max_queue = int(v)
+
+    @property
+    def ttft_slo_s(self) -> Optional[float]:
+        return self.admission.ttft_slo_s
+
+    @ttft_slo_s.setter
+    def ttft_slo_s(self, v: Optional[float]) -> None:
+        self.admission.ttft_slo_s = v
+
+    @property
+    def min_slo_samples(self) -> int:
+        return self.admission.min_slo_samples
+
+    @min_slo_samples.setter
+    def min_slo_samples(self, v: int) -> None:
+        self.admission.min_slo_samples = int(v)
+
+    @property
+    def free_block_watermark(self) -> float:
+        return self.admission.free_block_watermark
+
+    @free_block_watermark.setter
+    def free_block_watermark(self, v: float) -> None:
+        self.admission.free_block_watermark = float(v)
 
     def _observe_ttft(self, ttft_s: float) -> None:
         with self._submit_lock:

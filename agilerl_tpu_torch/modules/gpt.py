@@ -13,7 +13,8 @@ the module's generator and copies the old weights' overlapping slabs in
 ``config.use_flash_attention`` routes the non-cached attention through the
 flash kernels (``ops/flash_attention_vjp.py``: forward, dQ and dK/dV on CUDA
 tensors); a node mutation moves the head dim (``d_model / n_head``), and the
-kernels take every head dim up to 256. Parameters live on ``device`` (the
+kernels take every head dim, past 256 too (``max_d_model=1024`` with one
+head: head dim 1024). Parameters live on ``device`` (the
 card when None, raising without one), block weights in ``config.dtype``,
 the head in f32 (``llm/model.init_params``).
 """

@@ -25,13 +25,16 @@ the TPU kernel ``_fwd_kernel``) and ``csrc/flash_attention_bwd.cu``
 (``_dq_kernel`` and ``_dkv_kernel``).
 
 Head dims: the TPU kernels take any d (their blocks span the whole head
-dim). The CUDA kernels are built for d = 64, 128 and 256; the wrappers run
-any other d <= 256 at the smallest of these that holds it
-(``flash_head_dim_plan``), on copies of q, k, v (and dO) zero-padded along
-d, with the scale 1/sqrt(d) of the true d, and slice the padded columns off
-out, dq, dk and dv. Zero columns add nothing to a score, and the outputs'
-padded columns come out zero. A head dim past 256 raises ``ValueError`` on
-CUDA tensors (a deviation: the TPU kernels and the plain versions take it).
+dim), and so do the CUDA kernels. They are built for d = 64, 128 and 256,
+and past 256 for every multiple of 64 (the wide kernels: a block owns a
+column group of its output, at most 256 columns, and accumulates the scores
+over 64-column chunks of the whole d). The wrappers run any other d at the
+head dim ``flash_head_dim_plan`` gives (the smallest of 64, 128 and 256
+that holds d, else d rounded up to a multiple of 64), on copies of q, k, v
+(and dO) zero-padded along d, with the scale 1/sqrt(d) of the true d, and
+slice the padded columns off out, dq, dk and dv. Zero columns add nothing
+to a score, and the outputs' padded columns come out zero. No head dim has
+an upper limit.
 
 Query rows with no visible key (left padding under causal masking, a batch
 row of padding only) come out of the forward finite, and callers read the
@@ -61,15 +64,15 @@ _KERNEL_HEAD_DIMS = (64, 128, 256)
 
 def flash_head_dim_plan(d: int) -> int:
     """The head dim the CUDA kernels run a head dim ``d`` at: the smallest
-    of 64, 128 and 256 that is at least ``d``. Raises ``ValueError`` for
-    ``d`` past 256, the kernels' limit."""
+    of 64, 128 and 256 that is at least ``d``, and past 256 ``d`` rounded up
+    to a multiple of 64 (the wide kernels). Raises ``ValueError`` for a
+    ``d`` below 1."""
     if d < 1:
         raise ValueError(f"head_dim {d} must be positive")
     for hd in _KERNEL_HEAD_DIMS:
         if d <= hd:
             return hd
-    raise ValueError(f"head_dim {d} exceeds the flash kernels' limit of "
-                     f"{_KERNEL_HEAD_DIMS[-1]}")
+    return -(-d // 64) * 64
 
 
 def _pad_head(t: torch.Tensor, hd: int) -> torch.Tensor:
@@ -173,8 +176,9 @@ def _check_qkv(q, k, v, name: str) -> Tuple[int, int, int, int, int]:
                          f"match q {tuple(q.shape)}")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"q heads {H} are not a multiple of kv heads {Hkv}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in the kernels' {_KERNEL_HEAD_DIMS}")
+    if d != flash_head_dim_plan(d):
+        raise ValueError(f"head_dim {d} is not one the kernels are built for "
+                         f"({_KERNEL_HEAD_DIMS} or a multiple of 64 past 256)")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the kernel's grid")
     return B, H, Hkv, T, d

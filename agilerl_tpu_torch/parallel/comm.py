@@ -162,17 +162,28 @@ def ring_shift(x: torch.Tensor, group, offset: int = 1,
 
 class _GatherCat(torch.autograd.Function):
     """All-gather along ``dim`` for a loss that every rank computes alike:
-    the backward keeps this rank's slice of the (identical) gradient."""
+    the backward keeps this rank's slice of the (identical) gradient. With
+    ``size``, the ranks hold ``torch.chunk``'s pieces of a dim of that size
+    (DTensor's ``Shard``: ceil(size / P) each, the last ones shorter or
+    empty); each is padded to the chunk for the gather."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
-        return all_gather_cat(x, group, dim)
+    def forward(ctx, x, group, dim, size=None):
+        n = x.shape[dim]
+        chunk = n if size is None else -(-size // group_size(group))
+        ctx.group, ctx.dim, ctx.n = group, dim, n
+        ctx.at = group_rank(group) * chunk if size is None else min(
+            group_rank(group) * chunk, size)
+        if n < chunk:
+            pad = list(x.shape)
+            pad[dim] = chunk - n
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+        out = all_gather_cat(x, group, dim)
+        return out if size is None else out.narrow(dim, 0, size)
 
     @staticmethod
     def backward(ctx, g):
-        r = group_rank(ctx.group)
-        return g.narrow(ctx.dim, r * ctx.n, ctx.n), None, None
+        return g.narrow(ctx.dim, ctx.at, ctx.n), None, None, None
 
 
 class _SumToAll(torch.autograd.Function):
@@ -239,10 +250,40 @@ def gather_shards(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return x if group_size(group) == 1 else _GatherShards.apply(x, group, dim)
 
 
-def gather_replicated_loss(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+def gather_dtensor(x, keep: Sequence[str] = ()):
+    """A DTensor with its pending sums all-reduced (DTensor's functional
+    all-reduce) and its shards gathered over every mesh dim not named in
+    ``keep`` (their placements stay), innermost first, through
+    :func:`gather_replicated_loss`: plain c10d all-gathers, whose backward
+    keeps each rank's slice of the gradient that DTensor has summed into
+    the replicated placement. DTensor's own functional all-gather is never
+    called: it crashes on a gloo group of card tensors (torch 2.11)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = x.device_mesh
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+    pl = list(x.placements)
+    todo = [md for md, p in enumerate(pl) if p.is_shard() and mesh.mesh_dim_names[md] not in keep]
+    if not todo:
+        return x
+    t = x.to_local()
+    for md in reversed(todo):
+        dim = pl[md].dim
+        alone = sum(p.is_shard(dim) for p in pl) == 1
+        t = gather_replicated_loss(t, mesh.get_group(md), dim, x.shape[dim] if alone else None)
+        pl[md] = Replicate()
+    return DTensor.from_local(t, mesh, pl, run_check=False, shape=x.shape, stride=x.stride())
+
+
+def gather_replicated_loss(x: torch.Tensor, group, dim: int,
+                           size: Optional[int] = None) -> torch.Tensor:
     """``all_gather_cat`` whose gradient is this rank's slice only: every
     rank then holds its own part of the gradient, and the parameters'
-    gradients are summed over the group after the backward."""
+    gradients are summed over the group after the backward (or, under a
+    DTensor made from the result, by DTensor as it turns the gradient
+    into the replicated placement). ``size``: the whole dim, when the ranks
+    hold ``torch.chunk``'s (possibly uneven) pieces of it."""
     if group_size(group) == 1:
         return x
-    return _GatherCat.apply(x, group, dim)
+    return _GatherCat.apply(x, group, dim, size)

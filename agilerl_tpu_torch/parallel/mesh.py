@@ -93,8 +93,10 @@ def shard_like(tree: Any, template: Any, template_specs: Any, mesh) -> Any:
 
 
 def shard_params(params: Any, config: GPTConfig, mesh) -> Any:
-    """Place a GPT parameter tree by the built-in rule set."""
-    return grpo_plan_for_mesh(mesh).place("params", params, mesh)
+    """Place a GPT parameter tree by the built-in rule set, attention by
+    whole heads."""
+    return grpo_plan_for_mesh(mesh).place("params", params, mesh,
+                                          heads=(config.n_head, config.kv_heads))
 
 
 def batch_sharding(mesh):

@@ -175,6 +175,31 @@ def tiling_placements(spec: PartitionSpec, shape: Sequence[int], mesh) -> Tuple[
     return spec_to_placements(P(*entries), mesh)
 
 
+#: the GPT stack's attention projections, their biases and the LoRA adapters
+#: on them (and, by their paths, the adapters' optimizer states)
+_HEAD_LEAF = re.compile(r"(^|/)(w[qkvo]|b[qkv])(/[AB])?$")
+
+
+def heads_tile(heads: Sequence[int], mesh) -> bool:
+    """Whether the mesh's tp axis divides every head count in ``heads``
+    (query heads, KV heads): a tp split of attention must keep whole heads
+    (and whole GQA groups) on each rank."""
+    tp = mesh_axis_sizes(mesh).get("tp", 1)
+    return all(h % tp == 0 for h in heads)
+
+
+def _without_tp(spec: PartitionSpec) -> PartitionSpec:
+    def drop(e):
+        if isinstance(e, str):
+            return None if e == "tp" else e
+        if e:
+            kept = tuple(a for a in e if a != "tp")
+            return kept or None
+        return e
+
+    return P(*(drop(e) for e in spec))
+
+
 def local_shape(shape: Sequence[int], placements, mesh) -> Tuple[int, ...]:
     """This rank's shard shape of a tensor of ``shape`` whose dims the
     ``placements`` (one per mesh dim) tile evenly."""
@@ -276,9 +301,18 @@ class ShardingPlan:
         return self.rules[group]
 
     def resolve(self, group: str, tree: PyTree, mesh=None,
-                strict: Optional[bool] = None) -> PyTree:
+                strict: Optional[bool] = None,
+                heads: Optional[Sequence[int]] = None) -> PyTree:
         """A tree of PartitionSpec for ``tree`` under ``group``'s rules; with
-        ``mesh``, axes the mesh does not carry (or carries at size 1) drop."""
+        ``mesh``, axes the mesh does not carry (or carries at size 1) drop.
+
+        ``heads`` (the model's query and KV head counts) decides the tp
+        split of attention by whole heads: where the mesh's tp does not
+        divide them (:func:`heads_tile`), the attention projections, their
+        biases and adapters (and the adapters' optimizer states) keep their
+        head axis whole over tp, so attention runs replicated over tp while
+        the MLP stays tp-parallel. GSPMD pads such a split instead; a
+        DTensor view of an unevenly sharded head axis raises."""
         strict = self.strict if strict is None else strict
         on_unmatched = None
         if not strict:
@@ -295,6 +329,10 @@ class ShardingPlan:
             from agilerl_tpu_torch.parallel.mesh import filter_spec
 
             specs = named_tree_map(lambda _n, s: filter_spec(s, mesh), specs, is_leaf=_is_spec)
+            if heads is not None and not heads_tile(heads, mesh):
+                specs = named_tree_map(
+                    lambda n, s: _without_tp(s) if _HEAD_LEAF.search(n) else s, specs,
+                    is_leaf=_is_spec)
         return specs
 
     def shardings(self, group: str, tree: PyTree, mesh, strict: Optional[bool] = None) -> PyTree:
@@ -302,10 +340,12 @@ class ShardingPlan:
         return named_tree_map(lambda _n, s: spec_to_placements(s, mesh),
                               self.resolve(group, tree, mesh, strict=strict), is_leaf=_is_spec)
 
-    def place(self, group: str, tree: PyTree, mesh, strict: Optional[bool] = None) -> PyTree:
-        """Every tensor leaf as a DTensor with its rule-resolved placements;
-        other leaves (step counts, hyperparameters) are kept."""
-        specs = self.resolve(group, tree, mesh, strict=strict)
+    def place(self, group: str, tree: PyTree, mesh, strict: Optional[bool] = None,
+              heads: Optional[Sequence[int]] = None) -> PyTree:
+        """Every tensor leaf as a DTensor with its rule-resolved placements
+        (``heads``: see :meth:`resolve`); other leaves (step counts,
+        hyperparameters) are kept."""
+        specs = self.resolve(group, tree, mesh, strict=strict, heads=heads)
 
         def put(_name, leaf, spec):
             if not isinstance(leaf, torch.Tensor):

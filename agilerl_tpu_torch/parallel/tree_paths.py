@@ -35,6 +35,12 @@ def _rebuild(tree: Any, values: List[Any]) -> Any:
     return type(tree)(values)
 
 
+def path_entry_to_string(key: Any) -> str:
+    """One path entry (a dict key, a NamedTuple field name or a sequence
+    index) as its bare string name."""
+    return str(key)
+
+
 def tree_path_to_string(path: Tuple[str, ...], sep: Optional[str] = "/"
                         ) -> Union[str, Tuple[str, ...]]:
     """A path's names joined by ``sep`` (the tuple itself when ``sep`` is None)."""

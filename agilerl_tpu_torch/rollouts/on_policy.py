@@ -102,3 +102,8 @@ def collect_rollouts(agent, env, n_steps: Optional[int] = None) -> float:
     agent._last_obs = obs
     agent._last_done = done
     return float(total_reward) / n_steps
+
+
+#: the JAX package's name for the recurrent collect: the same function, which
+#: carries ``agent._hidden`` when the agent is recurrent
+collect_rollouts_recurrent = collect_rollouts

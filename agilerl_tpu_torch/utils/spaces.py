@@ -139,6 +139,17 @@ class Tuple:
         return "Tuple(" + ", ".join(str(s) for s in self.spaces) + ")"
 
 
+def sample_obs(space: Any, batch: int = 1) -> Any:
+    """A batched numpy observation sample (for smoke tests and tracing): a
+    dict or tuple space gives a dict or tuple of batches."""
+    kind = space_kind(space)
+    if kind == "dict":
+        return {k: sample_obs(s, batch) for k, s in space.spaces.items()}
+    if kind == "tuple":
+        return tuple(sample_obs(s, batch) for s in space.spaces)
+    return np.stack([space.sample() for _ in range(batch)])
+
+
 # --------------------------------------------------------------------------- #
 # Introspection
 # --------------------------------------------------------------------------- #

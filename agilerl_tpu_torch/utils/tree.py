@@ -43,8 +43,13 @@ def tree_to_numpy(tree: Any) -> Any:
 
 
 def _whole(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor's whole value (``full_tensor``); a plain tensor as it is."""
-    return x.full_tensor() if hasattr(x, "full_tensor") else x
+    """A DTensor's whole value (through ``parallel/comm.gather_dtensor``,
+    not DTensor's own all-gather); a plain tensor as it is."""
+    if not hasattr(x, "full_tensor"):
+        return x
+    from agilerl_tpu_torch.parallel.comm import gather_dtensor
+
+    return gather_dtensor(x).to_local()
 
 
 def tree_from_numpy(tree: Any, device) -> Any:

@@ -23,8 +23,9 @@ of which ends the run with a non-zero exit on any failure:
    GQA 32/8 views, and twice for bit-identical results; the fused dH and dW
    also at D = 200 with ragged row counts), the flash forward, dQ and dK/dV
    at head dims 16, 20, 32, 68, 72, 80, 96 and 256 (zero-padded to the
-   built 64, 128 or 256), and the 3xTF32 operand split against its plain
-   version bit for bit;
+   built 64, 128 or 256) and past 256 at 272, 320, 384, 512, 768 and 1,024
+   (the wide kernels, d zero-padded to a multiple of 64), and the 3xTF32
+   operand split against its plain version bit for bit;
 4. slice 1's path at llama3-8b, full width and depth, seeded random
    weights: sampled and greedy ``generate`` for 4 ragged prompts x group 4,
    then ``token_logprobs`` (fused kernel + flash kernel) over prompt +
@@ -190,7 +191,10 @@ of which ends the run with a non-zero exit on any failure:
    12 flash launches, ``estimate_mfu``), then add_node, add_layer,
    remove_node, remove_layer and add_expert on an MoE variant, each with the
    new head dim, the preserved slabs bit-equal, a step through the kernels
-   and phase 4's agreement rule; the flash kernels' time at head dims 64,
+   and phase 4's agreement rule; the same preset at 2 heads of 256
+   node-mutated by 32 to head dim 272 (the wide kernels): one step, its 12 +
+   12 + 12 launches, the logprob rule and phase 4b's gradient rule against
+   the plain path; the flash kernels' time at head dims 64,
    68, 80 and 128 (the padding's cost); ``EvolvableBERT`` at the
    Transformer-base widths (6 + 6 layers, d 512, 8 heads, vocab 37,000, T
    256) forward and backward and each mutation; a small f32 GPT (head dim
@@ -287,9 +291,18 @@ of which ends the run with a non-zero exit on any failure:
    ``make_grpo_plan(tp=2)`` on two ranks sharing the card over gloo
    (``chip_smoke.py --serve-rank``), llama3-8b widths cut to 4 layers, f32:
    greedy tokens equal to one rank's unplaced run, each rank's dense cache
-   and pool half of the whole, no all-gather of a tp-sharded weight; (a)
-   and (b) run after 4d (beside the second process's phases), (c) after
-   4v (a). The earlier phases pass
+   and pool half of the whole, no all-gather of a tp-sharded weight; then
+   both generators under ``make_grpo_plan(fsdp=2)`` at Qwen2-0.5B's widths
+   (2 f32 layers, 4 new tokens): tokens equal to the unplaced run, half of
+   every sharded weight a rank, only ``comm.all_gather_cat`` gathers; and a
+   GRPO learn under that plan against the unplaced learn (loss, the
+   gradient handed to the optimizer, launches); (d) ``grpo-tp4`` over
+   Qwen2-0.5B's 14 query and 2 KV heads, 2 f32 layers, on four gloo ranks
+   of the card (``chip_smoke.py --uneven-rank``): both generators' tokens
+   (8 prompts x 16 new) and a placed learn against rank 0's unplaced run,
+   attention whole over tp, and what that costs a rank; (a) and (b) run
+   after 4d (beside the second process's phases), (c) after 4v (a), (d)
+   last in the second process. The earlier phases pass
    ``remat=False`` to the presets (which now default to remat), so their
    numbers stay comparable;
 5. each kernel's time at the main path's shapes beside its plain version,
@@ -298,10 +311,11 @@ of which ends the run with a non-zero exit on any failure:
    FMA bound, and each one's operand preparation; for flash, the bytes read
    counted from the mask: only the rows and keys that meet a visible key);
    the flash forward and backward also on one unmasked causal row at
-   T = 2048; SDPA (forward, or backward) on each of its backends that takes
-   the inputs, in rounds with the SM clock read after each.
+   T = 2048 and, for the wide kernels, at [8, 2, 1,024, 512]; SDPA
+   (forward, or backward) on each of its backends that takes the inputs, in
+   rounds with the SM clock read after each.
 
-Phases 4h-4r but 4q, then 4v (b) and (c), need nothing of the LLM phases: a
+Phases 4h-4r but 4q, then 4v (b) and (c) and 4x (d), need nothing of the LLM phases: a
 second process runs them, in that order, alongside 4f-4t (it starts after 4d; its log is printed
 when it ends, before 4q and phase 5 run on their own), so their host times
 and those of 4f-4t are taken on a shared host.
@@ -747,8 +761,11 @@ def check_flash_bwd(torch, tfa, report):
 
 # Head dims past the built 64 / 128 (run zero-padded to 64, 128 or 256) and
 # 256 itself: the tutorials' small models (16, 20, 32), the evolvable GPT's
-# node mutations at gpt2-small (68, 72, 80) and 96.
-PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256)
+# node mutations at gpt2-small (68, 72, 80) and 96; past 256 the wide
+# kernels (column groups, d zero-padded to a multiple of 64): an EvolvableGPT
+# at 2 heads of 512 after +32 (272), 320, 384, 512, 768, and 1024 (the
+# default max_d_model with one head).
+PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256, 272, 320, 384, 512, 768, 1024)
 
 
 def check_flash_head_dims(torch, tfa, report):
@@ -805,12 +822,6 @@ def check_flash_head_dims(torch, tfa, report):
             log(f"  flash head dim {case}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
                 + (", repeats bit-identical" if dtype == torch.bfloat16 else ""))
             worst[case] = errs
-    q = torch.zeros(1, 2, 8, 320, device="cuda")
-    try:
-        tfa.flash_attention_fwd_cuda(q, q, q)
-        fail("flash at head dim 320 did not raise")
-    except ValueError as e:
-        log(f"  flash head dim 320 raises: {e}")
     report["flash_head_dim_checks"] = worst
 
 
@@ -4922,6 +4933,9 @@ def run_multi_agent_on_policy(torch, ops, report):
 # 37,000, T 256; f32) forward and backward on 16 x 256, and each mutation.
 GPT_BATCH, GPT_T, GPT_TIMED, GPT_AGREE_ROWS = 8, 1024, 3, 2
 GPT_MOE = dict(n_experts=4, expert_top_k=2, moe_every=2)
+# the wide case: gpt2-small's preset at 2 heads of 256 (d_model 512), node-
+# mutated by 32 to head dim 272 (the wide flash kernels, run at 320)
+GPT_WIDE, GPT_WIDE_NODES = dict(n_head=2, n_kv_head=2, d_model=512), 32
 BERT_BASE = dict(vocab_size=37_000, n_encoder_layers=6, n_decoder_layers=6, n_head=8,
                  d_model=512, d_ff=2_048, max_seq_len=256)
 BERT_BATCH = 16
@@ -5041,6 +5055,53 @@ def small_transformers_card_vs_cpu(torch, F, out):
           f"small transformers card vs CPU: {res}")
 
 
+def wide_gpt_step(torch, F, gpt_cls, tfa, cfg, step, tokens):
+    """4q's wide case: an EvolvableGPT with GPT_WIDE node-mutated past head
+    dim 256, then one train step through the flash kernels (#1, #3, #4 once
+    a layer, the wide kernels) against the plain path (dense attention) of
+    the same bf16 weights, both held to an f32 run: the logprob rule of
+    gpt_agreement and the gradient rule of phase 4b (relative L2 over every
+    parameter, within GRAD_FACTOR x the plain path's + GRAD_FLOOR)."""
+    import numpy as np
+
+    gpt = gpt_cls(config=dataclasses.replace(cfg, **GPT_WIDE), key=torch.Generator().manual_seed(6))
+    info = gpt.add_node(numb_new_nodes=GPT_WIDE_NODES, rng=np.random.default_rng(0))
+    c = gpt.config
+    check(c.head_dim > 256, f"4q wide: head dim {c.head_dim} after add_node {info}")
+    t0 = time.perf_counter()
+    loss, counts, finite = step(gpt)
+    step_s = time.perf_counter() - t0
+    rows = tokens[:GPT_AGREE_ROWS]
+    _, g_kernel = gpt_loss_and_grads(torch, F, gpt_cls, c, gpt.params, rows)
+    plain_cfg = dataclasses.replace(c, use_flash_attention=False)
+    _, g_plain = gpt_loss_and_grads(torch, F, gpt_cls, plain_cfg, gpt.params, rows)
+    cfg32 = dataclasses.replace(plain_cfg, dtype=torch.float32)
+    p32 = {k: ({i: {n: w.float() for n, w in blk.items()} for i, blk in v.items()}
+               if k == "blocks" else v.float()) for k, v in gpt.params.items()}
+    _, g32 = gpt_loss_and_grads(torch, F, gpt_cls, cfg32, p32, rows)
+
+    def rel(grads):
+        num = sum(float(((a.float() - b) ** 2).sum()) for a, b in zip(grads, g32))
+        return (num / sum(float((b ** 2).sum()) for b in g32)) ** 0.5
+
+    ok, agree = gpt_agreement(torch, gpt_cls, c, gpt.params, rows)
+    grads = dict(kernel=rel(g_kernel), plain=rel(g_plain))
+    per = {k: v for k, v in counts.items() if v}
+    rec = dict(info=info, d_model=c.d_model, head_dim=c.head_dim,
+               kernel_head_dim=tfa.flash_head_dim_plan(c.head_dim), loss=loss, step_s=step_s,
+               launches=per, agreement=agree, grad_rel_l2=grads)
+    log(f"  wide: EvolvableGPT {GPT_WIDE} add_node {info}: d {c.d_model}, head dim {c.head_dim} "
+        f"(kernels at {rec['kernel_head_dim']}); step loss {loss:.4f} in {step_s:.3f} s, "
+        f"launches {per}; logprobs vs f32 {agree}; gradient rel. L2 to f32 {grads}")
+    check(finite and per == {"flash_attention_fwd": c.n_layer, "flash_attention_dq": c.n_layer,
+                             "flash_attention_dkv": c.n_layer}, f"4q wide step: {rec}")
+    check(ok and grads["kernel"] <= GRAD_FACTOR * grads["plain"] + GRAD_FLOOR,
+          f"4q wide step: kernel path against the plain path: {rec}")
+    del gpt, g_kernel, g_plain, g32, p32
+    torch.cuda.empty_cache()
+    return rec
+
+
 def run_transformers(torch, ops, presets, report):
     """Phase 4q: the evolvable transformers on the card (see the constants
     above). Returns the kernel launches of the GPT steps (the main path)."""
@@ -5137,6 +5198,7 @@ def run_transformers(torch, ops, presets, report):
     out["mutations"] = mutations
     del moe
     torch.cuda.empty_cache()
+    out["wide"] = wide_gpt_step(torch, F, EvolvableGPT, tfa, cfg, step, tokens)
 
     out["padding_ms"] = time_padding(torch, tfa)
     log(f"  flash forward + dQ + dK/dV at [8, 12, 1024, d] bf16 causal, ms per call by head dim "
@@ -7077,12 +7139,110 @@ SERVE_TP_LAYERS, SERVE_TP_ROWS, SERVE_TP_SEED = 4, 8, 31
 SERVE_TP = dict(max_new_tokens=16, pad_id=0, eos_id=None, prompt_buckets=(128,),
                 decode_chunk=8, temperature=0.0)
 SERVE_TP_TIMEOUT_S = 400.0
+# 4x (c)'s fsdp serving: 4 new tokens (each step gathers every weight through
+# host buffers: 2.2-3.2 s a step a rank at Qwen2-0.5B's widths, 16 tokens
+# took 38-54 s a generator on an H100 80GB HBM3 at 700 W)
+SERVE_FSDP = dict(SERVE_TP, max_new_tokens=4)
+# the placed learns of 4x (c) and (d): rows x tokens of one GRPO batch (group
+# 2, the second half of each row the completion), rank-8 adapters on wq / wv
+# (the actor's B drawn from N(0, 0.05^2), so that the loss and the KL are not
+# 0 up to rounding), lr 1e-3; held to the unplaced learn of rank 0: loss at
+# rtol 1e-5 (tests/test_torch_sharded.py's bound) + atol PLACED_LOSS_ATOL (the
+# first step's loss is a mean of ~256 ratio x advantage terms of order 1
+# whose z-scored advantages cancel: its f32 rounding), and the gradient the
+# optimizer step is handed (Adam's first step is a sign step, 4u (c)) within
+# PLACED_GRAD_REL of it in relative L2 (f32 sums over the rows split
+# between ranks and summed by gloo)
+PLACED_LEARN_ROWS, PLACED_LEARN_T, PLACED_GRAD_REL, PLACED_LOSS_ATOL = 8, 64, 1e-4, 1e-5
+
+
+def placed_learn(torch, cfg, params, plan, seed):
+    """One GRPO learn on a batch drawn from ``seed``, placed by ``plan``
+    (None: unplaced): loss, the gradient handed to the optimizer (flat
+    numpy leaves), seconds, this rank's kernel launches and the ops of its
+    all-gathers (``collective_log``)."""
+    import numpy as np
+
+    from agilerl_tpu_torch import ops
+    from agilerl_tpu_torch.algorithms.grpo import GRPO
+    from agilerl_tpu_torch.parallel.comm import collective_log
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, (PLACED_LEARN_ROWS, PLACED_LEARN_T))
+    lm = np.zeros((PLACED_LEARN_ROWS, PLACED_LEARN_T - 1), np.float32)
+    lm[:, PLACED_LEARN_T // 2:] = 1
+    rewards = rng.normal(size=(PLACED_LEARN_ROWS // 2, 2)).astype(np.float32)
+    agent = GRPO(config=cfg, base_params=params, pad_token_id=0, seed=0, lr=1e-3,
+                 batch_size=PLACED_LEARN_ROWS, group_size=2, lora_rank=LORA_RANK,
+                 lora_targets=("wq", "wv"))
+    g = torch.Generator(device=agent.dev).manual_seed(seed)
+    for layer in agent.actor.params["blocks"].values():
+        for ab in layer.values():
+            ab["B"].copy_(0.05 * torch.randn(ab["B"].shape, generator=g, device=agent.dev))
+    if plan is not None:
+        agent.to_mesh(plan=plan)
+    grads = []
+    agent.optimizer.tx = capture_grads(agent.optimizer.tx, grads)
+    ops.reset_kernel_counters()
+    with collective_log() as log, torch.enable_grad():
+        (loss, _), s = host_s(torch, lambda: agent.learn((ids, lm, rewards)))
+    return dict(loss=float(loss), grads=grads[0], s=s,
+                launches={k: v for k, v in ops.kernel_counters().items() if v},
+                gather_ops=sorted({op for op, _ in log if "gather" in op}))
+
+
+def save_grads(out, out_dir, rank):
+    """Move the learns' gradients out of ``out`` into DIR/grads<RANK>_<key>.npz."""
+    import numpy as np
+
+    for k, v in out.items():
+        if isinstance(v, dict) and "grads" in v:
+            np.savez(Path(out_dir, f"grads{rank}_{k}.npz"), *v.pop("grads"))
+
+
+def load_grads(out, out_dir, rank):
+    """The inverse of save_grads, for the keys whose file is there."""
+    import numpy as np
+
+    for k, v in out.items():
+        f = Path(out_dir, f"grads{rank}_{k}.npz")
+        if isinstance(v, dict) and f.exists():
+            with np.load(f) as z:
+                v["grads"] = [z[f"arr_{i}"] for i in range(len(z.files))]
+    return out
+
+
+def learn_agreement(placed, unplaced):
+    """(loss difference, gradient relative L2) of a placed learn."""
+    import numpy as np
+
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(placed["grads"], unplaced["grads"]))
+    den = sum(float((b ** 2).sum()) for b in unplaced["grads"])
+    return abs(placed["loss"] - unplaced["loss"]), float(np.sqrt(num / max(den, 1e-30)))
+
+
+def weight_bytes(tree):
+    """(bytes this rank holds of a weight tree, of which in replicated leaves)."""
+    from agilerl_tpu_torch.utils.tree import tree_leaves
+
+    held = repl = 0
+    for w in tree_leaves(tree):
+        local = w.to_local() if hasattr(w, "to_local") else w
+        n = local.numel() * local.element_size()
+        held += n
+        if not any(p.is_shard() for p in getattr(w, "placements", ())):
+            repl += n
+    return held, repl
 
 
 def serve_rank_child(rank: int, port: int, out_dir: str) -> None:
     """One rank of 4x (c) (``chip_smoke.py --serve-rank RANK PORT DIR``): rank
-    0 serves unplaced first; both then serve under the plan. Its numbers go
-    to DIR/rank<RANK>.json."""
+    0 serves unplaced first; both then serve under the tp plan. Then the
+    fsdp plan, on 4x (d)'s Qwen2-0.5B-width model (fsdp serving gathers
+    every weight at every decode step through host buffers: at llama3-8b's
+    vocab and width that is ~4 GB a step a rank): rank 0 serves and learns
+    unplaced, both serve and learn under the plan. Its numbers go to
+    DIR/rank<RANK>.json (the gradients to DIR/grads<RANK>_<key>.npz)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -7098,20 +7258,24 @@ def serve_rank_child(rank: int, port: int, out_dir: str) -> None:
     init_multihost(f"127.0.0.1:{port}", 2, rank)
     cfg = presets.preset("llama3-8b", n_layer=SERVE_TP_LAYERS, max_seq_len=256,
                          dtype=torch.float32)
-    rng = np.random.default_rng(SERVE_TP_SEED)
-    seqs = [rng.integers(1, cfg.vocab_size, int(n)) for n in rng.integers(20, 120, SERVE_TP_ROWS)]
     out = {}
 
-    def serve(params, plan):
+    def prompts(cfg):
+        rng = np.random.default_rng(SERVE_TP_SEED)
+        return [rng.integers(1, cfg.vocab_size, int(n))
+                for n in rng.integers(20, 120, SERVE_TP_ROWS)]
+
+    def serve(cfg, params, plan, knobs=SERVE_TP):
         """Both generators' greedy tokens, seconds and the caches they
         allocated; the collectives they ran."""
         bg = BucketedGenerator(cfg, row_buckets=(SERVE_TP_ROWS,), sharding_plan=plan,
-                               device="cuda", **SERVE_TP)
+                               device="cuda", **knobs)
         cg = ContinuousGenerator(cfg, slots=SERVE_TP_ROWS, block_size=32, sharding_plan=plan,
-                                 device="cuda", **SERVE_TP)
+                                 device="cuda", **knobs)
         caches, real = [], bg._kv
         bg._kv = lambda group, make: caches.append(real(group, make)) or caches[-1]
         placed = bg.place_params(params)
+        seqs = prompts(cfg)
         res = {}
         with collective_log() as log:
             (toks, _, _), res["bucketed_s"] = host_s(torch, lambda: bg.generate(
@@ -7122,27 +7286,61 @@ def serve_rank_child(rank: int, port: int, out_dir: str) -> None:
                    dense_bytes=M.cache_bytes(caches[0]), pool_bytes=cg.pool_bytes,
                    gathers=sorted({shape for op, shape in log if "gather" in op}),
                    collectives=sorted({op for op, _ in log}))
+        res["weight_bytes"], res["replicated_bytes"] = weight_bytes(placed)
+        res["gather_ops"] = sorted({op for op, _ in log if "gather" in op})
         if plan is not None:
             res["tp_weights"] = sorted({tuple(w.to_local().shape)
                                         for blk in placed["blocks"].values()
                                         for w in blk.values()
                                         if any(pl.is_shard() for pl in w.placements)}
                                        | {tuple(placed[k].to_local().shape)
-                                          for k in ("tok_emb", "lm_head")})
+                                          for k in ("tok_emb", "lm_head") if k in placed})
             res["dense_placements"] = str(tuple(caches[0].k.placements))
             res["pool_placements"] = str(tuple(cg._pool.k.placements))
         return res
 
     params = M.init_params(SERVE_TP_SEED, cfg, device="cuda")
     if rank == 0:
-        out["unplaced"] = serve(params, None)
+        out["unplaced"] = serve(cfg, params, None)
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
-    out["placed"] = serve(params, make_grpo_plan(tp=2))
+    out["placed"] = serve(cfg, params, make_grpo_plan(tp=2))
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    qcfg = uneven_config(torch)
+    qparams = M.init_params(0, qcfg, device="cuda")
+    if rank == 0:
+        out["fsdp_unplaced"] = serve(qcfg, qparams, None, SERVE_FSDP)
+        out["unplaced_learn"] = placed_learn(torch, qcfg, qparams, None, SERVE_TP_SEED)
+    dist.barrier()
+    out["fsdp"] = serve(qcfg, qparams, make_grpo_plan(fsdp=2), SERVE_FSDP)
+    out["fsdp_learn"] = placed_learn(torch, qcfg, qparams, make_grpo_plan(fsdp=2), SERVE_TP_SEED)
+    save_grads(out, out_dir, rank)
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
+
+
+LEARN_KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+                 "fused_logprob_fwd", "fused_logprob_dh")
+
+
+def check_placed_learn(what, placed, unplaced):
+    """A placed learn against the unplaced one (PLACED_LEARN_*): loss and
+    gradient, only comm's all-gathers, and every kernel of the learn
+    launched on this rank."""
+    dl, dg = learn_agreement(placed, unplaced)
+    log(f"  {what}: loss {placed['loss']:.8e} vs unplaced {unplaced['loss']:.8e} (|d| "
+        f"{dl:.2e}), gradient rel. L2 {dg:.2e}, {placed['s']:.2f} s vs {unplaced['s']:.2f} s "
+        f"unplaced, all-gathers {placed['gather_ops']}, launches {placed['launches']}")
+    check(dl <= 1e-5 * abs(unplaced["loss"]) + PLACED_LOSS_ATOL and dg <= PLACED_GRAD_REL,
+          f"{what}: loss |d| {dl}, gradient rel. L2 {dg} ({PLACED_GRAD_REL})")
+    check(placed["gather_ops"] == ["comm.all_gather_cat"],
+          f"{what}: all-gathers {placed['gather_ops']}")
+    check(all(placed["launches"].get(k, 0) > 0 for k in LEARN_KERNELS),
+          f"{what}: launches {placed['launches']}")
+    return dict(loss=placed["loss"], unplaced_loss=unplaced["loss"], loss_diff=dl, grad_rel_l2=dg,
+                s=placed["s"], unplaced_s=unplaced["s"], launches=placed["launches"])
 
 
 def run_serving_tp(torch, report):
@@ -7150,17 +7348,20 @@ def run_serving_tp(torch, report):
     import shutil
     import tempfile
 
-    log(f"phase 4x (c): BucketedGenerator and ContinuousGenerator under make_grpo_plan(tp=2), "
-        f"llama3-8b width, {SERVE_TP_LAYERS} layers, f32, {SERVE_TP_ROWS} prompts, "
-        f"{SERVE_TP['max_new_tokens']} new tokens, 2 ranks on the card over gloo; rank 0 "
-        f"serves unplaced first")
+    log(f"phase 4x (c): BucketedGenerator and ContinuousGenerator under make_grpo_plan(tp=2) "
+        f"(llama3-8b width, {SERVE_TP_LAYERS} layers) and make_grpo_plan(fsdp=2) (Qwen2-0.5B "
+        f"widths, {UNEVEN_LAYERS} layers), then a GRPO learn under make_grpo_plan(fsdp=2) "
+        f"({PLACED_LEARN_ROWS} x {PLACED_LEARN_T}); f32, {SERVE_TP_ROWS} prompts, "
+        f"{SERVE_TP['max_new_tokens']} new tokens (fsdp: {SERVE_FSDP['max_new_tokens']}), 2 ranks "
+        f"on the card over gloo; rank 0 serves and learns unplaced first")
     torch.cuda.empty_cache()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_tp_"))
     try:
         port = free_port()
         run_children(lambda r: ["--serve-rank", str(r), str(port), str(work)], 2, work,
                      SERVE_TP_TIMEOUT_S, "serve rank")
-        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+        ranks = [load_grads(json.loads((work / f"rank{r}.json").read_text()), work, r)
+                 for r in range(2)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     from agilerl_tpu_torch.llm import presets
@@ -7195,6 +7396,181 @@ def run_serving_tp(torch, report):
         gathers=placed[0]["gathers"], collectives=placed[0]["collectives"],
         bucketed_s=[p["bucketed_s"] for p in placed], continuous_s=[p["continuous_s"] for p in placed],
         unplaced_s=[ref["bucketed_s"], ref["continuous_s"]], peak_gb=[r["peak_gb"] for r in ranks])
+
+    fsdp, fref = [r["fsdp"] for r in ranks], ranks[0]["fsdp_unplaced"]
+    for r, got in enumerate(fsdp):
+        for name in ("bucketed", "continuous"):
+            check(got[name] == fref[name],
+                  f"4x (c) fsdp rank {r}: {name} tokens differ from unplaced")
+        sharded, whole = got["weight_bytes"] - got["replicated_bytes"], fref["weight_bytes"]
+        check(2 * sharded == whole - got["replicated_bytes"],
+              f"4x (c) fsdp rank {r}: weights {got['weight_bytes']} B of {whole} B "
+              f"({got['replicated_bytes']} B replicated)")
+        check(got["gather_ops"] == ["comm.all_gather_cat"],
+              f"4x (c) fsdp rank {r}: all-gathers {got['gather_ops']}")
+    log(f"  fsdp2 (Qwen2-0.5B widths, {UNEVEN_LAYERS} layers, f32): tokens equal to unplaced on "
+        f"both ranks; weights {fsdp[0]['weight_bytes']} B per rank of {fref['weight_bytes']} B "
+        f"({fsdp[0]['replicated_bytes']} B replicated: the norms and biases); all-gathers "
+        f"{fsdp[0]['gather_ops']} of shapes {fsdp[0]['gathers']}; bucketed "
+        f"{[round(p['bucketed_s'], 2) for p in fsdp]} s vs {fref['bucketed_s']:.2f} s unplaced, "
+        f"continuous {[round(p['continuous_s'], 2) for p in fsdp]} s vs "
+        f"{fref['continuous_s']:.2f} s")
+    report["serving_fsdp"] = dict(
+        layers=UNEVEN_LAYERS, unplaced_s=[fref["bucketed_s"], fref["continuous_s"]],
+        weight_bytes=[p["weight_bytes"] for p in fsdp], whole_weight_bytes=fref["weight_bytes"],
+        replicated_bytes=fsdp[0]["replicated_bytes"], gather_ops=fsdp[0]["gather_ops"],
+        gathers=fsdp[0]["gathers"], dense_bytes=[p["dense_bytes"] for p in fsdp],
+        bucketed_s=[p["bucketed_s"] for p in fsdp], continuous_s=[p["continuous_s"] for p in fsdp])
+    report["fsdp_learn"] = [check_placed_learn(f"4x (c) fsdp2 learn rank {r}",
+                                               ranks[r]["fsdp_learn"], ranks[0]["unplaced_learn"])
+                            for r in range(2)]
+
+
+# 4x (d): a tp split that divides neither head count. Qwen2-0.5B's widths
+# (config.json of Qwen/Qwen2-0.5B: 14 query heads, 2 KV heads, head dim 64,
+# d_model 896, d_ff 4,864, vocab 151,936, tied embeddings, qkv bias, rope
+# theta 1e6), cut to 2 layers, f32, seed-0 random weights; grpo-tp4 on four
+# gloo ranks of the card: 8 prompts x 16 new tokens through both generators
+# and one placed learn, against rank 0's unplaced run.
+QWEN2_05B = dict(vocab_size=151_936, n_head=14, n_kv_head=2, d_model=896, d_ff=4_864,
+                 rope_theta=1_000_000.0, tie_embeddings=True, qkv_bias=True)
+UNEVEN_LAYERS, UNEVEN_RANKS, UNEVEN_TIMEOUT_S = 2, 4, 400.0
+
+
+def heads_whole_bytes(cfg, tp):
+    """Bytes a rank holds beyond its 1/tp share when a tp split keeps the
+    attention projections (and their biases) whole: (1 - 1/tp) of them, in
+    the blocks' dtype, over every layer."""
+    import torch
+
+    D, q, kv = cfg.d_model, cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    per_layer = 2 * D * q + 2 * D * kv + ((q + 2 * kv) if cfg.qkv_bias else 0)
+    size = torch.empty((), dtype=cfg.dtype).element_size()
+    return per_layer * cfg.n_layer * size * (1 - 1 / tp)
+
+
+def uneven_config(torch):
+    from agilerl_tpu_torch.llm.model import GPTConfig
+
+    return GPTConfig(n_layer=UNEVEN_LAYERS, max_seq_len=256, dtype=torch.float32,
+                     use_flash_attention=True, **QWEN2_05B)
+
+
+def uneven_rank_child(rank: int, port: int, out_dir: str) -> None:
+    """One rank of 4x (d) (``chip_smoke.py --uneven-rank RANK PORT DIR``):
+    rank 0 serves and learns unplaced first; every rank then serves and
+    learns under make_grpo_plan(tp=4). Its numbers go to DIR/rank<RANK>.json
+    (the gradients to DIR/grads<RANK>_<key>.npz)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from agilerl_tpu_torch.llm import model as M
+    from agilerl_tpu_torch.llm.serving import BucketedGenerator, ContinuousGenerator
+    from agilerl_tpu_torch.parallel.comm import collective_log
+    from agilerl_tpu_torch.parallel.multihost import init_multihost
+    from agilerl_tpu_torch.parallel.plan import make_grpo_plan
+
+    torch_settings(torch)
+    torch.cuda.set_device(0)
+    init_multihost(f"127.0.0.1:{port}", UNEVEN_RANKS, rank)
+    cfg = uneven_config(torch)
+    rng = np.random.default_rng(SERVE_TP_SEED)
+    seqs = [rng.integers(1, cfg.vocab_size, int(n)) for n in rng.integers(20, 120, SERVE_TP_ROWS)]
+    params = M.init_params(0, cfg, device="cuda")
+    plan = make_grpo_plan(tp=UNEVEN_RANKS)
+    out = {}
+
+    def serve(plan):
+        bg = BucketedGenerator(cfg, row_buckets=(SERVE_TP_ROWS,), sharding_plan=plan,
+                               device="cuda", **SERVE_TP)
+        cg = ContinuousGenerator(cfg, slots=SERVE_TP_ROWS, block_size=32, sharding_plan=plan,
+                                 device="cuda", **SERVE_TP)
+        placed = bg.place_params(params)
+        res = {}
+        with collective_log() as log:
+            (toks, _, _), res["bucketed_s"] = host_s(torch, lambda: bg.generate(
+                seqs, None, placed, greedy=True))
+            (ctoks, _, _), res["continuous_s"] = host_s(torch, lambda: cg.generate(
+                seqs, 0, placed, greedy=True))
+        res.update(bucketed=toks.tolist(), continuous=ctoks.tolist(),
+                   gather_ops=sorted({op for op, _ in log if "gather" in op}),
+                   weight_bytes=weight_bytes(placed)[0], pool_bytes=cg.pool_bytes)
+        if plan is not None:
+            blk = placed["blocks"]["0"]
+            res["placements"] = {k: str(tuple(blk[k].placements)) for k in ("wq", "wk", "w_up")}
+            res["pool_placements"] = str(tuple(cg._pool.k.placements))
+        return res
+
+    if rank == 0:
+        out["unplaced"] = serve(None)
+        out["unplaced_learn"] = placed_learn(torch, cfg, params, None, SERVE_TP_SEED)
+    dist.barrier()
+    out["placed"] = serve(plan)
+    out["placed_learn"] = placed_learn(torch, cfg, params, plan, SERVE_TP_SEED)
+    save_grads(out, out_dir, rank)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_uneven_tp(torch, ops, report):
+    """Phase 4x (d) in four child processes (on the 4h-4r side). Returns
+    rank 0's launches in its placed learn."""
+    import shutil
+    import tempfile
+
+    log(f"phase 4x (d): grpo-tp4 over Qwen2-0.5B's 14 query and 2 KV heads (head dim 64, d "
+        f"{QWEN2_05B['d_model']}, d_ff {QWEN2_05B['d_ff']}), {UNEVEN_LAYERS} f32 layers: both "
+        f"generators ({SERVE_TP_ROWS} prompts x {SERVE_TP['max_new_tokens']} new tokens) and a "
+        f"GRPO learn ({PLACED_LEARN_ROWS} x {PLACED_LEARN_T}) on {UNEVEN_RANKS} gloo ranks of "
+        "the card, rank 0 unplaced first")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_uneven_"))
+    try:
+        port = free_port()
+        run_children(lambda r: ["--uneven-rank", str(r), str(port), str(work)], UNEVEN_RANKS,
+                     work, UNEVEN_TIMEOUT_S, "uneven-tp rank")
+        ranks = [load_grads(json.loads((work / f"rank{r}.json").read_text()), work, r)
+                 for r in range(UNEVEN_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ref = ranks[0]["unplaced"]
+    for r, rank in enumerate(ranks):
+        got = rank["placed"]
+        for name in ("bucketed", "continuous"):
+            check(got[name] == ref[name], f"4x (d) rank {r}: {name} tokens differ from unplaced")
+        check(got["placements"] == {"wq": "(Replicate(),)", "wk": "(Replicate(),)",
+                                    "w_up": "(Shard(dim=1),)"}
+              and got["pool_placements"] == "(Replicate(),)" and got["pool_bytes"] ==
+              ref["pool_bytes"] and got["gather_ops"] == ["comm.all_gather_cat"],
+              f"4x (d) rank {r}: {got}")
+    placed = ranks[0]["placed"]
+    log(f"  tokens equal to unplaced on all {UNEVEN_RANKS} ranks; placements {placed['placements']} "
+        f"(attention whole over tp, MLP tp-parallel), pool {placed['pool_placements']}; weights "
+        f"{placed['weight_bytes']} B per rank of {ref['weight_bytes']} B; all-gathers "
+        f"{placed['gather_ops']}; bucketed {placed['bucketed_s']:.2f} s vs {ref['bucketed_s']:.2f} "
+        f"s unplaced, continuous {placed['continuous_s']:.2f} s vs {ref['continuous_s']:.2f} s")
+    learns = [check_placed_learn(f"4x (d) tp4 learn rank {r}", ranks[r]["placed_learn"],
+                                 ranks[0]["unplaced_learn"]) for r in range(UNEVEN_RANKS)]
+    from agilerl_tpu_torch.llm import presets
+    from agilerl_tpu_torch.llm.model import GPTConfig
+
+    cost = {"qwen2-0.5b (24 layers, bf16) tp4": heads_whole_bytes(
+                GPTConfig(n_layer=24, dtype=torch.bfloat16, **QWEN2_05B), 4),
+            "qwen2-7b (bf16) tp8": heads_whole_bytes(presets.preset("qwen2-7b"), 8)}
+    log(f"  attention whole over tp costs each rank, beyond its 1/tp share of the weights: "
+        + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in cost.items()))
+    report["uneven_tp"] = dict(
+        layers=UNEVEN_LAYERS, ranks=UNEVEN_RANKS, placements=placed["placements"],
+        weight_bytes=[r["placed"]["weight_bytes"] for r in ranks],
+        whole_weight_bytes=ref["weight_bytes"], gather_ops=placed["gather_ops"],
+        bucketed_s=[r["placed"]["bucketed_s"] for r in ranks],
+        continuous_s=[r["placed"]["continuous_s"] for r in ranks],
+        unplaced_s=[ref["bucketed_s"], ref["continuous_s"]], learns=learns,
+        heads_whole_bytes=cost)
+    launches = {k: 0 for k in ops.kernel_counters()}
+    launches.update(ranks[0]["placed_learn"]["launches"])
+    return launches
 
 
 def elastic_engine(torch):
@@ -7832,14 +8208,31 @@ def time_flash(torch, F, tfa, cfg, full_mask, launches, report):
     long_row = flash_fwd_row(torch, F, tfa, 4, H, Hkv, 2048, d, None, g,
                              ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"),
                              dict(is_causal=True), {"default": 10, "plain": 1})
-    report["flash_timing"] = dict(learn=learn, causal_2048=long_row)
+    wide = flash_fwd_row(torch, F, tfa, *WIDE_ROW, None, g, SDPA_BACKENDS,
+                         dict(is_causal=True), {"default": 10, "plain": 2, "sdpa_MATH": 2})
+    report["flash_timing"] = dict(learn=learn, causal_2048=long_row, wide=wide)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "agilerl_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "agilerl_tpu/ops/flash_attention_vjp.py:40",
             "launches": launches["flash_attention_fwd"], "max_abs_err": learn["error"],
             "ms": learn["ms"]["kernel"], "plain_ms": learn["ms"]["plain"],
             "bound_ms": learn["bound_ms"], "bound_by": learn["bound_by"],
-            "library_ms": learn["sdpa_ms"], "library": f"SDPA [{learn['sdpa_backend']}]"}
+            "library_ms": learn["sdpa_ms"], "library": f"SDPA [{learn['sdpa_backend']}]",
+            "wide": wide_entry(wide, "kernel", wide["bound_ms"], wide["bound_by"])}
+
+
+# The wide kernels' timing row: the EvolvableGPT of phase 4q's wide case at
+# 2 heads of 512 (B, H, Hkv, T, d), bf16, unmasked causal; SDPA on every
+# backend that takes head dim 512
+WIDE_ROW = (8, 2, 2, 1024, 512)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def wide_entry(row, key, bound_ms, bound_by):
+    """The wide-row numbers a kernel's entry of the kernels line carries."""
+    return {"shape": row["shape"], "ms": row["ms"][key], "plain_ms": row["ms"]["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": row["sdpa_ms"],
+            "library": f"SDPA [{row['sdpa_backend']}]" if row["sdpa_backend"] else "none"}
 
 
 def time_fused(torch, F, tfl, cfg, n_rows, launches, report):
@@ -7989,6 +8382,8 @@ def time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report):
     long_row = flash_bwd_row(torch, F, tfa, 4, H, Hkv, 2048, d, None, g,
                              ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"),
                              dict(is_causal=True), {"default": 5, "plain": 1})
+    wide = flash_bwd_row(torch, F, tfa, *WIDE_ROW, None, g, SDPA_BACKENDS, dict(is_causal=True),
+                         {"default": 5, "plain": 1, "sdpa_MATH": 1})
     entries = []
     for name, replaces in (("flash_attention_dq", 94), ("flash_attention_dkv", 141)):
         key = "dq" if name.endswith("dq") else "dkv"
@@ -8001,8 +8396,9 @@ def time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report):
                         "launches": launches[name], "max_abs_err": err, "ms": learn["ms"][key],
                         "plain_ms": learn["ms"]["plain"], "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": learn["sdpa_ms"], "library": f"SDPA backward "
-                        f"[{learn['sdpa_backend']}] (dQ+dK+dV)"})
-    report["flash_bwd_timing"] = dict(learn=learn, causal_2048=long_row)
+                        f"[{learn['sdpa_backend']}] (dQ+dK+dV)",
+                        "wide": wide_entry(wide, key, *wide["bounds"][key][:2])})
+    report["flash_bwd_timing"] = dict(learn=learn, causal_2048=long_row, wide=wide)
     return entries
 
 
@@ -8088,6 +8484,7 @@ RL_PHASES = (
     ("4p", run_bandits, ("bandits",)),
     ("4r", run_pettingzoo, ("pettingzoo",)),
     ("4v_bc", run_elastic, ("elastic",)),
+    ("4x_d", run_uneven_tp, ("uneven_tp_rank0",)),
 )
 RL_PHASES_BY_S = 1100.0  # the seconds since the start by which they must have ended
 
@@ -8336,6 +8733,8 @@ if __name__ == "__main__":
         pipe_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) == 5 and sys.argv[1] == "--serve-rank":
         serve_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) == 5 and sys.argv[1] == "--uneven-rank":
+        uneven_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) == 5 and sys.argv[1] == "--elastic-rank":
         elastic_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) == 4 and sys.argv[1] == "--warm-child":

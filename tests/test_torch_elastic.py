@@ -114,8 +114,17 @@ def _controller(engine, store, *, n_hosts=2, n_devices=4, pop=4, seed=3, **kw):
 @pytest.fixture(scope="module")
 def dqn_ref_hist(tmp_path_factory):
     """Unkilled 4-generation stream (pop 4 over 2 hosts x 2 slots): the
-    comparison target of every kill scenario."""
-    return _controller(_dqn(), tmp_path_factory.mktemp("dqn_ref")).run(4)
+    comparison target of every kill scenario. Its controller's population
+    plan leaves the registry with the run (this fixture is set up before
+    the per-test isolation saves the registry)."""
+    from agilerl_tpu_torch.parallel import plan as TPL
+
+    saved = dict(TPL._REGISTRY)
+    try:
+        return _controller(_dqn(), tmp_path_factory.mktemp("dqn_ref")).run(4)
+    finally:
+        TPL._REGISTRY.clear()
+        TPL._REGISTRY.update(saved)
 
 
 def _leaves_equal(a, b):

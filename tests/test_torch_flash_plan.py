@@ -273,3 +273,39 @@ def test_forward_on_visited_pairs_matches_jax_kernel(kind, causal):
     r = _rows_with_a_visible_key(tm, causal, B, T)[:, None, :].expand(B, H, T).numpy()
     np.testing.assert_allclose(out.numpy()[r], np.asarray(jo)[r], rtol=0, atol=2e-5)
     np.testing.assert_allclose(lse.numpy()[r], np.asarray(jl)[r], rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [272, 512])
+def test_wide_head_dims_match_jax_kernels(d):
+    """Head dims past 256 (the wide kernels on the card; on the CPU the
+    plain versions at the true d): the port's ``flash_attention_with_lse``
+    and its gradients through ``flash_attention_diff``, GQA 2 over 1 KV
+    head, causal, a ragged mask, against the JAX package's kernels (Pallas
+    interpret mode): forward at 2e-5 on rows with a visible key, gradients
+    at 5e-4 (tests/test_ops' flash tolerances)."""
+    B, H, Hkv, T = 1, 2, 1, 64
+    mask = np.ones((B, T), np.int32)
+    mask[0, :13] = 0
+    q, k, v, wo = _inputs(d, B, H, Hkv, T, d)
+    tm = torch.as_tensor(mask)
+    r = _rows_with_a_visible_key(tm, True, B, T)[:, None, :].expand(B, H, T)
+    wo = wo * r[..., None]
+    out, lse = tfa.flash_attention_with_lse(q, k, v, tm, True)
+    kr, vr = (jnp.repeat(jnp.asarray(t.numpy()), H // Hkv, axis=1) for t in (k, v))
+    jo, jl = flash_attention_with_lse(jnp.asarray(q.numpy()), kr, vr, jnp.asarray(mask), True,
+                                      64, 64)
+    rn = r.numpy()
+    np.testing.assert_allclose(out.numpy()[rn], np.asarray(jo)[rn], rtol=0, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy()[rn], np.asarray(jl)[rn], rtol=0, atol=2e-5)
+
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (tfa.flash_attention_diff(*leaves, tm, True) * wo).sum().backward()
+
+    def loss(q, k, v):  # the JAX kernels take repeated K/V; the repeat sums the group
+        kr, vr = jnp.repeat(k, H // Hkv, axis=1), jnp.repeat(v, H // Hkv, axis=1)
+        return jnp.sum(flash_attention_diff(q, kr, vr, jnp.asarray(mask), True, 64, 64)
+                       * jnp.asarray(wo.numpy()))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    for t, w, name in zip(leaves, want, "qkv"):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=5e-4, err_msg=name)

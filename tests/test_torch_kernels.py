@@ -135,8 +135,8 @@ def test_wrappers_count_kernel_launches_only():
 @pytest.mark.usefixtures("cuda_only")
 def test_kernels_raise_when_a_gradient_is_needed():
     """A gradient on CUDA tensors goes through the backward kernels (the
-    plain version is never taken on the card), and a wrapper given what its
-    kernel does not take raises instead of falling back."""
+    plain version is never taken on the card), at head dim 320 (the wide
+    kernels) as at 64."""
     reset_kernel_counters()
     q = torch.randn(1, 2, 8, 64, device="cuda", requires_grad=True)
     tfa.flash_attention_diff(q, q, q).sum().backward()
@@ -147,8 +147,9 @@ def test_kernels_raise_when_a_gradient_is_needed():
     assert counts["flash_attention_dq"] == 1 and counts["flash_attention_dkv"] == 1
     assert counts["fused_logprob_dh"] == 1 and counts["fused_logprob_dw"] == 0
     q320 = torch.randn(1, 2, 8, 320, device="cuda", requires_grad=True)
-    with pytest.raises(ValueError, match="head_dim 320 exceeds"):
-        tfa.flash_attention_diff(q320, q320, q320)
+    tfa.flash_attention_diff(q320, q320, q320).sum().backward()
+    counts = kernel_counters()
+    assert counts["flash_attention_dq"] == 2 and counts["flash_attention_dkv"] == 2
 
 
 def _bwd_case(dtype, causal, pad_rows, strided, T, d, H, Hkv, with_lse, seed=0):
@@ -406,17 +407,24 @@ def test_autograd_gradients_match_plain_path():
 @pytest.mark.cuda
 @pytest.mark.usefixtures("cuda_only")
 def test_flash_kernel_rejects_unsupported_head_dim():
-    """Head dims past 256, the kernels' limit, raise; every smaller one runs
-    (``test_flash_kernels_at_every_head_dim``)."""
+    """A head dim below 1 raises; past 256 there is no limit: d = 320 runs
+    on the wide kernels, equal to the plain version (every other d:
+    ``test_flash_kernels_at_every_head_dim``)."""
+    with pytest.raises(ValueError, match="must be positive"):
+        tfa.flash_attention_fwd_cuda(*(torch.randn(1, 2, 8, 0, device="cuda"),) * 3)
     q = torch.randn(1, 2, 8, 320, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 320 exceeds"):
-        tfa.flash_attention_fwd_cuda(q, q, q)
+    out, lse = tfa.flash_attention_fwd_cuda(q, q, q)
+    ref, ref_lse = tfa.flash_attention_reference(q, q, q)
+    torch.testing.assert_close(out, ref, rtol=0, atol=FLASH_ATOL[torch.float32])
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
 
 
 # Head dims the kernels are not built for (run zero-padded to 64, 128 or
 # 256) and 256 itself: the evolvable GPT's node mutations (68, 72, 80), the
-# tutorials' small models (16, 20, 32) and 96.
-PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256)
+# tutorials' small models (16, 20, 32) and 96; past 256 the wide kernels
+# (zero-padded to a multiple of 64): 272 (2 heads of 512 after a +32 node
+# mutation), 320, 384, 512, 768 and 1024 (one head at the default max_d_model).
+PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256, 272, 320, 384, 512, 768, 1024)
 
 
 @pytest.mark.cuda

@@ -226,19 +226,39 @@ def test_flash_gpt_node_mutation_moves_the_head_dim_as_jax():
     np.testing.assert_allclose(tl.numpy()[real], np.asarray(jl)[real], rtol=1e-5, atol=1e-5)
 
 
+def test_flash_gpt_node_mutated_past_head_dim_256_matches_jax():
+    """add_node at 2 heads: d_model 512 -> 544, head dim 256 -> 272 (past
+    the built tiles: the wide kernels on the card), both packages through
+    flash; the port's logits against the JAX EvolvableGPT's (its Pallas
+    kernel in interpret mode) at the tolerance above."""
+    jg, tg = _gpt_pair(n_layer=1, n_head=2, d_model=512, max_seq_len=16,
+                       use_flash_attention=True)
+    jg.add_node(numb_new_nodes=32)
+    tg.add_node(numb_new_nodes=32)
+    assert tg.config.head_dim == jg.config.head_dim == 272
+    tg.params = params_from_numpy(_np(jg.params), tg.config, device="cpu")
+    tokens, mask = _tokens(2, 16, seed=7, pads=(5, 0))
+    jl = JGPT.apply(jg.config, jg.params, jnp.asarray(tokens), attention_mask=jnp.asarray(mask))
+    tl = EvolvableGPT.apply(tg.config, tg.params, torch.as_tensor(tokens),
+                            attention_mask=torch.as_tensor(mask))
+    real = mask > 0
+    np.testing.assert_allclose(tl.numpy()[real], np.asarray(jl)[real], rtol=1e-5, atol=1e-5)
+
+
 def test_flash_head_dim_plan():
     """The head dim the kernels run d at: the smallest built one (64, 128,
-    256) that holds d; past 256 a ValueError that names the limit."""
+    256) that holds d; past 256 d rounded up to a multiple of 64 (the wide
+    kernels), with no upper limit; below 1 a ValueError."""
     for d in range(1, 257):
         assert tfa.flash_head_dim_plan(d) == min(h for h in (64, 128, 256) if h >= d)
-    for d in (0, 257, 320):
-        with pytest.raises(ValueError, match="head_dim"):
+    for d in (257, 272, 320, 321, 511, 1024, 1025, 4096):
+        assert tfa.flash_head_dim_plan(d) == -(-d // 64) * 64
+    for d in (0, -64):
+        with pytest.raises(ValueError, match="must be positive"):
             tfa.flash_head_dim_plan(d)
-    with pytest.raises(ValueError, match="limit of 256"):
-        tfa.flash_head_dim_plan(257)
 
 
-@pytest.mark.parametrize("d", [20, 68])
+@pytest.mark.parametrize("d", [20, 68, 272])
 def test_zero_padded_head_dim_leaves_attention_unchanged(d):
     """The wrappers' padding on the plain versions: q, k, v and dO padded
     with zeros to the planned head dim, at the true d's scale, give the

@@ -25,16 +25,15 @@ def _cfg(cfg_kw: Dict[str, Any]) -> M.GPTConfig:
 
 
 def _placements(tree) -> Dict[str, str]:
+    from agilerl_tpu_torch.parallel.tree_paths import named_tree_map
+
     out = {}
 
-    def rec(path, t):
-        if isinstance(t, dict):
-            for k, v in t.items():
-                rec(f"{path}/{k}" if path else k, v)
-        elif hasattr(t, "placements"):
+    def put(path, t):
+        if hasattr(t, "placements"):
             out[path] = str(tuple(t.placements))
 
-    rec("", tree)
+    named_tree_map(put, tree)
     return out
 
 
@@ -78,14 +77,20 @@ def sp_mesh(sp: int):
 
 
 def grpo_learn(cfg_kw, base, actor, reference, batch, kw, axes, learns: int = 1):
-    """``GRPO.to_mesh(plan=make_grpo_plan(**axes))`` then ``learns`` learns."""
+    """``GRPO.to_mesh(plan=make_grpo_plan(**axes))`` then ``learns`` learns;
+    the ops of the learns' all-gathers."""
+    from agilerl_tpu_torch.parallel.comm import collective_log
+
     agent = _agent(cfg_kw, base, actor, reference, kw)
     agent.to_mesh(plan=PL.make_grpo_plan(**axes))
-    losses = [agent.learn(batch) for _ in range(learns)]
+    with collective_log() as log:
+        losses = [agent.learn(batch) for _ in range(learns)]
     return {"losses": losses, "actor": tree_to_numpy(agent.actor.params),
             "adam": tree_to_numpy(agent.optimizer.opt_state),
             "placements": _placements(agent.actor.params),
-            "base_placements": _placements(agent.base_params)}
+            "base_placements": _placements(agent.base_params),
+            "adam_placements": _placements(agent.optimizer.opt_state),
+            "gather_ops": sorted({op for op, _ in log if "gather" in op})}
 
 
 def grpo_remat_learn(cfg_kw, base, actor, reference, batch, kw, axes):
@@ -216,6 +221,7 @@ def planned_serving(cfg_kw, params, seqs, axes=None, greedy: bool = True, key: i
         out["bucketed"] = bg.generate(seqs, key, placed, greedy=greedy)[:2]
         out["continuous"] = cg.generate(seqs, key, placed, greedy=greedy)[:2]
     out["gathers"] = sorted({shape for op, shape in log if "gather" in op})
+    out["gather_ops"] = sorted({op for op, _ in log if "gather" in op})
     dense = M.init_caches(cfg, 8, 16 + max_new, device="meta")
     out["dense_whole_bytes"] = M.cache_bytes(dense)
     out["pool_whole_bytes"] = 2 * cg._pool.k.numel() * cg._pool.k.element_size()
@@ -226,6 +232,7 @@ def planned_serving(cfg_kw, params, seqs, axes=None, greedy: bool = True, key: i
         out["dense_placements"] = str(tuple(rank_dense.k.placements))
         out["pool_placements"] = str(tuple(cg._pool.k.placements))
         out["wq"] = str(tuple(placed["blocks"]["0"]["wq"].placements))
+        out["w_up"] = str(tuple(placed["blocks"]["0"]["w_up"].placements))
         out["kv_k"] = tuple(plan.resolve("kv", dense, bg.mesh).k)
         out["tp_weights"] = sorted({tuple(w.to_local().shape)
                                     for blk in placed["blocks"].values() for w in blk.values()
