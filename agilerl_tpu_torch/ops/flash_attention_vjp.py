@@ -28,7 +28,13 @@ Head dims: the TPU kernels take any d (their blocks span the whole head
 dim), and so do the CUDA kernels. They are built for d = 64, 128 and 256,
 and past 256 for every multiple of 64 (the wide kernels: a block owns a
 column group of its output, at most 256 columns, and accumulates the scores
-over 64-column chunks of the whole d). The wrappers run any other d at the
+over 64-column chunks of the whole d; the bf16 dQ up to 512 runs each q
+tile as one block of two warpgroups that own 256 columns of dQ each, and
+the bf16 dK/dV up to 1,024 each kv tile as one cluster of ceil(d / 128)
+blocks that split d and add their partial scores through distributed
+shared memory; both compute the scores once a tile; the CUDA source alone
+holds these limits, and ``flash_bwd_last_launch`` reads back what a launch
+ran). The wrappers run any other d at the
 head dim ``flash_head_dim_plan`` gives (the smallest of 64, 128 and 256
 that holds d, else d rounded up to a multiple of 64), on copies of q, k, v
 (and dO) zero-padded along d, with the scale 1/sqrt(d) of the true d, and
@@ -230,8 +236,8 @@ def flash_attention_fwd_cuda(
     A head dim the kernel is not built for runs zero-padded
     (``flash_head_dim_plan``); ``scale`` defaults to 1/sqrt(d)."""
     d = q.shape[-1]
+    hd = flash_head_dim_plan(d)  # raises for d < 1 before the scale divides by it
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    hd = flash_head_dim_plan(d)
     if hd != d:
         out, lse = flash_attention_fwd_cuda(
             _pad_head(q, hd), _pad_head(k, hd), _pad_head(v, hd), padding_mask, causal, scale)
@@ -323,8 +329,8 @@ def flash_attention_dq_cuda(q, k, v, dout, lse, dd, padding_mask=None,
     [B, H, T, d] in q's dtype. q/k/v/dout may be strided over (b, h, t); a
     head dim the kernel is not built for runs zero-padded."""
     d = q.shape[-1]
+    hd = flash_head_dim_plan(d)  # raises for d < 1 before the scale divides by it
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    hd = flash_head_dim_plan(d)
     if hd != d:
         return flash_attention_dq_cuda(*(_pad_head(t, hd) for t in (q, k, v, dout)), lse, dd,
                                        padding_mask, causal, scale)[..., :d]
@@ -351,8 +357,8 @@ def flash_attention_dkv_cuda(q, k, v, dout, lse, dd, padding_mask=None, causal: 
     [B, Hkv, T, d] in k's dtype, summed over each GQA group in the kernel; a
     head dim the kernel is not built for runs zero-padded."""
     d = q.shape[-1]
+    hd = flash_head_dim_plan(d)  # raises for d < 1 before the scale divides by it
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    hd = flash_head_dim_plan(d)
     if hd != d:
         dk, dv = flash_attention_dkv_cuda(*(_pad_head(t, hd) for t in (q, k, v, dout)), lse,
                                           dd, padding_mask, causal, scale)
@@ -373,6 +379,24 @@ def flash_attention_dkv_cuda(q, k, v, dout, lse, dd, padding_mask=None, causal: 
 flash_attention_dkv_cuda.launches = 0
 flash_attention_dkv_cuda.kernel_name = "flash_attention_dkv"
 flash_attention_dkv_cuda.source = "flash_attention_bwd"
+
+
+def flash_bwd_last_launch(which: str) -> dict:
+    """What the last accepted launch of ``flash_attention_dq_cuda``
+    (``which="dq"``) or ``flash_attention_dkv_cuda`` (``"dkv"``) in this
+    process ran, as ``csrc/flash_attention_bwd.cu``'s launcher configured
+    it: ``kind`` ("wgmma", "f32", "column_groups", "column_groups_f32",
+    "dq_split", "dkv_cluster"; "none" before the first), ``cluster`` (blocks
+    in a cluster, 1 for none) and ``threads`` a block."""
+    if which not in ("dq", "dkv"):
+        raise ValueError(f"which must be 'dq' or 'dkv', not {which!r}")
+    fn = _bind("flash_attention_bwd", "flash_attention_bwd_last_launch",
+               [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)] + [ctypes.POINTER(ctypes.c_int)] * 2)
+    kind, cluster, threads = ctypes.c_char_p(), ctypes.c_int(), ctypes.c_int()
+    err = fn(int(which == "dkv"), ctypes.byref(kind), ctypes.byref(cluster), ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_last_launch failed: CUDA error {err}")
+    return dict(kind=kind.value.decode(), cluster=cluster.value, threads=threads.value)
 
 
 # --------------------------------------------------------------------------- #

@@ -23,8 +23,11 @@ of which ends the run with a non-zero exit on any failure:
    GQA 32/8 views, and twice for bit-identical results; the fused dH and dW
    also at D = 200 with ragged row counts), the flash forward, dQ and dK/dV
    at head dims 16, 20, 32, 68, 72, 80, 96 and 256 (zero-padded to the
-   built 64, 128 or 256) and past 256 at 272, 320, 384, 512, 768 and 1,024
-   (the wide kernels, d zero-padded to a multiple of 64), and the 3xTF32
+   built 64, 128 or 256) and past 256 at 272, 320, 384, 512, 768, 1,024 and
+   1,088 (the wide kernels, d zero-padded to a multiple of 64; the bf16 dQ
+   a block of two warpgroups a q tile up to 512, the bf16 dK/dV one
+   thread-block cluster of ceil(d / 128) blocks a kv tile up to 1,024), and
+   the 3xTF32
    operand split against its plain version bit for bit;
 4. slice 1's path at llama3-8b, full width and depth, seeded random
    weights: sampled and greedy ``generate`` for 4 ragged prompts x group 4,
@@ -300,7 +303,9 @@ of which ends the run with a non-zero exit on any failure:
    Qwen2-0.5B's 14 query and 2 KV heads, 2 f32 layers, on four gloo ranks
    of the card (``chip_smoke.py --uneven-rank``): both generators' tokens
    (8 prompts x 16 new) and a placed learn against rank 0's unplaced run,
-   attention whole over tp, and what that costs a rank; (a) and (b) run
+   attention whole over tp, and what that costs a rank; then a learn under
+   ``make_grpo_plan(fsdp=2, tp=2)`` on the same four ranks against the same
+   unplaced learn; (a) and (b) run
    after 4d (beside the second process's phases), (c) after 4v (a), (d)
    last in the second process. The earlier phases pass
    ``remat=False`` to the presets (which now default to remat), so their
@@ -311,14 +316,17 @@ of which ends the run with a non-zero exit on any failure:
    FMA bound, and each one's operand preparation; for flash, the bytes read
    counted from the mask: only the rows and keys that meet a visible key);
    the flash forward and backward also on one unmasked causal row at
-   T = 2048 and, for the wide kernels, at [8, 2, 1,024, 512]; SDPA
+   T = 2048 and, for the wide kernels, at [8, 2, 1,024, 512] (and the
+   backward at 4q's [8, 2, 1,024, 320]); SDPA
    (forward, or backward) on each of its backends that takes the inputs, in
    rounds with the SM clock read after each.
 
 Phases 4h-4r but 4q, then 4v (b) and (c) and 4x (d), need nothing of the LLM phases: a
 second process runs them, in that order, alongside 4f-4t (it starts after 4d; its log is printed
 when it ends, before 4q and phase 5 run on their own), so their host times
-and those of 4f-4t are taken on a shared host.
+and those of 4f-4t are taken on a shared host. 4x (d) starts only once the
+main side's 4v (a) has ended (``RL_PHASE_AFTER``: their six ranks together
+overflow the card's memory).
 
 Prints a ``report: {...}`` line with every number the run took, then a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -762,10 +770,12 @@ def check_flash_bwd(torch, tfa, report):
 # Head dims past the built 64 / 128 (run zero-padded to 64, 128 or 256) and
 # 256 itself: the tutorials' small models (16, 20, 32), the evolvable GPT's
 # node mutations at gpt2-small (68, 72, 80) and 96; past 256 the wide
-# kernels (column groups, d zero-padded to a multiple of 64): an EvolvableGPT
-# at 2 heads of 512 after +32 (272), 320, 384, 512, 768, and 1024 (the
-# default max_d_model with one head).
-PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256, 272, 320, 384, 512, 768, 1024)
+# kernels (d zero-padded to a multiple of 64; the bf16 dQ a block of two
+# warpgroups a q tile up to 512, the bf16 dK/dV one cluster of ceil(d / 128)
+# blocks a kv tile up to 1,024): an EvolvableGPT at 2 heads of
+# 512 after +32 (272, cluster 3), 320, 384, 512 (4), 768 (6), 1024 (8: the
+# default max_d_model with one head), and 1088, past the cluster limit.
+PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256, 272, 320, 384, 512, 768, 1024, 1088)
 
 
 def check_flash_head_dims(torch, tfa, report):
@@ -786,7 +796,8 @@ def check_flash_head_dims(torch, tfa, report):
     r = rows_with_a_visible_key(tfa, mask, True, B, T).expand(B, H, T)
     for d in PADDED_HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
-            case = f"{str(dtype)[6:]} d={d} (run at {tfa.flash_head_dim_plan(d)})"
+            hd = tfa.flash_head_dim_plan(d)
+            case = f"{str(dtype)[6:]} d={d} (run at {hd})"
             q, k, v = flash_inputs(torch, B, H, Hkv, T, d, dtype, True, g)
             reset_kernel_counters()
             out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, True)
@@ -798,6 +809,20 @@ def check_flash_head_dims(torch, tfa, report):
             counts = kernel_counters()
             check(counts["flash_attention_fwd"] == counts["flash_attention_dq"] ==
                   counts["flash_attention_dkv"] == 1, f"flash kernels not launched: {case}")
+            # what the library launched, read back from it; the bf16 wide
+            # kernels are to compute the scores once a tile: dQ a block of
+            # two warpgroups up to 512, dK/dV a cluster of ceil(d / 128) up
+            # to 1,024
+            ran = {n: tfa.flash_bwd_last_launch(n) for n in ("dq", "dkv")}
+            case += "".join(f", {n} {r['kind']}"
+                            + (f" x{r['cluster']}" if r["cluster"] > 1 else "")
+                            for n, r in ran.items())
+            if dtype == torch.bfloat16 and hd > 256:
+                want_dq = "dq_split" if hd <= 512 else "column_groups"
+                want_dkv = ("dkv_cluster", -(-hd // 128)) if hd <= 1024 else ("column_groups", 1)
+                check(ran["dq"]["kind"] == want_dq and
+                      (ran["dkv"]["kind"], ran["dkv"]["cluster"]) == want_dkv,
+                      f"wide backward launched {ran}, not dQ {want_dq}, dK/dV {want_dkv}: {case}")
             ref, ref_lse = tfa.flash_attention_reference(q, k, v, mask, True)
             want = tfa.flash_attention_bwd_reference(q, k, v, dout, lse, dd, mask, True)
             check(out.shape == q.shape and dq.shape == q.shape and dk.shape == k.shape,
@@ -7431,7 +7456,9 @@ def run_serving_tp(torch, report):
 # d_model 896, d_ff 4,864, vocab 151,936, tied embeddings, qkv bias, rope
 # theta 1e6), cut to 2 layers, f32, seed-0 random weights; grpo-tp4 on four
 # gloo ranks of the card: 8 prompts x 16 new tokens through both generators
-# and one placed learn, against rank 0's unplaced run.
+# and one placed learn, against rank 0's unplaced run; then one learn under
+# make_grpo_plan(fsdp=2, tp=2) (tp2 divides both head counts), held to the
+# same unplaced learn by the same rules.
 QWEN2_05B = dict(vocab_size=151_936, n_head=14, n_kv_head=2, d_model=896, d_ff=4_864,
                  rope_theta=1_000_000.0, tie_embeddings=True, qkv_bias=True)
 UNEVEN_LAYERS, UNEVEN_RANKS, UNEVEN_TIMEOUT_S = 2, 4, 400.0
@@ -7459,8 +7486,9 @@ def uneven_config(torch):
 def uneven_rank_child(rank: int, port: int, out_dir: str) -> None:
     """One rank of 4x (d) (``chip_smoke.py --uneven-rank RANK PORT DIR``):
     rank 0 serves and learns unplaced first; every rank then serves and
-    learns under make_grpo_plan(tp=4). Its numbers go to DIR/rank<RANK>.json
-    (the gradients to DIR/grads<RANK>_<key>.npz)."""
+    learns under make_grpo_plan(tp=4), and learns under
+    make_grpo_plan(fsdp=2, tp=2). Its numbers go to DIR/rank<RANK>.json (the
+    gradients to DIR/grads<RANK>_<key>.npz)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -7508,6 +7536,9 @@ def uneven_rank_child(rank: int, port: int, out_dir: str) -> None:
     dist.barrier()
     out["placed"] = serve(plan)
     out["placed_learn"] = placed_learn(torch, cfg, params, plan, SERVE_TP_SEED)
+    torch.cuda.empty_cache()
+    out["fsdp_tp_learn"] = placed_learn(torch, cfg, params, make_grpo_plan(fsdp=2, tp=2),
+                                        SERVE_TP_SEED)
     save_grads(out, out_dir, rank)
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     dist.barrier()
@@ -7524,7 +7555,7 @@ def run_uneven_tp(torch, ops, report):
         f"{QWEN2_05B['d_model']}, d_ff {QWEN2_05B['d_ff']}), {UNEVEN_LAYERS} f32 layers: both "
         f"generators ({SERVE_TP_ROWS} prompts x {SERVE_TP['max_new_tokens']} new tokens) and a "
         f"GRPO learn ({PLACED_LEARN_ROWS} x {PLACED_LEARN_T}) on {UNEVEN_RANKS} gloo ranks of "
-        "the card, rank 0 unplaced first")
+        "the card, then a learn under make_grpo_plan(fsdp=2, tp=2); rank 0 unplaced first")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_uneven_"))
     try:
         port = free_port()
@@ -7552,6 +7583,8 @@ def run_uneven_tp(torch, ops, report):
         f"s unplaced, continuous {placed['continuous_s']:.2f} s vs {ref['continuous_s']:.2f} s")
     learns = [check_placed_learn(f"4x (d) tp4 learn rank {r}", ranks[r]["placed_learn"],
                                  ranks[0]["unplaced_learn"]) for r in range(UNEVEN_RANKS)]
+    fsdp_tp = [check_placed_learn(f"4x (d) fsdp2 x tp2 learn rank {r}", ranks[r]["fsdp_tp_learn"],
+                                  ranks[0]["unplaced_learn"]) for r in range(UNEVEN_RANKS)]
     from agilerl_tpu_torch.llm import presets
     from agilerl_tpu_torch.llm.model import GPTConfig
 
@@ -7567,7 +7600,7 @@ def run_uneven_tp(torch, ops, report):
         bucketed_s=[r["placed"]["bucketed_s"] for r in ranks],
         continuous_s=[r["placed"]["continuous_s"] for r in ranks],
         unplaced_s=[ref["bucketed_s"], ref["continuous_s"]], learns=learns,
-        heads_whole_bytes=cost)
+        fsdp_tp_learns=fsdp_tp, heads_whole_bytes=cost)
     launches = {k: 0 for k in ops.kernel_counters()}
     launches.update(ranks[0]["placed_learn"]["launches"])
     return launches
@@ -8225,14 +8258,22 @@ def time_flash(torch, F, tfa, cfg, full_mask, launches, report):
 # 2 heads of 512 (B, H, Hkv, T, d), bf16, unmasked causal; SDPA on every
 # backend that takes head dim 512
 WIDE_ROW = (8, 2, 2, 1024, 512)
+# phase 4q's wide step (head dim 272, run at 320): the backward's second row
+WIDE_4Q_ROW = (8, 2, 2, 1024, 320)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
 
 
 def wide_entry(row, key, bound_ms, bound_by):
-    """The wide-row numbers a kernel's entry of the kernels line carries."""
-    return {"shape": row["shape"], "ms": row["ms"][key], "plain_ms": row["ms"]["plain"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": row["sdpa_ms"],
-            "library": f"SDPA [{row['sdpa_backend']}]" if row["sdpa_backend"] else "none"}
+    """The wide-row numbers a kernel's entry of the kernels line carries; a
+    backward row's also the kind of kernel and the cluster size (1: no
+    cluster) that the library reports its timed launches ran with."""
+    entry = {"shape": row["shape"], "ms": row["ms"][key], "plain_ms": row["ms"]["plain"],
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": row["sdpa_ms"],
+             "library": f"SDPA [{row['sdpa_backend']}]" if row["sdpa_backend"] else "none"}
+    if key in row.get("launched", {}):
+        entry.update(kernel=row["launched"][key]["kind"],
+                     cluster=row["launched"][key]["cluster"])
+    return entry
 
 
 def time_fused(torch, F, tfl, cfg, n_rows, launches, report):
@@ -8337,6 +8378,8 @@ def flash_bwd_row(torch, F, tfa, B, H, Hkv, T, d, mask, g, backends, sdpa_kw, it
     fns.update({f"sdpa_{n}": f for n, f in sdpa.items()})
     clocks = []
     rounds = timed_abba(torch, fns, {n: iters.get(n, iters["default"]) for n in fns}, clocks)
+    # what the timed kernels' last launches ran, read back from the library
+    launched = {n: tfa.flash_bwd_last_launch(n) for n in ("dq", "dkv")}
     ms = {n: sum(r) / 2 for n, r in rounds.items()}
     lib = min(sdpa, key=lambda n: ms[f"sdpa_{n}"]) if sdpa else None
     if mask is None:
@@ -8347,6 +8390,7 @@ def flash_bwd_row(torch, F, tfa, B, H, Hkv, T, d, mask, g, backends, sdpa_kw, it
     io = flash_read_bytes(torch, B, T, mask, H * (2 * 2 * d + 2 * 4), Hkv * 2 * 2 * d)
     row = dict(shape=[B, H, Hkv, T, d], masked=mask is not None, pairs=pairs,
                rounds_ms=rounds, ms=ms, clocks=clocks, errors=errs, sdpa_backend=lib,
+               launched=launched,
                sdpa_ms=ms[f"sdpa_{lib}"] if lib else None,
                bounds={})
     for name, flops, nbytes in (("dq", 6.0 * d * pairs, io + 2 * q.numel()),
@@ -8357,7 +8401,8 @@ def flash_bwd_row(torch, F, tfa, B, H, Hkv, T, d, mask, g, backends, sdpa_kw, it
         f"{'left-padded' if mask is not None else 'unmasked'} causal: dQ {ms['dq']:.3f} ms "
         f"(rounds {rounds['dq'][0]:.3f}/{rounds['dq'][1]:.3f}, bound {b_dq:.4f}), dK/dV "
         f"{ms['dkv']:.3f} ms (rounds {rounds['dkv'][0]:.3f}/{rounds['dkv'][1]:.3f}, bound "
-        f"{b_dkv:.4f}), sum {ms['dq'] + ms['dkv']:.3f} ms; plain (dQ+dK+dV) {ms['plain']:.3f} ms; "
+        f"{b_dkv:.4f}; launched {launched}), sum {ms['dq'] + ms['dkv']:.3f} ms; "
+        f"plain (dQ+dK+dV) {ms['plain']:.3f} ms; "
         + ", ".join(f"SDPA backward [{n}] {ms['sdpa_' + n]:.3f} ms (rounds "
                     f"{rounds['sdpa_' + n][0]:.3f}/{rounds['sdpa_' + n][1]:.3f})" for n in sdpa)
         + f"; SM clock / power / temperature after each round: {clocks}")
@@ -8384,6 +8429,8 @@ def time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report):
                              dict(is_causal=True), {"default": 5, "plain": 1})
     wide = flash_bwd_row(torch, F, tfa, *WIDE_ROW, None, g, SDPA_BACKENDS, dict(is_causal=True),
                          {"default": 5, "plain": 1, "sdpa_MATH": 1})
+    wide_4q = flash_bwd_row(torch, F, tfa, *WIDE_4Q_ROW, None, g, SDPA_BACKENDS,
+                            dict(is_causal=True), {"default": 5, "plain": 1, "sdpa_MATH": 1})
     entries = []
     for name, replaces in (("flash_attention_dq", 94), ("flash_attention_dkv", 141)):
         key = "dq" if name.endswith("dq") else "dkv"
@@ -8397,8 +8444,10 @@ def time_flash_bwd(torch, F, tfa, cfg, full_mask, launches, report):
                         "plain_ms": learn["ms"]["plain"], "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": learn["sdpa_ms"], "library": f"SDPA backward "
                         f"[{learn['sdpa_backend']}] (dQ+dK+dV)",
-                        "wide": wide_entry(wide, key, *wide["bounds"][key][:2])})
-    report["flash_bwd_timing"] = dict(learn=learn, causal_2048=long_row, wide=wide)
+                        "wide": wide_entry(wide, key, *wide["bounds"][key][:2]),
+                        "wide_4q": wide_entry(wide_4q, key, *wide_4q["bounds"][key][:2])})
+    report["flash_bwd_timing"] = dict(learn=learn, causal_2048=long_row, wide=wide,
+                                      wide_4q=wide_4q)
     return entries
 
 
@@ -8487,6 +8536,11 @@ RL_PHASES = (
     ("4x_d", run_uneven_tp, ("uneven_tp_rank0",)),
 )
 RL_PHASES_BY_S = 1100.0  # the seconds since the start by which they must have ended
+# phases of the second process that start only once a phase of the main side
+# has ended (its marker file in the second process's work directory): 4x (d)'s
+# four ranks beside 4v (a)'s two pipeline ranks overflowed the card's 80 GB
+RL_PHASE_AFTER = {"4x_d": "4v_a"}
+RL_WAIT_UNTIL_S = 900.0  # past this many seconds since the start, it starts anyway
 
 
 def torch_settings(torch) -> None:
@@ -8516,6 +8570,14 @@ def rl_phases(out_path: str) -> None:
     torch_settings(torch)
     report, launches = {}, {}
     for name, fn, paths in RL_PHASES:
+        if name in RL_PHASE_AFTER:
+            done = Path(out_path).with_name(f"{RL_PHASE_AFTER[name]}.done")
+            t0 = time.perf_counter()
+            while not done.exists() and time.perf_counter() - _T0 < RL_WAIT_UNTIL_S:
+                time.sleep(0.5)
+            report[f"phase_{name}_waited_s"] = waited = time.perf_counter() - t0
+            log(f"phase {name}: waited {waited:.1f} s for phase {RL_PHASE_AFTER[name]} "
+                f"({'ended' if done.exists() else 'not ended'})")
         got = timed_phase(name, fn, torch, ops, report)
         launches.update(zip(paths, got if len(paths) > 1 else (got,)))
     Path(out_path).write_text(json.dumps(dict(report=report, launches=launches)))
@@ -8658,6 +8720,7 @@ def main() -> None:
             ring_launches = timed_phase("4u_cd", run_ring_and_pod, torch, ops, report)
             with torch.enable_grad():
                 pipe_launches = timed_phase("4v_a", run_pipeline, torch, ops, report)
+            (rl[1] / "4v_a.done").touch()  # RL_PHASE_AFTER
             timed_phase("4x_c", run_serving_tp, torch, report)
             rl_launches = join_rl_phases(rl, report)
         finally:

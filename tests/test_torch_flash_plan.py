@@ -309,3 +309,82 @@ def test_wide_head_dims_match_jax_kernels(d):
     want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(t.numpy()) for t in (q, k, v)))
     for t, w, name in zip(leaves, want, "qkv"):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=5e-4, err_msg=name)
+
+
+SLICE_COLS = 128  # the columns of d a block of a wide dK/dV cluster owns
+
+
+def bwd_split_d(q, k, v, dout, lse, dd, mask, causal):
+    """The arithmetic of the bf16 wide dK/dV clusters
+    (``csrc/flash_attention_bwd.cu``, ``flash_dkv_cluster_kernel``): block r
+    of a cluster owns columns [128 r, 128 r + 128) of d. S and dP are the
+    sums of the blocks' partial products over their columns, added in rank
+    order; P and dS come from the sums and are rounded to the input dtype
+    once, for every block alike; each block's columns of dK and dV are
+    products of the shared P and dS with its own columns of Q and dO. The
+    dQ of the same split (dS with each block's columns of K) is held too."""
+    B, H, T, d = q.shape
+    Hkv = k.shape[1]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(d)
+    kr, vr = tfa._repeat_kv(k, rep).float(), tfa._repeat_kv(v, rep).float()
+    qf, of = q.float(), dout.float()
+    cols = [slice(c, min(c + SLICE_COLS, d)) for c in range(0, d, SLICE_COLS)]
+    s = dp = None
+    for sl in cols:  # rank order
+        ps = torch.matmul(qf[..., sl], kr[..., sl].transpose(-1, -2))
+        pd = torch.matmul(of[..., sl], vr[..., sl].transpose(-1, -2))
+        s, dp = (ps, pd) if s is None else (s + ps, dp + pd)
+    visible = tfa._visible(T, mask, causal, q.device)
+    p = torch.where(visible, torch.exp(s * scale - lse[..., None]), 0.0)
+    ds = p * (dp - dd[..., None])
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dq = torch.cat([torch.matmul(ds, kr[..., sl]) for sl in cols], -1) * scale
+    dk = torch.cat([torch.matmul(ds.transpose(-1, -2), qf[..., sl]) for sl in cols], -1) * scale
+    dv = torch.cat([torch.matmul(p.transpose(-1, -2), of[..., sl]) for sl in cols], -1)
+    dk, dv = (t.view(B, Hkv, rep, T, d).sum(2) for t in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_split_d_backward_matches_jax_kernels(d):
+    """The split-d model (3 blocks at d = 320, the last owning 64 columns; 4
+    at 512), GQA 2 over 1 KV head, causal, a ragged mask: in f32 against
+    jax.grad of the JAX kernels (Pallas interpret mode) at 5e-4 (tests/test_ops'
+    flash gradient tolerance) and against the port's plain backward at 1e-5
+    (f32 summation order); in bf16 against the plain backward at 1 % of each
+    output's largest magnitude (chip_smoke's bf16 bound: a partial sum order
+    can move a bf16 rounding of P or dS by one unit)."""
+    B, H, Hkv, T = 1, 2, 1, 64
+    mask = np.ones((B, T), np.int32)
+    mask[0, :13] = 0
+    q, k, v, wo = _inputs(d + 1, B, H, Hkv, T, d)
+    tm = torch.as_tensor(mask)
+    r = _rows_with_a_visible_key(tm, True, B, T)[:, None, :].expand(B, H, T)
+    wo = wo * r[..., None]
+    out, lse = tfa.flash_attention_reference(q, k, v, tm, True)
+    dd = (wo * out).sum(-1)
+    got = bwd_split_d(q, k, v, wo, lse, dd, tm, True)
+    plain = tfa.flash_attention_bwd_reference(q, k, v, wo, lse, dd, tm, True)
+    for g, f in zip(got, plain):
+        torch.testing.assert_close(g, f, rtol=0, atol=1e-5)
+
+    def loss(q, k, v):  # the JAX kernels take repeated K/V; the repeat sums the group
+        kr, vr = jnp.repeat(k, H // Hkv, axis=1), jnp.repeat(v, H // Hkv, axis=1)
+        return jnp.sum(flash_attention_diff(q, kr, vr, jnp.asarray(mask), True, 64, 64)
+                       * jnp.asarray(wo.numpy()))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-4, err_msg=name)
+    assert all(float(g.abs().sum()) > 0 for g in got)
+
+    qb, kb, vb, wb = (t.to(torch.bfloat16) for t in (q, k, v, wo))
+    ob, lse_b = tfa.flash_attention_reference(qb, kb, vb, tm, True)
+    ddb = (wb.float() * ob.float()).sum(-1)
+    got_b = bwd_split_d(qb, kb, vb, wb, lse_b, ddb, tm, True)
+    plain_b = tfa.flash_attention_bwd_reference(qb, kb, vb, wb, lse_b, ddb, tm, True)
+    for g, f in zip(got_b, plain_b):
+        assert g.dtype == torch.bfloat16
+        tol = 1e-2 * float(f.float().abs().max())
+        assert float((g.float() - f.float()).abs().max()) <= tol

@@ -423,8 +423,10 @@ def test_flash_kernel_rejects_unsupported_head_dim():
 # 256) and 256 itself: the evolvable GPT's node mutations (68, 72, 80), the
 # tutorials' small models (16, 20, 32) and 96; past 256 the wide kernels
 # (zero-padded to a multiple of 64): 272 (2 heads of 512 after a +32 node
-# mutation), 320, 384, 512, 768 and 1024 (one head at the default max_d_model).
-PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256, 272, 320, 384, 512, 768, 1024)
+# mutation), 320, 384, 512, 768 and 1024 (one head at the default
+# max_d_model), where the bf16 dK/dV runs a kv tile as one cluster of
+# ceil(d / 128) blocks; 1088, past the cluster limit.
+PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256, 272, 320, 384, 512, 768, 1024, 1088)
 
 
 @pytest.mark.cuda
@@ -462,6 +464,37 @@ def test_flash_kernels_at_every_head_dim(d, dtype):
                  *tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True))
         for a, b in zip((out, dq, dk, dv), again):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_backward_clusters_are_bit_identical(d):
+    """The bf16 dQ (a block of two warpgroups) and dK/dV (a cluster of 3
+    blocks at d = 320, the last owning 64 columns; 4 at 512), causal with a
+    ragged mask and GQA 4/2: two launches give the same bits (each element
+    of S^T and dP^T is summed by one block, in rank order; no atomics)."""
+    q, k, v, mask = _flash_case(2, 4, 2, 300, d, torch.bfloat16, (0, 71), True)
+    out, lse = tfa.flash_attention_fwd_cuda(q, k, v, mask, True)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dout = torch.randn(out.shape, device="cuda", generator=g).to(torch.bfloat16)
+    dd = (dout.float() * out.float()).sum(-1).contiguous()
+    runs = [(tfa.flash_attention_dq_cuda(q, k, v, dout, lse, dd, mask, True),
+             *tfa.flash_attention_dkv_cuda(q, k, v, dout, lse, dd, mask, True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    ran = {n: tfa.flash_bwd_last_launch(n) for n in ("dq", "dkv")}
+    assert ran["dq"]["kind"] == "dq_split" and ran["dq"]["threads"] == 256
+    assert ran["dkv"]["kind"] == "dkv_cluster" and ran["dkv"]["cluster"] == -(-d // 128)
+    for a, b in zip(*runs):
+        assert torch.isfinite(a.float()).all() and torch.equal(a, b)
+
+
+def test_flash_bwd_last_launch_takes_dq_or_dkv():
+    """The launch record names one of the two backward kernels; any other
+    name raises before the library is loaded."""
+    with pytest.raises(ValueError, match="'dq' or 'dkv'"):
+        tfa.flash_bwd_last_launch("dk")
 
 
 def _to(tree, device):
