@@ -28,13 +28,21 @@ Head dims: the TPU kernels take any d (their blocks span the whole head
 dim), and so do the CUDA kernels. They are built for d = 64, 128 and 256,
 and past 256 for every multiple of 64 (the wide kernels: a block owns a
 column group of its output, at most 256 columns, and accumulates the scores
-over 64-column chunks of the whole d; the bf16 dQ up to 512 runs each q
-tile as one block of two warpgroups that own 256 columns of dQ each, and
-the bf16 dK/dV up to 1,024 each kv tile as one cluster of ceil(d / 128)
-blocks that split d and add their partial scores through distributed
-shared memory; both compute the scores once a tile; the CUDA source alone
-holds these limits, and ``flash_bwd_last_launch`` reads back what a launch
-ran). The wrappers run any other d at the
+over 64-column chunks of the whole d). In bf16 past 256 the scores are
+computed once a tile: the forward up to 512 runs each q tile as one block
+of two warpgroups that split d by 64-column boxes (ceil(d / 128) boxes of
+out for the first, the rest for the second, up to 128 f32 accumulator
+registers a thread and no spill), keeps Q in shared memory and streams K
+and V, a whole tile a unit, through a ring of two units (140-214 KB of
+shared memory, one block an SM); the two warpgroups add their partial
+scores through 16 KB of shared memory and overlap the previous tile's P V
+with the softmax. The dQ up to 512 runs each q tile as one block of two
+warpgroups that own 256 columns of dQ each, and the dK/dV up to 1,024 each
+kv tile as one cluster of ceil(d / 128) blocks that split d and add their
+partial scores through distributed shared memory. The CUDA sources alone
+hold these limits (``FWD_SPLIT_MAX_D``, ``DQ_SPLIT_MAX_D``, ``CL_MAX_D``);
+``flash_fwd_last_launch`` and ``flash_bwd_last_launch`` read back what a
+launch ran. The wrappers run any other d at the
 head dim ``flash_head_dim_plan`` gives (the smallest of 64, 128 and 256
 that holds d, else d rounded up to a multiple of 64), on copies of q, k, v
 (and dO) zero-padded along d, with the scale 1/sqrt(d) of the true d, and
@@ -268,6 +276,20 @@ def flash_attention_fwd_cuda(
 flash_attention_fwd_cuda.launches = 0
 flash_attention_fwd_cuda.kernel_name = "flash_attention_fwd"
 flash_attention_fwd_cuda.source = "flash_attention_fwd"
+
+
+def flash_fwd_last_launch() -> dict:
+    """What the last accepted launch of ``flash_attention_fwd_cuda`` in this
+    process ran, as ``csrc/flash_attention_fwd.cu``'s launcher configured
+    it: ``kind`` ("wgmma", "f32", "fwd_split", "column_groups",
+    "column_groups_f32"; "none" before the first) and ``threads`` a block."""
+    fn = _bind("flash_attention_fwd", "flash_attention_fwd_last_launch",
+               [ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int)])
+    kind, threads = ctypes.c_char_p(), ctypes.c_int()
+    err = fn(ctypes.byref(kind), ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd_last_launch failed: CUDA error {err}")
+    return dict(kind=kind.value.decode(), threads=threads.value)
 
 
 _BWD_ARGTYPES = (

@@ -14,7 +14,8 @@ of which ends the run with a non-zero exit on any failure:
    process of the run then loads from, with each kernel's registers, shared
    memory and spills, and the count of wgmma (HGMMA), mma.sync (HMMA) and
    f32 FMA (FFMA) instructions in each of the four libraries where cuobjdump
-   is present (the bf16 flash forward must show HGMMA and no HMMA);
+   is present (the bf16 flash forward must show HGMMA and no HMMA, and its
+   kernel of two warpgroups past head dim 256 no spill);
 3. hold each kernel, forward and backward, against its plain PyTorch version
    on the card, over dtypes, masks, ragged lengths, head dims, GQA groups,
    the lse cotangent, vocab sizes and ragged row counts, with stated
@@ -24,10 +25,10 @@ of which ends the run with a non-zero exit on any failure:
    also at D = 200 with ragged row counts), the flash forward, dQ and dK/dV
    at head dims 16, 20, 32, 68, 72, 80, 96 and 256 (zero-padded to the
    built 64, 128 or 256) and past 256 at 272, 320, 384, 512, 768, 1,024 and
-   1,088 (the wide kernels, d zero-padded to a multiple of 64; the bf16 dQ
-   a block of two warpgroups a q tile up to 512, the bf16 dK/dV one
-   thread-block cluster of ceil(d / 128) blocks a kv tile up to 1,024), and
-   the 3xTF32
+   1,088 (the wide kernels, d zero-padded to a multiple of 64; the bf16
+   forward and dQ a block of two warpgroups a q tile up to 512, the bf16
+   dK/dV one thread-block cluster of ceil(d / 128) blocks a kv tile up to
+   1,024, each launch's kind read back from the library), and the 3xTF32
    operand split against its plain version bit for bit;
 4. slice 1's path at llama3-8b, full width and depth, seeded random
    weights: sampled and greedy ``generate`` for 4 ragged prompts x group 4,
@@ -316,8 +317,8 @@ of which ends the run with a non-zero exit on any failure:
    FMA bound, and each one's operand preparation; for flash, the bytes read
    counted from the mask: only the rows and keys that meet a visible key);
    the flash forward and backward also on one unmasked causal row at
-   T = 2048 and, for the wide kernels, at [8, 2, 1,024, 512] (and the
-   backward at 4q's [8, 2, 1,024, 320]); SDPA
+   T = 2048 and, for the wide kernels, at [8, 2, 1,024, 512] and at 4q's
+   [8, 2, 1,024, 320], with the kind of kernel each ran; SDPA
    (forward, or backward) on each of its backends that takes the inputs, in
    rounds with the SM clock read after each.
 
@@ -331,6 +332,14 @@ overflow the card's memory).
 Prints a ``report: {...}`` line with every number the run took, then a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --flash-fwd-rows ROOT OUT.json
+
+times only the bf16 flash forward at phase 5's wide rows and at d = 128 on
+one unmasked causal row at T = 2048, with ``agilerl_tpu_torch`` imported
+from the checkout at ROOT, and writes the rows to OUT.json. Run on two
+checkouts in turns in one call (parent, change, change, parent), it
+compares two versions of the kernel on one card.
 """
 
 from __future__ import annotations
@@ -472,6 +481,29 @@ def tf32x3_bounds(flops: float, nbytes: float):
 
 
 SASS_OPS = ("HGMMA", "HMMA", "FFMA")  # wgmma, mma.sync, f32 FMA
+
+
+def ptxas_entries(text, name):
+    """What ptxas reported (nvcc -Xptxas -v) for each kernel whose mangled
+    name holds `name` (each template instance): a list of its registers,
+    stack frame and spill bytes, in the log's order."""
+    found, got = [], None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            got = {} if name in entry.group(1) else None
+            if got is not None:
+                found.append(got)
+        elif got is not None:
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", line)
+            if spill:
+                got.update(stack=int(spill[1]), spill_stores=int(spill[2]),
+                           spill_loads=int(spill[3]))
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                got["registers"] = int(regs[1])
+    return found
 
 
 def sass_counts(_build, names):
@@ -770,9 +802,9 @@ def check_flash_bwd(torch, tfa, report):
 # Head dims past the built 64 / 128 (run zero-padded to 64, 128 or 256) and
 # 256 itself: the tutorials' small models (16, 20, 32), the evolvable GPT's
 # node mutations at gpt2-small (68, 72, 80) and 96; past 256 the wide
-# kernels (d zero-padded to a multiple of 64; the bf16 dQ a block of two
-# warpgroups a q tile up to 512, the bf16 dK/dV one cluster of ceil(d / 128)
-# blocks a kv tile up to 1,024): an EvolvableGPT at 2 heads of
+# kernels (d zero-padded to a multiple of 64; the bf16 forward and dQ a
+# block of two warpgroups a q tile up to 512, the bf16 dK/dV one cluster of
+# ceil(d / 128) blocks a kv tile up to 1,024): an EvolvableGPT at 2 heads of
 # 512 after +32 (272, cluster 3), 320, 384, 512 (4), 768 (6), 1024 (8: the
 # default max_d_model with one head), and 1088, past the cluster limit.
 PADDED_HEAD_DIMS = (16, 20, 32, 68, 72, 80, 96, 256, 272, 320, 384, 512, 768, 1024, 1088)
@@ -810,13 +842,22 @@ def check_flash_head_dims(torch, tfa, report):
             check(counts["flash_attention_fwd"] == counts["flash_attention_dq"] ==
                   counts["flash_attention_dkv"] == 1, f"flash kernels not launched: {case}")
             # what the library launched, read back from it; the bf16 wide
-            # kernels are to compute the scores once a tile: dQ a block of
-            # two warpgroups up to 512, dK/dV a cluster of ceil(d / 128) up
-            # to 1,024
+            # kernels are to compute the scores once a tile: the forward and
+            # dQ a block of two warpgroups up to 512, dK/dV a cluster of
+            # ceil(d / 128) up to 1,024
+            fwd = tfa.flash_fwd_last_launch()
             ran = {n: tfa.flash_bwd_last_launch(n) for n in ("dq", "dkv")}
-            case += "".join(f", {n} {r['kind']}"
-                            + (f" x{r['cluster']}" if r["cluster"] > 1 else "")
-                            for n, r in ran.items())
+            case += f", fwd {fwd['kind']}" + "".join(
+                f", {n} {r['kind']}" + (f" x{r['cluster']}" if r["cluster"] > 1 else "")
+                for n, r in ran.items())
+            if dtype == torch.float32:
+                want_fwd = ("f32", 256) if hd <= 256 else ("column_groups_f32", 256)
+            elif hd <= 256:
+                want_fwd = ("wgmma", 160)
+            else:
+                want_fwd = ("fwd_split", 256) if hd <= 512 else ("column_groups", 160)
+            check((fwd["kind"], fwd["threads"]) == want_fwd,
+                  f"flash forward launched {fwd}, not {want_fwd}: {case}")
             if dtype == torch.bfloat16 and hd > 256:
                 want_dq = "dq_split" if hd <= 512 else "column_groups"
                 want_dkv = ("dkv_cluster", -(-hd // 128)) if hd <= 1024 else ("column_groups", 1)
@@ -8212,23 +8253,30 @@ def flash_fwd_row(torch, F, tfa, B, H, Hkv, T, d, mask, g, backends, sdpa_kw, it
     nbytes = flash_read_bytes(torch, B, T, mask, H * 2 * d, Hkv * 2 * 2 * d) + (
         2 * q.numel() + 4 * lse.numel())
     b_ms, b_by = bound(flops, nbytes, "bf16")
+    # what the timed kernel's last launch ran, read back from the library (a
+    # checkout older than the launch record, timed by --flash-fwd-rows, has none)
+    last = getattr(tfa, "flash_fwd_last_launch", None)
+    launched = {"kernel": last() if last else {"kind": "not recorded"}}
     log(f"  flash fwd [B={B}, H={H}/{Hkv}, T={T}, d={d}] bf16 "
         f"{'left-padded' if mask is not None else 'unmasked'} causal: kernel {ms['kernel']:.3f} "
-        f"ms (rounds {rounds['kernel'][0]:.3f}/{rounds['kernel'][1]:.3f}), plain "
+        f"ms (rounds {rounds['kernel'][0]:.3f}/{rounds['kernel'][1]:.3f}; launched "
+        f"{launched['kernel']}), plain "
         f"{ms['plain']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
         + ", ".join(f"SDPA [{n}] {ms['sdpa_' + n]:.3f} ms (rounds "
                     f"{rounds['sdpa_' + n][0]:.3f}/{rounds['sdpa_' + n][1]:.3f})" for n in sdpa)
         + f"; SM clock / power / temperature after each round: {clocks}")
     return dict(shape=[B, H, Hkv, T, d], masked=mask is not None, pairs=pairs, flops=flops,
                 bytes=nbytes, bound_ms=b_ms, bound_by=b_by, error=err, rounds_ms=rounds, ms=ms,
-                clocks=clocks, sdpa_backend=lib, sdpa_ms=ms[f"sdpa_{lib}"] if lib else None)
+                clocks=clocks, launched=launched, sdpa_backend=lib,
+                sdpa_ms=ms[f"sdpa_{lib}"] if lib else None)
 
 
 def time_flash(torch, F, tfa, cfg, full_mask, launches, report):
-    """The forward at the learn shape (with the slice's left padding) and on
-    one unmasked causal row at T = 2048. SDPA runs on each backend that
-    takes the inputs (a boolean mask rules out its flash backend); the
-    yardstick is the fastest."""
+    """The forward at the learn shape (with the slice's left padding), on
+    one unmasked causal row at T = 2048 and at the wide rows (WIDE_ROW,
+    WIDE_4Q_ROW). SDPA runs on each backend that takes the inputs (a
+    boolean mask rules out its flash backend); the yardstick is the
+    fastest."""
     B, T = full_mask.shape
     H, Hkv, d = cfg.n_head, cfg.kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -8241,9 +8289,11 @@ def time_flash(torch, F, tfa, cfg, full_mask, launches, report):
     long_row = flash_fwd_row(torch, F, tfa, 4, H, Hkv, 2048, d, None, g,
                              ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"),
                              dict(is_causal=True), {"default": 10, "plain": 1})
-    wide = flash_fwd_row(torch, F, tfa, *WIDE_ROW, None, g, SDPA_BACKENDS,
-                         dict(is_causal=True), {"default": 10, "plain": 2, "sdpa_MATH": 2})
-    report["flash_timing"] = dict(learn=learn, causal_2048=long_row, wide=wide)
+    wide, wide_4q = (flash_fwd_row(torch, F, tfa, *row, None, g, SDPA_BACKENDS,
+                                   dict(is_causal=True),
+                                   {"default": 10, "plain": 2, "sdpa_MATH": 2})
+                     for row in (WIDE_ROW, WIDE_4Q_ROW))
+    report["flash_timing"] = dict(learn=learn, causal_2048=long_row, wide=wide, wide_4q=wide_4q)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "agilerl_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "agilerl_tpu/ops/flash_attention_vjp.py:40",
@@ -8251,28 +8301,28 @@ def time_flash(torch, F, tfa, cfg, full_mask, launches, report):
             "ms": learn["ms"]["kernel"], "plain_ms": learn["ms"]["plain"],
             "bound_ms": learn["bound_ms"], "bound_by": learn["bound_by"],
             "library_ms": learn["sdpa_ms"], "library": f"SDPA [{learn['sdpa_backend']}]",
-            "wide": wide_entry(wide, "kernel", wide["bound_ms"], wide["bound_by"])}
+            "wide": wide_entry(wide, "kernel", wide["bound_ms"], wide["bound_by"]),
+            "wide_4q": wide_entry(wide_4q, "kernel", wide_4q["bound_ms"], wide_4q["bound_by"])}
 
 
 # The wide kernels' timing row: the EvolvableGPT of phase 4q's wide case at
 # 2 heads of 512 (B, H, Hkv, T, d), bf16, unmasked causal; SDPA on every
 # backend that takes head dim 512
 WIDE_ROW = (8, 2, 2, 1024, 512)
-# phase 4q's wide step (head dim 272, run at 320): the backward's second row
+# phase 4q's wide step (head dim 272, run at 320): the second wide row
 WIDE_4Q_ROW = (8, 2, 2, 1024, 320)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
 
 
 def wide_entry(row, key, bound_ms, bound_by):
-    """The wide-row numbers a kernel's entry of the kernels line carries; a
-    backward row's also the kind of kernel and the cluster size (1: no
-    cluster) that the library reports its timed launches ran with."""
+    """The wide-row numbers a kernel's entry of the kernels line carries,
+    and the kind of kernel, threads a block and (backward) cluster size (1:
+    no cluster) that the library reports its timed launches ran with."""
     entry = {"shape": row["shape"], "ms": row["ms"][key], "plain_ms": row["ms"]["plain"],
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": row["sdpa_ms"],
              "library": f"SDPA [{row['sdpa_backend']}]" if row["sdpa_backend"] else "none"}
-    if key in row.get("launched", {}):
-        entry.update(kernel=row["launched"][key]["kind"],
-                     cluster=row["launched"][key]["cluster"])
+    ran = row["launched"][key]
+    entry.update(kernel=ran["kind"], **{k: ran[k] for k in ("threads", "cluster") if k in ran})
     return entry
 
 
@@ -8630,6 +8680,34 @@ def stop_rl_phases(rl) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+def flash_fwd_rows(root: str, out_path: str) -> None:
+    """--flash-fwd-rows: the bf16 forward (kernel, plain version, SDPA) at
+    phase 5's wide rows and at d = 128 on one unmasked causal row at T =
+    2048, timed as phase 5 times them, with agilerl_tpu_torch imported from
+    the checkout at `root`; writes the rows and the nvidia-smi line to
+    `out_path` as JSON."""
+    at = Path(root).resolve()
+    sys.path.insert(0, str(at))
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check runs on a GPU")
+    from agilerl_tpu_torch.ops import flash_attention_vjp as tfa
+
+    check(Path(tfa.__file__).resolve().is_relative_to(at), f"{tfa.__file__} is not under {at}")
+    torch_settings(torch)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = {name: flash_fwd_row(torch, F, tfa, *row, None, g, ("EFFICIENT_ATTENTION",),
+                                dict(is_causal=True), {"default": 20, "plain": 1})
+            for name, row in (("wide", WIDE_ROW), ("wide_4q", WIDE_4Q_ROW))}
+    rows["causal_2048"] = flash_fwd_row(torch, F, tfa, 4, 32, 8, 2048, 128, None, g,
+                                        ("FLASH_ATTENTION",), dict(is_causal=True),
+                                        {"default": 20, "plain": 1})
+    Path(out_path).write_text(json.dumps(dict(root=str(at), nvidia_smi=nvidia_smi_line(),
+                                              rows=rows)))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -8666,6 +8744,12 @@ def main() -> None:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"  {n}: {line.strip()}")
         report["sass"] = sass_counts(_build, names)
+        split = ptxas_entries(logs["flash_attention_fwd"], "flash_fwd_split_kernel")
+        log(f"  flash_fwd_split_kernel (bf16, 256 < d <= 512), each instance: {split}")
+        check(len(split) == 4 and all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+                                      for e in split),
+              f"flash_fwd_split_kernel spills or is missing: {split}")
+        report["fwd_split_ptxas"] = split
         side = start_side_processes(store_dir)
         log("phase 3: kernels vs their plain versions on the card")
         check_split(torch, tfl, report)
@@ -8800,6 +8884,8 @@ if __name__ == "__main__":
         uneven_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) == 5 and sys.argv[1] == "--elastic-rank":
         elastic_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) == 4 and sys.argv[1] == "--flash-fwd-rows":
+        flash_fwd_rows(sys.argv[2], sys.argv[3])
     elif len(sys.argv) == 4 and sys.argv[1] == "--warm-child":
         warm_child(sys.argv[2], sys.argv[3])
     elif len(sys.argv) == 3 and sys.argv[1] == "--elastic-resume":

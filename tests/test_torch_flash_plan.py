@@ -311,6 +311,86 @@ def test_wide_head_dims_match_jax_kernels(d):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=5e-4, err_msg=name)
 
 
+def fwd_split_d(q, k, v, mask, causal):
+    """The arithmetic of the bf16 wide forward (``csrc/flash_attention_fwd.cu``,
+    ``flash_fwd_split_kernel``): warpgroup 0 owns the first ceil(nc / 2) of
+    the nc = d / 64 boxes of d, warpgroup 1 the rest. Each computes its
+    partial S over its own boxes and both form S = S_0 + S_1. Over the
+    visited 64-key tiles, in order, both run the same online softmax in
+    log2 units (p = 0 where a score is masked), and each adds p, rounded to
+    the input dtype, times its own columns of V. Returns out (the two
+    warpgroups' columns side by side) and lse, as the kernel writes them."""
+    B, H, T, d = q.shape
+    rep = H // k.shape[1]
+    qf, kr, vr = q.float(), tfa._repeat_kv(k, rep).float(), tfa._repeat_kv(v, rep).float()
+    split = 64 * ((d // 64 + 1) // 2)
+    cols = (slice(0, split), slice(split, d))
+    s0, s1 = (torch.matmul(qf[..., c], kr[..., c].transpose(-1, -2)) for c in cols)
+    s = s0 + s1
+    keep = tfa._visible(T, mask, causal, q.device) & _elements(
+        tile_pairs(first_visible_keys(mask, B, T), T, causal), T)
+    scale2 = 1.0 / math.sqrt(d) * math.log2(math.e)
+    m = torch.full((B, H, T, 1), tfa._NEG)
+    l = torch.zeros(B, H, T, 1)
+    o = [torch.zeros(B, H, T, c.stop - c.start) for c in cols]
+    for k0 in range(0, T, TILE):
+        keys = slice(k0, min(k0 + TILE, T))
+        seen = keep[..., keys]
+        st = torch.where(seen, s[..., keys] * scale2, tfa._NEG)
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(seen, torch.exp2(st - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        m = m_new
+        pr = p.to(q.dtype).float()
+        o = [ow * alpha + torch.matmul(pr, vr[..., keys, c]) for ow, c in zip(o, cols)]
+    lc = l.clamp_min(1e-30)
+    lse = torch.where(m == tfa._NEG, tfa._NEG, m * math.log(2.0)) + torch.log(lc)
+    return torch.cat([ow / lc for ow in o], dim=-1).to(q.dtype), lse[..., 0]
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_split_d_forward_matches_jax_kernel(d):
+    """The split-d forward model (3 + 2 boxes at d = 320, 4 + 4 at 512), GQA
+    2 over 1 KV head, causal, a ragged mask (row 1's first q tile sees no
+    key, so it visits no kv tile): in f32 against the JAX package's forward
+    kernel (Pallas interpret mode) at 2e-5 (tests/test_ops' flash forward
+    tolerance) and against the port's plain forward at 1e-5 (f32 summation
+    order, an online max), on rows with a visible key; out = 0 and lse =
+    -1e30 + log(1e-30) on the others; in bf16 against the plain forward at 1 %
+    of the largest magnitude (chip_smoke's bf16 bound: p is rounded at the
+    running max, not the row's)."""
+    B, H, Hkv, T = 2, 2, 1, 130
+    mask = np.ones((B, T), np.int32)
+    mask[0, :13] = 0
+    mask[1, :70] = 0
+    q, k, v, _ = _inputs(d + 2, B, H, Hkv, T, d)
+    tm = torch.as_tensor(mask)
+    r = _rows_with_a_visible_key(tm, True, B, T)[:, None, :].expand(B, H, T)
+    out, lse = fwd_split_d(q, k, v, tm, True)
+    want, want_lse = tfa.flash_attention_reference(q, k, v, tm, True)
+    torch.testing.assert_close(out[r], want[r], rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse[r], want_lse[r], rtol=0, atol=1e-5)
+    assert not out[~r].any()
+    empty_lse = torch.tensor(tfa._NEG, dtype=torch.float32) + math.log(1e-30)
+    assert torch.equal(lse[~r], empty_lse.expand(int((~r).sum())))
+
+    kr, vr = (jnp.repeat(jnp.asarray(t.numpy()), H // Hkv, axis=1) for t in (k, v))
+    jo, jl = flash_attention_with_lse(jnp.asarray(q.numpy()), kr, vr, jnp.asarray(mask), True,
+                                      64, 64)
+    rn = r.numpy()
+    np.testing.assert_allclose(out.numpy()[rn], np.asarray(jo)[rn], rtol=0, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy()[rn], np.asarray(jl)[rn], rtol=0, atol=2e-5)
+
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    out_b, lse_b = fwd_split_d(qb, kb, vb, tm, True)
+    want_b, want_lse_b = tfa.flash_attention_reference(qb, kb, vb, tm, True)
+    assert out_b.dtype == torch.bfloat16
+    tol = 1e-2 * float(want_b[r].float().abs().max())
+    assert float((out_b[r].float() - want_b[r].float()).abs().max()) <= tol
+    torch.testing.assert_close(lse_b[r], want_lse_b[r], rtol=0, atol=1e-4)
+
+
 SLICE_COLS = 128  # the columns of d a block of a wide dK/dV cluster owns
 
 

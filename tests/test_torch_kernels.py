@@ -490,6 +490,33 @@ def test_wide_backward_clusters_are_bit_identical(d):
         assert torch.isfinite(a.float()).all() and torch.equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.usefixtures("cuda_only")
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_forward_split_is_bit_identical(d):
+    """The bf16 forward past 256 (one block of two warpgroups a q tile that
+    split d by 64-column boxes: 3 + 2 at d = 320, 4 + 4 at 512), causal with
+    a ragged mask and GQA 4/2: the plain forward's result on rows with a
+    visible key, out = 0 and lse = -1e30 + log(1e-30) on the others, two
+    launches give the same bits (out and lse), and the library records the
+    split kernel with 256 threads a block."""
+    q, k, v, mask = _flash_case(2, 4, 2, 300, d, torch.bfloat16, (0, 71), True)
+    runs = [tfa.flash_attention_fwd_cuda(q, k, v, mask, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd_last_launch() == {"kind": "fwd_split", "threads": 256}
+    for a, b in zip(*runs):
+        assert torch.isfinite(a.float()).all() and torch.equal(a, b)
+    out, lse = runs[0]
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, mask, True)
+    r = _rows_with_a_visible_key(mask, True, 2, 300).expand(lse.shape)
+    torch.testing.assert_close(out[r].float(), ref[r].float(), rtol=0,
+                               atol=FLASH_ATOL[torch.bfloat16])
+    torch.testing.assert_close(lse[r], ref_lse[r], rtol=0, atol=1e-4)
+    assert not out[~r].any()
+    empty = torch.tensor(tfa._NEG, dtype=torch.float32) + math.log(1e-30)
+    assert torch.equal(lse[~r], empty.to(lse.device).expand(int((~r).sum())))
+
+
 def test_flash_bwd_last_launch_takes_dq_or_dkv():
     """The launch record names one of the two backward kernels; any other
     name raises before the library is loaded."""
